@@ -1,0 +1,117 @@
+"""Flat-buffer aggregation layout, port of ``repro/core/flat.py``.
+
+:class:`FlatLayout` maps the trainable tree ``y`` onto one contiguous
+float32 vector with a static layout: leaves in jax's sorted-key order,
+each padded with zeros to whole ``align``-element blocks, so a block
+never straddles two leaves and the server tail runs as a few single-pass
+ops over the (clients, size) buffer. Padding is inert: zeros add nothing
+to norms or max-abs scales, stay zero through quantization, and are
+dropped by ``unflatten``.
+
+The kernel-backed ops dispatch by device: a CUDA tensor goes to the
+CUDA kernel, a CPU tensor to its plain version.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import dp_clip, quantize, ref
+from repro_torch.nn import basic
+
+ALIGN = 1024
+
+
+def _ceil_to(n: int, align: int) -> int:
+    return (n + align - 1) // align * align
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Static mapping tree <-> one contiguous float32 vector."""
+    paths: Tuple[str, ...]          # leaf paths, sorted-key order
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[Any, ...]
+    sizes: Tuple[int, ...]          # true leaf sizes
+    padded: Tuple[int, ...]         # leaf sizes rounded up to `align`
+    offsets: Tuple[int, ...]        # leaf start offsets in the flat vector
+    size: int                       # total flat length (multiple of align)
+    align: int
+
+    @classmethod
+    def of(cls, tree, align: int = ALIGN) -> "FlatLayout":
+        items = list(basic.flatten_params(tree))
+        shapes = tuple(tuple(leaf.shape) for _, leaf in items)
+        sizes = tuple(int(np.prod(s)) if s else 1 for s in shapes)
+        padded = tuple(_ceil_to(max(n, 1), align) for n in sizes)
+        offsets = tuple(int(o) for o in np.cumsum((0,) + padded[:-1]))
+        return cls(paths=tuple(p for p, _ in items), shapes=shapes,
+                   dtypes=tuple(leaf.dtype for _, leaf in items),
+                   sizes=sizes, padded=padded, offsets=offsets,
+                   size=int(sum(padded)) if items else 0, align=align)
+
+    @property
+    def num_blocks(self) -> int:
+        return self.size // self.align
+
+    def block_leaf(self) -> np.ndarray:
+        """(num_blocks,) int32: which leaf each align-block belongs to."""
+        return np.repeat(np.arange(len(self.sizes), dtype=np.int32),
+                         [p // self.align for p in self.padded])
+
+    def flatten(self, tree) -> torch.Tensor:
+        """Tree -> (size,) float32."""
+        leaves = basic.tree_leaves(tree)
+        if not leaves:
+            return torch.zeros((0,), dtype=torch.float32)
+        parts = [F.pad(leaf.reshape(-1).float(), (0, pad - n))
+                 for leaf, n, pad in zip(leaves, self.sizes, self.padded)]
+        return torch.cat(parts)
+
+    def unflatten(self, vec: torch.Tensor, dtype: Optional[Any] = None):
+        """(size,) vector -> tree. ``dtype=None`` restores each leaf's
+        dtype; the round engine passes float32."""
+        flat = {path: vec[off:off + n].reshape(shape).to(dtype or dt)
+                for path, shape, dt, n, off in zip(
+                    self.paths, self.shapes, self.dtypes, self.sizes,
+                    self.offsets)}
+        return basic.unflatten_params(flat)
+
+
+# ---------------------------------------------------------------------------
+# Flat ops used by the round engine.
+
+
+def sumsq(vec: torch.Tensor, align: int = ALIGN) -> torch.Tensor:
+    """Sum of squares of a flat vector (0-d float32): the CUDA kernel for
+    a CUDA tensor, the chunked plain version for a CPU one."""
+    if vec.device.type == "cpu":
+        return ref.flat_sumsq_ref(vec, chunk=align)
+    return dp_clip.sumsq(vec.reshape(-1).float().contiguous())
+
+
+def row_sumsq(mat: torch.Tensor, align: int = ALIGN) -> torch.Tensor:
+    """(C, size) -> (C,) per-row sum of squares (plain on every device,
+    as in the JAX package)."""
+    return ref.row_sumsq_ref(mat, chunk=align)
+
+
+def fake_quantize(mat: torch.Tensor, layout: FlatLayout, bits: int = 8):
+    """Per-leaf symmetric int-k fake-quantization of flat client deltas,
+    (C, size) or (size,), scales per (client, leaf): the CUDA kernels for
+    a CUDA tensor, the plain version for a CPU one."""
+    if layout.size == 0:
+        return mat
+    return quantize.fake_quantize_flat(mat, layout.block_leaf(),
+                                       len(layout.sizes), bits=bits,
+                                       block=layout.align)
+
+
+def weighted_mean(mat: torch.Tensor, weights: torch.Tensor,
+                  wsum: torch.Tensor) -> torch.Tensor:
+    """(C, size), (C,) -> (size,): sum_c w_c * mat_c / wsum as one matmul."""
+    return torch.matmul(weights.float(), mat.float()) / wsum

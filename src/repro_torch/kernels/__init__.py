@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels of the port, with their plain torch versions.
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
+the plain version (``kernels/ref.py``) for a CPU tensor. ``LAUNCHES``
+counts, per kernel, the wrapper calls that launched it, so a run can
+show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+LAUNCHES = {"sumsq": 0, "leaf_maxabs": 0, "fake_quantize_flat": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -1,0 +1,107 @@
+"""Per-leaf int-k fake-quantize of flat client deltas: the CUDA kernels of
+``csrc/quantize.cu`` (port of ``repro/kernels/quantize.py``'s
+``_maxabs_kernel`` / ``leaf_maxabs`` and ``_qdq_kernel`` /
+``fake_quantize_flat``).
+
+Both take the whole (K, N) buffer of K client rows in one launch, where
+the JAX package maps the TPU kernels over the rows. ``N`` is
+``len(block_leaf) * block``: each ``block``-element block of a row
+belongs to one leaf (``core/flat.FlatLayout`` pads every leaf to whole
+blocks), so the zero padding never raises a leaf's max.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import _build, ref
+
+BLOCK = 1024  # must equal the layout's `align`
+
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {
+    "leaf_maxabs_f32": [_P, _P, _I64, _I64, _INT, _INT, _P, _P],
+    "fake_quantize_flat_f32": [_P, _P, _P, _I64, _I64, _INT, _INT,
+                               ctypes.c_float, _P, _P],
+}
+
+
+def _block_leaf_on(block_leaf, n_blocks: int, n_leaves: int, device):
+    """The block->leaf map as an int32 tensor on ``device``, checked
+    against the buffer's block count and the leaf count."""
+    if isinstance(block_leaf, torch.Tensor):
+        bl = block_leaf.to(device=device, dtype=torch.int32).contiguous()
+    else:
+        host = np.asarray(block_leaf)
+        if host.size and (host.min() < 0 or host.max() >= n_leaves):
+            raise ValueError(f"block_leaf values must lie in [0, {n_leaves})")
+        bl = torch.as_tensor(host, dtype=torch.int32, device=device)
+    if bl.shape != (n_blocks,):
+        raise ValueError(f"block_leaf has shape {tuple(bl.shape)}, the "
+                         f"buffer has {n_blocks} blocks")
+    return bl
+
+
+def _as_rows(x: torch.Tensor, block: int) -> torch.Tensor:
+    rows = x.reshape(1, -1) if x.ndim == 1 else x
+    _build.check_cuda("fake_quantize", rows, torch.float32, 2)
+    if rows.shape[1] % block:
+        raise ValueError(f"row length {rows.shape[1]} is not a multiple of "
+                         f"block {block}")
+    if rows.shape[0] > 65535:
+        raise ValueError("at most 65535 rows per launch")
+    return rows
+
+
+def leaf_maxabs(x: torch.Tensor, block_leaf, n_leaves: int,
+                block: int = BLOCK) -> torch.Tensor:
+    """Per-leaf max|x| of block-aligned flat rows: (..., N) -> (..., L)
+    float32, NaN propagated. One launch for all rows on CUDA;
+    ``ref.leaf_maxabs_ref`` on the CPU."""
+    if x.device.type == "cpu":
+        return ref.leaf_maxabs_ref(x, block_leaf, n_leaves, block)
+    rows = _as_rows(x, block)
+    bl = _block_leaf_on(block_leaf, rows.shape[1] // block, n_leaves,
+                        x.device)
+    out = torch.empty((rows.shape[0], n_leaves), dtype=torch.int32,
+                      device=x.device)
+    if rows.numel():
+        lib = _build.load("quantize.cu", _SIGNATURES)
+        err = lib.leaf_maxabs_f32(rows.data_ptr(), bl.data_ptr(),
+                                  rows.shape[0], rows.shape[1], block,
+                                  n_leaves, out.data_ptr(),
+                                  _build.stream_ptr(x))
+        _build.raise_on_error("leaf_maxabs", err)
+        kernels.LAUNCHES["leaf_maxabs"] += 1
+    return out.view(torch.float32).reshape(x.shape[:-1] + (n_leaves,))
+
+
+def fake_quantize_flat(x: torch.Tensor, block_leaf, n_leaves: int,
+                       bits: int = 8, block: int = BLOCK) -> torch.Tensor:
+    """Q->DQ of block-aligned flat rows (..., N) with per-(row, leaf)
+    scales max(max|x|, 1e-12) / qmax, bit for bit
+    ``compress.quantize_leaf`` + ``dequantize_leaf``. On CUDA: the
+    max-abs launch, then one Q->DQ launch for all rows; on the CPU:
+    ``ref.fake_quantize_flat_ref``."""
+    if not 2 <= bits <= 8:
+        raise ValueError(f"bits must lie in [2, 8], got {bits}")
+    if x.device.type == "cpu":
+        return ref.fake_quantize_flat_ref(x, block_leaf, bits=bits,
+                                          block=block, n_leaves=n_leaves)
+    rows = _as_rows(x, block)
+    bl = _block_leaf_on(block_leaf, rows.shape[1] // block, n_leaves,
+                        x.device)
+    maxabs = leaf_maxabs(rows, bl, n_leaves, block)
+    out = torch.empty_like(rows)
+    if rows.numel():
+        lib = _build.load("quantize.cu", _SIGNATURES)
+        err = lib.fake_quantize_flat_f32(
+            rows.data_ptr(), bl.data_ptr(), maxabs.data_ptr(), rows.shape[0],
+            rows.shape[1], block, n_leaves, 2.0 ** (bits - 1) - 1,
+            out.data_ptr(), _build.stream_ptr(x))
+        _build.raise_on_error("fake_quantize_flat", err)
+        kernels.LAUNCHES["fake_quantize_flat"] += 1
+    return out.reshape(x.shape)

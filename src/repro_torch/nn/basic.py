@@ -1,0 +1,135 @@
+"""Functional NN primitives (port of ``repro/nn/basic.py``): path-keyed
+deterministic initialization, parameter-tree utilities, GroupNorm and
+dense layers.
+
+Parameters live in nested ``dict[str, Tensor]`` trees with the JAX
+package's key paths. Every leaf is drawn from a key derived from the
+root seed and the parameter path, through the threefry port, so a client
+holding only the scalar seed regenerates the frozen leaves that JAX
+would (core/reconstruct.py).
+"""
+from __future__ import annotations
+
+import zlib
+from typing import Any, Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.nn import threefry
+
+Params = Dict[str, Any]
+
+
+def path_key(root_seed, path: str) -> threefry.Key:
+    """The PRNG key of a parameter path: ``fold_in(key(seed),
+    crc32(path) & 0x7FFFFFFF)``, stable across processes and packages."""
+    k = threefry.key(root_seed) if isinstance(root_seed, int) else root_seed
+    return threefry.fold_in(k, zlib.crc32(path.encode()) & 0x7FFFFFFF)
+
+
+def normal_init(root_seed, path: str, shape, dtype=torch.float32,
+                fan_in: int | None = None, stddev: float | None = None,
+                device=None):
+    """Gaussian init, LeCun-normal by fan-in unless ``stddev`` is given."""
+    if stddev is None:
+        if fan_in is None:
+            fan_in = shape[-2] if len(shape) >= 2 else max(shape[-1], 1)
+        stddev = 1.0 / np.sqrt(max(fan_in, 1))
+    dev = resolve_device(device)
+    z = threefry.normal(path_key(root_seed, path), shape, dev)
+    # JAX multiplies the f32 draw by the f32-rounded stddev
+    return (z * float(np.float32(stddev))).to(dtype)
+
+
+def zeros_init(_root_seed, _path, shape, dtype=torch.float32, device=None,
+               **_kw):
+    return torch.zeros(shape, dtype=dtype, device=resolve_device(device))
+
+
+def ones_init(_root_seed, _path, shape, dtype=torch.float32, device=None,
+              **_kw):
+    return torch.ones(shape, dtype=dtype, device=resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Param tree utilities
+
+
+def flatten_params(tree: Params, prefix: str = "") -> Iterable[Tuple[str, Any]]:
+    """(path, leaf) pairs in sorted-key order — jax's pytree leaf order."""
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from flatten_params(v, path)
+        else:
+            yield path, v
+
+
+def unflatten_params(flat: Dict[str, Any]) -> Params:
+    out: Params = {}
+    for path, v in flat.items():
+        parts = path.split("/")
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+    return out
+
+
+def tree_map(fn, *trees):
+    """Apply ``fn`` leafwise over trees of one structure (the first's)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def tree_leaves(tree):
+    return [v for _, v in flatten_params(tree)]
+
+
+def tree_size(tree) -> int:
+    return sum(int(np.prod(tuple(x.shape))) for x in tree_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# Norms and dense layers
+
+
+def groupnorm(x, scale, bias, num_groups: int, eps: float = 1e-5):
+    """GroupNorm over channel-last input (N, H, W, C) or (N, C), in f32."""
+    dt = x.dtype
+    x = x.float()
+    c = x.shape[-1]
+    xg = x.reshape(x.shape[:-1] + (num_groups, c // num_groups))
+    axes = tuple(range(1, xg.ndim - 2)) + (xg.ndim - 1,)
+    mu = xg.mean(dim=axes, keepdim=True)
+    var = xg.var(dim=axes, keepdim=True, unbiased=False)
+    xg = (xg - mu) * torch.rsqrt(var + eps)
+    x = xg.reshape(x.shape)
+    return (x * scale.float() + bias.float()).to(dt)
+
+
+def init_dense(seed, path, d_in, d_out, dtype=torch.float32,
+               bias: bool = False, device=None):
+    p = {"kernel": normal_init(seed, f"{path}/kernel", (d_in, d_out), dtype,
+                               fan_in=d_in, device=device)}
+    if bias:
+        p["bias"] = zeros_init(seed, f"{path}/bias", (d_out,), dtype,
+                               device=device)
+    return p
+
+
+def dense(x, p, compute_dtype=None):
+    """x @ kernel (+ bias), kernel kept in JAX's (d_in, d_out) layout."""
+    k = p["kernel"]
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        k = k.to(compute_dtype)
+    y = x @ k
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y

@@ -1,0 +1,124 @@
+"""Threefry-2x32 in torch: the counter-based PRNG behind ``jax.random``,
+in its partitionable form (``repro/__init__.py`` sets
+``jax_threefry_partitionable``).
+
+FedPT regenerates every frozen leaf on the client from one scalar seed
+(Algorithm 1, line 5), so the port has to draw the very bits JAX draws.
+The reference is jax 0.9.0's ``jax/_src/prng.py`` (``threefry_seed``,
+``iota_2x32_shape``, ``_threefry2x32_lowering``, ``_threefry_fold_in``,
+``_threefry_random_bits_partitionable``) and ``jax/_src/random.py``
+(``_uniform``, ``_normal_real``).
+
+torch has no full uint32 arithmetic, so a 32-bit word is held in int64
+and masked to 32 bits after every add and shift. The same functions take
+Python ints (key derivation on the host) and int64 tensors (bulk bits on
+the device). A key is a pair of Python ints.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+Key = Tuple[int, int]
+
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x, r: int):
+    return ((x << r) & M32) | (x >> (32 - r))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of the counter pair (x1, x2)
+    under the key (k1, k2); inputs and outputs are uint32 values."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & M32
+    x2 = (x2 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & M32
+    return x1, x2
+
+
+def key(seed: int) -> Key:
+    """``jax.random.key(seed)`` for a 32-bit integer seed: (0, seed)."""
+    seed = int(seed)
+    if not -(1 << 31) <= seed <= M32:
+        raise ValueError(f"seed {seed} does not fit 32 bits")
+    return (0, seed & M32)
+
+
+def fold_in(k: Key, data: int) -> Key:
+    """``jax.random.fold_in``: hash the counter pair (0, data) under k."""
+    return threefry2x32(k[0], k[1], 0, int(data) & M32)
+
+
+def random_bits(k: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits(k, shape)`` (uint32) as int64 values in
+    [0, 2**32): the counter of each element is its row-major index, split
+    into (hi, lo) words; the two hash words are xor-ed."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k[0], k[1], idx >> 32, idx & M32)
+    return (b1 ^ b2).reshape(tuple(shape))
+
+
+def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: 23 random mantissa bits under
+    the exponent of 1.0 give [1, 2), shifted and scaled to the range."""
+    bits = random_bits(k, shape, device)
+    mant = (bits >> 9) | 0x3F800000
+    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+# XLA's float32 erfinv: Giles' single-precision polynomial in
+# w = -log1p(-x^2), one branch below w = 5 and one above
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` polynomial. ``torch.erfinv`` differs
+    from it by up to ~60 ulps; this stays within 2 ulps (``log1p`` and
+    fused multiply-adds round differently across libraries)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coeff(i):
+        return torch.where(lt, torch.tensor(_ERFINV_W_LT_5[i], dtype=x.dtype,
+                                            device=x.device),
+                           torch.tensor(_ERFINV_W_GE_5[i], dtype=x.dtype,
+                                        device=x.device))
+
+    p = coeff(0)
+    for i in range(1, len(_ERFINV_W_LT_5)):
+        p = torch.addcmul(coeff(i), p, w)
+    return torch.where(x.abs() == 1, x * float("inf"), p * x)
+
+
+def normal(k: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal`` in float32: sqrt(2) * erfinv(u) with u
+    uniform on (-1, 1). The bits and u are JAX's exactly; the values
+    agree to a few ulps (see :func:`erfinv`)."""
+    u = uniform(k, shape, _NORMAL_LO, 1.0, device)
+    return _SQRT2 * erfinv(u)

@@ -1,0 +1,108 @@
+"""The port stands alone: no module of ``repro_torch`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, and its entry points
+refuse to drop to the CPU on their own when there is no CUDA card.
+"""
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_source_imports_jax_or_repro():
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for path in files:
+        bad = set(_imported_roots(path)) & set(FORBIDDEN)
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    mods = _port_modules()
+    assert "repro_torch.core.fedpt" in mods and "repro_torch.kernels.ops" in mods
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+
+
+def test_entry_points_raise_without_cuda():
+    _no_cuda()
+    from repro_torch import bridge
+    from repro_torch.core import fedpt, reconstruct
+    from repro_torch.models import paper_models as pm
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pm.init_emnist_cnn(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        reconstruct.init_partitioned(pm.init_emnist_cnn, 0, pm.EMNIST_FREEZE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedpt.make_round_fn(lambda p, b: 0.0, fedpt.RoundConfig(2, 1, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bridge.from_numpy_tree({"a": np.zeros(3, np.float32)})
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_round_refuses_parameters_on_another_device():
+    from repro_torch.core import fedpt
+    round_fn, _ = fedpt.make_round_fn(lambda p, b: 0.0,
+                                      fedpt.RoundConfig(2, 1, 4),
+                                      device="cpu")
+    y = {"w": torch.zeros(3, device="meta")}
+    with pytest.raises(ValueError, match="parameters on meta"):
+        round_fn(y, (), {}, {}, np.ones(2, np.float32))
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    _no_cuda()
+    lone = tmp_path / "lone"
+    lone.mkdir()
+    shutil.copy(ROOT / "chip_smoke.py", lone / "chip_smoke.py")
+    for cwd in (ROOT, lone):
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=str(cwd),
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -1,0 +1,197 @@
+"""Two synchronous FedPT rounds of the port against the JAX package.
+
+A narrow CNN of the EMNIST structure (conv 5x5 with 4 then 8 channels,
+GroupNorm, dense 16, 62 classes), built in this file from each package's
+primitives so that JAX's jit stays short; 3 clients x 2 local SGD steps,
+at ``uplink_bits`` 0 and 8, on the same data (the port's copy of
+``data/synthetic.py``, held identical to the reference's) and the same
+parameters (the reference's, carried across by ``repro_torch.bridge``).
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro  # noqa: F401
+import jax
+import jax.numpy as jnp
+
+import repro.core.partition as jpart
+from repro.core import fedpt as jfedpt
+from repro.data import synthetic as jsyn
+from repro.nn import basic as jbasic
+from repro.nn import conv as jconv
+from repro_torch import bridge
+from repro_torch.core import fedpt as tfedpt
+from repro_torch.core import partition as tpart
+from repro_torch.data import synthetic as tsyn
+from repro_torch.nn import basic as tbasic
+from repro_torch.nn import conv as tconv
+
+FREEZE = (r"^dense1/",)
+ROUNDS, CLIENTS, STEPS, BATCH = 2, 3, 2, 8
+SERVER_LR = 0.5
+
+
+def jax_init(seed):
+    f32 = jnp.float32
+    return {"conv1": jconv.init_conv(seed, "conv1", 5, 1, 4, f32),
+            "conv2": jconv.init_conv(seed, "conv2", 5, 4, 8, f32),
+            "gn": jconv.init_groupnorm(seed, "gn", 8, f32),
+            "dense1": jbasic.init_dense(seed, "dense1", 392, 16, f32, True),
+            "dense2": jbasic.init_dense(seed, "dense2", 16, 62, f32, True)}
+
+
+def torch_init(seed):
+    kw = dict(device="cpu")
+    return {"conv1": tconv.init_conv(seed, "conv1", 5, 1, 4, **kw),
+            "conv2": tconv.init_conv(seed, "conv2", 5, 4, 8, **kw),
+            "gn": tconv.init_groupnorm(seed, "gn", 8, **kw),
+            "dense1": tbasic.init_dense(seed, "dense1", 392, 16, bias=True,
+                                        **kw),
+            "dense2": tbasic.init_dense(seed, "dense2", 16, 62, bias=True,
+                                        **kw)}
+
+
+def jax_loss(params, batch):
+    x = jconv.conv2d(batch["images"], params["conv1"])
+    x = jconv.maxpool2d(jax.nn.relu(x))
+    x = jconv.conv2d(x, params["conv2"])
+    x = jax.nn.relu(jconv.apply_groupnorm(x, params["gn"], groups=2))
+    x = jconv.maxpool2d(x)
+    x = x.reshape(x.shape[0], -1)
+    x = jax.nn.relu(jbasic.dense(x, params["dense1"]))
+    lp = jax.nn.log_softmax(jbasic.dense(x, params["dense2"]))
+    return -jnp.mean(jnp.take_along_axis(lp, batch["labels"][:, None], 1)), {}
+
+
+def torch_loss(params, batch):
+    x = tconv.conv2d(batch["images"], params["conv1"])
+    x = tconv.maxpool2d(torch.relu(x))
+    x = tconv.conv2d(x, params["conv2"])
+    x = torch.relu(tconv.apply_groupnorm(x, params["gn"], groups=2))
+    x = tconv.maxpool2d(x)
+    x = x.reshape(x.shape[0], -1)
+    x = torch.relu(tbasic.dense(x, params["dense1"]))
+    lp = torch.log_softmax(tbasic.dense(x, params["dense2"]), -1)
+    return -lp.gather(1, batch["labels"].long()[:, None]).mean(), {}
+
+
+def _data(pkg):
+    return pkg.make_federated_images(num_clients=6, examples_per_client=20,
+                                     shape=(28, 28, 1), num_classes=62,
+                                     alpha=1.0, test_examples=16, seed=3)
+
+
+def _cohorts(pkg, ds):
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(ROUNDS):
+        cids = pkg.sample_cohort(rng, ds.num_clients, CLIENTS)
+        out.append(pkg.cohort_batch(ds, cids, STEPS, BATCH, rng))
+    return out
+
+
+def test_synthetic_copy_is_identical():
+    jds, tds = _data(jsyn), _data(tsyn)
+    assert jds.num_clients == tds.num_clients and \
+        jds.num_classes == tds.num_classes
+    for a, b in zip(jds.client_images + jds.client_labels
+                    + [jds.test_images, jds.test_labels],
+                    tds.client_images + tds.client_labels
+                    + [tds.test_images, tds.test_labels]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for (jb, jw), (tb, tw) in zip(_cohorts(jsyn, jds), _cohorts(tsyn, tds)):
+        np.testing.assert_array_equal(jw, tw)
+        for k in jb:
+            np.testing.assert_array_equal(jb[k], tb[k])
+
+
+def test_narrow_init_matches_jax():
+    want = dict(jbasic.flatten_params(jax_init(0)))
+    got = dict(tbasic.flatten_params(torch_init(0)))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-7)
+
+
+def _run_jax(bits, cohorts):
+    rc = jfedpt.RoundConfig(clients_per_round=CLIENTS, local_steps=STEPS,
+                            local_batch=BATCH, client_lr=0.05,
+                            server_lr=SERVER_LR, uplink_bits=bits)
+    y, frozen = jpart.partition(jax_init(0), FREEZE)
+    round_fn, sopt = jfedpt.make_round_fn(jax_loss, rc)
+    round_fn = jax.jit(round_fn)
+    st = sopt.init(y)
+    hist = []
+    for r, (batch, w) in enumerate(cohorts):
+        y, st, m = round_fn(y, st, frozen, batch, jnp.asarray(w),
+                            jax.random.key(r))
+        hist.append((float(m["loss"]), float(m["delta_norm"])))
+    return hist, jax.device_get(y)
+
+
+def _run_torch(bits, cohorts):
+    rc = tfedpt.RoundConfig(clients_per_round=CLIENTS, local_steps=STEPS,
+                            local_batch=BATCH, client_lr=0.05,
+                            server_lr=SERVER_LR, uplink_bits=bits)
+    y, frozen = tpart.partition(bridge.from_numpy_tree(
+        jax.device_get(jax_init(0)), "cpu"), FREEZE)
+    round_fn, sopt = tfedpt.make_round_fn(torch_loss, rc, device="cpu")
+    st = sopt.init(y)
+    hist = []
+    for batch, w in cohorts:
+        y, st, m = round_fn(y, st, frozen, batch, w)
+        hist.append((float(m["loss"]), float(m["delta_norm"])))
+    return hist, bridge.to_numpy_tree(y)
+
+
+@pytest.mark.parametrize("bits", [0, 8])
+def test_two_rounds_match_jax(bits):
+    cohorts = _cohorts(tsyn, _data(tsyn))
+    jhist, jy = _run_jax(bits, cohorts)
+    thist, ty = _run_torch(bits, cohorts)
+    y0 = dict(jbasic.flatten_params(jax.device_get(
+        jpart.partition(jax_init(0), FREEZE)[0])))
+    jy, ty = dict(jbasic.flatten_params(jy)), dict(tbasic.flatten_params(ty))
+    assert sorted(jy) == sorted(ty)
+    moved = max(float(np.abs(jy[k] - y0[k]).max()) for k in jy)
+    assert moved > 0
+    # round 0 starts from identical parameters and data: the loss is the
+    # same float32 forward pass summed in another order
+    assert thist[0][0] == pytest.approx(jhist[0][0], rel=1e-5)
+    if bits == 0:
+        # float32 reassociation only (XLA:CPU vs torch convolutions and
+        # matmuls) over 2 rounds x 2 local steps: measured 1 ulp of y
+        for (tl, tn), (jl, jn) in zip(thist, jhist):
+            assert tl == pytest.approx(jl, rel=1e-5)
+            assert tn == pytest.approx(jn, rel=1e-5)
+        for k in jy:
+            np.testing.assert_allclose(ty[k], jy[k], rtol=1e-5, atol=1e-6)
+    else:
+        # besides reassociation, a client value on a rounding boundary may
+        # land one int8 step (its leaf's max-abs / 127) away; after the
+        # weighted mean and SERVER_LR that is below max|y - y0| / 127
+        for (tl, tn), (jl, jn) in zip(thist, jhist):
+            assert tl == pytest.approx(jl, rel=1e-5)
+            assert tn == pytest.approx(jn, rel=1e-3)
+        for k in jy:
+            np.testing.assert_allclose(ty[k], jy[k], rtol=0,
+                                       atol=moved / 127)
+
+
+def test_client_update_gradients_reach_y_only():
+    params = torch_init(0)
+    y, frozen = tpart.partition(params, FREEZE)
+    batch, _ = _cohorts(tsyn, _data(tsyn))[0]
+    cb = {k: torch.as_tensor(v[0]) for k, v in batch.items()}
+    from repro_torch.optim import optimizers as opt
+    update = tfedpt.make_client_update(torch_loss, opt.sgd(0.05), STEPS)
+    delta, metrics = update(y, frozen, cb)
+    assert sorted(delta) == sorted(y)
+    assert torch.isfinite(metrics["client_loss"])
+    assert frozen["dense1"]["kernel"].grad is None
+    assert all(torch.equal(a, b) for a, b in zip(
+        tbasic.tree_leaves(frozen),
+        tbasic.tree_leaves(tpart.partition(torch_init(0), FREEZE)[1])))

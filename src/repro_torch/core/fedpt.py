@@ -8,13 +8,15 @@ One federated round:
   2. each runs tau local ClientOpt steps with gradients into ``y`` only
      (``torch.func.grad`` of a function of ``y``, the frozen side
      detached);
-  3. the client deltas are written into the (clients, size) flat buffer
-     and aggregated by the server tail (``kernels/ops.agg_tail``:
-     optional int-k uplink fake-quantize, optional clip, weighted mean);
+  3. the client deltas form the (clients, size) flat buffer, aggregated
+     by the server tail (``kernels/ops.agg_tail``: optional int-k uplink
+     fake-quantize, optional clip, weighted mean);
   4. ServerOpt treats -delta as a pseudo-gradient.
 
-The client axis is a Python loop over clients and the tau-step ``scan`` a
-Python loop over steps. The engine takes any ``loss_fn(params, batch)``.
+The client axis is ``torch.func.vmap``, as in the reference, so each op
+of the local step is dispatched once for the whole cohort; the tau-step
+``scan`` is a Python loop over steps. The engine takes any
+``loss_fn(params, batch)`` that ``vmap`` can batch.
 """
 from __future__ import annotations
 
@@ -115,18 +117,14 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
         layout = flat_lib.FlatLayout.of(y)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
-        n_clients = weights.shape[0]
 
-        # --- local training on every sampled client; deltas are written
-        # straight into their row of the flat buffer ---------------------
-        deltas = torch.empty((n_clients, layout.size), dtype=torch.float32,
-                             device=dev)
-        losses = []
-        for c in range(n_clients):
-            delta, metrics = client_update(
-                y, frozen, {k: v[c] for k, v in batch.items()})
-            deltas[c] = layout.flatten(delta)
-            losses.append(metrics["client_loss"])
+        # --- local training on every sampled client, vmapped over the
+        # client axis; deltas are born flat, one (clients, size) buffer --
+        def flat_client(cb):
+            delta, metrics = client_update(y, frozen, cb)
+            return layout.flatten(delta), metrics["client_loss"]
+
+        deltas, losses = torch.func.vmap(flat_client)(batch)
 
         # --- server tail: quantize / clip / weighted mean ----------------
         flat_delta, ainfo = kernel_ops.agg_tail(
@@ -144,7 +142,7 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
         delta = layout.unflatten(flat_delta, dtype=torch.float32)
         neg = tree_map(torch.neg, delta)
         y_new, server_state = server_opt.update(y, neg, server_state)
-        out_metrics = {"loss": torch.stack(losses).mean(),
+        out_metrics = {"loss": losses.mean(),
                        "delta_norm": torch.sqrt(
                            flat_lib.sumsq(flat_delta, layout.align))}
         if "update_norms" in ainfo:

@@ -9,20 +9,34 @@ package. Phases, in order, each failing the run on error:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and identify the card;
 2. hold every kernel against its plain torch version on the card at the
-   main path's shapes — the EMNIST round's (10, 89,088) delta buffer
-   with its 8-leaf block map — plus a ragged layout and the edge cases
-   (an all-zero leaf, a NaN and an Inf in one row): max-abs and Q->DQ
-   bit for bit, sumsq within rtol 1e-5 of a float64 sum; then time
-   each kernel, its plain version and, where one exists, the one
-   PyTorch call that computes the same function;
-3. drive the main path: the quickstart's synchronous FedPT round on the
-   full-width EMNIST CNN (init from seed 0 through the threefry port,
-   ``EMNIST_FREEZE``), 10 rounds of 10 clients x 2 local SGD steps x
-   batch 16, once with ``uplink_bits=0`` and once with 8; check finite
-   losses that fall, that every kernel of each path was launched, and
-   that the first round agrees with the same round run on the CPU
-   through the plain versions; time every round, and profile one more
-   (device-busy share, host ops by self time);
+   main paths' shapes, plus the edge cases (an all-zero leaf, a NaN, an
+   Inf, exact .5 ties), then time each kernel, its plain version and,
+   where one exists, the one PyTorch call that computes the same
+   function:
+   - sumsq, max-abs and Q->DQ at the quickstart's (10, 89,088) delta
+     buffer with its 8-leaf block map, plus a ragged layout: max-abs and
+     Q->DQ bit for bit, sumsq within rtol 1e-5 of a float64 sum;
+   - the fused tail's stats, pack and apply at the FedAvg baseline's
+     (10, 1,695,744) buffer with its 10-leaf map: block max-abs, block
+     sum of squares, codes (finite rows) and the apply bit for bit, the
+     quantized row sums within 2 * blocks * 2**-24 relative (two orders of
+     the same float32 sum);
+3. drive the main paths: synchronous FedPT rounds on the full-width
+   EMNIST CNN (init from seed 0 through the threefry port), 10 rounds of
+   10 clients x 2 local SGD steps x batch 16, each followed by one
+   profiled round (device-busy share, host ops by self time):
+   - the quickstart (``EMNIST_FREEZE``) at ``uplink_bits`` 0 and 8, on
+     the staged tail;
+   - the FedAvg baseline (every parameter trainable) at ``uplink_bits=8``:
+     variant A on the fused tail's exact route, and variant B, DP-FedAvg
+     (clip 0.5, noise multiplier 0.4) with the quarantine screen, on its
+     coefficient route, plus one round with a poisoned (NaN) client that
+     must be quarantined;
+   each path's losses are finite (and fall, but for B, whose noise at 10
+   clients promises no fall), its first round agrees with the same round
+   on the CPU through the plain versions, and every kernel of the path
+   was launched; then time the staged and the fused tail against each
+   other at both buffer sizes;
 4. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -49,6 +63,18 @@ F32_OPS_PER_S = 67e12
 
 N_CLIENTS, EXAMPLES, CLIENTS_PER_ROUND, LOCAL_STEPS, LOCAL_BATCH = 40, 50, 10, 2, 16
 ROUNDS = 10
+# variant B: DP-FedAvg as the JAX package's tests run it
+DP_CLIP, DP_NOISE = 0.5, 0.4
+POISONED = 3          # the client whose upload is NaN in B's extra round
+
+
+def qss_rtol(n_blocks: int) -> float:
+    """The quantized row sums add the same n_blocks positive products in
+    two orders (in block order on the card, torch's order in the plain
+    version); each float32 sum is within (n - 1) * 2**-24 of the exact one
+    (first-order bound of recursive summation), so they are within twice
+    that of each other."""
+    return 2 * n_blocks * 2.0 ** -24
 
 
 def card_line() -> str:
@@ -89,8 +115,9 @@ def time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel_names, iters: int = 50):
-    """Mean device time (ms) per call of the named CUDA kernels, from the
+def device_ms(fn, kernel_names=None, iters: int = 50):
+    """Mean device time (ms) per call of the named CUDA kernels (of every
+    kernel the call runs when ``kernel_names`` is None), from the
     profiler; None when the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -101,16 +128,51 @@ def device_ms(fn, kernel_names, iters: int = 50):
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if any(k in ev.key for k in kernel_names):
+        if kernel_names is None:
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+        elif any(k in ev.key for k in kernel_names):
             total += getattr(ev, "device_time_total",
                              getattr(ev, "cuda_time_total", 0.0))
     return total / 1e3 / iters if total > 0 else None
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
 
 
 def bound(nbytes: float, nops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def kernel_records(specs):
+    """Time each kernel's wrapper, its plain version and the library call,
+    and compute its bound: one ``kernels`` record each (all keys but
+    ``launches``)."""
+    records = []
+    for (name, source, replaces, kern, plain, lib, knames, nbytes,
+         nops) in specs:
+        err = max(max_abs_diff(a, b) for a, b in zip(as_tuple(kern()),
+                                                      as_tuple(plain())))
+        bound_ms, bound_by = bound(nbytes, nops)
+        records.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=50),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lib) if lib is not None else None,
+            "device_ms": device_ms(kern, knames),
+        })
+        if len(knames) > 1:
+            print(f"  {name}: device ms by CUDA kernel "
+                  f"{ {k: device_ms(kern, (k,)) for k in knames} }")
+    return records
 
 
 def emnist_loss(params, batch):
@@ -121,8 +183,8 @@ def emnist_loss(params, batch):
 
 
 def check_kernels(layout, dev):
-    """Phase 2: every kernel against its plain version; returns the
-    per-kernel records (all keys but ``launches``)."""
+    """Phase 2: sumsq, max-abs and Q->DQ against their plain versions at
+    the quickstart's buffer; returns their records."""
     from repro_torch.kernels import dp_clip, quantize, ref
 
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -172,11 +234,10 @@ def check_kernels(layout, dev):
               f"({name}, n={v.numel()}): rel err "
               f"{abs(float(got) - want64) / want64:.3e}")
 
-    records = []
     # (name, source, replaces, kernel call, plain call, library call,
     #  kernel names for the profiler, bytes, ops)
     nb = bl.size
-    specs = [
+    return kernel_records([
         ("sumsq", "src/repro_torch/kernels/csrc/sumsq.cu",
          "src/repro/kernels/dp_clip.py:25",
          lambda: dp_clip.sumsq(vec), lambda: ref.flat_sumsq_ref(vec),
@@ -195,31 +256,111 @@ def check_kernels(layout, dev):
          lambda: ref.fake_quantize_flat_ref(mat, bl_dev, n_leaves=L), None,
          ("leaf_maxabs_kernel", "qdq_kernel"),
          2 * K * N * 4 + nb * 4, 5 * K * N),
-    ]
-    for (name, source, replaces, kern, plain, lib, knames, nbytes,
-         nops) in specs:
-        err = max_abs_diff(kern(), plain())
-        bound_ms, bound_by = bound(nbytes, nops)
-        records.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "max_abs_err": err,
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": time_ms(lib) if lib is not None else None,
-            "device_ms": device_ms(kern, knames),
-        })
-    return records
+    ])
 
 
-def make_round(bits, dev):
+def check_fused_kernels(layout, dev):
+    """Phase 2, fused tail: stats, pack and apply against their plain
+    versions at the FedAvg baseline's buffer, clean and with the edge
+    cases; returns their records."""
+    from repro_torch.kernels import agg_tail, ref
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    K, N, L = CLIENTS_PER_ROUND, layout.size, len(layout.sizes)
+    bl = layout.block_leaf()
+    mat = (torch.randn((K, N), generator=gen) * 1e-2).to(dev)
+    # an all-zero leaf in row 0, a NaN in row 3, an Inf in row 5, and in
+    # row 7 exact .5 ties: leaf 0 is one block, so its scale is 127 / 127
+    edge = mat.clone()
+    z0, z1 = layout.offsets[2], layout.offsets[2] + layout.padded[2]
+    edge[0, z0:z1] = 0.0
+    edge[3, layout.offsets[3] + 17] = float("nan")
+    edge[5, layout.offsets[5] + 3] = float("inf")
+    edge[7, :1024] = 0.0
+    edge[7, 0] = 127.0
+    edge[7, 1:255] = torch.arange(-126.5, 127.0, device=dev)
+    w = torch.linspace(0.5, 1.5, K, device=dev)
+    noise = (torch.randn(N, generator=gen) * 1e-3).to(dev)
+
+    for name, x in (("main", mat), ("edge", edge)):
+        fin = torch.isfinite(x).all(dim=1)
+        bmax, bsumsq = agg_tail.block_stats(x)
+        want_max, want_ss = ref.agg_block_stats_ref(x, with_sumsq=True)
+        if not (same_bits(bmax, want_max) and same_bits(bsumsq, want_ss)):
+            raise AssertionError(f"block_stats != plain version ({name})")
+        sblock = ref.agg_scales_ref(bmax, bl, 8, L)
+        q, qss = agg_tail.pack(x, sblock)
+        if not torch.equal(q[fin], ref.agg_pack_ref(x, sblock, 8)[fin]):
+            raise AssertionError(f"pack codes != plain version ({name})")
+        want_qss = ref.agg_quant_sumsq_ref(q, sblock)
+        rel = float(((qss - want_qss).abs() / want_qss.abs())[fin].max())
+        if not rel <= qss_rtol(bl.size):
+            raise AssertionError(f"pack row sums off by rel {rel} ({name})")
+        coeff = torch.nan_to_num((w / w.sum())[:, None] * sblock, nan=0.0,
+                                 posinf=0.0, neginf=0.0)
+        for nz in (None, noise):
+            out = agg_tail.apply_coeff(q, coeff, nz)
+            if not same_bits(out, ref.agg_apply_ref(q, coeff, noise=nz)):
+                raise AssertionError(f"apply_coeff != plain version ({name})")
+        again = agg_tail.block_stats(x), agg_tail.pack(x, sblock)
+        if not (same_bits(again[0][1], bsumsq) and torch.equal(again[1][0], q)
+                and same_bits(again[1][1], qss) and same_bits(
+                    agg_tail.apply_coeff(q, coeff, noise),
+                    agg_tail.apply_coeff(q, coeff, noise))):
+            raise AssertionError(f"a fused kernel differs between two runs "
+                                 f"({name})")
+        print(f"  block_stats (max, sumsq), pack codes, apply_coeff == plain, "
+              f"bit for bit; row sums within rel {rel:.3e}; same bits twice "
+              f"({name}, {tuple(x.shape)}, rows {fin.sum().item()} finite)")
+        if name == "edge":
+            if bool(torch.isfinite(bmax[3]).all()) or bool(
+                    torch.isfinite(bmax[5]).all()):
+                raise AssertionError("a non-finite row looks finite")
+            if not torch.equal(q[7, 0, 1:255].cpu(), torch.arange(
+                    -126.5, 127.0).round().to(torch.int8)):
+                raise AssertionError(".5 ties did not round half to even")
+            if q[0].reshape(-1)[z0:z1].abs().max() != 0:
+                raise AssertionError("the all-zero leaf did not stay zero")
+
+    bmax, _ = agg_tail.block_stats(mat)
+    sblock = ref.agg_scales_ref(bmax, bl, 8, L)
+    q, _ = agg_tail.pack(mat, sblock)
+    coeff = (w / w.sum())[:, None] * sblock
+    nb = bl.size
+    src = "src/repro_torch/kernels/csrc/agg_tail.cu"
+    return kernel_records([
+        ("block_stats", src, "src/repro/kernels/agg_tail.py:81",
+         lambda: agg_tail.block_stats(mat),
+         lambda: ref.agg_block_stats_ref(mat, with_sumsq=True), None,
+         ("block_stats_kernel",), K * N * 4 + 2 * K * nb * 4, 3 * K * N),
+        ("pack", src, "src/repro/kernels/agg_tail.py:87",
+         lambda: agg_tail.pack(mat, sblock),
+         lambda: (lambda c: (c, ref.agg_quant_sumsq_ref(c, sblock)))(
+             ref.agg_pack_ref(mat, sblock, 8)), None,
+         ("pack_kernel", "row_sum_kernel"),
+         K * N * 5 + K * nb * 4 + K * 4, 6 * K * N),
+        ("apply_coeff", src, "src/repro/kernels/agg_tail.py:106",
+         lambda: agg_tail.apply_coeff(q, coeff, noise),
+         lambda: ref.agg_apply_ref(q, coeff, noise=noise), None,
+         ("apply_kernel",), K * N + K * nb * 4 + 2 * N * 4, 2 * K * N),
+    ])
+
+
+def make_round(bits, dev, dp=False):
     """The quickstart's round: 10 clients x 2 local SGD steps x batch 16,
-    client lr 0.05, server SGD lr 0.5, at ``uplink_bits``."""
-    from repro_torch.core import fedpt
+    client lr 0.05, server SGD lr 0.5, at ``uplink_bits``; ``dp`` adds
+    DP-FedAvg (clip, noise) and the quarantine screen."""
+    from repro_torch.core import fedpt, sanitize
+    extra = (dict(dp_clip_norm=DP_CLIP, dp_noise_multiplier=DP_NOISE)
+             if dp else {})
     rc = fedpt.RoundConfig(clients_per_round=CLIENTS_PER_ROUND,
                            local_steps=LOCAL_STEPS, local_batch=LOCAL_BATCH,
                            client_opt="sgd", client_lr=0.05,
-                           server_opt="sgd", server_lr=0.5, uplink_bits=bits)
-    return fedpt.make_round_fn(emnist_loss, rc, device=dev)
+                           server_opt="sgd", server_lr=0.5, uplink_bits=bits,
+                           **extra)
+    return fedpt.make_round_fn(
+        emnist_loss, rc, device=dev,
+        sanitize=sanitize.SanitizeConfig() if dp else None)
 
 
 def cohorts(ds, n):
@@ -258,18 +399,19 @@ def profile_round(step):
     return wall, busy, kernels_run, top
 
 
-def check_against_cpu(bits, ds, y0, frozen, dev):
+def check_against_cpu(label, bits, dp, ds, y0, frozen, dev):
     """One round on the card against the same round on the CPU through
-    the plain versions, from the same start and batch."""
+    the plain versions, from the same start, batch and round key."""
     from repro_torch.bridge import from_numpy_tree, to_numpy_tree
+    from repro_torch.nn import threefry
     from repro_torch.nn.basic import flatten_params
     batch, w = cohorts(ds, 1)[0]
     out = {}
     for d, y, z in ((dev, y0, frozen),
                     ("cpu", from_numpy_tree(to_numpy_tree(y0), "cpu"),
                      from_numpy_tree(to_numpy_tree(frozen), "cpu"))):
-        round_fn, sopt = make_round(bits, d)
-        y1, _, m = round_fn(y, sopt.init(y), z, batch, w)
+        round_fn, sopt = make_round(bits, d, dp)
+        y1, _, m = round_fn(y, sopt.init(y), z, batch, w, threefry.key(0))
         out[str(torch.device(d).type)] = (
             float(m["loss"]), float(m["delta_norm"]),
             {k: v.cpu() - y0k.cpu() for (k, v), (_, y0k) in zip(
@@ -277,21 +419,139 @@ def check_against_cpu(bits, ds, y0, frozen, dev):
     (lg, ng, dg), (lc, nc, dc) = out["cuda"], out["cpu"]
     worst = max(float((dg[k] - dc[k]).abs().max()) for k in dg)
     step = max(float(v.abs().max()) for v in dc.values())
-    # bits 0: float reassociation only (cuDNN's and the CPU's convolution
-    # orders, TF32 off), measured at ~1e-3 of max|dy| on an H100, so 1e-2;
-    # bits 8: besides, a client value on a rounding boundary may flip by
-    # one quantization step, which the weighted mean and server_lr shrink
-    # to well under max|dy| / 127 at 10 clients; allow two such steps
-    tol = (1e-2 * step if bits == 0 else 2 * step / 127) + 1e-7
-    ok = (abs(lg - lc) <= 1e-4 * abs(lc)
-          and abs(ng - nc) <= (1e-3 if bits == 0 else 1e-2) * nc
+    if dp:
+        # the noise is the same draw (erfinv's log1p and sqrt may round an
+        # ulp or two apart); a client value on a rounding boundary may flip
+        # by one int8 step, at most clip / 127 after the clip, which the
+        # fixed denominator and server_lr shrink; allow two such steps
+        tol = 2 * 0.5 * DP_CLIP / 127 / CLIENTS_PER_ROUND + 1e-6
+        norm_rtol = 1e-3
+    else:
+        # bits 0: float reassociation only (cuDNN's and the CPU's
+        # convolution orders, TF32 off), measured at ~1e-3 of max|dy| on an
+        # H100, so 1e-2; bits 8: besides, a client value on a rounding
+        # boundary may flip by one quantization step, which the weighted
+        # mean and server_lr shrink to well under max|dy| / 127 at 10
+        # clients; allow two such steps
+        tol = (1e-2 * step if bits == 0 else 2 * step / 127) + 1e-7
+        norm_rtol = 1e-3 if bits == 0 else 1e-2
+    ok = (abs(lg - lc) <= 1e-4 * abs(lc) and abs(ng - nc) <= norm_rtol * nc
           and worst <= tol)
-    print(f"  bits={bits} round 0, card vs CPU: loss {lg:.7f} / {lc:.7f}, "
+    print(f"  {label}, round 0, card vs CPU: loss {lg:.7f} / {lc:.7f}, "
           f"delta_norm {ng:.7f} / {nc:.7f}, max |dy| diff {worst:.3e} "
           f"(tol {tol:.3e})")
     if not ok:
-        raise AssertionError(f"bits={bits}: the card's round disagrees with "
+        raise AssertionError(f"{label}: the card's round disagrees with "
                              f"the CPU's")
+
+
+def drive_path(label, bits, dp, y0, frozen, draws, expect, dev):
+    """The main path once: ROUNDS timed rounds with the launch counts set
+    to 0 just before and read just after; then, for ``dp``, one round
+    with a NaN client that must be quarantined, and one profiled round.
+    Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.nn import threefry
+    from repro_torch.nn.basic import tree_leaves
+    round_fn, server_opt = make_round(bits, dev, dp)
+    y, sstate = y0, server_opt.init(y0)
+    losses, norms, ms = [], [], []
+    kernels.reset_launches()
+    for r, (batch, w) in enumerate(draws[:ROUNDS]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, sstate, m = round_fn(y, sstate, frozen, batch, w, threefry.key(r))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["delta_norm"]))
+    counts = dict(kernels.LAUNCHES)
+    print(f"[main path] {label}: losses {[round(v, 4) for v in losses]}")
+    print(f"  delta_norm {[round(v, 5) for v in norms]}")
+    print(f"  per-round wall ms {[round(v, 3) for v in ms]} (median "
+          f"{float(np.median(ms)):.3f}, first round included in the "
+          f"list); launches {counts}")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{label}: non-finite loss or norm")
+    if not dp and not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall")
+    if not all(torch.isfinite(leaf).all() for leaf in tree_leaves(y)):
+        raise AssertionError(f"{label}: non-finite parameters")
+    for name in expect:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched "
+                                 f"on its path")
+    batch, w = draws[ROUNDS]
+    if dp:
+        poisoned = dict(batch, images=np.array(batch["images"], copy=True))
+        poisoned["images"][POISONED] = np.nan
+        y_p, _, m = round_fn(y, sstate, frozen, poisoned, w,
+                             threefry.key(ROUNDS + 1))
+        flagged = m["quarantine_nonfinite"].cpu().tolist()
+        finite = (all(torch.isfinite(leaf).all() for leaf in tree_leaves(y_p))
+                  and math.isfinite(float(m["delta_norm"])))
+        print(f"  poisoned round (client {POISONED} NaN): quarantined "
+              f"{flagged}, outliers {m['quarantine_outlier'].cpu().tolist()}, "
+              f"finite update {finite}, delta_norm "
+              f"{float(m['delta_norm']):.5f}")
+        if flagged != [i == POISONED for i in range(CLIENTS_PER_ROUND)] or \
+                not finite:
+            raise AssertionError(f"{label}: the NaN client was not "
+                                 f"quarantined cleanly")
+    # one more round, under the profiler (its launches are not counted)
+    wall, busy, n_kernels, top = profile_round(
+        lambda: round_fn(y, sstate, frozen, batch, w, threefry.key(ROUNDS)))
+    print(f"  profiled round: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}%, idle "
+          f"{100 * (1 - busy / wall):.1f}%), {n_kernels} device ops; "
+          f"host ops by self time (name, ms, calls): {top}")
+    return counts
+
+
+def tail_routes(layouts, dev):
+    """Staged against fused at both buffer sizes, for variant A's and B's
+    pipelines (the arguments the round engine passes): wall ms per call
+    (CUDA events over back-to-back calls) and device ms; and the noise
+    draw alone at each size. Checks that the default route at the FedAvg
+    size is the fused CUDA one."""
+    from repro_torch.core import flat as flat_lib, sanitize
+    from repro_torch.kernels import ops
+    from repro_torch.nn import threefry
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    K = CLIENTS_PER_ROUND
+    sigma = DP_NOISE * DP_CLIP / K
+    pipelines = {
+        "A": dict(bits=8),
+        "B": dict(bits=8, clip_norm=DP_CLIP, uniform=True, wsum_fixed=float(K),
+                  sigma=sigma, rng=threefry.key(0),
+                  screen=sanitize.SanitizeConfig()),
+    }
+    for lname, layout in layouts:
+        mat = (torch.randn((K, layout.size), generator=gen) * 1e-2).to(dev)
+        w = torch.full((K,), 50.0, device=dev)
+        kw0 = dict(block_leaf=layout.block_leaf(), n_leaves=len(layout.sizes))
+        for pname, pkw in pipelines.items():
+            _, info = ops.agg_tail(mat, w, **kw0, **pkw)
+            res = {}
+            for route, thr in (("staged", 1 << 60), ("fused", 0)):
+                def call(thr=thr):
+                    return ops.agg_tail(mat, w, threshold=thr, **kw0, **pkw)
+                res[route] = (time_ms(call, iters=50), device_ms(call))
+            print(f"[tail] {lname} ({K}, {layout.size}), pipeline {pname}: "
+                  f"staged {res['staged'][0]:.4f} ms (device "
+                  f"{fmt_ms(res['staged'][1])}), fused {res['fused'][0]:.4f} "
+                  f"ms (device {fmt_ms(res['fused'][1])}); default route "
+                  f"{info['route']}")
+            if lname == "FedAvg" and info["route"] != (
+                    "fused/cuda/exact" if pname == "A" else "fused/cuda/coeff"):
+                raise AssertionError(f"pipeline {pname} at the FedAvg size "
+                                     f"took {info['route']}")
+
+        def draw(n=layout.size):
+            return flat_lib.draw_noise(threefry.key(0), n, sigma, dev)
+        print(f"[tail] noise draw alone, {layout.size} floats: "
+              f"{time_ms(draw, iters=50):.4f} ms (device "
+              f"{fmt_ms(device_ms(draw))})")
 
 
 def main() -> int:
@@ -307,7 +567,6 @@ def main() -> int:
     from repro_torch.data import synthetic as syn
     from repro_torch.kernels import _build
     from repro_torch.models import paper_models as pm
-    from repro_torch.nn.basic import tree_leaves
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -332,7 +591,7 @@ def main() -> int:
           f"torch.backends.cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
-    # --- the main path's model and data ---------------------------------
+    # --- the main paths' model and data ----------------------------------
     ds = syn.make_federated_images(N_CLIENTS, EXAMPLES, (28, 28, 1), 62,
                                    alpha=1.0, seed=0)
     y0, frozen = reconstruct.init_partitioned(pm.init_emnist_cnn, 0,
@@ -345,63 +604,49 @@ def main() -> int:
     if (n_y, n_y + n_z, layout.size) != (84_030, 1_690_174, 89_088):
         raise AssertionError("EMNIST partition/layout differs from the "
                              "reference's 84,030 / 1,690,174 / 89,088")
+    ya, za = reconstruct.init_partitioned(pm.init_emnist_cnn, 0, (),
+                                          device=dev)
+    layout_a = flat_lib.FlatLayout.of(ya)
+    print(f"[model] FedAvg baseline (every parameter trainable): "
+          f"{part.count_params(ya)} trainable, flat size {layout_a.size} in "
+          f"{layout_a.num_blocks} blocks over {len(layout_a.sizes)} leaves")
+    if (part.count_params(ya), layout_a.size) != (1_690_174, 1_695_744):
+        raise AssertionError("the FedAvg layout differs from 1,690,174 / "
+                             "1,695,744")
 
     # --- phase 2: kernels against their plain versions -------------------
-    print("[kernels] against their plain versions at the main path's shapes")
-    records = check_kernels(layout, dev)
+    print("[kernels] against their plain versions at the main paths' shapes")
+    records = check_kernels(layout, dev) + check_fused_kernels(layout_a, dev)
 
-    # --- phase 3: the main path ------------------------------------------
-    for bits in (0, 8):
-        check_against_cpu(bits, ds, y0, frozen, dev)
+    # --- phase 3: the main paths -----------------------------------------
+    paths = [  # label, bits, dp, (y, frozen), kernels that must launch
+        ("quickstart, uplink_bits=0", 0, False, (y0, frozen), ("sumsq",)),
+        ("quickstart, uplink_bits=8", 8, False, (y0, frozen),
+         ("sumsq", "leaf_maxabs", "fake_quantize_flat")),
+        ("FedAvg A, int8", 8, False, (ya, za),
+         ("sumsq", "block_stats", "pack")),
+        ("FedAvg B, int8 DP-FedAvg + screen", 8, True, (ya, za),
+         ("block_stats", "pack", "apply_coeff")),
+    ]
+    for label, bits, dp, (ys, zs), _ in paths:
+        check_against_cpu(label, bits, dp, ds, ys, zs, dev)
     launches = {name: 0 for name in kernels.LAUNCHES}
-    expect = {0: ("sumsq",), 8: ("sumsq", "leaf_maxabs", "fake_quantize_flat")}
     draws = cohorts(ds, ROUNDS + 1)
     torch.cuda.reset_peak_memory_stats()
-    for bits in (0, 8):
-        round_fn, server_opt = make_round(bits, dev)
-        y, sstate = y0, server_opt.init(y0)
-        losses, norms, ms = [], [], []
-        kernels.reset_launches()
-        for batch, w in draws[:ROUNDS]:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            y, sstate, m = round_fn(y, sstate, frozen, batch, w)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["delta_norm"]))
-        counts = dict(kernels.LAUNCHES)
-        print(f"[main path] uplink_bits={bits}: losses "
-              f"{[round(v, 4) for v in losses]}")
-        print(f"  delta_norm {[round(v, 5) for v in norms]}")
-        print(f"  per-round wall ms {[round(v, 3) for v in ms]} (median "
-              f"{float(np.median(ms)):.3f}, first round included in the "
-              f"list); launches {counts}")
-        if not all(math.isfinite(v) for v in losses + norms):
-            raise AssertionError(f"bits={bits}: non-finite loss or norm")
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"bits={bits}: loss did not fall")
-        if not all(torch.isfinite(leaf).all() for leaf in tree_leaves(y)):
-            raise AssertionError(f"bits={bits}: non-finite parameters")
-        for name in expect[bits]:
-            if counts[name] <= 0:
-                raise AssertionError(f"bits={bits}: kernel {name} was not "
-                                     f"launched on its path")
+    for label, bits, dp, (ys, zs), expect in paths:
+        counts = drive_path(label, bits, dp, ys, zs, draws, expect, dev)
         for name in launches:
             launches[name] += counts[name]
-        # one more round, under the profiler (its launches are not counted)
-        wall, busy, n_kernels, top = profile_round(
-            lambda: round_fn(y, sstate, frozen, *draws[ROUNDS]))
-        print(f"  profiled round: wall {wall:.3f} ms, device busy "
-              f"{busy:.3f} ms ({100 * busy / wall:.1f}%, idle "
-              f"{100 * (1 - busy / wall):.1f}%), {n_kernels} device ops; "
-              f"host ops by self time (name, ms, calls): {top}")
     print(f"[main path] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    tail_routes((("quickstart", layout), ("FedAvg", layout_a)), dev)
 
     # --- phase 4: summary ------------------------------------------------
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        if rec["launches"] <= 0:
+            raise AssertionError(f"kernel {rec['name']} never launched on "
+                                 f"a main path")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import dp_clip, quantize, ref
-from repro_torch.nn import basic
+from repro_torch.nn import basic, threefry
 
 ALIGN = 1024
 
@@ -100,6 +100,10 @@ def row_sumsq(mat: torch.Tensor, align: int = ALIGN) -> torch.Tensor:
     return ref.row_sumsq_ref(mat, chunk=align)
 
 
+def row_norms(mat: torch.Tensor, align: int = ALIGN) -> torch.Tensor:
+    return torch.sqrt(row_sumsq(mat, align))
+
+
 def fake_quantize(mat: torch.Tensor, layout: FlatLayout, bits: int = 8):
     """Per-leaf symmetric int-k fake-quantization of flat client deltas,
     (C, size) or (size,), scales per (client, leaf): the CUDA kernels for
@@ -115,3 +119,23 @@ def weighted_mean(mat: torch.Tensor, weights: torch.Tensor,
                   wsum: torch.Tensor) -> torch.Tensor:
     """(C, size), (C,) -> (size,): sum_c w_c * mat_c / wsum as one matmul."""
     return torch.matmul(weights.float(), mat.float()) / wsum
+
+
+def draw_noise(rng: threefry.Key, size: int, sigma: float,
+               device=None) -> torch.Tensor:
+    """Pre-draw the (size,) Gaussian :func:`add_noise` would add:
+    ``add_noise(v, sigma, rng) == v + draw_noise(rng, v.numel(), sigma)``
+    bit for bit (one threefry call from the key itself, no split; the
+    same float32 scaling). The fused tail starts its accumulator from it."""
+    sig = torch.tensor(sigma, dtype=torch.float32, device=device)
+    return sig * threefry.normal(rng, (size,), device)
+
+
+def add_noise(vec: torch.Tensor, sigma: float, rng: threefry.Key
+              ) -> torch.Tensor:
+    """Add N(0, sigma^2) to the flat vector in one PRNG call. Pad slots
+    receive noise too: ``unflatten`` drops them, so only flat-vector norms
+    see the extra energy (the round engine reports the noised update's
+    norm from the unflattened tree)."""
+    return vec + draw_noise(rng, vec.numel(), sigma,
+                            vec.device).reshape(vec.shape)

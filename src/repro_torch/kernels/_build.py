@@ -5,8 +5,8 @@ with a plain C interface, loaded with ``ctypes``. Libraries go to
 ``kernels/build/`` (listed in ``.gitignore``), named by a hash of the
 source and the flags, so a changed source is rebuilt and an unchanged one
 is loaded as it is. Sources not yet built are compiled together, one
-``nvcc`` process each. No ``--use_fast_math``: the Q->DQ kernel must
-divide and round exactly as IEEE float32 does.
+``nvcc`` process each. No ``--use_fast_math``: the Q->DQ and pack
+kernels must divide and round exactly as IEEE float32 does.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("sumsq.cu", "quantize.cu")
+SOURCES = ("sumsq.cu", "quantize.cu", "agg_tail.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

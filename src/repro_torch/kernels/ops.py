@@ -1,32 +1,42 @@
 """The server aggregation tail behind its dispatcher, port of
-``repro/kernels/ops.agg_tail`` with the staged route
-(``repro/kernels/ops._staged_tail``) only.
+``repro/kernels/ops.agg_tail``.
 
-The staged route is an op-by-op pipeline over the (K, size) flat delta
-buffer: per-leaf int-k fake-quantize (the CUDA kernels of
-``kernels/quantize.py``), optional per-row L2 clip folded into the
-weights (plain ``row_sumsq``, as in JAX), and the weighted mean
-(``torch.matmul``, as JAX leaves it to XLA). What the JAX
-dispatcher would send elsewhere raises ``NotImplementedError`` rather
-than quietly taking the staged route.
+Two routes over the (K, size) flat delta buffer, chosen as the JAX
+dispatcher chooses them:
+
+* **staged** (``_staged_tail``): op by op. Quarantine screen
+  (``core/sanitize.screen_rows``), per-leaf int-k fake-quantize (the CUDA
+  kernels of ``kernels/quantize.py``), optional per-row L2 clip folded
+  into the weights, the weighted / fixed-denominator mean
+  (``torch.matmul``, as JAX leaves it to XLA), DP noise last.
+* **fused** (``kernels/agg_tail.compose``): the stats / pack / apply
+  kernels for a buffer on the card, their plain versions for one on the
+  CPU.
+
+Trainability tiers (``remask_rows``, ``block_denom``) are not ported
+yet and raise ``NotImplementedError`` rather than quietly taking a route.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import flat as flat_lib
+from repro_torch.core import sanitize as sanitize_lib
+from repro_torch.kernels import agg_tail as _agg
 from repro_torch.kernels import quantize as _q
 
-# the JAX dispatcher's size threshold for the fused route (tuned on
-# XLA:CPU; to be measured again on the card when the fused tail lands)
+# the JAX dispatcher's size threshold for the fused route, kept so that
+# both packages take the same route (the card's crossover is in PERF.md)
 AGG_FUSE_THRESHOLD = 4 << 20
 
-_LATER = "comes with the fused-tail/DP slice of the port"
 
-
-def _staged_tail(mat, weights, block_leaf, *, n_leaves, align, bits,
-                 clip_norm, uniform, wsum_fixed):
+def _staged_tail(mat, weights, block_leaf, rng, *, n_leaves, align, bits,
+                 clip_norm, uniform, wsum_fixed, sigma, screen):
     info = {}
+    if screen is not None:
+        mat, weights, sinfo = sanitize_lib.screen_rows(mat, weights, screen,
+                                                       align)
+        info.update(sinfo)
     w = (weights > 0).to(weights.dtype) if uniform else weights
     if wsum_fixed is not None:
         wsum = torch.tensor(float(wsum_fixed), dtype=torch.float32,
@@ -37,47 +47,51 @@ def _staged_tail(mat, weights, block_leaf, *, n_leaves, align, bits,
         mat = _q.fake_quantize_flat(mat, block_leaf, n_leaves, bits=bits,
                                     block=align)
     if clip_norm > 0:
-        norms = torch.sqrt(flat_lib.row_sumsq(mat, align))
+        norms = flat_lib.row_norms(mat, align)
         # tensor / tensor: `scalar / tensor` is a reciprocal multiply
         w = w * torch.clamp(torch.full_like(norms, clip_norm)
                             / torch.clamp_min(norms, 1e-12), max=1.0)
         info["update_norms"] = norms
-    return flat_lib.weighted_mean(mat, w, wsum), info
+    out = flat_lib.weighted_mean(mat, w, wsum)
+    if sigma > 0:
+        out = flat_lib.add_noise(out, sigma, rng)
+    return out, info
 
 
 def agg_tail(mat, weights, *, block_leaf, n_leaves: int, align: int = 1024,
              bits: int = 0, clip_norm: float = 0.0, uniform: bool = False,
-             wsum_fixed=None, sigma: float = 0.0, remask_rows: bool = False,
-             block_denom: bool = False, screen=None, threshold=None):
+             wsum_fixed=None, sigma: float = 0.0, rng=None,
+             remask_rows: bool = False, block_denom: bool = False,
+             screen=None, threshold=None):
     """Server aggregation tail over the (K, size) flat delta buffer:
-    returns ``(update (size,), info)``, ``info["route"] == "staged"`` and
-    ``info["update_norms"]`` when clipping.
+    quarantine ``screen``, int-``bits`` fake-quantize, clip folded into
+    the weights, weighted / fixed-denominator mean, DP noise of std
+    ``sigma`` drawn from the threefry key ``rng``. Returns ``(update
+    (size,), info)``: ``info["route"]`` (``"staged"``,
+    ``"fused/cuda/coeff"``, ``"fused/torch/exact"``, ...), the quarantine
+    ``nonfinite`` / ``outlier`` / ``norms`` with the screen on, and
+    ``update_norms`` when clipping.
 
-    Ported: the staged route — int-``bits`` fake-quantize, clip folded
-    into the weights, weighted / fixed-denominator mean. Raises
-    ``NotImplementedError`` for what a later slice ports: the fused
-    route (JAX takes it for ``bits > 0`` at ``K * size >=
-    AGG_FUSE_THRESHOLD``, or whenever an explicit ``threshold`` is
-    reached), DP noise (``sigma > 0``), the quarantine ``screen`` and
-    the row re-mask and per-block denominator of trainability tiers
-    (``remask_rows``, ``block_denom``)."""
+    Dispatch as in the JAX package: the fused route for quantized
+    pipelines (``bits > 0``) on buffers of at least
+    :data:`AGG_FUSE_THRESHOLD` elements, the staged route otherwise; an
+    explicit ``threshold`` routes by size alone (0 forces fused, a value
+    above ``K * size`` staged)."""
+    if remask_rows or block_denom:
+        raise NotImplementedError("trainability tiers (core/plan.py) are "
+                                  "not ported yet")
+    if sigma > 0 and rng is None:
+        raise ValueError("DP noise (sigma > 0) needs a threefry key rng")
     K, size = mat.shape
     if threshold is None:
         fuse = bits > 0 and K * size >= AGG_FUSE_THRESHOLD
     else:
         fuse = K * size >= threshold
-    if fuse:
-        raise NotImplementedError(f"the fused aggregation tail {_LATER}")
-    if sigma > 0:
-        raise NotImplementedError(f"DP noise in the tail {_LATER}")
-    if screen is not None:
-        raise NotImplementedError("the quarantine screen (core/sanitize.py) "
-                                  "is not ported yet")
-    if remask_rows or block_denom:
-        raise NotImplementedError("trainability tiers (core/plan.py) are "
-                                  "not ported yet")
-    out, info = _staged_tail(mat, weights, block_leaf, n_leaves=n_leaves,
-                             align=align, bits=bits, clip_norm=clip_norm,
-                             uniform=uniform, wsum_fixed=wsum_fixed)
-    info["route"] = "staged"
-    return out, info
+    kw = dict(n_leaves=n_leaves, align=align, bits=bits, clip_norm=clip_norm,
+              uniform=uniform, wsum_fixed=wsum_fixed, sigma=sigma,
+              screen=screen)
+    if not fuse:
+        out, info = _staged_tail(mat, weights, block_leaf, rng, **kw)
+        info["route"] = "staged"
+        return out, info
+    return _agg.compose(mat, weights, block_leaf=block_leaf, rng=rng, **kw)

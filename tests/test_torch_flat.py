@@ -204,12 +204,16 @@ def test_staged_tail_matches_jax(layouts, bits, clip, uniform):
                                    rtol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [dict(bits=8, threshold=0),
-                                dict(bits=0, threshold=1),
-                                dict(sigma=0.1), dict(screen=object()),
-                                dict(block_denom=True),
-                                dict(remask_rows=True)])
+@pytest.mark.parametrize("kw", [dict(block_denom=True),
+                                dict(remask_rows=True),
+                                dict(block_denom=True, bits=8, threshold=0),
+                                dict(remask_rows=True, threshold=0),
+                                dict(block_denom=True, sigma=0.1),
+                                dict(remask_rows=True, block_denom=True,
+                                     screen=object())])
 def test_tail_raises_for_later_slices(kw):
+    """Trainability tiers are not ported: both routes refuse them (the
+    fused route, DP noise and the screen landed with the fused tail)."""
     mat = torch.zeros((2, 1024))
     with pytest.raises(NotImplementedError):
         tops.agg_tail(mat, torch.ones(2), block_leaf=np.zeros(1, np.int32),
@@ -218,4 +222,4 @@ def test_tail_raises_for_later_slices(kw):
     with pytest.raises(NotImplementedError):
         tops.agg_tail(big, torch.ones(2),
                       block_leaf=np.zeros(big.shape[1] // 1024, np.int32),
-                      n_leaves=1, bits=8)
+                      n_leaves=1, bits=8, block_denom=True)

@@ -71,7 +71,8 @@ def _no_cuda():
 def test_entry_points_raise_without_cuda():
     _no_cuda()
     from repro_torch import bridge
-    from repro_torch.core import fedpt, reconstruct
+    from repro_torch.core import fedpt, reconstruct, sanitize
+    from repro_torch.kernels import agg_tail
     from repro_torch.models import paper_models as pm
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.resolve_device()
@@ -83,6 +84,23 @@ def test_entry_points_raise_without_cuda():
         fedpt.make_round_fn(lambda p, b: 0.0, fedpt.RoundConfig(2, 1, 4))
     with pytest.raises(RuntimeError, match="CUDA"):
         bridge.from_numpy_tree({"a": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedpt.make_round_fn(
+            lambda p, b: 0.0,
+            fedpt.RoundConfig(2, 1, 4, uplink_bits=8, dp_clip_norm=0.5,
+                              dp_noise_multiplier=0.4),
+            sanitize=sanitize.SanitizeConfig(), fused_threshold=0)
+    # the fused tail's wrappers, asked for anything but a CPU tensor, go to
+    # the kernels: they refuse a tensor that is not on the card
+    meta = torch.empty((2, 1024), device="meta")
+    for call in (lambda: agg_tail.block_stats(meta),
+                 lambda: agg_tail.pack(meta, torch.empty((2, 1),
+                                                         device="meta")),
+                 lambda: agg_tail.apply_coeff(meta.to(torch.int8)[:, None],
+                                              torch.empty((2, 1),
+                                                          device="meta"))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 

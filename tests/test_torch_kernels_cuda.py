@@ -7,19 +7,31 @@ the kernels cannot even be built). Run them on a machine with one:
 
 Imports neither JAX nor the JAX package. Max-abs and Q->DQ must match
 bit for bit (NaN positions equal); sumsq within rtol 1e-5 of a float64
-sum and with the same bits on every run.
+sum and with the same bits on every run. The fused tail's kernels: block
+max-abs, block sum of squares, int8 codes (on finite rows) and the apply
+bit for bit; the quantized row sum of squares within a relative
+2 * blocks * 2**-24 (the kernel sums the same per-block products in
+block order, the plain version in torch's order; each float32 sum of n
+positive terms is within (n - 1) * 2**-24 of the exact one); every
+output the same on two runs.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import dp_clip, ops, quantize, ref
+from repro_torch.kernels import agg_tail, dp_clip, ops, quantize, ref
+from repro_torch.core import sanitize
+from repro_torch.nn import threefry
 
 pytestmark = pytest.mark.cuda
 
 EMNIST_BLOCK_LEAF = np.repeat(np.arange(8, dtype=np.int32),
                               [1, 1, 1, 50, 1, 31, 1, 1])
+# every EMNIST CNN parameter trainable (the FedAvg baseline): 1,656 blocks
+FEDAVG_BLOCK_LEAF = np.repeat(np.arange(10, dtype=np.int32),
+                              [1, 1, 1, 50, 1, 1568, 1, 31, 1, 1])
+RAGGED_BLOCK_LEAF = np.array([0, 1, 1, 1, 2, 2, 3], np.int32)
 
 
 @pytest.fixture
@@ -99,7 +111,8 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     dp_clip.sumsq(x[0].contiguous())
     quantize.fake_quantize_flat(x, EMNIST_BLOCK_LEAF, 8)
     assert kernels.LAUNCHES == {"sumsq": 1, "leaf_maxabs": 1,
-                                "fake_quantize_flat": 1}
+                                "fake_quantize_flat": 1, "block_stats": 0,
+                                "pack": 0, "apply_coeff": 0}
     with pytest.raises(TypeError):
         dp_clip.sumsq(x[0].double())
     with pytest.raises(ValueError):
@@ -122,3 +135,108 @@ def test_staged_tail_on_card_matches_cpu(dev, bits, clip):
     # the quantized operand is bitwise equal; the mean is a float32
     # matmul reduced in another order on the card
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the fused tail: stats, pack, apply
+
+
+def _fused_inputs(dev, rows, block_leaf, case, seed=0):
+    m = _mat(rows, block_leaf, seed=seed, case=case).to(dev)
+    L = int(block_leaf.max()) + 1
+    return m, L
+
+
+def _finite_rows(m):
+    return torch.isfinite(m).all(dim=1).cpu()
+
+
+@pytest.mark.parametrize("case", ["random", "zero_leaf", "nan", "inf",
+                                  "ties"])
+@pytest.mark.parametrize("rows,block_leaf", [(10, FEDAVG_BLOCK_LEAF),
+                                             (3, RAGGED_BLOCK_LEAF)])
+def test_fused_kernels_match_plain(dev, rows, block_leaf, case):
+    m, L = _fused_inputs(dev, rows, block_leaf, case)
+    kernels.reset_launches()
+    bmax, bsumsq = agg_tail.block_stats(m)
+    want_max, want_ss = ref.agg_block_stats_ref(m, with_sumsq=True)
+    assert same_bits(bmax, want_max)
+    assert same_bits(bsumsq, want_ss)
+    sblock = ref.agg_scales_ref(bmax, block_leaf, 8, L)
+    q, qss = agg_tail.pack(m, sblock)
+    want_q = ref.agg_pack_ref(m, sblock, 8)
+    fin = _finite_rows(m)
+    assert torch.equal(q.cpu()[fin], want_q.cpu()[fin])
+    want_qss = ref.agg_quant_sumsq_ref(q, sblock)
+    torch.testing.assert_close(qss.cpu()[fin], want_qss.cpu()[fin],
+                               rtol=2 * block_leaf.size * 2.0 ** -24, atol=0)
+    w = torch.linspace(0.5, 1.5, rows, device=dev)
+    coeff = (w / w.sum())[:, None] * sblock
+    coeff = torch.where(torch.isfinite(coeff), coeff, torch.zeros_like(coeff))
+    noise = torch.randn(m.shape[1], generator=torch.Generator().manual_seed(
+        1)).to(dev) * 1e-3
+    for nz in (None, noise):
+        got = agg_tail.apply_coeff(q, coeff, nz)
+        assert same_bits(got, ref.agg_apply_ref(q, coeff, noise=nz))
+    assert kernels.LAUNCHES == {"sumsq": 0, "leaf_maxabs": 0,
+                                "fake_quantize_flat": 0, "block_stats": 1,
+                                "pack": 1, "apply_coeff": 2}
+    # the same bits on a second run
+    again = agg_tail.block_stats(m)
+    assert same_bits(again[0], bmax) and same_bits(again[1], bsumsq)
+    q2, qss2 = agg_tail.pack(m, sblock)
+    assert torch.equal(q2, q) and same_bits(qss2, qss)
+    assert same_bits(agg_tail.apply_coeff(q, coeff, noise),
+                     agg_tail.apply_coeff(q, coeff, noise))
+    if case == "nan":
+        assert not bool(torch.isfinite(bmax).all(dim=1)[rows - 1])
+    if case == "ties":
+        assert torch.equal(q[0, 0, 1:255].cpu(),
+                           torch.arange(-126.5, 127.0).round().to(torch.int8))
+
+
+def test_fused_wrappers_check_inputs(dev):
+    m = _mat(2, RAGGED_BLOCK_LEAF).to(dev)
+    s = torch.ones((2, 7), device=dev)
+    with pytest.raises(ValueError):
+        agg_tail.block_stats(m[:, :1000].contiguous())
+    with pytest.raises(ValueError):
+        agg_tail.block_stats(m, block=1000)
+    with pytest.raises(ValueError):
+        agg_tail.pack(m, s[:, :6].contiguous())
+    with pytest.raises(TypeError):
+        agg_tail.apply_coeff(torch.zeros((2, 7, 1024), device=dev), s)
+    q, _ = agg_tail.pack(m, s)
+    with pytest.raises(ValueError):
+        agg_tail.apply_coeff(q, s, torch.zeros(7 * 1024 + 1,
+                                               device=dev)[1:])
+
+
+@pytest.mark.parametrize("pipeline", ["quant", "dp_screen"])
+def test_fused_tail_on_card_matches_cpu(dev, pipeline):
+    m = _mat(10, RAGGED_BLOCK_LEAF, seed=5)
+    m[2, 100] = float("nan")
+    w = torch.linspace(10, 60, 10)
+    kw = dict(block_leaf=RAGGED_BLOCK_LEAF, n_leaves=4, bits=8, threshold=0)
+    if pipeline == "dp_screen":
+        kw.update(clip_norm=0.05, uniform=True, wsum_fixed=10.0,
+                  sigma=0.02 * 0.05, rng=threefry.key(3),
+                  screen=sanitize.SanitizeConfig())
+    else:
+        m[2, 100] = 0.0
+    kernels.reset_launches()
+    got, ginfo = ops.agg_tail(m.to(dev), w.to(dev), **kw)
+    want, winfo = ops.agg_tail(m, w, **kw)
+    kind = "exact" if pipeline == "quant" else "coeff"
+    assert ginfo["route"] == f"fused/cuda/{kind}"
+    assert winfo["route"] == f"fused/torch/{kind}"
+    assert kernels.LAUNCHES["block_stats"] == 1
+    assert kernels.LAUNCHES["pack"] == 1
+    assert kernels.LAUNCHES["apply_coeff"] == (1 if kind == "coeff" else 0)
+    for key in ("nonfinite", "outlier"):
+        if key in winfo:
+            assert torch.equal(ginfo[key].cpu(), winfo[key])
+    assert torch.isfinite(got).all()
+    # the codes are bitwise the CPU's; the GEMV / the noise's erfinv
+    # (log1p, sqrt) round differently on the card
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-8)

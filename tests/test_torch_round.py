@@ -6,6 +6,8 @@ primitives so that JAX's jit stays short; 3 clients x 2 local SGD steps,
 at ``uplink_bits`` 0 and 8, on the same data (the port's copy of
 ``data/synthetic.py``, held identical to the reference's) and the same
 parameters (the reference's, carried across by ``repro_torch.bridge``).
+One more pair of runs trains every parameter under int8 DP-FedAvg with
+the quarantine screen, forced onto the fused tail.
 """
 import numpy as np
 import pytest
@@ -17,15 +19,18 @@ import jax.numpy as jnp
 
 import repro.core.partition as jpart
 from repro.core import fedpt as jfedpt
+from repro.core import sanitize as jsan
 from repro.data import synthetic as jsyn
 from repro.nn import basic as jbasic
 from repro.nn import conv as jconv
 from repro_torch import bridge
 from repro_torch.core import fedpt as tfedpt
 from repro_torch.core import partition as tpart
+from repro_torch.core import sanitize as tsan
 from repro_torch.data import synthetic as tsyn
 from repro_torch.nn import basic as tbasic
 from repro_torch.nn import conv as tconv
+from repro_torch.nn import threefry
 
 FREEZE = (r"^dense1/",)
 ROUNDS, CLIENTS, STEPS, BATCH = 2, 3, 2, 8
@@ -179,6 +184,70 @@ def test_two_rounds_match_jax(bits):
         for k in jy:
             np.testing.assert_allclose(ty[k], jy[k], rtol=0,
                                        atol=moved / 127)
+
+
+DP = dict(uplink_bits=8, dp_clip_norm=0.5, dp_noise_multiplier=0.4)
+
+
+def _run_dp(pkg, cohorts):
+    """Two rounds, every parameter trainable, int8 + clip + noise + screen,
+    fused tail at any size; returns the metrics and the final y."""
+    if pkg == "jax":
+        rc = jfedpt.RoundConfig(clients_per_round=CLIENTS, local_steps=STEPS,
+                                local_batch=BATCH, client_lr=0.05,
+                                server_lr=SERVER_LR, **DP)
+        y, frozen = jpart.partition(jax_init(0), ())
+        round_fn, sopt = jfedpt.make_round_fn(
+            jax_loss, rc, sanitize=jsan.SanitizeConfig(), fused_threshold=0)
+        round_fn, key = jax.jit(round_fn), jax.random.key
+        weights = jnp.asarray
+    else:
+        rc = tfedpt.RoundConfig(clients_per_round=CLIENTS, local_steps=STEPS,
+                                local_batch=BATCH, client_lr=0.05,
+                                server_lr=SERVER_LR, **DP)
+        y, frozen = tpart.partition(bridge.from_numpy_tree(
+            jax.device_get(jax_init(0)), "cpu"), ())
+        round_fn, sopt = tfedpt.make_round_fn(
+            torch_loss, rc, device="cpu", sanitize=tsan.SanitizeConfig(),
+            fused_threshold=0)
+        key, weights = threefry.key, (lambda w: w)
+    st = sopt.init(y)
+    hist = []
+    for r, (batch, w) in enumerate(cohorts):
+        y, st, m = round_fn(y, st, frozen, batch, weights(w), key(r))
+        hist.append({k: np.asarray(v) for k, v in m.items()})
+    return hist, (jax.device_get(y) if pkg == "jax"
+                  else bridge.to_numpy_tree(y))
+
+
+def test_two_dp_rounds_on_the_fused_tail_match_jax():
+    cohorts = _cohorts(tsyn, _data(tsyn))
+    jhist, jy = _run_dp("jax", cohorts)
+    thist, ty = _run_dp("torch", cohorts)
+    sigma = 0.4 * 0.5 / CLIENTS
+    for tm, jm in zip(thist, jhist):
+        assert sorted(tm) == sorted(jm)
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+        for k in ("quarantine_nonfinite", "quarantine_outlier"):
+            assert np.array_equal(tm[k], jm[k]) and not tm[k].any()
+        np.testing.assert_allclose(tm["quarantine_norms"],
+                                   jm["quarantine_norms"], rtol=1e-4)
+        np.testing.assert_allclose(tm["update_norm"], jm["update_norm"],
+                                   rtol=1e-4)
+        # the norm of the noised tree: the noise dominates it
+        assert float(tm["delta_norm"]) == pytest.approx(
+            float(jm["delta_norm"]), rel=1e-5)
+    # y moves by SERVER_LR x (noise + the clipped mean). The noise agrees
+    # to 4 ulps; a client value on a rounding boundary may land one int8
+    # step (its leaf's max-abs / 127, below clip_norm / 127 after the
+    # clip) away, which the mean over CLIENTS and SERVER_LR shrink; per
+    # round, so twice that over two rounds
+    jy, ty = dict(jbasic.flatten_params(jy)), dict(jbasic.flatten_params(ty))
+    step = 2 * SERVER_LR * 0.5 / 127 / CLIENTS
+    for k in jy:
+        noise_ulps = 8 * SERVER_LR * np.spacing(np.float32(6 * sigma))
+        np.testing.assert_allclose(ty[k], jy[k], rtol=0,
+                                   atol=step + noise_ulps)
 
 
 def test_client_update_gradients_reach_y_only():

@@ -21,6 +21,12 @@ package. Phases, in order, each failing the run on error:
      sum of squares, codes (finite rows) and the apply bit for bit, the
      quantized row sums within 2 * blocks * 2**-24 relative (two orders of
      the same float32 sum);
+   - the DP clip: ``clip_flat`` over the async lane's (6, 89,088) rows and
+     over (6, 1,695,744), ``clip_accumulate`` at N = 89,088 and 1,695,744,
+     with a zero row, a row under the clip (bit for bit), a NaN row, an
+     Inf row and ragged N; the row norms within ``dp_clip.norm_rtol``
+     (their a-priori bound), the clip-and-accumulate within rtol 1e-6 of
+     its plain version (one torch.sum);
 3. drive the main paths: synchronous FedPT rounds on the full-width
    EMNIST CNN (init from seed 0 through the threefry port), 10 rounds of
    10 clients x 2 local SGD steps x batch 16, each followed by one
@@ -35,8 +41,21 @@ package. Phases, in order, each failing the run on error:
    each path's losses are finite (and fall, but for B, whose noise at 10
    clients promises no fall), its first round agrees with the same round
    on the CPU through the plain versions, and every kernel of the path
-   was launched; then time the staged and the fused tail against each
-   other at both buffer sizes;
+   was launched; then
+   - ``fl.runtime.run_federated``, the quickstart at ``uplink_bits=0``
+     through the simulation grid, whose history must equal a plain
+     ``make_round_fn`` loop fed the grid's streams bit for bit (cuDNN set
+     deterministic for both) and whose measured bytes equal the
+     transfers times the payloads;
+   - the async grid, FedBuff over the pareto-mobile fleet (concurrency
+     12, goal 6, polynomial staleness) at ``uplink_bits=8`` with
+     per-flush DP (clip 0.5, noise multiplier 0.4), 12 server updates;
+     its first 3 updates again on the card and on the CPU, whose virtual
+     clock, staleness, scheduler stats, wire bytes and DP summary must be
+     equal, losses within rel 1e-4 and y within a derived bound; then
+     the lane step and the buffered apply timed, one flush profiled;
+   then time the staged and the fused tail against each other at both
+   buffer sizes;
 4. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -66,6 +85,12 @@ ROUNDS = 10
 # variant B: DP-FedAvg as the JAX package's tests run it
 DP_CLIP, DP_NOISE = 0.5, 0.4
 POISONED = 3          # the client whose upload is NaN in B's extra round
+# the async path: examples/async_heterogeneous.py's FedBuff settings
+CONCURRENCY, GOAL, ASYNC_UPDATES, ASYNC_CHECKED = 12, 6, 12, 3
+# no engine of either package calls it: only kernels/ops.clip_accumulate,
+# the JAX package's tests and this script's kernel phase reach it
+NO_ENGINE = {"clip_accumulate"}
+U = 2.0 ** -24
 
 
 def qss_rtol(n_blocks: int) -> float:
@@ -346,20 +371,132 @@ def check_fused_kernels(layout, dev):
     ])
 
 
-def make_round(bits, dev, dp=False):
-    """The quickstart's round: 10 clients x 2 local SGD steps x batch 16,
-    client lr 0.05, server SGD lr 0.5, at ``uplink_bits``; ``dp`` adds
-    DP-FedAvg (clip, noise) and the quarantine screen."""
-    from repro_torch.core import fedpt, sanitize
+def clip_rows(n, gen, dev, rows=GOAL):
+    """Rows for the clip: clipped, zero, under the clip, a NaN, an Inf,
+    clipped (and more clipped rows past six)."""
+    m = torch.randn((rows, n), generator=gen) * 1e-2
+    m[1] = 0.0
+    m[2] *= 0.5 * DP_CLIP / float(m[2].double().norm())
+    m[3, n // 3] = float("nan")
+    m[4, n // 2] = float("inf")
+    m[5] *= 40.0
+    return m.to(dev)
+
+
+def check_clip_kernels(layout, layout_a, dev):
+    """Phase 2, the DP clip: clip_flat and clip_accumulate against their
+    plain versions at the async lane's rows and the FedAvg width, with the
+    edge cases; returns their records and prints the other shape's times."""
+    from repro_torch.kernels import dp_clip, ref
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    for n in (layout.size, layout_a.size, layout.size + 512,
+              layout.size + 77):
+        m = clip_rows(n, gen, dev)
+        got, gnorm = dp_clip.clip_flat(m, DP_CLIP)
+        want, wnorm = ref.flat_clip_ref(m, DP_CLIP)
+        rtol = dp_clip.norm_rtol(n)
+        rel = max(abs(float(gnorm[r]) - float(wnorm[r])) / float(wnorm[r])
+                  for r in (0, 5))
+        vrel = max(float(((got[r] - want[r]).abs()
+                          / want[r].abs().clamp_min(1e-30)).max())
+                   for r in (0, 5))
+        if not (rel <= rtol and vrel <= rtol + 3 * U):
+            raise AssertionError(f"clip_flat off its plain version at n={n}: "
+                                 f"norm rel {rel}, values rel {vrel}")
+        for r in (1, 2, 3, 4):
+            if not (same_bits(got[r], want[r])
+                    and same_bits(gnorm[r], wnorm[r])):
+                raise AssertionError(f"clip_flat row {r} != plain version, "
+                                     f"bit for bit (n={n})")
+        if not (same_bits(got[2], m[2]) and bool(torch.isnan(got[3]).all())):
+            raise AssertionError("a row under the clip changed, or the NaN "
+                                 "row lost its NaN")
+        again = dp_clip.clip_flat(m, DP_CLIP)
+        if not (same_bits(again[0], got) and same_bits(again[1], gnorm)):
+            raise AssertionError("clip_flat differs between two runs")
+        print(f"  clip_flat == plain: norms within rel {rel:.3e} (bound "
+              f"{rtol:.3e}), zero / under-clip / NaN / Inf rows bit for bit, "
+              f"same bits twice ({tuple(m.shape)})")
+    for n in (layout.size, layout_a.size, layout.size + 77):
+        acc = (torch.randn(n, generator=gen) * 1e-3).to(dev)
+        for scale in (1e-2, 1e-5):           # clipped, under the clip
+            x = (torch.randn(n, generator=gen) * scale).to(dev)
+            got, gnorm = dp_clip.clip_accumulate(acc, x, DP_CLIP)
+            want, wnorm = ref.dp_clip_accumulate_ref(acc, x, DP_CLIP)
+            rel = abs(float(gnorm) - float(wnorm)) / float(wnorm)
+            terms = acc.abs() + x.abs() * min(1.0, DP_CLIP / float(wnorm))
+            ok = rel <= 1e-6 and bool(((got - want).abs()
+                                       <= 1e-6 * terms).all())
+            if scale == 1e-5:
+                ok = ok and same_bits(got, acc + x)
+            if not ok or not same_bits(
+                    dp_clip.clip_accumulate(acc, x, DP_CLIP)[0], got):
+                raise AssertionError(f"clip_accumulate off its plain version "
+                                     f"(n={n}, scale {scale}): norm rel {rel}")
+        # a zero x, an Inf and a NaN: bit for bit the plain version's
+        for edge, value in (("zero", 0.0), ("inf", float("inf")),
+                            ("nan", float("nan"))):
+            xe = torch.zeros_like(x) if edge == "zero" else x.clone()
+            xe[n // 2] = value
+            got, gnorm = dp_clip.clip_accumulate(acc, xe, DP_CLIP)
+            want, wnorm = ref.dp_clip_accumulate_ref(acc, xe, DP_CLIP)
+            if not (same_bits(got, want) and same_bits(gnorm, wnorm)):
+                raise AssertionError(f"clip_accumulate ({edge}) != plain "
+                                     f"version, bit for bit (n={n})")
+        print(f"  clip_accumulate within rtol 1e-6 of plain (last norm rel "
+              f"{rel:.3e}), under-clip / zero / Inf / NaN bit for bit, same "
+              f"bits twice (n={n})")
+
+    src = "src/repro_torch/kernels/csrc/dp_clip.cu"
+    knames = ("block_sumsq_kernel", "row_scale_kernel", "scale_kernel")
+
+    def specs(rows, n):
+        m = (torch.randn((rows, n), generator=gen) * 1e-2).to(dev)
+        acc = (torch.randn(n, generator=gen) * 1e-3).to(dev)
+        return [
+            ("clip_flat", src, "src/repro/kernels/dp_clip.py:70",
+             lambda: dp_clip.clip_flat(m, DP_CLIP),
+             lambda: ref.flat_clip_ref(m, DP_CLIP), None, knames,
+             8 * rows * n + 4 * rows, 3 * rows * n),
+            ("clip_accumulate", src, "src/repro/kernels/dp_clip.py:41",
+             lambda: dp_clip.clip_accumulate(acc, m[0], DP_CLIP),
+             lambda: ref.dp_clip_accumulate_ref(acc, m[0], DP_CLIP), None,
+             knames, 12 * n + 4, 4 * n),
+        ]
+    # the JSON line's shapes: clip_flat at the async lane's buffer,
+    # clip_accumulate at the FedAvg width; the other shape printed
+    main = specs(GOAL, layout.size)[:1] + specs(1, layout_a.size)[1:]
+    other = specs(GOAL, layout_a.size)[:1] + specs(1, layout.size)[1:]
+    for rec in kernel_records(other):
+        shape = "(6, 1695744)" if rec["name"] == "clip_flat" else "(89088,)"
+        print(f"  {rec['name']} at {shape}: wrapper {rec['ms']:.5f} ms, "
+              f"device {fmt_ms(rec['device_ms'])} ms, plain "
+              f"{rec['plain_ms']:.5f} ms, bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']})")
+    return kernel_records(main)
+
+
+def quickstart_rc(bits=0, dp=False):
+    """The quickstart's configuration: 10 clients x 2 local SGD steps x
+    batch 16, client lr 0.05, server SGD lr 0.5, at ``uplink_bits``;
+    ``dp`` adds DP clip and noise."""
+    from repro_torch.core import fedpt
     extra = (dict(dp_clip_norm=DP_CLIP, dp_noise_multiplier=DP_NOISE)
              if dp else {})
-    rc = fedpt.RoundConfig(clients_per_round=CLIENTS_PER_ROUND,
-                           local_steps=LOCAL_STEPS, local_batch=LOCAL_BATCH,
-                           client_opt="sgd", client_lr=0.05,
-                           server_opt="sgd", server_lr=0.5, uplink_bits=bits,
-                           **extra)
+    return fedpt.RoundConfig(clients_per_round=CLIENTS_PER_ROUND,
+                             local_steps=LOCAL_STEPS, local_batch=LOCAL_BATCH,
+                             client_opt="sgd", client_lr=0.05,
+                             server_opt="sgd", server_lr=0.5,
+                             uplink_bits=bits, **extra)
+
+
+def make_round(bits, dev, dp=False):
+    """The quickstart's round; ``dp`` adds DP-FedAvg (clip, noise) and the
+    quarantine screen."""
+    from repro_torch.core import fedpt, sanitize
     return fedpt.make_round_fn(
-        emnist_loss, rc, device=dev,
+        emnist_loss, quickstart_rc(bits, dp), device=dev,
         sanitize=sanitize.SanitizeConfig() if dp else None)
 
 
@@ -508,6 +645,210 @@ def drive_path(label, bits, dp, y0, frozen, draws, expect, dev):
     return counts
 
 
+def leaves_of(tree):
+    from repro_torch.nn.basic import flatten_params
+    return [v for _, v in flatten_params(tree)]
+
+
+def drive_run_federated(ds, y0, frozen, dev):
+    """Path 5: ``run_federated`` on the quickstart at ``uplink_bits=0``,
+    ROUNDS rounds from seed 0, with the launch counts set to 0 just before
+    and read just after; its history against a plain ``make_round_fn``
+    loop fed the grid's own streams (cohorts from ``default_rng(seed +
+    77)``, keys ``seed * 100_003 + r``), bit for bit with cuDNN set
+    deterministic for both runs. Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.core import fedpt
+    from repro_torch.data import synthetic as syn
+    from repro_torch.fl import runtime
+    from repro_torch.models import paper_models as pm
+    from repro_torch.nn import threefry
+    from repro_torch.sim import wire
+    rc = quickstart_rc(0)
+    label = "run_federated, quickstart, uplink_bits=0"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        round_fn, sopt = fedpt.make_round_fn(emnist_loss, rc, device=dev)
+        y, ss = y0, sopt.init(y0)
+        rng = np.random.default_rng(0 + 77)
+        plain = []
+        for r in range(ROUNDS):
+            cids = syn.sample_cohort(rng, ds.num_clients, CLIENTS_PER_ROUND)
+            batch, w = syn.cohort_batch(ds, cids, LOCAL_STEPS, LOCAL_BATCH,
+                                        rng)
+            y, ss, m = round_fn(y, ss, frozen, batch, w,
+                                threefry.key(0 * 100_003 + r))
+            plain.append(float(m["loss"]))
+        kernels.reset_launches()
+        res = runtime.run_federated(
+            lambda seed: pm.init_emnist_cnn(seed, device=dev), emnist_loss,
+            ds, rc, ROUNDS, freeze_spec=pm.EMNIST_FREEZE, seed=0, device=dev)
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    losses = [h["loss"] for h in res.history]
+    print(f"[main path] {label}: losses {[round(v, 4) for v in losses]}")
+    print(f"  seconds_per_round (synchronized) "
+          f"{1e3 * res.seconds_per_round:.3f} ms; launches {counts}")
+    same = losses == plain and all(torch.equal(a, b) for a, b in zip(
+        leaves_of(res.y), leaves_of(y)))
+    print(f"  against the plain loop fed the grid's streams, "
+          f"torch.backends.cudnn.deterministic=True: bit for bit {same}")
+    if not same:
+        raise AssertionError(f"{label}: history differs from the plain loop")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses not finite or not falling")
+    down, up = wire.downlink_bytes(res.y), wire.uplink_bytes(res.y, 0)
+    n = res.comm.transfers
+    print(f"  comm: {n} transfers, measured down {res.comm.measured_down_bytes}"
+          f" B = {n} x {down}, up {res.comm.measured_up_bytes} B = {n} x {up}")
+    if n != ROUNDS * CLIENTS_PER_ROUND or (
+            res.comm.measured_down_bytes, res.comm.measured_up_bytes) != (
+                n * down, n * up):
+        raise AssertionError(f"{label}: measured bytes off the payloads")
+    if counts["sumsq"] <= 0:
+        raise AssertionError(f"{label}: kernel sumsq was not launched")
+    return counts
+
+
+def async_run(ds, init, updates, dev):
+    """The async FedBuff grid with per-flush DP at int8, ``updates``
+    server updates from seed 0."""
+    from repro_torch.models import paper_models as pm
+    from repro_torch.sim import grid
+    gc = grid.GridConfig(mode="async", fleet="pareto-mobile",
+                         concurrency=CONCURRENCY, goal_count=GOAL,
+                         staleness="polynomial")
+    return grid.run_grid(init, emnist_loss, ds, quickstart_rc(8, dp=True),
+                         updates, grid=gc, freeze_spec=pm.EMNIST_FREEZE,
+                         seed=0, device=dev)
+
+
+def check_async_against_cpu(ds, dev):
+    """The async path's first ASYNC_CHECKED updates on the card against
+    the same run on the CPU through the plain versions, from the same
+    parameters."""
+    from repro_torch.bridge import from_numpy_tree, to_numpy_tree
+    from repro_torch.models import paper_models as pm
+    host = to_numpy_tree(pm.init_emnist_cnn(0, device=dev))
+    card = async_run(ds, lambda s: pm.init_emnist_cnn(s, device=dev),
+                     ASYNC_CHECKED, dev)
+    cpu = async_run(ds, lambda s: from_numpy_tree(host, "cpu"),
+                    ASYNC_CHECKED, "cpu")
+    exact = (len(card.history) == len(cpu.history) == ASYNC_CHECKED
+             and all({k: v for k, v in a.items()
+                      if k not in ("loss", "delta_norm")}
+                     == {k: v for k, v in b.items()
+                         if k not in ("loss", "delta_norm")}
+                     for a, b in zip(card.history, cpu.history))
+             and card.virtual_seconds == cpu.virtual_seconds
+             and card.scheduler_stats == cpu.scheduler_stats
+             and card.dp == cpu.dp
+             and (card.comm.measured_down_bytes, card.comm.measured_up_bytes,
+                  card.comm.transfers)
+             == (cpu.comm.measured_down_bytes, cpu.comm.measured_up_bytes,
+                 cpu.comm.transfers))
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(card.history, cpu.history))
+    worst = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        leaves_of(card.y), leaves_of(cpu.y)))
+    # the same noise draw (threefry bits equal; erfinv's log1p and sqrt
+    # may round an ulp apart); a client value on an int8 rounding boundary
+    # may flip by one step, at most clip / 127 once clipped (the step is
+    # the leaf's max|x| / 127 <= ||x|| / 127, times min(1, clip / ||x||)),
+    # which the fixed goal_count denominator and server_lr shrink; allow
+    # two such steps per flush
+    tol = ASYNC_CHECKED * 2 * 0.5 * DP_CLIP / 127 / GOAL + 1e-6
+    print(f"  async, first {ASYNC_CHECKED} updates, card vs CPU: virtual "
+          f"clock / staleness / scheduler stats / bytes / DP summary equal "
+          f"{exact}; loss rel {loss_rel:.3e} (tol 1e-4), max |y| diff "
+          f"{worst:.3e} (tol {tol:.3e}); virtual seconds "
+          f"{card.virtual_seconds:.6f} / {cpu.virtual_seconds:.6f}")
+    if not (exact and loss_rel <= 1e-4 and worst <= tol):
+        raise AssertionError("async DP path: the card's run disagrees with "
+                             "the CPU's")
+
+
+def drive_async_dp(ds, dev):
+    """Path 6: the async grid, FedBuff with per-flush DP at int8,
+    ASYNC_UPDATES server updates, with the launch counts set to 0 just
+    before and read just after; then the card against the CPU, and the
+    lane step and the buffered apply timed, one flush profiled. Returns
+    the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.core import dp as dp_lib, fedpt
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import paper_models as pm
+    from repro_torch.nn import threefry
+    label = "async FedBuff, int8 + per-flush DP"
+    init = lambda s: pm.init_emnist_cnn(s, device=dev)  # noqa: E731
+    kernels.reset_launches()
+    res = async_run(ds, init, ASYNC_UPDATES, dev)
+    counts = dict(kernels.LAUNCHES)
+    losses = [h["loss"] for h in res.history]
+    norms = [h["delta_norm"] for h in res.history]
+    print(f"[main path] {label}: losses {[round(v, 4) for v in losses]}")
+    print(f"  delta_norm {[round(v, 5) for v in norms]}")
+    print(f"  staleness_max {[h['staleness_max'] for h in res.history]}, "
+          f"virtual seconds {res.virtual_seconds:.4f}, stats "
+          f"{res.scheduler_stats}, dp {res.dp}")
+    print(f"  seconds_per_round (per update, synchronized) "
+          f"{1e3 * res.seconds_per_round:.3f} ms; launches {counts}")
+    sigma = DP_NOISE * DP_CLIP / GOAL
+    if len(res.history) != ASYNC_UPDATES or not all(
+            math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{label}: wrong record count or non-finite")
+    if (res.dp["flushes"], res.dp["sigma"]) != (ASYNC_UPDATES, sigma) or \
+            not math.isfinite(res.dp["epsilon"]):
+        raise AssertionError(f"{label}: DP summary {res.dp}")
+    for name in ("clip_flat", "leaf_maxabs", "fake_quantize_flat"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched")
+    check_async_against_cpu(ds, dev)
+
+    # the two device steps of a flush, alone, at the path's shapes
+    rc = quickstart_rc(8, dp=True)
+    y, frozen = res.y, res.frozen
+    lane_step = fedpt.make_lane_step(emnist_loss, rc, GOAL, device=dev)
+    apply_fn = fedpt.make_buffered_apply(
+        fedpt.resolve_server_opt(rc),
+        flush_dp=dp_lib.FlushDPConfig(DP_CLIP, DP_NOISE, GOAL), device=dev)
+    rng = np.random.default_rng(5)
+    batches = [syn.client_batch_images(ds, c, LOCAL_STEPS, LOCAL_BATCH,
+                                       rng)[0] for c in range(GOAL)]
+    lane = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    w = np.full(GOAL, 0.7, np.float32)
+    sstate = fedpt.resolve_server_opt(rc).init(y)
+    rows, _ = lane_step(y, frozen, lane)
+
+    def wall_ms(fn, iters=10):
+        fn()
+        out = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    lane_ms = wall_ms(lambda: lane_step(y, frozen, lane))
+    apply_ms = wall_ms(lambda: apply_fn(y, sstate, rows, w,
+                                        threefry.key(7)))
+    print(f"  lane step ({GOAL} clients) {lane_ms:.3f} ms, buffered apply "
+          f"({GOAL}, {rows.shape[1]}) {apply_ms:.3f} ms (wall, median of "
+          f"10, synchronized)")
+    wall, busy, n_kernels, top = profile_round(
+        lambda: apply_fn(y, sstate, lane_step(y, frozen, lane)[0], w,
+                         threefry.key(7)))
+    print(f"  profiled flush (one lane step + the apply): wall {wall:.3f} "
+          f"ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%, idle "
+          f"{100 * (1 - busy / wall):.1f}%), {n_kernels} device ops; host "
+          f"ops by self time (name, ms, calls): {top}")
+    return counts
+
+
 def tail_routes(layouts, dev):
     """Staged against fused at both buffer sizes, for variant A's and B's
     pipelines (the arguments the round engine passes): wall ms per call
@@ -616,7 +957,8 @@ def main() -> int:
 
     # --- phase 2: kernels against their plain versions -------------------
     print("[kernels] against their plain versions at the main paths' shapes")
-    records = check_kernels(layout, dev) + check_fused_kernels(layout_a, dev)
+    records = (check_kernels(layout, dev) + check_fused_kernels(layout_a, dev)
+               + check_clip_kernels(layout, layout_a, dev))
 
     # --- phase 3: the main paths -----------------------------------------
     paths = [  # label, bits, dp, (y, frozen), kernels that must launch
@@ -637,14 +979,20 @@ def main() -> int:
         counts = drive_path(label, bits, dp, ys, zs, draws, expect, dev)
         for name in launches:
             launches[name] += counts[name]
+    for counts in (drive_run_federated(ds, y0, frozen, dev),
+                   drive_async_dp(ds, dev)):
+        for name in launches:
+            launches[name] += counts[name]
     print(f"[main path] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     tail_routes((("quickstart", layout), ("FedAvg", layout_a)), dev)
 
     # --- phase 4: summary ------------------------------------------------
+    if len(records) != 8:
+        raise AssertionError(f"{len(records)} kernel records, not 8")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
-        if rec["launches"] <= 0:
+        if rec["launches"] <= 0 and rec["name"] not in NO_ENGINE:
             raise AssertionError(f"kernel {rec['name']} never launched on "
                                  f"a main path")
     print(json.dumps({"kernels": records}))

@@ -17,11 +17,15 @@ The client axis is ``torch.func.vmap``, as in the reference, so each op
 of the local step is dispatched once for the whole cohort; the tau-step
 ``scan`` is a Python loop over steps. The engine takes any
 ``loss_fn(params, batch)`` that ``vmap`` can batch.
+
+The async grid's hooks follow: staleness weightings, the single-client
+and lane-batched client steps, and the buffered server apply. All are
+untiered: a ``tier`` / ``plan`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -80,6 +84,19 @@ def make_client_update(loss_fn: Callable, client_opt: opt_lib.Optimizer,
     return client_update
 
 
+def clip_delta(delta, clip_norm: float):
+    """Per-client L2 clipping: delta * min(1, C/||delta||), over the flat
+    buffer (the clip kernel on CUDA, its plain version on the CPU).
+    Accepts and returns a tree, or a flat float32 vector, in which case
+    no unflatten round-trip is paid; returns (clipped, pre-clip norm)."""
+    if isinstance(delta, torch.Tensor) and delta.ndim == 1:
+        return flat_lib.clip(delta, clip_norm)
+    layout = flat_lib.FlatLayout.of(delta)
+    clipped, nrm = flat_lib.clip(layout.flatten(delta), clip_norm, layout)
+    # leaves keep their dtype, as on the tree path
+    return layout.unflatten(clipped), nrm
+
+
 def resolve_server_opt(rc: RoundConfig) -> opt_lib.Optimizer:
     """The ServerOpt a RoundConfig names."""
     if rc.server_opt == "sgdm":
@@ -134,7 +151,7 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
                 raise ValueError(f"parameters on {leaf.device}, the round "
                                  f"runs on {dev}")
         layout = flat_lib.FlatLayout.of(y)
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = _on(dev, batch)
         weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
 
         # --- local training on every sampled client, vmapped over the
@@ -176,3 +193,198 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
         return y_new, server_state, out_metrics
 
     return round_step, server_opt
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous (buffered) aggregation hooks — used by sim/scheduler.py.
+#
+# FedBuff-style servers weight each buffered client delta by a function of
+# its *staleness* s = (server version now) - (server version the client
+# downloaded). The weighting is pluggable; the named defaults follow
+# Nguyen et al. 2022 (polynomial, a=0.5) and Xie et al. 2019 (hinge).
+
+
+def staleness_constant():
+    """No down-weighting (plain buffered FedAvg)."""
+    return lambda s: 1.0
+
+
+def staleness_polynomial(power: float = 0.5):
+    """w(s) = (1+s)^-a; a=0.5 is FedBuff's 1/sqrt(1+s)."""
+    return lambda s: (1.0 + float(s)) ** (-power)
+
+
+def staleness_hinge(delay: float = 4.0, slope: float = 0.5):
+    """w(s) = 1 while s <= delay, then 1/(slope*(s-delay)+1)."""
+    def fn(s):
+        s = float(s)
+        return 1.0 if s <= delay else 1.0 / (slope * (s - delay) + 1.0)
+    return fn
+
+
+STALENESS_FNS = {
+    "constant": staleness_constant,
+    "polynomial": staleness_polynomial,
+    "hinge": staleness_hinge,
+}
+
+
+def get_staleness_fn(name="polynomial", **kw) -> Callable[[float], float]:
+    """Resolve a staleness weighting: a callable passes through, a name
+    looks up STALENESS_FNS (kw forwarded to the factory)."""
+    if callable(name):
+        return name
+    try:
+        return STALENESS_FNS[name](**kw)
+    except KeyError:
+        raise ValueError(f"unknown staleness_fn {name!r}; "
+                         f"options: {sorted(STALENESS_FNS)}") from None
+
+
+def _untiered(tier, plan) -> None:
+    if tier is not None or plan is not None:
+        raise NotImplementedError("trainability tiers (core/plan.py) are "
+                                  "not ported yet")
+
+
+def _uplink_tail(rc: RoundConfig, layout, rows: torch.Tensor):
+    """The client-side uplink model over (rows, size) flat deltas, in the
+    reference client step's order: int-k fake-quantize, then the DP clip.
+    Each row gets what the reference's step gives that client alone.
+    Returns (rows, pre-clip norms or None)."""
+    if rc.uplink_bits:
+        rows = flat_lib.fake_quantize(rows, layout, rc.uplink_bits)
+    nrm = None
+    if rc.dp_clip_norm > 0:
+        rows, nrm = flat_lib.clip(rows, rc.dp_clip_norm, layout)
+    return rows, nrm
+
+
+def _on(dev, batch) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def make_client_step(loss_fn: Callable, rc: RoundConfig,
+                     client_opt: Optional[opt_lib.Optimizer] = None,
+                     tier=None, plan=None, device=None):
+    """Single-client step for the async grid's sequential engine:
+    (y, frozen, client_batch) -> (flat_delta (size,), metrics). The delta
+    is born flat on the ``FlatLayout`` of ``y``; the uplink quantization
+    and the DP clip then run over it as a one-row buffer, through the
+    same kernels as a lane (:func:`make_lane_step`). metrics:
+    ``client_loss`` (a 0-d tensor, left on the device) and, when
+    clipping, ``update_norm``. Runs on ``device`` (CUDA by default)."""
+    _untiered(tier, plan)
+    dev = resolve_device(device)
+    if client_opt is None:
+        client_opt = opt_lib.get_optimizer(rc.client_opt, rc.client_lr)
+    client_update = make_client_update(loss_fn, client_opt, rc.local_steps)
+
+    def client_step(y, frozen, client_batch):
+        layout = flat_lib.FlatLayout.of(y)
+        delta, metrics = client_update(y, frozen, _on(dev, client_batch))
+        rows, nrm = _uplink_tail(rc, layout, layout.flatten(delta)[None])
+        if nrm is not None:
+            metrics = dict(metrics, update_norm=nrm[0])
+        return rows[0], metrics
+
+    return client_step
+
+
+def make_lane_step(loss_fn: Callable, rc: RoundConfig, lane: int,
+                   client_opt: Optional[opt_lib.Optimizer] = None,
+                   tier=None, plan=None, device=None):
+    """Batched client step for the async grid's fixed-width lanes:
+    (y, frozen, lane_batch) -> (flat_deltas (lane, size), losses (lane,)).
+
+    Local training and the flatten run under ``torch.func.vmap`` over the
+    lane; the uplink quantization and the DP clip then take the whole
+    (lane, size) buffer in one kernel call each (a ctypes kernel cannot
+    run inside ``vmap``), row by row what the reference's vmapped client
+    step gives each client. Runs on ``device`` (CUDA by default)."""
+    _untiered(tier, plan)
+    dev = resolve_device(device)
+    if client_opt is None:
+        client_opt = opt_lib.get_optimizer(rc.client_opt, rc.client_lr)
+    client_update = make_client_update(loss_fn, client_opt, rc.local_steps)
+
+    def lane_step(y, frozen, lane_batch):
+        layout = flat_lib.FlatLayout.of(y)
+
+        def flat_client(cb):
+            delta, metrics = client_update(y, frozen, cb)
+            return layout.flatten(delta), metrics["client_loss"]
+
+        rows, losses = torch.func.vmap(flat_client)(_on(dev, lane_batch))
+        if rows.shape[0] != lane:
+            raise ValueError(f"lane batch of {rows.shape[0]} clients, the "
+                             f"lane is {lane} wide")
+        rows, _ = _uplink_tail(rc, layout, rows)
+        return rows, losses
+
+    return lane_step
+
+
+def make_buffered_apply(server_opt: opt_lib.Optimizer, flush_dp=None,
+                        plan=None, sanitize=None, fused_threshold=None,
+                        device=None):
+    """Server-side flush of an async buffer: apply(y, server_state,
+    flat_deltas, weights, rng=None) -> (y_new, server_state, metrics),
+    with ``flat_deltas`` the (K, size) stack of flat client deltas and
+    weights (K,) already including the staleness factor. The tail
+    (``kernels/ops.agg_tail``) takes the weighted mean, ServerOpt the
+    pseudo-gradient, as in the sync engine.
+
+    K is a fixed shape: short buffers (a drained final flush) are padded
+    with zero-weight rows by the caller, which fall out of the weighted
+    mean. ``flush_dp`` (a :class:`repro_torch.core.dp.FlushDPConfig`)
+    turns on per-flush DP: the mean divides by the FIXED ``goal_count``
+    and ``rng`` (the flush's threefry key) drives ONE Gaussian draw over
+    the flat buffer; client deltas must arrive clipped. ``sanitize``
+    screens the buffer first; the quarantine masks ride back on the
+    metrics. metrics: ``delta_norm`` (of the flat update through the
+    sumsq kernel, or of the unflattened tree when noised, since pad
+    slots carry noise)."""
+    _untiered(None, plan)
+    dev = resolve_device(device)
+    noised = flush_dp is not None and flush_dp.noise_multiplier > 0
+
+    def apply_fn(y, server_state, flat_deltas, weights, rng=None):
+        if noised and rng is None:
+            raise ValueError("flush DP noise needs a per-flush rng key")
+        layout = flat_lib.FlatLayout.of(y)
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        flat_delta, ainfo = kernel_ops.agg_tail(
+            flat_deltas, weights,
+            block_leaf=layout.block_leaf(),
+            n_leaves=len(layout.sizes),
+            align=layout.align,
+            wsum_fixed=(float(flush_dp.goal_count)
+                        if flush_dp is not None else None),
+            sigma=flush_dp.sigma if noised else 0.0,
+            rng=rng if noised else None,
+            screen=sanitize, threshold=fused_threshold)
+        delta = layout.unflatten(flat_delta, dtype=torch.float32)
+        neg = tree_map(torch.neg, delta)
+        y_new, server_state = server_opt.update(y, neg, server_state)
+        out = {"delta_norm": opt_lib.tree_global_norm(delta) if noised
+               else torch.sqrt(flat_lib.sumsq(flat_delta, layout.align))}
+        if sanitize is not None:
+            out["quarantine_nonfinite"] = ainfo["nonfinite"]
+            out["quarantine_outlier"] = ainfo["outlier"]
+            out["quarantine_norms"] = ainfo["norms"]
+        return y_new, server_state, out
+
+    return apply_fn
+
+
+def make_eval_fn(loss_fn: Callable):
+    """Centralized eval of the merged model: eval_step(y, frozen, batch)
+    -> loss."""
+
+    def eval_step(y, frozen, batch):
+        with torch.no_grad():
+            out = loss_fn(part.merge(y, frozen), batch)
+        return out[0] if isinstance(out, tuple) else out
+
+    return eval_step

@@ -104,6 +104,17 @@ def row_norms(mat: torch.Tensor, align: int = ALIGN) -> torch.Tensor:
     return torch.sqrt(row_sumsq(mat, align))
 
 
+def clip(vec: torch.Tensor, clip_norm: float,
+         layout: Optional[FlatLayout] = None):
+    """Per-row L2 clip, vec * min(1, C/||vec||), of a (size,) vector or of
+    each row of a (rows, size) buffer. Returns (clipped, pre-clip norms):
+    the clip kernel for a CUDA tensor, the plain version for a CPU one."""
+    if vec.device.type == "cpu":
+        align = layout.align if layout is not None else ALIGN
+        return ref.flat_clip_ref(vec, clip_norm, chunk=align)
+    return dp_clip.clip_flat(vec.float().contiguous(), clip_norm)
+
+
 def fake_quantize(mat: torch.Tensor, layout: FlatLayout, bits: int = 8):
     """Per-leaf symmetric int-k fake-quantization of flat client deltas,
     (C, size) or (size,), scales per (client, leaf): the CUDA kernels for
@@ -119,6 +130,22 @@ def weighted_mean(mat: torch.Tensor, weights: torch.Tensor,
                   wsum: torch.Tensor) -> torch.Tensor:
     """(C, size), (C,) -> (size,): sum_c w_c * mat_c / wsum as one matmul."""
     return torch.matmul(weights.float(), mat.float()) / wsum
+
+
+def pad_rows(mat: torch.Tensor, rows: int) -> torch.Tensor:
+    """Pad a (k, size) stack to (rows, size) with zero rows (k <= rows).
+
+    The async grid's drained final flush uses this to keep the buffered
+    apply at its fixed ``goal_count`` shape: padding rows carry zero
+    weight, so they fall out of the weighted mean, and under per-flush DP
+    the fixed-denominator mean and noise sigma are unchanged by them."""
+    if mat.shape[0] > rows:
+        raise ValueError(f"cannot pad {mat.shape[0]} rows down to {rows}")
+    if mat.shape[0] == rows:
+        return mat
+    pad = torch.zeros((rows - mat.shape[0],) + tuple(mat.shape[1:]),
+                      dtype=mat.dtype, device=mat.device)
+    return torch.cat([mat, pad])
 
 
 def draw_noise(rng: threefry.Key, size: int, sigma: float,

@@ -61,9 +61,20 @@ def client_batch_images(ds: FederatedImages, cid: int, tau: int, batch: int,
     return {"images": xs[idx], "labels": ys[idx]}, float(len(ys))
 
 
-def cohort_batch(ds: FederatedImages, cids, tau: int, batch: int, rng):
+def check_kind(kind: str) -> None:
+    """Only image data is ported; the token data of the SO NWP task waits
+    for its model."""
+    if kind != "images":
+        raise NotImplementedError(f"data kind {kind!r}: only 'images' is "
+                                  "ported (tokens wait for the SO NWP "
+                                  "model)")
+
+
+def cohort_batch(ds: FederatedImages, cids, tau: int, batch: int, rng,
+                 kind: str = "images"):
     """Stack per-client batches into the round engine's
     (clients, tau, batch, ...) layout plus the weight vector p_i."""
+    check_kind(kind)
     batches, weights = [], []
     for cid in cids:
         b, w = client_batch_images(ds, int(cid), tau, batch, rng)

@@ -23,7 +23,7 @@ import torch
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("sumsq.cu", "quantize.cu", "agg_tail.cu")
+SOURCES = ("sumsq.cu", "quantize.cu", "agg_tail.cu", "dp_clip.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

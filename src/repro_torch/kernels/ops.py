@@ -23,11 +23,24 @@ import torch
 from repro_torch.core import flat as flat_lib
 from repro_torch.core import sanitize as sanitize_lib
 from repro_torch.kernels import agg_tail as _agg
+from repro_torch.kernels import dp_clip as _dp
 from repro_torch.kernels import quantize as _q
 
 # the JAX dispatcher's size threshold for the fused route, kept so that
 # both packages take the same route (the card's crossover is in PERF.md)
 AGG_FUSE_THRESHOLD = 4 << 20
+
+
+def clip_accumulate(acc, x, clip_norm: float):
+    """DP clip-and-accumulate over flat f32 vectors: (acc + x * min(1,
+    C/||x||), pre-clip norm)."""
+    return _dp.clip_accumulate(acc, x, clip_norm)
+
+
+def flat_clip(x, clip_norm: float):
+    """Per-row L2 clip of flat f32 deltas, (R, N) or (N,): (clipped,
+    pre-clip norms)."""
+    return _dp.clip_flat(x, clip_norm)
 
 
 def _staged_tail(mat, weights, block_leaf, rng, *, n_leaves, align, bits,

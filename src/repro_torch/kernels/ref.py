@@ -60,13 +60,28 @@ def row_sumsq_ref(mat, chunk: int = 1024):
     return _row_combine(_sumsq_blocks(_chunked(mat.float(), chunk)))
 
 
+def _clip_scale(nrm, clip_norm: float):
+    """min(1, C / max(norm, 1e-12)), NaN kept (``torch.clamp`` propagates
+    it as ``jnp.minimum`` / ``jnp.maximum`` do). The division is tensor by
+    tensor (see ``agg_scales_ref``)."""
+    return torch.clamp(torch.full_like(nrm, clip_norm)
+                       / torch.clamp_min(nrm, 1e-12), max=1.0)
+
+
 def flat_clip_ref(x, clip_norm: float, chunk: int = 1024):
-    """x * min(1, C/||x||) of a flat vector; returns (clipped, pre-clip
-    norm). The divisions are tensor by tensor (see ``agg_scales_ref``)."""
-    nrm = torch.sqrt(flat_sumsq_ref(x, chunk))
-    scale = torch.clamp(torch.full_like(nrm, clip_norm)
-                        / torch.clamp_min(nrm, 1e-12), max=1.0)
-    return x.float() * scale, nrm
+    """x * min(1, C/||x||) of each row of (..., N) flat rows; returns
+    (clipped, pre-clip norms (...,)). A row's norm is
+    ``repro/kernels/ref.flat_clip_ref``'s for that row alone."""
+    nrm = torch.sqrt(row_sumsq_ref(x, chunk))
+    return x.float() * _clip_scale(nrm, clip_norm)[..., None], nrm
+
+
+def dp_clip_accumulate_ref(acc, x, clip_norm: float):
+    """acc + x * min(1, C/||x||) of (N,) vectors; returns (new acc, pre-clip
+    norm). The norm is one plain sum, as ``repro/kernels/ref.py``'s."""
+    xf = x.float()
+    nrm = torch.sqrt((xf * xf).sum())
+    return acc + xf * _clip_scale(nrm, clip_norm), nrm
 
 
 def _leaf_index(block_leaf, device) -> torch.Tensor:

@@ -95,6 +95,11 @@ def tree_size(tree) -> int:
     return sum(int(np.prod(tuple(x.shape))) for x in tree_leaves(tree))
 
 
+def tree_bytes(tree) -> int:
+    return sum(int(np.prod(tuple(x.shape))) * x.element_size()
+               for x in tree_leaves(tree))
+
+
 # ---------------------------------------------------------------------------
 # Norms and dense layers
 

@@ -1,0 +1,596 @@
+"""The simulation grid entry point, port of ``repro/sim/grid.py``.
+
+``run_grid`` trains a FedPT model over a heterogeneous client fleet under
+either scheduling regime and reports *measured* wire bytes plus simulated
+cross-device wall-clock. ``fl.runtime.run_federated`` delegates here with
+``GridConfig()`` defaults (uniform fleet, synchronous, no deadline) and
+equals a plain round loop fed the same streams bit for bit: the grid
+consumes the data-sampling RNG stream (``seed + 77``) and the per-round
+DP keys (``seed*100_003 + r``, threefry, as ``jax.random.key``) in
+exactly the reference's order, and routes all device/availability
+randomness through a separate stream (and all *dynamics* randomness —
+link jitter, trace phases — through an independent child of that
+stream). The host side (fleets, scheduler, dynamics, faults, selection,
+telemetry) is the reference's own code, copied; the device side runs the
+port's engines on ``device`` (CUDA unless the caller asks for the CPU).
+
+Not ported yet, and refused with ``NotImplementedError`` rather than
+taking another route (``ROADMAP.md``, Queue 1): trainability plans
+(``GridConfig.plan``), mesh execution (``mesh``), the two-level topology
+(``topology``, and with it region shocks), checkpoint / resume
+(``checkpoint_every``, ``resume_from``) and the device profiler
+annotations (``TelemetryConfig.profile``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from collections import Counter
+from typing import Any, Callable, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+import repro_torch.core.partition as part
+from repro_torch import resolve_device
+from repro_torch.core import comm, dp as dp_lib, fedpt
+from repro_torch.core import flat as flat_lib
+from repro_torch.core import sanitize as sanitize_lib
+from repro_torch.data import synthetic as syn
+from repro_torch.nn import basic, threefry
+from repro_torch.obs import metrics as metrics_lib
+from repro_torch.obs import trace as trace_lib
+from repro_torch.sim import devices as dev_lib
+from repro_torch.sim import dynamics as dyn_lib
+from repro_torch.sim import faults as faults_lib
+from repro_torch.sim import scheduler as sched_lib
+from repro_torch.sim import selection as sel_lib
+from repro_torch.sim import wire
+
+
+@dataclasses.dataclass
+class GridConfig:
+    """The reference's grid configuration, field for field (see
+    ``repro/sim/grid.py`` for each knob). ``mesh``, ``plan``,
+    ``tier_assignment``, ``topology``, ``checkpoint_*`` and ``resume_from``
+    keep their fields so that configurations carry over, and raise when
+    set (module docstring)."""
+    mode: str = "sync"                      # "sync" | "async"
+    fleet: Union[str, dev_lib.Fleet] = "uniform"
+    # virtual seconds one local step takes on the reference device; each
+    # client scales it by its profile's compute_multiplier
+    base_step_time: float = 0.01
+    # --- sync knobs ---
+    over_selection: float = 1.0             # dispatch ceil(f*C), keep first C
+    straggler_deadline: float = math.inf    # virtual seconds per round
+    # --- async (FedBuff) knobs ---
+    concurrency: int = 10                   # clients kept in flight
+    goal_count: int = 5                     # buffer size K per server update
+    staleness: Any = "polynomial"           # name or callable (core.fedpt)
+    staleness_kw: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # fixed-width client lanes: in-flight client steps are deferred and run
+    # as one (lane, ...) batch per flush. None = auto (lane width ==
+    # goal_count); 0 = the sequential per-client reference engine. The
+    # virtual-clock history is identical either way.
+    lanes: Optional[int] = None
+    # virtual-seconds budget for the whole async run: the first event past
+    # it ends the run, flushing the partial buffer as one final short
+    # update (padded to goal_count with zero weights)
+    async_deadline: float = math.inf
+    mesh: Any = None                        # not ported
+    plan: Any = None                        # not ported
+    tier_assignment: Any = "capability"
+    # None = the fleet preset's default; a preset name or DynamicsConfig
+    dynamics: Any = None
+    # "uniform", "bandwidth-aware", or a SelectionPolicy instance (the
+    # tier policies need a plan)
+    selection: Any = "uniform"
+    topology: Any = None                    # not ported
+    # None = no event records; a TelemetryConfig / True / dict records the
+    # virtual-time trace (profile=True is not ported)
+    telemetry: Any = None
+    # None = no failure model; a preset name ("chaos"), FaultConfig or dict
+    faults: Any = None
+    # None/False = off; True / a SanitizeConfig / a dict screens the buffer
+    sanitize: Any = None
+    # None = the tail's shape- and pipeline-aware default; an int routes by
+    # size (0 forces the fused tail)
+    agg_tail_threshold: Optional[int] = None
+    checkpoint_every: int = 0               # not ported
+    checkpoint_dir: Optional[str] = None
+    resume_from: Optional[str] = None       # not ported
+    # --- rng plumbing ---
+    fleet_seed: int = 0                     # profile sampling
+    device_seed: int = 13                   # availability/dropout/latency
+
+
+@dataclasses.dataclass
+class GridResult:
+    y: Any
+    frozen: Any
+    history: List[Dict[str, float]]
+    comm: comm.CommReport
+    seconds_per_round: float                # real wall-clock, synchronized
+    virtual_seconds: float                  # simulated cross-device time
+    fleet: dev_lib.Fleet
+    mode: str
+    scheduler_stats: Dict[str, int]
+    # per-flush DP accounting (async mode with dp_noise_multiplier > 0):
+    # flushes, padded_flushes, max_multiplicity, sigma, noise_multiplier,
+    # epsilon, delta
+    dp: Optional[Dict[str, float]] = None
+    tier_stats: Optional[Dict[str, Dict[str, float]]] = None
+    plan: Any = None
+    # the bound SelectionPolicy and BoundDynamics the run used
+    policy: Any = None
+    dynamics: Any = None
+    topology: Any = None
+    # the run's MetricsRegistry (always present); scheduler_stats is a
+    # dict view over it
+    metrics: Any = None
+    # the Tracer when GridConfig.telemetry was set (else None)
+    telemetry: Any = None
+    # fired fault counters when GridConfig.faults was set
+    faults: Optional[Dict[str, int]] = None
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        """Alias for ``scheduler_stats``."""
+        return self.scheduler_stats
+
+
+def num_clients(ds) -> int:
+    if hasattr(ds, "num_clients"):
+        return ds.num_clients
+    return len(ds.client_tokens)
+
+
+def _uplink_bytes(tree, bits: int) -> int:
+    """Measured (serialized) uplink size when the wire format supports
+    the payload (fp32 / int8); analytic int-k estimate otherwise."""
+    if bits in (0, 8):
+        return wire.uplink_bytes(tree, bits=bits)
+    from repro_torch.core import compress
+    return compress.quantized_uplink_bytes(tree, bits)
+
+
+def _refuse_unported(grid: GridConfig, tel_cfg) -> None:
+    def todo(what, item):
+        return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                                   f"Queue 1 item {item})")
+    if grid.plan is not None:
+        raise todo("GridConfig.plan (trainability tiers, core/plan.py)", 9)
+    if grid.mesh is not None:
+        raise todo("GridConfig.mesh (mesh execution, launch/mesh.py)", 12)
+    if grid.topology is not None:
+        raise todo("GridConfig.topology (edge regions and region shocks, "
+                   "sim/topology.py)", 9)
+    if grid.checkpoint_every > 0 or grid.resume_from:
+        raise todo("checkpoint / resume (checkpoint/grid_state.py)", 9)
+    if tel_cfg is not None and tel_cfg.profile:
+        raise todo("TelemetryConfig.profile (obs/profiling.py)", 10)
+
+
+def _synchronize(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
+             rc: fedpt.RoundConfig, rounds: int,
+             grid: Optional[GridConfig] = None, freeze_spec=(),
+             seed: int = 0, data_kind: str = "images", eval_every: int = 0,
+             eval_fn: Optional[Callable[[Any], Dict[str, float]]] = None,
+             server_opt=None, log: bool = False, device=None) -> GridResult:
+    """Train for `rounds` server updates on the simulated fleet. In sync
+    mode a "round" is one cohort; in async mode it is one buffered server
+    update (goal_count client deltas). ``init_fn(seed)`` returns the
+    parameter tree; it is moved to ``device`` (CUDA by default; raises
+    when there is none and the CPU was not asked for)."""
+    dev = resolve_device(device)
+    grid = grid or GridConfig()
+    tel_cfg = trace_lib.resolve_telemetry(grid.telemetry)
+    _refuse_unported(grid, tel_cfg)
+    syn.check_kind(data_kind)
+    N = num_clients(dataset)
+    if rc.clients_per_round > N:
+        raise ValueError(f"clients_per_round={rc.clients_per_round} exceeds "
+                         f"the dataset's {N} clients")
+    fleet = dev_lib.make_fleet(N, grid.fleet, seed=grid.fleet_seed)
+    params = basic.tree_map(lambda t: t.to(dev), init_fn(seed))
+    y, frozen = part.partition(params, freeze_spec)
+
+    # the metrics registry is ALWAYS live (it backs scheduler_stats); the
+    # tracer is the NULL no-op unless GridConfig.telemetry asks for records
+    registry = metrics_lib.MetricsRegistry()
+    tracer = (trace_lib.Tracer(tel_cfg, registry) if tel_cfg is not None
+              else trace_lib.NULL_TRACER)
+
+    report = comm.report_for(y, frozen, uplink_bits=rc.uplink_bits)
+    report.tracer = tracer
+    down_bytes = wire.downlink_bytes(y)          # y + 8-byte seed, measured
+    up_bytes = _uplink_bytes(y, rc.uplink_bits)  # shape-determined
+    compute_seconds = rc.local_steps * grid.base_step_time
+    registry.gauge("payload_down_bytes").set(int(down_bytes))
+    registry.gauge("payload_up_bytes").set(int(up_bytes))
+    registry.gauge("compute_seconds").set(float(compute_seconds))
+
+    data_rng = np.random.default_rng(seed + 77)  # == run_federated's stream
+    dev_rng = np.random.default_rng([seed, grid.device_seed])
+    # the dynamics stream: an independent child of [seed, device_seed];
+    # spawning advances no draws of dev_rng
+    dyn_rng = dev_rng.spawn(1)[0]
+    dyn_cfg = dyn_lib.resolve_dynamics(grid.dynamics, fleet)
+    dyn = dyn_cfg.bind(fleet, dyn_rng) if dyn_cfg is not None else None
+
+    # the fault stream: a SECOND child, spawned ONLY when a failure model
+    # is active, so faults=None runs see the same streams
+    faults_cfg = faults_lib.resolve_faults(grid.faults)
+    if faults_cfg is not None and grid.mode == "sync" \
+            and faults_cfg.payload_prob > 0:
+        raise ValueError(
+            "sync mode supports only crash_compute and server_kill_at "
+            "faults — payload faults (truncate/corrupt/duplicate) need "
+            "the async per-client wire path")
+    bfaults = (faults_cfg.bind(dev_rng.spawn(1)[0])
+               if faults_cfg is not None else None)
+    if dyn_cfg is not None and dyn_cfg.shocks is not None:
+        raise ValueError(
+            "DynamicsConfig.shocks needs a topology (GridConfig."
+            "topology): shocks down whole edge regions, and the flat "
+            "grid has none")
+    san = sanitize_lib.resolve_sanitize(grid.sanitize)
+
+    policy = sel_lib.resolve_policy(grid.selection)
+    rtt_estimate = np.asarray(
+        fleet.state.round_trip_seconds(down_bytes,
+                                       np.full(N, up_bytes, np.int64),
+                                       np.full(N, compute_seconds,
+                                               np.float64)),
+        np.float64)
+    policy.bind(fleet=fleet, num_clients=N, cplan=None, tiers=None,
+                rtt_estimate=rtt_estimate)
+
+    common = dict(fleet=fleet, report=report, down_bytes=down_bytes,
+                  up_bytes=up_bytes, compute_seconds=compute_seconds,
+                  data_rng=data_rng, dev_rng=dev_rng, seed=seed,
+                  eval_every=eval_every, eval_fn=eval_fn, log=log, dyn=dyn,
+                  dyn_rng=dyn_rng, policy=policy, registry=registry,
+                  tracer=tracer, bfaults=bfaults, san=san, dev=dev)
+    if grid.mode == "sync":
+        return _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid,
+                         server_opt, **common)
+    if grid.mode == "async":
+        return _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid,
+                          server_opt, **common)
+    raise ValueError(f"unknown grid mode {grid.mode!r} "
+                     "(expected 'sync' or 'async')")
+
+
+# ---------------------------------------------------------------------------
+# Synchronous cohorts
+
+
+# the normalized scheduler-stats schema: BOTH modes emit every key, with
+# explicit zeros where a counter cannot fire
+STAT_KEYS = ("dispatches", "uploads", "offline", "dropouts",
+             "deadline_drops", "excess", "retries",
+             "crashes", "truncated", "corrupted", "duplicates",
+             "quarantined")
+
+
+def _stats_view(registry: metrics_lib.MetricsRegistry) -> Dict[str, int]:
+    """GridResult.scheduler_stats as a dict view over the metrics
+    registry."""
+    return {k: int(registry.counter(k).value) for k in STAT_KEYS}
+
+
+def _faults_view(registry: metrics_lib.MetricsRegistry,
+                 bfaults) -> Optional[Dict[str, int]]:
+    """GridResult.faults: the fired-fault counters, when a failure model
+    was active (quarantined rows ride along)."""
+    if bfaults is None:
+        return None
+    return {k: int(registry.counter(k).value)
+            for k in ("crashes", "truncated", "corrupted", "duplicates",
+                      "quarantined")}
+
+
+def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
+              fleet, report, down_bytes, up_bytes, compute_seconds,
+              data_rng, dev_rng, seed, eval_every, eval_fn, log, dyn,
+              dyn_rng, policy, registry, tracer, bfaults, san, dev):
+    round_fn, sopt = fedpt.make_round_fn(
+        loss_fn, rc, server_opt=server_opt, device=dev, sanitize=san,
+        fused_threshold=grid.agg_tail_threshold)
+    sstate = sopt.init(y)
+    N = num_clients(dataset)
+    C = rc.clients_per_round
+    m = min(N, max(C, int(math.ceil(C * grid.over_selection))))
+
+    history: List[Dict[str, float]] = []
+    mc = registry.counter
+    vt = 0.0
+    t0 = None
+    for r in range(rounds):
+        if bfaults is not None and vt > bfaults.kill_at:
+            raise faults_lib.ServerKilled(at=vt, applied=r, checkpoint=None)
+        cids = policy.select_cohort(data_rng, m)
+        plan = sched_lib.plan_sync_round(
+            fleet, cids, down_bytes, up_bytes, compute_seconds, C, dev_rng,
+            deadline=grid.straggler_deadline, dynamics=dyn,
+            dyn_rng=dyn_rng, now=vt, tracer=tracer, faults=bfaults)
+        # the C slots the round engine sees: participants in arrival
+        # order, padded (weight 0) with the remaining cohort in dispatch
+        # order when drops leave the round short
+        kept_cids = plan.participant_cids()
+        pad = plan.cids[~plan.participant][:C - len(kept_cids)]
+        sel = np.concatenate([kept_cids, pad]).astype(np.int64)
+        kept = np.arange(C) < len(kept_cids)
+
+        batch, w = syn.cohort_batch(dataset, sel, rc.local_steps,
+                                    rc.local_batch, data_rng)
+        w = np.where(kept, w, 0.0).astype(np.float32)
+        if not policy.trivial and not (rc.uniform_weights
+                                       or rc.dp_clip_norm > 0):
+            # importance-unbiased selection weights; dropped under DP,
+            # whose fixed-denominator uniform weighting calibrates sigma
+            iw = policy.cohort_weights(sel)
+            if iw is not None:
+                w = (w * iw).astype(np.float32)
+        y, sstate, rmetrics = round_fn(y, sstate, frozen, batch, w,
+                                       threefry.key(seed * 100_003 + r))
+        if t0 is None:
+            _synchronize(dev)
+            t0 = time.time()  # exclude the first round from the timing
+        loss = float(rmetrics["loss"])   # the one host sync of the round
+        vt0, vt = vt, vt + plan.round_seconds
+        rseq = tracer.span("round", vt0, plan.round_seconds,
+                           parent=plan.bound_seq, round=r,
+                           participants=float(len(kept_cids)),
+                           cohort=int(m), loss=loss)
+        if san is not None:
+            nonf = rmetrics["quarantine_nonfinite"].cpu().numpy()
+            outl = rmetrics["quarantine_outlier"].cpu().numpy()
+            norms = rmetrics["quarantine_norms"].cpu().numpy()
+            for i in np.nonzero(nonf | outl)[0]:
+                mc("quarantined").inc()
+                tracer.instant(
+                    "quarantine", vt0, parent=rseq,
+                    cause="nonfinite" if nonf[i] else "norm-outlier",
+                    cid=int(sel[i]), tier=None, norm=float(norms[i]),
+                    round=r)
+        registry.histogram("round_seconds").observe(plan.round_seconds)
+        n_dispatched = int(np.sum(plan.dispatched))
+        n_uploads = n_dispatched - plan.dropouts
+        for i in np.nonzero(plan.completed)[0]:
+            rtt = float(plan.arrival[i])
+            policy.observe(int(plan.cids[i]), rtt)
+            registry.histogram("upload_rtt").observe(rtt)
+        report.add_measured(down_bytes * n_dispatched, up_bytes * n_uploads,
+                            transfers=n_dispatched)
+        mc("dispatches").inc(n_dispatched)
+        mc("uploads").inc(n_uploads)
+        mc("offline").inc(plan.offline)
+        mc("dropouts").inc(plan.dropouts)
+        mc("deadline_drops").inc(plan.deadline_drops)
+        mc("excess").inc(plan.excess)
+        mc("retries").inc(plan.retries)
+        mc("crashes").inc(plan.crashes)
+
+        rec = {"round": r, "loss": loss}
+        if eval_fn and eval_every and (r + 1) % eval_every == 0:
+            rec.update(eval_fn(part.merge(y, frozen)))
+        rec["virtual_seconds"] = vt
+        rec["participants"] = float(len(kept_cids))
+        history.append(rec)
+        policy.end_round(r)
+        if log and (r % max(1, rounds // 10) == 0):
+            print(f"  round {r}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in rec.items() if k != "round"))
+    _synchronize(dev)
+    spr = (time.time() - t0) / max(rounds - 1, 1) if t0 else float("nan")
+    if tracer.enabled:
+        tracer.flush_outputs()
+    return GridResult(y=y, frozen=frozen, history=history, comm=report,
+                      seconds_per_round=spr, virtual_seconds=vt,
+                      fleet=fleet, mode="sync",
+                      scheduler_stats=_stats_view(registry),
+                      policy=policy, dynamics=dyn, metrics=registry,
+                      telemetry=tracer if tracer.enabled else None,
+                      faults=_faults_view(registry, bfaults))
+
+
+# ---------------------------------------------------------------------------
+# Buffered async (FedBuff)
+
+
+class _LaneCell:
+    """Handle for a client step deferred into a lane batch: filled with
+    this client's own (delta row, loss) when the lane executes. The row
+    is cloned out of the (lane, size) batch, so a straggler entry keeps
+    one (size,) row alive, not the whole batch."""
+    __slots__ = ("delta", "loss")
+
+    def __init__(self):
+        self.delta = None
+
+    def resolve(self):
+        return self.delta, self.loss
+
+
+def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
+               fleet, report, down_bytes, up_bytes, compute_seconds,
+               data_rng, dev_rng, seed, eval_every, eval_fn, log, dyn,
+               dyn_rng, policy, registry, tracer, bfaults, san, dev):
+    if server_opt is None:
+        server_opt = fedpt.resolve_server_opt(rc)
+    # per-flush DP: the flush (goal_count buffered deltas, fixed
+    # denominator) is the unit of composition — see core/dp.py
+    flush_dp = accountant = None
+    if rc.dp_noise_multiplier > 0:
+        if rc.dp_clip_norm <= 0:
+            raise ValueError("async DP noise needs dp_clip_norm > 0 "
+                             "(per-client clipping bounds the flush "
+                             "sensitivity)")
+        flush_dp = dp_lib.FlushDPConfig(
+            clip_norm=rc.dp_clip_norm,
+            noise_multiplier=rc.dp_noise_multiplier,
+            goal_count=grid.goal_count)
+        accountant = dp_lib.FlushAccountant(flush_dp, tracer=tracer)
+    lane = grid.goal_count if grid.lanes is None else int(grid.lanes)
+    if lane > 0:
+        lane_step = fedpt.make_lane_step(loss_fn, rc, lane, device=dev)
+    else:
+        client_step = fedpt.make_client_step(loss_fn, rc, device=dev)
+    apply_fn = fedpt.make_buffered_apply(
+        server_opt, flush_dp=flush_dp, sanitize=san,
+        fused_threshold=grid.agg_tail_threshold, device=dev)
+    staleness_fn = fedpt.get_staleness_fn(grid.staleness, **grid.staleness_kw)
+    if flush_dp is not None:
+        # the per-flush sensitivity bound (clip_norm / goal_count) assumes
+        # aggregation weights in [0, 1]
+        inner_staleness = staleness_fn
+
+        def staleness_fn(s):
+            w = inner_staleness(s)
+            if not 0.0 <= w <= 1.0:
+                raise ValueError(
+                    f"staleness weight {w} for staleness {s} is outside "
+                    "[0, 1]: per-flush DP calibrates sigma for weights "
+                    "<= 1 (use a non-amplifying staleness_fn with DP)")
+            return w
+    N = num_clients(dataset)
+
+    # mutable server state shared with the scheduler callbacks; events are
+    # processed in virtual-time order, so "the model right now" is exactly
+    # what a client dispatched at the current event time downloads
+    state = {"y": y, "sstate": server_opt.init(y), "applied": 0}
+    # lane mode: client steps dispatched since the last flush. They all
+    # trained on the model of the CURRENT server version (y only changes
+    # at flushes), so running them as (lane, ...) batches at the next
+    # flush is exactly the sequential semantics.
+    pending: List = []
+
+    def run_pending():
+        while pending:
+            chunk = pending[:lane]
+            del pending[:len(chunk)]
+            n = len(chunk)
+            # pad short lanes with a repeat of the last real batch: one
+            # fixed (lane, ...) shape
+            stacked = {k: np.stack([b[k] for b, _ in chunk]
+                                   + [chunk[-1][0][k]] * (lane - n))
+                       for k in chunk[0][0]}
+            deltas, losses = lane_step(state["y"], frozen, stacked)
+            for i, (_, cell) in enumerate(chunk):
+                cell.delta, cell.loss = deltas[i].clone(), losses[i]
+
+    def run_client(cid, version):
+        b, w = syn.client_batch_images(dataset, cid, rc.local_steps,
+                                       rc.local_batch, data_rng)
+        if rc.uniform_weights or rc.dp_clip_norm > 0:
+            w = 1.0  # DP / uniform weighting, as in the sync engine
+        elif not policy.trivial:
+            w = w * policy.client_weight(cid)
+        if lane > 0:
+            cell = _LaneCell()
+            pending.append((b, cell))
+            return {"cell": cell, "weight": w, "up_bytes": up_bytes,
+                    "cid": cid, "tier": None}
+        delta, metrics = client_step(state["y"], frozen, b)
+        # the loss stays a device scalar: converted once per flush
+        return {"delta": delta, "loss": metrics["client_loss"],
+                "weight": w, "up_bytes": up_bytes, "cid": cid, "tier": None}
+
+    def entry_arrays(e):
+        cell = e.work.get("cell")
+        if cell is not None:
+            return cell.resolve()
+        return e.work["delta"], e.work["loss"]
+
+    def apply_update(entries, now, version):
+        if lane > 0:
+            run_pending()
+        rows, losses = [], []
+        for e in entries:
+            d, l = entry_arrays(e)
+            f = e.work.get("fault")
+            if f is not None and f["kind"] in ("nan", "bitflip"):
+                # materialize the wire corruption from the per-event seed
+                d = torch.as_tensor(faults_lib.corrupt_row(
+                    d.cpu().numpy(), f["kind"], f["seed"], bfaults.cfg),
+                    device=dev)
+            rows.append(d)
+            losses.append(l)
+        wts = [e.weight for e in entries]
+        # pad a short (drained) flush to the fixed goal_count shape with
+        # zero-weight rows: under DP the fixed-denominator mean and the
+        # per-flush sigma never change
+        flat_deltas = flat_lib.pad_rows(torch.stack(rows), grid.goal_count)
+        wts = wts + [0.0] * (grid.goal_count - len(entries))
+        args = (state["y"], state["sstate"], flat_deltas,
+                np.asarray(wts, np.float32))
+        if flush_dp is not None:
+            # one threefry key per flush, from the sync engine's stream
+            args += (threefry.key(seed * 100_003 + state["applied"]),)
+            # dispatch samples clients WITH replacement, so one client may
+            # own several rows of this flush
+            counts = Counter(e.work["cid"] for e in entries)
+            accountant.record_flush(len(entries),
+                                    multiplicity=max(counts.values()),
+                                    now=now, parent=sched.last_flush_seq)
+        y_new, ss, m = apply_fn(*args)
+        state["y"], state["sstate"] = y_new, ss
+        # ONE host sync per flush for the buffered losses
+        out = {"loss": float(torch.stack(losses).mean()),
+               "delta_norm": float(m["delta_norm"])}
+        applied = state["applied"]
+        if san is not None:
+            nonf = m["quarantine_nonfinite"].cpu().numpy()
+            outl = m["quarantine_outlier"].cpu().numpy()
+            norms = m["quarantine_norms"].cpu().numpy()
+            for i in np.nonzero((nonf | outl)[:len(entries)])[0]:
+                registry.counter("quarantined").inc()
+                tracer.instant(
+                    "quarantine", now, parent=sched.last_flush_seq,
+                    cause="nonfinite" if nonf[i] else "norm-outlier",
+                    cid=int(entries[i].work["cid"]), tier=None,
+                    norm=float(norms[i]), flush=applied)
+        state["applied"] = applied + 1
+        if eval_fn and eval_every and state["applied"] % eval_every == 0:
+            out.update(eval_fn(part.merge(y_new, frozen)))
+        policy.end_round(applied)
+        return out
+
+    sched = sched_lib.BufferedAsyncScheduler(
+        fleet=fleet, concurrency=min(grid.concurrency, N),
+        goal_count=grid.goal_count, staleness_fn=staleness_fn,
+        sample_cid=policy.sample_cid, run_client=run_client,
+        apply_update=apply_update, down_bytes=down_bytes,
+        compute_seconds=compute_seconds, rng=dev_rng,
+        dynamics=dyn, dyn_rng=dyn_rng, observe=policy.observe,
+        tracer=tracer, metrics=registry, faults=bfaults)
+    t_wall = time.time()
+    history = sched.run(rounds, deadline=grid.async_deadline)
+    _synchronize(dev)
+    spr = (time.time() - t_wall) / max(rounds, 1)
+    if log:
+        for rec in history[:: max(1, rounds // 10)]:
+            print(f"  update {rec['round']}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in rec.items() if k != "round"))
+
+    vt = history[-1]["virtual_seconds"] if history else 0.0
+    report.add_measured(down_bytes * sched.dispatches, sched.up_bytes_total,
+                        transfers=sched.dispatches)
+    if tracer.enabled:
+        tracer.flush_outputs()
+    return GridResult(y=state["y"], frozen=frozen, history=history,
+                      comm=report, seconds_per_round=spr,
+                      virtual_seconds=vt, fleet=fleet, mode="async",
+                      scheduler_stats=_stats_view(registry),
+                      dp=accountant.summary() if accountant else None,
+                      policy=policy, dynamics=dyn, metrics=registry,
+                      telemetry=tracer if tracer.enabled else None,
+                      faults=_faults_view(registry, bfaults))

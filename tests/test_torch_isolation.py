@@ -84,6 +84,18 @@ def test_entry_points_raise_without_cuda():
         fedpt.make_round_fn(lambda p, b: 0.0, fedpt.RoundConfig(2, 1, 4))
     with pytest.raises(RuntimeError, match="CUDA"):
         bridge.from_numpy_tree({"a": np.zeros(3, np.float32)})
+    from repro_torch.data import synthetic as syn
+    from repro_torch.fl import runtime
+    from repro_torch.sim import grid
+    ds = syn.make_federated_images(4, 8, (8, 8, 1), 4, seed=0)
+    rc = fedpt.RoundConfig(2, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        grid.run_grid(lambda s: {}, lambda p, b: 0.0, ds, rc, 1,
+                      grid=grid.GridConfig(mode="async"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        runtime.run_federated(lambda s: {}, lambda p, b: 0.0, ds, rc, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedpt.make_lane_step(lambda p, b: 0.0, rc, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         fedpt.make_round_fn(
             lambda p, b: 0.0,
@@ -124,3 +136,38 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+# modules the port keeps as copies of the reference's (stdlib / numpy
+# host code): the same code, with ``repro.`` read as ``repro_torch.``;
+# docstrings may be reworded where they narrate the reference's history
+COPIES = ("obs/schema", "obs/export", "obs/metrics", "obs/trace",
+          "sim/dynamics", "sim/faults", "sim/devices", "sim/selection",
+          "sim/scheduler", "core/comm")
+
+
+def _code(text: str) -> str:
+    """The module's AST with every docstring blanked (comments are not in
+    the AST)."""
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant) and isinstance(
+                        first.value.value, str):
+                first.value.value = ""
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", COPIES)
+def test_host_copies_match_reference(name):
+    ref = (SRC / "repro" / f"{name}.py").read_text().replace(
+        "repro.", "repro_torch.")
+    port = (SRC / "repro_torch" / f"{name}.py").read_text()
+    assert _code(port) == _code(ref)
+    changed = [(a, b) for a, b in zip(ref.splitlines(), port.splitlines())
+               if a != b]
+    assert len(ref.splitlines()) == len(port.splitlines())
+    assert len(changed) <= 5, changed

@@ -13,7 +13,12 @@ bit for bit; the quantized row sum of squares within a relative
 2 * blocks * 2**-24 (the kernel sums the same per-block products in
 block order, the plain version in torch's order; each float32 sum of n
 positive terms is within (n - 1) * 2**-24 of the exact one); every
-output the same on two runs.
+output the same on two runs. The DP clip kernels: the row clip's norms
+within ``dp_clip.norm_rtol`` (its a-priori bound) of the plain version's
+and its values within that plus three roundings; a row under the clip,
+a zero row, a NaN row and an Inf row bit for bit; the clip-and-
+accumulate within rtol 1e-6 of the plain version, whose norm is one
+torch.sum.
 """
 import numpy as np
 import pytest
@@ -112,7 +117,8 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     quantize.fake_quantize_flat(x, EMNIST_BLOCK_LEAF, 8)
     assert kernels.LAUNCHES == {"sumsq": 1, "leaf_maxabs": 1,
                                 "fake_quantize_flat": 1, "block_stats": 0,
-                                "pack": 0, "apply_coeff": 0}
+                                "pack": 0, "apply_coeff": 0, "clip_flat": 0,
+                                "clip_accumulate": 0}
     with pytest.raises(TypeError):
         dp_clip.sumsq(x[0].double())
     with pytest.raises(ValueError):
@@ -180,7 +186,8 @@ def test_fused_kernels_match_plain(dev, rows, block_leaf, case):
         assert same_bits(got, ref.agg_apply_ref(q, coeff, noise=nz))
     assert kernels.LAUNCHES == {"sumsq": 0, "leaf_maxabs": 0,
                                 "fake_quantize_flat": 0, "block_stats": 1,
-                                "pack": 1, "apply_coeff": 2}
+                                "pack": 1, "apply_coeff": 2, "clip_flat": 0,
+                                "clip_accumulate": 0}
     # the same bits on a second run
     again = agg_tail.block_stats(m)
     assert same_bits(again[0], bmax) and same_bits(again[1], bsumsq)
@@ -240,3 +247,84 @@ def test_fused_tail_on_card_matches_cpu(dev, pipeline):
     # the codes are bitwise the CPU's; the GEMV / the noise's erfinv
     # (log1p, sqrt) round differently on the card
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# the DP clip: clip_flat (rows) and clip_accumulate
+
+CLIP = 0.5
+
+
+def _clip_rows(n, seed=0):
+    """Six rows: clipped, zero, under the clip, a NaN, an Inf, clipped."""
+    g = torch.Generator().manual_seed(seed)
+    m = torch.randn((6, n), generator=g) * 1e-2
+    m[1] = 0.0
+    m[2] *= 0.5 * CLIP / float(m[2].double().norm())
+    m[3, n // 3] = float("nan")
+    m[4, n // 2] = float("inf")
+    m[5] *= 40.0
+    return m
+
+
+@pytest.mark.parametrize("n", [89_088, 89_088 + 512, 1_695_744, 1000])
+def test_clip_flat_matches_plain(dev, n):
+    m = _clip_rows(n, seed=n).to(dev)
+    kernels.reset_launches()
+    got, gnorm = dp_clip.clip_flat(m, CLIP)
+    want, wnorm = ref.flat_clip_ref(m, CLIP)
+    assert kernels.LAUNCHES["clip_flat"] == 1
+    rtol = dp_clip.norm_rtol(n)
+    fin = torch.isfinite(wnorm)
+    torch.testing.assert_close(gnorm[fin], wnorm[fin], rtol=rtol, atol=0)
+    assert same_bits(gnorm[~fin], wnorm[~fin])
+    for r in (0, 5):
+        torch.testing.assert_close(got[r], want[r],
+                                   rtol=rtol + 3 * 2.0 ** -24, atol=0)
+    # under the clip: scale exactly 1; zero row; NaN and Inf rows
+    for r in (1, 2, 3, 4):
+        assert same_bits(got[r], want[r]), r
+    assert same_bits(got[2], m[2]) and bool(torch.isnan(got[3]).all())
+    # one row alone, and the same bits on a second run
+    row, rnorm = dp_clip.clip_flat(m[0].contiguous(), CLIP)
+    assert same_bits(row, got[0]) and same_bits(rnorm, gnorm[0])
+    again, anorm = dp_clip.clip_flat(m, CLIP)
+    assert same_bits(again, got) and same_bits(anorm, gnorm)
+
+
+@pytest.mark.parametrize("n", [89_088, 1_695_744, 89_088 + 77])
+def test_clip_accumulate_matches_plain(dev, n):
+    g = torch.Generator().manual_seed(n)
+    acc = (torch.randn(n, generator=g) * 1e-3).to(dev)
+    for scale in (1e-2, 1e-5):       # clipped, and under the clip
+        x = (torch.randn(n, generator=g) * scale).to(dev)
+        kernels.reset_launches()
+        got, gnorm = dp_clip.clip_accumulate(acc, x, CLIP)
+        want, wnorm = ref.dp_clip_accumulate_ref(acc, x, CLIP)
+        assert kernels.LAUNCHES["clip_accumulate"] == 1
+        torch.testing.assert_close(gnorm, wnorm, rtol=1e-6, atol=0)
+        # relative to the terms: acc + x * s may cancel
+        err = (got - want).abs()
+        bound = 1e-6 * (acc.abs() + (x * (CLIP / wnorm).clamp(max=1)).abs())
+        assert bool((err <= bound + 1e-30).all())
+        assert same_bits(dp_clip.clip_accumulate(acc, x, CLIP)[0], got)
+        if scale == 1e-5:            # scale exactly 1: acc + x
+            assert same_bits(got, acc + x)
+    for value in (0.0, float("inf"), float("nan")):   # zero x, Inf, NaN
+        xe = torch.zeros_like(x) if value == 0.0 else x.clone()
+        xe[5] = value
+        got, gnorm = dp_clip.clip_accumulate(acc, xe, CLIP)
+        want, wnorm = ref.dp_clip_accumulate_ref(acc, xe, CLIP)
+        assert same_bits(got, want) and same_bits(gnorm, wnorm), value
+
+
+def test_clip_wrappers_check_inputs(dev):
+    m = _clip_rows(2048).to(dev)
+    with pytest.raises(TypeError):
+        dp_clip.clip_flat(m.double(), CLIP)
+    with pytest.raises(ValueError):
+        dp_clip.clip_flat(m[:, ::2], CLIP)           # not contiguous
+    with pytest.raises(ValueError):
+        dp_clip.clip_accumulate(m[0], m[1, :1024].contiguous(), CLIP)
+    with pytest.raises(ValueError):
+        dp_clip.clip_accumulate(m[0].cpu(), m[1], CLIP)

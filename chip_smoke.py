@@ -27,6 +27,14 @@ package. Phases, in order, each failing the run on error:
      Inf row and ragged N; the row norms within ``dp_clip.norm_rtol``
      (their a-priori bound), the clip-and-accumulate within rtol 1e-6 of
      its plain version (one torch.sum);
+   - ``swa_attention`` at (1, 32, 4096, 128) bf16 with 8 kv heads (GQA rep
+     4), windows 0 and 1,000, at a ragged S = 4,000, and at the
+     prefill's (1, 32, 32768, 128) in its layout under windows 0 and
+     8192, within 2**-8 relative + 1e-5 of its plain version (one bf16
+     rounding), the same bits twice; timed at the prefill's shape causal
+     (and window 8192) beside ``scaled_dot_product_attention``;
+     ``seed_reconstruct`` at NeMo's frozen FFN leaf (5120, 14336) and a
+     ragged (300, 200): hash words bit for bit, Gaussians within 8 ulps;
 3. drive the main paths: synchronous FedPT rounds on the full-width
    EMNIST CNN (init from seed 0 through the threefry port), 10 rounds of
    10 clients x 2 local SGD steps x batch 16, each followed by one
@@ -55,7 +63,20 @@ package. Phases, in order, each failing the run on error:
      equal, losses within rel 1e-4 and y within a derived bound; then
      the lane step and the buffered apply timed, one flush profiled;
    then time the staged and the fused tail against each other at both
-   buffer sizes;
+   buffer sizes; then
+   - the serving path: Mistral-NeMo-12B at full width (d_model 5120, 32
+     heads, 8 kv heads, head_dim 128, d_ff 14336, vocab 131072), 4 of its
+     40 layers, from ``init_model(cfg, 0)`` on the card, split by its
+     freeze spec into trainable f32 and frozen bf16; ``make_prefill_step``
+     on 1 x 32,768 tokens under ``serving_config`` of prefill_32k (full
+     causal) and long_500k (window 8192), median of 3 and a profiled
+     split into attention kernel / matmuls / rest, logits finite, the
+     windowed attention's kernel time below 0.8x the causal one's; greedy
+     ``generate`` (batch 4, prompt 8, 32 steps) under long_500k; then, on
+     the card with the same weights, a 1 x 512 prefill through the kernel
+     against the plain chunked attention (windows 0 and 200), and
+     ``generate``'s step-by-step prefill against ``forward`` at the prompt
+     positions, each within 2**-4 of the largest |logit|;
 4. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -87,9 +108,9 @@ DP_CLIP, DP_NOISE = 0.5, 0.4
 POISONED = 3          # the client whose upload is NaN in B's extra round
 # the async path: examples/async_heterogeneous.py's FedBuff settings
 CONCURRENCY, GOAL, ASYNC_UPDATES, ASYNC_CHECKED = 12, 6, 12, 3
-# no engine of either package calls it: only kernels/ops.clip_accumulate,
-# the JAX package's tests and this script's kernel phase reach it
-NO_ENGINE = {"clip_accumulate"}
+# no engine of either package calls them: only kernels/ops, the tests and
+# this script's kernel phase reach them
+NO_ENGINE = {"clip_accumulate", "seed_reconstruct"}
 U = 2.0 ** -24
 
 
@@ -125,9 +146,9 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[both] - b[both]).abs().max()) if both.any() else 0.0
 
 
-def time_ms(fn, iters: int = 200) -> float:
+def time_ms(fn, iters: int = 200, warmup: int = 5) -> float:
     """Mean time per call over back-to-back calls, by CUDA events."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -140,34 +161,47 @@ def time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_calls(fn, iters: int):
+    """The profiler's key averages over ``iters`` calls of ``fn``, after one
+    traced warm-up call that the profiler discards."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=iters,
+                                   repeat=1)) as prof:
+        for _ in range(1 + iters):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof.key_averages()
+
+
 def device_ms(fn, kernel_names=None, iters: int = 50):
     """Mean device time (ms) per call of the named CUDA kernels (of every
     kernel the call runs when ``kernel_names`` is None), from the
-    profiler; None when the profiler shows no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    profiler; None when the profiler shows no device time. Each named
+    kernel launches once per call, so its share is its mean time per
+    recorded launch: a trace can drop a launch (on the H100 it kept one
+    of two 150-350 ms attention calls), which a total over ``iters``
+    calls would halve."""
     total = 0.0
-    for ev in prof.key_averages():
+    for ev in profiled_calls(fn, iters):
         if kernel_names is None:
             total += getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
+                             getattr(ev, "self_cuda_time_total", 0.0)) / iters
         elif any(k in ev.key for k in kernel_names):
             total += getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0.0))
-    return total / 1e3 / iters if total > 0 else None
+                             getattr(ev, "cuda_time_total", 0.0)) / ev.count
+    return total / 1e3 if total > 0 else None
 
 
 def fmt_ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def bound(nbytes: float, nops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -176,23 +210,28 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def kernel_records(specs):
-    """Time each kernel's wrapper, its plain version and the library call,
+def kernel_records(specs, iters=(200, 50, 50), warmup: int = 5,
+                   ops_per_s: float = F32_OPS_PER_S):
+    """Time each kernel's wrapper, its plain version and the library call
+    (``iters`` calls each: wrapper and library, plain, profiled device),
     and compute its bound: one ``kernels`` record each (all keys but
     ``launches``)."""
     records = []
+    n_kern, n_plain, n_dev = iters
     for (name, source, replaces, kern, plain, lib, knames, nbytes,
          nops) in specs:
         err = max(max_abs_diff(a, b) for a, b in zip(as_tuple(kern()),
                                                       as_tuple(plain())))
-        bound_ms, bound_by = bound(nbytes, nops)
+        bound_ms, bound_by = bound(nbytes, nops, ops_per_s)
         records.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err,
-            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=50),
+            "ms": time_ms(kern, n_kern, warmup),
+            "plain_ms": time_ms(plain, n_plain, warmup),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": time_ms(lib) if lib is not None else None,
-            "device_ms": device_ms(kern, knames),
+            "library_ms": (time_ms(lib, n_kern, warmup) if lib is not None
+                           else None),
+            "device_ms": device_ms(kern, knames, n_dev),
         })
         if len(knames) > 1:
             print(f"  {name}: device ms by CUDA kernel "
@@ -895,6 +934,301 @@ def tail_routes(layouts, dev):
               f"{fmt_ms(device_ms(draw))})")
 
 
+# --- the serving path: Mistral-NeMo-12B at full width ------------------------
+
+NEMO = "mistral-nemo-12b"
+NEMO_LAYERS = 4            # of 40: depth cut to fit the run's time
+PREFILL_LEN = 32768        # prefill_32k's length; its batch of 32 cut to 1
+DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = 4, 8, 32   # serve.py's defaults
+CONSIST_LEN = 512
+# (trainable, frozen) parameters of the 4 layers at full width
+NEMO_SPLIT = (1_551_938_560, 880_803_840)
+BF16_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
+# the windowed prefill's attention must take less than this share of the
+# causal one's kernel time: its visible pairs are 0.44 of the causal's, so
+# only a structural skip of the tiles outside the window passes
+WINDOW_GATE = 0.8
+# kernel vs plain on the card. swa_attention: the kernel rounds its float32
+# result to bf16 once (half a bf16 ulp, 2**-8 of the value at most); the two
+# float32 computations differ by ~1e-6 (other summation orders), covered by
+# the absolute 1e-5. seed_reconstruct: the same float32 uniforms through
+# CUDA's logf / cosf against torch's log / cos (each within 2 ulps of exact),
+# a sqrt and two multiplies: 8 ulps.
+SWA_REL, SWA_ABS, SEED_ULPS = 2.0 ** -8, 1e-5, 8
+# the serving path's logits against its plain forms, relative to the largest
+# |logit|: bf16 compute through 4 layers, where the plain attention rounds p
+# to bf16 (the kernel keeps float32) and a one-token decode step's GEMVs
+# round other partial sums than the prefill's GEMMs; each bf16 rounding is
+# 2**-9 relative and a layer adds a few of them to the residual stream
+LOGIT_REL = 2.0 ** -4
+
+
+def swa_inputs(shape, kv_heads, gen, dev, layout_bshd=False):
+    """q (B, H, S, D), k and v (B, KVH, S, D), bf16 N(0, 1) from ``gen``;
+    as transposed views of (B, S, H, D) tensors, the model's layout, when
+    ``layout_bshd``."""
+    B, H, S, D = shape
+
+    def one(h):
+        x = torch.randn((B, S, h, D), generator=gen).to(dev, torch.bfloat16)
+        return x.transpose(1, 2) if layout_bshd else x.transpose(1, 2).contiguous()
+    return one(H), one(kv_heads), one(kv_heads)
+
+
+def check_serving_kernels(dev):
+    """Phase 2, the serving path's kernels: swa_attention against its plain
+    version at (1, 32, 4096, 128) bf16 with GQA rep 4, windows 0 and
+    1,000, at a ragged S = 4,000, and at the prefill's (1, 32, 32768, 128)
+    in its (B, S, H, D) layout under windows 0 and 8192; seed_reconstruct at NeMo's frozen FFN
+    leaf (5120, 14336) and a ragged (300, 200), its hash words bit for bit
+    and its Gaussians within SEED_ULPS. Returns their records, timed at the
+    prefill's shape (1, 32, 32768, 128) causal and at (5120, 14336)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seed_reconstruct as sr
+    from repro_torch.kernels import swa_attention as swa
+
+    def check_swa(q, k, v, window):
+        got = swa.swa_attention(q, k, v, window=window)
+        want = ref.swa_attention_ref(q, k, v, window)
+        err = (got.float() - want).abs()
+        worst = float((err / (SWA_REL * want.abs() + SWA_ABS)).max())
+        where = f"({tuple(q.shape)} bf16, 8 kv heads, window {window})"
+        if got.dtype != torch.bfloat16 or worst > 1.0:
+            raise AssertionError(f"swa_attention off its plain version "
+                                 f"{where}: max err {float(err.max())}, "
+                                 f"{worst:.3f} of the tolerance")
+        if not same_bits(swa.swa_attention(q, k, v, window=window), got):
+            raise AssertionError(f"swa_attention differs between two runs "
+                                 f"{where}")
+        print(f"  swa_attention == plain within 2**-8 rel + 1e-5 (max err "
+              f"{float(err.max()):.3e}, {worst:.3f} of the tolerance), "
+              f"same bits twice {where}")
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    for S in (4096, 4000):
+        q, k, v = swa_inputs((1, 32, S, 128), 8, gen, dev)
+        for window in (0, 1000):
+            check_swa(q, k, v, window)
+    for shape in ((5120, 14336), (300, 200)):
+        rows, cols = ref.seed_dims(shape)
+        b1, b2 = sr.seed_bits(42, 7, shape, device=dev)
+        w1, w2 = ref.seed_bits_plain(42, 7, rows, cols, device=dev)
+        got = sr.seed_reconstruct(42, 7, shape, 0.02, device=dev)
+        want = ref.seed_reconstruct_plain(42, 7, shape, 0.02, device=dev)
+        ulps = int((got.view(torch.int32).long()
+                    - want.view(torch.int32).long()).abs().max())
+        if not (torch.equal(b1, w1) and torch.equal(b2, w2)):
+            raise AssertionError(f"seed_reconstruct's hash words differ from "
+                                 f"the plain version's at {shape}")
+        if ulps > SEED_ULPS:
+            raise AssertionError(f"seed_reconstruct {ulps} ulps off the plain "
+                                 f"version at {shape}")
+        print(f"  seed_reconstruct: hash words bit for bit, Gaussians within "
+              f"{ulps} ulps (bound {SEED_ULPS}) of plain {shape}")
+
+    src = "src/repro_torch/kernels/csrc/"
+    # the prefill's own shape and layout, under both of its windows
+    q, k, v = swa_inputs((1, 32, PREFILL_LEN, 128), 8, gen, dev,
+                         layout_bshd=True)
+    for window in (0, 8192):
+        check_swa(q, k, v, window)
+    pairs = swa.visible_pairs(PREFILL_LEN, 0)
+    nbytes = sum(t.numel() for t in (q, k, v, q)) * 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec_swa = kernel_records([
+        ("swa_attention", src + "swa_attention.cu",
+         "src/repro/kernels/swa_attention.py:83",
+         lambda: swa.swa_attention(q, k, v),
+         lambda: ref.swa_attention_ref(q, k, v, 0),
+         lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+         ("swa_kernel",), nbytes, 4 * 32 * 128 * pairs)],
+        iters=(3, 1, 2), warmup=1, ops_per_s=BF16_OPS_PER_S)
+    wpairs = swa.visible_pairs(PREFILL_LEN, 8192)
+    wb = bound(nbytes, 4 * 32 * 128 * wpairs, BF16_OPS_PER_S)
+    wms = time_ms(lambda: swa.swa_attention(q, k, v, window=8192), 3, 1)
+    print(f"  swa_attention at (1, 32, {PREFILL_LEN}, 128), window 8192: "
+          f"wrapper {wms:.3f} ms, device "
+          f"{fmt_ms(device_ms(lambda: swa.swa_attention(q, k, v, window=8192), ('swa_kernel',), 2))} "
+          f"ms, bound {wb[0]:.3f} ms ({wb[1]}; {wpairs} of {pairs} pairs)")
+    del q, k, v
+    rows, cols = 5120, 14336
+    rec_seed = kernel_records([
+        ("seed_reconstruct", src + "seed_reconstruct.cu",
+         "src/repro/kernels/seed_reconstruct.py:77",
+         lambda: sr.seed_reconstruct(42, 7, (rows, cols), 0.02, device=dev),
+         lambda: ref.seed_reconstruct_plain(42, 7, (rows, cols), 0.02,
+                                            device=dev),
+         None, ("seed_kernel",), 4 * rows * cols, 32 * rows * cols)],
+        iters=(50, 5, 20))
+    return rec_swa + rec_seed
+
+
+def prefill_breakdown(fn):
+    """Device time of one call by kind (ms): the attention kernel, the
+    matrix products (cuBLAS), and the rest (norms, RoPE, casts, ...)."""
+    split = {"attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for ev in profiled_calls(fn, 1):
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        if "swa_kernel" in ev.key:
+            split["attention"] += t
+        elif any(s in ev.key.lower() for s in ("gemm", "xmma", "nvjet",
+                                                 "cutlass", "sm90")):
+            split["matmul"] += t
+        else:
+            split["other"] += t
+    return split
+
+
+def rel_to_max(a, b) -> float:
+    """max |a - b| over max |b|, in float32 on the card."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def plain_attention_forward(fn):
+    """Run ``fn`` with the prefill's attention in its plain chunked form
+    (``nn/attention.chunked_attention``) in place of the kernel."""
+    from repro_torch.nn import attention
+    kernel_fa = attention.flash_attention
+    attention.flash_attention = attention.chunked_attention
+    try:
+        return fn()
+    finally:
+        attention.flash_attention = kernel_fa
+
+
+def drive_serving(dev):
+    """The serving path: Mistral-NeMo-12B at full width, 4 of its 40
+    layers, from ``init_model(cfg, 0)`` on the card, split by its freeze
+    spec (trainable f32, frozen bf16). Prefill 1 x 32,768 tokens through
+    ``make_prefill_step`` under ``serving_config`` of prefill_32k (full
+    causal) and long_500k (window 8192), then greedy ``generate`` (batch
+    4, prompt 8, 32 steps) under long_500k, with the launch counts set to
+    0 just before and read just after; then the consistency checks on the
+    card. Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import partition as part
+    from repro_torch.launch import serve, specs
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.nn import basic
+
+    base = get_config(NEMO).with_(num_layers=NEMO_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y, frozen = specs.serving_split(dlm.init_model(base, 0, device=dev), base)
+    torch.cuda.synchronize()
+    n_y, n_z = basic.tree_size(y), basic.tree_size(frozen)
+    print(f"[serving] {NEMO}, {NEMO_LAYERS} of 40 layers at full width "
+          f"(d_model {base.d_model}, {base.num_heads} heads, "
+          f"{base.num_kv_heads} kv heads, head_dim {base.head_dim}, d_ff "
+          f"{base.d_ff}, vocab {base.vocab_size}): init_model(cfg, 0) on "
+          f"the card in {time.perf_counter() - t0:.2f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"trainable {n_y} f32 ({basic.tree_bytes(y) / 1e9:.2f} GB), frozen "
+          f"{n_z} bf16 ({basic.tree_bytes(frozen) / 1e9:.2f} GB)")
+    if (n_y, n_z) != NEMO_SPLIT:
+        raise AssertionError(f"the NeMo split {(n_y, n_z)} differs from "
+                             f"{NEMO_SPLIT} (trainable, frozen)")
+    cfgs = {shape: specs.serving_config(base, shape)
+            for shape in ("prefill_32k", "long_500k")}
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, base.vocab_size, (1, PREFILL_LEN), dtype=np.int64)
+    prompt = rng.integers(0, base.vocab_size, (DECODE_BATCH, DECODE_PROMPT),
+                          dtype=np.int64)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    prefill = {}
+    for shape, cfg in cfgs.items():
+        step = specs.make_prefill_step(cfg, device=dev)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        walls = []
+        for _ in range(4):   # the first call warms up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = step(y, frozen, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        if logits.shape != (1, PREFILL_LEN, base.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill ({shape}): logits not finite or "
+                                 f"of the wrong shape {tuple(logits.shape)}")
+        del logits
+        split = prefill_breakdown(lambda: step(y, frozen, batch))
+        wall = float(np.median(walls[1:]))
+        prefill[shape] = (wall, split)
+        busy = sum(split.values())
+        print(f"[serving] prefill 1 x {PREFILL_LEN} ({shape}, window "
+              f"{cfg.sliding_window}): wall ms {[round(w, 3) for w in walls]} "
+              f"(median of the last 3 {wall:.3f} ms, "
+              f"{PREFILL_LEN / wall * 1e3:.1f} tokens/s); device ms by kind "
+              f"{ {k: round(v, 3) for k, v in split.items()} }: attention "
+              f"kernel {split['attention'] / NEMO_LAYERS:.3f} ms per layer, "
+              f"{100 * split['attention'] / busy:.1f}% of the device time "
+              f"{busy:.3f} ms")
+    ratio = prefill["long_500k"][1]["attention"] / \
+        prefill["prefill_32k"][1]["attention"]
+    print(f"[serving] windowed / causal attention kernel time: {ratio:.3f} "
+          f"(gate < {WINDOW_GATE}; visible pairs 0.437)")
+    if not ratio < WINDOW_GATE:
+        raise AssertionError("the windowed prefill's attention is not "
+                             "skipping the tiles outside the window")
+
+    cfg = cfgs["long_500k"]
+    params = part.merge(y, frozen)
+    serve.generate(params, cfg, prompt, 2, device=dev)   # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    seqs = serve.generate(params, cfg, prompt, DECODE_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3
+    counts = dict(kernels.LAUNCHES)
+    n_steps = DECODE_PROMPT + DECODE_STEPS
+    print(f"[serving] generate (long_500k, batch {DECODE_BATCH}, prompt "
+          f"{DECODE_PROMPT}, {DECODE_STEPS} greedy steps): {wall:.3f} ms, "
+          f"{wall / n_steps:.3f} ms per decode step ({n_steps} steps with "
+          f"the step-by-step prefill), "
+          f"{DECODE_BATCH * DECODE_STEPS / wall * 1e3:.1f} generated "
+          f"tokens/s; row 0: {seqs[0].tolist()}")
+    print(f"[serving] launches {counts}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if seqs.shape != (DECODE_BATCH, n_steps) or \
+            not bool(((seqs >= 0) & (seqs < base.vocab_size)).all()):
+        raise AssertionError("generate: tokens of the wrong shape or range")
+
+    # consistency on the card, with the same weights
+    short = torch.from_numpy(tokens[:, :CONSIST_LEN]).to(dev)
+    for label, c in (("window 0", cfgs["prefill_32k"]),
+                     ("window 200", base.with_(sliding_window=200))):
+        step = specs.make_prefill_step(c, device=dev)
+        got = step(y, frozen, {"tokens": short})
+        want = plain_attention_forward(
+            lambda: step(y, frozen, {"tokens": short}))
+        rel = rel_to_max(got, want)
+        print(f"[serving] prefill 1 x {CONSIST_LEN} ({label}), kernel vs the "
+              f"plain chunked attention on the card: max |diff| / max |logit| "
+              f"{rel:.3e} (tolerance {LOGIT_REL:.3e}), argmax agreement "
+              f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.4f}")
+        if not rel <= LOGIT_REL:
+            raise AssertionError(f"prefill logits: kernel vs plain {rel}")
+    stepped, _ = serve.prefill_by_steps(params, cfg, prompt, n_steps,
+                                        device=dev)
+    full = specs.make_prefill_step(cfg, device=dev)(y, frozen,
+                                                    {"tokens": prompt})
+    rel = rel_to_max(stepped, full)
+    print(f"[serving] step-by-step prefill (decode_attention) vs forward "
+          f"(kernel) at the {DECODE_PROMPT} prompt positions of {DECODE_BATCH} "
+          f"rows: max |diff| / max |logit| {rel:.3e} (tolerance "
+          f"{LOGIT_REL:.3e}), argmax agreement "
+          f"{float((stepped.argmax(-1) == full.argmax(-1)).float().mean()):.4f}")
+    if not rel <= LOGIT_REL:
+        raise AssertionError(f"decode vs forward logits: {rel}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -958,7 +1292,8 @@ def main() -> int:
     # --- phase 2: kernels against their plain versions -------------------
     print("[kernels] against their plain versions at the main paths' shapes")
     records = (check_kernels(layout, dev) + check_fused_kernels(layout_a, dev)
-               + check_clip_kernels(layout, layout_a, dev))
+               + check_clip_kernels(layout, layout_a, dev)
+               + check_serving_kernels(dev))
 
     # --- phase 3: the main paths -----------------------------------------
     paths = [  # label, bits, dp, (y, frozen), kernels that must launch
@@ -986,10 +1321,16 @@ def main() -> int:
     print(f"[main path] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     tail_routes((("quickstart", layout), ("FedAvg", layout_a)), dev)
+    counts = drive_serving(dev)
+    for name in launches:
+        launches[name] += counts[name]
+    if counts["swa_attention"] <= 0:
+        raise AssertionError("swa_attention never launched on the serving "
+                             "path")
 
     # --- phase 4: summary ------------------------------------------------
-    if len(records) != 8:
-        raise AssertionError(f"{len(records)} kernel records, not 8")
+    if len(records) != 10:
+        raise AssertionError(f"{len(records)} kernel records, not 10")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["launches"] <= 0 and rec["name"] not in NO_ENGINE:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 LAUNCHES = {"sumsq": 0, "leaf_maxabs": 0, "fake_quantize_flat": 0,
             "block_stats": 0, "pack": 0, "apply_coeff": 0, "clip_flat": 0,
-            "clip_accumulate": 0}
+            "clip_accumulate": 0, "swa_attention": 0, "seed_reconstruct": 0}
 
 
 def reset_launches() -> None:

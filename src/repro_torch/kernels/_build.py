@@ -6,7 +6,8 @@ with a plain C interface, loaded with ``ctypes``. Libraries go to
 source and the flags, so a changed source is rebuilt and an unchanged one
 is loaded as it is. Sources not yet built are compiled together, one
 ``nvcc`` process each. No ``--use_fast_math``: the Q->DQ and pack
-kernels must divide and round exactly as IEEE float32 does.
+kernels must divide and round exactly as IEEE float32 does, and the seed
+kernel's logf / cosf must be the accurate ones.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("sumsq.cu", "quantize.cu", "agg_tail.cu", "dp_clip.cu")
+SOURCES = ("sumsq.cu", "quantize.cu", "agg_tail.cu", "dp_clip.cu",
+           "swa_attention.cu", "seed_reconstruct.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,8 +1,9 @@
-"""The server aggregation tail behind its dispatcher, port of
-``repro/kernels/ops.agg_tail``.
+"""The kernels' entry points, port of ``repro/kernels/ops.py``: the
+server aggregation tail behind its dispatcher, the DP clips, the
+sliding-window attention and the seed reconstruction.
 
-Two routes over the (K, size) flat delta buffer, chosen as the JAX
-dispatcher chooses them:
+The tail takes two routes over the (K, size) flat delta buffer, chosen
+as the JAX dispatcher chooses them:
 
 * **staged** (``_staged_tail``): op by op. Quarantine screen
   (``core/sanitize.screen_rows``), per-leaf int-k fake-quantize (the CUDA
@@ -25,6 +26,8 @@ from repro_torch.core import sanitize as sanitize_lib
 from repro_torch.kernels import agg_tail as _agg
 from repro_torch.kernels import dp_clip as _dp
 from repro_torch.kernels import quantize as _q
+from repro_torch.kernels import seed_reconstruct as _sr
+from repro_torch.kernels import swa_attention as _swa
 
 # the JAX dispatcher's size threshold for the fused route, kept so that
 # both packages take the same route (the card's crossover is in PERF.md)
@@ -41,6 +44,21 @@ def flat_clip(x, clip_norm: float):
     """Per-row L2 clip of flat f32 deltas, (R, N) or (N,): (clipped,
     pre-clip norms)."""
     return _dp.clip_flat(x, clip_norm)
+
+
+def seed_reconstruct(seed: int, leaf_id: int, shape, stddev: float,
+                     dtype=torch.float32, device=None):
+    """Deterministic Gaussian tensor from (seed, leaf_id), on the card
+    unless ``device="cpu"``."""
+    return _sr.seed_reconstruct(seed, leaf_id, shape, stddev, dtype=dtype,
+                                device=device)
+
+
+def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None):
+    """Causal (optionally sliding-window) attention over (B, H, S, D) q and
+    (B, KVH, S, D) k, v: the kernel for CUDA tensors, the dense oracle
+    for CPU ones."""
+    return _swa.swa_attention(q, k, v, window=window, causal=causal, out=out)
 
 
 def _staged_tail(mat, weights, block_leaf, rng, *, n_leaves, align, bits,

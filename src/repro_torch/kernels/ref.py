@@ -215,3 +215,127 @@ def agg_apply_exact_ref(x3, weights, sblock=None, wsum=None,
         t = torch.matmul(w, part.reshape(K, -1))
         outs.append(t / wsum if wsum is not None else t)
     return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+# ---------------------------------------------------------------------------
+# Sliding-window attention (kernels/swa_attention.py)
+
+NEG_INF = -1e30
+
+
+def swa_attention_ref(q, k, v, window: int, causal: bool = True,
+                      q_chunk: int = 512):
+    """Dense sliding-window attention oracle (``ref.swa_attention_ref`` of
+    the JAX package), float32 (B, H, S, D).
+
+    q: (B, H, S, D); k, v: (B, KVH, S, D) with H a multiple of KVH: q head
+    h reads kv head h // (H // KVH), as ``jnp.repeat`` lays them out.
+    window: past positions visible (<= 0: full causal). Rows are taken
+    ``q_chunk`` at a time so that a long sequence's score matrix never
+    exists whole; every row's softmax runs over all its keys, so the
+    chunking changes no value."""
+    B, H, S, D = q.shape
+    rep = H // k.shape[1]
+    kf, vf = k.float(), v.float()
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=1)
+        vf = vf.repeat_interleave(rep, dim=1)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
+    kpos = torch.arange(S, device=q.device)
+    outs = []
+    for q0 in range(0, S, q_chunk):
+        qc = q[:, :, q0:q0 + q_chunk].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale
+        qpos = q0 + torch.arange(qc.shape[2], device=q.device)
+        mask = torch.ones((qc.shape[2], S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = qpos[:, None] >= kpos[None, :]
+        if window > 0:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
+        s = torch.where(mask[None, None], s, NEG_INF)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), vf))
+    return torch.cat(outs, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Seed reconstruction (kernels/seed_reconstruct.py): the Pallas body,
+# ported. 32-bit words are held in int64 and masked, as nn/threefry.py
+# holds them (torch has no full uint32 arithmetic).
+
+M32 = 0xFFFFFFFF
+_SQ_C1, _SQ_C2, _SQ_C3 = 0xB5297A4D, 0x68E31DA4, 0x1B56C4E9
+TWO_PI = 6.283185307179586
+
+
+def _mul32(n, c: int):
+    """(n * c) mod 2**32 for int64 n in [0, 2**32), by 16-bit halves of
+    n so that no int64 product overflows."""
+    lo = (n & 0xFFFF) * c
+    hi = ((n >> 16) * (c & 0xFFFF)) & 0xFFFF
+    return (lo + (hi << 16)) & M32
+
+
+def _squirrel3(n, seed: int):
+    """The reference's squirrel3 avalanche of the uint32 words n."""
+    n = _mul32(n, _SQ_C1)
+    n = (n + seed) & M32
+    n = n ^ (n >> 8)
+    n = (n + _SQ_C2) & M32
+    n = n ^ ((n << 8) & M32)
+    n = _mul32(n, _SQ_C3)
+    return n ^ (n >> 8)
+
+
+def seed_word(seed: int, leaf_id: int) -> int:
+    """``uint32(int32 seed) * 0x9E3779B9 + uint32(int32(leaf_id * 40503))``,
+    wrapping, as the reference's wrapper and kernel build it."""
+    return ((int(seed) & M32) * 0x9E3779B9 + ((int(leaf_id) * 40503) & M32)) & M32
+
+
+def seed_dims(shape):
+    """``shape`` flattened to (rows, cols) on its last dim."""
+    if len(shape) == 1:
+        return 1, int(shape[0])
+    return int(np.prod([int(d) for d in shape[:-1]])), int(shape[-1])
+
+
+def seed_bits_plain(seed: int, leaf_id: int, rows: int, cols: int,
+                    row0: int = 0, device=None):
+    """The two squirrel3 words (b1, b2) of the elements of rows
+    [row0, row0 + rows) of a (., cols) tensor, int64 in [0, 2**32): the
+    counter is the row-major index over the logical cols, in 32 bits."""
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
+    c = torch.arange(cols, dtype=torch.int64, device=device)
+    idx = (r[:, None] * cols + c[None, :]) & M32
+    sw = seed_word(seed, leaf_id)
+    return (_squirrel3((idx * 2) & M32, sw),
+            _squirrel3((idx * 2 + 1) & M32, sw))
+
+
+def _uniform(bits):
+    """uint32 -> (0, 1): top 24 bits as mantissa, offset by half an ulp
+    (exact in float32)."""
+    return ((bits >> 8).float() + 0.5) * (1.0 / 16777216.0)
+
+
+def seed_reconstruct_plain(seed: int, leaf_id: int, shape, stddev: float,
+                           dtype=torch.float32, block_rows: int = 256,
+                           device=None):
+    """The deterministic Gaussian tensor of ``shape`` from (seed, leaf_id):
+    Box-Muller over two squirrel3 words per element, times ``stddev``,
+    rows taken ``block_rows`` at a time (the result does not depend on
+    it). Named ``_plain``, not ``_ref``: it ports the Pallas body bit for
+    bit, where the JAX package's ``ref.seed_reconstruct_ref`` is only a
+    distributional oracle of another function."""
+    rows, cols = seed_dims(shape)
+    f32 = dict(dtype=torch.float32, device=device)
+    two_pi = torch.tensor(np.float32(TWO_PI), **f32)
+    std = torch.tensor(np.float32(stddev), **f32)
+    out = torch.empty((rows, cols), dtype=dtype, device=device)
+    for r0 in range(0, rows, block_rows):
+        n = min(block_rows, rows - r0)
+        b1, b2 = seed_bits_plain(seed, leaf_id, n, cols, r0, device)
+        z = torch.sqrt(-2.0 * torch.log(_uniform(b1))) * torch.cos(
+            two_pi * _uniform(b2))
+        out[r0:r0 + n] = (std * z).to(dtype)
+    return out.reshape(tuple(shape))

@@ -1,0 +1,99 @@
+"""Causal, optionally sliding-window, flash attention: the CUDA kernel of
+``csrc/swa_attention.cu`` (port of ``repro/kernels/swa_attention.py``'s
+``_swa_kernel`` / ``swa_attention``).
+
+``nn/attention.flash_attention`` calls it, through ``kernels/ops``, in
+every attention layer of the decoder LM's prefill on the card. It takes
+q's heads and k/v's (fewer, under GQA) heads as they are, and strided
+views: the model's (B, S, H, D) tensors go in transposed, with no copy.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import _build, ref
+
+MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {"swa_attention_fwd": [_P, _P, _P, _P, _INT, _INT, _INT, _INT,
+                                     _INT, _INT] + [_I64] * 12
+               + [_INT, _INT, ctypes.c_float, _P]}
+
+
+def _check(q, k, v, out) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.device.type != "cuda":
+            raise ValueError(f"swa_attention: {name} is not a CUDA tensor "
+                             f"({t.device})")
+        if t.device.index != torch.cuda.current_device():
+            raise ValueError(f"swa_attention: {name} on {t.device}, current "
+                             f"device is cuda:{torch.cuda.current_device()}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"swa_attention: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
+        if t.ndim != 4 or (t.shape[-1] > 1 and t.stride(-1) != 1):
+            raise ValueError(f"swa_attention: {name} must be 4-d with a "
+                             f"contiguous head dim, got shape "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"swa_attention: {q.dtype} is not supported")
+    B, H, S, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, D):
+        raise ValueError(f"swa_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if out.shape != q.shape:
+        raise ValueError(f"swa_attention: out {tuple(out.shape)} is not q's "
+                         f"{tuple(q.shape)}")
+    if H % k.shape[1]:
+        raise ValueError(f"swa_attention: {H} q heads are not a multiple of "
+                         f"{k.shape[1]} kv heads")
+    if not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"swa_attention: head dim {D} outside (0, "
+                         f"{MAX_HEAD_DIM}]")
+    if B * H > 65535:
+        raise ValueError("swa_attention: batch * heads above 65535")
+
+
+def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None):
+    """softmax(mask(q k^T / sqrt(D))) v: q (B, H, S, D), k and v (B, KVH,
+    S, D) with H a multiple of KVH (q head h reads kv head h // (H //
+    KVH)); ``window`` > 0 keeps the keys with ``q - k < window``. Returns
+    (B, H, S, D) in q's dtype, written into ``out`` when given.
+
+    CUDA tensors: the ``swa_attention`` kernel, which reads only the KV
+    tiles inside the window (float32 inside). CPU tensors:
+    ``ref.swa_attention_ref``."""
+    if q.device.type == "cpu":
+        res = ref.swa_attention_ref(q, k, v, window, causal).to(q.dtype)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _check(q, k, v, out)
+    B, H, S, D = q.shape
+    if S == 0:
+        return out
+    lib = _build.load("swa_attention.cu", _SIGNATURES)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
+    err = lib.swa_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), _DTYPES[q.dtype], B, H,
+                                k.shape[1], S, D, *strides, int(window),
+                                int(causal), scale, _build.stream_ptr(q))
+    _build.raise_on_error("swa_attention", err)
+    kernels.LAUNCHES["swa_attention"] += 1
+    return out
+
+
+def visible_pairs(S: int, window: int, causal: bool = True) -> int:
+    """The (q, k) pairs the mask lets through, per (batch, head): the
+    operations' count behind the kernel's bound."""
+    q = np.arange(S, dtype=np.int64)
+    hi = q + 1 if causal else np.full(S, S, np.int64)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(S, np.int64)
+    return int((hi - lo).sum())

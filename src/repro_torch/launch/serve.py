@@ -1,0 +1,90 @@
+"""Serving entry point, port of ``repro/launch/serve.py``: batched greedy
+autoregressive decoding with KV caches (ring buffers under a sliding
+window), on the card unless ``--device cpu``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b \\
+      --device cpu --batch 4 --steps 32
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import get_config
+from repro_torch.models import decoder_lm as dlm
+
+
+def prefill_by_steps(params, cfg, prompt_tokens, max_len: int, device=None):
+    """Step the prompt (B, P) through ``decode_step`` one position at a
+    time, as the reference's ``generate`` prefills. Returns (logits of
+    every prompt position (B, P, V), cache)."""
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt_tokens, device=dev)
+    B, P = prompt.shape
+    cache = dlm.init_cache(cfg, B, max_len, device=dev)
+    logits = []
+    for t in range(P):
+        step_logits, cache = dlm.decode_step(params, cfg, cache,
+                                             prompt[:, t:t + 1])
+        logits.append(step_logits)
+    return torch.cat(logits, dim=1), cache
+
+
+def generate(params, cfg, prompt_tokens, steps: int, max_len: int = 0,
+             temperature: float = 0.0, seed: int = 0, device=None):
+    """Greedy generation. prompt_tokens: (B, P) -> (B, P + steps) int32,
+    on the card unless ``device="cpu"``. Sampling (``temperature > 0``)
+    needs JAX's ``random.split`` / ``categorical``, not ported yet."""
+    if temperature > 0:
+        raise NotImplementedError("sampled decoding (temperature > 0) is not "
+                                  "ported yet; greedy only")
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt_tokens, device=dev).to(torch.int32)
+    B, P = prompt.shape
+    logits, cache = prefill_by_steps(params, cfg, prompt, max_len or (P + steps),
+                                     dev)
+    out = [prompt]
+    for _ in range(steps):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+        logits, cache = dlm.decode_step(params, cfg, cache, tok)
+    return torch.cat(out, dim=1)
+
+
+def main(argv=None):
+    from repro_torch.launch.train import reduced_config
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = reduced_config(get_config(args.arch))
+    params = dlm.init_model(cfg, 0, device=dev)
+    # numpy draws the prompt (the reference uses jax.random.randint)
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    t0 = time.time()
+    seqs = generate(params, cfg, prompt, args.steps,
+                    temperature=args.temperature, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.time() - t0
+    print(f"arch={cfg.name} generated {tuple(seqs.shape)} in {dt:.1f}s "
+          f"({args.batch * args.steps / dt:.1f} tok/s) on {dev}")
+    print(seqs[0].cpu().numpy())
+
+
+if __name__ == "__main__":
+    main()

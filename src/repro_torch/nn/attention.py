@@ -1,0 +1,211 @@
+"""Attention, port of the dense GQA part of ``repro/nn/attention.py``:
+RoPE, the q/k/v projections, causal (optionally sliding-window) attention
+for prefill, and single-token decode against a KV cache.
+
+``flash_attention`` on a CUDA tensor is the hand-written sliding-window
+flash-attention kernel (``kernels/ops.swa_attention``, the port of the
+TPU's ``kernels/swa_attention.py``), which skips the KV tiles outside the
+window instead of masking them. On a CPU tensor it is the reference's
+chunked online softmax: KV chunks of 512, f32 scores and running
+(max, sum, acc), ``p`` cast to v's dtype before the PV product.
+``decode_attention`` stays plain torch, as the JAX package computes it
+outside any Pallas kernel. MLA waits for the slice that ports DeepSeek.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.nn import basic
+
+NEG_INF = -1e30
+
+
+def _scale(head_dim: int) -> float:
+    """``1 / sqrt(hd)`` as JAX computes it: a float32 sqrt, then a float32
+    division."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(head_dim)))
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_freqs(head_dim: int, theta: float, positions):
+    """positions: (..., seq) int -> cos/sin (..., seq, head_dim//2), f32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                       device=positions.device), exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., seq, heads, head_dim); cos/sin: (..., seq, head_dim//2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :].to(x.dtype)  # broadcast over heads
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# GQA projections
+
+
+def init_attention(seed, path, cfg: ModelConfig, dtype, device=None):
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    b = cfg.qkv_bias
+    return {
+        "wq": basic.init_dense(seed, f"{path}/wq", d, h * hd, dtype, bias=b,
+                               device=device),
+        "wk": basic.init_dense(seed, f"{path}/wk", d, kv * hd, dtype, bias=b,
+                               device=device),
+        "wv": basic.init_dense(seed, f"{path}/wv", d, kv * hd, dtype, bias=b,
+                               device=device),
+        "wo": basic.init_dense(seed, f"{path}/wo", h * hd, d, dtype,
+                               bias=False, device=device),
+    }
+
+
+def qkv_project(x, p, cfg: ModelConfig):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    cd = cfg.cdtype
+    q = basic.dense(x, p["wq"], cd).reshape(b, s, h, hd)
+    k = basic.dense(x, p["wk"], cd).reshape(b, s, kv, hd)
+    v = basic.dense(x, p["wv"], cd).reshape(b, s, kv, hd)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Causal (optionally sliding-window) attention
+
+
+def _attend_chunk(q, k, qpos, kpos, window: int, softcap: float, scale,
+                  causal: bool, prefix_len: int):
+    """q:(b,h,sq,d) k:(b,h,sc,d) -> masked f32 scores (b,h,sq,sc)."""
+    # bf16 x bf16 is exact in f32: the upcast gives JAX's
+    # preferred_element_type=float32 scores
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    if causal:
+        mask = qpos[:, None] >= kpos[None, :]
+        if prefix_len > 0:  # bidirectional prefix (PaliGemma-style)
+            mask = mask | (kpos[None, :] < prefix_len)
+        if window > 0:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    else:
+        mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                          device=q.device)
+    return torch.where(mask[None, None], s, NEG_INF)
+
+
+def chunked_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
+                      causal: bool = True, prefix_len: int = 0):
+    """The reference's ``flash_attention`` in plain torch: a loop over KV
+    chunks carrying the online-softmax (max, sum, acc). Same arguments and
+    layout as :func:`flash_attention`."""
+    b, sq, h, hd = q.shape
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    rep = h // kvh
+    scale = _scale(hd)
+    window = cfg.sliding_window
+
+    qh = q.transpose(1, 2)  # b,h,sq,hd
+    kh = k.transpose(1, 2)
+    vh = v.transpose(1, 2)
+    if rep > 1:  # jnp.repeat: each kv head serves `rep` consecutive q heads
+        kh = kh.repeat_interleave(rep, dim=1)
+        vh = vh.repeat_interleave(rep, dim=1)
+
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, max(skv, 1), chunk):
+        kc, vc = kh[:, :, c0:c0 + chunk], vh[:, :, c0:c0 + chunk]
+        kpos = c0 + torch.arange(kc.shape[2], device=q.device)
+        s = _attend_chunk(qh, kc, qpos, kpos, window, cfg.attn_logit_softcap,
+                          scale, causal, prefix_len)
+        # the reference pads the last chunk with masked zero keys; each
+        # adds an exact 0 to the sums, so a shorter chunk is the same
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
+                    causal: bool = True, prefix_len: int = 0):
+    """Causal (optionally sliding-window, ``cfg.sliding_window``) attention.
+
+    q: (b, sq, h, hd); k, v: (b, skv, kv_heads, hd). q_offset: position
+    of q[0] relative to k[0]. Returns (b, sq, h, hd) in q's dtype.
+
+    CUDA tensors: the ``swa_attention`` kernel, reading each q head's kv
+    head ``h // rep`` in place (no repeat) and writing the (b, sq, h, hd)
+    layout directly. It computes scores, softmax and PV in float32 (``p``
+    is not cast to v's dtype, as in the TPU kernel). Softcapping, a
+    bidirectional prefix, a v head dim unlike q's (MLA) and an offset q
+    are outside what it computes and raise. CPU tensors:
+    :func:`chunked_attention`.
+    """
+    if q.device.type == "cpu":
+        return chunked_attention(q, k, v, cfg, q_offset=q_offset, chunk=chunk,
+                                 causal=causal, prefix_len=prefix_len)
+    unported = {"attn_logit_softcap > 0": cfg.attn_logit_softcap > 0,
+                "prefix_len > 0": prefix_len > 0,
+                "a v head dim unlike q's (MLA)": v.shape[3] != q.shape[3],
+                "q_offset != 0 or sq != skv": (q_offset != 0
+                                              or q.shape[1] != k.shape[1])}
+    for what, present in unported.items():
+        if present:
+            raise NotImplementedError(f"flash_attention on the card: {what} "
+                                      f"is outside the swa_attention kernel")
+    b, s, h, hd = q.shape
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    # the window applies only to causal attention, as on the CPU (the
+    # kernel, like the TPU's, would also window a non-causal call)
+    ops.swa_attention(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2),
+                      window=cfg.sliding_window if causal else 0,
+                      causal=causal, out=out.transpose(1, 2))
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, cfg: ModelConfig):
+    """One-token decode: q (b, 1, h, hd) against caches (b, S, kvh, hd).
+
+    cache_len: int, 0-d or (b,) tensor: the number of valid cache
+    positions. Plain torch on every device."""
+    b, _, h, hd = q.shape
+    S, kvh = k_cache.shape[1], k_cache.shape[2]
+    rep = h // kvh
+    kh, vh = k_cache, v_cache
+    if rep > 1:
+        kh = kh.repeat_interleave(rep, dim=2)
+        vh = vh.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), kh.float()) * _scale(hd)
+    if cfg.attn_logit_softcap > 0:
+        s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
+    pos = torch.arange(S, device=q.device)
+    cl = torch.as_tensor(cache_len, device=q.device)
+    cl = cl[:, None, None, None] if cl.ndim else cl
+    mask = pos[None, None, None, :] < cl
+    if cfg.sliding_window > 0:
+        mask = mask & (pos[None, None, None, :] >= cl - cfg.sliding_window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(vh.dtype)
+    out = torch.einsum("bhqs,bshd->bqhd", p.float(), vh.float())
+    return out.to(q.dtype)

@@ -1,6 +1,6 @@
 """Functional NN primitives (port of ``repro/nn/basic.py``): path-keyed
-deterministic initialization, parameter-tree utilities, GroupNorm and
-dense layers.
+deterministic initialization, parameter-tree utilities, norms, dense
+layers, embeddings and gated MLPs.
 
 Parameters live in nested ``dict[str, Tensor]`` trees with the JAX
 package's key paths. Every leaf is drawn from a key derived from the
@@ -138,3 +138,84 @@ def dense(x, p, compute_dtype=None):
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Norms (scale by 1 + scale, computed in float32, cast back)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) * (x - mu)).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float()) + bias.float()).to(dt)
+
+
+def init_norm(seed, path, d, dtype, norm_type: str, device=None):
+    p = {"scale": zeros_init(seed, f"{path}/scale", (d,), dtype, device)}
+    if norm_type != "rmsnorm":
+        p["bias"] = zeros_init(seed, f"{path}/bias", (d,), dtype, device)
+    return p
+
+
+def apply_norm(x, p, norm_type: str):
+    if norm_type == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding, activations and MLP
+
+
+def init_embedding(seed, path, vocab, d, dtype, device=None):
+    return {"embedding": normal_init(seed, f"{path}/embedding", (vocab, d),
+                                     dtype, stddev=0.02, device=device)}
+
+
+def embed(ids, p, compute_dtype):
+    return p["embedding"][ids].to(compute_dtype)
+
+
+def unembed(x, p, compute_dtype):
+    return x.to(compute_dtype) @ p["embedding"].to(compute_dtype).T
+
+
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    return {"silu": torch.nn.functional.silu, "gelu": _gelu,
+            "relu": torch.relu}[name]
+
+
+def init_mlp(seed, path, d_model, d_ff, dtype, gated: bool = True,
+             bias: bool = False, device=None):
+    names = ("wi_gate", "wi_up", "wo") if gated else ("wi", "wo")
+    return {n: init_dense(seed, f"{path}/{n}",
+                          d_ff if n == "wo" else d_model,
+                          d_model if n == "wo" else d_ff, dtype, bias,
+                          device=device)
+            for n in names}
+
+
+def mlp(x, p, act: str, compute_dtype):
+    f = activation(act)
+    if "wi_gate" in p:
+        g = dense(x, p["wi_gate"], compute_dtype)
+        u = dense(x, p["wi_up"], compute_dtype)
+        return dense(f(g) * u, p["wo"], compute_dtype)
+    h = f(dense(x, p["wi"], compute_dtype))
+    return dense(h, p["wo"], compute_dtype)

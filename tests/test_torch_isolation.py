@@ -47,6 +47,10 @@ def test_no_source_imports_jax_or_repro():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.core.fedpt" in mods and "repro_torch.kernels.ops" in mods
+    assert {"repro_torch.configs.mistral_nemo_12b", "repro_torch.nn.attention",
+            "repro_torch.models.decoder_lm", "repro_torch.launch.serve",
+            "repro_torch.launch.specs", "repro_torch.kernels.swa_attention",
+            "repro_torch.kernels.seed_reconstruct"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]\n"
@@ -113,6 +117,25 @@ def test_entry_points_raise_without_cuda():
                                                           device="meta"))):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+    # the serving path: the decoder LM, its steps and its kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, specs
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import decoder_lm as dlm
+    cfg = reduced_config(get_config("mistral-nemo-12b"))
+    for call in (lambda: dlm.init_model(cfg, 0),
+                 lambda: dlm.init_cache(cfg, 1, 8),
+                 lambda: specs.make_prefill_step(cfg),
+                 lambda: specs.make_decode_step(cfg),
+                 lambda: serve.generate({}, cfg, np.zeros((1, 2), np.int32), 1),
+                 lambda: serve.main(["--arch", "mistral-nemo-12b"]),
+                 lambda: ops.seed_reconstruct(0, 0, (4, 4), 1.0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    qkv = torch.empty((1, 2, 64, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.swa_attention(qkv, qkv, qkv)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 

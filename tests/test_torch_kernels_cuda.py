@@ -118,7 +118,8 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     assert kernels.LAUNCHES == {"sumsq": 1, "leaf_maxabs": 1,
                                 "fake_quantize_flat": 1, "block_stats": 0,
                                 "pack": 0, "apply_coeff": 0, "clip_flat": 0,
-                                "clip_accumulate": 0}
+                                "clip_accumulate": 0, "swa_attention": 0,
+                                "seed_reconstruct": 0}
     with pytest.raises(TypeError):
         dp_clip.sumsq(x[0].double())
     with pytest.raises(ValueError):
@@ -187,7 +188,8 @@ def test_fused_kernels_match_plain(dev, rows, block_leaf, case):
     assert kernels.LAUNCHES == {"sumsq": 0, "leaf_maxabs": 0,
                                 "fake_quantize_flat": 0, "block_stats": 1,
                                 "pack": 1, "apply_coeff": 2, "clip_flat": 0,
-                                "clip_accumulate": 0}
+                                "clip_accumulate": 0, "swa_attention": 0,
+                                "seed_reconstruct": 0}
     # the same bits on a second run
     again = agg_tail.block_stats(m)
     assert same_bits(again[0], bmax) and same_bits(again[1], bsumsq)
@@ -328,3 +330,169 @@ def test_clip_wrappers_check_inputs(dev):
         dp_clip.clip_accumulate(m[0], m[1, :1024].contiguous(), CLIP)
     with pytest.raises(ValueError):
         dp_clip.clip_accumulate(m[0].cpu(), m[1], CLIP)
+
+
+# --- the serving path: sliding-window attention and seed reconstruction -----
+#
+# swa_attention against the dense plain version: the kernel rounds its
+# float32 result to the output type once (half an ulp: 2**-8 relative in
+# bf16, 2**-11 in fp16); the two float32 computations sum in other orders,
+# ~1e-6 at these sizes, inside an absolute 1e-5 (and 2**-20 relative for
+# float32 outputs). seed_reconstruct: hash words bit for bit; Gaussians
+# within 8 ulps (CUDA's logf / cosf against torch's, 2 ulps each, a sqrt
+# and two multiplies), bf16 within one bf16 ulp.
+
+HALF_ULP = {torch.float32: 2.0 ** -20, torch.bfloat16: 2.0 ** -8,
+            torch.float16: 2.0 ** -11}
+
+
+def _qkv(dev, B, H, KVH, S, D, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((B, H, S, D), generator=g).to(dev, dtype),
+            torch.randn((B, KVH, S, D), generator=g).to(dev, dtype),
+            torch.randn((B, KVH, S, D), generator=g).to(dev, dtype))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 100, 1000])
+@pytest.mark.parametrize("B,H,KVH,S,D,dtype", [
+    (1, 4, 2, 200, 64, torch.float32),       # GQA rep 2, 64-wide heads
+    (2, 8, 2, 1000, 100, torch.bfloat16),    # a head dim below 128
+    (1, 4, 4, 257, 128, torch.float16),      # ragged S, no GQA
+    (1, 32, 8, 4000, 128, torch.bfloat16)])  # NeMo's heads, ragged S
+def test_swa_attention_matches_plain(dev, B, H, KVH, S, D, dtype, window,
+                                     causal):
+    q, k, v = _qkv(dev, B, H, KVH, S, D, dtype, seed=S + window)
+    kernels.reset_launches()
+    got = ops.swa_attention(q, k, v, window=window, causal=causal)
+    assert kernels.LAUNCHES["swa_attention"] == 1 and got.dtype == dtype
+    want = ref.swa_attention_ref(q, k, v, window, causal)
+    err = (got.float() - want).abs()
+    assert bool((err <= HALF_ULP[dtype] * want.abs() + 1e-5).all()), \
+        float(err.max())
+    assert same_bits(ops.swa_attention(q, k, v, window=window,
+                                       causal=causal), got)
+
+
+def test_swa_attention_reads_strided_layouts(dev):
+    """The model's (B, S, H, D) tensors go in as transposed views and the
+    output is written into a transposed view: the same bits as the
+    contiguous call."""
+    g = torch.Generator().manual_seed(1)
+    bshd = [torch.randn((2, 300, h, 128), generator=g).to(dev, torch.bfloat16)
+            for h in (8, 2, 2)]
+    views = [t.transpose(1, 2) for t in bshd]
+    out = torch.empty_like(bshd[0])
+    res = ops.swa_attention(*views, window=70, out=out.transpose(1, 2))
+    want = ops.swa_attention(*(t.contiguous() for t in views), window=70)
+    assert res.data_ptr() == out.data_ptr()
+    assert same_bits(out.transpose(1, 2), want)
+
+
+def test_swa_attention_checks_inputs(dev):
+    q, k, v = _qkv(dev, 1, 4, 2, 64, 64, torch.bfloat16)
+    with pytest.raises(TypeError):
+        ops.swa_attention(q, k.float(), v)
+    with pytest.raises(ValueError):
+        ops.swa_attention(q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1))
+    with pytest.raises(ValueError):
+        ops.swa_attention(*_qkv(dev, 1, 2, 1, 8, 192, torch.bfloat16))
+    with pytest.raises(ValueError):
+        ops.swa_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        ops.swa_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+
+
+def test_flash_attention_on_card_is_the_kernel(dev):
+    """``nn/attention.flash_attention`` on CUDA tensors launches the kernel,
+    and agrees with the plain chunked version run on the card: that one
+    rounds p to bf16 before PV (2**-9 of each term, so 2**-9 of max |v|),
+    and both round the output to bf16."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.nn import attention
+    cfg = reduced_config(get_config("mistral-nemo-12b")).with_(
+        num_kv_heads=2, sliding_window=100)
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn((2, 600, h, 64), generator=g).to(dev, torch.bfloat16)
+               for h in (4, 2, 2))
+    kernels.reset_launches()
+    got = attention.flash_attention(q, k, v, cfg)
+    assert kernels.LAUNCHES["swa_attention"] == 1
+    want = attention.chunked_attention(q, k, v, cfg)
+    err = (got.float() - want.float()).abs()
+    bound = 2.0 ** -9 * float(v.float().abs().max()) + \
+        2.0 ** -8 * (got.float().abs() + want.float().abs()) + 1e-5
+    assert bool((err <= bound).all()), float(err.max())
+
+
+def test_flash_attention_non_causal_ignores_window(dev):
+    """A non-causal call on the card ignores ``cfg.sliding_window``, as the
+    reference's and the CPU path's do: it equals the window-0 call bit for
+    bit, and the plain chunked version within the bound above."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.nn import attention
+    cfg = reduced_config(get_config("mistral-nemo-12b")).with_(
+        num_kv_heads=2, sliding_window=100)
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((1, 300, h, 64), generator=g).to(dev, torch.bfloat16)
+               for h in (4, 2, 2))
+    got = attention.flash_attention(q, k, v, cfg, causal=False)
+    full = attention.flash_attention(q, k, v, cfg.with_(sliding_window=0),
+                                     causal=False)
+    assert same_bits(got, full)
+    want = attention.chunked_attention(q, k, v, cfg, causal=False)
+    err = (got.float() - want.float()).abs()
+    bound = 2.0 ** -9 * float(v.float().abs().max()) + \
+        2.0 ** -8 * (got.float().abs() + want.float().abs()) + 1e-5
+    assert bool((err <= bound).all()), float(err.max())
+
+
+def test_decoder_on_card_matches_cpu(dev):
+    """Reduced NeMo with GQA in float32: forward logits on the card (the
+    kernel) against the CPU (the chunked plain version), rtol / atol 1e-4
+    (other summation orders, as in tests/test_torch_decoder_lm.py), and
+    greedy tokens through a wrapped 16-slot ring equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.nn.basic import tree_map
+    cfg = reduced_config(get_config("mistral-nemo-12b")).with_(
+        num_kv_heads=2, sliding_window=16)
+    params = dlm.init_model(cfg, 0, device="cpu")
+    on_card = tree_map(lambda x: x.to(dev), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 40)))
+    kernels.reset_launches()
+    got, _ = dlm.forward(on_card, cfg, toks.to(dev))
+    assert kernels.LAUNCHES["swa_attention"] == cfg.num_layers
+    want, _ = dlm.forward(params, cfg, toks)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    seq_card = serve.generate(on_card, cfg, toks[:, :8], 40, max_len=64,
+                              device=dev)
+    seq_cpu = serve.generate(params, cfg, toks[:, :8], 40, max_len=64,
+                             device="cpu")
+    assert torch.equal(seq_card.cpu(), seq_cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5120, 14336), (300, 200), (7, 130),
+                                   (1000,), (64, 64, 3)])
+def test_seed_reconstruct_matches_plain(dev, shape, dtype):
+    from repro_torch.kernels import seed_reconstruct as sr
+    rows, cols = ref.seed_dims(shape)
+    b1, b2 = sr.seed_bits(42, 7, shape, device=dev)
+    w1, w2 = ref.seed_bits_plain(42, 7, rows, cols, device=dev)
+    assert torch.equal(b1, w1) and torch.equal(b2, w2)
+    kernels.reset_launches()
+    got = ops.seed_reconstruct(42, 7, shape, 0.02, dtype=dtype, device=dev)
+    assert kernels.LAUNCHES["seed_reconstruct"] == 1
+    want = ref.seed_reconstruct_plain(42, 7, shape, 0.02, dtype=dtype,
+                                      device=dev)
+    assert got.shape == tuple(shape) and got.dtype == dtype
+    ulps = (got.float().view(torch.int32).long()
+            - want.float().view(torch.int32).long()).abs().max()
+    assert int(ulps) <= (8 if dtype == torch.float32 else 1 << 16)
+    assert same_bits(ops.seed_reconstruct(42, 7, shape, 0.02, dtype=dtype,
+                                          device=dev), got)

@@ -32,7 +32,10 @@ package. Phases, in order, each failing the run on error:
      prefill's (1, 32, 32768, 128) in its layout under windows 0 and
      8192, within 2**-8 relative + 1e-5 of its plain version (one bf16
      rounding), the same bits twice; timed at the prefill's shape causal
-     (and window 8192) beside ``scaled_dot_product_attention``;
+     (and window 8192) beside ``scaled_dot_product_attention``, with its
+     ptxas registers and spills, its SASS wgmma and TMA load counts, its
+     TFLOP/s, the launches the profiler records, and the card's clock and
+     power under sustained load;
      ``seed_reconstruct`` at NeMo's frozen FFN leaf (5120, 14336) and a
      ragged (300, 200): hash words bit for bit, Gaussians within 8 ulps;
 3. drive the main paths: synchronous FedPT rounds on the full-width
@@ -87,8 +90,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -950,10 +956,11 @@ BF16_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 WINDOW_GATE = 0.8
 # kernel vs plain on the card. swa_attention: the kernel rounds its float32
 # result to bf16 once (half a bf16 ulp, 2**-8 of the value at most); the two
-# float32 computations differ by ~1e-6 (other summation orders), covered by
-# the absolute 1e-5. seed_reconstruct: the same float32 uniforms through
-# CUDA's logf / cosf against torch's log / cos (each within 2 ulps of exact),
-# a sqrt and two multiplies: 8 ulps.
+# float32 computations differ by ~1e-6 (other summation orders, and p.v on
+# the tensor cores as p_hi.v + p_lo.v, p within 2**-16 of its float32
+# value), covered by the absolute 1e-5. seed_reconstruct: the same float32
+# uniforms through CUDA's logf / cosf against torch's log / cos (each within
+# 2 ulps of exact), a sqrt and two multiplies: 8 ulps.
 SWA_REL, SWA_ABS, SEED_ULPS = 2.0 ** -8, 1e-5, 8
 # the serving path's logits against its plain forms, relative to the largest
 # |logit|: bf16 compute through 4 layers, where the plain attention rounds p
@@ -975,14 +982,94 @@ def swa_inputs(shape, kv_heads, gen, dev, layout_bshd=False):
     return one(H), one(kv_heads), one(kv_heads)
 
 
-def check_serving_kernels(dev):
+def kernel_label(mangled: str, marker: str) -> str:
+    """``swa_kernel_tc<bf16, 128>`` for a mangled entry function name
+    holding ``marker``: its name and (dtype, D) template arguments."""
+    names = {"_nv_bfloat16": "bf16", "__half": "fp16", "If": "f32"}
+    ty = next((v for k, v in names.items() if k in mangled), "?")
+    dim = "128" if "Li128E" in mangled else "64"
+    name = re.search(marker + r"\w*?(?=I)", mangled).group(0)
+    return f"{name}<{ty}, {dim}>"
+
+
+def ptxas_summary(log: str, marker: str):
+    """{kernel: "N registers, S bytes spill stores, L bytes spill loads"}
+    from ``nvcc -Xptxas -v`` output, for the entry functions whose mangled
+    name holds ``marker``."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if marker in line else None
+            spills = "spills not reported"
+        elif current and "spill" in line:
+            spills = line.strip()
+        elif current and "registers" in line:
+            out[kernel_label(current, marker)] = (
+                line.split("Used ")[1].split(",")[0] + "; " + spills)
+            current = None
+    return out
+
+
+def sass_counts(lib_path, marker: str, ops=("HGMMA", "UTMALDG")):
+    """{kernel: {op: count}} of the SASS instructions ``ops`` (wgmma, TMA
+    load) in each entry function of the built library whose name holds
+    ``marker``, from ``cuobjdump -sass``; None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if marker in name:
+            out[kernel_label(name, marker)] = {op: fn.count(op) for op in ops}
+    return out
+
+
+def clock_power(fn, iters: int):
+    """(ms per call, median SM clock in MHz, median board power in W) over
+    ``iters`` back-to-back calls of ``fn``, with nvidia-smi sampling the
+    card every 100 ms; a card held at its power limit lowers its clock."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    rows = []
+    reader = threading.Thread(target=lambda: rows.extend(smi.stdout))
+    reader.start()
+    try:
+        ms = time_ms(fn, iters, 0)
+    finally:
+        smi.terminate()
+        smi.wait()
+        reader.join()
+    vals = [[float(x) for x in r.split(",")] for r in rows if r.strip()]
+    vals = vals[len(vals) // 4:] or vals   # past the ramp
+    if not vals:
+        return ms, None, None
+    return (ms, float(np.median([v[0] for v in vals])),
+            float(np.median([v[1] for v in vals])))
+
+
+def recorded_launches(fn, name: str, iters: int) -> int:
+    """Launches of the named CUDA kernel that the profiler records over
+    ``iters`` calls of ``fn`` (one each)."""
+    return sum(ev.count for ev in profiled_calls(fn, iters) if name in ev.key)
+
+
+def check_serving_kernels(dev, build_logs):
     """Phase 2, the serving path's kernels: swa_attention against its plain
     version at (1, 32, 4096, 128) bf16 with GQA rep 4, windows 0 and
     1,000, at a ragged S = 4,000, and at the prefill's (1, 32, 32768, 128)
     in its (B, S, H, D) layout under windows 0 and 8192; seed_reconstruct at NeMo's frozen FFN
     leaf (5120, 14336) and a ragged (300, 200), its hash words bit for bit
     and its Gaussians within SEED_ULPS. Returns their records, timed at the
-    prefill's shape (1, 32, 32768, 128) causal and at (5120, 14336)."""
+    prefill's shape (1, 32, 32768, 128) causal and at (5120, 14336). Prints
+    the attention kernels' registers and spills (``build_logs``: this run's
+    ``-Xptxas -v`` output), its achieved TFLOP/s, the windowed library
+    call and how many of its launches the profiler records."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import seed_reconstruct as sr
     from repro_torch.kernels import swa_attention as swa
@@ -1027,6 +1114,22 @@ def check_serving_kernels(dev):
               f"{ulps} ulps (bound {SEED_ULPS}) of plain {shape}")
 
     src = "src/repro_torch/kernels/csrc/"
+    if "swa_attention.cu" in build_logs:
+        for name, info in ptxas_summary(build_logs["swa_attention.cu"],
+                                        "swa_kernel").items():
+            print(f"  ptxas {name}: {info}")
+    else:
+        print("  ptxas: not measured (swa_attention.cu built before this run)")
+    from repro_torch.kernels import _build
+    counts = sass_counts(_build.library_path("swa_attention.cu"), "swa_kernel")
+    for name, ops in (counts or {"SASS": "not measured (no cuobjdump)"}).items():
+        print(f"  SASS {name}: {ops}")
+    # dynamic shared memory of the bf16 kernel at D = 128 (launch_tc): q
+    # (128 x 128 bf16), three K and three V stages (64 x 128), 13 mbarriers,
+    # 1024 bytes to align
+    smem = (swa.BQ + 6 * swa.BK) * 128 * 2 + 13 * 8 + 1024
+    print(f"  swa_kernel_tc<bf16, 128>: {smem} bytes of dynamic shared "
+          f"memory, 384 threads, 1 block per SM")
     # the prefill's own shape and layout, under both of its windows
     q, k, v = swa_inputs((1, 32, PREFILL_LEN, 128), 8, gen, dev,
                          layout_bshd=True)
@@ -1042,14 +1145,62 @@ def check_serving_kernels(dev):
          lambda: ref.swa_attention_ref(q, k, v, 0),
          lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
          ("swa_kernel",), nbytes, 4 * 32 * 128 * pairs)],
-        iters=(3, 1, 2), warmup=1, ops_per_s=BF16_OPS_PER_S)
+        iters=(10, 1, 10), warmup=2, ops_per_s=BF16_OPS_PER_S)
     wpairs = swa.visible_pairs(PREFILL_LEN, 8192)
     wb = bound(nbytes, 4 * 32 * 128 * wpairs, BF16_OPS_PER_S)
-    wms = time_ms(lambda: swa.swa_attention(q, k, v, window=8192), 3, 1)
+    def windowed():
+        return swa.swa_attention(q, k, v, window=8192)
+    wms = time_ms(windowed, 10, 2)
+    wdev = device_ms(windowed, ("swa_kernel",), 10)
     print(f"  swa_attention at (1, 32, {PREFILL_LEN}, 128), window 8192: "
-          f"wrapper {wms:.3f} ms, device "
-          f"{fmt_ms(device_ms(lambda: swa.swa_attention(q, k, v, window=8192), ('swa_kernel',), 2))} "
-          f"ms, bound {wb[0]:.3f} ms ({wb[1]}; {wpairs} of {pairs} pairs)")
+          f"wrapper {wms:.3f} ms, device {fmt_ms(wdev)} ms, bound "
+          f"{wb[0]:.3f} ms ({wb[1]}; {wpairs} of {pairs} pairs)")
+    # achieved rates: by the bound's count (4 D per visible pair) and by
+    # what the kernel issues: 6 D (q.k, p_hi.v, p_lo.v) per pair of every
+    # 64-row x BK-key tile, each of a block's two warpgroups computing all
+    # of the block's tiles
+    for label, window, dev_ms in (("causal", 0, rec_swa[0]["device_ms"]),
+                                  ("window 8192", 8192, wdev)):
+        if dev_ms is None:
+            print(f"  swa_attention TFLOP/s ({label}): not measured")
+            continue
+        tiles = 2 * sum(last - first + 1 for first, last, _ in
+                        swa.tile_plan(PREFILL_LEN, window, True))
+        vis = 4 * 128 * 32 * swa.visible_pairs(PREFILL_LEN, window)
+        issued = 6 * 128 * 32 * tiles * 64 * swa.BK
+        print(f"  swa_attention TFLOP/s ({label}, device {dev_ms:.3f} ms): "
+              f"{vis / dev_ms / 1e9:.1f} by 4 D per visible pair "
+              f"({vis / 1e12:.3f} TFLOP), {issued / dev_ms / 1e9:.1f} issued "
+              f"({issued / 1e12:.3f} TFLOP, 6 D per pair of {tiles} "
+              f"warpgroup tiles a head); bf16 peak 989")
+    for label, fn in (("causal", lambda: swa.swa_attention(q, k, v)),
+                      ("window 8192", windowed)):
+        n = recorded_launches(fn, "swa_kernel", 10)
+        print(f"  profiler: recorded {n} of 10 launches of swa_kernel "
+              f"({label})")
+    # under sustained load both run at the card's power limit
+    for label, fn, iters in (
+            ("swa_attention causal", lambda: swa.swa_attention(q, k, v), 60),
+            ("scaled_dot_product_attention causal",
+             lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 120)):
+        ms, clock, watts = clock_power(fn, iters)
+        print(f"  {label}, {iters} calls back to back: {ms:.3f} ms a call, "
+              f"median SM clock {fmt_ms(clock)} MHz, median power "
+              f"{fmt_ms(watts)} W")
+    # the windowed library call: SDPA with a (1, 1, S, S) boolean window
+    # mask and k, v repeated to 32 heads, all built before the timed calls
+    try:
+        pos = torch.arange(PREFILL_LEN, device=dev)
+        wmask = ((pos[:, None] >= pos[None, :])
+                 & (pos[:, None] - pos[None, :] < 8192))[None, None]
+        kr, vr = (t.repeat_interleave(4, dim=1) for t in (k, v))
+        lib_w = time_ms(lambda: sdpa(q, kr, vr, attn_mask=wmask), 3, 1)
+        print(f"  scaled_dot_product_attention, window 8192 as a (1, 1, S, S) "
+              f"bool mask: {lib_w:.3f} ms")
+        del wmask, kr, vr
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+        print(f"  scaled_dot_product_attention, window 8192: not measured "
+              f"({type(e).__name__}: {str(e).splitlines()[0][:200]})")
     del q, k, v
     rows, cols = 5120, 14336
     rec_seed = kernel_records([
@@ -1293,7 +1444,7 @@ def main() -> int:
     print("[kernels] against their plain versions at the main paths' shapes")
     records = (check_kernels(layout, dev) + check_fused_kernels(layout_a, dev)
                + check_clip_kernels(layout, layout_a, dev)
-               + check_serving_kernels(dev))
+               + check_serving_kernels(dev, logs))
 
     # --- phase 3: the main paths -----------------------------------------
     paths = [  # label, bits, dp, (y, frozen), kernels that must launch

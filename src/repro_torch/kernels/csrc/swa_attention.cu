@@ -12,30 +12,65 @@
 // pairs per head) 3.9 ms. The bytes (q and o with 32 heads, k and v with
 // 8 kv heads, each read or written once: 0.67 GB in bf16) take 0.2 ms.
 //
-// Design (a first kernel, right and simple; speed is later work):
-// - one CUDA block of 256 threads per (batch * head, 64-row q tile), the
-//   tiles with the most KV work (the last, under a causal mask) launched
-//   first;
-// - the block loops over only the 64-wide KV tiles that intersect the
-//   mask of its q tile, in ascending order. The loop takes the place of
-//   the TPU grid's sequential KV axis, and the tiles outside the window
-//   are never read: a structural skip, not a mask;
-// - q head h reads kv head h / (H / KVH) in place (GQA without a repeat),
-//   and every tensor is addressed through its (batch, head, seq) strides,
-//   so the model's (B, S, H, D) layout needs no transposed copy;
-// - the q tile, then each K tile and V tile, are staged in shared memory
-//   as float32 (rows padded by one float, so column reads hit 16 banks);
-//   scores, the online softmax and the PV product are float32 FMAs on
-//   the CUDA cores, each thread holding a 4 x 4 block of scores and a
-//   4 x D/16 block of the accumulator (no tensor cores yet);
-// - the reference's arithmetic: s = (q.k) * scale, masked to
-//   NEG_INF = -1e30; m_new = max(m, rowmax(s)); p = exp(s - m_new);
-//   corr = exp(m - m_new); l = l * corr + sum(p); acc = acc * corr + p @ v;
-//   out = acc / max(l, 1e-30), written in q's type. p stays float32 (the
-//   TPU kernel does not cast it either). A row whose first tile is wholly
-//   masked adds exp(0) rubbish that the next live score wipes out
-//   (corr = exp(-1e30 - m) = 0), as in the reference;
-// - a ragged S is masked in the kernel (rows and keys past S); D <= 128.
+// The function (the reference's arithmetic, every dtype): s = (q.k) * scale
+// in float32, masked to NEG_INF = -1e30; m_new = max(m, rowmax(s));
+// p = expf(s - m_new); corr = expf(m - m_new); l = l * corr + sum(p);
+// acc = acc * corr + p @ v; out = acc / max(l, 1e-30), rounded once to q's
+// type. p stays float32, as in the TPU kernel, which upcasts q, k and v.
+// A row whose first tile is wholly masked adds exp(0) rubbish that the next
+// live score wipes out (corr = exp(-1e30 - m) = 0), as in the reference.
+//
+// bf16 and fp16: swa_kernel_tc, on the tensor cores.
+// - One block of 384 threads per (batch * head, 128-row q tile), the tiles
+//   with the most KV work (the last, under a causal mask) launched first.
+//   Warpgroups 0 and 1 each own 64 q rows; one warp of warpgroup 2 loads
+//   (setmaxnreg moves registers from it to the two consumers).
+// - The block walks the 64-key KV tiles that intersect its mask, in
+//   ascending order; the tiles outside the window are never read. The
+//   formulas are kernels/swa_attention.tile_plan's: the block's range is
+//   tile_plan(bq=128, bk=64)'s; each warpgroup masks element by element
+//   only the tiles that are not whole and visible from all its rows, those
+//   that straddle the diagonal, the window's edge or S (tile_plan(bq=64)).
+//   Both warpgroups compute every tile of the block: a wgmma under a
+//   per-warpgroup condition is serialized by ptxas. A tile that none of a
+//   warpgroup's rows sees is masked whole, which changes no output bit
+//   (p = exp(-1e30 - m) = 0 and corr = 1 after a live score, the rubbish
+//   above before one).
+// - q (once) and each K and V tile arrive in shared memory as bf16 / fp16
+//   through TMA (4-d tensor maps over the strided (B, H, S, D) views,
+//   128-byte swizzle, out-of-range rows and columns filled with zeros),
+//   into a ring of 3 stages with separate K and V buffers, completion
+//   through mbarriers; the consumers release each buffer as soon as their
+//   product has read it. A view that TMA refuses (a base or a stride that
+//   is not a multiple of 16 bytes, e.g. a contiguous D = 100) is copied by
+//   the loading warp itself into the same swizzled ring.
+// - S = q k^T: wgmma m64n64k16, both operands from shared memory, float32
+//   accumulators (a bf16 * bf16 product is exact in float32; only the order
+//   of the float32 sums differs from the plain version).
+// - p.v at float32-p accuracy: p = p_hi + p_lo with p_hi = T(p) and
+//   p_lo = T(p - p_hi) (kernels/ref.split_p), |p - p_hi - p_lo| <= 2^-16 p
+//   in bf16 (2^-22 p in fp16); acc += p_hi v + p_lo v by two register-A
+//   wgmmas m64nDk16 per 16 keys, V read transposed through its descriptor.
+//   The score accumulators' layout is the A fragments' layout, so p never
+//   goes through shared memory. 6 * D flops per pair are issued where the
+//   bound counts 4 * D.
+// - The two consumer warpgroups take turns through two named barriers:
+//   one issues acc += p_i v_i and s = q k_{i+1}^T, lets the other issue
+//   its own, then waits for its products and runs tile i + 1's softmax
+//   while the other's products hold the tensor cores.
+// - Head dims below the template's D (64 or 128) are zero-filled; accurate
+//   expf; a ragged S is masked in the kernel.
+// - What holds it back (PERF.md): at the prefill's shape the card runs at
+//   its 700 W power limit with the clock lowered, and the float32 softmax
+//   (accurate expf, the split, the rescale: ~25 instructions per score)
+//   costs about as much energy as the products.
+//
+// float32 (the reduced tests only; no serving config): swa_kernel, on the
+// CUDA cores: one block of 256 threads per 64-row q tile, q, K and V staged
+// as float32 in shared memory, float32 FMAs, each thread holding a 4 x 4
+// block of scores and a 4 x D/16 block of the accumulator.
+// cuda.h: CUtensorMap, header only (the encoder is fetched at run time)
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -48,10 +83,6 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -259,6 +290,650 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- bf16 / fp16: the tensor-core kernel ------------------------------------
+
+constexpr int kBq = 128;   // q rows per block: two consumer warpgroups of 64
+constexpr int kBk = 64;    // keys per KV tile
+constexpr int kStages = 3;
+constexpr int kTcThreads = 384;
+// one 64-column block of a tile: its rows of 128 bytes, the width of the
+// 128-byte swizzle; a tile of head dim D holds D / 64 of them
+constexpr int kQBlk = kBq * 128;
+constexpr int kKvBlk = kBk * 128;
+constexpr int kBars = 1 + 4 * kStages;   // q full; K / V full and empty
+// named barriers (0 is __syncthreads's): the consumer warpgroups' turns
+constexpr int kTurn0 = 1;
+constexpr uint64_t kStallNs = 4000000000ull;
+
+// The visible keys of query row r are [key_lo(r), key_hi(r)]
+// (kernels/swa_attention.tile_plan uses the same formulas).
+__device__ __forceinline__ int key_lo(int r, int window) {
+  return window > 0 ? max(r - window + 1, 0) : 0;
+}
+__device__ __forceinline__ int key_hi(int r, int S, int causal) {
+  return causal ? r : S - 1;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of this parity to complete. A pipeline that stalls
+// for seconds (a fault, never a slow tile) traps: the launch then fails
+// with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try(bar, parity)) {
+    if (globaltimer() - t0 > kStallNs) __trap();
+  }
+}
+
+// a box of 64 columns at (column c0, row c1, head c2, batch c3)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma matrix descriptor: a matrix in shared memory as 128-byte swizzled
+// rows, 8-row groups 1024 bytes apart (SBO); lbo: the distance of the next
+// 64-column block, read only for a transposed (MN-major) operand wider than
+// 64. Only the low word varies: the wgmma wrappers pair it with kDescHi.
+__device__ __forceinline__ uint32_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return ((addr & 0x3FFFF) >> 4) | (((lbo & 0x3FFFF) >> 4) << 16);
+}
+// SBO = 1024 bytes in bits 32-45, the 128-byte swizzle (1) in bits 62-63
+constexpr uint32_t kDescHi = (1024 >> 4) | (1u << 30);
+
+// the two consumer warpgroups (256 threads) take turns through these
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving register reads and writes across the
+// asynchronous products that use these registers.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// the accumulator operands of a wgmma: 32 or 64 floats
+#define ACC32_REGS \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define ACC64_REGS \
+  ACC32_REGS ", " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+#define ACC32_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31])
+#define ACC64_OPS(d) \
+  ACC32_OPS(d), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+  "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+  "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+  "+f"(d[62]), "+f"(d[63])
+
+// What depends on T (bf16 or fp16): its tensor-map type; split2, which
+// splits two neighbouring p into p_hi = T(p) and p_lo = T(p - p_hi) (exact
+// in float32), each pair packed as an A fragment register (the lower key in
+// the lower half); and the wgmma products: ss64 S (64 x 64) = A (64 x 16)
+// B (16 x 64), both from shared memory, B K-major (acc = 0 overwrites S);
+// rs128 / rs64 O (64 x 128 | 64) += A (64 x 16, registers) B (16 x 128 |
+// 64, shared memory, MN-major: V as stored).
+template <typename T>
+struct Mma;
+
+// The wgmma wrappers. A and B's descriptors come as their low words (the
+// high word is kDescHi); P: the operand of the predicate that keeps (1) or
+// overwrites (0) the accumulator; DA, DB: of the descriptors' words, A_FRAG
+// of the four A fragment registers.
+#define SWA_SS(N, ACC_REGS, ACC_OPS, DA, DB, P, TY)                          \
+  static __device__ __forceinline__ void ss##N(float (&d)[N / 2], uint32_t a, \
+                                               uint32_t b, int acc) {       \
+    asm volatile("{\n.reg .pred p;\n.reg .b64 da, db;\n"                    \
+                 "setp.ne.b32 p, " P ", 0;\n"                               \
+                 "mov.b64 da, " DA ";\nmov.b64 db, " DB ";\n"               \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+                 " {" ACC_REGS "}, da, db, p, 1, 1, 0, 0;\n}\n"             \
+                 : ACC_OPS(d)                                               \
+                 : "r"(a), "r"(b), "r"(acc), "r"(kDescHi));                 \
+  }
+#define SWA_RS(N, ACC_REGS, ACC_OPS, A_FRAG, DB, P, TY)                      \
+  static __device__ __forceinline__ void rs##N(                             \
+      float (&d)[N / 2], const uint32_t* a, uint32_t b) {                   \
+    asm volatile("{\n.reg .pred p;\n.reg .b64 db;\n"                        \
+                 "setp.ne.b32 p, " P ", 0;\nmov.b64 db, " DB ";\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+                 " {" ACC_REGS "}, " A_FRAG ", db, p, 1, 1, 1;\n}\n"        \
+                 : ACC_OPS(d)                                               \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b),      \
+                   "r"(1), "r"(kDescHi));                                   \
+  }
+
+#define SWA_MMA(CTYPE, PAIR, CVT, TY, MAP_TYPE)                               \
+  template <>                                                                \
+  struct Mma<CTYPE> {                                                        \
+    static constexpr CUtensorMapDataType kMapType = MAP_TYPE;                \
+    static __device__ __forceinline__ void split2(float x0, float x1,        \
+                                                  uint32_t& hi,              \
+                                                  uint32_t& lo) {            \
+      const PAIR h = __floats2##CVT##2_rn(x0, x1);                           \
+      const float2 hf = __##CVT##22float2(h);                                \
+      const PAIR l = __floats2##CVT##2_rn(x0 - hf.x, x1 - hf.y);             \
+      hi = *reinterpret_cast<const uint32_t*>(&h);                           \
+      lo = *reinterpret_cast<const uint32_t*>(&l);                           \
+    }                                                                        \
+    SWA_SS(64, ACC32_REGS, ACC32_OPS, "{%32, %35}", "{%33, %35}", "%34", TY)  \
+    SWA_RS(128, ACC64_REGS, ACC64_OPS, "{%64, %65, %66, %67}",              \
+           "{%68, %70}", "%69", TY)                                          \
+    SWA_RS(64, ACC32_REGS, ACC32_OPS, "{%32, %33, %34, %35}", "{%36, %38}",  \
+           "%37", TY)                                                        \
+  };
+
+SWA_MMA(__nv_bfloat16, __nv_bfloat162, bfloat16, "bf16",
+        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16)
+SWA_MMA(__half, __half2, half, "f16", CU_TENSOR_MAP_DATA_TYPE_FLOAT16)
+
+__device__ __forceinline__ void st_shared_u16(uint32_t addr, uint16_t x) {
+  asm volatile("st.shared.u16 [%0], %1;" ::"r"(addr), "h"(x) : "memory");
+}
+
+// The fallback for views TMA refuses: ROWS rows from row0 (a row of the
+// head at src, `stride` elements apart) into a tile at dst in the layout
+// TMA writes (64-column blocks of 128-byte rows, 16-byte chunks swizzled by
+// row % 8), zeros past S and d; then made visible to the tensor cores.
+template <int ROWS, int D>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const void* src,
+                                          int64_t stride, int row0, int S,
+                                          int d, int lane) {
+  const uint16_t* s16 = static_cast<const uint16_t*>(src);
+#pragma unroll 8
+  for (int e = lane; e < ROWS * D; e += 32) {
+    const int r = e / D;
+    const int c = e % D;
+    const int row = row0 + r;
+    uint16_t x = 0;
+    if (row < S && c < d) x = s16[static_cast<int64_t>(row) * stride + c];
+    const uint32_t off = (c / 64) * (ROWS * 128) + r * 128 + (c % 64) * 2;
+    st_shared_u16(dst + (off ^ (((off >> 7) & 7) << 4)), x);
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One KV tile's online softmax for a thread's two rows (row_a, row_a + 8):
+// scale s (keys k0 + 8 j + 2 t4 + e % 2 in s[4 j + e], row row_a + 8 (e / 2))
+// and mask it unless the tile is wholly visible (full), update m and l,
+// rescale acc, and split p into the A fragments of the p.v product:
+// fragment register i over keys 16 (i / 4) ... holds s[2 i], s[2 i + 1].
+template <typename T, int D>
+__device__ __forceinline__ void tile_softmax(
+    float (&s)[kBk / 2], float (&acc)[D / 2], uint32_t (&p_hi)[kBk / 4],
+    uint32_t (&p_lo)[kBk / 4], float (&m)[2], float (&l)[2], bool full,
+    int row_a, int k0, int t4, int S, int window, int causal, float scale) {
+  if (full) {
+#pragma unroll
+    for (int i = 0; i < kBk / 2; ++i) s[i] *= scale;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = row_a + 8 * (e / 2);
+        const int kpos = k0 + 8 * j + 2 * t4 + e % 2;
+        bool vis = kpos < S;
+        if (causal) vis = vis && qpos >= kpos;
+        if (window > 0) vis = vis && qpos - kpos < window;
+        s[4 * j + e] = vis ? s[4 * j + e] * scale : kNegInf;
+      }
+    }
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < kBk / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // a row's keys lie with the 4 lanes of a quad
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = expf(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < kBk / 2; ++i) {
+    s[i] = expf(s[i] - m[(i / 2) % 2]);
+    sum[(i / 2) % 2] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // a butterfly: the 4 lanes end with the same bits
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = l[r] * corr[r] + sum[r];
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+#pragma unroll
+  for (int i = 0; i < kBk / 4; ++i) {
+    Mma<T>::split2(s[2 * i], s[2 * i + 1], p_hi[i], p_lo[i]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    swa_kernel_tc(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o, int H, int rep,
+                  int S, int d, Strides qs, Strides ks, Strides vs,
+                  Strides os, int window, int causal, float scale,
+                  int use_tma) {
+  constexpr int kNb = D / 64;
+  constexpr int kQTile = kNb * kQBlk;
+  constexpr int kKvTile = kNb * kKvBlk;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle repeats every 1024 bytes: align the tiles to it
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t k_s = q_s + kQTile;                 // + stage * kKvTile
+  const uint32_t v_s = k_s + kStages * kKvTile;
+  const uint32_t bar = v_s + kStages * kKvTile;      // kBars x 8 bytes
+  const uint32_t q_full = bar;
+  const uint32_t k_full = bar + 8;                   // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int hk = h / rep;
+  // the block's KV tiles: tile_plan(S, window, causal, kBq, kBk)
+  const int kt_lo = key_lo(q0, window) / kBk;
+  const int kt_hi = key_hi(min(q0 + kBq, S) - 1, S, causal) / kBk;
+  const int n_tiles = kt_hi - kt_lo + 1;
+
+  if (threadIdx.x == 0) {
+    const uint32_t loaders = use_tma ? 1 : 32;
+    mbar_init(q_full, loaders);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full + 8 * st, loaders);
+      mbar_init(v_full + 8 * st, loaders);
+      mbar_init(k_empty + 8 * st, 8);   // each consumer warp arrives
+      mbar_init(v_empty + 8 * st, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // --- the loader: warp 8 fills the ring; warps 9-11 leave ---------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x / 32 != 8) return;
+    if (use_tma) {
+      if (lane != 0) return;
+      mbar_expect_tx(q_full, kQTile);
+      for (int c = 0; c < kNb; ++c) {
+        tma_load(q_s + c * kQBlk, &qmap, q_full, 64 * c, q0, h, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        const int k0 = (kt_lo + i) * kBk;
+        mbar_wait(k_empty + 8 * st, ph ^ 1);
+        mbar_expect_tx(k_full + 8 * st, kKvTile);
+        for (int c = 0; c < kNb; ++c) {
+          tma_load(k_s + st * kKvTile + c * kKvBlk, &kmap, k_full + 8 * st,
+                   64 * c, k0, hk, b);
+        }
+        mbar_wait(v_empty + 8 * st, ph ^ 1);
+        mbar_expect_tx(v_full + 8 * st, kKvTile);
+        for (int c = 0; c < kNb; ++c) {
+          tma_load(v_s + st * kKvTile + c * kKvBlk, &vmap, v_full + 8 * st,
+                   64 * c, k0, hk, b);
+        }
+      }
+    } else {
+      const T* qb = q + b * qs.b + h * qs.h;
+      const T* kb = k + b * ks.b + hk * ks.h;
+      const T* vb = v + b * vs.b + hk * vs.h;
+      copy_tile<kBq, D>(q_s, qb, qs.s, q0, S, d, lane);
+      mbar_arrive(q_full);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        const int k0 = (kt_lo + i) * kBk;
+        mbar_wait(k_empty + 8 * st, ph ^ 1);
+        copy_tile<kBk, D>(k_s + st * kKvTile, kb, ks.s, k0, S, d, lane);
+        mbar_arrive(k_full + 8 * st);
+        mbar_wait(v_empty + 8 * st, ph ^ 1);
+        copy_tile<kBk, D>(v_s + st * kKvTile, vb, vs.s, k0, S, d, lane);
+        mbar_arrive(v_full + 8 * st);
+      }
+    }
+    return;
+  }
+
+  // --- the consumers: warpgroup wg owns q rows [r0, r0 + 64) --------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int t4 = lane % 4;
+  // this thread's accumulator rows: row_a and row_a + 8
+  const int row_a = q0 + wg * 64 + (threadIdx.x / 32) % 4 * 16 + lane / 4;
+  const int r0 = q0 + wg * 64;
+  const int r1 = min(r0 + 63, S - 1);
+  // Both warpgroups compute every tile of the block (no condition around a
+  // wgmma, or ptxas serializes them); a warpgroup masks a tile unless it
+  // is whole and visible from all its rows, tile_plan(S, window, causal,
+  // 64, kBk): k0 >= full_lo, k0 + kBk - 1 <= full_hi, k0 + kBk <= S. A
+  // tile that none of its rows sees is then masked whole, which changes no
+  // output bit (see the note at the top).
+  const int full_lo = key_lo(r1, window);
+  const int full_hi = key_hi(r0, S, causal);
+
+  float s[kBk / 2];
+  float acc[D / 2];
+  uint32_t p_hi[kBk / 4], p_lo[kBk / 4];
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kBk / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBk / 4; ++i) p_hi[i] = p_lo[i] = 0u;
+
+  const uint32_t q_wg = q_s + wg * 64 * 128;   // its rows in each block
+  // s = q k^T over the K tile at k_st (issued, not waited for)
+  auto issue_qk = [&](uint32_t k_st) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      Mma<T>::ss64(s, sw128_desc(q_wg + (kk / 4) * kQBlk + off, 0),
+                   sw128_desc(k_st + (kk / 4) * kKvBlk + off, 0), kk > 0);
+    }
+  };
+  // acc += p_hi v + p_lo v over the V tile at v_st: keys 16 kk ... 16 kk
+  // + 15 are two 8-row groups, 2048 bytes a step
+  auto issue_pv = [&](uint32_t v_st) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int kk = 0; kk < kBk / 16; ++kk) {
+        const uint32_t vd = sw128_desc(v_st + kk * 2048, kKvBlk);
+        const uint32_t* a = t == 0 ? &p_hi[4 * kk] : &p_lo[4 * kk];
+        if constexpr (D == 128) {
+          Mma<T>::rs128(acc, a, vd);
+        } else {
+          Mma<T>::rs64(acc, a, vd);
+        }
+      }
+    }
+  };
+  auto softmax = [&](int kt) {
+    const int k0 = kt * kBk;
+    tile_softmax<T, D>(s, acc, p_hi, p_lo, m, l,
+                       k0 >= full_lo && k0 + kBk - 1 <= full_hi &&
+                           k0 + kBk <= S,
+                       row_a, k0, t4, S, window, causal, scale);
+  };
+
+  mbar_wait(q_full, 0);
+  // the first tile's scores
+  mbar_wait(k_full, 0);
+  fence_regs(s);
+  wg_fence();
+  issue_qk(k_s);
+  wg_commit();
+  wg_wait_all();
+  fence_regs(s);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(k_empty);
+  softmax(kt_lo);
+  // Then per tile i: the products of the two warpgroups take turns (warp-
+  // group 0 first): one issues acc += p_i v_i and s = q k_{i+1}^T, lets the
+  // other issue its own, then waits for its products; its softmax of tile
+  // i + 1 runs while the other's products hold the tensor cores.
+  if (wg == 1) named_arrive(kTurn0);
+#pragma unroll 1
+  for (int i = 0; i + 1 < n_tiles; ++i) {
+    const int st = i % kStages;
+    const int st_n = (i + 1) % kStages;
+    mbar_wait(v_full + 8 * st, (i / kStages) & 1);
+    mbar_wait(k_full + 8 * st_n, ((i + 1) / kStages) & 1);
+    named_sync(kTurn0 + wg);
+    fence_regs(acc);
+    fence_regs(s);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    wg_fence();
+    issue_pv(v_s + st * kKvTile);
+    issue_qk(k_s + st_n * kKvTile);
+    wg_commit();
+    named_arrive(kTurn0 + 1 - wg);
+    wg_wait_all();
+    fence_regs(acc);
+    fence_regs(s);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(v_empty + 8 * st);
+      mbar_arrive(k_empty + 8 * st_n);
+    }
+    softmax(kt_lo + i + 1);
+  }
+  // the last tile's p.v; warpgroup 1's last turn has no successor
+  {
+    const int i = n_tiles - 1;
+    const int st = i % kStages;
+    mbar_wait(v_full + 8 * st, (i / kStages) & 1);
+    named_sync(kTurn0 + wg);
+    fence_regs(acc);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    wg_fence();
+    issue_pv(v_s + st * kKvTile);
+    wg_commit();
+    if (wg == 0) named_arrive(kTurn0 + 1);
+    wg_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty + 8 * st);
+  }
+
+  // acc[4 j + e]: row row_a + 8 * (e / 2), column 8 j + 2 t4 + e % 2
+  T* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= S) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t4 + e;
+        if (c < d) {
+          ob[static_cast<int64_t>(row) * os.s + c] =
+              from_float<T>(acc[4 * j + 2 * r + e] / den);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the shared
+// nvcc flags link no libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found =
+        cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// TMA's rules for a (B, heads, S, d) view of 2-byte elements: a 16-byte
+// aligned base, positive strides that are multiples of 16 bytes (a dim of
+// extent 1 is never stepped, so its stride does not matter)
+bool tma_view(const void* p, int B, int heads, Strides st) {
+  auto ok = [](int64_t e) {
+    return e > 0 && (e * 2) % 16 == 0 && e * 2 < (int64_t{1} << 40);
+  };
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ok(st.s) &&
+         (heads == 1 || ok(st.h)) && (B == 1 || ok(st.b));
+}
+
+// A 4-d map (d, S, heads, B) with boxes of 64 columns x `rows` rows,
+// swizzled by 128 bytes, zeros outside the view. Returns a CUDA error code.
+int encode_view(CUtensorMap* map, CUtensorMapDataType ty, const void* p,
+                int d, int S, int heads, int B, Strides st, int rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int64_t sh = heads > 1 ? st.h : st.s * S;
+  const int64_t sb = B > 1 ? st.b : sh * heads;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s * 2),
+                                 static_cast<cuuint64_t>(sh * 2),
+                                 static_cast<cuuint64_t>(sb * 2)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, ty, 4, const_cast<void*>(p), dims, strides, box,
+                         unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int KVH, int S, int d, Strides qs, Strides ks,
+              Strides vs, Strides os, int window, int causal, float scale,
+              cudaStream_t st) {
+  const int smem =
+      D / 64 * (kQBlk + 2 * kStages * kKvBlk) + 8 * kBars + 1024;
+  const CUtensorMapDataType ty = Mma<T>::kMapType;
+  CUtensorMap maps[3] = {};
+  const int use_tma = tma_view(q, B, H, qs) && tma_view(k, B, KVH, ks) &&
+                      tma_view(v, B, KVH, vs);
+  if (use_tma) {
+    int err = encode_view(&maps[0], ty, q, d, S, H, B, qs, kBq);
+    if (!err) err = encode_view(&maps[1], ty, k, d, S, KVH, B, ks, kBk);
+    if (!err) err = encode_view(&maps[2], ty, v, d, S, KVH, B, vs, kBk);
+    if (err) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      swa_kernel_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((S + kBq - 1) / kBq),
+                  static_cast<unsigned>(B * H));
+  swa_kernel_tc<T, D><<<grid, kTcThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
+      H, H / KVH, S, d, qs, ks, vs, os, window, causal, scale, use_tma);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
              int H, int KVH, int S, int d, Strides qs, Strides ks, Strides vs,
@@ -270,6 +945,19 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
   }
   return launch<T, 128>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os, window,
                         causal, scale, st);
+}
+
+template <typename T>
+int launch_tc_d(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int KVH, int S, int d, Strides qs, Strides ks,
+                Strides vs, Strides os, int window, int causal, float scale,
+                cudaStream_t st) {
+  if (d <= 64) {
+    return launch_tc<T, 64>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
+                            window, causal, scale, st);
+  }
+  return launch_tc<T, 128>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
+                           window, causal, scale, st);
 }
 
 }  // namespace
@@ -295,11 +983,11 @@ extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
       return launch_d<float>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
                              window, causal, scale, st);
     case 1:
-      return launch_d<__nv_bfloat16>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs,
-                                     os, window, causal, scale, st);
+      return launch_tc_d<__nv_bfloat16>(q, k, v, o, B, H, KVH, S, d, qs, ks,
+                                        vs, os, window, causal, scale, st);
     case 2:
-      return launch_d<__half>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
-                              window, causal, scale, st);
+      return launch_tc_d<__half>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
+                                 window, causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

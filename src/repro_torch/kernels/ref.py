@@ -257,6 +257,16 @@ def swa_attention_ref(q, k, v, window: int, causal: bool = True,
     return torch.cat(outs, dim=2)
 
 
+def split_p(p, dtype):
+    """Float32 p as two terms of ``dtype`` (bf16 or fp16): p_hi = dtype(p),
+    p_lo = dtype(p - p_hi), both rounded to nearest even; p - p_hi is exact
+    in float32. |p - p_hi - p_lo| <= 2**-16 |p| in bf16 and 2**-22 |p| in
+    fp16 (plus half of fp16's subnormal spacing, 2**-25): the swa_attention
+    kernel's p.v on the tensor cores as p_hi.v + p_lo.v."""
+    hi = p.to(dtype)
+    return hi, (p - hi.float()).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Seed reconstruction (kernels/seed_reconstruct.py): the Pallas body,
 # ported. 32-bit words are held in int64 and masked, as nn/threefry.py

@@ -6,6 +6,9 @@
 every attention layer of the decoder LM's prefill on the card. It takes
 q's heads and k/v's (fewer, under GQA) heads as they are, and strided
 views: the model's (B, S, H, D) tensors go in transposed, with no copy.
+bf16 and fp16 run on the tensor cores (wgmma, TMA-fed K/V ring), float32
+on the CUDA cores; :func:`tile_plan` is the CPU twin of the tiles the
+tensor-core kernel reads and masks.
 """
 from __future__ import annotations
 
@@ -18,6 +21,9 @@ from repro_torch import kernels
 from repro_torch.kernels import _build, ref
 
 MAX_HEAD_DIM = 128
+# the tensor-core kernel's q rows per block (two warpgroups of 64) and keys
+# per KV tile
+BQ, BK = 128, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -67,7 +73,8 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None):
     (B, H, S, D) in q's dtype, written into ``out`` when given.
 
     CUDA tensors: the ``swa_attention`` kernel, which reads only the KV
-    tiles inside the window (float32 inside). CPU tensors:
+    tiles inside the window (float32 scores, softmax and p; bf16 / fp16 p
+    as two terms on the tensor cores, ``ref.split_p``). CPU tensors:
     ``ref.swa_attention_ref``."""
     if q.device.type == "cpu":
         res = ref.swa_attention_ref(q, k, v, window, causal).to(q.dtype)
@@ -97,3 +104,37 @@ def visible_pairs(S: int, window: int, causal: bool = True) -> int:
     hi = q + 1 if causal else np.full(S, S, np.int64)
     lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(S, np.int64)
     return int((hi - lo).sum())
+
+
+def _key_lo(r: int, window: int) -> int:
+    return max(r - window + 1, 0) if window > 0 else 0
+
+
+def _key_hi(r: int, S: int, causal: bool) -> int:
+    return r if causal else S - 1
+
+
+def tile_plan(S: int, window: int, causal: bool = True, bq: int = BQ,
+              bk: int = BK):
+    """The KV tiles the tensor-core kernel reads for each ``bq``-row q tile,
+    as ``csrc/swa_attention.cu`` computes them: a list of (first, last,
+    masked), one per q tile. Row r sees keys [lo(r), hi(r)] (lo = r -
+    window + 1 clipped at 0, or 0 without a window; hi = r under the causal
+    mask, else S - 1), both nondecreasing in r, so tile t is read when it
+    lies in [lo(q0) // bk, hi(q_last) // bk], and needs the per-element mask
+    unless it is whole (inside S) and visible from every row: t * bk >=
+    lo(q_last) and (t + 1) * bk - 1 <= hi(q0). A block of the kernel reads
+    and computes the tiles of ``tile_plan(bq=128)``; each of its two
+    warpgroups masks a tile of that range unless it is one of
+    ``tile_plan(bq=64)``'s unmasked tiles for its 64 rows."""
+    plan = []
+    for q0 in range(0, S, bq):
+        q_last = min(q0 + bq, S) - 1
+        first = _key_lo(q0, window) // bk
+        last = _key_hi(q_last, S, causal) // bk
+        full_lo, full_hi = _key_lo(q_last, window), _key_hi(q0, S, causal)
+        masked = tuple(t for t in range(first, last + 1)
+                       if not (t * bk >= full_lo and (t + 1) * bk - 1 <= full_hi
+                               and (t + 1) * bk <= S))
+        plan.append((first, last, masked))
+    return plan

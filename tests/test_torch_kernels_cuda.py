@@ -374,6 +374,51 @@ def test_swa_attention_matches_plain(dev, B, H, KVH, S, D, dtype, window,
                                        causal=causal), got)
 
 
+BF16, FP16 = torch.bfloat16, torch.float16
+
+
+# The tensor-core kernel's edges: S around its 128-row q tiles; windows
+# whose edge falls inside a 64-key tile (1, 127), on a tile's boundary
+# (128) and one past it (129); a window longer than S; GQA reps 1, 2 and
+# 4; head dims 64, 100 and 128; bf16 and fp16; no causal mask. "bshd"
+# passes transposed (B, S, H, D) views, the model's layout, which TMA
+# reads (a D = 100 row of 200 bytes in a contiguous (B, H, S, D) tensor is
+# not a multiple of 16 bytes: the kernel's copy loader reads those).
+@pytest.mark.parametrize("B,H,KVH,S,D,dtype,window,causal,bshd", [
+    (1, 4, 1, 127, 128, BF16, 0, True, False),
+    (1, 4, 1, 128, 128, BF16, 0, True, True),
+    (1, 4, 1, 129, 128, BF16, 0, True, False),
+    (1, 8, 2, 4000, 128, BF16, 0, True, True),
+    (1, 4, 4, 1000, 128, BF16, 1, True, False),
+    (1, 4, 2, 1000, 128, FP16, 127, True, True),
+    (1, 4, 2, 1000, 64, BF16, 128, True, False),
+    (1, 4, 1, 1000, 128, BF16, 129, True, True),
+    (1, 4, 2, 300, 128, FP16, 1000, True, False),
+    (2, 4, 4, 300, 64, FP16, 0, True, True),
+    (1, 8, 2, 500, 100, BF16, 129, True, True),
+    (1, 8, 2, 500, 100, FP16, 0, True, False),
+    (1, 4, 1, 129, 100, FP16, 0, False, False),
+    (1, 4, 2, 1000, 128, BF16, 129, False, True),
+    (1, 4, 4, 513, 64, BF16, 0, False, False)])
+def test_swa_attention_tensor_core_edges(dev, B, H, KVH, S, D, dtype, window,
+                                         causal, bshd):
+    g = torch.Generator().manual_seed(S + D + window)
+
+    def one(h):
+        x = torch.randn((B, S, h, D), generator=g).to(dev, dtype)
+        return x.transpose(1, 2) if bshd else x.transpose(1, 2).contiguous()
+    q, k, v = one(H), one(KVH), one(KVH)
+    kernels.reset_launches()
+    got = ops.swa_attention(q, k, v, window=window, causal=causal)
+    assert kernels.LAUNCHES["swa_attention"] == 1 and got.dtype == dtype
+    want = ref.swa_attention_ref(q, k, v, window, causal)
+    err = (got.float() - want).abs()
+    assert bool((err <= HALF_ULP[dtype] * want.abs() + 1e-5).all()), \
+        float(err.max())
+    assert same_bits(ops.swa_attention(q, k, v, window=window,
+                                       causal=causal), got)
+
+
 def test_swa_attention_reads_strided_layouts(dev):
     """The model's (B, S, H, D) tensors go in as transposed views and the
     output is written into a transposed view: the same bits as the

@@ -31,11 +31,17 @@ package. Phases, in order, each failing the run on error:
      4), windows 0 and 1,000, at a ragged S = 4,000, and at the
      prefill's (1, 32, 32768, 128) in its layout under windows 0 and
      8192, within 2**-8 relative + 1e-5 of its plain version (one bf16
-     rounding), the same bits twice; timed at the prefill's shape causal
-     (and window 8192) beside ``scaled_dot_product_attention``, with its
-     ptxas registers and spills, its SASS wgmma and TMA load counts, its
-     TFLOP/s, the launches the profiler records, and the card's clock and
-     power under sustained load;
+     rounding), the same bits twice; its round-once mode (``round_p``,
+     what the serving path's ``flash_attention`` launches) at the
+     prefill's shape under both windows within bound (i)
+     (``swa_attention.round_p_tolerance``) of its plain version
+     ``ref.chunked_attention_ref(..., chunk=64)``, closer to it than the
+     float32-p mode, the same bits twice; both modes timed at the
+     prefill's shape causal (and window 8192) beside
+     ``scaled_dot_product_attention``, with their ptxas registers and
+     spills, SASS wgmma and TMA load counts, TFLOP/s, the launches the
+     profiler records, and the card's clock and power under sustained
+     load;
      ``seed_reconstruct`` at NeMo's frozen FFN leaf (5120, 14336) and a
      ragged (300, 200): hash words bit for bit, Gaussians within 8 ulps;
 3. drive the main paths: synchronous FedPT rounds on the full-width
@@ -77,7 +83,8 @@ package. Phases, in order, each failing the run on error:
      windowed attention's kernel time below 0.8x the causal one's; greedy
      ``generate`` (batch 4, prompt 8, 32 steps) under long_500k; then, on
      the card with the same weights, a 1 x 512 prefill through the kernel
-     against the plain chunked attention (windows 0 and 200), and
+     against the plain chunked attention at the reference's chunk of 512
+     (windows 0 and 200), and
      ``generate``'s step-by-step prefill against ``forward`` at the prompt
      positions, each within 2**-4 of the largest |logit|;
 4. print the ``kernels`` JSON line, the card's name and power limit,
@@ -122,8 +129,9 @@ U = 2.0 ** -24
 
 def qss_rtol(n_blocks: int) -> float:
     """The quantized row sums add the same n_blocks positive products in
-    two orders (in block order on the card, torch's order in the plain
-    version); each float32 sum is within (n - 1) * 2**-24 of the exact one
+    two orders (the row combine's fixed order on the card, torch's order
+    in the plain version); each float32 sum is within (n - 1) * 2**-24 of
+    the exact one
     (first-order bound of recursive summation), so they are within twice
     that of each other."""
     return 2 * n_blocks * 2.0 ** -24
@@ -407,7 +415,7 @@ def check_fused_kernels(layout, dev):
          lambda: agg_tail.pack(mat, sblock),
          lambda: (lambda c: (c, ref.agg_quant_sumsq_ref(c, sblock)))(
              ref.agg_pack_ref(mat, sblock, 8)), None,
-         ("pack_kernel", "row_sum_kernel"),
+         ("pack_kernel", "row_combine_kernel"),
          K * N * 5 + K * nb * 4 + K * 4, 6 * K * N),
         ("apply_coeff", src, "src/repro/kernels/agg_tail.py:106",
          lambda: agg_tail.apply_coeff(q, coeff, noise),
@@ -954,19 +962,22 @@ BF16_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 # causal one's kernel time: its visible pairs are 0.44 of the causal's, so
 # only a structural skip of the tiles outside the window passes
 WINDOW_GATE = 0.8
-# kernel vs plain on the card. swa_attention: the kernel rounds its float32
-# result to bf16 once (half a bf16 ulp, 2**-8 of the value at most); the two
-# float32 computations differ by ~1e-6 (other summation orders, and p.v on
-# the tensor cores as p_hi.v + p_lo.v, p within 2**-16 of its float32
-# value), covered by the absolute 1e-5. seed_reconstruct: the same float32
+# kernel vs plain on the card. swa_attention (float32-p mode): the kernel
+# rounds its float32 result to bf16 once (half a bf16 ulp, 2**-8 of the value
+# at most); the two float32 computations differ by ~1e-6 (other summation
+# orders, and p.v on the tensor cores as p_hi.v + p_lo.v, p within 2**-16 of
+# its float32 value), covered by the absolute 1e-5. Its round-once mode is
+# held to swa_attention.round_p_tolerance (bound (i)). seed_reconstruct: the
+# same float32
 # uniforms through CUDA's logf / cosf against torch's log / cos (each within
 # 2 ulps of exact), a sqrt and two multiplies: 8 ulps.
 SWA_REL, SWA_ABS, SEED_ULPS = 2.0 ** -8, 1e-5, 8
 # the serving path's logits against its plain forms, relative to the largest
 # |logit|: bf16 compute through 4 layers, where the plain attention rounds p
-# to bf16 (the kernel keeps float32) and a one-token decode step's GEMVs
-# round other partial sums than the prefill's GEMMs; each bf16 rounding is
-# 2**-9 relative and a layer adds a few of them to the residual stream
+# to bf16 at the running max of 512-key chunks (the kernel at 64-key tiles)
+# and a one-token decode step's GEMVs round other partial sums than the
+# prefill's GEMMs; each bf16 rounding is 2**-9 relative and a layer adds a
+# few of them to the residual stream
 LOGIT_REL = 2.0 ** -4
 
 
@@ -983,13 +994,16 @@ def swa_inputs(shape, kv_heads, gen, dev, layout_bshd=False):
 
 
 def kernel_label(mangled: str, marker: str) -> str:
-    """``swa_kernel_tc<bf16, 128>`` for a mangled entry function name
-    holding ``marker``: its name and (dtype, D) template arguments."""
+    """``swa_kernel_tc<bf16, 128, round-p>`` for a mangled entry function
+    name holding ``marker``: its name and (dtype, D, mode) template
+    arguments."""
     names = {"_nv_bfloat16": "bf16", "__half": "fp16", "If": "f32"}
     ty = next((v for k, v in names.items() if k in mangled), "?")
     dim = "128" if "Li128E" in mangled else "64"
+    mode = {"Lb1E": ", round-p", "Lb0E": ", float32-p"}
     name = re.search(marker + r"\w*?(?=I)", mangled).group(0)
-    return f"{name}<{ty}, {dim}>"
+    return (f"{name}<{ty}, {dim}"
+            f"{next((v for k, v in mode.items() if k in mangled), '')}>")
 
 
 def ptxas_summary(log: str, marker: str):
@@ -1063,13 +1077,16 @@ def check_serving_kernels(dev, build_logs):
     """Phase 2, the serving path's kernels: swa_attention against its plain
     version at (1, 32, 4096, 128) bf16 with GQA rep 4, windows 0 and
     1,000, at a ragged S = 4,000, and at the prefill's (1, 32, 32768, 128)
-    in its (B, S, H, D) layout under windows 0 and 8192; seed_reconstruct at NeMo's frozen FFN
-    leaf (5120, 14336) and a ragged (300, 200), its hash words bit for bit
-    and its Gaussians within SEED_ULPS. Returns their records, timed at the
-    prefill's shape (1, 32, 32768, 128) causal and at (5120, 14336). Prints
-    the attention kernels' registers and spills (``build_logs``: this run's
-    ``-Xptxas -v`` output), its achieved TFLOP/s, the windowed library
-    call and how many of its launches the profiler records."""
+    in its (B, S, H, D) layout under windows 0 and 8192, there also in its
+    round-once mode against ``ref.chunked_attention_ref(..., chunk=64)``;
+    seed_reconstruct at NeMo's frozen FFN leaf (5120, 14336) and a ragged
+    (300, 200), its hash words bit for bit and its Gaussians within
+    SEED_ULPS. Returns their records, timed at the prefill's shape (1, 32,
+    32768, 128) causal (swa_attention in the round-once mode the serving
+    path launches, the float32-p mode beside it) and at (5120, 14336).
+    Prints the attention kernels' registers and spills (``build_logs``:
+    this run's ``-Xptxas -v`` output), their achieved TFLOP/s, the windowed
+    library call and how many launches the profiler records."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import seed_reconstruct as sr
     from repro_torch.kernels import swa_attention as swa
@@ -1090,6 +1107,32 @@ def check_serving_kernels(dev, build_logs):
         print(f"  swa_attention == plain within 2**-8 rel + 1e-5 (max err "
               f"{float(err.max()):.3e}, {worst:.3f} of the tolerance), "
               f"same bits twice {where}")
+
+    def check_swa_round_p(q, k, v, window):
+        got = swa.swa_attention(q, k, v, window=window, round_p=True)
+        want = ref.chunked_attention_ref(q, k, v, window, chunk=swa.BK)
+        tol = swa.round_p_tolerance(q, k, v, window, True, got, want)
+        err = (got.float() - want.float()).abs()
+        worst = float((err / tol).max())
+        where = f"({tuple(q.shape)} bf16, 8 kv heads, window {window})"
+        if got.dtype != torch.bfloat16 or worst > 1.0:
+            raise AssertionError(f"swa_attention round_p off its plain version "
+                                 f"{where}: max err {float(err.max())}, "
+                                 f"{worst:.3f} of bound (i)")
+        rms = [float((a.float() - want.float()).pow(2).mean().sqrt())
+               for a in (got, swa.swa_attention(q, k, v, window=window))]
+        if not rms[0] < 0.5 * rms[1]:
+            raise AssertionError(f"swa_attention round_p is not closer to the "
+                                 f"round-once oracle than the float32-p mode "
+                                 f"{where}: RMS {rms}")
+        if not same_bits(swa.swa_attention(q, k, v, window=window,
+                                           round_p=True), got):
+            raise AssertionError(f"swa_attention round_p differs between two "
+                                 f"runs {where}")
+        print(f"  swa_attention round_p == chunked_attention_ref(chunk=64) "
+              f"within bound (i) (max err {float(err.max()):.3e}, "
+              f"{worst:.3f} of the bound); RMS to it {rms[0]:.3e} against "
+              f"the float32-p mode's {rms[1]:.3e}; same bits twice {where}")
 
     gen = torch.Generator(device="cpu").manual_seed(6)
     for S in (4096, 4000):
@@ -1135,52 +1178,72 @@ def check_serving_kernels(dev, build_logs):
                          layout_bshd=True)
     for window in (0, 8192):
         check_swa(q, k, v, window)
+        check_swa_round_p(q, k, v, window)
     pairs = swa.visible_pairs(PREFILL_LEN, 0)
     nbytes = sum(t.numel() for t in (q, k, v, q)) * 2
     sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    # the record: the round-once mode, which the serving path launches
+    def round_p(window=0):
+        return swa.swa_attention(q, k, v, window=window, round_p=True)
+
+    def f32p(window=0):
+        return swa.swa_attention(q, k, v, window=window)
     rec_swa = kernel_records([
         ("swa_attention", src + "swa_attention.cu",
-         "src/repro/kernels/swa_attention.py:83",
-         lambda: swa.swa_attention(q, k, v),
-         lambda: ref.swa_attention_ref(q, k, v, 0),
+         "src/repro/kernels/swa_attention.py:83", round_p,
+         lambda: ref.chunked_attention_ref(q, k, v, 0, chunk=swa.BK),
          lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
          ("swa_kernel",), nbytes, 4 * 32 * 128 * pairs)],
         iters=(10, 1, 10), warmup=2, ops_per_s=BF16_OPS_PER_S)
+    f32p_ms = time_ms(f32p, 10, 2)
+    f32p_dev = device_ms(f32p, ("swa_kernel",), 10)
+    print(f"  swa_attention at (1, 32, {PREFILL_LEN}, 128) causal: round-once "
+          f"wrapper {rec_swa[0]['ms']:.3f} ms, device "
+          f"{fmt_ms(rec_swa[0]['device_ms'])} ms; float32-p wrapper "
+          f"{f32p_ms:.3f} ms, device {fmt_ms(f32p_dev)} ms; "
+          f"scaled_dot_product_attention {rec_swa[0]['library_ms']:.3f} ms")
     wpairs = swa.visible_pairs(PREFILL_LEN, 8192)
     wb = bound(nbytes, 4 * 32 * 128 * wpairs, BF16_OPS_PER_S)
-    def windowed():
-        return swa.swa_attention(q, k, v, window=8192)
-    wms = time_ms(windowed, 10, 2)
-    wdev = device_ms(windowed, ("swa_kernel",), 10)
-    print(f"  swa_attention at (1, 32, {PREFILL_LEN}, 128), window 8192: "
-          f"wrapper {wms:.3f} ms, device {fmt_ms(wdev)} ms, bound "
-          f"{wb[0]:.3f} ms ({wb[1]}; {wpairs} of {pairs} pairs)")
+    wdev = {}
+    for label, fn in (("round-once", round_p), ("float32-p", f32p)):
+        wms = time_ms(lambda: fn(8192), 10, 2)
+        wdev[label] = device_ms(lambda: fn(8192), ("swa_kernel",), 10)
+        print(f"  swa_attention ({label}) at (1, 32, {PREFILL_LEN}, 128), "
+              f"window 8192: wrapper {wms:.3f} ms, device "
+              f"{fmt_ms(wdev[label])} ms, bound {wb[0]:.3f} ms ({wb[1]}; "
+              f"{wpairs} of {pairs} pairs)")
     # achieved rates: by the bound's count (4 D per visible pair) and by
-    # what the kernel issues: 6 D (q.k, p_hi.v, p_lo.v) per pair of every
-    # 64-row x BK-key tile, each of a block's two warpgroups computing all
-    # of the block's tiles
-    for label, window, dev_ms in (("causal", 0, rec_swa[0]["device_ms"]),
-                                  ("window 8192", 8192, wdev)):
-        if dev_ms is None:
-            print(f"  swa_attention TFLOP/s ({label}): not measured")
-            continue
-        tiles = 2 * sum(last - first + 1 for first, last, _ in
-                        swa.tile_plan(PREFILL_LEN, window, True))
-        vis = 4 * 128 * 32 * swa.visible_pairs(PREFILL_LEN, window)
-        issued = 6 * 128 * 32 * tiles * 64 * swa.BK
-        print(f"  swa_attention TFLOP/s ({label}, device {dev_ms:.3f} ms): "
-              f"{vis / dev_ms / 1e9:.1f} by 4 D per visible pair "
-              f"({vis / 1e12:.3f} TFLOP), {issued / dev_ms / 1e9:.1f} issued "
-              f"({issued / 1e12:.3f} TFLOP, 6 D per pair of {tiles} "
-              f"warpgroup tiles a head); bf16 peak 989")
-    for label, fn in (("causal", lambda: swa.swa_attention(q, k, v)),
-                      ("window 8192", windowed)):
+    # what the kernel issues per pair of every 64-row x BK-key tile, each of
+    # a block's two warpgroups computing all of the block's tiles: 4 D
+    # (q.k, p.v) round-once, 6 D (q.k, p_hi.v, p_lo.v) float32-p
+    for mode, flops, causal_ms in (("round-once", 4, rec_swa[0]["device_ms"]),
+                                   ("float32-p", 6, f32p_dev)):
+        for label, window, dev_ms in (("causal", 0, causal_ms),
+                                      ("window 8192", 8192, wdev[mode])):
+            if dev_ms is None:
+                print(f"  swa_attention TFLOP/s ({mode}, {label}): not "
+                      f"measured")
+                continue
+            tiles = 2 * sum(last - first + 1 for first, last, _ in
+                            swa.tile_plan(PREFILL_LEN, window, True))
+            vis = 4 * 128 * 32 * swa.visible_pairs(PREFILL_LEN, window)
+            issued = flops * 128 * 32 * tiles * 64 * swa.BK
+            print(f"  swa_attention TFLOP/s ({mode}, {label}, device "
+                  f"{dev_ms:.3f} ms): {vis / dev_ms / 1e9:.1f} by 4 D per "
+                  f"visible pair ({vis / 1e12:.3f} TFLOP), "
+                  f"{issued / dev_ms / 1e9:.1f} issued ({issued / 1e12:.3f} "
+                  f"TFLOP, {flops} D per pair of {tiles} warpgroup tiles a "
+                  f"head); bf16 peak 989")
+    for label, fn in (("round-once causal", round_p),
+                      ("round-once window 8192", lambda: round_p(8192))):
         n = recorded_launches(fn, "swa_kernel", 10)
         print(f"  profiler: recorded {n} of 10 launches of swa_kernel "
               f"({label})")
-    # under sustained load both run at the card's power limit
+    # under sustained load the kernel and SDPA run at the card's power limit
     for label, fn, iters in (
-            ("swa_attention causal", lambda: swa.swa_attention(q, k, v), 60),
+            ("swa_attention round-once causal", round_p, 60),
+            ("swa_attention float32-p causal", f32p, 60),
             ("scaled_dot_product_attention causal",
              lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 120)):
         ms, clock, watts = clock_power(fn, iters)

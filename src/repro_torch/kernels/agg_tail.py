@@ -75,10 +75,16 @@ def _check_rows(name: str, rows: int) -> None:
         raise ValueError(f"{name}: at most 65535 rows per launch")
 
 
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """The stats and pack kernels read 16 bytes a load."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the buffer must be 16-byte aligned")
+
+
 def _stats_cuda(mat: torch.Tensor, block: int):
     _build.check_cuda("block_stats", mat, torch.float32, 2)
     K, N = mat.shape
-    _check_rows("block_stats", K)
+    _check_aligned("block_stats", mat)
     nb = _check_block(block, N)
     bmax = torch.empty((K, nb), dtype=torch.float32, device=mat.device)
     bsumsq = torch.empty_like(bmax)
@@ -98,14 +104,16 @@ def _pack_cuda(mat: torch.Tensor, sblock: torch.Tensor, bits: int,
     _build.check_cuda("pack", mat, torch.float32, 2)
     _build.check_cuda("pack (scales)", sblock, torch.float32, 2)
     K, N = mat.shape
-    _check_rows("pack", K)
+    _check_aligned("pack", mat)
     nb = _check_block(block, N)
     if sblock.shape != (K, nb):
         raise ValueError(f"pack: scales of shape {tuple(sblock.shape)}, "
                          f"expected {(K, nb)}")
     q = torch.empty((K, nb, block), dtype=torch.int8, device=mat.device)
     bqss = torch.empty((K, nb), dtype=torch.float32, device=mat.device)
-    qss = torch.zeros((K,), dtype=torch.float32, device=mat.device)
+    # the combine writes every row; a row of no blocks sums to 0
+    qss = (torch.empty if mat.numel() else torch.zeros)(
+        (K,), dtype=torch.float32, device=mat.device)
     if mat.numel():
         err = _lib().agg_pack_f32(mat.data_ptr(), sblock.data_ptr(), K, N,
                                   block, 2.0 ** (bits - 1) - 1, q.data_ptr(),
@@ -155,7 +163,7 @@ def block_stats(mat: torch.Tensor, block: int = BLOCK):
 def pack(mat: torch.Tensor, sblock: torch.Tensor, bits: int = 8,
          block: int = BLOCK):
     """(K, N), (K, NB) scales -> ((K, NB, block) int8 codes, (K,) quantized
-    row sum of squares). CUDA: the pack kernel and its row sum; CPU:
+    row sum of squares). CUDA: the pack kernel and its row combine; CPU:
     ``ref.agg_pack_ref`` and ``ref.agg_quant_sumsq_ref``."""
     if mat.device.type == "cpu":
         q = ref.agg_pack_ref(mat, sblock, bits, block)

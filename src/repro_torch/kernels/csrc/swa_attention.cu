@@ -16,7 +16,14 @@
 // in float32, masked to NEG_INF = -1e30; m_new = max(m, rowmax(s));
 // p = expf(s - m_new); corr = expf(m - m_new); l = l * corr + sum(p);
 // acc = acc * corr + p @ v; out = acc / max(l, 1e-30), rounded once to q's
-// type. p stays float32, as in the TPU kernel, which upcasts q, k and v.
+// type. Two modes for bf16 / fp16:
+// - p at float32 accuracy (round_p = 0), as in the TPU kernel, which
+//   upcasts q, k and v: ops.swa_attention's default;
+// - p rounded once to v's type before p @ v (round_p = 1), l still summing
+//   the float32 p: the reference's nn/attention.flash_attention over 64-key
+//   tiles (kernels/ref.chunked_attention_ref(..., chunk=64) is its plain
+//   version), which the card's flash_attention runs.
+// For float32 the two are the same function.
 // A row whose first tile is wholly masked adds exp(0) rubbish that the next
 // live score wipes out (corr = exp(-1e30 - m) = 0), as in the reference.
 //
@@ -53,7 +60,9 @@
 //   wgmmas m64nDk16 per 16 keys, V read transposed through its descriptor.
 //   The score accumulators' layout is the A fragments' layout, so p never
 //   goes through shared memory. 6 * D flops per pair are issued where the
-//   bound counts 4 * D.
+//   bound counts 4 * D. In the round_p mode (template flag kRoundP) only
+//   p_hi is formed and multiplied: one wgmma per 16 keys, 4 * D flops a
+//   pair, and no p_lo registers.
 // - The two consumer warpgroups take turns through two named barriers:
 //   one issues acc += p_i v_i and s = q k_{i+1}^T, lets the other issue
 //   its own, then waits for its products and runs tile i + 1's softmax
@@ -449,7 +458,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // What depends on T (bf16 or fp16): its tensor-map type; split2, which
 // splits two neighbouring p into p_hi = T(p) and p_lo = T(p - p_hi) (exact
 // in float32), each pair packed as an A fragment register (the lower key in
-// the lower half); and the wgmma products: ss64 S (64 x 64) = A (64 x 16)
+// the lower half), and round2, which forms p_hi alone; and the wgmma
+// products: ss64 S (64 x 64) = A (64 x 16)
 // B (16 x 64), both from shared memory, B K-major (acc = 0 overwrites S);
 // rs128 / rs64 O (64 x 128 | 64) += A (64 x 16, registers) B (16 x 128 |
 // 64, shared memory, MN-major: V as stored).
@@ -496,6 +506,10 @@ struct Mma;
       hi = *reinterpret_cast<const uint32_t*>(&h);                           \
       lo = *reinterpret_cast<const uint32_t*>(&l);                           \
     }                                                                        \
+    static __device__ __forceinline__ uint32_t round2(float x0, float x1) {  \
+      const PAIR h = __floats2##CVT##2_rn(x0, x1);                           \
+      return *reinterpret_cast<const uint32_t*>(&h);                         \
+    }                                                                        \
     SWA_SS(64, ACC32_REGS, ACC32_OPS, "{%32, %35}", "{%33, %35}", "%34", TY)  \
     SWA_RS(128, ACC64_REGS, ACC64_OPS, "{%64, %65, %66, %67}",              \
            "{%68, %70}", "%69", TY)                                          \
@@ -536,9 +550,10 @@ __device__ __forceinline__ void copy_tile(uint32_t dst, const void* src,
 // One KV tile's online softmax for a thread's two rows (row_a, row_a + 8):
 // scale s (keys k0 + 8 j + 2 t4 + e % 2 in s[4 j + e], row row_a + 8 (e / 2))
 // and mask it unless the tile is wholly visible (full), update m and l,
-// rescale acc, and split p into the A fragments of the p.v product:
-// fragment register i over keys 16 (i / 4) ... holds s[2 i], s[2 i + 1].
-template <typename T, int D>
+// rescale acc, and split p (kRoundP: round it) into the A fragments of the
+// p.v product: fragment register i over keys 16 (i / 4) ... holds s[2 i],
+// s[2 i + 1]. l sums the float32 p in both modes.
+template <typename T, int D, bool kRoundP>
 __device__ __forceinline__ void tile_softmax(
     float (&s)[kBk / 2], float (&acc)[D / 2], uint32_t (&p_hi)[kBk / 4],
     uint32_t (&p_lo)[kBk / 4], float (&m)[2], float (&l)[2], bool full,
@@ -592,11 +607,15 @@ __device__ __forceinline__ void tile_softmax(
   for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) % 2];
 #pragma unroll
   for (int i = 0; i < kBk / 4; ++i) {
-    Mma<T>::split2(s[2 * i], s[2 * i + 1], p_hi[i], p_lo[i]);
+    if constexpr (kRoundP) {
+      p_hi[i] = Mma<T>::round2(s[2 * i], s[2 * i + 1]);
+    } else {
+      Mma<T>::split2(s[2 * i], s[2 * i + 1], p_hi[i], p_lo[i]);
+    }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRoundP>
 __global__ void __launch_bounds__(kTcThreads, 1)
     swa_kernel_tc(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
@@ -720,7 +739,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kBk / 4; ++i) p_hi[i] = p_lo[i] = 0u;
+  for (int i = 0; i < kBk / 4; ++i) p_hi[i] = 0u;
+  if constexpr (!kRoundP) {
+#pragma unroll
+    for (int i = 0; i < kBk / 4; ++i) p_lo[i] = 0u;
+  }
 
   const uint32_t q_wg = q_s + wg * 64 * 128;   // its rows in each block
   // s = q k^T over the K tile at k_st (issued, not waited for)
@@ -732,11 +755,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                    sw128_desc(k_st + (kk / 4) * kKvBlk + off, 0), kk > 0);
     }
   };
-  // acc += p_hi v + p_lo v over the V tile at v_st: keys 16 kk ... 16 kk
-  // + 15 are two 8-row groups, 2048 bytes a step
+  // acc += p_hi v + p_lo v (kRoundP: p_hi v) over the V tile at v_st:
+  // keys 16 kk ... 16 kk + 15 are two 8-row groups, 2048 bytes a step
   auto issue_pv = [&](uint32_t v_st) {
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
+    for (int t = 0; t < (kRoundP ? 1 : 2); ++t) {
 #pragma unroll
       for (int kk = 0; kk < kBk / 16; ++kk) {
         const uint32_t vd = sw128_desc(v_st + kk * 2048, kKvBlk);
@@ -751,7 +774,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   };
   auto softmax = [&](int kt) {
     const int k0 = kt * kBk;
-    tile_softmax<T, D>(s, acc, p_hi, p_lo, m, l,
+    tile_softmax<T, D, kRoundP>(s, acc, p_hi, p_lo, m, l,
                        k0 >= full_lo && k0 + kBk - 1 <= full_hi &&
                            k0 + kBk <= S,
                        row_a, k0, t4, S, window, causal, scale);
@@ -784,7 +807,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     fence_regs(acc);
     fence_regs(s);
     fence_regs(p_hi);
-    fence_regs(p_lo);
+    if constexpr (!kRoundP) fence_regs(p_lo);
     wg_fence();
     issue_pv(v_s + st * kKvTile);
     issue_qk(k_s + st_n * kKvTile);
@@ -808,7 +831,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     named_sync(kTurn0 + wg);
     fence_regs(acc);
     fence_regs(p_hi);
-    fence_regs(p_lo);
+    if constexpr (!kRoundP) fence_regs(p_lo);
     wg_fence();
     issue_pv(v_s + st * kKvTile);
     wg_commit();
@@ -905,7 +928,7 @@ int encode_view(CUtensorMap* map, CUtensorMapDataType ty, const void* p,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRoundP>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
               int H, int KVH, int S, int d, Strides qs, Strides ks,
               Strides vs, Strides os, int window, int causal, float scale,
@@ -923,11 +946,12 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
     if (err) return err;
   }
   cudaError_t err = cudaFuncSetAttribute(
-      swa_kernel_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      swa_kernel_tc<T, D, kRoundP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((S + kBq - 1) / kBq),
                   static_cast<unsigned>(B * H));
-  swa_kernel_tc<T, D><<<grid, kTcThreads, smem, st>>>(
+  swa_kernel_tc<T, D, kRoundP><<<grid, kTcThreads, smem, st>>>(
       maps[0], maps[1], maps[2], static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
       H, H / KVH, S, d, qs, ks, vs, os, window, causal, scale, use_tma);
@@ -947,17 +971,30 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
                         causal, scale, st);
 }
 
-template <typename T>
+template <typename T, bool kRoundP>
 int launch_tc_d(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int KVH, int S, int d, Strides qs, Strides ks,
                 Strides vs, Strides os, int window, int causal, float scale,
                 cudaStream_t st) {
   if (d <= 64) {
-    return launch_tc<T, 64>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
-                            window, causal, scale, st);
+    return launch_tc<T, 64, kRoundP>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs,
+                                     os, window, causal, scale, st);
   }
-  return launch_tc<T, 128>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
-                           window, causal, scale, st);
+  return launch_tc<T, 128, kRoundP>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs,
+                                    os, window, causal, scale, st);
+}
+
+template <typename T>
+int launch_tc_p(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int KVH, int S, int d, Strides qs, Strides ks,
+                Strides vs, Strides os, int window, int causal, float scale,
+                int round_p, cudaStream_t st) {
+  if (round_p) {
+    return launch_tc_d<T, true>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
+                                window, causal, scale, st);
+  }
+  return launch_tc_d<T, false>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
+                               window, causal, scale, st);
 }
 
 }  // namespace
@@ -966,7 +1003,9 @@ int launch_tc_d(const void* q, const void* k, const void* v, void* o, int B,
 // k, v (B, KVH, S, d), H a multiple of KVH, 0 < d <= 128, every tensor with
 // a contiguous head dim and the given (batch, head, seq) element strides.
 // dtype: 0 float32, 1 bfloat16, 2 float16 (all four tensors alike).
-// window <= 0: no sliding window. Returns the CUDA error of the launch.
+// window <= 0: no sliding window. round_p: round p to the input's type
+// before p @ v (bf16 / fp16; float32 ignores it). Returns the CUDA error of
+// the launch.
 extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int dtype, int B, int H, int KVH,
                                  int S, int d, int64_t qsb, int64_t qsh,
@@ -974,7 +1013,7 @@ extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
                                  int64_t kss, int64_t vsb, int64_t vsh,
                                  int64_t vss, int64_t osb, int64_t osh,
                                  int64_t oss, int window, int causal,
-                                 float scale, void* stream) {
+                                 float scale, int round_p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
@@ -983,11 +1022,12 @@ extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
       return launch_d<float>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
                              window, causal, scale, st);
     case 1:
-      return launch_tc_d<__nv_bfloat16>(q, k, v, o, B, H, KVH, S, d, qs, ks,
-                                        vs, os, window, causal, scale, st);
+      return launch_tc_p<__nv_bfloat16>(q, k, v, o, B, H, KVH, S, d, qs, ks,
+                                        vs, os, window, causal, scale,
+                                        round_p, st);
     case 2:
-      return launch_tc_d<__half>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
-                                 window, causal, scale, st);
+      return launch_tc_p<__half>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
+                                 window, causal, scale, round_p, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -223,6 +223,42 @@ def agg_apply_exact_ref(x3, weights, sblock=None, wsum=None,
 NEG_INF = -1e30
 
 
+def _swa_mask(qpos, kpos, window: int, causal: bool, prefix_len: int = 0):
+    """(sq, sk) bool: the keys each query sees. Causal (keys at or before
+    the query, plus a bidirectional prefix of ``prefix_len`` keys), and,
+    with ``window`` > 0, q - k < window: the swa_attention kernel's mask,
+    which also windows a non-causal call."""
+    if causal:
+        mask = qpos[:, None] >= kpos[None, :]
+        if prefix_len > 0:  # bidirectional prefix (PaliGemma-style)
+            mask = mask | (kpos[None, :] < prefix_len)
+    else:
+        mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                          device=qpos.device)
+    if window > 0:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    return mask
+
+
+def _repeat_kv(x, heads: int):
+    """(B, KVH, S, .) -> float32 (B, heads, S, .): q head h reads kv head
+    h // (heads // KVH), as ``jnp.repeat`` lays them out."""
+    rep = heads // x.shape[1]
+    xf = x.float()
+    return xf.repeat_interleave(rep, dim=1) if rep > 1 else xf
+
+
+def _swa_scores(q, kf, q0: int, q_chunk: int, window: int, causal: bool):
+    """Masked float32 scores (B, H, rows, S) of q rows [q0, q0 + q_chunk)."""
+    D, S = q.shape[3], kf.shape[2]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
+    qc = q[:, :, q0:q0 + q_chunk].float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale
+    qpos = q0 + torch.arange(qc.shape[2], device=q.device)
+    mask = _swa_mask(qpos, torch.arange(S, device=q.device), window, causal)
+    return torch.where(mask[None, None], s, NEG_INF)
+
+
 def swa_attention_ref(q, k, v, window: int, causal: bool = True,
                       q_chunk: int = 512):
     """Dense sliding-window attention oracle (``ref.swa_attention_ref`` of
@@ -234,27 +270,78 @@ def swa_attention_ref(q, k, v, window: int, causal: bool = True,
     ``q_chunk`` at a time so that a long sequence's score matrix never
     exists whole; every row's softmax runs over all its keys, so the
     chunking changes no value."""
-    B, H, S, D = q.shape
-    rep = H // k.shape[1]
-    kf, vf = k.float(), v.float()
-    if rep > 1:
-        kf = kf.repeat_interleave(rep, dim=1)
-        vf = vf.repeat_interleave(rep, dim=1)
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
-    kpos = torch.arange(S, device=q.device)
+    kf, vf = _repeat_kv(k, q.shape[1]), _repeat_kv(v, q.shape[1])
     outs = []
-    for q0 in range(0, S, q_chunk):
-        qc = q[:, :, q0:q0 + q_chunk].float()
-        s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale
-        qpos = q0 + torch.arange(qc.shape[2], device=q.device)
-        mask = torch.ones((qc.shape[2], S), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = qpos[:, None] >= kpos[None, :]
-        if window > 0:
-            mask = mask & (qpos[:, None] - kpos[None, :] < window)
-        s = torch.where(mask[None, None], s, NEG_INF)
+    for q0 in range(0, q.shape[2], q_chunk):
+        s = _swa_scores(q, kf, q0, q_chunk, window, causal)
         outs.append(torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), vf))
     return torch.cat(outs, dim=2)
+
+
+def swa_softmax_peak(q, k, window: int, causal: bool = True,
+                     q_chunk: int = 512):
+    """(B, H, S) float32: each row's largest softmax weight, max_j p_j / l
+    = 1 / l with l = sum_j exp(s_j - max s), for the masks of
+    :func:`swa_attention_ref`. It bounds the share of the output that one
+    key's p carries."""
+    kf = _repeat_kv(k, q.shape[1])
+    outs = []
+    for q0 in range(0, q.shape[2], q_chunk):
+        s = _swa_scores(q, kf, q0, q_chunk, window, causal)
+        outs.append(torch.exp(s.amax(-1) - torch.logsumexp(s, -1)))
+    return torch.cat(outs, dim=2)
+
+
+def chunked_attention_ref(q, k, v, window: int = 0, causal: bool = True,
+                          chunk: int = 512, softcap: float = 0.0,
+                          prefix_len: int = 0, q_offset: int = 0):
+    """The reference's ``flash_attention`` (``repro/nn/attention.py``) in
+    plain torch, over q (B, H, Sq, D) and k (B, KVH, Skv, D), v (B, KVH,
+    Skv, Dv) with H a multiple of KVH: a loop over KV chunks of ``chunk``
+    keys carrying the online softmax (max m, sum l, acc) in float32, the
+    scores optionally soft-capped, p = exp(s - m_new) cast to v's dtype
+    before the p.v product while l sums the unrounded p; returns (B, H,
+    Sq, Dv) in q's dtype. ``q_offset`` is the position of q's first row.
+    The mask is :func:`_swa_mask`'s; ``nn/attention.chunked_attention``
+    passes window 0 to a non-causal call, as the reference ignores the
+    window there.
+
+    At ``chunk=64`` the running max moves at the keys where the
+    ``swa_attention`` kernel's 64-key tiles do, so each p is rounded at
+    the kernel's scale: the oracle of the kernel's ``round_p`` mode."""
+    B, H, sq, D = q.shape
+    skv, dv = k.shape[2], v.shape[3]
+    rep = H // k.shape[1]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
+    kh, vh = k, v
+    if rep > 1:  # jnp.repeat: each kv head serves `rep` consecutive q heads
+        kh = kh.repeat_interleave(rep, dim=1)
+        vh = vh.repeat_interleave(rep, dim=1)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((B, H, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, sq, dv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, max(skv, 1), chunk):
+        kc, vc = kh[:, :, c0:c0 + chunk], vh[:, :, c0:c0 + chunk]
+        kpos = c0 + torch.arange(kc.shape[2], device=q.device)
+        # bf16 x bf16 is exact in f32: the upcast gives JAX's
+        # preferred_element_type=float32 scores
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kc.float()) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        mask = _swa_mask(qpos, kpos, window, causal, prefix_len)
+        s = torch.where(mask[None, None], s, NEG_INF)
+        # the reference pads the last chunk with masked zero keys; each
+        # adds an exact 0 to the sums, so a shorter chunk is the same
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.to(q.dtype)
 
 
 def split_p(p, dtype):

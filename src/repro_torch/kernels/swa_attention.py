@@ -9,6 +9,14 @@ views: the model's (B, S, H, D) tensors go in transposed, with no copy.
 bf16 and fp16 run on the tensor cores (wgmma, TMA-fed K/V ring), float32
 on the CUDA cores; :func:`tile_plan` is the CPU twin of the tiles the
 tensor-core kernel reads and masks.
+
+Two modes for bf16 / fp16. The default keeps p at float32 accuracy, the
+TPU kernel's function (``ops.swa_attention`` keeps its parity with the
+Pallas ``_swa_kernel``). ``round_p=True`` rounds p to v's dtype once
+before p.v, the function of the reference's ``nn/attention
+.flash_attention``, which the card's ``flash_attention`` runs; its plain
+version is ``ref.chunked_attention_ref(..., chunk=BK)`` and
+:func:`round_p_tolerance` its a-priori bound.
 """
 from __future__ import annotations
 
@@ -29,7 +37,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {"swa_attention_fwd": [_P, _P, _P, _P, _INT, _INT, _INT, _INT,
                                      _INT, _INT] + [_I64] * 12
-               + [_INT, _INT, ctypes.c_float, _P]}
+               + [_INT, _INT, ctypes.c_float, _INT, _P]}
+# half an ulp of each output type, relative: one rounding to nearest
+HALF_ULP = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8,
+            torch.float16: 2.0 ** -11}
 
 
 def _check(q, k, v, out) -> None:
@@ -66,18 +77,26 @@ def _check(q, k, v, out) -> None:
         raise ValueError("swa_attention: batch * heads above 65535")
 
 
-def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None):
+def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None,
+                  round_p: bool = False):
     """softmax(mask(q k^T / sqrt(D))) v: q (B, H, S, D), k and v (B, KVH,
     S, D) with H a multiple of KVH (q head h reads kv head h // (H //
     KVH)); ``window`` > 0 keeps the keys with ``q - k < window``. Returns
     (B, H, S, D) in q's dtype, written into ``out`` when given.
 
     CUDA tensors: the ``swa_attention`` kernel, which reads only the KV
-    tiles inside the window (float32 scores, softmax and p; bf16 / fp16 p
-    as two terms on the tensor cores, ``ref.split_p``). CPU tensors:
-    ``ref.swa_attention_ref``."""
+    tiles inside the window (float32 scores and online softmax over
+    64-key tiles). By default p keeps float32 accuracy (bf16 / fp16 p as
+    two terms on the tensor cores, ``ref.split_p``); ``round_p`` rounds p
+    to v's dtype once, as the reference's ``flash_attention`` does (one
+    product on the tensor cores; float32 is unchanged). CPU tensors:
+    ``ref.swa_attention_ref``, or with ``round_p``
+    ``ref.chunked_attention_ref`` at the kernel's 64-key tiles."""
     if q.device.type == "cpu":
-        res = ref.swa_attention_ref(q, k, v, window, causal).to(q.dtype)
+        if round_p:
+            res = ref.chunked_attention_ref(q, k, v, window, causal, chunk=BK)
+        else:
+            res = ref.swa_attention_ref(q, k, v, window, causal).to(q.dtype)
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -91,10 +110,39 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None):
     err = lib.swa_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 out.data_ptr(), _DTYPES[q.dtype], B, H,
                                 k.shape[1], S, D, *strides, int(window),
-                                int(causal), scale, _build.stream_ptr(q))
+                                int(causal), scale, int(round_p),
+                                _build.stream_ptr(q))
     _build.raise_on_error("swa_attention", err)
     kernels.LAUNCHES["swa_attention"] += 1
     return out
+
+
+def round_p_tolerance(q, k, v, window: int, causal: bool, got, want):
+    """The per-element bound on |got - want| between the ``round_p``
+    kernel's output ``got`` and its plain version's ``want``
+    (``ref.chunked_attention_ref(..., chunk=BK)``), both in q's dtype:
+
+        u (|got| + |want|) + 2 u max|v| / l + 1e-5,   u = HALF_ULP[dtype].
+
+    Both compute the same roundings of the same float32 quantities: the
+    running max moves at the same keys, so each p is rounded at the same
+    scale. What remains: (a) float32 summation order in q.k^T and p.v and
+    ``expf`` against torch's ``exp``, ~1e-6 at O(1) outputs, inside the
+    absolute 1e-5; (b) the output's own rounding, half an ulp on each
+    side, u (|got| + |want|) (a float32 difference straddling a midpoint
+    moves the rounded value by one ulp); (c) a bf16 / fp16 rounding of p
+    that flips where the float32 p of the two sides falls on either side
+    of a midpoint: one ulp, at most 2 u p_j, so 2 u p_j |v_j| / l of the
+    output; p_j <= 1 at the row's max, so one flip of the row's largest
+    term is 2 u max|v| / l, with 1 / l = ``ref.swa_softmax_peak``. A p
+    flips with a probability of about its float32 error over its
+    rounding's spacing (~2**-12 in bf16), so a row sees a few flips of
+    typical terms, far below one of its largest."""
+    u = HALF_ULP[q.dtype]
+    peak = ref.swa_softmax_peak(q, k, window, causal)
+    vmax = float(v.float().abs().max())
+    return (u * (got.float().abs() + want.float().abs())
+            + 2 * u * vmax * peak[..., None] + 1e-5)
 
 
 def visible_pairs(S: int, window: int, causal: bool = True) -> int:

@@ -10,12 +10,12 @@ from __future__ import annotations
 import argparse
 import time
 
-import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import get_config
 from repro_torch.models import decoder_lm as dlm
+from repro_torch.nn import threefry
 
 
 def prefill_by_steps(params, cfg, prompt_tokens, max_len: int, device=None):
@@ -38,7 +38,7 @@ def generate(params, cfg, prompt_tokens, steps: int, max_len: int = 0,
              temperature: float = 0.0, seed: int = 0, device=None):
     """Greedy generation. prompt_tokens: (B, P) -> (B, P + steps) int32,
     on the card unless ``device="cpu"``. Sampling (``temperature > 0``)
-    needs JAX's ``random.split`` / ``categorical``, not ported yet."""
+    needs JAX's ``random.categorical``, not ported yet."""
     if temperature > 0:
         raise NotImplementedError("sampled decoding (temperature > 0) is not "
                                   "ported yet; greedy only")
@@ -72,9 +72,9 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = reduced_config(get_config(args.arch))
     params = dlm.init_model(cfg, 0, device=dev)
-    # numpy draws the prompt (the reference uses jax.random.randint)
-    prompt = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    # the reference's prompt: jax.random.randint(jax.random.key(1), ...)
+    prompt = threefry.randint(threefry.key(1), (args.batch, args.prompt_len),
+                              0, cfg.vocab_size)
     t0 = time.time()
     seqs = generate(params, cfg, prompt, args.steps,
                     temperature=args.temperature, device=dev)

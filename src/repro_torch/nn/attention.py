@@ -5,9 +5,10 @@ for prefill, and single-token decode against a KV cache.
 ``flash_attention`` on a CUDA tensor is the hand-written sliding-window
 flash-attention kernel (``kernels/ops.swa_attention``, the port of the
 TPU's ``kernels/swa_attention.py``), which skips the KV tiles outside the
-window instead of masking them. On a CPU tensor it is the reference's
-chunked online softmax: KV chunks of 512, f32 scores and running
-(max, sum, acc), ``p`` cast to v's dtype before the PV product.
+window instead of masking them, in the mode that rounds ``p`` as the
+reference does. On a CPU tensor it is the reference's chunked online
+softmax: KV chunks of 512, f32 scores and running (max, sum, acc), ``p``
+cast to v's dtype before the PV product.
 ``decode_attention`` stays plain torch, as the JAX package computes it
 outside any Pallas kernel. MLA waits for the slice that ports DeepSeek.
 """
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.nn import basic
 
 NEG_INF = -1e30
@@ -86,64 +87,20 @@ def qkv_project(x, p, cfg: ModelConfig):
 # Causal (optionally sliding-window) attention
 
 
-def _attend_chunk(q, k, qpos, kpos, window: int, softcap: float, scale,
-                  causal: bool, prefix_len: int):
-    """q:(b,h,sq,d) k:(b,h,sc,d) -> masked f32 scores (b,h,sq,sc)."""
-    # bf16 x bf16 is exact in f32: the upcast gives JAX's
-    # preferred_element_type=float32 scores
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if softcap > 0:
-        s = softcap * torch.tanh(s / softcap)
-    if causal:
-        mask = qpos[:, None] >= kpos[None, :]
-        if prefix_len > 0:  # bidirectional prefix (PaliGemma-style)
-            mask = mask | (kpos[None, :] < prefix_len)
-        if window > 0:
-            mask = mask & (qpos[:, None] - kpos[None, :] < window)
-    else:
-        mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
-                          device=q.device)
-    return torch.where(mask[None, None], s, NEG_INF)
-
-
 def chunked_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
                       causal: bool = True, prefix_len: int = 0):
     """The reference's ``flash_attention`` in plain torch: a loop over KV
-    chunks carrying the online-softmax (max, sum, acc). Same arguments and
-    layout as :func:`flash_attention`."""
-    b, sq, h, hd = q.shape
-    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
-    rep = h // kvh
-    scale = _scale(hd)
-    window = cfg.sliding_window
-
-    qh = q.transpose(1, 2)  # b,h,sq,hd
-    kh = k.transpose(1, 2)
-    vh = v.transpose(1, 2)
-    if rep > 1:  # jnp.repeat: each kv head serves `rep` consecutive q heads
-        kh = kh.repeat_interleave(rep, dim=1)
-        vh = vh.repeat_interleave(rep, dim=1)
-
-    qpos = q_offset + torch.arange(sq, device=q.device)
-    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
-    for c0 in range(0, max(skv, 1), chunk):
-        kc, vc = kh[:, :, c0:c0 + chunk], vh[:, :, c0:c0 + chunk]
-        kpos = c0 + torch.arange(kc.shape[2], device=q.device)
-        s = _attend_chunk(qh, kc, qpos, kpos, window, cfg.attn_logit_softcap,
-                          scale, causal, prefix_len)
-        # the reference pads the last chunk with masked zero keys; each
-        # adds an exact 0 to the sums, so a shorter chunk is the same
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bhkd->bhqd", p.to(vc.dtype).float(), vc.float())
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    chunks carrying the online-softmax (max, sum, acc), p cast to v's
+    dtype before the PV product (``kernels/ref.chunked_attention_ref`` on
+    the (b, h, s, d) views). Same arguments and layout as
+    :func:`flash_attention`; the window applies only to causal calls, as
+    in the reference."""
+    out = ref.chunked_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        window=cfg.sliding_window if causal else 0, causal=causal,
+        chunk=chunk, softcap=cfg.attn_logit_softcap, prefix_len=prefix_len,
+        q_offset=q_offset)
+    return out.transpose(1, 2)
 
 
 def flash_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
@@ -153,12 +110,15 @@ def flash_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
     q: (b, sq, h, hd); k, v: (b, skv, kv_heads, hd). q_offset: position
     of q[0] relative to k[0]. Returns (b, sq, h, hd) in q's dtype.
 
-    CUDA tensors: the ``swa_attention`` kernel, reading each q head's kv
-    head ``h // rep`` in place (no repeat) and writing the (b, sq, h, hd)
-    layout directly. It computes scores, softmax and PV in float32 (``p``
-    is not cast to v's dtype, as in the TPU kernel). Softcapping, a
-    bidirectional prefix, a v head dim unlike q's (MLA) and an offset q
-    are outside what it computes and raise. CPU tensors:
+    CUDA tensors: the ``swa_attention`` kernel in its ``round_p`` mode,
+    reading each q head's kv head ``h // rep`` in place (no repeat) and
+    writing the (b, sq, h, hd) layout directly. It computes the
+    reference's function: float32 scores and online softmax, ``p`` cast
+    to v's dtype before PV while ``l`` sums the float32 ``p``, over
+    64-key tiles (``chunked_attention(..., chunk=64)`` is its plain
+    version; the chunk moves only where each ``p`` is rounded).
+    Softcapping, a bidirectional prefix, a v head dim unlike q's (MLA) and
+    an offset q are outside what it computes and raise. CPU tensors:
     :func:`chunked_attention`.
     """
     if q.device.type == "cpu":
@@ -180,7 +140,7 @@ def flash_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
     ops.swa_attention(q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2),
                       window=cfg.sliding_window if causal else 0,
-                      causal=causal, out=out.transpose(1, 2))
+                      causal=causal, out=out.transpose(1, 2), round_p=True)
     return out
 
 

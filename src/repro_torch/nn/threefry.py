@@ -6,8 +6,8 @@ FedPT regenerates every frozen leaf on the client from one scalar seed
 (Algorithm 1, line 5), so the port has to draw the very bits JAX draws.
 The reference is jax 0.9.0's ``jax/_src/prng.py`` (``threefry_seed``,
 ``iota_2x32_shape``, ``_threefry2x32_lowering``, ``_threefry_fold_in``,
-``_threefry_random_bits_partitionable``) and ``jax/_src/random.py``
-(``_uniform``, ``_normal_real``).
+``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``)
+and ``jax/_src/random.py`` (``_randint``, ``_uniform``, ``_normal_real``).
 
 torch has no full uint32 arithmetic, so a 32-bit word is held in int64
 and masked to 32 bits after every add and shift. The same functions take
@@ -21,6 +21,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.ref import _mul32
 
 Key = Tuple[int, int]
 
@@ -61,6 +63,13 @@ def fold_in(k: Key, data: int) -> Key:
     return threefry2x32(k[0], k[1], 0, int(data) & M32)
 
 
+def split(k: Key, num: int = 2):
+    """``jax.random.split(k, num)`` in partitionable form: key i is the
+    hash pair (both words kept) of the counter (0, i) under k. Returns a
+    list of ``num`` keys."""
+    return [threefry2x32(k[0], k[1], 0, i) for i in range(int(num))]
+
+
 def random_bits(k: Key, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(k, shape)`` (uint32) as int64 values in
     [0, 2**32): the counter of each element is its row-major index, split
@@ -81,6 +90,27 @@ def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0,
     lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def randint(k: Key, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` at its default
+    int32: two draws of 32 bits (under the two keys of ``split(k)``),
+    combined modulo the span as ``_randint`` does in uint32 arithmetic,
+    whose products wrap at 2**32 as XLA's do: the multiplier
+    (2**16 % span)**2 is 0 for a span above 2**16, so the high draw then
+    drops out. Returns int32 values in [minval, maxval); bounds outside
+    int32 raise, as JAX's do."""
+    lo, hi = int(minval), int(maxval)
+    if not (-(1 << 31) <= lo < (1 << 31) and -(1 << 31) <= hi < (1 << 31)):
+        raise ValueError(f"randint bounds ({lo}, {hi}) do not fit int32")
+    span = (hi - lo) if hi > lo else 1
+    k1, k2 = split(k)
+    higher, lower = random_bits(k1, shape, device), random_bits(k2, shape,
+                                                                device)
+    mult = ((1 << 16) % span) ** 2 % (1 << 32) % span   # 0 once span > 2**16
+    offset = (_mul32(higher % span, mult) + lower % span) % (1 << 32) % span
+    return (lo + offset).to(torch.int32)   # in [lo, hi): no int32 wrap
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

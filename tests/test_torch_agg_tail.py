@@ -426,3 +426,95 @@ def test_kernel_paths_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         tops.agg_tail(meta, torch.ones(2, device="meta"), block_leaf=BL,
                       n_leaves=L, bits=8, threshold=FUSED)
+
+
+# ---------------------------------------------------------------------------
+# The order of the card's stats and pack kernels (csrc/agg_tail.cu), in
+# numpy: one warp per (row, block) tile, lane t holding the elements
+# 4 t + 128 j + c. The emulations fix the order on the CPU, where a
+# mistake in it would otherwise show only on the card.
+
+
+def _shfl_down(y, off):
+    """__shfl_down_sync over axis 0 (the 32 lanes): lane t reads lane
+    t + off, and a lane whose source is past 31 reads its own value."""
+    lanes = np.arange(32)
+    return y[np.where(lanes + off < 32, lanes + off, lanes)]
+
+
+def emulate_warp_sumsq(x):
+    """The stats kernel's sum of squares of each row of x (T, W) float32,
+    W a power of two in [64, 2048]: squares per register, the levels
+    h >= 128 over a lane's rows j, h = 64 ... 4 by lane shuffles, h = 2
+    and 1 within lane 0's four values."""
+    T, W = x.shape
+    rows, lanes = max(W // 128, 1), min(32, W // 4)
+    v = np.zeros((32, T, rows, 4), np.float32)      # lane, tile, j, c
+    v[:lanes] = x.reshape(T, rows, lanes, 4).transpose(2, 0, 1, 3)
+    y = v * v
+    n = rows
+    while n > 1:
+        y = y[:, :, :n // 2] + y[:, :, n // 2:n]
+        n //= 2
+    y = y[:, :, 0]                                   # lane, tile, c
+    off = min(W, 128) // 8
+    while off:
+        y = y + _shfl_down(y, off)
+        off //= 2
+    y0 = y[0, :, 0] + y[0, :, 2]
+    y1 = y[0, :, 1] + y[0, :, 3]
+    return y0 + y1
+
+
+@pytest.mark.parametrize("block", [64, 128, 256, 512, 1024, 2048])
+def test_warp_sumsq_order_is_the_plain_halving_order(block):
+    rng = np.random.default_rng(block)
+    x = (rng.standard_normal((40, block)) * rng.uniform(
+        1e-3, 1e3, (40, 1))).astype(np.float32)
+    x[3, 7] = np.nan
+    x[5, 1] = np.inf
+    x[6] = 0.0
+    want = tref._sumsq_blocks(torch.from_numpy(x)).numpy()
+    got = emulate_warp_sumsq(x)
+    assert same_bits(got, want)
+    # a wrong lane order (say, lane t taking 32 contiguous elements) is
+    # caught: sums of squares of random data are not associative
+    wrong = emulate_warp_sumsq(np.ascontiguousarray(
+        x.reshape(40, -1, 4).transpose(0, 2, 1).reshape(40, block)))
+    assert not same_bits(wrong, want)
+
+
+def emulate_row_combine(part, threads=256):
+    """The card's row combine of (R, nb) float32 block sums: thread i sums
+    blocks i, i + 256, ... in order, then a shuffle tree in each warp and
+    one over the 8 warps' sums."""
+    R, nb = part.shape
+    acc = np.zeros((threads, R), np.float32)
+    for b0 in range(0, nb, threads):
+        chunk = part[:, b0:b0 + threads].T
+        acc[:chunk.shape[0]] = acc[:chunk.shape[0]] + chunk
+    warps = acc.reshape(threads // 32, 32, R)
+    for off in (16, 8, 4, 2, 1):
+        warps = np.stack([w + _shfl_down(w, off) for w in warps])
+    lane = np.zeros((32, R), np.float32)
+    lane[:threads // 32] = warps[:, 0]
+    off = threads // 64
+    while off:
+        lane = lane + _shfl_down(lane, off)
+        off //= 2
+    return lane[0]
+
+
+@pytest.mark.parametrize("nb", [1, 7, 255, 256, 257, 1656])
+def test_row_combine_within_the_quantized_sum_bound(nb):
+    """The card's combine order against the plain version's torch sum:
+    both within (nb - 1) 2**-24 of the exact sum (positive terms), so
+    within ``chip_smoke.qss_rtol(nb)`` = 2 nb 2**-24 of each other."""
+    rng = np.random.default_rng(nb)
+    part = (rng.uniform(0, 1, (10, nb)) * 10.0 ** rng.uniform(
+        -6, 2, (10, nb))).astype(np.float32)
+    got = emulate_row_combine(part)
+    want = tref._row_combine(torch.from_numpy(part)).numpy()
+    exact = part.astype(np.float64).sum(1)
+    assert np.all(np.abs(got - exact) <= (nb - 1) * 2.0 ** -24 * exact)
+    assert np.all(np.abs(got - want) <= 2 * nb * 2.0 ** -24 * want)

@@ -10,9 +10,10 @@ bit for bit (NaN positions equal); sumsq within rtol 1e-5 of a float64
 sum and with the same bits on every run. The fused tail's kernels: block
 max-abs, block sum of squares, int8 codes (on finite rows) and the apply
 bit for bit; the quantized row sum of squares within a relative
-2 * blocks * 2**-24 (the kernel sums the same per-block products in
-block order, the plain version in torch's order; each float32 sum of n
-positive terms is within (n - 1) * 2**-24 of the exact one); every
+2 * blocks * 2**-24 (the kernel sums the same per-block products in its
+row combine's fixed order, the plain version in torch's order; each
+float32 sum of n positive terms is within (n - 1) * 2**-24 of the exact
+one); every
 output the same on two runs. The DP clip kernels: the row clip's norms
 within ``dp_clip.norm_rtol`` (its a-priori bound) of the plain version's
 and its values within that plus three roundings; a row under the clip,
@@ -56,9 +57,9 @@ def same_bits(a, b) -> bool:
     return torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
 
 
-def _mat(rows, block_leaf, seed=0, case="random"):
+def _mat(rows, block_leaf, seed=0, case="random", n=None):
     g = torch.Generator().manual_seed(seed)
-    m = torch.randn((rows, block_leaf.size * 1024), generator=g) * 1e-2
+    m = torch.randn((rows, n or block_leaf.size * 1024), generator=g) * 1e-2
     if case == "zero_leaf":
         m[0, 2048:3072] = 0.0
     elif case == "nan":
@@ -202,6 +203,67 @@ def test_fused_kernels_match_plain(dev, rows, block_leaf, case):
     if case == "ties":
         assert torch.equal(q[0, 0, 1:255].cpu(),
                            torch.arange(-126.5, 127.0).round().to(torch.int8))
+
+
+# leaves of 2048, 4096, 2048 and 6144 elements, as block maps for blocks of
+# 64 and 2048: the ends of the kernels' block range
+EDGE_N = 14336
+
+
+def _edge_block_leaf(block):
+    return np.repeat(np.arange(4, dtype=np.int32),
+                     [n // block for n in (2048, 4096, 2048, 6144)])
+
+
+@pytest.mark.parametrize("case", ["random", "zero_leaf", "nan", "inf",
+                                  "ties"])
+@pytest.mark.parametrize("rows", [1, 300])
+@pytest.mark.parametrize("block", [64, 2048])
+def test_fused_stats_and_pack_at_the_block_range_ends(dev, block, rows, case):
+    """block_stats and pack at blocks of 64 and 2048 (the kernels' lane
+    mapping at its narrowest, half a warp, and widest, 16 loads a lane),
+    one row and 300: the same checks as at the FedAvg buffer."""
+    block_leaf = _edge_block_leaf(block)
+    m = _mat(rows, block_leaf, seed=block + rows, case=case, n=EDGE_N).to(dev)
+    kernels.reset_launches()
+    bmax, bsumsq = agg_tail.block_stats(m, block)
+    want_max, want_ss = ref.agg_block_stats_ref(m, block, with_sumsq=True)
+    assert same_bits(bmax, want_max) and same_bits(bsumsq, want_ss)
+    sblock = ref.agg_scales_ref(bmax, block_leaf, 8, 4)
+    q, qss = agg_tail.pack(m, sblock, 8, block)
+    assert tuple(q.shape) == (rows, EDGE_N // block, block)
+    fin = _finite_rows(m)
+    assert torch.equal(q.cpu()[fin], ref.agg_pack_ref(m, sblock, 8,
+                                                      block).cpu()[fin])
+    want_qss = ref.agg_quant_sumsq_ref(q, sblock)
+    torch.testing.assert_close(qss.cpu()[fin], want_qss.cpu()[fin],
+                               rtol=2 * block_leaf.size * 2.0 ** -24, atol=0)
+    assert kernels.LAUNCHES["block_stats"] == 1
+    assert kernels.LAUNCHES["pack"] == 1
+    again = agg_tail.block_stats(m, block)
+    assert same_bits(again[0], bmax) and same_bits(again[1], bsumsq)
+    q2, qss2 = agg_tail.pack(m, sblock, 8, block)
+    assert torch.equal(q2, q) and same_bits(qss2, qss)
+    if case in ("nan", "inf"):
+        bad = rows - 1 if case == "nan" else 0
+        assert not bool(torch.isfinite(bmax).all(dim=1)[bad])
+    if case == "ties":
+        assert torch.equal(q.reshape(rows, -1)[0, 1:255].cpu(),
+                           torch.arange(-126.5, 127.0).round().to(torch.int8))
+    if case == "zero_leaf":
+        assert q.reshape(rows, -1)[0, 2048:3072].abs().max() == 0
+
+
+def test_fused_kernels_refuse_an_unaligned_buffer(dev):
+    """stats and pack read 16 bytes a load: a view that starts 4 bytes in
+    raises instead of launching."""
+    buf = _mat(2, RAGGED_BLOCK_LEAF, n=7 * 1024 + 1).to(dev).reshape(-1)
+    m = buf[1:2 * 7 * 1024 + 1].view(2, 7 * 1024)
+    assert m.is_contiguous() and m.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        agg_tail.block_stats(m)
+    with pytest.raises(ValueError, match="aligned"):
+        agg_tail.pack(m, torch.ones((2, 7), device=dev))
 
 
 def test_fused_wrappers_check_inputs(dev):
@@ -419,6 +481,55 @@ def test_swa_attention_tensor_core_edges(dev, B, H, KVH, S, D, dtype, window,
                                        causal=causal), got)
 
 
+# The round-once mode at the same edges, and at NeMo's heads and a ragged
+# S = 4000: within bound (i) of its plain version
+# ref.chunked_attention_ref(..., chunk=64) (swa_attention.round_p_tolerance
+# derives it), closer to it (RMS) than the float32-p mode on the same
+# inputs, the same bits twice.
+@pytest.mark.parametrize("B,H,KVH,S,D,dtype,window,causal,bshd", [
+    (1, 4, 1, 127, 128, BF16, 0, True, False),
+    (1, 4, 1, 128, 128, BF16, 0, True, True),
+    (1, 4, 1, 129, 128, BF16, 0, True, False),
+    (1, 8, 2, 4000, 128, BF16, 0, True, True),
+    (1, 4, 4, 1000, 128, BF16, 1, True, False),
+    (1, 4, 2, 1000, 128, FP16, 127, True, True),
+    (1, 4, 2, 1000, 64, BF16, 128, True, False),
+    (1, 4, 1, 1000, 128, BF16, 129, True, True),
+    (1, 4, 2, 300, 128, FP16, 1000, True, False),
+    (2, 4, 4, 300, 64, FP16, 0, True, True),
+    (1, 8, 2, 500, 100, BF16, 129, True, True),
+    (1, 8, 2, 500, 100, FP16, 0, True, False),
+    (1, 4, 1, 129, 100, FP16, 0, False, False),
+    (1, 4, 2, 1000, 128, BF16, 129, False, True),
+    (1, 4, 4, 513, 64, BF16, 0, False, False),
+    (1, 32, 8, 4000, 128, BF16, 0, True, True),
+    (1, 32, 8, 4000, 128, BF16, 1000, True, False)])
+def test_swa_attention_round_p_edges(dev, B, H, KVH, S, D, dtype, window,
+                                     causal, bshd):
+    from repro_torch.kernels import swa_attention as swa
+    g = torch.Generator().manual_seed(S + D + window)
+
+    def one(h):
+        x = torch.randn((B, S, h, D), generator=g).to(dev, dtype)
+        return x.transpose(1, 2) if bshd else x.transpose(1, 2).contiguous()
+    q, k, v = one(H), one(KVH), one(KVH)
+    kernels.reset_launches()
+    got = ops.swa_attention(q, k, v, window=window, causal=causal,
+                            round_p=True)
+    assert kernels.LAUNCHES["swa_attention"] == 1 and got.dtype == dtype
+    want = ref.chunked_attention_ref(q, k, v, window, causal, chunk=swa.BK)
+    tol = swa.round_p_tolerance(q, k, v, window, causal, got, want)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+    f32p = ops.swa_attention(q, k, v, window=window, causal=causal)
+    rms = [float((a.float() - want.float()).pow(2).mean().sqrt())
+           for a in (got, f32p)]
+    if window != 1:   # one visible key: p = 1 in both modes, no rounding
+        assert rms[0] < 0.5 * rms[1], rms
+    assert same_bits(ops.swa_attention(q, k, v, window=window, causal=causal,
+                                       round_p=True), got)
+
+
 def test_swa_attention_reads_strided_layouts(dev):
     """The model's (B, S, H, D) tensors go in as transposed views and the
     output is written into a transposed view: the same bits as the
@@ -469,6 +580,36 @@ def test_flash_attention_on_card_is_the_kernel(dev):
     bound = 2.0 ** -9 * float(v.float().abs().max()) + \
         2.0 ** -8 * (got.float().abs() + want.float().abs()) + 1e-5
     assert bool((err <= bound).all()), float(err.max())
+
+
+def test_flash_attention_on_card_is_the_round_p_kernel(dev):
+    """``nn/attention.flash_attention`` on CUDA tensors launches the kernel
+    in its round-once mode: within bound (i)
+    (``swa_attention.round_p_tolerance``) of its plain version
+    ``chunked_attention(..., chunk=64)`` run on the card, and closer to
+    it (RMS) than the kernel's float32-p mode is."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.nn import attention
+    cfg = reduced_config(get_config("mistral-nemo-12b")).with_(
+        num_kv_heads=2, sliding_window=100)
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn((2, 600, h, 64), generator=g).to(dev, torch.bfloat16)
+               for h in (4, 2, 2))
+    kernels.reset_launches()
+    got = attention.flash_attention(q, k, v, cfg)
+    assert kernels.LAUNCHES["swa_attention"] == 1
+    want = attention.chunked_attention(q, k, v, cfg, chunk=swa.BK)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    tol = swa.round_p_tolerance(qh, kh, vh, 100, True, got.transpose(1, 2),
+                                want.transpose(1, 2))
+    err = (got.float() - want.float()).abs().transpose(1, 2)
+    assert bool((err <= tol).all()), float((err / tol).max())
+    f32p = ops.swa_attention(qh, kh, vh, window=100)
+    rms = [float((a.float() - want.float()).pow(2).mean().sqrt())
+           for a in (got, f32p.transpose(1, 2))]
+    assert rms[0] < 0.5 * rms[1], rms
 
 
 def test_flash_attention_non_causal_ignores_window(dev):

@@ -2,6 +2,8 @@
 """Quickest proof that the PyTorch port (``src/repro_torch``) runs on the GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times SRC   # another tree's sumsq / Q->DQ
+    python3 chip_smoke.py --sweep   # sumsq grids, Q->DQ cluster shapes
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -15,7 +17,17 @@ package. Phases, in order, each failing the run on error:
    function:
    - sumsq, max-abs and Q->DQ at the quickstart's (10, 89,088) delta
      buffer with its 8-leaf block map, plus a ragged layout: max-abs and
-     Q->DQ bit for bit, sumsq within rtol 1e-5 of a float64 sum;
+     Q->DQ bit for bit (Q->DQ on its one-launch cluster route), sumsq
+     within rtol 1e-5 of a float64 sum (also at 1,695,744); Q->DQ on its
+     two-pass route at the FedAvg row (1,656 blocks) and at both sides of
+     the route boundary (256 / 257 blocks), each call's route asserted;
+     then sumsq at 89,088 and 1,695,744 and Q->DQ at (10, 89,088) and
+     (6, 89,088) timed by ``ab_times`` (wrapper, named kernels' and whole
+     call's device time, ``torch.dot``'s wall and device time) with the
+     blocking host-to-device copies of ``core/flat.fake_quantize`` and of
+     a quickstart round at int8; ``--kernel-times SRC`` prints the same
+     for the package under SRC (another tree, unpacked by ``git
+     archive``) and nothing else;
    - the fused tail's stats, pack and apply at the FedAvg baseline's
      (10, 1,695,744) buffer with its 10-leaf map: block max-abs, block
      sum of squares, codes (finite rows) and the apply bit for bit, the
@@ -58,7 +70,8 @@ package. Phases, in order, each failing the run on error:
    each path's losses are finite (and fall, but for B, whose noise at 10
    clients promises no fall), its first round agrees with the same round
    on the CPU through the plain versions, and every kernel of the path
-   was launched; then
+   was launched (Q->DQ on its cluster route alone where the path
+   quantizes; the profiled round counts its blocking copies); then
    - ``fl.runtime.run_federated``, the quickstart at ``uplink_bits=0``
      through the simulation grid, whose history must equal a plain
      ``make_round_fn`` loop fed the grid's streams bit for bit (cuDNN set
@@ -121,9 +134,20 @@ DP_CLIP, DP_NOISE = 0.5, 0.4
 POISONED = 3          # the client whose upload is NaN in B's extra round
 # the async path: examples/async_heterogeneous.py's FedBuff settings
 CONCURRENCY, GOAL, ASYNC_UPDATES, ASYNC_CHECKED = 12, 6, 12, 3
-# no engine of either package calls them: only kernels/ops, the tests and
-# this script's kernel phase reach them
-NO_ENGINE = {"clip_accumulate", "seed_reconstruct"}
+# no main path launches them: no engine of either package calls
+# clip_accumulate or seed_reconstruct (only kernels/ops, the tests and this
+# script's kernel phase reach them), and leaf_maxabs runs only on
+# fake_quantize_flat's two-pass route, which no main path's row takes
+NO_ENGINE = {"clip_accumulate", "seed_reconstruct", "leaf_maxabs"}
+# the CUDA kernels behind sumsq and fake_quantize_flat on this tree and on
+# the tree before their one-launch redesign, for timing the two side by side
+AB_KERNELS = {
+    "sumsq": ("sumsq_one_launch_kernel", "sumsq_partials_kernel",
+              "sum_partials_kernel"),
+    "fake_quantize_flat": ("qdq_cluster_kernel", "leaf_maxabs_kernel",
+                           "qdq_kernel"),
+}
+HOST_COPY_OPS = ("cudaMemcpyAsync", "cudaStreamSynchronize")
 U = 2.0 ** -24
 
 
@@ -224,12 +248,32 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+def host_op_counts(fn, iters: int, names=HOST_COPY_OPS):
+    """Calls of the named CUDA runtime functions per call of ``fn`` (mean
+    over ``iters`` calls after one warm-up), from the profiler's host
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    counts = {name: 0 for name in names}
+    for ev in prof.key_averages():
+        if ev.key in counts:
+            counts[ev.key] += ev.count
+    return {name: c / iters for name, c in counts.items()}
+
+
 def kernel_records(specs, iters=(200, 50, 50), warmup: int = 5,
                    ops_per_s: float = F32_OPS_PER_S):
     """Time each kernel's wrapper, its plain version and the library call
     (``iters`` calls each: wrapper and library, plain, profiled device),
     and compute its bound: one ``kernels`` record each (all keys but
-    ``launches``)."""
+    ``launches``; ``library_device_ms`` is the library call's device
+    time)."""
     records = []
     n_kern, n_plain, n_dev = iters
     for (name, source, replaces, kern, plain, lib, knames, nbytes,
@@ -246,6 +290,8 @@ def kernel_records(specs, iters=(200, 50, 50), warmup: int = 5,
             "library_ms": (time_ms(lib, n_kern, warmup) if lib is not None
                            else None),
             "device_ms": device_ms(kern, knames, n_dev),
+            "library_device_ms": (device_ms(lib, None, n_dev)
+                                  if lib is not None else None),
         })
         if len(knames) > 1:
             print(f"  {name}: device ms by CUDA kernel "
@@ -260,9 +306,12 @@ def emnist_loss(params, batch):
     return -lp.gather(1, batch["labels"].long()[:, None]).mean(), {}
 
 
-def check_kernels(layout, dev):
+def check_kernels(layout, layout_a, dev):
     """Phase 2: sumsq, max-abs and Q->DQ against their plain versions at
-    the quickstart's buffer; returns their records."""
+    the quickstart's buffer (Q->DQ on its cluster route), and Q->DQ at the
+    FedAvg width and at both sides of the route boundary, each call's
+    route asserted; returns their records."""
+    from repro_torch import kernels
     from repro_torch.kernels import dp_clip, quantize, ref
 
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -280,6 +329,7 @@ def check_kernels(layout, dev):
     rag_bl = np.array([0, 1, 1, 1, 2, 2, 3], np.int32)
     rag = (torch.randn((3, rag_bl.size * 1024), generator=gen)).to(dev)
 
+    kernels.reset_launches()
     for name, x, blk, nl in (("main", mat, bl, L), ("edge", edge, bl, L),
                              ("ragged", rag, rag_bl, 4)):
         got = quantize.leaf_maxabs(x, blk, nl)
@@ -293,6 +343,32 @@ def check_kernels(layout, dev):
                                  f"({name}): max diff {max_abs_diff(got, want)}")
         print(f"  leaf_maxabs, fake_quantize_flat == plain, bit for bit "
               f"({name}, {tuple(x.shape)})")
+    if kernels.ROUTES != {"fake_quantize_flat/cluster": 3,
+                          "fake_quantize_flat/two_pass": 0}:
+        raise AssertionError(f"fake_quantize_flat routes {kernels.ROUTES}, "
+                             f"not the cluster route three times")
+    # the two-pass route: the FedAvg row; and the route boundary (256
+    # blocks a row) with a leaf map that is not contiguous
+    wide = (torch.randn((K, layout_a.size), generator=gen) * 1e-2).to(dev)
+    wide[3, 12_345] = float("nan")
+    for name, x, blk, nl, route in (
+            ("FedAvg", wide, layout_a.block_leaf(), len(layout_a.sizes),
+             "two_pass"),
+            ("256 blocks", wide[:2, :256 * 1024].contiguous(),
+             np.arange(256, dtype=np.int32) % 5, 5, "cluster"),
+            ("257 blocks", wide[:2, :257 * 1024].contiguous(),
+             np.arange(257, dtype=np.int32) % 5, 5, "two_pass")):
+        kernels.reset_launches()
+        got = quantize.fake_quantize_flat(x, blk, nl)
+        if not same_bits(got, ref.fake_quantize_flat_ref(x, blk,
+                                                         n_leaves=nl)):
+            raise AssertionError(f"fake_quantize_flat != plain version "
+                                 f"({name})")
+        if kernels.ROUTES[f"fake_quantize_flat/{route}"] != 1:
+            raise AssertionError(f"fake_quantize_flat ({name}) took "
+                                 f"{kernels.ROUTES}, not {route}")
+        print(f"  fake_quantize_flat == plain, bit for bit, on the {route} "
+              f"route ({name}, {tuple(x.shape)})")
     if not torch.isnan(quantize.fake_quantize_flat(edge, bl, L)[3]).any():
         raise AssertionError("the NaN row lost its NaN")
     if quantize.fake_quantize_flat(edge, bl, L)[0, z0:z1].abs().max() != 0:
@@ -300,7 +376,8 @@ def check_kernels(layout, dev):
 
     vec = mat[0].contiguous()
     for name, v in (("main", vec),
-                    ("ragged", torch.randn(N + 77, generator=gen).to(dev))):
+                    ("ragged", torch.randn(N + 77, generator=gen).to(dev)),
+                    ("FedAvg", wide[0].contiguous())):
         got = dp_clip.sumsq(v)
         want64 = float((v.double() ** 2).sum())
         if not math.isclose(float(got), want64, rel_tol=1e-5):
@@ -319,8 +396,7 @@ def check_kernels(layout, dev):
         ("sumsq", "src/repro_torch/kernels/csrc/sumsq.cu",
          "src/repro/kernels/dp_clip.py:25",
          lambda: dp_clip.sumsq(vec), lambda: ref.flat_sumsq_ref(vec),
-         lambda: torch.dot(vec, vec),
-         ("sumsq_partials_kernel", "sum_partials_kernel"),
+         lambda: torch.dot(vec, vec), ("sumsq_one_launch_kernel",),
          N * 4 + 4, 2 * N),
         ("leaf_maxabs", "src/repro_torch/kernels/csrc/quantize.cu",
          "src/repro/kernels/quantize.py:35",
@@ -332,9 +408,70 @@ def check_kernels(layout, dev):
          "src/repro/kernels/quantize.py:52",
          lambda: quantize.fake_quantize_flat(mat, bl_dev, L),
          lambda: ref.fake_quantize_flat_ref(mat, bl_dev, n_leaves=L), None,
-         ("leaf_maxabs_kernel", "qdq_kernel"),
-         2 * K * N * 4 + nb * 4, 5 * K * N),
+         ("qdq_cluster_kernel",), 2 * K * N * 4 + nb * 4, 5 * K * N),
     ])
+
+
+def ab_times(dev, label: str) -> dict:
+    """sumsq and fake_quantize_flat timed through the package on
+    ``sys.path`` (this tree's, or another tree's with ``--kernel-times
+    SRC``), for comparing the two trees in one call: per shape the
+    wrapper (CUDA events over back-to-back calls), the named CUDA kernels'
+    device time and the whole call's device time (every device op of the
+    call, a memset included), with the bound and, for sumsq,
+    ``torch.dot``'s wall and device time; then the blocking host-to-device
+    copies per call of ``core/flat.fake_quantize`` (a new layout each
+    call, as the round engine makes one) and per profiled quickstart round
+    at ``uplink_bits=8``. Prints and returns one JSON object."""
+    from repro_torch.core import flat as flat_lib, reconstruct
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import dp_clip, quantize
+    from repro_torch.models import paper_models as pm
+    from repro_torch.nn import threefry
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    y0, frozen = reconstruct.init_partitioned(pm.init_emnist_cnn, 0,
+                                              pm.EMNIST_FREEZE, device=dev)
+    layout = flat_lib.FlatLayout.of(y0)
+    N, L = layout.size, len(layout.sizes)
+    bl = torch.as_tensor(layout.block_leaf(), dtype=torch.int32, device=dev)
+    out = {"tree": label}
+    for n in (N, 1_695_744):
+        v = torch.randn(n, generator=gen).to(dev)
+
+        def call(v=v):
+            return dp_clip.sumsq(v)
+
+        def dot(v=v):
+            return torch.dot(v, v)
+        out[f"sumsq n={n}"] = {
+            "wrapper_ms": time_ms(call),
+            "kernels_ms": device_ms(call, AB_KERNELS["sumsq"]),
+            "call_device_ms": device_ms(call),
+            "bound_ms": bound(4 * n + 4, 2 * n)[0],
+            "dot_ms": time_ms(dot), "dot_device_ms": device_ms(dot)}
+    for rows in (CLIENTS_PER_ROUND, GOAL):
+        m = (torch.randn((rows, N), generator=gen) * 1e-2).to(dev)
+
+        def call(m=m):
+            return quantize.fake_quantize_flat(m, bl, L)
+        out[f"fake_quantize_flat ({rows}, {N})"] = {
+            "wrapper_ms": time_ms(call),
+            "kernels_ms": device_ms(call, AB_KERNELS["fake_quantize_flat"]),
+            "call_device_ms": device_ms(call),
+            "bound_ms": bound(8 * rows * N + 4 * bl.numel(), 5 * rows * N)[0]}
+    m = (torch.randn((CLIENTS_PER_ROUND, N), generator=gen) * 1e-2).to(dev)
+    out["flat.fake_quantize host ops per call"] = host_op_counts(
+        lambda: flat_lib.fake_quantize(m, flat_lib.FlatLayout.of(y0), 8), 10)
+    ds = syn.make_federated_images(N_CLIENTS, EXAMPLES, (28, 28, 1), 62,
+                                   alpha=1.0, seed=0)
+    (batch, w), = cohorts(ds, 1)
+    round_fn, sopt = make_round(8, dev)
+    sstate = sopt.init(y0)
+    out["quickstart bits 8 round host ops"] = host_op_counts(
+        lambda: round_fn(y0, sstate, frozen, batch, w, threefry.key(0)), 3)
+    print("[ab] " + json.dumps(out))
+    return out
 
 
 def check_fused_kernels(layout, dev):
@@ -508,9 +645,12 @@ def check_clip_kernels(layout, layout_a, dev):
         m = (torch.randn((rows, n), generator=gen) * 1e-2).to(dev)
         acc = (torch.randn(n, generator=gen) * 1e-3).to(dev)
         return [
+            # torch.renorm clips each row to L2 norm C as one call (its
+            # denominator is norm + 1e-7, and it returns no norms)
             ("clip_flat", src, "src/repro/kernels/dp_clip.py:70",
              lambda: dp_clip.clip_flat(m, DP_CLIP),
-             lambda: ref.flat_clip_ref(m, DP_CLIP), None, knames,
+             lambda: ref.flat_clip_ref(m, DP_CLIP),
+             lambda: torch.renorm(m, 2, 0, DP_CLIP), knames,
              8 * rows * n + 4 * rows, 3 * rows * n),
             ("clip_accumulate", src, "src/repro/kernels/dp_clip.py:41",
              lambda: dp_clip.clip_accumulate(acc, m[0], DP_CLIP),
@@ -523,10 +663,13 @@ def check_clip_kernels(layout, layout_a, dev):
     other = specs(GOAL, layout_a.size)[:1] + specs(1, layout.size)[1:]
     for rec in kernel_records(other):
         shape = "(6, 1695744)" if rec["name"] == "clip_flat" else "(89088,)"
+        lib = ("" if rec["library_ms"] is None else
+               f", torch.renorm {rec['library_ms']:.5f} ms (device "
+               f"{fmt_ms(rec['library_device_ms'])})")
         print(f"  {rec['name']} at {shape}: wrapper {rec['ms']:.5f} ms, "
               f"device {fmt_ms(rec['device_ms'])} ms, plain "
               f"{rec['plain_ms']:.5f} ms, bound {rec['bound_ms']:.6f} ms "
-              f"({rec['bound_by']})")
+              f"({rec['bound_by']}){lib}")
     return kernel_records(main)
 
 
@@ -567,7 +710,9 @@ def cohorts(ds, n):
 def profile_round(step):
     """One round under the profiler: wall ms, device-busy ms (the sum of
     the kernels' device time; one stream, so they do not overlap),
-    kernel launches, and the host ops with the most self time."""
+    kernel launches, the host ops with the most self time, and the calls
+    of ``cudaMemcpyAsync`` / ``cudaStreamSynchronize`` (a blocking copy
+    to the card makes one of each)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -586,6 +731,9 @@ def profile_round(step):
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     top = [(e.key, round(e.self_cpu_time_total / 1e3, 3), e.count)
            for e in host[:6]]
+    top += [(e.key, round(e.self_cpu_time_total / 1e3, 3), e.count)
+            for e in host if e.key in HOST_COPY_OPS and
+            e.key not in [t[0] for t in top]]
     return wall, busy, kernels_run, top
 
 
@@ -655,7 +803,7 @@ def drive_path(label, bits, dp, y0, frozen, draws, expect, dev):
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         norms.append(float(m["delta_norm"]))
-    counts = dict(kernels.LAUNCHES)
+    counts = {**kernels.LAUNCHES, **kernels.ROUTES}
     print(f"[main path] {label}: losses {[round(v, 4) for v in losses]}")
     print(f"  delta_norm {[round(v, 5) for v in norms]}")
     print(f"  per-round wall ms {[round(v, 3) for v in ms]} (median "
@@ -667,10 +815,7 @@ def drive_path(label, bits, dp, y0, frozen, draws, expect, dev):
         raise AssertionError(f"{label}: loss did not fall")
     if not all(torch.isfinite(leaf).all() for leaf in tree_leaves(y)):
         raise AssertionError(f"{label}: non-finite parameters")
-    for name in expect:
-        if counts[name] <= 0:
-            raise AssertionError(f"{label}: kernel {name} was not launched "
-                                 f"on its path")
+    check_expected(label, counts, expect)
     batch, w = draws[ROUNDS]
     if dp:
         poisoned = dict(batch, images=np.array(batch["images"], copy=True))
@@ -696,6 +841,19 @@ def drive_path(label, bits, dp, y0, frozen, draws, expect, dev):
           f"{100 * (1 - busy / wall):.1f}%), {n_kernels} device ops; "
           f"host ops by self time (name, ms, calls): {top}")
     return counts
+
+
+def check_expected(label, counts, expect):
+    """Every kernel (or ``kernel/route``) in ``expect`` launched on the
+    path; a path that expects the cluster route took no other."""
+    for name in expect:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched "
+                                 f"on its path")
+    if "fake_quantize_flat/cluster" in expect and \
+            counts["fake_quantize_flat/two_pass"]:
+        raise AssertionError(f"{label}: fake_quantize_flat took its "
+                             f"two-pass route")
 
 
 def leaves_of(tree):
@@ -838,7 +996,7 @@ def drive_async_dp(ds, dev):
     init = lambda s: pm.init_emnist_cnn(s, device=dev)  # noqa: E731
     kernels.reset_launches()
     res = async_run(ds, init, ASYNC_UPDATES, dev)
-    counts = dict(kernels.LAUNCHES)
+    counts = {**kernels.LAUNCHES, **kernels.ROUTES}
     losses = [h["loss"] for h in res.history]
     norms = [h["delta_norm"] for h in res.history]
     print(f"[main path] {label}: losses {[round(v, 4) for v in losses]}")
@@ -855,9 +1013,8 @@ def drive_async_dp(ds, dev):
     if (res.dp["flushes"], res.dp["sigma"]) != (ASYNC_UPDATES, sigma) or \
             not math.isfinite(res.dp["epsilon"]):
         raise AssertionError(f"{label}: DP summary {res.dp}")
-    for name in ("clip_flat", "leaf_maxabs", "fake_quantize_flat"):
-        if counts[name] <= 0:
-            raise AssertionError(f"{label}: kernel {name} was not launched")
+    check_expected(label, counts, ("clip_flat", "fake_quantize_flat",
+                                   "fake_quantize_flat/cluster"))
     check_async_against_cpu(ds, dev)
 
     # the two device steps of a flush, alone, at the path's shapes
@@ -1443,10 +1600,119 @@ def drive_serving(dev):
     return counts
 
 
-def main() -> int:
+def kernel_times_only(src: str) -> int:
+    """``--kernel-times SRC``: build the kernels of the package under SRC
+    and print :func:`ab_times` for it alone (a tree unpacked with ``git
+    archive``, timed in the same call as this one)."""
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"[build] {src}: {time.perf_counter() - t0:.1f} s; card "
+          f"{card_line()}")
+    ab_times(dev, os.path.abspath(src))
+    return 0
+
+
+def sweep() -> int:
+    """``--sweep``: the launch choices behind this tree's one-launch
+    kernels, through their C entry points: sumsq's grid at 89,088 and
+    1,695,744 (the wrapper's plan beside other grids), the cluster
+    route's (CTAs, thread groups, float4s a thread) at (10 | 6, 89,088)
+    beside the two-pass route and a plain copy of the buffer (each output
+    checked against the plain version), and what a wrapper's host steps
+    cost. Prints one JSON line: wall (CUDA events) and device ms."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build, dp_clip, quantize, ref
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build_all()
+    print(f"[sweep] card {card_line()}")
+    lib_s = _build.load("sumsq.cu", dp_clip._SIGNATURES)
+    lib_q = _build.load("quantize.cu", quantize._SIGNATURES)
+    out = {}
+
+    def rec(key, fn, device=True):
+        out[key] = {"wall_ms": time_ms(fn),
+                    "device_ms": device_ms(fn) if device else None}
+
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    x = torch.randn(89_088, generator=gen).to(dev)
+    rec("host: torch.cuda.current_stream().cuda_stream",
+        lambda: torch.cuda.current_stream(x.device).cuda_stream, False)
+    rec("host: _build.stream_ptr", lambda: _build.stream_ptr(x), False)
+    rec("host: _build.check_cuda",
+        lambda: _build.check_cuda("x", x, torch.float32, 1), False)
+    rec("host: torch.empty(())", lambda: torch.empty(
+        (), dtype=torch.float32, device=dev), False)
+    rec("host: x.new_empty(())", lambda: x.new_empty(()), False)
+    scratch = torch.zeros(1025, dtype=torch.int32, device=dev)
+    res = torch.empty((), device=dev)
+    base, stream = scratch.data_ptr(), _build.stream_ptr(x)
+    for n, grids in ((89_088, (11, 22, 44, 87, 132)),
+                     (1_695_744, (66, 132, 264, 414, 828))):
+        v = torch.randn(n, generator=gen).to(dev)
+        want = float((v.double() ** 2).sum())
+        rec(f"sumsq n={n} wrapper, plan {dp_clip.sumsq_plan(n)}",
+            lambda v=v: dp_clip.sumsq(v))
+        for grid in grids:
+            chunk = -(-(n // 4) // grid)
+
+            def call(v=v, grid=grid, chunk=chunk):
+                return lib_s.sumsq_f32(v.data_ptr(), n, grid, chunk, base,
+                                       base + 4 * 1024, res.data_ptr(),
+                                       stream)
+            if call() or not math.isclose(float(res), want, rel_tol=1e-5):
+                raise AssertionError(f"sumsq sweep: grid {grid} at n={n}")
+            rec(f"sumsq n={n} grid={grid}", call)
+    bl = torch.as_tensor(np.repeat(np.arange(8, dtype=np.int32),
+                                   [1, 1, 1, 50, 1, 31, 1, 1]), device=dev)
+    for rows in (CLIENTS_PER_ROUND, GOAL):
+        m = (torch.randn((rows, 89_088), generator=gen) * 1e-2).to(dev)
+        want = ref.fake_quantize_flat_ref(m, bl, n_leaves=8)
+        y = torch.empty_like(m)
+        rec(f"Q->DQ ({rows}, 89088) wrapper, split "
+            f"{quantize.cluster_split(87)}",
+            lambda m=m: quantize.fake_quantize_flat(m, bl, 8))
+
+        def two_pass(m=m, y=y, rows=rows):
+            mx = quantize.leaf_maxabs(m, bl, 8)
+            return lib_q.fake_quantize_flat_f32(
+                m.data_ptr(), bl.data_ptr(), mx.data_ptr(), rows, 89_088,
+                1024, 8, 127.0, y.data_ptr(), stream)
+        for label, fn in [("two-pass", two_pass)] + [
+                (f"cluster ctas={c} groups={g} per_thread={p}",
+                 lambda m=m, y=y, rows=rows, c=c, g=g, p=p:
+                 lib_q.fake_quantize_cluster_f32(
+                     m.data_ptr(), bl.data_ptr(), rows, 89_088, c, g, p, 8,
+                     127.0, y.data_ptr(), stream))
+                for c, g, p in ((8, 2, 8), (12, 2, 4), (16, 1, 8),
+                                (16, 2, 4))]:
+            y.zero_()
+            if fn() or not same_bits(y, want):
+                raise AssertionError(f"Q->DQ sweep: {label} ({rows} rows)")
+            rec(f"Q->DQ ({rows}, 89088) {label}", fn)
+        rec(f"copy ({rows}, 89088)", lambda m=m, y=y: y.copy_(m))
+    print("[sweep] " + json.dumps(out))
+    return 0
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
+        return 2
+    if argv[:1] == ["--kernel-times"] and len(argv) == 2:
+        return kernel_times_only(argv[1])
+    if argv == ["--sweep"]:
+        return sweep()
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
+              f"[--kernel-times SRC | --sweep]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import kernels
@@ -1505,15 +1771,17 @@ def main() -> int:
 
     # --- phase 2: kernels against their plain versions -------------------
     print("[kernels] against their plain versions at the main paths' shapes")
-    records = (check_kernels(layout, dev) + check_fused_kernels(layout_a, dev)
+    records = (check_kernels(layout, layout_a, dev)
+               + check_fused_kernels(layout_a, dev)
                + check_clip_kernels(layout, layout_a, dev)
                + check_serving_kernels(dev, logs))
+    ab_times(dev, "this tree")
 
     # --- phase 3: the main paths -----------------------------------------
     paths = [  # label, bits, dp, (y, frozen), kernels that must launch
         ("quickstart, uplink_bits=0", 0, False, (y0, frozen), ("sumsq",)),
         ("quickstart, uplink_bits=8", 8, False, (y0, frozen),
-         ("sumsq", "leaf_maxabs", "fake_quantize_flat")),
+         ("sumsq", "fake_quantize_flat", "fake_quantize_flat/cluster")),
         ("FedAvg A, int8", 8, False, (ya, za),
          ("sumsq", "block_stats", "pack")),
         ("FedAvg B, int8 DP-FedAvg + screen", 8, True, (ya, za),
@@ -1521,7 +1789,7 @@ def main() -> int:
     ]
     for label, bits, dp, (ys, zs), _ in paths:
         check_against_cpu(label, bits, dp, ds, ys, zs, dev)
-    launches = {name: 0 for name in kernels.LAUNCHES}
+    launches = {name: 0 for name in {**kernels.LAUNCHES, **kernels.ROUTES}}
     draws = cohorts(ds, ROUNDS + 1)
     torch.cuda.reset_peak_memory_stats()
     for label, bits, dp, (ys, zs), expect in paths:
@@ -1531,13 +1799,13 @@ def main() -> int:
     for counts in (drive_run_federated(ds, y0, frozen, dev),
                    drive_async_dp(ds, dev)):
         for name in launches:
-            launches[name] += counts[name]
+            launches[name] += counts.get(name, 0)
     print(f"[main path] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     tail_routes((("quickstart", layout), ("FedAvg", layout_a)), dev)
     counts = drive_serving(dev)
     for name in launches:
-        launches[name] += counts[name]
+        launches[name] += counts.get(name, 0)
     if counts["swa_attention"] <= 0:
         raise AssertionError("swa_attention never launched on the serving "
                              "path")
@@ -1550,6 +1818,8 @@ def main() -> int:
         if rec["launches"] <= 0 and rec["name"] not in NO_ENGINE:
             raise AssertionError(f"kernel {rec['name']} never launched on "
                                  f"a main path")
+    print(f"[main path] fake_quantize_flat launches by route: "
+          f"{ {k: v for k, v in launches.items() if '/' in k} }")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1559,4 +1829,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -165,7 +165,7 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
         # --- server tail: screen / quantize / clip / mean / noise --------
         flat_delta, ainfo = kernel_ops.agg_tail(
             deltas, weights,
-            block_leaf=layout.block_leaf(),
+            block_leaf=layout.block_leaf_on(dev),
             n_leaves=len(layout.sizes),
             align=layout.align,
             bits=rc.uplink_bits or 0,
@@ -356,7 +356,7 @@ def make_buffered_apply(server_opt: opt_lib.Optimizer, flush_dp=None,
         weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
         flat_delta, ainfo = kernel_ops.agg_tail(
             flat_deltas, weights,
-            block_leaf=layout.block_leaf(),
+            block_leaf=layout.block_leaf_on(dev),
             n_leaves=len(layout.sizes),
             align=layout.align,
             wsum_fixed=(float(flush_dp.goal_count)

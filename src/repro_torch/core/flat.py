@@ -14,7 +14,7 @@ CUDA kernel, a CPU tensor to its plain version.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,8 @@ from repro_torch.kernels import dp_clip, quantize, ref
 from repro_torch.nn import basic, threefry
 
 ALIGN = 1024
+# block->leaf maps on a device, by (padded leaf sizes, align, device)
+_BLOCK_LEAF_ON: Dict[Tuple[Any, ...], torch.Tensor] = {}
 
 
 def _ceil_to(n: int, align: int) -> int:
@@ -62,6 +64,18 @@ class FlatLayout:
         """(num_blocks,) int32: which leaf each align-block belongs to."""
         return np.repeat(np.arange(len(self.sizes), dtype=np.int32),
                          [p // self.align for p in self.padded])
+
+    def block_leaf_on(self, device) -> torch.Tensor:
+        """:meth:`block_leaf` as an int32 tensor on ``device``, copied there
+        once for every layout with these leaf sizes (the round engine
+        builds a layout each round) and reused, so a round makes no
+        host-to-device copy of it."""
+        key = (self.padded, self.align, torch.device(device))
+        bl = _BLOCK_LEAF_ON.get(key)
+        if bl is None:
+            bl = _BLOCK_LEAF_ON[key] = torch.as_tensor(
+                self.block_leaf(), dtype=torch.int32, device=key[2])
+        return bl
 
     def flatten(self, tree) -> torch.Tensor:
         """Tree -> (size,) float32."""
@@ -118,10 +132,11 @@ def clip(vec: torch.Tensor, clip_norm: float,
 def fake_quantize(mat: torch.Tensor, layout: FlatLayout, bits: int = 8):
     """Per-leaf symmetric int-k fake-quantization of flat client deltas,
     (C, size) or (size,), scales per (client, leaf): the CUDA kernels for
-    a CUDA tensor, the plain version for a CPU one."""
+    a CUDA tensor, the plain version for a CPU one. The block->leaf map is
+    the layout's device copy (:meth:`FlatLayout.block_leaf_on`)."""
     if layout.size == 0:
         return mat
-    return quantize.fake_quantize_flat(mat, layout.block_leaf(),
+    return quantize.fake_quantize_flat(mat, layout.block_leaf_on(mat.device),
                                        len(layout.sizes), bits=bits,
                                        block=layout.align)
 

@@ -13,39 +13,92 @@ one ``clip_flat`` call where the JAX package clips each client inside its
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import _build, ref
 
-# stage-1 partial sums at most; the kernel picks its grid from n alone
-MAX_PARTIALS = 1024
+# sumsq: CTAs at most (one per SM of the H100; partials the last CTA
+# combines), threads a CTA, and the fewest elements a CTA sums (one float4
+# a thread); the grid comes from n alone
+MAX_PARTIALS = 132
+SUMSQ_THREADS = 256
+SUMSQ_MIN_CHUNK = 1024
 BLOCK = 1024  # the clip's norm stage sums align-blocks, as the plain version
 
 _P, _I64, _INT, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                       ctypes.c_float)
-_SIGNATURES = {"sumsq_f32": [_P, _I64, _P, _INT, _P, _P]}
+_SIGNATURES = {"sumsq_f32": [_P, _I64, _INT, _I64, _P, _P, _P, _P]}
 _CLIP_SIGNATURES = {
     "dp_clip_rows_f32": [_P, _I64, _I64, _INT, _F, _P, _P, _P, _P, _P],
     "dp_clip_accumulate_f32": [_P, _P, _I64, _INT, _F, _P, _P, _P, _P, _P],
 }
 
 
+# partials + arrival counter of the sumsq kernel, one per (device, stream)
+_SUMSQ_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def sumsq_plan(n: int) -> Tuple[int, int]:
+    """(grid, chunk) of the sumsq kernel for an n-element vector: CTA b
+    sums the float4 quads [b * chunk, (b + 1) * chunk), the last CTA also
+    the n % 4 tail. At least SUMSQ_MIN_CHUNK elements a CTA (87 CTAs at
+    the round's 89,088), at most MAX_PARTIALS CTAs (from 135,168 on)."""
+    grid = max(1, min(MAX_PARTIALS, -(-n // SUMSQ_MIN_CHUNK)))
+    return grid, -(-(n // 4) // grid)
+
+
+def sumsq_rtol(n: int) -> float:
+    """A-priori relative bound between the sumsq kernel's result and the
+    exact sum of squares of an n-element vector (u = 2**-24).
+
+    A float32 sum of non-negative terms in which every term passes
+    through at most d roundings is within (1 + u)**d - 1 of the exact sum,
+    whatever the tree. Here a term is squared and added in its thread's
+    fmaf chain (one rounding per step: 4 * ceil(chunk / 256) steps, plus
+    the <= 3 tail elements of the last CTA's thread 0), then passes the
+    CTA's 8 tree levels, the combine's ceil(grid / 256)-step chain and its
+    8 tree levels."""
+    grid, chunk = sumsq_plan(n)
+    d = (4 * -(-chunk // SUMSQ_THREADS) + 3 + 8
+         + -(-grid // SUMSQ_THREADS) + 8)
+    return math.expm1(d * math.log1p(2.0 ** -24))
+
+
+def _sumsq_scratch(x: torch.Tensor):
+    """(scratch, stream) for ``x``'s current stream: MAX_PARTIALS floats of
+    partials, then the int32 arrival counter, zeroed once when made. The
+    kernel's last CTA sets the counter back to 0, so calls on one stream
+    (which run in order) share it; two streams never do."""
+    stream = _build.stream_ptr(x)
+    key = (x.get_device(), stream)
+    buf = _SUMSQ_SCRATCH.get(key)
+    if buf is None:
+        buf = _SUMSQ_SCRATCH[key] = torch.zeros(
+            (MAX_PARTIALS + 1,), dtype=torch.int32, device=x.device)
+    return buf, stream
+
+
 def sumsq(x: torch.Tensor) -> torch.Tensor:
     """sum(x**2) of a 1-D float32 vector, as a 0-d float32 tensor.
 
-    CUDA tensor: the two-stage fixed-order kernel (same bits on every
-    run). CPU tensor: ``ref.flat_sumsq_ref``."""
+    CUDA tensor: one launch of the fixed-order kernel (grid from
+    :func:`sumsq_plan`, the last CTA combines; the same bits on every
+    run, within :func:`sumsq_rtol` of the exact sum). CPU tensor:
+    ``ref.flat_sumsq_ref``."""
     if x.device.type == "cpu":
         return ref.flat_sumsq_ref(x)
     _build.check_cuda("sumsq", x, torch.float32, 1)
     lib = _build.load("sumsq.cu", _SIGNATURES)
-    partials = torch.empty((MAX_PARTIALS,), dtype=torch.float32,
-                           device=x.device)
-    out = torch.empty((), dtype=torch.float32, device=x.device)
-    err = lib.sumsq_f32(x.data_ptr(), x.numel(), partials.data_ptr(),
-                        MAX_PARTIALS, out.data_ptr(), _build.stream_ptr(x))
+    scratch, stream = _sumsq_scratch(x)
+    grid, chunk = sumsq_plan(x.numel())
+    out = x.new_empty(())
+    base = scratch.data_ptr()
+    err = lib.sumsq_f32(x.data_ptr(), x.numel(), grid, chunk, base,
+                        base + 4 * MAX_PARTIALS, out.data_ptr(), stream)
     _build.raise_on_error("sumsq", err)
     kernels.LAUNCHES["sumsq"] += 1
     return out

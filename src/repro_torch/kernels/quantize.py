@@ -8,6 +8,13 @@ the JAX package maps the TPU kernels over the rows. ``N`` is
 ``len(block_leaf) * block``: each ``block``-element block of a row
 belongs to one leaf (``core/flat.FlatLayout`` pads every leaf to whole
 blocks), so the zero padding never raises a leaf's max.
+
+``fake_quantize_flat`` takes one of two routes, by shape alone
+(:func:`qdq_route`): the cluster route, one launch in which a cluster of
+CTAs holds a row in registers (x read once), for rows of at most
+``CLUSTER * CLUSTER_MAX_BLOCKS`` 1024-element blocks over at most
+``CLUSTER_MAX_LEAVES`` leaves; else the two-pass route, ``leaf_maxabs``
+then a Q->DQ launch that reads x again. Both give the same bits.
 """
 from __future__ import annotations
 
@@ -20,13 +27,51 @@ from repro_torch import kernels
 from repro_torch.kernels import _build, ref
 
 BLOCK = 1024  # must equal the layout's `align`
+# the cluster route: CTAs a row (16, a non-portable cluster size: on the
+# H100 it beat 8 at 10 and 6 rows, chip_smoke.py --sweep), thread groups
+# a CTA (256 threads, one float4 each of a block, per group), the float4s a
+# thread holds in registers (the kernel's instances), the blocks a CTA
+# holds at most, and the leaves its shared table holds
+CLUSTER = 16
+CLUSTER_GROUPS = 2
+CLUSTER_PER_THREAD = (1, 2, 4, 8)
+CLUSTER_MAX_BLOCKS = CLUSTER_GROUPS * CLUSTER_PER_THREAD[-1]
+CLUSTER_MAX_LEAVES = 256
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "leaf_maxabs_f32": [_P, _P, _I64, _I64, _INT, _INT, _P, _P],
     "fake_quantize_flat_f32": [_P, _P, _P, _I64, _I64, _INT, _INT,
                                ctypes.c_float, _P, _P],
+    "fake_quantize_cluster_f32": [_P, _P, _I64, _I64, _INT, _INT, _INT,
+                                  _INT, ctypes.c_float, _P, _P],
 }
+
+
+def qdq_route(n: int, block: int, n_leaves: int) -> str:
+    """``"cluster"`` or ``"two_pass"``: the route ``fake_quantize_flat``
+    takes for rows of n elements in ``block``-element blocks over
+    ``n_leaves`` leaves. The cluster route needs 1024-element blocks (256
+    threads x one float4), at most CLUSTER * CLUSTER_MAX_BLOCKS of them and
+    at most CLUSTER_MAX_LEAVES leaves."""
+    n_blocks = n // block
+    if (block == 1024 and 1 <= n_blocks <= CLUSTER * CLUSTER_MAX_BLOCKS
+            and n_leaves <= CLUSTER_MAX_LEAVES):
+        return "cluster"
+    return "two_pass"
+
+
+def cluster_split(n_blocks: int):
+    """(ctas, groups, per_thread) of the cluster route for a row of
+    ``n_blocks`` blocks: the kernel gives CTA r of the row's cluster the
+    blocks [r * n_blocks // ctas, (r + 1) * n_blocks // ctas), and its
+    thread group g (of ``groups``) the CTA's blocks g, g + groups, ...,
+    at most ``per_thread`` of them."""
+    ctas = min(CLUSTER, n_blocks)
+    share = -(-n_blocks // ctas)
+    groups = min(CLUSTER_GROUPS, share)
+    per_thread = next(p for p in CLUSTER_PER_THREAD if groups * p >= share)
+    return ctas, groups, per_thread
 
 
 def _block_leaf_on(block_leaf, n_blocks: int, n_leaves: int, device):
@@ -83,25 +128,37 @@ def fake_quantize_flat(x: torch.Tensor, block_leaf, n_leaves: int,
                        bits: int = 8, block: int = BLOCK) -> torch.Tensor:
     """Q->DQ of block-aligned flat rows (..., N) with per-(row, leaf)
     scales max(max|x|, 1e-12) / qmax, bit for bit
-    ``compress.quantize_leaf`` + ``dequantize_leaf``. On CUDA: the
-    max-abs launch, then one Q->DQ launch for all rows; on the CPU:
-    ``ref.fake_quantize_flat_ref``."""
+    ``compress.quantize_leaf`` + ``dequantize_leaf``. On CUDA, one launch
+    for all rows on the cluster route, or the max-abs launch and then the
+    Q->DQ launch on the two-pass route (:func:`qdq_route`); on the CPU:
+    ``ref.fake_quantize_flat_ref``. ``block_leaf`` is checked when it is
+    a numpy array; pass it as an int32 tensor on the card
+    (``FlatLayout.block_leaf_on``) to save the host-to-device copy."""
     if not 2 <= bits <= 8:
         raise ValueError(f"bits must lie in [2, 8], got {bits}")
     if x.device.type == "cpu":
         return ref.fake_quantize_flat_ref(x, block_leaf, bits=bits,
                                           block=block, n_leaves=n_leaves)
     rows = _as_rows(x, block)
-    bl = _block_leaf_on(block_leaf, rows.shape[1] // block, n_leaves,
-                        x.device)
-    maxabs = leaf_maxabs(rows, bl, n_leaves, block)
+    R, n = rows.shape
+    bl = _block_leaf_on(block_leaf, n // block, n_leaves, x.device)
     out = torch.empty_like(rows)
-    if rows.numel():
-        lib = _build.load("quantize.cu", _SIGNATURES)
+    if not rows.numel():
+        return out.reshape(x.shape)
+    qmax = 2.0 ** (bits - 1) - 1
+    lib = _build.load("quantize.cu", _SIGNATURES)
+    route = qdq_route(n, block, n_leaves)
+    if route == "cluster":
+        ctas, groups, per_thread = cluster_split(n // block)
+        err = lib.fake_quantize_cluster_f32(
+            rows.data_ptr(), bl.data_ptr(), R, n, ctas, groups, per_thread,
+            n_leaves, qmax, out.data_ptr(), _build.stream_ptr(x))
+    else:
+        maxabs = leaf_maxabs(rows, bl, n_leaves, block)
         err = lib.fake_quantize_flat_f32(
-            rows.data_ptr(), bl.data_ptr(), maxabs.data_ptr(), rows.shape[0],
-            rows.shape[1], block, n_leaves, 2.0 ** (bits - 1) - 1,
-            out.data_ptr(), _build.stream_ptr(x))
-        _build.raise_on_error("fake_quantize_flat", err)
-        kernels.LAUNCHES["fake_quantize_flat"] += 1
+            rows.data_ptr(), bl.data_ptr(), maxabs.data_ptr(), R, n, block,
+            n_leaves, qmax, out.data_ptr(), _build.stream_ptr(x))
+    _build.raise_on_error("fake_quantize_flat", err)
+    kernels.LAUNCHES["fake_quantize_flat"] += 1
+    kernels.ROUTES[f"fake_quantize_flat/{route}"] += 1
     return out.reshape(x.shape)

@@ -6,8 +6,10 @@ the kernels cannot even be built). Run them on a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Imports neither JAX nor the JAX package. Max-abs and Q->DQ must match
-bit for bit (NaN positions equal); sumsq within rtol 1e-5 of a float64
-sum and with the same bits on every run. The fused tail's kernels: block
+bit for bit (NaN positions equal), Q->DQ on both of its routes (the
+one-launch cluster route up to 256 blocks a row, the two-pass route
+past it); sumsq within rtol 1e-5 of a float64 sum and with the same bits
+on every run, 1,000 calls in a row and on two streams at once. The fused tail's kernels: block
 max-abs, block sum of squares, int8 codes (on finite rows) and the apply
 bit for bit; the quantized row sum of squares within a relative
 2 * blocks * 2**-24 (the kernel sums the same per-block products in its
@@ -102,7 +104,8 @@ def test_qdq_bits(dev, bits):
                                                 bits=bits, n_leaves=8))
 
 
-@pytest.mark.parametrize("n", [0, 1, 1023, 89_088, 89_088 + 77, 3_000_001])
+@pytest.mark.parametrize("n", [0, 1, 3, 1023, 89_088, 89_088 + 77,
+                               1_695_744, 3_000_001])
 def test_sumsq_matches_float64_and_is_deterministic(dev, n):
     x = torch.randn(n, generator=torch.Generator().manual_seed(n)).to(dev)
     got = dp_clip.sumsq(x)
@@ -111,12 +114,42 @@ def test_sumsq_matches_float64_and_is_deterministic(dev, n):
     assert torch.equal(got, dp_clip.sumsq(x))
 
 
+def test_sumsq_same_bits_on_1000_calls(dev):
+    """The last CTA sets the arrival counter back to 0: call after call
+    combines in the same order."""
+    x = torch.randn(89_088, generator=torch.Generator().manual_seed(1)).to(dev)
+    first = dp_clip.sumsq(x)
+    outs = torch.stack([dp_clip.sumsq(x) for _ in range(1000)])
+    assert torch.equal(outs, first.expand(1000))
+
+
+def test_sumsq_on_two_streams_matches_one(dev):
+    """Each stream has its own partials and counter, so calls running at
+    once on two streams give the one-stream bits."""
+    g = torch.Generator().manual_seed(2)
+    xs = [torch.randn(1_695_744, generator=g).to(dev) for _ in range(2)]
+    want = [dp_clip.sumsq(x) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(50):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(dp_clip.sumsq(xs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i])
+
+
 def test_wrappers_count_launches_and_check_inputs(dev):
     kernels.reset_launches()
     x = _mat(2, EMNIST_BLOCK_LEAF).to(dev)
     dp_clip.sumsq(x[0].contiguous())
     quantize.fake_quantize_flat(x, EMNIST_BLOCK_LEAF, 8)
-    assert kernels.LAUNCHES == {"sumsq": 1, "leaf_maxabs": 1,
+    # the EMNIST row takes the cluster route: one launch, no max-abs pass
+    assert kernels.ROUTES == {"fake_quantize_flat/cluster": 1,
+                              "fake_quantize_flat/two_pass": 0}
+    assert kernels.LAUNCHES == {"sumsq": 1, "leaf_maxabs": 0,
                                 "fake_quantize_flat": 1, "block_stats": 0,
                                 "pack": 0, "apply_coeff": 0, "clip_flat": 0,
                                 "clip_accumulate": 0, "swa_attention": 0,
@@ -129,6 +162,63 @@ def test_wrappers_count_launches_and_check_inputs(dev):
         quantize.leaf_maxabs(x[:, :1000].contiguous(), EMNIST_BLOCK_LEAF, 8)
     with pytest.raises(ValueError):
         quantize.leaf_maxabs(x, EMNIST_BLOCK_LEAF + 1, 8)
+
+
+def _qdq_matches_plain(m, block_leaf, bits=8):
+    """fake_quantize_flat against its plain version, bit for bit; returns
+    the route the launch took."""
+    L = int(np.max(np.asarray(block_leaf))) + 1
+    kernels.reset_launches()
+    got = quantize.fake_quantize_flat(m, block_leaf, L, bits=bits)
+    assert same_bits(got, ref.fake_quantize_flat_ref(m, block_leaf, bits=bits,
+                                                     n_leaves=L))
+    assert same_bits(quantize.fake_quantize_flat(m, block_leaf, L, bits=bits),
+                     got)
+    route = quantize.qdq_route(m.shape[-1], 1024, L)
+    assert kernels.ROUTES[f"fake_quantize_flat/{route}"] == 2
+    assert kernels.LAUNCHES["leaf_maxabs"] == (2 if route == "two_pass" else 0)
+    return route
+
+
+@pytest.mark.parametrize("case", ["random", "zero_leaf", "nan", "inf",
+                                  "ties"])
+@pytest.mark.parametrize("rows", [1, 6, 10, 12, 65])
+def test_qdq_cluster_route_matches_plain_bitwise(dev, rows, case):
+    m = _mat(rows, EMNIST_BLOCK_LEAF, seed=rows, case=case).to(dev)
+    assert _qdq_matches_plain(m, EMNIST_BLOCK_LEAF) == "cluster"
+
+
+@pytest.mark.parametrize("case", ["random", "zero_leaf", "nan", "inf",
+                                  "ties"])
+@pytest.mark.parametrize("rows", [1, 10])
+def test_qdq_two_pass_route_matches_plain_bitwise(dev, rows, case):
+    m = _mat(rows, FEDAVG_BLOCK_LEAF, seed=rows, case=case).to(dev)
+    assert _qdq_matches_plain(m, FEDAVG_BLOCK_LEAF) == "two_pass"
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("n_blocks,route", [(255, "cluster"), (256, "cluster"),
+                                            (257, "two_pass")])
+def test_qdq_at_the_route_boundary(dev, n_blocks, route, bits):
+    block_leaf = (np.arange(n_blocks, dtype=np.int32) * 7) % 5
+    m = _mat(3, block_leaf, seed=n_blocks, case="nan").to(dev)
+    assert _qdq_matches_plain(m, block_leaf, bits) == route
+
+
+@pytest.mark.parametrize("case", ["random", "nan"])
+def test_qdq_non_contiguous_leaf_map(dev, case):
+    block_leaf = np.array([0, 1, 0, 2], np.int32)
+    m = _mat(5, block_leaf, seed=3, case=case).to(dev)
+    assert _qdq_matches_plain(m, block_leaf) == "cluster"
+    # the same on a device map, and on rows whose base is off the
+    # 16-byte grid (scalar loads and stores)
+    bl = torch.as_tensor(block_leaf, device=dev)
+    want = quantize.fake_quantize_flat(m, block_leaf, 3)
+    assert same_bits(quantize.fake_quantize_flat(m, bl, 3), want)
+    buf = torch.zeros(m.numel() + 1, device=dev)
+    buf[1:] = m.reshape(-1)
+    off = buf[1:].view(m.shape)
+    assert same_bits(quantize.fake_quantize_flat(off, bl, 3), want)
 
 
 @pytest.mark.parametrize("bits,clip", [(0, 0.0), (8, 0.0), (8, 0.05)])

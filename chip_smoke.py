@@ -2,8 +2,8 @@
 """Quickest proof that the PyTorch port (``src/repro_torch``) runs on the GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernel-times SRC   # another tree's sumsq / Q->DQ
-    python3 chip_smoke.py --sweep   # sumsq grids, Q->DQ cluster shapes
+    python3 chip_smoke.py --kernel-times SRC   # another tree's redesigned kernels
+    python3 chip_smoke.py --sweep   # sumsq grids, Q->DQ and clip cluster shapes
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -38,7 +38,13 @@ package. Phases, in order, each failing the run on error:
      with a zero row, a row under the clip (bit for bit), a NaN row, an
      Inf row and ragged N; the row norms within ``dp_clip.norm_rtol``
      (their a-priori bound), the clip-and-accumulate within rtol 1e-6 of
-     its plain version (one torch.sum);
+     its plain version (one torch.sum); each clip_flat call's route
+     asserted: one launch on the cluster route at (6, 89,088) and with a
+     ragged last block, there bit for bit the three-launch entry's values
+     and norms, and the three-launch route at (6, 1,695,744) and n + 77;
+     ``ab_times`` also times clip_flat and seed_reconstruct (float32 and
+     bf16) and prints digests of their outputs, so that ``--kernel-times``
+     on another tree shows whether the two give the same bits;
    - ``swa_attention`` at (1, 32, 4096, 128) bf16 with 8 kv heads (GQA rep
      4), windows 0 and 1,000, at a ragged S = 4,000, and at the
      prefill's (1, 32, 32768, 128) in its layout under windows 0 and
@@ -55,7 +61,9 @@ package. Phases, in order, each failing the run on error:
      profiler records, and the card's clock and power under sustained
      load;
      ``seed_reconstruct`` at NeMo's frozen FFN leaf (5120, 14336) and a
-     ragged (300, 200): hash words bit for bit, Gaussians within 8 ulps;
+     ragged (300, 200): hash words bit for bit, Gaussians within 8 ulps in
+     float32 and one bf16 ulp in bf16, one launch a call; timed in both
+     types, with the kernel's static SASS instruction counts;
 3. drive the main paths: synchronous FedPT rounds on the full-width
    EMNIST CNN (init from seed 0 through the threefry port), 10 rounds of
    10 clients x 2 local SGD steps x batch 16, each followed by one
@@ -82,8 +90,9 @@ package. Phases, in order, each failing the run on error:
      per-flush DP (clip 0.5, noise multiplier 0.4), 12 server updates;
      its first 3 updates again on the card and on the CPU, whose virtual
      clock, staleness, scheduler stats, wire bytes and DP summary must be
-     equal, losses within rel 1e-4 and y within a derived bound; then
-     the lane step and the buffered apply timed, one flush profiled;
+     equal, losses within rel 1e-4 and y within a derived bound; the
+     lane's Q->DQ and clip on their cluster routes alone; then the lane
+     step and the buffered apply timed, one flush profiled;
    then time the staged and the fused tail against each other at both
    buffer sizes; then
    - the serving path: Mistral-NeMo-12B at full width (d_model 5120, 32
@@ -107,6 +116,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -139,14 +149,20 @@ CONCURRENCY, GOAL, ASYNC_UPDATES, ASYNC_CHECKED = 12, 6, 12, 3
 # script's kernel phase reach them), and leaf_maxabs runs only on
 # fake_quantize_flat's two-pass route, which no main path's row takes
 NO_ENGINE = {"clip_accumulate", "seed_reconstruct", "leaf_maxabs"}
-# the CUDA kernels behind sumsq and fake_quantize_flat on this tree and on
-# the tree before their one-launch redesign, for timing the two side by side
+# the CUDA kernels behind sumsq, fake_quantize_flat, clip_flat and
+# seed_reconstruct on this tree and on the trees before their redesign,
+# for timing the two side by side
 AB_KERNELS = {
     "sumsq": ("sumsq_one_launch_kernel", "sumsq_partials_kernel",
               "sum_partials_kernel"),
     "fake_quantize_flat": ("qdq_cluster_kernel", "leaf_maxabs_kernel",
                            "qdq_kernel"),
+    "clip_flat": ("clip_cluster_kernel", "block_sumsq_kernel",
+                  "row_scale_kernel", "scale_kernel"),
+    "seed_reconstruct": ("seed_kernel",),
 }
+# NeMo's frozen FFN leaf, the shape a server regenerates from the seed
+SEED_SHAPE = (5120, 14336)
 HOST_COPY_OPS = ("cudaMemcpyAsync", "cudaStreamSynchronize")
 U = 2.0 ** -24
 
@@ -176,6 +192,16 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.shape != b.shape or not torch.equal(nan_a, nan_b):
         return False
     return torch.equal(a[~nan_a].view(torch.int32), b[~nan_b].view(torch.int32))
+
+
+def digest(*ts: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes: equal
+    digests of two trees' outputs on the same inputs mean the same bits."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -343,8 +369,8 @@ def check_kernels(layout, layout_a, dev):
                                  f"({name}): max diff {max_abs_diff(got, want)}")
         print(f"  leaf_maxabs, fake_quantize_flat == plain, bit for bit "
               f"({name}, {tuple(x.shape)})")
-    if kernels.ROUTES != {"fake_quantize_flat/cluster": 3,
-                          "fake_quantize_flat/two_pass": 0}:
+    if (kernels.ROUTES["fake_quantize_flat/cluster"],
+            kernels.ROUTES["fake_quantize_flat/two_pass"]) != (3, 0):
         raise AssertionError(f"fake_quantize_flat routes {kernels.ROUTES}, "
                              f"not the cluster route three times")
     # the two-pass route: the FedAvg row; and the route boundary (256
@@ -422,10 +448,16 @@ def ab_times(dev, label: str) -> dict:
     ``torch.dot``'s wall and device time; then the blocking host-to-device
     copies per call of ``core/flat.fake_quantize`` (a new layout each
     call, as the round engine makes one) and per profiled quickstart round
-    at ``uplink_bits=8``. Prints and returns one JSON object."""
+    at ``uplink_bits=8``; then ``clip_flat`` at the async lane's (6,
+    89,088) and at (6, 1,695,744) and ``seed_reconstruct`` at
+    ``SEED_SHAPE`` in float32 and bfloat16 the same way, each with a
+    digest of its output (equal digests: the same bits on both trees) and
+    the seed kernel's SASS counts and issue-rate estimate
+    (:func:`seed_issue`). Prints and returns one JSON object."""
     from repro_torch.core import flat as flat_lib, reconstruct
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels import dp_clip, quantize
+    from repro_torch.kernels import _build, dp_clip, quantize
+    from repro_torch.kernels import seed_reconstruct as sr
     from repro_torch.models import paper_models as pm
     from repro_torch.nn import threefry
 
@@ -470,6 +502,31 @@ def ab_times(dev, label: str) -> dict:
     sstate = sopt.init(y0)
     out["quickstart bits 8 round host ops"] = host_op_counts(
         lambda: round_fn(y0, sstate, frozen, batch, w, threefry.key(0)), 3)
+    cgen = torch.Generator(device="cpu").manual_seed(13)
+    for n in (N, 1_695_744):
+        m = clip_rows(n, cgen, dev)
+
+        def call(m=m):
+            return dp_clip.clip_flat(m, DP_CLIP)
+        out[f"clip_flat ({GOAL}, {n})"] = {
+            "wrapper_ms": time_ms(call),
+            "kernels_ms": device_ms(call, AB_KERNELS["clip_flat"]),
+            "call_device_ms": device_ms(call),
+            "bound_ms": bound(8 * GOAL * n + 4 * GOAL, 3 * GOAL * n)[0],
+            "digest": digest(*call())}
+    rows, cols = SEED_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        def call(dtype=dtype):
+            return sr.seed_reconstruct(42, 7, SEED_SHAPE, 0.02, dtype=dtype,
+                                       device=dev)
+        out[f"seed_reconstruct {SEED_SHAPE} {dtype}"] = {
+            "wrapper_ms": time_ms(call, 50),
+            "kernels_ms": device_ms(call, AB_KERNELS["seed_reconstruct"], 20),
+            "call_device_ms": device_ms(call, None, 20),
+            "bound_ms": bound(dtype.itemsize * rows * cols,
+                              32 * rows * cols)[0],
+            "digest": digest(call())}
+    out["seed_reconstruct issue-rate estimate"] = seed_issue(sr, _build, dev)
     print("[ab] " + json.dumps(out))
     return out
 
@@ -573,17 +630,48 @@ def clip_rows(n, gen, dev, rows=GOAL):
     return m.to(dev)
 
 
+def clip_three_launch(m):
+    """clip_flat's three-launch route on the rows m, called through its C
+    entry whatever route the wrapper would take: (clipped, norms)."""
+    from repro_torch.kernels import _build, dp_clip
+    R, n = m.shape
+    lib = _build.load("dp_clip.cu", dp_clip._CLIP_SIGNATURES)
+    out, norms = torch.empty_like(m), torch.empty(R, device=m.device)
+    bss, scales = dp_clip._scratch(R, n, m.device)
+    _build.raise_on_error("dp_clip_rows_f32", lib.dp_clip_rows_f32(
+        m.data_ptr(), R, n, dp_clip.BLOCK, DP_CLIP, bss.data_ptr(),
+        norms.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        _build.stream_ptr(m)))
+    return out, norms
+
+
 def check_clip_kernels(layout, layout_a, dev):
     """Phase 2, the DP clip: clip_flat and clip_accumulate against their
     plain versions at the async lane's rows and the FedAvg width, with the
-    edge cases; returns their records and prints the other shape's times."""
+    edge cases, each clip_flat call's route asserted (the cluster route at
+    the lane's rows and with a ragged last block, bit for bit the
+    three-launch entry's values and norms; the three-launch route at the
+    FedAvg width and at n % 4 != 0); returns their records and prints the
+    other shape's times."""
+    from repro_torch import kernels
     from repro_torch.kernels import dp_clip, ref
 
     gen = torch.Generator(device="cpu").manual_seed(4)
-    for n in (layout.size, layout_a.size, layout.size + 512,
-              layout.size + 77):
+    for n, route in ((layout.size, "cluster"), (layout_a.size, "three_launch"),
+                     (layout.size + 512, "cluster"),
+                     (layout.size + 77, "three_launch")):
         m = clip_rows(n, gen, dev)
+        kernels.reset_launches()
         got, gnorm = dp_clip.clip_flat(m, DP_CLIP)
+        if (kernels.LAUNCHES["clip_flat"],
+                kernels.ROUTES[f"clip_flat/{route}"]) != (1, 1):
+            raise AssertionError(f"clip_flat at n={n} took {kernels.ROUTES}, "
+                                 f"not one launch on the {route} route")
+        if route == "cluster":
+            three, tnorm = clip_three_launch(m)
+            if not (same_bits(got, three) and same_bits(gnorm, tnorm)):
+                raise AssertionError(f"clip_flat's cluster route differs "
+                                     f"from the three-launch entry at n={n}")
         want, wnorm = ref.flat_clip_ref(m, DP_CLIP)
         rtol = dp_clip.norm_rtol(n)
         rel = max(abs(float(gnorm[r]) - float(wnorm[r])) / float(wnorm[r])
@@ -605,9 +693,11 @@ def check_clip_kernels(layout, layout_a, dev):
         again = dp_clip.clip_flat(m, DP_CLIP)
         if not (same_bits(again[0], got) and same_bits(again[1], gnorm)):
             raise AssertionError("clip_flat differs between two runs")
+        same = (", bit for bit the three-launch entry" if route == "cluster"
+                else "")
         print(f"  clip_flat == plain: norms within rel {rel:.3e} (bound "
               f"{rtol:.3e}), zero / under-clip / NaN / Inf rows bit for bit, "
-              f"same bits twice ({tuple(m.shape)})")
+              f"same bits twice ({tuple(m.shape)}, {route} route{same})")
     for n in (layout.size, layout_a.size, layout.size + 77):
         acc = (torch.randn(n, generator=gen) * 1e-3).to(dev)
         for scale in (1e-2, 1e-5):           # clipped, under the clip
@@ -639,7 +729,7 @@ def check_clip_kernels(layout, layout_a, dev):
               f"bits twice (n={n})")
 
     src = "src/repro_torch/kernels/csrc/dp_clip.cu"
-    knames = ("block_sumsq_kernel", "row_scale_kernel", "scale_kernel")
+    knames = AB_KERNELS["clip_flat"]
 
     def specs(rows, n):
         m = (torch.randn((rows, n), generator=gen) * 1e-2).to(dev)
@@ -655,7 +745,7 @@ def check_clip_kernels(layout, layout_a, dev):
             ("clip_accumulate", src, "src/repro/kernels/dp_clip.py:41",
              lambda: dp_clip.clip_accumulate(acc, m[0], DP_CLIP),
              lambda: ref.dp_clip_accumulate_ref(acc, m[0], DP_CLIP), None,
-             knames, 12 * n + 4, 4 * n),
+             knames[1:], 12 * n + 4, 4 * n),
         ]
     # the JSON line's shapes: clip_flat at the async lane's buffer,
     # clip_accumulate at the FedAvg width; the other shape printed
@@ -845,15 +935,18 @@ def drive_path(label, bits, dp, y0, frozen, draws, expect, dev):
 
 def check_expected(label, counts, expect):
     """Every kernel (or ``kernel/route``) in ``expect`` launched on the
-    path; a path that expects the cluster route took no other."""
+    path; a path that expects a kernel's cluster route took no other."""
     for name in expect:
         if counts[name] <= 0:
             raise AssertionError(f"{label}: kernel {name} was not launched "
                                  f"on its path")
-    if "fake_quantize_flat/cluster" in expect and \
-            counts["fake_quantize_flat/two_pass"]:
-        raise AssertionError(f"{label}: fake_quantize_flat took its "
-                             f"two-pass route")
+    for name in expect:
+        if name.endswith("/cluster"):
+            kernel = name.split("/")[0]
+            other = {k: v for k, v in counts.items()
+                     if k.startswith(kernel + "/") and k != name and v}
+            if other:
+                raise AssertionError(f"{label}: {kernel} took {other}")
 
 
 def leaves_of(tree):
@@ -1013,7 +1106,8 @@ def drive_async_dp(ds, dev):
     if (res.dp["flushes"], res.dp["sigma"]) != (ASYNC_UPDATES, sigma) or \
             not math.isfinite(res.dp["epsilon"]):
         raise AssertionError(f"{label}: DP summary {res.dp}")
-    check_expected(label, counts, ("clip_flat", "fake_quantize_flat",
+    check_expected(label, counts, ("clip_flat", "clip_flat/cluster",
+                                   "fake_quantize_flat",
                                    "fake_quantize_flat/cluster"))
     check_async_against_cpu(ds, dev)
 
@@ -1198,6 +1292,60 @@ def sass_counts(lib_path, marker: str, ops=("HGMMA", "UTMALDG")):
     return out
 
 
+def sass_totals(lib_path, marker: str):
+    """{kernel: (all, main)} SASS instruction counts of each entry function
+    of the built library whose name holds ``marker``, from ``cuobjdump
+    -sass``: ``all`` every instruction of the function once, paths not
+    taken included; ``main`` those before its first unpredicated EXIT, the
+    straight-line body a thread runs when no slow path (a huge argument
+    of cosf, a 64-bit division by a large divisor, ...) is taken: what
+    one thread issues on the common path. None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if marker in name:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", fn)
+            main = next((i for i, op in enumerate(ops)
+                         if op.split()[0] == "EXIT"), len(ops))
+            out[name] = (len(ops), main)
+    return out
+
+
+# the H100 SXM's instruction issue: 132 SMs x 4 schedulers, one warp
+# instruction (32 lanes) a clock each
+LANE_ISSUE_PER_CLOCK = 132 * 4 * 32
+
+
+def seed_issue(sr, build, dev) -> dict:
+    """The seed kernel's issue-rate estimate at SEED_SHAPE float32, for the
+    package whose modules ``sr`` (seed_reconstruct) and ``build`` (_build)
+    are: the SM clock the card holds over 3000 calls back to back, and per
+    kernel instance its SASS counts (all, common path), the common path's
+    instructions per element (a thread writes ``seed_plan``'s run, or one
+    element where the tree has no plan) and that times the elements over
+    the lanes the card issues at that clock."""
+    rows, cols = SEED_SHAPE
+    ms, clock, watts = clock_power(lambda: sr.seed_reconstruct(
+        42, 7, SEED_SHAPE, 0.02, device=dev), 3000)
+    out = {"ms_a_call": ms, "sm_clock_mhz": clock, "power_w": watts}
+    sass = sass_totals(build.library_path("seed_reconstruct.cu"),
+                       "seed_kernel") or {}
+    for name, (total, main) in sass.items():
+        itemsize = 2 if "bfloat16" in name else 4
+        run = (sr.seed_plan(rows, cols, itemsize)[0]
+               if hasattr(sr, "seed_plan") else 1)
+        out[name] = {
+            "all": total, "common_path": main, "per_element": main / run,
+            "estimate_ms": (None if clock is None else main / run * rows
+                            * cols / (LANE_ISSUE_PER_CLOCK * clock) / 1e3)}
+    return out
+
+
 def clock_power(fn, iters: int):
     """(ms per call, median SM clock in MHz, median board power in W) over
     ``iters`` back-to-back calls of ``fn``, with nvidia-smi sampling the
@@ -1238,13 +1386,16 @@ def check_serving_kernels(dev, build_logs):
     round-once mode against ``ref.chunked_attention_ref(..., chunk=64)``;
     seed_reconstruct at NeMo's frozen FFN leaf (5120, 14336) and a ragged
     (300, 200), its hash words bit for bit and its Gaussians within
-    SEED_ULPS. Returns their records, timed at the prefill's shape (1, 32,
-    32768, 128) causal (swa_attention in the round-once mode the serving
-    path launches, the float32-p mode beside it) and at (5120, 14336).
+    SEED_ULPS in float32 (one bf16 ulp in bf16), one launch a call.
+    Returns their records, timed at the prefill's shape (1, 32, 32768,
+    128) causal (swa_attention in the round-once mode the serving path
+    launches, the float32-p mode beside it) and at (5120, 14336) in
+    float32 (bf16 printed beside it, with the seed kernel's SASS counts).
     Prints the attention kernels' registers and spills (``build_logs``:
     this run's ``-Xptxas -v`` output), their achieved TFLOP/s, the windowed
     library call and how many launches the profiler records."""
-    from repro_torch.kernels import ref
+    from repro_torch import kernels
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels import seed_reconstruct as sr
     from repro_torch.kernels import swa_attention as swa
 
@@ -1296,22 +1447,35 @@ def check_serving_kernels(dev, build_logs):
         q, k, v = swa_inputs((1, 32, S, 128), 8, gen, dev)
         for window in (0, 1000):
             check_swa(q, k, v, window)
-    for shape in ((5120, 14336), (300, 200)):
+    for shape in (SEED_SHAPE, (300, 200)):
         rows, cols = ref.seed_dims(shape)
         b1, b2 = sr.seed_bits(42, 7, shape, device=dev)
         w1, w2 = ref.seed_bits_plain(42, 7, rows, cols, device=dev)
-        got = sr.seed_reconstruct(42, 7, shape, 0.02, device=dev)
-        want = ref.seed_reconstruct_plain(42, 7, shape, 0.02, device=dev)
-        ulps = int((got.view(torch.int32).long()
-                    - want.view(torch.int32).long()).abs().max())
         if not (torch.equal(b1, w1) and torch.equal(b2, w2)):
             raise AssertionError(f"seed_reconstruct's hash words differ from "
                                  f"the plain version's at {shape}")
-        if ulps > SEED_ULPS:
-            raise AssertionError(f"seed_reconstruct {ulps} ulps off the plain "
-                                 f"version at {shape}")
-        print(f"  seed_reconstruct: hash words bit for bit, Gaussians within "
-              f"{ulps} ulps (bound {SEED_ULPS}) of plain {shape}")
+        del b1, b2, w1, w2
+        # float32 within SEED_ULPS; bf16 (the frozen leaves' type) within
+        # one bf16 ulp, as SEED_ULPS float32 ulps may cross a rounding
+        for dtype, bound_ulps in ((torch.float32, SEED_ULPS),
+                                  (torch.bfloat16, 1 << 16)):
+            kernels.reset_launches()
+            got = sr.seed_reconstruct(42, 7, shape, 0.02, dtype=dtype,
+                                      device=dev)
+            if kernels.LAUNCHES["seed_reconstruct"] != 1:
+                raise AssertionError("seed_reconstruct: not one launch a call")
+            want = ref.seed_reconstruct_plain(42, 7, shape, 0.02, dtype=dtype,
+                                              device=dev)
+            ulps = int((got.float().view(torch.int32).long()
+                        - want.float().view(torch.int32).long()).abs().max())
+            if ulps > bound_ulps:
+                raise AssertionError(f"seed_reconstruct {ulps} float32 ulps "
+                                     f"off the plain version at {shape} "
+                                     f"{dtype}")
+            print(f"  seed_reconstruct: hash words bit for bit, Gaussians "
+                  f"within {ulps} float32 ulps (bound {bound_ulps}) of plain "
+                  f"{shape} {dtype}, one launch")
+            del got, want
 
     src = "src/repro_torch/kernels/csrc/"
     if "swa_attention.cu" in build_logs:
@@ -1320,7 +1484,6 @@ def check_serving_kernels(dev, build_logs):
             print(f"  ptxas {name}: {info}")
     else:
         print("  ptxas: not measured (swa_attention.cu built before this run)")
-    from repro_torch.kernels import _build
     counts = sass_counts(_build.library_path("swa_attention.cu"), "swa_kernel")
     for name, ops in (counts or {"SASS": "not measured (no cuobjdump)"}).items():
         print(f"  SASS {name}: {ops}")
@@ -1422,15 +1585,25 @@ def check_serving_kernels(dev, build_logs):
         print(f"  scaled_dot_product_attention, window 8192: not measured "
               f"({type(e).__name__}: {str(e).splitlines()[0][:200]})")
     del q, k, v
-    rows, cols = 5120, 14336
-    rec_seed = kernel_records([
-        ("seed_reconstruct", src + "seed_reconstruct.cu",
-         "src/repro/kernels/seed_reconstruct.py:77",
-         lambda: sr.seed_reconstruct(42, 7, (rows, cols), 0.02, device=dev),
-         lambda: ref.seed_reconstruct_plain(42, 7, (rows, cols), 0.02,
-                                            device=dev),
-         None, ("seed_kernel",), 4 * rows * cols, 32 * rows * cols)],
-        iters=(50, 5, 20))
+    rows, cols = SEED_SHAPE
+
+    def seed_spec(dtype):
+        return ("seed_reconstruct", src + "seed_reconstruct.cu",
+                "src/repro/kernels/seed_reconstruct.py:77",
+                lambda: sr.seed_reconstruct(42, 7, SEED_SHAPE, 0.02,
+                                            dtype=dtype, device=dev),
+                lambda: ref.seed_reconstruct_plain(42, 7, SEED_SHAPE, 0.02,
+                                                   dtype=dtype, device=dev),
+                None, AB_KERNELS["seed_reconstruct"],
+                dtype.itemsize * rows * cols, 32 * rows * cols)
+    rec_seed = kernel_records([seed_spec(torch.float32)], iters=(50, 5, 20))
+    bf16, = kernel_records([seed_spec(torch.bfloat16)], iters=(50, 5, 20))
+    print(f"  seed_reconstruct at {SEED_SHAPE} bf16: wrapper "
+          f"{bf16['ms']:.5f} ms, device {fmt_ms(bf16['device_ms'])} ms, "
+          f"plain {bf16['plain_ms']:.5f} ms, bound {bf16['bound_ms']:.6f} ms "
+          f"({bf16['bound_by']}), max abs err {bf16['max_abs_err']:.3e}")
+    print(f"  seed_reconstruct issue-rate estimate: "
+          f"{json.dumps(seed_issue(sr, _build, dev))}")
     return rec_swa + rec_seed
 
 
@@ -1624,8 +1797,11 @@ def sweep() -> int:
     1,695,744 (the wrapper's plan beside other grids), the cluster
     route's (CTAs, thread groups, float4s a thread) at (10 | 6, 89,088)
     beside the two-pass route and a plain copy of the buffer (each output
-    checked against the plain version), and what a wrapper's host steps
-    cost. Prints one JSON line: wall (CUDA events) and device ms."""
+    checked against the plain version), the clip's cluster route's (CTAs,
+    warps) at (6 | 40, 89,088) beside its three-launch route (each output
+    bit for bit the three-launch entry's), and what a wrapper's host steps
+    cost. Prints one JSON line: wall (CUDA events) and device ms (the
+    named kernels' mean per launch, but for the copy: the whole call's)."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build, dp_clip, quantize, ref
     dev = torch.device("cuda", 0)
@@ -1636,9 +1812,12 @@ def sweep() -> int:
     lib_q = _build.load("quantize.cu", quantize._SIGNATURES)
     out = {}
 
-    def rec(key, fn, device=True):
+    def rec(key, fn, device=True, names=None):
+        """wall and device time of fn; the device time of the named
+        kernels' mean per recorded launch where ``names`` are given (a
+        trace that drops a launch does not lower it), else of the call."""
         out[key] = {"wall_ms": time_ms(fn),
-                    "device_ms": device_ms(fn) if device else None}
+                    "device_ms": device_ms(fn, names) if device else None}
 
     gen = torch.Generator(device="cpu").manual_seed(12)
     x = torch.randn(89_088, generator=gen).to(dev)
@@ -1658,7 +1837,7 @@ def sweep() -> int:
         v = torch.randn(n, generator=gen).to(dev)
         want = float((v.double() ** 2).sum())
         rec(f"sumsq n={n} wrapper, plan {dp_clip.sumsq_plan(n)}",
-            lambda v=v: dp_clip.sumsq(v))
+            lambda v=v: dp_clip.sumsq(v), names=AB_KERNELS["sumsq"])
         for grid in grids:
             chunk = -(-(n // 4) // grid)
 
@@ -1668,7 +1847,7 @@ def sweep() -> int:
                                        stream)
             if call() or not math.isclose(float(res), want, rel_tol=1e-5):
                 raise AssertionError(f"sumsq sweep: grid {grid} at n={n}")
-            rec(f"sumsq n={n} grid={grid}", call)
+            rec(f"sumsq n={n} grid={grid}", call, names=AB_KERNELS["sumsq"])
     bl = torch.as_tensor(np.repeat(np.arange(8, dtype=np.int32),
                                    [1, 1, 1, 50, 1, 31, 1, 1]), device=dev)
     for rows in (CLIENTS_PER_ROUND, GOAL):
@@ -1677,7 +1856,8 @@ def sweep() -> int:
         y = torch.empty_like(m)
         rec(f"Q->DQ ({rows}, 89088) wrapper, split "
             f"{quantize.cluster_split(87)}",
-            lambda m=m: quantize.fake_quantize_flat(m, bl, 8))
+            lambda m=m: quantize.fake_quantize_flat(m, bl, 8),
+            names=AB_KERNELS["fake_quantize_flat"])
 
         def two_pass(m=m, y=y, rows=rows):
             mx = quantize.leaf_maxabs(m, bl, 8)
@@ -1695,8 +1875,31 @@ def sweep() -> int:
             y.zero_()
             if fn() or not same_bits(y, want):
                 raise AssertionError(f"Q->DQ sweep: {label} ({rows} rows)")
-            rec(f"Q->DQ ({rows}, 89088) {label}", fn)
+            rec(f"Q->DQ ({rows}, 89088) {label}", fn,
+                names=AB_KERNELS["fake_quantize_flat"])
         rec(f"copy ({rows}, 89088)", lambda m=m, y=y: y.copy_(m))
+    lib_c = _build.load("dp_clip.cu", dp_clip._CLIP_SIGNATURES)
+    for rows in (GOAL, 40):
+        m = clip_rows(89_088, gen, dev, rows)
+        want, wnorm = clip_three_launch(m)
+        y, norms = torch.empty_like(m), torch.empty(rows, device=dev)
+        rec(f"clip ({rows}, 89088) wrapper, split {dp_clip.clip_split(87)}",
+            lambda m=m: dp_clip.clip_flat(m, DP_CLIP),
+            names=AB_KERNELS["clip_flat"])
+        rec(f"clip ({rows}, 89088) three-launch",
+            lambda m=m: clip_three_launch(m), names=AB_KERNELS["clip_flat"])
+        for c, w in ((16, 8), (12, 8), (11, 8), (8, 16), (6, 16), (4, 32),
+                     (16, 16)):
+            def fn(m=m, y=y, norms=norms, rows=rows, c=c, w=w):
+                return lib_c.dp_clip_cluster_f32(
+                    m.data_ptr(), rows, 89_088, c, w, DP_CLIP,
+                    norms.data_ptr(), y.data_ptr(), stream)
+            y.zero_()
+            if fn() or not (same_bits(y, want) and same_bits(norms, wnorm)):
+                raise AssertionError(f"clip sweep: ctas={c} warps={w} "
+                                     f"({rows} rows)")
+            rec(f"clip ({rows}, 89088) cluster ctas={c} warps={w}", fn,
+                names=AB_KERNELS["clip_flat"])
     print("[sweep] " + json.dumps(out))
     return 0
 
@@ -1818,7 +2021,7 @@ def main(argv) -> int:
         if rec["launches"] <= 0 and rec["name"] not in NO_ENGINE:
             raise AssertionError(f"kernel {rec['name']} never launched on "
                                  f"a main path")
-    print(f"[main path] fake_quantize_flat launches by route: "
+    print(f"[main path] launches by route: "
           f"{ {k: v for k, v in launches.items() if '/' in k} }")
     print(json.dumps({"kernels": records}))
     print(card)

@@ -9,6 +9,12 @@ The round engine reads ``sumsq`` for the ``delta_norm`` metric through
 ``core/flat.clip``, which takes the (lane, size) buffer of a whole lane in
 one ``clip_flat`` call where the JAX package clips each client inside its
 ``vmap``. ``clip_accumulate`` is reached through ``kernels/ops`` only.
+
+``clip_flat`` takes one of two routes, by shape alone (:func:`clip_route`):
+the cluster route, one launch in which a cluster of CTAs holds a row in
+registers (x read once), for rows of n % 4 == 0 and at most
+``CLUSTER_MAX_BLOCKS`` 1024-element blocks; else the three-launch route
+(block sums, row combine, scale). Both give the same bits.
 """
 from __future__ import annotations
 
@@ -28,6 +34,13 @@ MAX_PARTIALS = 132
 SUMSQ_THREADS = 256
 SUMSQ_MIN_CHUNK = 1024
 BLOCK = 1024  # the clip's norm stage sums align-blocks, as the plain version
+# the clip's cluster route: CTAs a row (at most; 16, a non-portable cluster
+# size: on the H100, 11, 12 and 16 CTAs of 8 warps tied at the async
+# lane's (6, 89,088) and 16 led at 40 rows, chip_smoke.py --sweep) and the
+# warps a CTA may have (the kernel's instances), one block a warp
+CLUSTER = 16
+CLUSTER_WARPS = (4, 8, 16, 32)
+CLUSTER_MAX_BLOCKS = CLUSTER * CLUSTER_WARPS[-1]
 
 _P, _I64, _INT, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                       ctypes.c_float)
@@ -35,6 +48,7 @@ _SIGNATURES = {"sumsq_f32": [_P, _I64, _INT, _I64, _P, _P, _P, _P]}
 _CLIP_SIGNATURES = {
     "dp_clip_rows_f32": [_P, _I64, _I64, _INT, _F, _P, _P, _P, _P, _P],
     "dp_clip_accumulate_f32": [_P, _P, _I64, _INT, _F, _P, _P, _P, _P, _P],
+    "dp_clip_cluster_f32": [_P, _I64, _I64, _INT, _INT, _F, _P, _P, _P],
 }
 
 
@@ -131,6 +145,27 @@ def norm_rtol(n: int, block: int = BLOCK) -> float:
     return ((kernel + plain) / 2 + 1) * 2.0 ** -24
 
 
+def clip_route(n: int) -> str:
+    """``"cluster"`` or ``"three_launch"``: the route ``clip_flat`` takes
+    for rows of n > 0 elements. The cluster route loads 16 bytes a lane, so
+    it needs n % 4 == 0 (every row then starts on the 16-byte grid), and
+    holds at most CLUSTER_MAX_BLOCKS blocks of BLOCK (the last may be
+    ragged) in its CTAs' registers."""
+    if n % 4 == 0 and 1 <= -(-n // BLOCK) <= CLUSTER_MAX_BLOCKS:
+        return "cluster"
+    return "three_launch"
+
+
+def clip_split(n_blocks: int) -> Tuple[int, int]:
+    """(ctas, warps) of the cluster route for a row of ``n_blocks``
+    blocks: the kernel gives CTA r of the row's cluster the blocks
+    [r * n_blocks // ctas, (r + 1) * n_blocks // ctas), and warp w of the
+    CTA its w-th block."""
+    ctas = min(CLUSTER, n_blocks)
+    share = -(-n_blocks // ctas)
+    return ctas, next(w for w in CLUSTER_WARPS if w >= share)
+
+
 def _scratch(rows: int, n: int, device):
     nb = -(-n // BLOCK)
     return (torch.empty((rows, nb), dtype=torch.float32, device=device),
@@ -141,9 +176,10 @@ def clip_flat(x: torch.Tensor, clip_norm: float):
     """x * min(1, C/||x||) of each row of a float32 (R, N) buffer, or of a
     (N,) vector; returns (clipped, pre-clip norms (R,) or ()).
 
-    CUDA tensor: ``dp_clip_rows_f32`` (block sums, a fixed-order row
-    combine, the scale; same bits on every run). CPU tensor:
-    ``ref.flat_clip_ref``."""
+    CUDA tensor: one launch of ``dp_clip_cluster_f32`` on the cluster
+    route, or ``dp_clip_rows_f32`` (block sums, a fixed-order row combine,
+    the scale) on the three-launch route (:func:`clip_route`); the same
+    bits on either, and on every run. CPU tensor: ``ref.flat_clip_ref``."""
     if x.device.type == "cpu":
         return ref.flat_clip_ref(x, clip_norm, chunk=BLOCK)
     rows = x.reshape(1, -1) if x.ndim == 1 else x
@@ -152,17 +188,26 @@ def clip_flat(x: torch.Tensor, clip_norm: float):
     if R > 65535:
         raise ValueError("clip_flat: at most 65535 rows per launch")
     out = torch.empty_like(rows)
-    norms = torch.zeros((R,), dtype=torch.float32, device=x.device)
     if n == 0:
+        norms = torch.zeros((R,), dtype=torch.float32, device=x.device)
         return out.reshape(x.shape), norms.reshape(x.shape[:-1])
-    bss, scales = _scratch(R, n, x.device)
+    norms = torch.empty((R,), dtype=torch.float32, device=x.device)
     lib = _build.load("dp_clip.cu", _CLIP_SIGNATURES)
-    err = lib.dp_clip_rows_f32(rows.data_ptr(), R, n, BLOCK, float(clip_norm),
-                               bss.data_ptr(), norms.data_ptr(),
-                               scales.data_ptr(), out.data_ptr(),
-                               _build.stream_ptr(x))
+    route = clip_route(n)
+    if route == "cluster":
+        ctas, warps = clip_split(-(-n // BLOCK))
+        err = lib.dp_clip_cluster_f32(rows.data_ptr(), R, n, ctas, warps,
+                                      float(clip_norm), norms.data_ptr(),
+                                      out.data_ptr(), _build.stream_ptr(x))
+    else:
+        bss, scales = _scratch(R, n, x.device)
+        err = lib.dp_clip_rows_f32(rows.data_ptr(), R, n, BLOCK,
+                                   float(clip_norm), bss.data_ptr(),
+                                   norms.data_ptr(), scales.data_ptr(),
+                                   out.data_ptr(), _build.stream_ptr(x))
     _build.raise_on_error("clip_flat", err)
     kernels.LAUNCHES["clip_flat"] += 1
+    kernels.ROUTES[f"clip_flat/{route}"] += 1
     return out.reshape(x.shape), norms.reshape(x.shape[:-1])
 
 

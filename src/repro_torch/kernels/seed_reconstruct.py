@@ -18,12 +18,40 @@ from repro_torch import kernels, resolve_device
 from repro_torch.kernels import _build, ref
 
 LANES = 128  # the output's cols are padded to this, as the TPU's lanes
+THREADS = 256  # a CUDA block: that many runs of 16 bytes along one row
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID = 2 ** 31 - 1
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_SIGNATURES = {"seed_reconstruct_fwd": [_P, _INT, _I64, _I64, _I64,
+_SIGNATURES = {"seed_reconstruct_fwd": [_P, _INT, _I64, _I64, _I64, _I64,
                                         ctypes.c_uint32, ctypes.c_float, _P,
                                         _P]}
+
+
+def seed_plan(rows: int, cols: int, itemsize: int):
+    """(run, cpad, tiles) of the kernel for a (rows, cols) leaf of
+    ``itemsize``-byte elements: a thread writes ``run`` consecutive
+    elements (16 bytes), the cols are padded to ``cpad`` (a multiple of
+    128) and each row takes ``tiles`` CUDA blocks of THREADS runs; the 1-D
+    grid has rows * tiles blocks."""
+    run = 16 // itemsize
+    cpad = -(-cols // LANES) * LANES
+    return run, cpad, -(-cpad // (THREADS * run))
+
+
+def seed_threads(block, thread, rows: int, cols: int, itemsize: int):
+    """The kernel's thread -> run map, elementwise over numpy arrays of
+    block and thread indices: (row, first col, live, 32-bit counter of the
+    first element), computed as the kernel computes them (uint32, one
+    division a thread). A thread is live when its run starts inside the
+    padded row; the run's k-th element has counter + k (mod 2**32)."""
+    run, cpad, tiles = seed_plan(rows, cols, itemsize)
+    block = np.asarray(block, np.uint32)
+    thread = np.asarray(thread, np.uint32)
+    r = block // np.uint32(tiles)
+    c0 = ((block - r * np.uint32(tiles)) * np.uint32(THREADS) + thread) \
+        * np.uint32(run)
+    return r, c0, c0 < np.uint32(cpad), r * np.uint32(cols) + c0
 
 
 def _launch(seed: int, leaf_id: int, shape, stddev: float, dtype, dev,
@@ -34,17 +62,19 @@ def _launch(seed: int, leaf_id: int, shape, stddev: float, dtype, dev,
         raise ValueError(f"seed_reconstruct: {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
     rows, cols = ref.seed_dims(shape)
-    cpad = -(-cols // LANES) * LANES
+    run, cpad, tiles = seed_plan(rows, cols, dtype.itemsize)
+    if rows * tiles > _MAX_GRID or cpad > _MAX_GRID:
+        raise ValueError(f"seed_reconstruct: {tuple(shape)} is past the "
+                         f"kernel's 2**31 - 1 blocks or columns")
     out = torch.empty((rows, cpad), dtype=dtype, device=dev)
     bits = (torch.empty((2, rows, cols), dtype=torch.int32, device=dev)
             if with_bits else None)
     if rows * cols:
         lib = _build.load("seed_reconstruct.cu", _SIGNATURES)
         err = lib.seed_reconstruct_fwd(
-            out.data_ptr(), _DTYPES[dtype], rows, cols, cpad,
+            out.data_ptr(), _DTYPES[dtype], rows, cols, cpad, tiles,
             ref.seed_word(seed, leaf_id), float(np.float32(stddev)),
-            bits.data_ptr() if with_bits else None,
-            torch.cuda.current_stream(dev).cuda_stream)
+            bits.data_ptr() if with_bits else None, _build.stream_ptr(out))
         _build.raise_on_error("seed_reconstruct", err)
         kernels.LAUNCHES["seed_reconstruct"] += 1
     return out[:, :cols].reshape(tuple(shape)), bits

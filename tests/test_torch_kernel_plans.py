@@ -1,5 +1,6 @@
-"""The launch plans of the port's one-launch ``sumsq`` and cluster-route
-``fake_quantize_flat``, held on the CPU where the kernels cannot run.
+"""The launch plans of the port's one-launch ``sumsq``, cluster-route
+``fake_quantize_flat`` and ``clip_flat``, and run-per-thread
+``seed_reconstruct``, held on the CPU where the kernels cannot run.
 
 * ``sumsq``: a numpy emulation of the kernel's order (grid and chunk from
   ``dp_clip.sumsq_plan``, each thread's fmaf chain over its float4 quads,
@@ -15,6 +16,20 @@
   boundaries and at the EMNIST (87 blocks), FedAvg (1,656) and ragged
   maps, and the cluster route's split of a row's blocks over its CTAs:
   every block held by exactly one CTA, none over its register budget.
+* ``clip_flat``: the route chooser at both sides of each limit (blocks,
+  n % 4) and the cluster split; a numpy emulation of the clip's order
+  (each block's sum of squares in the plain halving order, each float32
+  operation rounded on its own, then the row combine of the three-launch
+  route's row_scale_kernel: thread t of 256 sums the blocks t, t + 256,
+  ... from 0, then a halving tree) is within ``dp_clip.norm_rtol(n)`` of
+  the plain version's norms, and gives the same bits whether the row's
+  blocks are split over 1, 8, 12 or 16 CTAs: a CTA writes each block's
+  sum by block index and every CTA combines all of them in one order.
+* ``seed_reconstruct``: the kernel's thread -> (row, col, run) plan
+  (``seed_reconstruct.seed_threads``) covers every element of the padded
+  output exactly once, and its 32-bit counters are the plain version's
+  index (and hash to its words) wherever the plan is enumerated, past the
+  32-bit wrap too.
 
 Imports neither JAX nor the JAX package, so the card test runs on the
 card's machine as well:
@@ -179,3 +194,184 @@ def test_sumsq_kernel_is_the_emulated_order(dev, n):
     buf = torch.zeros(n + 1, device=dev)
     buf[1:] = torch.from_numpy(x).to(dev)
     assert dp_clip.sumsq(buf[1:]).cpu().numpy().view(np.int32) == want
+
+
+# --- clip_flat: the route, the split, the order ------------------------------
+
+CLIP_MAX = dp_clip.CLUSTER_MAX_BLOCKS * dp_clip.BLOCK
+
+
+@pytest.mark.parametrize("n,route", [
+    (89_088, "cluster"),                   # the async lane's row, 87 blocks
+    (89_088 + 512, "cluster"),             # a ragged last block
+    (89_088 + 77, "three_launch"),         # n % 4 == 1
+    (89_088 + 2, "three_launch"),
+    (89_088 + 3, "three_launch"),
+    (4, "cluster"),
+    (1000, "cluster"),                     # one ragged block
+    (1, "three_launch"),
+    (CLIP_MAX, "cluster"),                 # 512 blocks
+    (CLIP_MAX - 1020, "cluster"),          # 512 blocks, the last ragged
+    (CLIP_MAX + 4, "three_launch"),        # 513 blocks
+    (1_695_744, "three_launch"),           # the FedAvg row, 1,656 blocks
+])
+def test_clip_route(n, route):
+    assert CLIP_MAX == 524_288
+    assert dp_clip.clip_route(n) == route
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3, 16, 17, 87, 88, 255, 511, 512])
+def test_clip_split_gives_every_block_one_warp(n_blocks):
+    ctas, warps = dp_clip.clip_split(n_blocks)
+    assert 1 <= ctas <= dp_clip.CLUSTER and warps in dp_clip.CLUSTER_WARPS
+    held = np.zeros(n_blocks, np.int64)
+    for r in range(ctas):                # the kernel's b0 and count
+        b0 = r * n_blocks // ctas
+        count = (r + 1) * n_blocks // ctas - b0
+        assert 1 <= count <= warps       # no CTA idle, one block a warp
+        held[b0:b0 + count] += 1
+    assert (held == 1).all()
+    assert dp_clip.clip_split(87) == (16, 8)
+
+
+def emulate_block_sums(row):
+    """(n,) float32 -> (nb,) the clip's block sums of squares, each
+    float32 product and sum rounded on its own: y[i] = x[i]^2 +
+    x[i + 512]^2, then y[i] + y[i + h] while the width halves; a ragged
+    last block reads zeros."""
+    nb = -(-row.size // dp_clip.BLOCK)
+    x = np.zeros(nb * dp_clip.BLOCK, np.float32)
+    x[:row.size] = row
+    x = x.reshape(nb, dp_clip.BLOCK)
+    a, b = x[:, :512], x[:, 512:]
+    y = a * a + b * b
+    while y.shape[1] > 1:
+        h = y.shape[1] // 2
+        y = y[:, :h] + y[:, h:]
+    return y[:, 0]
+
+
+def emulate_clip_norm(row, ctas=1):
+    """The clip's norm of one row, in the kernels' order: the row's blocks
+    split over ``ctas`` CTAs as the cluster route splits them, each CTA
+    writing its blocks' sums by block index; then the row combine."""
+    sums = emulate_block_sums(row)
+    nb = sums.size
+    held = np.full(nb, np.nan, np.float32)
+    for r in range(ctas):
+        b0, b1 = r * nb // ctas, (r + 1) * nb // ctas
+        held[b0:b1] = emulate_block_sums(
+            row[b0 * dp_clip.BLOCK:b1 * dp_clip.BLOCK])
+    part = np.zeros(256, np.float32)
+    for k in range(-(-nb // 256)):       # thread t: blocks t, t + 256, ...
+        idx = np.arange(256) + 256 * k
+        live = idx < nb
+        part = np.where(live, part + held[np.where(live, idx, 0)], part)
+    while part.size > 1:
+        h = part.size // 2
+        part = part[:h] + part[h:]
+    assert np.array_equal(held, sums)    # every block written, once
+    return np.sqrt(part[0])
+
+
+CLIP_SIZES = [1, 1000, 1024, 89_088, 89_088 + 512, 89_088 + 77, 1_695_744,
+              3_000_001]
+
+
+@pytest.mark.parametrize("n", CLIP_SIZES)
+def test_clip_order_within_norm_rtol_of_plain(n):
+    row = (_vector(n) * 1e-2).astype(np.float32)
+    got = emulate_clip_norm(row)
+    _, want = ref.flat_clip_ref(torch.from_numpy(row[None]), 0.5)
+    want = float(want[0])
+    assert abs(float(got) - want) <= dp_clip.norm_rtol(n) * want
+    # the block sums are the plain version's, bit for bit
+    nb = -(-n // dp_clip.BLOCK)
+    if n % dp_clip.BLOCK == 0:
+        plain = ref._sumsq_blocks(torch.from_numpy(row).reshape(nb, -1))
+        assert np.array_equal(emulate_block_sums(row).view(np.int32),
+                              plain.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1000, 89_088, 89_088 + 512, CLIP_MAX])
+def test_clip_order_does_not_depend_on_the_split(n):
+    row = (_vector(n) * 1e-2).astype(np.float32)
+    nb = -(-n // dp_clip.BLOCK)
+    bits = {c: emulate_clip_norm(row, min(c, nb)).view(np.int32)
+            for c in (1, 8, 12, 16)}
+    assert bits[1] == bits[8] == bits[12] == bits[16]
+
+
+# --- seed_reconstruct: the thread -> run plan --------------------------------
+
+from repro_torch.kernels import seed_reconstruct as sr  # noqa: E402
+
+SEED_SHAPES = [(300, 200), (1, 14336), (70000, 64), (5120, 14336),
+               (70_000 * 1024 + 5,)]
+
+
+def _live_runs(rows, cols, itemsize, blocks):
+    """Rows, first cols and counters of the live threads of ``blocks``,
+    in the order of (block, thread)."""
+    b = np.repeat(blocks.astype(np.uint32), sr.THREADS)
+    t = np.tile(np.arange(sr.THREADS, dtype=np.uint32), blocks.size)
+    r, c0, live, ctr = sr.seed_threads(b, t, rows, cols, itemsize)
+    return r[live], c0[live], ctr[live]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", SEED_SHAPES)
+def test_seed_plan_covers_the_padded_output_once(shape, itemsize):
+    rows, cols = ref.seed_dims(shape)
+    run, cpad, tiles = sr.seed_plan(rows, cols, itemsize)
+    assert run * itemsize == 16 and cpad % 128 == 0 and cpad >= cols
+    assert rows * tiles < 2 ** 31       # one 1-D grid
+    # the live threads, in (block, thread) order, hold the runs of the
+    # padded output in row-major order: each element exactly once
+    total = rows * cpad // run
+    step = max(1, 2 ** 21 // sr.THREADS)
+    seen = 0
+    for b0 in range(0, rows * tiles, step):
+        blocks = np.arange(b0, min(b0 + step, rows * tiles))
+        r, c0, ctr = _live_runs(rows, cols, itemsize, blocks)
+        pos = r.astype(np.int64) * (cpad // run) + c0.astype(np.int64) // run
+        np.testing.assert_array_equal(pos, np.arange(seen, seen + pos.size))
+        assert (c0.astype(np.int64) % run == 0).all()
+        # the counter is the plain version's index over the logical cols
+        idx = (r.astype(np.int64) * cols + c0.astype(np.int64)) & ref.M32
+        np.testing.assert_array_equal(ctr.astype(np.int64), idx)
+        seen += pos.size
+    assert seen == total
+
+
+def _check_words(rows, cols, itemsize, row):
+    """The hash words of the counters the plan gives one row's runs equal
+    ref.seed_bits_plain's for that row."""
+    run, cpad, tiles = sr.seed_plan(rows, cols, itemsize)
+    r, c0, ctr = _live_runs(rows, cols, itemsize,
+                            np.arange(row * tiles, (row + 1) * tiles))
+    assert (r == row).all()
+    c = (c0[:, None].astype(np.int64) + np.arange(run)).reshape(-1)
+    counters = ((ctr[:, None].astype(np.int64) + np.arange(run))
+                & ref.M32).reshape(-1)[c < cols]
+    sw = ref.seed_word(42, 7)
+    b1, b2 = ref.seed_bits_plain(42, 7, 1, cols, row0=row)
+    got1 = ref._squirrel3(torch.from_numpy((counters * 2) & ref.M32), sw)
+    got2 = ref._squirrel3(torch.from_numpy((counters * 2 + 1) & ref.M32), sw)
+    assert torch.equal(got1, b1[0]) and torch.equal(got2, b2[0])
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("shape", SEED_SHAPES[:4])
+def test_seed_plan_counters_hash_to_the_plain_words(shape, itemsize):
+    rows, cols = ref.seed_dims(shape)
+    for row in sorted({0, rows // 2, rows - 1}):
+        _check_words(rows, cols, itemsize, row)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_seed_plan_counters_wrap_at_32_bits(itemsize):
+    rows, cols = 100_000, 50_000          # 5e9 elements: past 2**32
+    first = 2 ** 32 // cols               # the row the counter wraps in
+    for row in (first - 1, first, first + 1, rows - 1):
+        _check_words(rows, cols, itemsize, row)

@@ -21,7 +21,9 @@ within ``dp_clip.norm_rtol`` (its a-priori bound) of the plain version's
 and its values within that plus three roundings; a row under the clip,
 a zero row, a NaN row and an Inf row bit for bit; the clip-and-
 accumulate within rtol 1e-6 of the plain version, whose norm is one
-torch.sum.
+torch.sum. The row clip's one-launch cluster route (rows of n % 4 == 0 up
+to 512 blocks) gives the three-launch route's bits, values and norms,
+called through the library's C entry.
 """
 import numpy as np
 import pytest
@@ -148,7 +150,9 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     quantize.fake_quantize_flat(x, EMNIST_BLOCK_LEAF, 8)
     # the EMNIST row takes the cluster route: one launch, no max-abs pass
     assert kernels.ROUTES == {"fake_quantize_flat/cluster": 1,
-                              "fake_quantize_flat/two_pass": 0}
+                              "fake_quantize_flat/two_pass": 0,
+                              "clip_flat/cluster": 0,
+                              "clip_flat/three_launch": 0}
     assert kernels.LAUNCHES == {"sumsq": 1, "leaf_maxabs": 0,
                                 "fake_quantize_flat": 1, "block_stats": 0,
                                 "pack": 0, "apply_coeff": 0, "clip_flat": 0,
@@ -421,13 +425,21 @@ def _clip_rows(n, seed=0):
     return m
 
 
-@pytest.mark.parametrize("n", [89_088, 89_088 + 512, 1_695_744, 1000])
+@pytest.mark.parametrize("n", [89_088, 89_088 + 512, 1_695_744, 1000,
+                               89_088 + 77,
+                               dp_clip.CLUSTER_MAX_BLOCKS * 1024 + 4])
 def test_clip_flat_matches_plain(dev, n):
     m = _clip_rows(n, seed=n).to(dev)
     kernels.reset_launches()
     got, gnorm = dp_clip.clip_flat(m, CLIP)
     want, wnorm = ref.flat_clip_ref(m, CLIP)
+    # one launch, on the route the shape picks (cluster: n % 4 == 0 up to
+    # CLUSTER_MAX_BLOCKS blocks; else three launches)
+    route = dp_clip.clip_route(n)
+    assert route == ("cluster" if n % 4 == 0 and
+                     n <= dp_clip.CLUSTER_MAX_BLOCKS * 1024 else "three_launch")
     assert kernels.LAUNCHES["clip_flat"] == 1
+    assert kernels.ROUTES[f"clip_flat/{route}"] == 1
     rtol = dp_clip.norm_rtol(n)
     fin = torch.isfinite(wnorm)
     torch.testing.assert_close(gnorm[fin], wnorm[fin], rtol=rtol, atol=0)
@@ -470,6 +482,55 @@ def test_clip_accumulate_matches_plain(dev, n):
         got, gnorm = dp_clip.clip_accumulate(acc, xe, CLIP)
         want, wnorm = ref.dp_clip_accumulate_ref(acc, xe, CLIP)
         assert same_bits(got, want) and same_bits(gnorm, wnorm), value
+
+
+def _clip_cases(rows, n, seed=0):
+    """``rows`` rows cycling through _clip_rows' six cases."""
+    six = _clip_rows(n, seed)
+    return six[torch.arange(rows) % 6].contiguous()
+
+
+def _three_launch(m):
+    """clip_flat's three-launch route, called through its C entry."""
+    from repro_torch.kernels import _build
+    R, n = m.shape
+    lib = _build.load("dp_clip.cu", dp_clip._CLIP_SIGNATURES)
+    out, norms = torch.empty_like(m), torch.empty(R, device=m.device)
+    bss, scales = dp_clip._scratch(R, n, m.device)
+    err = lib.dp_clip_rows_f32(m.data_ptr(), R, n, dp_clip.BLOCK, CLIP,
+                               bss.data_ptr(), norms.data_ptr(),
+                               scales.data_ptr(), out.data_ptr(),
+                               _build.stream_ptr(m))
+    assert err == 0
+    return out, norms
+
+
+CLIP_MAX = dp_clip.CLUSTER_MAX_BLOCKS * dp_clip.BLOCK
+
+
+@pytest.mark.parametrize("rows,n", [
+    (1, 89_088), (6, 89_088), (10, 89_088), (40, 89_088),
+    (6, 89_088 + 512),                    # a ragged last block
+    (6, 1000), (6, 1024),                 # one block
+    (6, CLIP_MAX), (6, CLIP_MAX - 1020),  # the route's largest rows
+])
+def test_clip_cluster_route_matches_three_launch_bitwise(dev, rows, n):
+    m = _clip_cases(rows, n, seed=n + rows).to(dev)
+    assert dp_clip.clip_route(n) == "cluster"
+    kernels.reset_launches()
+    got, gnorm = dp_clip.clip_flat(m, CLIP)
+    assert kernels.ROUTES["clip_flat/cluster"] == 1
+    assert kernels.LAUNCHES["clip_flat"] == 1
+    want, wnorm = _three_launch(m)
+    assert same_bits(got, want) and same_bits(gnorm, wnorm)
+    again, anorm = dp_clip.clip_flat(m, CLIP)
+    assert same_bits(again, got) and same_bits(anorm, gnorm)
+    # a base off the 16-byte grid takes scalar loads and stores
+    buf = torch.empty(rows * n + 1, device=dev)
+    off = buf[1:].view(rows, n)
+    off.copy_(m)
+    moved, mnorm = dp_clip.clip_flat(off, CLIP)
+    assert same_bits(moved, got) and same_bits(mnorm, gnorm)
 
 
 def test_clip_wrappers_check_inputs(dev):
@@ -754,7 +815,10 @@ def test_decoder_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(5120, 14336), (300, 200), (7, 130),
-                                   (1000,), (64, 64, 3)])
+                                   (1000,), (64, 64, 3),
+                                   # past 65,535 rows; a 1-D leaf past
+                                   # 65,535 column tiles
+                                   (70000, 64), (70_000 * 1024 + 5,)])
 def test_seed_reconstruct_matches_plain(dev, shape, dtype):
     from repro_torch.kernels import seed_reconstruct as sr
     rows, cols = ref.seed_dims(shape)
@@ -772,3 +836,4 @@ def test_seed_reconstruct_matches_plain(dev, shape, dtype):
     assert int(ulps) <= (8 if dtype == torch.float32 else 1 << 16)
     assert same_bits(ops.seed_reconstruct(42, 7, shape, 0.02, dtype=dtype,
                                           device=dev), got)
+

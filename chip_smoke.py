@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times SRC   # another tree's redesigned kernels
-    python3 chip_smoke.py --sweep   # sumsq grids, Q->DQ and clip cluster shapes
+    python3 chip_smoke.py --sweep   # sumsq, Q->DQ, clip, max-abs launch shapes
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -20,10 +20,15 @@ package. Phases, in order, each failing the run on error:
      Q->DQ bit for bit (Q->DQ on its one-launch cluster route), sumsq
      within rtol 1e-5 of a float64 sum (also at 1,695,744); Q->DQ on its
      two-pass route at the FedAvg row (1,656 blocks) and at both sides of
-     the route boundary (256 / 257 blocks), each call's route asserted;
+     the route boundary (256 / 257 blocks), max-abs bit for bit at the
+     FedAvg width (10 and 6 rows), each call's route or launch asserted;
+     max-abs'
+     record carries its whole call's device time and, at the FedAvg width,
+     its warm and L2-cold times against their bounds (``call_times``);
      then sumsq at 89,088 and 1,695,744 and Q->DQ at (10, 89,088) and
      (6, 89,088) timed by ``ab_times`` (wrapper, named kernels' and whole
-     call's device time, ``torch.dot``'s wall and device time) with the
+     call's device time, ``torch.dot``'s wall and device time), max-abs
+     and the two-pass Q->DQ at the FedAvg width warm and L2-cold, with the
      blocking host-to-device copies of ``core/flat.fake_quantize`` and of
      a quickstart round at int8; ``--kernel-times SRC`` prints the same
      for the package under SRC (another tree, unpacked by ``git
@@ -149,14 +154,15 @@ CONCURRENCY, GOAL, ASYNC_UPDATES, ASYNC_CHECKED = 12, 6, 12, 3
 # script's kernel phase reach them), and leaf_maxabs runs only on
 # fake_quantize_flat's two-pass route, which no main path's row takes
 NO_ENGINE = {"clip_accumulate", "seed_reconstruct", "leaf_maxabs"}
-# the CUDA kernels behind sumsq, fake_quantize_flat, clip_flat and
-# seed_reconstruct on this tree and on the trees before their redesign,
-# for timing the two side by side
+# the CUDA kernels behind sumsq, leaf_maxabs, fake_quantize_flat, clip_flat
+# and seed_reconstruct on this tree and on the trees before their
+# redesign, for timing the two side by side
 AB_KERNELS = {
     "sumsq": ("sumsq_one_launch_kernel", "sumsq_partials_kernel",
               "sum_partials_kernel"),
-    "fake_quantize_flat": ("qdq_cluster_kernel", "leaf_maxabs_kernel",
-                           "qdq_kernel"),
+    "leaf_maxabs": ("maxabs_fold_kernel", "leaf_maxabs_kernel"),
+    "fake_quantize_flat": ("qdq_cluster_kernel", "maxabs_fold_kernel",
+                           "leaf_maxabs_kernel", "qdq_kernel"),
     "clip_flat": ("clip_cluster_kernel", "block_sumsq_kernel",
                   "row_scale_kernel", "scale_kernel"),
     "seed_reconstruct": ("seed_kernel",),
@@ -225,6 +231,54 @@ def time_ms(fn, iters: int = 200, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+# a buffer written or read between launches to leave the 50 MB L2 cold,
+# and the cycles the card sleeps before an event-timed call (so that the
+# host has queued the whole call when the start event runs)
+FLUSH_BYTES = 128 * 2 ** 20
+SLEEP_CYCLES = 400_000
+_FLUSH = {}
+
+
+def flush_buffer(dev) -> torch.Tensor:
+    """The L2 flush buffer on ``dev``, made at first use; free_flush()
+    drops it, so that it stays out of later memory readings."""
+    if dev not in _FLUSH:
+        _FLUSH[dev] = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32,
+                                 device=dev)
+    return _FLUSH[dev]
+
+
+def free_flush() -> None:
+    _FLUSH.clear()
+    torch.cuda.empty_cache()
+
+
+def span_ms(fn, iters: int = 20, flush=None, read: bool = False) -> float:
+    """Mean device span (ms) of one call of fn, by CUDA events recorded
+    around each call alone: every device operation of the call and the
+    gaps between them. The card sleeps first, so the host has queued the
+    call; with ``flush`` it writes (or, with ``read``, reads) that buffer
+    first, so the call finds L2 cold."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for i in range(iters):
+        if flush is not None and read:
+            flush.sum()
+        elif flush is not None:
+            flush.fill_(float(i))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
 def profiled_calls(fn, iters: int):
     """The profiler's key averages over ``iters`` calls of ``fn``, after one
     traced warm-up call that the profiler discards."""
@@ -268,6 +322,43 @@ def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def call_times(fn, knames, nbytes: float, nops: float, dev) -> dict:
+    """One call of fn timed warm and L2-cold: the wrapper (CUDA events over
+    back-to-back calls), the named kernels' device time back to back
+    (warm: the rows were just read), after a 128 MB write (``cold``) and
+    after a 128 MB read (``cold_read``), from the profiler; the whole
+    call's device time back to back (every device op, a memset included);
+    the whole call's span by events around each call alone, warm and both
+    cold; and the byte bound. A write leaves L2 full of dirty lines whose
+    write-back to HBM falls inside the timed call; a read leaves it full of
+    clean ones, so ``cold_read`` is the reading to hold against the HBM
+    bound."""
+    flush = flush_buffer(dev)
+
+    def cold():
+        flush.fill_(1.0)
+        return fn()
+
+    def cold_read():
+        flush.sum()
+        return fn()
+    return {"wrapper_ms": time_ms(fn),
+            "kernels_ms": device_ms(fn, knames),
+            "call_device_ms": device_ms(fn),
+            "span_ms": span_ms(fn),
+            "cold_kernels_ms": device_ms(cold, knames, 20),
+            "cold_span_ms": span_ms(fn, flush=flush),
+            "cold_read_kernels_ms": device_ms(cold_read, knames, 20),
+            "cold_read_span_ms": span_ms(fn, flush=flush, read=True),
+            "bound_ms": bound(nbytes, nops)[0]}
+
+
+def maxabs_bytes(rows: int, n: int, n_leaves: int) -> int:
+    """leaf_maxabs' least traffic: x read once, the block->leaf map read
+    once, the (rows, L) maxima written once."""
+    return 4 * rows * n + 4 * (n // 1024) + 4 * rows * n_leaves
 
 
 def as_tuple(x):
@@ -377,6 +468,21 @@ def check_kernels(layout, layout_a, dev):
     # blocks a row) with a leaf map that is not contiguous
     wide = (torch.randn((K, layout_a.size), generator=gen) * 1e-2).to(dev)
     wide[3, 12_345] = float("nan")
+    # max-abs where it runs, the FedAvg width: 10 and 6 rows
+    bl_a, L_a = layout_a.block_leaf(), len(layout_a.sizes)
+    for rows in (K, GOAL):
+        kernels.reset_launches()
+        got = quantize.leaf_maxabs(wide[:rows], bl_a, L_a)
+        if not same_bits(got, ref.leaf_maxabs_ref(wide[:rows], bl_a, L_a)):
+            raise AssertionError(f"leaf_maxabs != plain version (FedAvg, "
+                                 f"{rows} rows)")
+        if kernels.LAUNCHES["leaf_maxabs"] != 1:
+            raise AssertionError(f"leaf_maxabs (FedAvg, {rows} rows) "
+                                 f"launched {kernels.LAUNCHES['leaf_maxabs']}"
+                                 f" times, not once")
+        print(f"  leaf_maxabs == plain, bit for bit (FedAvg, "
+              f"{(rows, layout_a.size)}, plan "
+              f"{quantize.maxabs_plan(rows, layout_a.size)})")
     for name, x, blk, nl, route in (
             ("FedAvg", wide, layout_a.block_leaf(), len(layout_a.sizes),
              "two_pass"),
@@ -418,7 +524,7 @@ def check_kernels(layout, layout_a, dev):
     # (name, source, replaces, kernel call, plain call, library call,
     #  kernel names for the profiler, bytes, ops)
     nb = bl.size
-    return kernel_records([
+    records = kernel_records([
         ("sumsq", "src/repro_torch/kernels/csrc/sumsq.cu",
          "src/repro/kernels/dp_clip.py:25",
          lambda: dp_clip.sumsq(vec), lambda: ref.flat_sumsq_ref(vec),
@@ -428,14 +534,29 @@ def check_kernels(layout, layout_a, dev):
          "src/repro/kernels/quantize.py:35",
          lambda: quantize.leaf_maxabs(mat, bl_dev, L),
          lambda: ref.leaf_maxabs_ref(mat, bl_dev, L), None,
-         ("leaf_maxabs_kernel",),
-         K * N * 4 + nb * 4 + K * L * 4, 2 * K * N),
+         AB_KERNELS["leaf_maxabs"], maxabs_bytes(K, N, L), 2 * K * N),
         ("fake_quantize_flat", "src/repro_torch/kernels/csrc/quantize.cu",
          "src/repro/kernels/quantize.py:52",
          lambda: quantize.fake_quantize_flat(mat, bl_dev, L),
          lambda: ref.fake_quantize_flat_ref(mat, bl_dev, n_leaves=L), None,
          ("qdq_cluster_kernel",), 2 * K * N * 4 + nb * 4, 5 * K * N),
     ])
+    # max-abs: the whole call at the record's shape, and the FedAvg width
+    # where it runs, warm and L2-cold (call_times)
+    rec = records[1]
+    rec["call_device_ms"] = device_ms(
+        lambda: quantize.leaf_maxabs(mat, bl_dev, L))
+    bl_a_dev = torch.as_tensor(bl_a, dtype=torch.int32, device=dev)
+    rec["shapes"] = []
+    for rows in (K, GOAL):
+        x = wide[:rows]
+        rec["shapes"].append({
+            "shape": [rows, layout_a.size],
+            **call_times(lambda x=x: quantize.leaf_maxabs(x, bl_a_dev, L_a),
+                         AB_KERNELS["leaf_maxabs"],
+                         maxabs_bytes(rows, layout_a.size, L_a),
+                         2 * rows * layout_a.size, dev)})
+    return records
 
 
 def ab_times(dev, label: str) -> dict:
@@ -453,7 +574,12 @@ def ab_times(dev, label: str) -> dict:
     ``SEED_SHAPE`` in float32 and bfloat16 the same way, each with a
     digest of its output (equal digests: the same bits on both trees) and
     the seed kernel's SASS counts and issue-rate estimate
-    (:func:`seed_issue`). Prints and returns one JSON object."""
+    (:func:`seed_issue`); then ``leaf_maxabs`` at (10, 89,088) and at the
+    FedAvg width (6 | 10, 1,695,744), and the two-pass
+    ``fake_quantize_flat`` it serves there, warm and L2-cold
+    (:func:`call_times`), each with a digest, beside a per-block
+    ``torch.linalg.vector_norm(..., inf)`` of the same rows as a yardstick
+    of one read. Prints and returns one JSON object."""
     from repro_torch.core import flat as flat_lib, reconstruct
     from repro_torch.data import synthetic as syn
     from repro_torch.kernels import _build, dp_clip, quantize
@@ -527,6 +653,44 @@ def ab_times(dev, label: str) -> dict:
                               32 * rows * cols)[0],
             "digest": digest(call())}
     out["seed_reconstruct issue-rate estimate"] = seed_issue(sr, _build, dev)
+    # max-abs at the quickstart's buffer and, where it runs, at the FedAvg
+    # width, with the two-pass Q->DQ it serves there: warm and L2-cold
+    ya, _ = reconstruct.init_partitioned(pm.init_emnist_cnn, 0, (),
+                                         device=dev)
+    layout_a = flat_lib.FlatLayout.of(ya)
+    Na, La = layout_a.size, len(layout_a.sizes)
+    bla = torch.as_tensor(layout_a.block_leaf(), dtype=torch.int32,
+                          device=dev)
+    mgen = torch.Generator(device="cpu").manual_seed(19)
+    for rows, n, blk, nl in ((CLIENTS_PER_ROUND, N, bl, L),
+                             (GOAL, Na, bla, La),
+                             (CLIENTS_PER_ROUND, Na, bla, La)):
+        m = (torch.randn((rows, n), generator=mgen) * 1e-2).to(dev)
+
+        def call(m=m, blk=blk, nl=nl):
+            return quantize.leaf_maxabs(m, blk, nl)
+        out[f"leaf_maxabs ({rows}, {n})"] = {
+            **call_times(call, AB_KERNELS["leaf_maxabs"],
+                         maxabs_bytes(rows, n, nl), 2 * rows * n, dev),
+            "digest": digest(call())}
+
+        def block_norm(m=m, rows=rows):
+            # per-block max|x|: one read of the same rows, not the same
+            # function (no per-leaf fold), so only a yardstick
+            return torch.linalg.vector_norm(m.view(rows, -1, 1024),
+                                            float("inf"), -1)
+        # its reduction kernel, by the functor torch's inf norm runs (the
+        # flushing sum's kernel is also a reduce_kernel)
+        out[f"vector_norm inf by block ({rows}, {n})"] = call_times(
+            block_norm, ("AbsMaxOps",), 4 * rows * n, rows * n, dev)
+        if n == Na:
+            def qdq(m=m):
+                return quantize.fake_quantize_flat(m, bla, La)
+            out[f"fake_quantize_flat two-pass ({rows}, {n})"] = {
+                **call_times(qdq, AB_KERNELS["fake_quantize_flat"],
+                             8 * rows * n + 4 * bla.numel(), 5 * rows * n,
+                             dev),
+                "digest": digest(qdq())}
     print("[ab] " + json.dumps(out))
     return out
 
@@ -1799,9 +1963,13 @@ def sweep() -> int:
     beside the two-pass route and a plain copy of the buffer (each output
     checked against the plain version), the clip's cluster route's (CTAs,
     warps) at (6 | 40, 89,088) beside its three-launch route (each output
-    bit for bit the three-launch entry's), and what a wrapper's host steps
-    cost. Prints one JSON line: wall (CUDA events) and device ms (the
-    named kernels' mean per launch, but for the copy: the whole call's)."""
+    bit for bit the three-launch entry's), max-abs' plan at (10,
+    1,695,744) beside twice and half its pieces a warp (warm and cold)
+    and a copy of that buffer, and at (10, 89,088) 1 to 8 pieces a warp
+    (each output bit for bit the plain version), and what a wrapper's
+    host steps cost. Prints one JSON line: wall (CUDA
+    events) and device ms (the named kernels' mean per launch, but for
+    the copy: the whole call's)."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build, dp_clip, quantize, ref
     dev = torch.device("cuda", 0)
@@ -1878,6 +2046,55 @@ def sweep() -> int:
             rec(f"Q->DQ ({rows}, 89088) {label}", fn,
                 names=AB_KERNELS["fake_quantize_flat"])
         rec(f"copy ({rows}, 89088)", lambda m=m, y=y: y.copy_(m))
+    # max-abs at (10, 1,695,744): the plan's grid beside 2x and 1/2x the
+    # pieces a warp, one launch each through the C entry, warm and after
+    # a 128 MB write (cold), each output bit for bit the plain version
+    bla = torch.as_tensor(np.repeat(np.arange(10, dtype=np.int32),
+                                    [1, 1, 1, 50, 1, 1568, 1, 31, 1, 1]),
+                          device=dev)
+    na = bla.numel() * 1024
+    m = (torch.randn((CLIENTS_PER_ROUND, na), generator=gen) * 1e-2).to(dev)
+    want = ref.leaf_maxabs_ref(m, bla, 10)
+    mx = torch.empty((CLIENTS_PER_ROUND, 10), dtype=torch.int32, device=dev)
+    grid0, pw0 = quantize.maxabs_plan(CLIENTS_PER_ROUND, na)
+    pieces = CLIENTS_PER_ROUND * bla.numel()
+    flush = flush_buffer(dev)
+    for pw in (pw0, 2 * pw0, max(1, pw0 // 2)):
+        grid = -(-pieces // (quantize.MAXABS_WARPS * pw))
+
+        def fn(grid=grid, pw=pw):
+            return lib_q.leaf_maxabs_f32(
+                m.data_ptr(), bla.data_ptr(), CLIENTS_PER_ROUND, na, 1024,
+                10, grid, pw, mx.data_ptr(), stream)
+        if fn() or not same_bits(mx.view(torch.float32), want):
+            raise AssertionError(f"max-abs sweep: grid {grid} x {pw}")
+        key = (f"max-abs ({CLIENTS_PER_ROUND}, {na}) grid={grid} "
+               f"per_warp={pw}" + (" (plan)" if pw == pw0 else ""))
+        rec(key, fn, names=AB_KERNELS["leaf_maxabs"])
+        out[key]["cold_span_ms"] = span_ms(fn, flush=flush)
+        out[key]["cold_read_span_ms"] = span_ms(fn, flush=flush, read=True)
+    rec(f"copy ({CLIENTS_PER_ROUND}, {na})", lambda: flush[:m.numel()]
+        .view(m.shape).copy_(m))
+    # and at (10, 89,088): pieces a warp
+    m = (torch.randn((CLIENTS_PER_ROUND, 89_088), generator=gen)
+         * 1e-2).to(dev)
+    want = ref.leaf_maxabs_ref(m, bl, 8)
+    mx = torch.empty((CLIENTS_PER_ROUND, 8), dtype=torch.int32, device=dev)
+    pieces = CLIENTS_PER_ROUND * 87
+    for pw in (1, 2, 4, 8):
+        grid = -(-pieces // (quantize.MAXABS_WARPS * pw))
+
+        def fn(grid=grid, pw=pw):
+            return lib_q.leaf_maxabs_f32(
+                m.data_ptr(), bl.data_ptr(), CLIENTS_PER_ROUND, 89_088, 1024,
+                8, grid, pw, mx.data_ptr(), stream)
+        if fn() or not same_bits(mx.view(torch.float32), want):
+            raise AssertionError(f"max-abs sweep: grid {grid} x {pw}")
+        key = f"max-abs ({CLIENTS_PER_ROUND}, 89088) grid={grid} " \
+              f"per_warp={pw}" + (" (plan)" if pw == 1 else "")
+        rec(key, fn, names=AB_KERNELS["leaf_maxabs"])
+        out[key]["call_device_ms"] = device_ms(fn)
+        out[key]["span_ms"] = span_ms(fn)
     lib_c = _build.load("dp_clip.cu", dp_clip._CLIP_SIGNATURES)
     for rows in (GOAL, 40):
         m = clip_rows(89_088, gen, dev, rows)
@@ -1979,6 +2196,7 @@ def main(argv) -> int:
                + check_clip_kernels(layout, layout_a, dev)
                + check_serving_kernels(dev, logs))
     ab_times(dev, "this tree")
+    free_flush()
 
     # --- phase 3: the main paths -----------------------------------------
     paths = [  # label, bits, dp, (y, frozen), kernels that must launch

@@ -40,9 +40,43 @@
 // across a sequential grid; here any map with values in [0, L) works.
 //
 // Two-pass route (rows longer than C CTAs' registers hold, or more leaves
-// than the shared table): grid (blocks, rows), one thread block per
-// 1024-element block; max-abs crosses blocks through an integer atomicMax
-// into a zeroed (rows, L) table, and the Q->DQ kernel reads x again.
+// than the shared table): the max-abs kernel below, then the Q->DQ kernel
+// (grid (blocks, rows), one thread block per block) reads x again.
+//
+// Max-abs (maxabs_fold_kernel, the first pass; leaf_maxabs). Bound: bytes,
+// K*N*4 read once (20.25 us at the FedAvg (10, 1,695,744), 1.06 us at
+// (10, 89,088)). What would keep it from the bound, and the answer here:
+// - setting up and retiring a CTA costs more than a 4 KB read: a warp
+//   takes whole pieces (a 1024-block; a block of at most 1024 elements, or
+//   a 1024-element slice of a longer one) of the flattened (row, piece)
+//   index space, piece t at x + t * piece, lane l the elements
+//   4 l + 128 j + c (j < 8), eight 16-byte __ldg loads in flight; a warp
+//   takes `per_warp` consecutive pieces and loads piece t + 1 into a second
+//   register set before it reduces piece t, so each warp keeps 8 KB in
+//   flight. The grid (kernels/quantize.maxabs_plan, from the shape alone)
+//   is at most 264 CTAs of 8 warps, two an SM, 128 KB in flight an SM,
+//   and no more CTAs than one piece a warp needs at small sizes;
+// - an atomic per block lands on one word per leaf (1,568 a row at the
+//   FedAvg width), serialized in L2: a warp's consecutive pieces of one
+//   (row, leaf) fold their maxima in registers, and only when the run ends
+//   does a shuffle max and one atomicMax follow. Any block->leaf map with
+//   values in [0, L) works; a map that changes leaf at every block costs
+//   one atomic a piece;
+// - the table must start at zero: a memset of out, then this kernel. A
+//   one-launch variant (a per-stream workspace kept at zero, an arrival
+//   ticket, the last CTA copying the maxima out and zeroing it again) was
+//   slower a call on the H100 than the memset and this kernel (PERF.md
+//   section 6, row 2), so the memset stays;
+// - 4-byte loads keep too few bytes in flight: 16-byte loads; a base that
+//   is not 16-byte aligned takes scalar loads in the same order (kVec
+//   false).
+// The pieces' offsets are pointer steps from the warp's first piece (one
+// 64-bit product a warp); row, block and leaf index math is 32-bit. An
+// integer max is order-free, so any grid gives the same bits.
+// A leaf index outside [0, L) in the map is skipped (its pieces fold into
+// no leaf), so a bad map never writes outside out.
+// Times against the bound: PERF.md section 6, row 2 (chip_smoke.py
+// --kernel-times).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,7 +86,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 // cluster route: a thread group of 256 holds one float4 each of a block
 constexpr int kBlock = 4 * kThreads;
 constexpr int kMaxLeaves = 256;
@@ -73,28 +106,124 @@ __device__ __forceinline__ float leaf_scale_of(float m, float qmax) {
   return __fdiv_rn(m != m ? m : fmaxf(m, 1e-12f), qmax);
 }
 
-__global__ void leaf_maxabs_kernel(const float* __restrict__ x,
-                                   const int32_t* __restrict__ block_leaf,
-                                   int64_t n, int block, int n_leaves,
-                                   int32_t* __restrict__ out) {
-  const int64_t b = blockIdx.x;
-  const int64_t row = blockIdx.y;
-  const int32_t* xb =
-      reinterpret_cast<const int32_t*>(x + row * n + b * block);
+// max-abs: warps a CTA, and CTAs an SM the registers allow (two register
+// sets of eight float4 a lane)
+constexpr int kFoldWarps = 8;
+constexpr int kFoldThreads = 32 * kFoldWarps;
+
+// One piece of `rows128` x 128 elements (rows128 <= 8): lane l loads the
+// elements 4 l + 128 j + c, j < rows128, all issued before any use.
+template <bool kVec>
+__device__ __forceinline__ void load_piece(float4 (&v)[8],
+                                           const float* __restrict__ p,
+                                           int lane, int rows128) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < rows128) {
+      const float* q = p + 128 * j + 4 * lane;
+      v[j] = kVec ? __ldg(reinterpret_cast<const float4*>(q))
+                  : make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2),
+                                __ldg(q + 3));
+    } else {
+      v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ int32_t piece_max(const float4 (&v)[8]) {
   int32_t m = 0;
-  for (int i = threadIdx.x; i < block; i += kThreads) {
-    m = max(m, xb[i] & 0x7FFFFFFF);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    m = max(m, max(max(abs_bits(v[j].x), abs_bits(v[j].y)),
+                   max(abs_bits(v[j].z), abs_bits(v[j].w))));
   }
+  return m;
+}
+
+// The fold of a warp's run over its consecutive pieces: the (row, leaf)
+// key of the run, the lane's max over it, and the cursor (row, block,
+// piece of the block) of the next piece to reduce.
+struct Run {
+  int key;
+  int32_t m;
+  int row, b, sub;
+};
+
+// Ends the warp's run (a shuffle max, one atomicMax from lane 0); a run
+// of a leaf outside [0, L) (key < 0) writes nothing.
+__device__ __forceinline__ void end_run(int32_t* table, const Run& r) {
+  if (r.key < 0) return;
+  int32_t m = r.m;
   for (int off = 16; off > 0; off >>= 1) {
-    m = max(m, __shfl_down_sync(0xffffffffu, m, off));
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
   }
-  __shared__ int32_t warp_max[kWarps];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kWarps; ++w) m = max(m, warp_max[w]);
-    atomicMax(out + row * n_leaves + block_leaf[b], m);
+  if ((threadIdx.x & 31) == 0) atomicMax(table + r.key, m);
+}
+
+// Folds the next piece (its loads in v) into the run, ending the run
+// first when the piece starts another (row, leaf); all branches are
+// uniform over the warp. A leaf outside [0, L) gets the key -2, no word.
+__device__ __forceinline__ void fold_piece(
+    Run& r, const float4 (&v)[8], const int32_t* __restrict__ block_leaf,
+    int nb, int per_block, int n_leaves, int32_t* table) {
+  const int leaf = __ldg(block_leaf + r.b);
+  const int key = static_cast<unsigned>(leaf) < static_cast<unsigned>(n_leaves)
+                      ? r.row * n_leaves + leaf
+                      : -2;
+  if (key != r.key) {
+    end_run(table, r);
+    r.key = key;
+    r.m = 0;
   }
+  r.m = max(r.m, piece_max(v));
+  if (++r.sub == per_block) {
+    r.sub = 0;
+    if (++r.b == nb) {
+      r.b = 0;
+      ++r.row;
+    }
+  }
+}
+
+// grid (maxabs_plan), kFoldThreads threads. Warp w of the grid takes the
+// pieces [w * per_warp, min((w + 1) * per_warp, pieces)) of the flattened
+// (row, piece) space, piece t at x + t * piece (piece = rows128 * 128
+// elements, per_block pieces a block, nb blocks a row) and folds their
+// maxima into the zeroed table (rows, L).
+template <bool kVec>
+__global__ void __launch_bounds__(kFoldThreads, 2)
+maxabs_fold_kernel(const float* __restrict__ x,
+                   const int32_t* __restrict__ block_leaf, int nb,
+                   int per_block, int rows128, int n_leaves, int pieces,
+                   int per_warp, int32_t* table) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kFoldWarps + (threadIdx.x >> 5);
+  const int t0 = w * per_warp;
+  const int t1 = min(t0 + per_warp, pieces);
+  if (t0 >= t1) return;
+  const int step = rows128 * 128;
+  const float* p = x + static_cast<int64_t>(t0) * step;
+  const int per_row = nb * per_block;
+  Run r;
+  r.key = -1;
+  r.m = 0;
+  r.row = t0 / per_row;
+  const int in_row = t0 - r.row * per_row;
+  r.b = in_row / per_block;
+  r.sub = in_row - r.b * per_block;
+  // two register sets: the next piece's loads are in flight while this
+  // one is reduced (a copy between the sets would wait for them)
+  float4 va[8], vb[8];
+  load_piece<kVec>(va, p, lane, rows128);
+  for (int t = t0; t < t1; t += 2) {
+    if (t + 1 < t1) load_piece<kVec>(vb, p + step, lane, rows128);
+    fold_piece(r, va, block_leaf, nb, per_block, n_leaves, table);
+    if (t + 1 >= t1) break;
+    if (t + 2 < t1) load_piece<kVec>(va, p + 2 * step, lane, rows128);
+    fold_piece(r, vb, block_leaf, nb, per_block, n_leaves, table);
+    p += 2 * step;
+  }
+  end_run(table, r);
 }
 
 __global__ void qdq_kernel(const float* __restrict__ x,
@@ -292,18 +421,35 @@ cudaError_t launch_cluster_groups(int per_thread, const ClusterArgs& a) {
 }  // namespace
 
 // out (rows, n_leaves) int32: the sign-cleared bit pattern of each leaf's
-// max|x| (view it as float32). x is (rows, n), n = n_blocks * block.
+// max|x| (view it as float32). x is (rows, n), n = nb * block; block a
+// multiple of 128, at most 1024 or a multiple of 1024 (the piece is the
+// block, or a 1024-element slice of it); `grid` CTAs, `per_warp` pieces a
+// warp (kernels/quantize.maxabs_plan), covering every piece. A memset of
+// out, then the fold kernel into it.
 extern "C" int leaf_maxabs_f32(const float* x, const int32_t* block_leaf,
                                int64_t rows, int64_t n, int block,
-                               int n_leaves, int32_t* out, void* stream) {
+                               int n_leaves, int grid, int per_warp,
+                               int32_t* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaMemsetAsync(out, 0, sizeof(int32_t) * rows * n_leaves, st);
+  const int piece = block <= 1024 ? block : 1024;
+  const int64_t nb = n / block;
+  const int64_t pieces = rows * (n / piece);
+  const int64_t words = rows * n_leaves;
+  if (block < 128 || block % 128 || block % piece || n % block ||
+      n_leaves < 1 || grid < 1 || per_warp < 1 || words >= (1LL << 31) ||
+      static_cast<int64_t>(grid) * kFoldWarps * per_warp < pieces ||
+      static_cast<int64_t>(grid) * kFoldWarps * per_warp >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int32_t) * words, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(n / block),
-                  static_cast<unsigned>(rows));
-  leaf_maxabs_kernel<<<grid, kThreads, 0, st>>>(x, block_leaf, n, block,
-                                                n_leaves, out);
+  auto kernel = (reinterpret_cast<uintptr_t>(x) & 15) == 0
+                    ? maxabs_fold_kernel<true>
+                    : maxabs_fold_kernel<false>;
+  kernel<<<grid, kFoldThreads, 0, st>>>(x, block_leaf, static_cast<int>(nb),
+                                        block / piece, piece / 128, n_leaves,
+                                        static_cast<int>(pieces), per_warp,
+                                        out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,10 +15,14 @@ CTAs holds a row in registers (x read once), for rows of at most
 ``CLUSTER * CLUSTER_MAX_BLOCKS`` 1024-element blocks over at most
 ``CLUSTER_MAX_LEAVES`` leaves; else the two-pass route, ``leaf_maxabs``
 then a Q->DQ launch that reads x again. Both give the same bits.
+
+``leaf_maxabs`` is a memset of the output and one launch of a fold kernel
+(a warp a 1024-element piece at a time, :func:`maxabs_plan`).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -38,9 +42,14 @@ CLUSTER_PER_THREAD = (1, 2, 4, 8)
 CLUSTER_MAX_BLOCKS = CLUSTER_GROUPS * CLUSTER_PER_THREAD[-1]
 CLUSTER_MAX_LEAVES = 256
 
+# leaf_maxabs: warps a CTA (one piece each at a time), and CTAs at most
+# (two an SM of the H100: two register sets of eight float4 a lane)
+MAXABS_WARPS = 8
+MAXABS_MAX_CTAS = 264
+
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
-    "leaf_maxabs_f32": [_P, _P, _I64, _I64, _INT, _INT, _P, _P],
+    "leaf_maxabs_f32": [_P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _P, _P],
     "fake_quantize_flat_f32": [_P, _P, _P, _I64, _I64, _INT, _INT,
                                ctypes.c_float, _P, _P],
     "fake_quantize_cluster_f32": [_P, _P, _I64, _I64, _INT, _INT, _INT,
@@ -74,6 +83,31 @@ def cluster_split(n_blocks: int):
     return ctas, groups, per_thread
 
 
+def maxabs_piece(block: int) -> int:
+    """Elements a warp of the max-abs kernel reduces at a time: the block
+    when it has at most 1024, else 1024 (a slice of it). Raises for a
+    block the kernel does not take (a multiple of 128, at most 1024 or a
+    multiple of 1024)."""
+    piece = min(block, BLOCK)
+    if block < 128 or block % 128 or block % piece:
+        raise ValueError(f"leaf_maxabs on the card takes blocks that are a "
+                         f"multiple of 128, at most 1024 or a multiple of "
+                         f"1024; got {block}")
+    return piece
+
+
+def maxabs_plan(rows: int, n: int, block: int = BLOCK) -> Tuple[int, int]:
+    """(grid, per_warp) of the max-abs kernel for ``rows`` rows of n
+    elements: warp w takes the pieces [w * per_warp, (w + 1) * per_warp)
+    of the rows x (n / piece) pieces in row-major order. One piece a warp
+    while that needs at most MAXABS_MAX_CTAS CTAs (109 at (10, 89,088)),
+    then the fewest pieces a warp that keep to them (8 a warp, 259 CTAs at
+    (10, 1,695,744)). From the shape alone."""
+    pieces = rows * (n // maxabs_piece(block))
+    per_warp = max(1, -(-pieces // (MAXABS_MAX_CTAS * MAXABS_WARPS)))
+    return max(1, -(-pieces // (per_warp * MAXABS_WARPS))), per_warp
+
+
 def _block_leaf_on(block_leaf, n_blocks: int, n_leaves: int, device):
     """The block->leaf map as an int32 tensor on ``device``, checked
     against the buffer's block count and the leaf count."""
@@ -104,20 +138,23 @@ def _as_rows(x: torch.Tensor, block: int) -> torch.Tensor:
 def leaf_maxabs(x: torch.Tensor, block_leaf, n_leaves: int,
                 block: int = BLOCK) -> torch.Tensor:
     """Per-leaf max|x| of block-aligned flat rows: (..., N) -> (..., L)
-    float32, NaN propagated. One launch for all rows on CUDA;
-    ``ref.leaf_maxabs_ref`` on the CPU."""
+    float32, NaN propagated. On CUDA a memset of the output and one launch
+    of the fold kernel for all rows; ``block_leaf`` as an int32 tensor on
+    the card is taken as it is, not checked (the kernel skips a leaf
+    outside [0, L)). ``ref.leaf_maxabs_ref`` on the CPU."""
     if x.device.type == "cpu":
         return ref.leaf_maxabs_ref(x, block_leaf, n_leaves, block)
     rows = _as_rows(x, block)
-    bl = _block_leaf_on(block_leaf, rows.shape[1] // block, n_leaves,
-                        x.device)
-    out = torch.empty((rows.shape[0], n_leaves), dtype=torch.int32,
-                      device=x.device)
+    R, n = rows.shape
+    bl = _block_leaf_on(block_leaf, n // block, n_leaves, x.device)
+    out = torch.empty((R, n_leaves), dtype=torch.int32, device=x.device)
     if rows.numel():
+        if n_leaves < 1:
+            raise ValueError("leaf_maxabs: n_leaves must be at least 1")
+        grid, per_warp = maxabs_plan(R, n, block)
         lib = _build.load("quantize.cu", _SIGNATURES)
-        err = lib.leaf_maxabs_f32(rows.data_ptr(), bl.data_ptr(),
-                                  rows.shape[0], rows.shape[1], block,
-                                  n_leaves, out.data_ptr(),
+        err = lib.leaf_maxabs_f32(rows.data_ptr(), bl.data_ptr(), R, n, block,
+                                  n_leaves, grid, per_warp, out.data_ptr(),
                                   _build.stream_ptr(x))
         _build.raise_on_error("leaf_maxabs", err)
         kernels.LAUNCHES["leaf_maxabs"] += 1

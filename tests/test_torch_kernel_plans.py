@@ -16,6 +16,15 @@
   boundaries and at the EMNIST (87 blocks), FedAvg (1,656) and ragged
   maps, and the cluster route's split of a row's blocks over its CTAs:
   every block held by exactly one CTA, none over its register budget.
+* ``leaf_maxabs``: the fold kernel's plan (``quantize.maxabs_plan``)
+  gives every (row, piece) tile to exactly one warp, no CTA idle, within
+  the grid's cap and 32-bit index math, from 1 to 65,535 rows; a numpy
+  emulation of the kernel (each warp's consecutive pieces of one (row,
+  leaf) folded into one max, one atomic max a run) gives
+  ``ref.leaf_maxabs_ref``'s bits on contiguous, ragged and ``% 5`` maps,
+  with NaN, +-Inf, -0.0 and an all-zero leaf, for 1024-, 512- and
+  2048-element blocks, with far fewer atomics than blocks at the FedAvg
+  width.
 * ``clip_flat``: the route chooser at both sides of each limit (blocks,
   n % 4) and the cluster split; a numpy emulation of the clip's order
   (each block's sum of squares in the plain halving order, each float32
@@ -174,6 +183,126 @@ def test_block_leaf_on_is_made_once_per_sizes():
     assert bl.dtype == torch.int32 and bl.device.type == "cpu"
     np.testing.assert_array_equal(bl.numpy(), one.block_leaf())
     assert two.block_leaf_on(torch.device("cpu")) is bl
+
+
+# --- leaf_maxabs: the fold kernel's plan and run folding --------------------
+
+FEDAVG_N = FEDAVG_BLOCKS * 1024          # 1,695,744
+FEDAVG_MAP = np.repeat(np.arange(10, dtype=np.int32),
+                       [1, 1, 1, 50, 1, 1568, 1, 31, 1, 1])
+RAGGED_MAP = np.array([0, 1, 1, 1, 2, 2, 3], np.int32)
+
+
+def _warp_ranges(rows, n, block=1024):
+    """(grid, per_warp, pieces, starts, stops) of the kernel's warps."""
+    grid, per_warp = quantize.maxabs_plan(rows, n, block)
+    pieces = rows * (n // quantize.maxabs_piece(block))
+    starts = np.arange(grid * quantize.MAXABS_WARPS, dtype=np.int64) * per_warp
+    return grid, per_warp, pieces, starts, np.minimum(starts + per_warp,
+                                                      pieces)
+
+
+@pytest.mark.parametrize("rows,n_blocks", [
+    (r, nb) for r in (1, 65_535) for nb in (1, 87, 257, FEDAVG_BLOCKS)]
+    + [(5, FEDAVG_BLOCKS), (10, FEDAVG_BLOCKS), (6, FEDAVG_BLOCKS),
+       (10, EMNIST_BLOCKS)])
+def test_maxabs_plan_covers_every_tile_once(rows, n_blocks):
+    grid, per_warp, pieces, starts, stops = _warp_ranges(rows,
+                                                         n_blocks * 1024)
+    assert 1 <= grid <= quantize.MAXABS_MAX_CTAS and per_warp >= 1
+    assert grid * quantize.MAXABS_WARPS * per_warp < 2 ** 31
+    # warp ranges are consecutive and end at the last tile: each tile once
+    live = starts < pieces
+    assert (stops[live][:-1] == starts[live][1:]).all()
+    assert starts[0] == 0 and stops[live][-1] == pieces
+    # the last CTA holds a tile; one tile a warp whenever the cap allows
+    assert (grid - 1) * quantize.MAXABS_WARPS * per_warp < pieces
+    cap = quantize.MAXABS_MAX_CTAS * quantize.MAXABS_WARPS
+    assert per_warp == max(1, -(-pieces // cap))
+    if pieces <= 2 ** 22:                # enumerate where that is cheap
+        held = np.zeros(pieces, np.int64)
+        for a, b in zip(starts[live], stops[live]):
+            held[a:b] += 1
+        assert (held == 1).all()
+
+
+def test_maxabs_plan_at_the_measured_shapes():
+    assert quantize.maxabs_plan(10, 89_088) == (109, 1)
+    assert quantize.maxabs_plan(10, FEDAVG_N) == (259, 8)
+    assert quantize.maxabs_plan(6, FEDAVG_N) == (249, 5)
+
+
+@pytest.mark.parametrize("block,piece", [(1024, 1024), (128, 128),
+                                         (512, 512), (2048, 1024)])
+def test_maxabs_piece(block, piece):
+    assert quantize.maxabs_piece(block) == piece
+
+
+@pytest.mark.parametrize("block", [4, 64, 100, 1000, 1536])
+def test_maxabs_piece_refuses_other_blocks(block):
+    with pytest.raises(ValueError):
+        quantize.maxabs_piece(block)
+
+
+def emulate_leaf_maxabs(x, block_leaf, n_leaves, block=1024):
+    """The fold kernel in numpy: each piece's max of the sign-cleared int32
+    bits, folded over each warp's consecutive pieces of one (row, leaf)
+    (a run ends where the key changes or the warp's range does), one
+    atomic max a run into a zeroed (rows, L) table. Returns (table as
+    float32, atomics)."""
+    rows, n = x.shape
+    piece = quantize.maxabs_piece(block)
+    grid, per_warp, pieces, starts, stops = _warp_ranges(rows, n, block)
+    bits = (np.ascontiguousarray(x, np.float32).view(np.int32)
+            & 0x7FFFFFFF).reshape(pieces, piece).max(axis=1)
+    t = np.arange(pieces)
+    per_row = n // piece
+    leaf = np.asarray(block_leaf)[(t % per_row) // (block // piece)]
+    key = (t // per_row) * n_leaves + leaf
+    new_run = np.ones(pieces, bool)
+    new_run[1:] = (key[1:] != key[:-1]) | (t[1:] % per_warp == 0)
+    run_starts = np.flatnonzero(new_run)
+    run_max = np.maximum.reduceat(bits, run_starts)
+    table = np.zeros(rows * n_leaves, np.int32)
+    np.maximum.at(table, key[run_starts], run_max)
+    return table.view(np.float32).reshape(rows, n_leaves), run_starts.size
+
+
+def _maxabs_rows(rows, n, seed):
+    x = (np.random.default_rng(seed).normal(size=(rows, n)) * 1e-2).astype(
+        np.float32)
+    x[0, :1024] = 0.0                    # leaf 0 of row 0 all zero
+    x[rows - 1, n // 3] = np.nan
+    x[0, n - 5] = np.inf
+    x[rows - 1, 7] = -np.inf
+    x[rows // 2, min(1030, n - 1)] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("rows,block_leaf,block", [
+    (5, FEDAVG_MAP, 1024), (3, RAGGED_MAP, 1024),
+    (2, np.arange(257, dtype=np.int32) % 5, 1024),
+    (4, np.arange(87, dtype=np.int32) % 5, 1024),
+    (1, np.zeros(1, np.int32), 1024),
+    (3, RAGGED_MAP, 512), (3, np.arange(40, dtype=np.int32) % 5, 2048)])
+def test_maxabs_run_folding_is_the_plain_bits(rows, block_leaf, block):
+    n = block_leaf.size * block
+    x = _maxabs_rows(rows, n, seed=rows + block)
+    L = int(block_leaf.max()) + 1
+    got, _ = emulate_leaf_maxabs(x, block_leaf, L, block)
+    want = ref.leaf_maxabs_ref(torch.from_numpy(x), block_leaf, L, block)
+    assert np.array_equal(got.view(np.int32), want.numpy().view(np.int32))
+
+
+def test_maxabs_run_folding_cuts_the_atomics_at_the_fedavg_width():
+    """One atomic a run: at (10, 1,695,744) at most one a warp plus one a
+    leaf boundary inside a warp's range, against one a block (16,560)."""
+    x = np.zeros((10, FEDAVG_N), np.float32)
+    _, atomics = emulate_leaf_maxabs(x, FEDAVG_MAP, 10)
+    grid, per_warp = quantize.maxabs_plan(10, FEDAVG_N)
+    warps = -(-10 * FEDAVG_BLOCKS // per_warp)
+    assert warps <= atomics <= warps + 10 * 9
+    assert atomics < 10 * FEDAVG_BLOCKS / 7
 
 
 @pytest.fixture

@@ -23,7 +23,10 @@ a zero row, a NaN row and an Inf row bit for bit; the clip-and-
 accumulate within rtol 1e-6 of the plain version, whose norm is one
 torch.sum. The row clip's one-launch cluster route (rows of n % 4 == 0 up
 to 512 blocks) gives the three-launch route's bits, values and norms,
-called through the library's C entry.
+called through the library's C entry. ``leaf_maxabs``' fold kernel bit
+for bit for 1 to 65 rows, 1 to 1,656 blocks and 1 to 300 leaves, the
+edge values, an unaligned base, 100 calls in a row and two streams; each
+call one memset and one kernel, and a leaf index outside [0, L) skipped.
 """
 import numpy as np
 import pytest
@@ -223,6 +226,174 @@ def test_qdq_non_contiguous_leaf_map(dev, case):
     buf[1:] = m.reshape(-1)
     off = buf[1:].view(m.shape)
     assert same_bits(quantize.fake_quantize_flat(off, bl, 3), want)
+
+
+# ---------------------------------------------------------------------------
+# leaf_maxabs: a memset, then the fold kernel
+
+
+def _maxabs_map(n_blocks, n_leaves):
+    if n_leaves == 10 and n_blocks == FEDAVG_BLOCK_LEAF.size:
+        return FEDAVG_BLOCK_LEAF
+    if n_leaves == 300:
+        return np.random.default_rng(n_blocks).integers(
+            0, 300, n_blocks).astype(np.int32)
+    return np.arange(n_blocks, dtype=np.int32) % n_leaves
+
+
+def _maxabs_rows(dev, rows, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((rows, n), generator=g, device=dev) * 1e-2
+
+
+def _maxabs_matches_plain(m, block_leaf, n_leaves):
+    """leaf_maxabs against its plain version, bit for bit, the call's
+    launch counted."""
+    kernels.reset_launches()
+    got = quantize.leaf_maxabs(m, block_leaf, n_leaves)
+    assert same_bits(got, ref.leaf_maxabs_ref(m, block_leaf, n_leaves))
+    assert kernels.LAUNCHES["leaf_maxabs"] == 1
+
+
+@pytest.mark.parametrize("n_leaves", [1, 10, 300])
+@pytest.mark.parametrize("n_blocks", [1, 87, 257, 1656])
+@pytest.mark.parametrize("rows", [1, 6, 10, 40, 65])
+def test_leaf_maxabs_matches_plain_bitwise(dev, rows, n_blocks, n_leaves):
+    block_leaf = _maxabs_map(n_blocks, n_leaves)
+    m = _maxabs_rows(dev, rows, n_blocks * 1024, rows * 7 + n_blocks)
+    _maxabs_matches_plain(m, block_leaf, n_leaves)
+    # the map as an int32 tensor on the card, taken as it is
+    bl = torch.as_tensor(block_leaf, device=dev)
+    assert same_bits(quantize.leaf_maxabs(m, bl, n_leaves),
+                     ref.leaf_maxabs_ref(m, block_leaf, n_leaves))
+
+
+@pytest.mark.parametrize("case", ["nan", "inf", "-inf", "-0.0", "zero_leaf"])
+@pytest.mark.parametrize("rows,block_leaf", [(10, FEDAVG_BLOCK_LEAF),
+                                             (6, EMNIST_BLOCK_LEAF),
+                                             (65, RAGGED_BLOCK_LEAF)])
+def test_leaf_maxabs_edge_values(dev, rows, block_leaf, case):
+    n = block_leaf.size * 1024
+    m = _maxabs_rows(dev, rows, n, rows)
+    blocks3 = np.flatnonzero(block_leaf == 3)     # leaf 3, contiguous
+    leaf3 = slice(int(blocks3[0]) * 1024, (int(blocks3[-1]) + 1) * 1024)
+    if case == "nan":
+        m[rows - 1, n // 3] = float("nan")
+    elif case in ("inf", "-inf"):
+        m[rows // 2, n - 9] = float(case)
+    elif case == "-0.0":        # a block of -0.0: its leaf's max is +0.0
+        m[0, :] = 0.0
+        m[0, leaf3] = -0.0
+    else:
+        m[rows - 1, leaf3] = 0.0
+        m[rows - 1, :1024] = 0.0
+    L = int(block_leaf.max()) + 1
+    _maxabs_matches_plain(m, block_leaf, L)
+
+
+def test_leaf_maxabs_unaligned_base(dev):
+    """A base off the 16-byte grid takes scalar loads in the same order."""
+    m = _maxabs_rows(dev, 10, FEDAVG_BLOCK_LEAF.size * 1024, 3)
+    m[2, 77] = float("nan")
+    buf = torch.zeros(m.numel() + 1, device=dev)
+    buf[1:] = m.reshape(-1)
+    off = buf[1:].view(m.shape)
+    assert off.data_ptr() % 16 != 0
+    want = ref.leaf_maxabs_ref(m, FEDAVG_BLOCK_LEAF, 10)
+    assert same_bits(quantize.leaf_maxabs(off, FEDAVG_BLOCK_LEAF, 10), want)
+    rag = buf[1:1 + 3 * RAGGED_BLOCK_LEAF.size * 1024].view(3, -1)
+    assert same_bits(quantize.leaf_maxabs(rag, RAGGED_BLOCK_LEAF, 4),
+                     ref.leaf_maxabs_ref(rag, RAGGED_BLOCK_LEAF, 4))
+
+
+@pytest.mark.parametrize("block", [128, 512, 2048])
+def test_leaf_maxabs_other_blocks(dev, block):
+    block_leaf = np.arange(40, dtype=np.int32) % 5
+    m = _maxabs_rows(dev, 6, block_leaf.size * block, block)
+    assert same_bits(quantize.leaf_maxabs(m, block_leaf, 5, block=block),
+                     ref.leaf_maxabs_ref(m, block_leaf, 5, block))
+    with pytest.raises(ValueError):     # not a block the kernel takes
+        quantize.leaf_maxabs(torch.zeros((2, 6000), device=dev),
+                             np.zeros(6, np.int32), 1, block=1000)
+
+
+def test_leaf_maxabs_100_calls_in_a_row(dev):
+    """Calls that alternate a large and a small buffer each give their own
+    maxima."""
+    n = FEDAVG_BLOCK_LEAF.size * 1024
+    big = _maxabs_rows(dev, 10, n, 1) * 1e3
+    small = _maxabs_rows(dev, 10, n, 2)
+    want = [ref.leaf_maxabs_ref(x, FEDAVG_BLOCK_LEAF, 10)
+            for x in (big, small)]
+    bl = torch.as_tensor(FEDAVG_BLOCK_LEAF, device=dev)
+    kernels.reset_launches()
+    outs = [quantize.leaf_maxabs((big, small)[i % 2], bl, 10)
+            for i in range(100)]
+    assert kernels.LAUNCHES["leaf_maxabs"] == 100
+    for i, o in enumerate(outs):
+        assert same_bits(o, want[i % 2])
+
+
+def test_leaf_maxabs_on_two_streams_matches_one(dev):
+    """Calls running at once on two streams give the one-stream bits."""
+    n = FEDAVG_BLOCK_LEAF.size * 1024
+    xs = [_maxabs_rows(dev, 6, n, 5) * 10, _maxabs_rows(dev, 6, n, 6)]
+    bl = torch.as_tensor(FEDAVG_BLOCK_LEAF, device=dev)
+    want = [ref.leaf_maxabs_ref(x, FEDAVG_BLOCK_LEAF, 10) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(50):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(quantize.leaf_maxabs(xs[i], bl, 10))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(same_bits(o, want[i]) for o in outs[i])
+
+
+def _device_ops(fn, calls=5):
+    """Names of the device operations the profiler records over ``calls``
+    calls of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("rows,n_leaves", [(10, 10), (65, 300)])
+def test_leaf_maxabs_device_ops(dev, rows, n_leaves):
+    """A call is one memset of the output and one launch of the kernel."""
+    block_leaf = _maxabs_map(257, n_leaves)
+    m = _maxabs_rows(dev, rows, 257 * 1024, 9)
+    bl = torch.as_tensor(block_leaf, device=dev)
+    names = _device_ops(lambda: quantize.leaf_maxabs(m, bl, n_leaves))
+    kernel = [x for x in names if "maxabs_fold_kernel" in x]
+    memset = [x for x in names if "memset" in x.lower()]
+    assert len(kernel) == len(memset) == 5
+    assert len(kernel) + len(memset) == len(names)
+    _maxabs_matches_plain(m, block_leaf, n_leaves)
+
+
+@pytest.mark.parametrize("bad", [10, 1 << 20, -1])
+def test_leaf_maxabs_skips_a_leaf_outside_the_table(dev, bad):
+    """A card map is not checked on the host: a block whose leaf lies
+    outside [0, L) folds into no leaf. Its values are the largest, so a
+    write into a neighbouring row's word (leaf 10 or -1) would show."""
+    block_leaf = FEDAVG_BLOCK_LEAF.copy()
+    block_leaf[[0, 200, 1655]] = bad
+    kept = torch.from_numpy(np.isin(block_leaf, np.arange(10))).to(dev)
+    m = _maxabs_rows(dev, 10, block_leaf.size * 1024, 4)
+    m.view(10, -1, 1024)[:, ~kept] = 1e3
+    want = ref.leaf_maxabs_ref(m.view(10, -1, 1024)[:, kept].reshape(10, -1),
+                               block_leaf[kept.cpu().numpy()], 10)
+    got = quantize.leaf_maxabs(m, torch.as_tensor(block_leaf, device=dev), 10)
+    assert same_bits(got, want)
 
 
 @pytest.mark.parametrize("bits,clip", [(0, 0.0), (8, 0.0), (8, 0.05)])

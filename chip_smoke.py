@@ -114,7 +114,31 @@ package. Phases, in order, each failing the run on error:
      (windows 0 and 200), and
      ``generate``'s step-by-step prefill against ``forward`` at the prompt
      positions, each within 2**-4 of the largest |logit|;
-4. print the ``kernels`` JSON line, the card's name and power limit,
+   ``generate`` also samples 32 steps at temperature 1 from the bf16
+   logits, and ``threefry.categorical`` on the card must pick the CPU
+   port's tokens on fixed float32 and bf16 logits, but in rows whose top
+   two perturbed logits lie within the Gumbel bound (their count
+   printed);
+4. drive the paper's other two models at full width, float32, TF32 off
+   (``launch/train.paper_task``), 10 rounds each, with the launch counts
+   set to 0 just before and read just after, the server tail's routes
+   (staged), the accuracy at the end, the peak device memory around one
+   client update and one profiled round; each path's first round
+   against the CPU's (the update by norm, ``check_model_round``), the
+   trainable counts and flat layouts asserted:
+   - ResNet-18-GN on CIFAR-10-shaped data (50 clients x 100 images of
+     32 x 32, 10 classes), 10 clients x 2 sgdm steps x batch 32, PT
+     (stage 3 frozen, 26.09%) and FedAvg;
+   - the SO NWP transformer at vocab 10,004 (64 clients x 64 sentences of
+     20 tokens), 32 clients x 2 Adam steps x 16, PT (73.65%) and FedAvg,
+     NWP accuracy on the 512 test sentences;
+   - the async DP grid of path 6 on the SO PT model: its lane rows of
+     1,653 blocks take the two-pass Q->DQ through ``leaf_maxabs`` and
+     the three-launch clip, no cluster route;
+   - ``examples/dp_federated_lm.py`` at vocab 10,004: the SO PT model
+     with the DP-FTRL server (``tree_noise``), 5 rounds, then through
+     ``run_federated``;
+5. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -151,9 +175,8 @@ POISONED = 3          # the client whose upload is NaN in B's extra round
 CONCURRENCY, GOAL, ASYNC_UPDATES, ASYNC_CHECKED = 12, 6, 12, 3
 # no main path launches them: no engine of either package calls
 # clip_accumulate or seed_reconstruct (only kernels/ops, the tests and this
-# script's kernel phase reach them), and leaf_maxabs runs only on
-# fake_quantize_flat's two-pass route, which no main path's row takes
-NO_ENGINE = {"clip_accumulate", "seed_reconstruct", "leaf_maxabs"}
+# script's kernel phase reach them)
+NO_ENGINE = {"clip_accumulate", "seed_reconstruct"}
 # the CUDA kernels behind sumsq, leaf_maxabs, fake_quantize_flat, clip_flat
 # and seed_reconstruct on this tree and on the trees before their
 # redesign, for timing the two side by side
@@ -170,6 +193,7 @@ AB_KERNELS = {
 # NeMo's frozen FFN leaf, the shape a server regenerates from the seed
 SEED_SHAPE = (5120, 14336)
 HOST_COPY_OPS = ("cudaMemcpyAsync", "cudaStreamSynchronize")
+HOST_SHOWN = HOST_COPY_OPS + ("cudaLaunchKernel",)
 U = 2.0 ** -24
 
 
@@ -574,9 +598,10 @@ def ab_times(dev, label: str) -> dict:
     ``SEED_SHAPE`` in float32 and bfloat16 the same way, each with a
     digest of its output (equal digests: the same bits on both trees) and
     the seed kernel's SASS counts and issue-rate estimate
-    (:func:`seed_issue`); then ``leaf_maxabs`` at (10, 89,088) and at the
-    FedAvg width (6 | 10, 1,695,744), and the two-pass
-    ``fake_quantize_flat`` it serves there, warm and L2-cold
+    (:func:`seed_issue`); then ``leaf_maxabs`` at (10, 89,088), at the
+    FedAvg width (6 | 10, 1,695,744) and at the SO PT lane's (6,
+    1,692,672), and the two-pass ``fake_quantize_flat`` it serves at the
+    last three, warm and L2-cold
     (:func:`call_times`), each with a digest, beside a per-block
     ``torch.linalg.vector_norm(..., inf)`` of the same rows as a yardstick
     of one read. Prints and returns one JSON object."""
@@ -661,10 +686,12 @@ def ab_times(dev, label: str) -> dict:
     Na, La = layout_a.size, len(layout_a.sizes)
     bla = torch.as_tensor(layout_a.block_leaf(), dtype=torch.int32,
                           device=dev)
+    bls, Ls, Ns = so_lane_block_leaf(dev)
     mgen = torch.Generator(device="cpu").manual_seed(19)
     for rows, n, blk, nl in ((CLIENTS_PER_ROUND, N, bl, L),
                              (GOAL, Na, bla, La),
-                             (CLIENTS_PER_ROUND, Na, bla, La)):
+                             (CLIENTS_PER_ROUND, Na, bla, La),
+                             (GOAL, Ns, bls, Ls)):
         m = (torch.randn((rows, n), generator=mgen) * 1e-2).to(dev)
 
         def call(m=m, blk=blk, nl=nl):
@@ -683,12 +710,12 @@ def ab_times(dev, label: str) -> dict:
         # flushing sum's kernel is also a reduce_kernel)
         out[f"vector_norm inf by block ({rows}, {n})"] = call_times(
             block_norm, ("AbsMaxOps",), 4 * rows * n, rows * n, dev)
-        if n == Na:
-            def qdq(m=m):
-                return quantize.fake_quantize_flat(m, bla, La)
+        if n in (Na, Ns):
+            def qdq(m=m, blk=blk, nl=nl):
+                return quantize.fake_quantize_flat(m, blk, nl)
             out[f"fake_quantize_flat two-pass ({rows}, {n})"] = {
                 **call_times(qdq, AB_KERNELS["fake_quantize_flat"],
-                             8 * rows * n + 4 * bla.numel(), 5 * rows * n,
+                             8 * rows * n + 4 * blk.numel(), 5 * rows * n,
                              dev),
                 "digest": digest(qdq())}
     print("[ab] " + json.dumps(out))
@@ -961,12 +988,34 @@ def cohorts(ds, n):
     return out
 
 
-def profile_round(step):
-    """One round under the profiler: wall ms, device-busy ms (the sum of
-    the kernels' device time; one stream, so they do not overlap),
-    kernel launches, the host ops with the most self time, and the calls
-    of ``cudaMemcpyAsync`` / ``cudaStreamSynchronize`` (a blocking copy
-    to the card makes one of each)."""
+def device_busy_ms(prof) -> float:
+    """The union of the device events' intervals (kernels, copies,
+    memsets) in a profiler trace, in ms: the time the card was busy,
+    where kernels that overlap (cuDNN runs some on streams of its own)
+    count once."""
+    from torch.autograd import DeviceType
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
+def profile_round(step, what: str = "round"):
+    """One round (or flush) under the profiler, printed on one line: wall
+    ms; device-busy ms (:func:`device_busy_ms`) and its share; the device
+    ops and their summed time (above the busy time where kernels
+    overlap); the host ops with the most self time, with the calls of
+    ``cudaMemcpyAsync`` / ``cudaStreamSynchronize`` (a blocking copy to
+    the card makes one of each) and ``cudaLaunchKernel``. Also printed:
+    the self device time summed over every event, CPU ops included, which
+    counts a kernel once as itself and once in the op that launched it:
+    the busy reading this script printed before it took the union."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -975,20 +1024,27 @@ def profile_round(step):
         step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy, kernels_run = 0.0, 0
+    summed = every = 0.0
+    ops = 0
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            busy += dev_us / 1e3
-            kernels_run += ev.count
+        dev_ms = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        every += dev_ms
+        if ev.device_type == DeviceType.CUDA:
+            summed += dev_ms
+            ops += ev.count
+    busy = device_busy_ms(prof)
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     top = [(e.key, round(e.self_cpu_time_total / 1e3, 3), e.count)
            for e in host[:6]]
     top += [(e.key, round(e.self_cpu_time_total / 1e3, 3), e.count)
-            for e in host if e.key in HOST_COPY_OPS and
+            for e in host if e.key in HOST_SHOWN and
             e.key not in [t[0] for t in top]]
-    return wall, busy, kernels_run, top
+    print(f"  profiled {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), "
+          f"{ops} device ops summing to {summed:.3f} ms (every event "
+          f"summed: {every:.3f} ms); host ops by self time (name, ms, "
+          f"calls): {top}")
 
 
 def check_against_cpu(label, bits, dp, ds, y0, frozen, dev):
@@ -1088,12 +1144,8 @@ def drive_path(label, bits, dp, y0, frozen, draws, expect, dev):
             raise AssertionError(f"{label}: the NaN client was not "
                                  f"quarantined cleanly")
     # one more round, under the profiler (its launches are not counted)
-    wall, busy, n_kernels, top = profile_round(
+    profile_round(
         lambda: round_fn(y, sstate, frozen, batch, w, threefry.key(ROUNDS)))
-    print(f"  profiled round: wall {wall:.3f} ms, device busy "
-          f"{busy:.3f} ms ({100 * busy / wall:.1f}%, idle "
-          f"{100 * (1 - busy / wall):.1f}%), {n_kernels} device ops; "
-          f"host ops by self time (name, ms, calls): {top}")
     return counts
 
 
@@ -1180,30 +1232,45 @@ def drive_run_federated(ds, y0, frozen, dev):
     return counts
 
 
-def async_run(ds, init, updates, dev):
-    """The async FedBuff grid with per-flush DP at int8, ``updates``
-    server updates from seed 0."""
+def emnist_async():
+    """The async path's task: the quickstart's EMNIST CNN at int8 with
+    per-flush DP, its data, and the kernels (and routes) its lane must
+    launch."""
+    from repro_torch.data import synthetic as syn
     from repro_torch.models import paper_models as pm
+    return dict(label="async FedBuff, int8 + per-flush DP", loss_fn=emnist_loss,
+                rc=quickstart_rc(8, dp=True), spec=pm.EMNIST_FREEZE,
+                kind="images", batch_fn=syn.client_batch_images,
+                init=pm.init_emnist_cnn,
+                expect=("clip_flat", "clip_flat/cluster", "fake_quantize_flat",
+                        "fake_quantize_flat/cluster"))
+
+
+def async_run(ds, init, updates, dev, task=None):
+    """The async FedBuff grid with per-flush DP at int8, ``updates``
+    server updates from seed 0, on ``task`` (:func:`emnist_async` by
+    default)."""
     from repro_torch.sim import grid
+    task = task or emnist_async()
     gc = grid.GridConfig(mode="async", fleet="pareto-mobile",
                          concurrency=CONCURRENCY, goal_count=GOAL,
                          staleness="polynomial")
-    return grid.run_grid(init, emnist_loss, ds, quickstart_rc(8, dp=True),
-                         updates, grid=gc, freeze_spec=pm.EMNIST_FREEZE,
-                         seed=0, device=dev)
+    return grid.run_grid(init, task["loss_fn"], ds, task["rc"], updates,
+                         grid=gc, freeze_spec=task["spec"], seed=0,
+                         data_kind=task["kind"], device=dev)
 
 
-def check_async_against_cpu(ds, dev):
+def check_async_against_cpu(ds, dev, task=None):
     """The async path's first ASYNC_CHECKED updates on the card against
     the same run on the CPU through the plain versions, from the same
     parameters."""
     from repro_torch.bridge import from_numpy_tree, to_numpy_tree
-    from repro_torch.models import paper_models as pm
-    host = to_numpy_tree(pm.init_emnist_cnn(0, device=dev))
-    card = async_run(ds, lambda s: pm.init_emnist_cnn(s, device=dev),
-                     ASYNC_CHECKED, dev)
+    task = task or emnist_async()
+    host = to_numpy_tree(task["init"](0, device=dev))
+    card = async_run(ds, lambda s: task["init"](s, device=dev),
+                     ASYNC_CHECKED, dev, task)
     cpu = async_run(ds, lambda s: from_numpy_tree(host, "cpu"),
-                    ASYNC_CHECKED, "cpu")
+                    ASYNC_CHECKED, "cpu", task)
     exact = (len(card.history) == len(cpu.history) == ASYNC_CHECKED
              and all({k: v for k, v in a.items()
                       if k not in ("loss", "delta_norm")}
@@ -1227,32 +1294,34 @@ def check_async_against_cpu(ds, dev):
     # the leaf's max|x| / 127 <= ||x|| / 127, times min(1, clip / ||x||)),
     # which the fixed goal_count denominator and server_lr shrink; allow
     # two such steps per flush
-    tol = ASYNC_CHECKED * 2 * 0.5 * DP_CLIP / 127 / GOAL + 1e-6
+    tol = (ASYNC_CHECKED * 2 * task["rc"].server_lr * DP_CLIP / 127 / GOAL
+           + 1e-6)
     print(f"  async, first {ASYNC_CHECKED} updates, card vs CPU: virtual "
           f"clock / staleness / scheduler stats / bytes / DP summary equal "
           f"{exact}; loss rel {loss_rel:.3e} (tol 1e-4), max |y| diff "
           f"{worst:.3e} (tol {tol:.3e}); virtual seconds "
           f"{card.virtual_seconds:.6f} / {cpu.virtual_seconds:.6f}")
     if not (exact and loss_rel <= 1e-4 and worst <= tol):
-        raise AssertionError("async DP path: the card's run disagrees with "
-                             "the CPU's")
+        raise AssertionError(f"{task['label']}: the card's run disagrees "
+                             f"with the CPU's")
 
 
-def drive_async_dp(ds, dev):
-    """Path 6: the async grid, FedBuff with per-flush DP at int8,
-    ASYNC_UPDATES server updates, with the launch counts set to 0 just
-    before and read just after; then the card against the CPU, and the
-    lane step and the buffered apply timed, one flush profiled. Returns
-    the launch counts."""
+def drive_async_dp(ds, dev, task=None):
+    """The async grid, FedBuff with per-flush DP at int8, ASYNC_UPDATES
+    server updates, with the launch counts set to 0 just before and read
+    just after; then the card against the CPU, and the lane step and the
+    buffered apply timed, one flush profiled. Path 6 on the EMNIST CNN
+    (the default ``task``), and the SO transformer's lane. Returns the
+    launch counts."""
     from repro_torch import kernels
     from repro_torch.core import dp as dp_lib, fedpt
-    from repro_torch.data import synthetic as syn
-    from repro_torch.models import paper_models as pm
     from repro_torch.nn import threefry
-    label = "async FedBuff, int8 + per-flush DP"
-    init = lambda s: pm.init_emnist_cnn(s, device=dev)  # noqa: E731
+    task = task or emnist_async()
+    label, rc = task["label"], task["rc"]
+    init = lambda s: task["init"](s, device=dev)  # noqa: E731
     kernels.reset_launches()
-    res = async_run(ds, init, ASYNC_UPDATES, dev)
+    with tail_route_spy() as routes:
+        res = async_run(ds, init, ASYNC_UPDATES, dev, task)
     counts = {**kernels.LAUNCHES, **kernels.ROUTES}
     losses = [h["loss"] for h in res.history]
     norms = [h["delta_norm"] for h in res.history]
@@ -1262,7 +1331,8 @@ def drive_async_dp(ds, dev):
           f"virtual seconds {res.virtual_seconds:.4f}, stats "
           f"{res.scheduler_stats}, dp {res.dp}")
     print(f"  seconds_per_round (per update, synchronized) "
-          f"{1e3 * res.seconds_per_round:.3f} ms; launches {counts}")
+          f"{1e3 * res.seconds_per_round:.3f} ms; launches {counts}; "
+          f"server tail routes {dict(routes)}")
     sigma = DP_NOISE * DP_CLIP / GOAL
     if len(res.history) != ASYNC_UPDATES or not all(
             math.isfinite(v) for v in losses + norms):
@@ -1270,21 +1340,18 @@ def drive_async_dp(ds, dev):
     if (res.dp["flushes"], res.dp["sigma"]) != (ASYNC_UPDATES, sigma) or \
             not math.isfinite(res.dp["epsilon"]):
         raise AssertionError(f"{label}: DP summary {res.dp}")
-    check_expected(label, counts, ("clip_flat", "clip_flat/cluster",
-                                   "fake_quantize_flat",
-                                   "fake_quantize_flat/cluster"))
-    check_async_against_cpu(ds, dev)
+    check_expected(label, counts, task["expect"])
+    check_async_against_cpu(ds, dev, task)
 
     # the two device steps of a flush, alone, at the path's shapes
-    rc = quickstart_rc(8, dp=True)
     y, frozen = res.y, res.frozen
-    lane_step = fedpt.make_lane_step(emnist_loss, rc, GOAL, device=dev)
+    lane_step = fedpt.make_lane_step(task["loss_fn"], rc, GOAL, device=dev)
     apply_fn = fedpt.make_buffered_apply(
         fedpt.resolve_server_opt(rc),
         flush_dp=dp_lib.FlushDPConfig(DP_CLIP, DP_NOISE, GOAL), device=dev)
     rng = np.random.default_rng(5)
-    batches = [syn.client_batch_images(ds, c, LOCAL_STEPS, LOCAL_BATCH,
-                                       rng)[0] for c in range(GOAL)]
+    batches = [task["batch_fn"](ds, c, rc.local_steps, rc.local_batch,
+                                rng)[0] for c in range(GOAL)]
     lane = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
     w = np.full(GOAL, 0.7, np.float32)
     sstate = fedpt.resolve_server_opt(rc).init(y)
@@ -1307,13 +1374,9 @@ def drive_async_dp(ds, dev):
     print(f"  lane step ({GOAL} clients) {lane_ms:.3f} ms, buffered apply "
           f"({GOAL}, {rows.shape[1]}) {apply_ms:.3f} ms (wall, median of "
           f"10, synchronized)")
-    wall, busy, n_kernels, top = profile_round(
-        lambda: apply_fn(y, sstate, lane_step(y, frozen, lane)[0], w,
-                         threefry.key(7)))
-    print(f"  profiled flush (one lane step + the apply): wall {wall:.3f} "
-          f"ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%, idle "
-          f"{100 * (1 - busy / wall):.1f}%), {n_kernels} device ops; host "
-          f"ops by self time (name, ms, calls): {top}")
+    profile_round(lambda: apply_fn(y, sstate, lane_step(y, frozen, lane)[0],
+                                   w, threefry.key(7)),
+                  "flush (one lane step + the apply)")
     return counts
 
 
@@ -1906,6 +1969,21 @@ def drive_serving(dev):
     if seqs.shape != (DECODE_BATCH, n_steps) or \
             not bool(((seqs >= 0) & (seqs < base.vocab_size)).all()):
         raise AssertionError("generate: tokens of the wrong shape or range")
+    # sampled decoding: categorical over the bf16 logits / temperature
+    serve.generate(params, cfg, prompt, 2, temperature=1.0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sampled = serve.generate(params, cfg, prompt, DECODE_STEPS,
+                             temperature=1.0, seed=0, device=dev)
+    torch.cuda.synchronize()
+    swall = (time.perf_counter() - t1) * 1e3
+    print(f"[serving] generate sampled (temperature 1.0, seed 0, bf16 "
+          f"logits): {swall:.3f} ms, {swall / n_steps:.3f} ms per decode "
+          f"step; row 0: {sampled[0].tolist()}")
+    if sampled.shape != seqs.shape or torch.equal(sampled, seqs) or \
+            not bool(((sampled >= 0) & (sampled < base.vocab_size)).all()):
+        raise AssertionError("sampled generate: tokens of the wrong shape "
+                             "or range, or the greedy ones")
 
     # consistency on the card, with the same weights
     short = torch.from_numpy(tokens[:, :CONSIST_LEN]).to(dev)
@@ -1935,6 +2013,336 @@ def drive_serving(dev):
     if not rel <= LOGIT_REL:
         raise AssertionError(f"decode vs forward logits: {rel}")
     return counts
+
+
+# --- rule 3: the paper's other two models, DP-FTRL, sampled decoding ------
+
+CIFAR_SIDE = 32       # CIFAR-10's own images (train.py's 24 is a CPU cut)
+SO_VOCAB = 10004      # the SO model's vocab (train.py's 2,004 is a CPU cut)
+DP_FTRL_ROUNDS = 5
+DP_FTRL_CLIENTS = 48  # examples/dp_federated_lm.py's dataset
+# (trainable, total, flat size, blocks, leaves) as the reference counts them
+MODEL_SHAPES = {
+    "ResNet PT": (2_914_634, 11_172_170, 2_942_976, 2_874, 52),
+    "ResNet FedAvg": (11_172_170, 11_172_170, 11_200_512, 10_938, 56),
+    "SO PT": (1_665_504, 2_261_472, 1_692_672, 1_653, 46),
+    "SO FedAvg": (2_261_472, 2_261_472, 2_288_640, 2_235, 52),
+}
+# a card round against the CPU's on these models: the update's difference
+# by norm, relative to the update (see check_model_round)
+UPDATE_NORM_REL = 2e-2
+
+
+class tail_route_spy:
+    """Counts the server tail's routes (``info["route"]`` of every
+    ``kernels/ops.agg_tail`` call the engines make) inside a ``with``."""
+
+    def __enter__(self):
+        from collections import Counter
+        from repro_torch.kernels import ops
+        self.ops, self.real, routes = ops, ops.agg_tail, Counter()
+
+        def spy(*args, **kw):
+            out, info = self.real(*args, **kw)
+            routes[info["route"]] += 1
+            return out, info
+        ops.agg_tail = spy
+        return routes
+
+    def __exit__(self, *exc):
+        self.ops.agg_tail = self.real
+        return False
+
+
+def so_lane_block_leaf(dev):
+    """The SO PT row's block->leaf map from its 46 leaf sizes in the
+    layout's (sorted path) order: the embedding, the final norm, per layer
+    ffn2 (bias, kernel), ln1, ln2, then wk, wo, wq, wv (bias, kernel),
+    and the positions. Built from the sizes alone, so that ``--kernel-times``
+    times the lane's shape on a tree without the SO model; ``main`` holds
+    it to the model's ``FlatLayout``. Returns (map, leaves, row length)."""
+    d, ff = 96, 2048
+    layer = [d, ff * d, d, d, d, d] + [d, d * d] * 4
+    sizes = [SO_VOCAB * d, d, d] + layer * 3 + [20 * d]
+    blocks = [-(-n // 1024) for n in sizes]
+    bl = np.repeat(np.arange(len(sizes), dtype=np.int32), blocks)
+    return torch.as_tensor(bl, device=dev), len(sizes), 1024 * len(bl)
+
+
+def model_task(name, dev):
+    """``launch/train.paper_task`` for a path of MODEL_SHAPES at full
+    width, with its partitioned parameters on the card, the counts and
+    layout asserted against the reference's."""
+    from repro_torch.core import flat as flat_lib, partition as part
+    from repro_torch.launch import train
+    task = "cifar" if name.startswith("ResNet") else "stackoverflow"
+    pt = train.paper_task(task, fully_trainable=name.endswith("FedAvg"),
+                          device=dev, cifar_side=CIFAR_SIDE,
+                          so_vocab=SO_VOCAB)
+    y, frozen = part.partition(pt.init_fn(0), pt.freeze_spec)
+    layout = flat_lib.FlatLayout.of(y)
+    n_y, n_z = part.count_params(y), part.count_params(frozen)
+    got = (n_y, n_y + n_z, layout.size, layout.num_blocks, len(layout.sizes))
+    print(f"[model] {name}: {n_y + n_z} params, {n_y} trainable "
+          f"({100 * n_y / (n_y + n_z):.2f}%), flat size {layout.size} in "
+          f"{layout.num_blocks} blocks over {len(layout.sizes)} leaves")
+    if got != MODEL_SHAPES[name]:
+        raise AssertionError(f"{name}: (trainable, total, size, blocks, "
+                             f"leaves) {got}, the reference's "
+                             f"{MODEL_SHAPES[name]}")
+    return pt, y, frozen
+
+
+def task_draws(pt, n, rc=None, seed=0):
+    """The first n (batch, weights) cohort draws of ``pt``, from ``seed``."""
+    from repro_torch.data import synthetic as syn
+    rc = rc or pt.rc
+    from repro_torch.sim.grid import num_clients
+    rng = np.random.default_rng(seed)
+    n_clients = num_clients(pt.dataset)
+    out = []
+    for _ in range(n):
+        cids = syn.sample_cohort(rng, n_clients, rc.clients_per_round)
+        out.append(syn.cohort_batch(pt.dataset, cids, rc.local_steps,
+                                    rc.local_batch, rng, kind=pt.kind))
+    return out
+
+
+def update_gap(y0, y_card, y_cpu):
+    """(||dy_card - dy_cpu||, ||dy_cpu||) over every leaf, dy = y - y0."""
+    diff = step = 0.0
+    for a, b, c in zip(leaves_of(y0), leaves_of(y_card), leaves_of(y_cpu)):
+        a, b, c = a.double().cpu(), b.double().cpu(), c.double()
+        diff += float(((b - c) ** 2).sum())
+        step += float(((c - a) ** 2).sum())
+    return diff ** 0.5, step ** 0.5
+
+
+def check_model_round(label, pt, y0, frozen, batch, w, dev, rc=None,
+                      server_opt=None):
+    """One round on the card against the same round on the CPU through
+    the plain versions, from the same start, batch and round key.
+
+    The EMNIST paths' elementwise bound on dy does not hold on these
+    models: a ReLU pre-activation within the float32 reassociation noise
+    of 0 (cuDNN's and the CPU's convolution and matmul orders) falls on
+    the other side of the kink on the other device, which moves that
+    client's step by the unit's whole gradient share, and Adam's first
+    step g / (|g| + 1e-8) turns a gradient that is float noise (the SO
+    key bias's, 0 in exact arithmetic) into a step of up to the learning
+    rate with the noise's sign. So the update is held by norm,
+    ||dy_card - dy_cpu|| <= UPDATE_NORM_REL ||dy_cpu||, with the loss
+    within rel 1e-4 and delta_norm within rel 1e-2
+    (``tests/test_torch_tokens.py`` measures 0.7e-2 by norm after two SO
+    rounds against JAX)."""
+    from repro_torch.bridge import from_numpy_tree, to_numpy_tree
+    from repro_torch.core import fedpt
+    from repro_torch.nn import threefry
+    rc = rc or pt.rc
+    out = []
+    for d, y, z in ((dev, y0, frozen),
+                    ("cpu", from_numpy_tree(to_numpy_tree(y0), "cpu"),
+                     from_numpy_tree(to_numpy_tree(frozen), "cpu"))):
+        sopt = server_opt() if server_opt else None
+        round_fn, sopt = fedpt.make_round_fn(pt.loss_fn, rc, sopt, device=d)
+        y1, _, m = round_fn(y, sopt.init(y), z, batch, w, threefry.key(0))
+        out.append((float(m["loss"]), float(m["delta_norm"]), y1))
+    (lg, ng, yg), (lc, nc, yc) = out
+    gap, step = update_gap(y0, yg, yc)
+    print(f"  {label}, round 0, card vs CPU: loss {lg:.7f} / {lc:.7f}, "
+          f"delta_norm {ng:.7f} / {nc:.7f}, ||dy diff|| / ||dy|| "
+          f"{gap / step:.3e} (tol {UPDATE_NORM_REL:.0e})")
+    if not (abs(lg - lc) <= 1e-4 * abs(lc) and abs(ng - nc) <= 1e-2 * nc
+            and gap <= UPDATE_NORM_REL * step):
+        raise AssertionError(f"{label}: the card's round disagrees with "
+                             f"the CPU's")
+
+
+def client_peak_mib(pt, y, frozen, batch, rc, dev):
+    """Peak device memory (MiB) around one client's local update (tau
+    steps of its optimizer) on the card, and the part above what was
+    allocated before it: the counterpart of Table 4's peak memory."""
+    from repro_torch.core import fedpt
+    from repro_torch.optim import optimizers as opt_lib
+    update = fedpt.make_client_update(
+        pt.loss_fn, opt_lib.get_optimizer(rc.client_opt, rc.client_lr),
+        rc.local_steps)
+    cb = {k: torch.as_tensor(v[0], device=dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    delta, _ = update(y, frozen, cb)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del delta
+    return peak / 2 ** 20, (peak - base) / 2 ** 20
+
+
+def drive_model_path(label, pt, y0, frozen, draws, expect, dev, rc=None,
+                     server_opt=None, falls=True):
+    """A round-engine path on a paper model: len(draws) - 1 timed rounds
+    with the launch counts set to 0 just before and read just after (and
+    the server tail's routes), the eval at the end, the peak memory of one
+    client update, and one profiled round. Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.core import fedpt, partition as part
+    from repro_torch.nn import threefry
+    from repro_torch.nn.basic import tree_leaves
+    rc = rc or pt.rc
+    round_fn, sopt = fedpt.make_round_fn(
+        pt.loss_fn, rc, server_opt() if server_opt else None, device=dev)
+    y, sstate = y0, sopt.init(y0)
+    losses, norms, ms = [], [], []
+    kernels.reset_launches()
+    with tail_route_spy() as routes:
+        for r, (batch, w) in enumerate(draws[:-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, sstate, m = round_fn(y, sstate, frozen, batch, w,
+                                    threefry.key(r))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["delta_norm"]))
+    counts = {**kernels.LAUNCHES, **kernels.ROUTES}
+    acc = pt.eval_fn(part.merge(y, frozen))["accuracy"]
+    print(f"[main path] {label}: losses {[round(v, 4) for v in losses]}")
+    print(f"  delta_norm {[round(v, 5) for v in norms]}")
+    print(f"  per-round wall ms {[round(v, 3) for v in ms]} (median "
+          f"{float(np.median(ms)):.3f}, first round included in the list); "
+          f"{'NWP ' if pt.kind == 'tokens' else ''}accuracy after "
+          f"{len(ms)} rounds {acc:.4f}; launches {counts}; server tail "
+          f"routes {dict(routes)}")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{label}: non-finite loss or norm")
+    if falls and not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall")
+    if not all(torch.isfinite(leaf).all() for leaf in tree_leaves(y)):
+        raise AssertionError(f"{label}: non-finite parameters")
+    if set(routes) != {"staged"}:
+        raise AssertionError(f"{label}: server tail routes {dict(routes)}")
+    check_expected(label, counts, expect)
+    batch, w = draws[-1]
+    peak, above = client_peak_mib(pt, y0, frozen, batch, rc, dev)
+    print(f"  peak device memory around one client update: {peak:.1f} MiB "
+          f"({above:.1f} MiB above what was held before it)")
+    profile_round(
+        lambda: round_fn(y, sstate, frozen, batch, w, threefry.key(ROUNDS)))
+    return counts
+
+
+def so_async_task(pt):
+    """The async DP path's configuration (FedBuff over pareto-mobile,
+    concurrency 12, goal 6, polynomial staleness, int8, clip 0.5, noise
+    multiplier 0.4) on the SO PT model: its lane rows of 1,653 blocks take
+    the two-pass Q->DQ (``leaf_maxabs`` then ``qdq_kernel``) and the
+    three-launch clip."""
+    import dataclasses
+    from repro_torch.data import synthetic as syn
+    from repro_torch.models import paper_models as pm
+    rc = dataclasses.replace(pt.rc, uplink_bits=8, dp_clip_norm=DP_CLIP,
+                             dp_noise_multiplier=DP_NOISE)
+    return dict(label="SO async FedBuff, int8 + per-flush DP", rc=rc,
+                loss_fn=pt.loss_fn, spec=pt.freeze_spec, kind="tokens",
+                batch_fn=syn.client_batch_tokens,
+                init=lambda s, device: pm.init_so_transformer(
+                    s, vocab=SO_VOCAB, device=device),
+                expect=("leaf_maxabs", "fake_quantize_flat",
+                        "fake_quantize_flat/two_pass", "clip_flat",
+                        "clip_flat/three_launch"))
+
+
+def drive_so_async(pt, dev):
+    """The SO async int8 DP path; besides the async checks, no lane may
+    take a cluster route (its rows hold more blocks than they fit)."""
+    counts = drive_async_dp(pt.dataset, dev, so_async_task(pt))
+    for name in ("fake_quantize_flat/cluster", "clip_flat/cluster"):
+        if counts[name]:
+            raise AssertionError(f"SO async: {name} launched {counts[name]}"
+                                 " times")
+    return counts
+
+
+def dp_ftrl_setup(dev):
+    """``examples/dp_federated_lm.py`` at vocab 10,004: the SO PT model, a
+    48-client token dataset, DP-FedAvg's per-client clip at 0.3 with
+    uniform weights and no round noise, and the DP-FTRL server (noise
+    multiplier 2.33, tree noise keyed by its seed)."""
+    from repro_torch.core import dp, fedpt
+    from repro_torch.data import synthetic as syn
+    from repro_torch.fl import runtime
+    from repro_torch.launch import train
+    from repro_torch.models import paper_models as pm
+    pt = train.paper_task("stackoverflow", device=dev, so_vocab=SO_VOCAB)
+    pt.dataset = syn.make_federated_tokens(DP_FTRL_CLIENTS, 64,
+                                           vocab=SO_VOCAB, seed=0)
+    pt.eval_fn = runtime.nwp_accuracy_eval(pm.so_transformer_forward,
+                                           pt.dataset.test_tokens)
+    rc = fedpt.RoundConfig(16, 2, 16, "sgd", 10 ** -0.5, "sgd", 1.0,
+                           dp_clip_norm=0.3, uniform_weights=True)
+    dcfg = dp.DPFTRLConfig(lr=0.3, noise_multiplier=2.33, clip_norm=0.3,
+                           clients_per_round=16, momentum=0.9)
+    return pt, rc, lambda: dp.dp_ftrl_server_opt(dcfg)
+
+
+def drive_dp_ftrl(dev):
+    """The SO DP-FTRL path: DP_FTRL_ROUNDS rounds of the round engine with
+    the DP-FTRL server (the clip on the staged tail, ``sumsq`` for
+    delta_norm, ``tree_noise`` in the server step), first round card vs
+    CPU, then ``run_federated`` as the example drives it. Returns the
+    launch counts of the timed rounds."""
+    from repro_torch.core import partition as part
+    from repro_torch.fl import runtime
+    pt, rc, sopt = dp_ftrl_setup(dev)
+    label = "SO DP-FTRL (noise 2.33), clip 0.3"
+    y0, frozen = part.partition(pt.init_fn(0), pt.freeze_spec)
+    draws = task_draws(pt, DP_FTRL_ROUNDS + 1, rc)
+    check_model_round(label, pt, y0, frozen, *draws[0], dev, rc, sopt)
+    counts = drive_model_path(label, pt, y0, frozen, draws, ("sumsq",), dev,
+                              rc, sopt, falls=False)
+    res = runtime.run_federated(
+        pt.init_fn, pt.loss_fn, pt.dataset, rc, DP_FTRL_ROUNDS,
+        freeze_spec=pt.freeze_spec, data_kind="tokens", server_opt=sopt(),
+        eval_every=DP_FTRL_ROUNDS, eval_fn=pt.eval_fn, device=dev)
+    last = res.history[-1]
+    print(f"  run_federated, {DP_FTRL_ROUNDS} rounds: loss "
+          f"{[round(h['loss'], 4) for h in res.history]}, NWP accuracy "
+          f"{last['accuracy']:.4f}, comm reduction {res.comm.reduction:.2f}x,"
+          f" seconds_per_round {1e3 * res.seconds_per_round:.3f} ms")
+    if not all(math.isfinite(h["loss"]) for h in res.history):
+        raise AssertionError(f"{label}: run_federated's loss not finite")
+    return counts
+
+
+def check_categorical(dev):
+    """``threefry.categorical`` on the card against the CPU port, on
+    fixed logits drawn from a seed (64 rows of NeMo's 131,072-token vocab)
+    in float32 and bfloat16. A row may pick another token only where its
+    top two perturbed logits lie within the Gumbel bound
+    (``threefry.gumbel_tolerance`` of each, plus one rounding of the sum);
+    the count of such rows is printed."""
+    from repro_torch.nn import threefry
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    logits = torch.randn((64, 131072), generator=gen) * 3.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = logits.to(dtype)
+        key = threefry.key(9)
+        card = threefry.categorical(key, x.to(dev)).cpu()
+        cpu = threefry.categorical(key, x)
+        g = threefry.gumbel(key, tuple(x.shape), dtype)
+        p = (g + x).float()
+        top2 = p.topk(2, dim=-1)
+        gi = g.float().gather(1, top2.indices)
+        tol = (threefry.gumbel_tolerance(gi.to(dtype)).sum(-1)
+               + 2 * torch.finfo(dtype).eps * top2.values.abs().max(-1).values)
+        near = (top2.values[:, 0] - top2.values[:, 1]) <= tol
+        differ = card != cpu
+        print(f"[serving] categorical on the card vs the CPU, {dtype}, "
+              f"(64, 131072): {int(differ.sum())} rows pick another token, "
+              f"{int(near.sum())} rows' top two within the Gumbel bound")
+        if bool((differ & ~near).any()):
+            raise AssertionError(f"categorical ({dtype}): the card picks "
+                                 f"other tokens than the CPU")
 
 
 def kernel_times_only(src: str) -> int:
@@ -2230,8 +2638,30 @@ def main(argv) -> int:
     if counts["swa_attention"] <= 0:
         raise AssertionError("swa_attention never launched on the serving "
                              "path")
+    check_categorical(dev)
 
-    # --- phase 4: summary ------------------------------------------------
+    # --- phase 4: the paper's ResNet-18-GN and SO transformer ------------
+    bl_so, _, _ = so_lane_block_leaf("cpu")
+    for path in MODEL_SHAPES:
+        pt, ys, zs = model_task(path, dev)
+        if path == "SO PT" and not np.array_equal(
+                bl_so.numpy(), flat_lib.FlatLayout.of(ys).block_leaf()):
+            raise AssertionError("so_lane_block_leaf differs from the SO "
+                                 "PT layout's map")
+        draws = task_draws(pt, ROUNDS + 1)
+        check_model_round(path, pt, ys, zs, *draws[0], dev)
+        counts = drive_model_path(path, pt, ys, zs, draws, ("sumsq",), dev)
+        if path == "SO PT":
+            counts = {k: counts[k] + v for k, v in
+                      drive_so_async(pt, dev).items()}
+        for name in launches:
+            launches[name] += counts[name]
+        del pt, ys, zs
+    counts = drive_dp_ftrl(dev)
+    for name in launches:
+        launches[name] += counts[name]
+
+    # --- phase 5: summary ------------------------------------------------
     if len(records) != 10:
         raise AssertionError(f"{len(records)} kernel records, not 10")
     for rec in records:

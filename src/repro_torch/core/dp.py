@@ -1,6 +1,7 @@
 """Per-flush differential privacy for buffered-async (FedBuff)
-aggregation, port of ``FlushDPConfig`` and ``FlushAccountant`` from
-``repro/core/dp.py`` (plain Python RDP accounting).
+aggregation and the DP-FTRL server optimizer, port of ``FlushDPConfig``,
+``FlushAccountant``, ``tree_noise``, ``DPFTRLConfig``,
+``dp_ftrl_server_opt`` and ``NOISE_TO_EPS`` from ``repro/core/dp.py``.
 
 The sync engine privatizes one *round*: sigma = z * C / clients_per_round
 with a fixed denominator so dropped clients shrink the numerator, never
@@ -12,14 +13,21 @@ the mean's denominator nor sigma changes for it, so every flush of a
 run is the same Gaussian mechanism and composition stays a simple
 product over flushes.
 
-DP-FTRL (``tree_noise`` and its ServerOpt) is not ported yet.
+DP-FTRL (Kairouz et al. 2021) privatizes the running sum of the
+pseudo-gradients instead, with binary-tree noise (``tree_noise``), as the
+paper's section 4.2 runs it on Stack Overflow.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import torch
+
+from repro_torch.nn import threefry
+from repro_torch.nn.basic import flatten_params, tree_map, unflatten_params
 from repro_torch.obs import trace as trace_lib
+from repro_torch.optim import optimizers as opt_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,3 +132,89 @@ class FlushAccountant:
                 "sigma": self.cfg.sigma,
                 "noise_multiplier": self.cfg.noise_multiplier,
                 "epsilon": self.epsilon(delta), "delta": delta}
+
+
+# binary-tree levels the reference's noise loop walks (a step t < 2**30)
+TREE_LEVELS = 30
+
+
+def tree_noise(rng_key: threefry.Key, tree, sigma: float, t: int):
+    """Noise of the binary-tree cumulative-sum estimator at step t
+    (1-indexed): per leaf, the sum of one Gaussian per set bit of t, each
+    keyed by ``fold_in(fold_in(leaf_key, level), t >> level)``, times
+    sigma; the leaf keys are ``split(rng_key, n_leaves)`` in leaf order.
+    Variance grows as popcount(t) * sigma^2 <= log2(T) * sigma^2.
+
+    The reference draws all 30 levels and adds ``bit * z`` in level
+    order; a clear bit adds 0 * z, which leaves the float32 sum as it was
+    (z is finite), so drawing the set bits alone, in the same order, gives
+    the same sums bit for bit (test-enforced)."""
+    t = int(t)
+    if not 0 <= t < 1 << TREE_LEVELS:
+        raise ValueError(f"step {t} outside [0, 2**{TREE_LEVELS})")
+    leaves = list(flatten_params(tree))
+    out = {}
+    for (path, leaf), leaf_key in zip(leaves,
+                                      threefry.split(rng_key, len(leaves))):
+        acc = torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
+        for level in range(TREE_LEVELS):
+            if (t >> level) & 1:
+                k = threefry.fold_in(threefry.fold_in(leaf_key, level),
+                                     t >> level)
+                acc = acc + threefry.normal(k, tuple(leaf.shape), leaf.device)
+        out[path] = sigma * acc
+    return unflatten_params(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPFTRLConfig:
+    lr: float
+    noise_multiplier: float
+    clip_norm: float
+    clients_per_round: int
+    momentum: float = 0.9
+    seed: int = 1234
+
+
+def dp_ftrl_server_opt(cfg: DPFTRLConfig) -> opt_lib.Optimizer:
+    """ServerOpt implementing DP-FTRL(-M): the model is a function of the
+    privatized cumulative sum S_t = sum_i delta_i + TreeNoise(t).
+
+    state = {x0, cumsum, prev_priv, momentum buffer m, t}; t is a host
+    int, so the noise keys need no device read. The incoming "grads" are
+    -delta (the round engine's pseudo-gradient convention), already
+    clipped per client and averaged with uniform weights, so the
+    sensitivity per round is clip_norm / clients_per_round."""
+    sigma = cfg.noise_multiplier * cfg.clip_norm / cfg.clients_per_round
+    key = threefry.key(cfg.seed)
+
+    def init(params):
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"x0": tree_map(torch.clone, params),
+                "cumsum": tree_map(zeros, params),
+                "prev_priv": tree_map(zeros, params),
+                "m": tree_map(zeros, params), "t": 0}
+
+    def update(params, grads, state):
+        t = state["t"] + 1
+        # grads = -delta; the cumulative sum of the descent direction
+        cumsum = tree_map(lambda c, g: c + g.float(), state["cumsum"], grads)
+        priv = opt_lib.tree_add(cumsum, tree_noise(key, cumsum, sigma, t))
+        # momentum on the privatized increment
+        inc = opt_lib.tree_sub(priv, state["prev_priv"])
+        m = tree_map(lambda mm, ii: cfg.momentum * mm + ii, state["m"], inc)
+        new = tree_map(lambda p, mm: (p - cfg.lr * mm).to(p.dtype), params, m)
+        return new, {"x0": state["x0"], "cumsum": cumsum, "prev_priv": priv,
+                     "m": m, "t": t}
+
+    return opt_lib.Optimizer(
+        init, update, f"dp-ftrl(lr={cfg.lr},z={cfg.noise_multiplier})")
+
+
+# Noise-multiplier -> epsilon mapping quoted from the paper's Table 5
+# (Kairouz et al. 2021b accountant; no offline accountant available here):
+# noise 0 -> eps inf, 1.13 -> 19.74, 2.33 -> 8.50, 4.03 -> 5.66,
+# 6.21 -> 2.95, 8.83 -> 2.04 (SO NWP, 1600 rounds, report goal 100).
+NOISE_TO_EPS = {0.0: float("inf"), 1.13: 19.74, 2.33: 8.50,
+                4.03: 5.66, 6.21: 2.95, 8.83: 2.04}

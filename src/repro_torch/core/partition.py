@@ -8,6 +8,7 @@ from __future__ import annotations
 import re
 from typing import Any, Dict, Tuple
 
+from repro_torch.core import comm
 from repro_torch.nn import basic
 
 
@@ -37,3 +38,25 @@ def trainable_fraction(params, freeze_spec) -> float:
     y, z = partition(params, freeze_spec)
     ny, nz = basic.tree_size(y), basic.tree_size(z)
     return ny / max(ny + nz, 1)
+
+
+def summarize(params, freeze_spec) -> Dict[str, float]:
+    """The paper's Table-1/2/3 row for a model and freeze spec: parameter
+    counts, the trainable percentage, the communication reduction
+    (download y + seed, upload delta y, against twice the full model;
+    ``comm.CommReport`` is the one formula) and the byte split. The
+    reference reaches it as the one-tier case of ``summarize_plan``;
+    trainability plans are not ported, so it is computed here directly."""
+    y, z = partition(params, freeze_spec)
+    ny, nz = basic.tree_size(y), basic.tree_size(z)
+    rep = comm.report_for(y, z)
+    total = ny + nz
+    return {
+        "total_params": total,
+        "trainable_params": ny,
+        "frozen_params": nz,
+        "trainable_pct": 100.0 * ny / total,
+        "comm_reduction": rep.reduction,
+        "trainable_bytes": rep.trainable_bytes,
+        "frozen_bytes": rep.full_bytes - rep.trainable_bytes,
+    }

@@ -72,3 +72,23 @@ def accuracy_eval(forward_fn, images, labels, batch: int = 256):
         return {"accuracy": correct / len(labels)}
 
     return ev
+
+
+def nwp_accuracy_eval(forward_fn, tokens, batch: int = 128):
+    """Next-word-prediction accuracy (the paper's SO NWP metric): the
+    share of positions 1..S-1 whose token is the argmax of the logits at
+    the position before. ``tokens`` is a host (N, S) array, moved batch by
+    batch to the device of the parameters the evaluator is given."""
+
+    def ev(params):
+        dev = tree_leaves(params)[0].device
+        correct = total = 0
+        with torch.no_grad():
+            for i in range(0, len(tokens), batch):
+                t = torch.as_tensor(tokens[i:i + batch], device=dev)
+                pred = forward_fn(params, t)[:, :-1, :].argmax(-1)
+                correct += int((pred == t[:, 1:]).sum())
+                total += pred.numel()
+        return {"accuracy": correct / total}
+
+    return ev

@@ -1,6 +1,6 @@
 """Serving entry point, port of ``repro/launch/serve.py``: batched greedy
-autoregressive decoding with KV caches (ring buffers under a sliding
-window), on the card unless ``--device cpu``.
+or sampled autoregressive decoding with KV caches (ring buffers under a
+sliding window), on the card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b \\
       --device cpu --batch 4 --steps 32
@@ -36,20 +36,29 @@ def prefill_by_steps(params, cfg, prompt_tokens, max_len: int, device=None):
 
 def generate(params, cfg, prompt_tokens, steps: int, max_len: int = 0,
              temperature: float = 0.0, seed: int = 0, device=None):
-    """Greedy generation. prompt_tokens: (B, P) -> (B, P + steps) int32,
-    on the card unless ``device="cpu"``. Sampling (``temperature > 0``)
-    needs JAX's ``random.categorical``, not ported yet."""
-    if temperature > 0:
-        raise NotImplementedError("sampled decoding (temperature > 0) is not "
-                                  "ported yet; greedy only")
+    """Greedy / sampled generation. prompt_tokens: (B, P) -> (B, P +
+    steps) int32, on the card unless ``device="cpu"``. With ``temperature
+    > 0`` each step splits the key of ``seed`` and draws
+    ``threefry.categorical`` from the last logits over the temperature,
+    as the reference draws ``jax.random.categorical``."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt_tokens, device=dev).to(torch.int32)
     B, P = prompt.shape
     logits, cache = prefill_by_steps(params, cfg, prompt, max_len or (P + steps),
                                      dev)
     out = [prompt]
+    key = threefry.key(seed)
     for _ in range(steps):
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        last = logits[:, -1]
+        if temperature > 0:
+            key, k = threefry.split(key)
+            # tensor / tensor: torch's CUDA `tensor / python_scalar` is a
+            # reciprocal multiply, an ulp off the reference's division
+            temp = torch.full((), temperature, dtype=last.dtype,
+                              device=last.device)
+            tok = threefry.categorical(k, last / temp)[:, None]
+        else:
+            tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
         out.append(tok)
         logits, cache = dlm.decode_step(params, cfg, cache, tok)
     return torch.cat(out, dim=1)

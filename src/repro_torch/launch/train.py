@@ -1,9 +1,31 @@
-"""Training launcher, port of ``repro/launch/train.py``: so far only
-``reduced_config``, the smoke-scale variant the serving CLI and the tests
-use (the training loop over the model zoo comes with a later slice)."""
+"""Training launcher, port of ``repro/launch/train.py``.
+
+Paper tasks: federated training of the paper's own models on synthetic
+federated data, on the card unless ``--device cpu``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --task emnist \\
+        --rounds 100 [--fully-trainable] [--device cpu]
+
+``--task`` is ``emnist`` (Table 1), ``cifar`` (ResNet-18-GN, Table 2) or
+``stackoverflow`` (the NWP transformer, Table 3). The assigned
+architectures' training (``--arch``) waits for the model zoo's training
+loss (ROADMAP.md, Queue 1 item 12); ``reduced_config`` is here for the
+serving CLI and the tests.
+"""
 from __future__ import annotations
 
+import argparse
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import fedpt
+from repro_torch.data import synthetic as syn
+from repro_torch.fl import runtime
 from repro_torch.models import decoder_lm as dlm
+from repro_torch.models import paper_models as pm
 
 
 def reduced_config(cfg, max_layers: int = 2, d_model: int = 256,
@@ -35,3 +57,124 @@ def reduced_config(cfg, max_layers: int = 2, d_model: int = 256,
         num_prefix_tokens=min(cfg.num_prefix_tokens, 8),
         compute_dtype="float32",
     )
+
+
+def image_loss(forward_fn):
+    """Mean cross-entropy of ``forward_fn(params, b["images"])`` against
+    ``b["labels"]``."""
+    def loss_fn(params, b):
+        lp = torch.log_softmax(forward_fn(params, b["images"]), -1)
+        return -lp.gather(1, b["labels"].long()[:, None]).mean(), {}
+    return loss_fn
+
+
+def token_loss(forward_fn):
+    """Next-word cross-entropy of ``forward_fn(params, b["tokens"])``."""
+    def loss_fn(params, b):
+        logits = forward_fn(params, b["tokens"])
+        return dlm.lm_loss(logits[:, :-1], b["tokens"][:, 1:]), {}
+    return loss_fn
+
+
+@dataclasses.dataclass
+class PaperTask:
+    """One of the paper's tasks, as ``run_paper_task`` trains it."""
+    dataset: Any
+    init_fn: Callable[[int], Any]
+    forward: Callable
+    loss_fn: Callable
+    freeze_spec: tuple
+    rc: fedpt.RoundConfig
+    kind: str
+    eval_fn: Callable
+
+
+def paper_task(task: str, fully_trainable: bool = False, seed: int = 0,
+               device=None, cifar_side: int = 24,
+               so_vocab: int = 2004) -> PaperTask:
+    """The reference's task settings, with its parameters built on
+    ``device``. ``cifar_side`` (CIFAR-10's images are 32 x 32) and
+    ``so_vocab`` (the model's vocab is 10,004) keep the reference's CPU
+    cuts by default."""
+    dev = resolve_device(device)
+    if task == "emnist":
+        ds = syn.make_federated_images(60, 60, (28, 28, 1), 62, seed=seed)
+        init_fn = lambda s: pm.init_emnist_cnn(s, device=dev)  # noqa: E731
+        fwd = pm.emnist_cnn_forward
+        spec = () if fully_trainable else pm.EMNIST_FREEZE
+        rc = fedpt.RoundConfig(20, 2, 16, "sgd", 0.05, "sgd", 0.5)
+        kind = "images"
+    elif task == "cifar":
+        ds = syn.make_federated_images(50, 100, (cifar_side, cifar_side, 3),
+                                       10, seed=seed)
+        init_fn = lambda s: pm.init_resnet18(s, device=dev)  # noqa: E731
+        fwd = pm.resnet18_forward
+        spec = () if fully_trainable else pm.resnet18_freeze_spec((3,))
+        rc = fedpt.RoundConfig(10, 2, 32, "sgdm", 10**-0.5, "sgdm", 0.1)
+        kind = "images"
+    elif task == "stackoverflow":
+        ds = syn.make_federated_tokens(64, 64, vocab=so_vocab, seed=seed)
+        init_fn = lambda s: pm.init_so_transformer(  # noqa: E731
+            s, vocab=so_vocab, device=dev)
+        fwd = pm.so_transformer_forward
+        spec = () if fully_trainable else pm.so_freeze_spec((0, 1, 2))
+        rc = fedpt.RoundConfig(32, 2, 16, "adam", 0.1, "sgd", 0.03)
+        kind = "tokens"
+    else:
+        raise ValueError(task)
+    if kind == "images":
+        loss_fn = image_loss(fwd)
+        ev = runtime.accuracy_eval(fwd, ds.test_images, ds.test_labels)
+    else:
+        loss_fn = token_loss(fwd)
+        ev = runtime.nwp_accuracy_eval(fwd, ds.test_tokens)
+    return PaperTask(ds, init_fn, fwd, loss_fn, spec, rc, kind, ev)
+
+
+def run_paper_task(task: str, rounds: int, fully_trainable: bool,
+                   seed: int = 0, log: bool = True, device=None):
+    """Train one of the paper's tasks for ``rounds`` rounds through
+    ``run_federated``, evaluating every quarter of the run; on the card
+    unless ``device="cpu"``."""
+    pt = paper_task(task, fully_trainable, seed, device)
+    return runtime.run_federated(
+        pt.init_fn, pt.loss_fn, pt.dataset, pt.rc, rounds,
+        freeze_spec=pt.freeze_spec, seed=seed, data_kind=pt.kind,
+        eval_every=max(1, rounds // 4), eval_fn=pt.eval_fn, log=log,
+        device=device)
+
+
+def run_reduced_arch(arch: str, rounds: int, seed: int = 0, log: bool = True,
+                     device=None):
+    raise NotImplementedError(
+        f"training {arch!r} needs decoder_lm.train_loss and the model "
+        "zoo's training loop, not ported yet (ROADMAP.md, Queue 1 item 12)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--task", choices=["emnist", "cifar", "stackoverflow"])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--fully-trainable", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    if args.task:
+        res = run_paper_task(args.task, args.rounds, args.fully_trainable,
+                             args.seed, device=args.device)
+    else:
+        res, cfg = run_reduced_arch(args.arch, args.rounds, args.seed,
+                                    device=args.device)
+        print(f"arch={cfg.name} trainable share: "
+              f"{100 * res.comm.trainable_bytes / res.comm.full_bytes:.2f}%")
+    print(f"final loss={res.history[-1]['loss']:.4f} "
+          f"comm reduction={res.comm.reduction:.1f}x "
+          f"sec/round={res.seconds_per_round:.2f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,8 @@ FedPT regenerates every frozen leaf on the client from one scalar seed
 The reference is jax 0.9.0's ``jax/_src/prng.py`` (``threefry_seed``,
 ``iota_2x32_shape``, ``_threefry2x32_lowering``, ``_threefry_fold_in``,
 ``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``)
-and ``jax/_src/random.py`` (``_randint``, ``_uniform``, ``_normal_real``).
+and ``jax/_src/random.py`` (``_randint``, ``_uniform``, ``_normal_real``,
+``_gumbel`` in its default "low" mode, ``categorical`` with replacement).
 
 torch has no full uint32 arithmetic, so a 32-bit word is held in int64
 and masked to 32 bits after every add and shift. The same functions take
@@ -81,15 +82,55 @@ def random_bits(k: Key, shape, device=None) -> torch.Tensor:
 
 
 def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform`` in float32: 23 random mantissa bits under
-    the exponent of 1.0 give [1, 2), shifted and scaled to the range."""
+            device=None, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform`` in float32, bfloat16 or float16: random
+    mantissa bits under the exponent of 1.0 give [1, 2), shifted and
+    scaled to the range in ``dtype``'s arithmetic. float32 takes the top
+    23 of 32 bits; a 16-bit type takes the low 8 (bfloat16, 7 mantissa
+    bits) or 16 (float16) bits of the 32-bit word, as JAX draws them, and
+    keeps the top ``nmant`` of those."""
     bits = random_bits(k, shape, device)
-    mant = (bits >> 9) | 0x3F800000
-    floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    if dtype == torch.float32:
+        mant = (bits >> 9) | 0x3F800000
+        floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    else:
+        nmant = {torch.bfloat16: 7, torch.float16: 10}[dtype]
+        width = 8 if nmant < 8 else 16
+        one = torch.tensor(1.0, dtype=dtype).view(torch.int16).item()
+        mant = ((bits & ((1 << width) - 1)) >> (width - nmant)) | one
+        floats = mant.to(torch.int16).view(dtype) - 1.0
+    lo = torch.tensor(minval, dtype=dtype, device=floats.device)
+    hi = torch.tensor(maxval, dtype=dtype, device=floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def gumbel(k: Key, shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``jax.random.gumbel`` in its default "low" mode:
+    ``-log(-log(u))`` with u uniform on [tiny, 1), every op in ``dtype``.
+    The uniform's bits are JAX's exactly; the logs round as the library's
+    do (:func:`gumbel_tolerance`)."""
+    u = uniform(k, shape, torch.finfo(dtype).tiny, 1.0, device, dtype)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_tolerance(g: torch.Tensor) -> torch.Tensor:
+    """How far two libraries' Gumbel draws from the same uniform may lie
+    apart: each log is within one ulp (eps relative, eps the dtype's
+    ``finfo.eps``), the inner log's relative error passes to the outer
+    one as an absolute error eps, and both libraries err, so
+    |g - g'| <= 2 eps (1 + |g|). In a 16-bit type the inner log rounds to
+    that type, so the two agree unless their float32 logs straddle a
+    rounding boundary, which moves g by about one ulp, within the bound."""
+    eps = torch.finfo(g.dtype).eps
+    return 2 * eps * (1 + g.float().abs())
+
+
+def categorical(k: Key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(k, logits, axis)`` with replacement: the
+    argmax (first on ties, as ``jnp.argmax``) of ``gumbel + logits`` in
+    the logits' dtype, one draw per distribution. Returns int32."""
+    g = gumbel(k, tuple(logits.shape), logits.dtype, logits.device)
+    return torch.argmax(g + logits, dim=axis).to(torch.int32)
 
 
 def randint(k: Key, shape, minval: int, maxval: int,

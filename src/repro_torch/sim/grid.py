@@ -192,7 +192,6 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
     grid = grid or GridConfig()
     tel_cfg = trace_lib.resolve_telemetry(grid.telemetry)
     _refuse_unported(grid, tel_cfg)
-    syn.check_kind(data_kind)
     N = num_clients(dataset)
     if rc.clients_per_round > N:
         raise ValueError(f"clients_per_round={rc.clients_per_round} exceeds "
@@ -255,9 +254,10 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
     common = dict(fleet=fleet, report=report, down_bytes=down_bytes,
                   up_bytes=up_bytes, compute_seconds=compute_seconds,
                   data_rng=data_rng, dev_rng=dev_rng, seed=seed,
-                  eval_every=eval_every, eval_fn=eval_fn, log=log, dyn=dyn,
-                  dyn_rng=dyn_rng, policy=policy, registry=registry,
-                  tracer=tracer, bfaults=bfaults, san=san, dev=dev)
+                  data_kind=data_kind, eval_every=eval_every,
+                  eval_fn=eval_fn, log=log, dyn=dyn, dyn_rng=dyn_rng,
+                  policy=policy, registry=registry, tracer=tracer,
+                  bfaults=bfaults, san=san, dev=dev)
     if grid.mode == "sync":
         return _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid,
                          server_opt, **common)
@@ -299,8 +299,8 @@ def _faults_view(registry: metrics_lib.MetricsRegistry,
 
 def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
               fleet, report, down_bytes, up_bytes, compute_seconds,
-              data_rng, dev_rng, seed, eval_every, eval_fn, log, dyn,
-              dyn_rng, policy, registry, tracer, bfaults, san, dev):
+              data_rng, dev_rng, seed, data_kind, eval_every, eval_fn, log,
+              dyn, dyn_rng, policy, registry, tracer, bfaults, san, dev):
     round_fn, sopt = fedpt.make_round_fn(
         loss_fn, rc, server_opt=server_opt, device=dev, sanitize=san,
         fused_threshold=grid.agg_tail_threshold)
@@ -330,7 +330,7 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
         kept = np.arange(C) < len(kept_cids)
 
         batch, w = syn.cohort_batch(dataset, sel, rc.local_steps,
-                                    rc.local_batch, data_rng)
+                                    rc.local_batch, data_rng, kind=data_kind)
         w = np.where(kept, w, 0.0).astype(np.float32)
         if not policy.trivial and not (rc.uniform_weights
                                        or rc.dp_clip_norm > 0):
@@ -422,8 +422,8 @@ class _LaneCell:
 
 def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                fleet, report, down_bytes, up_bytes, compute_seconds,
-               data_rng, dev_rng, seed, eval_every, eval_fn, log, dyn,
-               dyn_rng, policy, registry, tracer, bfaults, san, dev):
+               data_rng, dev_rng, seed, data_kind, eval_every, eval_fn, log,
+               dyn, dyn_rng, policy, registry, tracer, bfaults, san, dev):
     if server_opt is None:
         server_opt = fedpt.resolve_server_opt(rc)
     # per-flush DP: the flush (goal_count buffered deltas, fixed
@@ -462,6 +462,8 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                     "<= 1 (use a non-amplifying staleness_fn with DP)")
             return w
     N = num_clients(dataset)
+    batch_fn = (syn.client_batch_images if data_kind == "images"
+                else syn.client_batch_tokens)
 
     # mutable server state shared with the scheduler callbacks; events are
     # processed in virtual-time order, so "the model right now" is exactly
@@ -488,8 +490,8 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                 cell.delta, cell.loss = deltas[i].clone(), losses[i]
 
     def run_client(cid, version):
-        b, w = syn.client_batch_images(dataset, cid, rc.local_steps,
-                                       rc.local_batch, data_rng)
+        b, w = batch_fn(dataset, cid, rc.local_steps, rc.local_batch,
+                        data_rng)
         if rc.uniform_weights or rc.dp_clip_norm > 0:
             w = 1.0  # DP / uniform weighting, as in the sync engine
         elif not policy.trivial:

@@ -120,7 +120,7 @@ def test_entry_points_raise_without_cuda():
     # the serving path: the decoder LM, its steps and its kernels
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve, specs
+    from repro_torch.launch import serve, specs, train
     from repro_torch.launch.train import reduced_config
     from repro_torch.models import decoder_lm as dlm
     cfg = reduced_config(get_config("mistral-nemo-12b"))
@@ -130,6 +130,8 @@ def test_entry_points_raise_without_cuda():
                  lambda: specs.make_decode_step(cfg),
                  lambda: serve.generate({}, cfg, np.zeros((1, 2), np.int32), 1),
                  lambda: serve.main(["--arch", "mistral-nemo-12b"]),
+                 lambda: train.run_paper_task("stackoverflow", 1, False),
+                 lambda: train.main(["--task", "cifar", "--rounds", "1"]),
                  lambda: ops.seed_reconstruct(0, 0, (4, 4), 1.0)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -166,7 +168,7 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 # docstrings may be reworded where they narrate the reference's history
 COPIES = ("obs/schema", "obs/export", "obs/metrics", "obs/trace",
           "sim/dynamics", "sim/faults", "sim/devices", "sim/selection",
-          "sim/scheduler", "core/comm")
+          "sim/scheduler", "core/comm", "data/synthetic")
 
 
 def _code(text: str) -> str:

@@ -449,9 +449,10 @@ def emnist_loss(params, batch):
 
 def check_kernels(layout, layout_a, dev):
     """Phase 2: sumsq, max-abs and Q->DQ against their plain versions at
-    the quickstart's buffer (Q->DQ on its cluster route), and Q->DQ at the
-    FedAvg width and at both sides of the route boundary, each call's
-    route asserted; returns their records."""
+    the quickstart's buffer (Q->DQ on its cluster route), Q->DQ at the
+    FedAvg width and at both sides of the route boundary, and max-abs and
+    the two-pass Q->DQ at the SO async lane's rows, each call's route
+    asserted; returns their records."""
     from repro_torch import kernels
     from repro_torch.kernels import dp_clip, quantize, ref
 
@@ -544,6 +545,31 @@ def check_kernels(layout, layout_a, dev):
         print(f"  sumsq within rtol 1e-5 of float64, same bits twice "
               f"({name}, n={v.numel()}): rel err "
               f"{abs(float(got) - want64) / want64:.3e}")
+
+    # the SO async lane's rows over its 46-leaf map, the one main path
+    # that launches max-abs and the two-pass Q->DQ: one launch each
+    bl_so, L_so, n_so = so_lane_block_leaf(dev)
+    so = clip_rows(n_so, torch.Generator().manual_seed(20), dev)
+    kernels.reset_launches()
+    if not same_bits(quantize.leaf_maxabs(so, bl_so, L_so),
+                     ref.leaf_maxabs_ref(so, bl_so, L_so)):
+        raise AssertionError("leaf_maxabs != plain version (SO lane)")
+    if kernels.LAUNCHES["leaf_maxabs"] != 1:
+        raise AssertionError(f"leaf_maxabs (SO lane) launched "
+                             f"{kernels.LAUNCHES['leaf_maxabs']} times")
+    kernels.reset_launches()
+    if not same_bits(quantize.fake_quantize_flat(so, bl_so, L_so),
+                     ref.fake_quantize_flat_ref(so, bl_so, n_leaves=L_so)):
+        raise AssertionError("fake_quantize_flat != plain version (SO lane)")
+    once = {"leaf_maxabs": 1, "fake_quantize_flat": 1,
+            "fake_quantize_flat/two_pass": 1}
+    got = {**kernels.LAUNCHES, **kernels.ROUTES}
+    if {k: got[k] for k in once} != once:
+        raise AssertionError(f"fake_quantize_flat (SO lane) launched "
+                             f"{got}, not once on the two-pass route")
+    print(f"  leaf_maxabs, fake_quantize_flat == plain, bit for bit, one "
+          f"launch each, two-pass route (SO lane, {tuple(so.shape)}, "
+          f"{L_so} leaves)")
 
     # (name, source, replaces, kernel call, plain call, library call,
     #  kernel names for the profiler, bytes, ops)
@@ -842,16 +868,20 @@ def check_clip_kernels(layout, layout_a, dev):
     edge cases, each clip_flat call's route asserted (the cluster route at
     the lane's rows and with a ragged last block, bit for bit the
     three-launch entry's values and norms; the three-launch route at the
-    FedAvg width and at n % 4 != 0); returns their records and prints the
-    other shape's times."""
+    FedAvg width, at n % 4 != 0 and at the SO async lane's rows); returns
+    their records and prints the other shape's times."""
     from repro_torch import kernels
     from repro_torch.kernels import dp_clip, ref
 
     gen = torch.Generator(device="cpu").manual_seed(4)
-    for n, route in ((layout.size, "cluster"), (layout_a.size, "three_launch"),
-                     (layout.size + 512, "cluster"),
-                     (layout.size + 77, "three_launch")):
-        m = clip_rows(n, gen, dev)
+    gen_so = torch.Generator(device="cpu").manual_seed(21)
+    _, _, n_so = so_lane_block_leaf("cpu")
+    for n, route, g in ((layout.size, "cluster", gen),
+                        (layout_a.size, "three_launch", gen),
+                        (layout.size + 512, "cluster", gen),
+                        (layout.size + 77, "three_launch", gen),
+                        (n_so, "three_launch", gen_so)):   # the SO lane
+        m = clip_rows(n, g, dev)
         kernels.reset_launches()
         got, gnorm = dp_clip.clip_flat(m, DP_CLIP)
         if (kernels.LAUNCHES["clip_flat"],
@@ -1011,10 +1041,7 @@ def profile_round(step, what: str = "round"):
     ops and their summed time (above the busy time where kernels
     overlap); the host ops with the most self time, with the calls of
     ``cudaMemcpyAsync`` / ``cudaStreamSynchronize`` (a blocking copy to
-    the card makes one of each) and ``cudaLaunchKernel``. Also printed:
-    the self device time summed over every event, CPU ops included, which
-    counts a kernel once as itself and once in the op that launched it:
-    the busy reading this script printed before it took the union."""
+    the card makes one of each) and ``cudaLaunchKernel``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1024,14 +1051,12 @@ def profile_round(step, what: str = "round"):
         step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    summed = every = 0.0
+    summed = 0.0
     ops = 0
     for ev in prof.key_averages():
-        dev_ms = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
-        every += dev_ms
         if ev.device_type == DeviceType.CUDA:
-            summed += dev_ms
+            summed += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
             ops += ev.count
     busy = device_busy_ms(prof)
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
@@ -1042,9 +1067,8 @@ def profile_round(step, what: str = "round"):
             e.key not in [t[0] for t in top]]
     print(f"  profiled {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), "
-          f"{ops} device ops summing to {summed:.3f} ms (every event "
-          f"summed: {every:.3f} ms); host ops by self time (name, ms, "
-          f"calls): {top}")
+          f"{ops} device ops summing to {summed:.3f} ms; host ops by self "
+          f"time (name, ms, calls): {top}")
 
 
 def check_against_cpu(label, bits, dp, ds, y0, frozen, dev):
@@ -1303,6 +1327,38 @@ def check_async_against_cpu(ds, dev, task=None):
           f"{card.virtual_seconds:.6f} / {cpu.virtual_seconds:.6f}")
     if not (exact and loss_rel <= 1e-4 and worst <= tol):
         raise AssertionError(f"{task['label']}: the card's run disagrees "
+                             f"with the CPU's")
+    if "signal_rel" in task:
+        check_async_signal(ds, host, dev, task)
+
+
+def check_async_signal(ds, host, dev, task):
+    """The lane's signal, card against CPU: the first ASYNC_CHECKED
+    updates again without the flush's noise, so that the updates are the
+    clipped, int8 Q->DQ'd lanes alone, held by norm as the sync rounds on
+    the model are, ||dy_card - dy_cpu|| <= task["signal_rel"] ||dy_cpu||.
+    With the noise, the bound above is the noise's: on a wide lane one
+    clipped update moves an element far less than clip / 127, and a
+    zeroed lane would pass it."""
+    import dataclasses
+    from repro_torch.bridge import from_numpy_tree
+    from repro_torch.core import partition as part
+    quiet = {**task, "rc": dataclasses.replace(task["rc"],
+                                               dp_noise_multiplier=0.0)}
+    card = async_run(ds, lambda s: from_numpy_tree(host, dev),
+                     ASYNC_CHECKED, dev, quiet)
+    cpu = async_run(ds, lambda s: from_numpy_tree(host, "cpu"),
+                    ASYNC_CHECKED, "cpu", quiet)
+    y0, _ = part.partition(from_numpy_tree(host, "cpu"), task["spec"])
+    gap, step = update_gap(y0, card.y, cpu.y)
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(card.history, cpu.history))
+    print(f"  async without the flush's noise, first {ASYNC_CHECKED} "
+          f"updates, card vs CPU: ||dy|| {step:.4e}, ||dy diff|| / ||dy|| "
+          f"{gap / step:.3e} (tol {task['signal_rel']:.0e}), loss rel "
+          f"{loss_rel:.3e} (tol 1e-4)")
+    if not (gap <= task["signal_rel"] * step and loss_rel <= 1e-4):
+        raise AssertionError(f"{task['label']}: the card's lanes disagree "
                              f"with the CPU's")
 
 
@@ -2131,8 +2187,7 @@ def check_model_round(label, pt, y0, frozen, batch, w, dev, rc=None,
     step g / (|g| + 1e-8) turns a gradient that is float noise (the SO
     key bias's, 0 in exact arithmetic) into a step of up to the learning
     rate with the noise's sign. So the update is held by norm,
-    ||dy_card - dy_cpu|| <= UPDATE_NORM_REL ||dy_cpu||, with the loss
-    within rel 1e-4 and delta_norm within rel 1e-2
+    ||dy_card - dy_cpu|| <= UPDATE_NORM_REL ||dy_cpu||, with the loss within rel 1e-4 and delta_norm within rel 1e-2
     (``tests/test_torch_tokens.py`` measures 0.7e-2 by norm after two SO
     rounds against JAX)."""
     from repro_torch.bridge import from_numpy_tree, to_numpy_tree
@@ -2150,8 +2205,8 @@ def check_model_round(label, pt, y0, frozen, batch, w, dev, rc=None,
     (lg, ng, yg), (lc, nc, yc) = out
     gap, step = update_gap(y0, yg, yc)
     print(f"  {label}, round 0, card vs CPU: loss {lg:.7f} / {lc:.7f}, "
-          f"delta_norm {ng:.7f} / {nc:.7f}, ||dy diff|| / ||dy|| "
-          f"{gap / step:.3e} (tol {UPDATE_NORM_REL:.0e})")
+          f"delta_norm {ng:.7f} / {nc:.7f}, ||dy|| {step:.4e}, ||dy diff|| "
+          f"/ ||dy|| {gap / step:.3e} (tol {UPDATE_NORM_REL:.0e})")
     if not (abs(lg - lc) <= 1e-4 * abs(lc) and abs(ng - nc) <= 1e-2 * nc
             and gap <= UPDATE_NORM_REL * step):
         raise AssertionError(f"{label}: the card's round disagrees with "
@@ -2236,7 +2291,8 @@ def so_async_task(pt):
     concurrency 12, goal 6, polynomial staleness, int8, clip 0.5, noise
     multiplier 0.4) on the SO PT model: its lane rows of 1,653 blocks take
     the two-pass Q->DQ (``leaf_maxabs`` then ``qdq_kernel``) and the
-    three-launch clip."""
+    three-launch clip. Its Adam clients' lanes are held by norm without
+    the flush's noise (:func:`check_async_signal`)."""
     import dataclasses
     from repro_torch.data import synthetic as syn
     from repro_torch.models import paper_models as pm
@@ -2249,7 +2305,8 @@ def so_async_task(pt):
                     s, vocab=SO_VOCAB, device=device),
                 expect=("leaf_maxabs", "fake_quantize_flat",
                         "fake_quantize_flat/two_pass", "clip_flat",
-                        "clip_flat/three_launch"))
+                        "clip_flat/three_launch"),
+                signal_rel=UPDATE_NORM_REL)
 
 
 def drive_so_async(pt, dev):
@@ -2267,7 +2324,9 @@ def dp_ftrl_setup(dev):
     """``examples/dp_federated_lm.py`` at vocab 10,004: the SO PT model, a
     48-client token dataset, DP-FedAvg's per-client clip at 0.3 with
     uniform weights and no round noise, and the DP-FTRL server (noise
-    multiplier 2.33, tree noise keyed by its seed)."""
+    multiplier 2.33, tree noise keyed by its seed), and the same server
+    without the tree noise."""
+    import dataclasses
     from repro_torch.core import dp, fedpt
     from repro_torch.data import synthetic as syn
     from repro_torch.fl import runtime
@@ -2282,22 +2341,28 @@ def dp_ftrl_setup(dev):
                            dp_clip_norm=0.3, uniform_weights=True)
     dcfg = dp.DPFTRLConfig(lr=0.3, noise_multiplier=2.33, clip_norm=0.3,
                            clients_per_round=16, momentum=0.9)
-    return pt, rc, lambda: dp.dp_ftrl_server_opt(dcfg)
+    quiet = dataclasses.replace(dcfg, noise_multiplier=0.0)
+    return (pt, rc, lambda: dp.dp_ftrl_server_opt(dcfg),
+            lambda: dp.dp_ftrl_server_opt(quiet))
 
 
 def drive_dp_ftrl(dev):
     """The SO DP-FTRL path: DP_FTRL_ROUNDS rounds of the round engine with
     the DP-FTRL server (the clip on the staged tail, ``sumsq`` for
     delta_norm, ``tree_noise`` in the server step), first round card vs
-    CPU, then ``run_federated`` as the example drives it. Returns the
-    launch counts of the timed rounds."""
+    CPU without the tree noise (with it, the same draw on both devices,
+    sigma = 2.33 * 0.3 / 16 an element, outweighs the clipped mean, of
+    norm at most 0.3, ~190-fold by norm and would hide the clients), then
+    ``run_federated`` as the example drives it. Returns the launch counts
+    of the timed rounds."""
     from repro_torch.core import partition as part
     from repro_torch.fl import runtime
-    pt, rc, sopt = dp_ftrl_setup(dev)
+    pt, rc, sopt, quiet = dp_ftrl_setup(dev)
     label = "SO DP-FTRL (noise 2.33), clip 0.3"
     y0, frozen = part.partition(pt.init_fn(0), pt.freeze_spec)
     draws = task_draws(pt, DP_FTRL_ROUNDS + 1, rc)
-    check_model_round(label, pt, y0, frozen, *draws[0], dev, rc, sopt)
+    check_model_round(f"{label}, without the tree noise", pt, y0, frozen,
+                      *draws[0], dev, rc, quiet)
     counts = drive_model_path(label, pt, y0, frozen, draws, ("sumsq",), dev,
                               rc, sopt, falls=False)
     res = runtime.run_federated(

@@ -81,7 +81,6 @@ class PaperTask:
     """One of the paper's tasks, as ``run_paper_task`` trains it."""
     dataset: Any
     init_fn: Callable[[int], Any]
-    forward: Callable
     loss_fn: Callable
     freeze_spec: tuple
     rc: fedpt.RoundConfig
@@ -128,7 +127,7 @@ def paper_task(task: str, fully_trainable: bool = False, seed: int = 0,
     else:
         loss_fn = token_loss(fwd)
         ev = runtime.nwp_accuracy_eval(fwd, ds.test_tokens)
-    return PaperTask(ds, init_fn, fwd, loss_fn, spec, rc, kind, ev)
+    return PaperTask(ds, init_fn, loss_fn, spec, rc, kind, ev)
 
 
 def run_paper_task(task: str, rounds: int, fully_trainable: bool,
@@ -155,7 +154,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", choices=["emnist", "cifar", "stackoverflow"])
     ap.add_argument("--arch", default=None)
-    ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--fully-trainable", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -163,14 +161,11 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if args.task:
-        res = run_paper_task(args.task, args.rounds, args.fully_trainable,
-                             args.seed, device=args.device)
-    else:
-        res, cfg = run_reduced_arch(args.arch, args.rounds, args.seed,
-                                    device=args.device)
-        print(f"arch={cfg.name} trainable share: "
-              f"{100 * res.comm.trainable_bytes / res.comm.full_bytes:.2f}%")
+    if not args.task:
+        run_reduced_arch(args.arch, args.rounds, args.seed,
+                         device=args.device)
+    res = run_paper_task(args.task, args.rounds, args.fully_trainable,
+                         args.seed, device=args.device)
     print(f"final loss={res.history[-1]['loss']:.4f} "
           f"comm reduction={res.comm.reduction:.1f}x "
           f"sec/round={res.seconds_per_round:.2f}")

@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times SRC   # another tree's redesigned kernels
     python3 chip_smoke.py --sweep   # sumsq, Q->DQ, clip, max-abs launch shapes
+    python3 chip_smoke.py --dp-ftrl SRC     # DP-FTRL's rounds on another tree
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -137,8 +138,31 @@ package. Phases, in order, each failing the run on error:
      the three-launch clip, no cluster route;
    - ``examples/dp_federated_lm.py`` at vocab 10,004: the SO PT model
      with the DP-FTRL server (``tree_noise``), 5 rounds, then through
-     ``run_federated``;
-5. print the ``kernels`` JSON line, the card's name and power limit,
+     ``run_federated``; its profiled round counts the blocking copies;
+5. drive trainability tiers (``core/plan.py``) on the full-width EMNIST
+   CNN with ``examples/async_heterogeneous.py``'s three-tier plan (full,
+   mid freezing conv2, lite freezing conv1 as well), each path with the
+   launch counts set to 0 just before and read just after, a wall median,
+   one profiled round or flush (busy share, launches, blocking copies);
+   phase 2 holds the cluster Q->DQ (bit for bit) and the cluster clip
+   (norms within ``dp_clip.norm_rtol``) at the mid and lite lanes'
+   (6, 36,864) and (6, 34,816) over their own block maps:
+   - ``--tiers``: the async path's fleet at int8 with capability-assigned
+     tiers, 12 updates, beside the same fleet all-full, whose uplink must
+     bill more bytes; per-tier ``tier_stats``; the uplink kernels' launches
+     by row width; its first 3 updates on the card and on the CPU with
+     clock, staleness, bytes and tier census equal, y by norm;
+   - the same with per-flush DP (clip 0.5, z 0.4): the clip on each
+     tier's lane, y as the async DP path holds it;
+   - sync FedAvg (every parameter trainable) at int8 with an explicit tier
+     map over the 40 clients: round 0 card vs CPU, 10 rounds on the fused
+     exact route with the per-block denominator, one DP-FedAvg round on
+     the coefficient route, and a lite-only cohort whose conv1 / conv2
+     leaves must come back bit for bit;
+   - ``examples/adaptive_tiers.py``: the adaptive-capability policy on
+     pareto-mobile-diurnal, 16 updates, re-tiered every 4, the census
+     before and after;
+6. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -1273,12 +1297,12 @@ def emnist_async():
 def async_run(ds, init, updates, dev, task=None):
     """The async FedBuff grid with per-flush DP at int8, ``updates``
     server updates from seed 0, on ``task`` (:func:`emnist_async` by
-    default)."""
+    default; its ``grid`` entry adds GridConfig fields)."""
     from repro_torch.sim import grid
     task = task or emnist_async()
     gc = grid.GridConfig(mode="async", fleet="pareto-mobile",
                          concurrency=CONCURRENCY, goal_count=GOAL,
-                         staleness="polynomial")
+                         staleness="polynomial", **task.get("grid", {}))
     return grid.run_grid(init, task["loss_fn"], ds, task["rc"], updates,
                          grid=gc, freeze_spec=task["spec"], seed=0,
                          data_kind=task["kind"], device=dev)
@@ -1287,7 +1311,11 @@ def async_run(ds, init, updates, dev, task=None):
 def check_async_against_cpu(ds, dev, task=None):
     """The async path's first ASYNC_CHECKED updates on the card against
     the same run on the CPU through the plain versions, from the same
-    parameters."""
+    parameters: the host side equal (clock, staleness, scheduler stats,
+    bytes, DP summary and, under a plan, ``tier_stats``), the losses
+    within rel 1e-4, and y within the DP bound below, or, without DP, the
+    update by norm within UPDATE_NORM_REL (the int8 flips, unbounded a
+    priori without the clip, and the convolutions' float orders)."""
     from repro_torch.bridge import from_numpy_tree, to_numpy_tree
     task = task or emnist_async()
     host = to_numpy_tree(task["init"](0, device=dev))
@@ -1304,6 +1332,7 @@ def check_async_against_cpu(ds, dev, task=None):
              and card.virtual_seconds == cpu.virtual_seconds
              and card.scheduler_stats == cpu.scheduler_stats
              and card.dp == cpu.dp
+             and card.tier_stats == cpu.tier_stats
              and (card.comm.measured_down_bytes, card.comm.measured_up_bytes,
                   card.comm.transfers)
              == (cpu.comm.measured_down_bytes, cpu.comm.measured_up_bytes,
@@ -1318,14 +1347,24 @@ def check_async_against_cpu(ds, dev, task=None):
     # the leaf's max|x| / 127 <= ||x|| / 127, times min(1, clip / ||x||)),
     # which the fixed goal_count denominator and server_lr shrink; allow
     # two such steps per flush
-    tol = (ASYNC_CHECKED * 2 * task["rc"].server_lr * DP_CLIP / 127 / GOAL
-           + 1e-6)
+    if task["rc"].dp_clip_norm > 0:
+        tol = (ASYNC_CHECKED * 2 * task["rc"].server_lr * DP_CLIP / 127
+               / GOAL + 1e-6)
+        close, held = worst <= tol, f"tol {tol:.3e}"
+    else:
+        from repro_torch.core import partition as part
+        y0, _ = part.partition(from_numpy_tree(host, "cpu"), task["spec"])
+        gap, step = update_gap(y0, card.y, cpu.y)
+        close = gap <= UPDATE_NORM_REL * step
+        held = (f"||dy diff|| / ||dy|| {gap / step:.3e}, tol "
+                f"{UPDATE_NORM_REL:.0e}")
     print(f"  async, first {ASYNC_CHECKED} updates, card vs CPU: virtual "
-          f"clock / staleness / scheduler stats / bytes / DP summary equal "
-          f"{exact}; loss rel {loss_rel:.3e} (tol 1e-4), max |y| diff "
-          f"{worst:.3e} (tol {tol:.3e}); virtual seconds "
-          f"{card.virtual_seconds:.6f} / {cpu.virtual_seconds:.6f}")
-    if not (exact and loss_rel <= 1e-4 and worst <= tol):
+          f"clock / staleness / scheduler stats / bytes / DP summary"
+          f"{' / tier_stats' if card.tier_stats else ''} equal {exact}; loss "
+          f"rel {loss_rel:.3e} (tol 1e-4), max |y| diff {worst:.3e} "
+          f"({held}); virtual seconds {card.virtual_seconds:.6f} / "
+          f"{cpu.virtual_seconds:.6f}")
+    if not (exact and loss_rel <= 1e-4 and close):
         raise AssertionError(f"{task['label']}: the card's run disagrees "
                              f"with the CPU's")
     if "signal_rel" in task:
@@ -1413,17 +1452,6 @@ def drive_async_dp(ds, dev, task=None):
     sstate = fedpt.resolve_server_opt(rc).init(y)
     rows, _ = lane_step(y, frozen, lane)
 
-    def wall_ms(fn, iters=10):
-        fn()
-        out = []
-        for _ in range(iters):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(out))
-
     lane_ms = wall_ms(lambda: lane_step(y, frozen, lane))
     apply_ms = wall_ms(lambda: apply_fn(y, sstate, rows, w,
                                         threefry.key(7)))
@@ -1434,6 +1462,20 @@ def drive_async_dp(ds, dev, task=None):
                                    w, threefry.key(7)),
                   "flush (one lane step + the apply)")
     return counts
+
+
+def wall_ms(fn, iters=10):
+    """Median host wall (ms) of ``iters`` synchronized calls of ``fn``,
+    after one warm-up call."""
+    fn()
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
 
 
 def tail_routes(layouts, dev):
@@ -2410,10 +2452,385 @@ def check_categorical(dev):
                                  f"other tokens than the CPU")
 
 
-def kernel_times_only(src: str) -> int:
-    """``--kernel-times SRC``: build the kernels of the package under SRC
-    and print :func:`ab_times` for it alone (a tree unpacked with ``git
-    archive``, timed in the same call as this one)."""
+# --- trainability tiers: the EMNIST CNN with a three-tier plan ----------------
+
+# examples/async_heterogeneous.py's plan: capable phones train the whole
+# trainable tree, mid phones freeze conv2, weak phones conv1 as well
+TIERS = {"full": (), "mid": (r"^conv2/",), "lite": (r"^conv1/", r"^conv2/")}
+# the sync path's explicit tier of each of the 40 clients
+TIER_ASSIGN = np.arange(N_CLIENTS) % 3
+ADAPT_UPDATES, ADAPT_REFIT = 16, 4   # examples/adaptive_tiers.py's
+
+
+def tier_layouts(y):
+    """(compiled plan, [(tier name, the tier subtree's FlatLayout)]) of
+    TIERS over the trainable tree y."""
+    from repro_torch.core import flat as flat_lib, plan as plan_lib
+    cp = plan_lib.compile_plan(TIERS, y)
+    return cp, [(t.name, flat_lib.FlatLayout.of(cp.split(y, t)[0]))
+                for t in cp.tiers]
+
+
+class width_spy:
+    """Counts the launches of the uplink's Q->DQ and clip wrappers on the
+    card by row width (``(name, width)``) inside a ``with``: the tiered
+    lanes run them at each tier's width."""
+
+    def __enter__(self):
+        from collections import Counter
+        from repro_torch.kernels import dp_clip, quantize
+        counts = Counter()
+        self.saved = [(quantize, "fake_quantize_flat",
+                       quantize.fake_quantize_flat),
+                      (dp_clip, "clip_flat", dp_clip.clip_flat)]
+        for mod, name, real in self.saved:
+            def spy(x, *a, _real=real, _name=name, **kw):
+                if x.device.type == "cuda":
+                    counts[(_name, int(x.shape[-1]))] += 1
+                return _real(x, *a, **kw)
+            setattr(mod, name, spy)
+        return counts
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+        return False
+
+
+def check_tier_kernels(layouts, dev):
+    """Phase 2 at the tiered async lanes' shapes: the cluster Q->DQ over
+    each tier's own block map, bit for bit its plain version, and the
+    cluster clip_flat, bit for bit the three-launch entry and its norms
+    within ``dp_clip.norm_rtol`` of the plain version, on (GOAL, tier
+    width) rows with a zero, an under-the-clip, a NaN and an Inf row (bit
+    for bit); one launch each on the cluster route."""
+    from repro_torch import kernels
+    from repro_torch.kernels import dp_clip, quantize, ref
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    for name, tl in layouts:
+        bl, L, n = tl.block_leaf(), len(tl.sizes), tl.size
+        m = clip_rows(n, gen, dev)
+        kernels.reset_launches()
+        got = quantize.fake_quantize_flat(m, bl, L)
+        if not same_bits(got, ref.fake_quantize_flat_ref(m, bl, n_leaves=L)):
+            raise AssertionError(f"fake_quantize_flat != plain version "
+                                 f"(tier {name}, {tuple(m.shape)})")
+        kernels.reset_launches()
+        clipped, norms = dp_clip.clip_flat(m, DP_CLIP)
+        routes = {k: v for k, v in kernels.ROUTES.items() if v}
+        if routes != {"clip_flat/cluster": 1}:
+            raise AssertionError(f"clip_flat (tier {name}) took {routes}")
+        kernels.reset_launches()
+        quantize.fake_quantize_flat(m, bl, L)
+        routes = {k: v for k, v in kernels.ROUTES.items() if v}
+        if routes != {"fake_quantize_flat/cluster": 1}:
+            raise AssertionError(f"fake_quantize_flat (tier {name}) took "
+                                 f"{routes}")
+        three, tnorm = clip_three_launch(m)
+        want, wnorm = ref.flat_clip_ref(m, DP_CLIP)
+        rtol = dp_clip.norm_rtol(n)
+        rel = max(abs(float(norms[r]) - float(wnorm[r])) / float(wnorm[r])
+                  for r in (0, 5))
+        exact = all(same_bits(clipped[r], want[r])
+                    and same_bits(norms[r], wnorm[r]) for r in (1, 2, 3, 4))
+        if not (same_bits(clipped, three) and same_bits(norms, tnorm)
+                and rel <= rtol and exact):
+            raise AssertionError(f"clip_flat off at tier {name}: norm rel "
+                                 f"{rel} (bound {rtol}), edge rows exact "
+                                 f"{exact}")
+        print(f"  tier {name} ({tuple(m.shape)}, {L} leaves): "
+              f"fake_quantize_flat == plain, bit for bit; clip_flat bit for "
+              f"bit the three-launch entry, norms within rel {rel:.3e} "
+              f"(bound {rtol:.3e}), zero / under-clip / NaN / Inf rows bit "
+              f"for bit; one launch each, cluster route")
+
+
+def tiered_async_task(dp):
+    """examples/async_heterogeneous.py --tiers on the card: the async
+    path's fleet (pareto-mobile, concurrency 12, goal 6, polynomial
+    staleness) at int8 with TIERS assigned by capability; ``dp`` adds
+    per-flush DP (clip 0.5, z 0.4), whose clip runs on each tier's lane."""
+    task = emnist_async()
+    expect = ("fake_quantize_flat", "fake_quantize_flat/cluster")
+    if dp:
+        expect += ("clip_flat", "clip_flat/cluster")
+    task.update(label=f"async tiered, int8{' + per-flush DP' if dp else ''}",
+                rc=quickstart_rc(8, dp=dp), grid=dict(plan=TIERS),
+                expect=expect)
+    return task
+
+
+def tier_table(res) -> str:
+    return "; ".join(
+        f"{name}: {r['clients']} clients, {r['uploads']} uploads of "
+        f"{r['up_bytes_per_upload']:.0f} B, compute {r['compute_seconds']:.4f}"
+        f" s, rtt {r['rtt_mean']:.3f} s" for name, r in res.tier_stats.items())
+
+
+def flush_steps(task, res, dev):
+    """The device work of one tiered flush at the run's end state: one lane
+    step of each tier (GOAL clients of that tier) and the tiered apply."""
+    from repro_torch.core import dp as dp_lib, fedpt
+    from repro_torch.nn import threefry
+    rc, ds, cp = task["rc"], task["ds"], res.plan
+    lanes = [fedpt.make_lane_step(task["loss_fn"], rc, GOAL, tier=t, plan=cp,
+                                  device=dev) for t in cp.tiers]
+    flush_dp = (dp_lib.FlushDPConfig(DP_CLIP, DP_NOISE, GOAL)
+                if rc.dp_noise_multiplier > 0 else None)
+    apply_fn = fedpt.make_buffered_apply(fedpt.resolve_server_opt(rc),
+                                         flush_dp=flush_dp, plan=cp,
+                                         device=dev)
+    rng = np.random.default_rng(5)
+    batches = [task["batch_fn"](ds, c, rc.local_steps, rc.local_batch,
+                                rng)[0] for c in range(GOAL)]
+    lane = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    w = np.full(GOAL, 0.7, np.float32)
+    tids = np.arange(GOAL) % len(cp.tiers)
+    sstate = fedpt.resolve_server_opt(rc).init(res.y)
+    key = threefry.key(7) if flush_dp else None
+
+    def flush():
+        rows = [step(res.y, res.frozen, lane)[0] for step in lanes]
+        mixed = torch.stack([rows[t][i] for i, t in enumerate(tids)])
+        return apply_fn(res.y, sstate, mixed, w, tids, key)
+    return flush
+
+
+def drive_tiered_async(ds, dev, dp):
+    """The tiered async path: ASYNC_UPDATES updates with the launch counts
+    set to 0 just before and read just after (and the uplink kernels'
+    launches by row width), beside the same fleet all-``full``; the mixed
+    uplink must bill fewer bytes. Then the card against the CPU for the
+    first ASYNC_CHECKED updates (:func:`check_async_against_cpu`, with
+    ``tier_stats`` equal), and one flush's device work (a lane step of
+    each tier and the tiered apply) timed and profiled. Returns the
+    launch counts."""
+    import dataclasses
+    from repro_torch import kernels
+    task = dict(tiered_async_task(dp), ds=ds)
+    init = lambda s: task["init"](s, device=dev)  # noqa: E731
+    kernels.reset_launches()
+    with width_spy() as widths, tail_route_spy() as routes:
+        res = async_run(ds, init, ASYNC_UPDATES, dev, task)
+    counts = {**kernels.LAUNCHES, **kernels.ROUTES}
+    full = async_run(ds, init, ASYNC_UPDATES, dev,
+                     {**task, "grid": {}, "label": "all-full"})
+    label = task["label"]
+    losses = [h["loss"] for h in res.history]
+    print(f"[tiers] {label}: losses {[round(v, 4) for v in losses]}")
+    print(f"  virtual seconds {res.virtual_seconds:.4f}, stats "
+          f"{res.scheduler_stats}, dp {res.dp}")
+    print(f"  tier_stats: {tier_table(res)}")
+    print(f"  uplink bytes: tiered {res.comm.measured_up_bytes} in "
+          f"{res.scheduler_stats['uploads']} uploads, all-full "
+          f"{full.comm.measured_up_bytes} in {full.scheduler_stats['uploads']}"
+          f" uploads")
+    print(f"  seconds_per_round (per update, synchronized) "
+          f"{1e3 * res.seconds_per_round:.3f} ms (all-full "
+          f"{1e3 * full.seconds_per_round:.3f}); launches {counts}; uplink "
+          f"kernels by row width {dict(sorted(widths.items()))}; server tail "
+          f"routes {dict(routes)}")
+    if len(res.history) != ASYNC_UPDATES or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: wrong record count or non-finite")
+    if not res.comm.measured_up_bytes < full.comm.measured_up_bytes:
+        raise AssertionError(f"{label}: the tiered uplink does not bill "
+                             f"fewer bytes than all-full")
+    sizes = {t.size for t in res.plan.tiers[1:]}
+    if not {w for (_, w) in widths} & sizes:
+        raise AssertionError(f"{label}: no uplink kernel ran at a mid / lite"
+                             f" width {sorted(sizes)}")
+    if dp and (res.dp["flushes"], res.dp["sigma"]) != (
+            ASYNC_UPDATES, DP_NOISE * DP_CLIP / GOAL):
+        raise AssertionError(f"{label}: DP summary {res.dp}")
+    check_expected(label, counts, task["expect"])
+    check_async_against_cpu(ds, dev, task)
+    flush = flush_steps(task, res, dev)
+    med = wall_ms(flush)
+    print(f"  one tiered flush's device work (a lane step of each of the "
+          f"{len(res.plan.tiers)} tiers, {GOAL} clients each, and the tiered "
+          f"apply): wall median {med:.3f} ms of 10, synchronized")
+    profile_round(flush, "tiered flush")
+    return counts
+
+
+def tier_cohorts(ds, n):
+    """The quickstart's first n cohorts from seed 0, with each slot's tier
+    from TIER_ASSIGN: (batch, weights, tiers)."""
+    from repro_torch.data import synthetic as syn
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n):
+        cids = syn.sample_cohort(rng, ds.num_clients, CLIENTS_PER_ROUND)
+        batch, w = syn.cohort_batch(ds, cids, LOCAL_STEPS, LOCAL_BATCH, rng)
+        out.append((batch, w, TIER_ASSIGN[cids]))
+    return out
+
+
+def drive_sync_tiers(ds, ya, za, dev):
+    """Sync FedAvg with TIERS (every parameter trainable, int8, clients'
+    tiers from TIER_ASSIGN): round 0 card vs CPU (as the FedAvg paths);
+    ROUNDS rounds on the fused route with the per-block denominator
+    (block_stats, pack, the exact apply), one DP-FedAvg round on the
+    coefficient route, and a lite-only round whose conv1 / conv2 leaves
+    must come back bit for bit, all with the launch counts set to 0 just
+    before and read just after; then one profiled round. Returns the
+    launch counts."""
+    from repro_torch import kernels
+    from repro_torch.bridge import from_numpy_tree, to_numpy_tree
+    from repro_torch.core import fedpt
+    from repro_torch.nn import threefry
+    from repro_torch.nn.basic import flatten_params, tree_leaves
+    label = "sync FedAvg tiered, int8"
+    draws = tier_cohorts(ds, ROUNDS + 1)
+
+    def rounds(y, d, dp=False):
+        return fedpt.make_round_fn(emnist_loss, quickstart_rc(8, dp),
+                                   device=d, plan=tier_layouts(y)[0])
+    # round 0, card vs CPU
+    batch, w, tiers = draws[0]
+    out = []
+    for d, y, z in ((dev, ya, za),
+                    ("cpu", from_numpy_tree(to_numpy_tree(ya), "cpu"),
+                     from_numpy_tree(to_numpy_tree(za), "cpu"))):
+        round_fn, sopt = rounds(y, d)
+        y1, _, m = round_fn(y, sopt.init(y), z, batch, w, tiers,
+                            threefry.key(0))
+        out.append((float(m["loss"]), float(m["delta_norm"]),
+                    {k: v.cpu() - y0k.cpu() for (k, v), (_, y0k) in zip(
+                        flatten_params(y1), flatten_params(y))}))
+    (lg, ng, dg), (lc, nc, dc) = out
+    worst = max(float((dg[k] - dc[k]).abs().max()) for k in dg)
+    step = max(float(v.abs().max()) for v in dc.values())
+    tol = 2 * step / 127 + 1e-7   # as the int8 FedAvg paths
+    print(f"  {label}, round 0, card vs CPU: loss {lg:.7f} / {lc:.7f}, "
+          f"delta_norm {ng:.7f} / {nc:.7f}, max |dy| diff {worst:.3e} (tol "
+          f"{tol:.3e})")
+    if not (abs(lg - lc) <= 1e-4 * abs(lc) and abs(ng - nc) <= 1e-2 * nc
+            and worst <= tol):
+        raise AssertionError(f"{label}: the card's round disagrees with "
+                             f"the CPU's")
+
+    round_fn, sopt = rounds(ya, dev)
+    dp_fn, dp_sopt = rounds(ya, dev, dp=True)
+    y, sstate = ya, sopt.init(ya)
+    losses, ms = [], []
+    kernels.reset_launches()
+    with tail_route_spy() as routes:
+        for r, (batch, w, tiers) in enumerate(draws[:ROUNDS]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, sstate, m = round_fn(y, sstate, za, batch, w, tiers,
+                                    threefry.key(r))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        exact = dict(routes)
+        batch, w, _ = draws[ROUNDS]
+        y_dp, _, m_dp = dp_fn(y, dp_sopt.init(y), za, batch, w,
+                              TIER_ASSIGN[:CLIENTS_PER_ROUND],
+                              threefry.key(ROUNDS))
+        lite = np.full(CLIENTS_PER_ROUND, 2)
+        y_lite, _, m_lite = round_fn(y, sopt.init(y), za, batch, w, lite,
+                                     threefry.key(ROUNDS))
+        torch.cuda.synchronize()
+    counts = {**kernels.LAUNCHES, **kernels.ROUTES}
+    frozen_same = all(torch.equal(y_lite[k][p], y[k][p])
+                      for k in ("conv1", "conv2") for p in y[k])
+    moved = not torch.equal(y_lite["dense2"]["kernel"],
+                            y["dense2"]["kernel"])
+    print(f"[tiers] {label}: losses {[round(v, 4) for v in losses]}")
+    print(f"  per-round wall ms {[round(v, 3) for v in ms]} (median "
+          f"{float(np.median(ms)):.3f}, first round included in the list); "
+          f"launches {counts}; server tail routes {dict(routes)} (the "
+          f"{ROUNDS} tiered rounds: {exact})")
+    print(f"  DP-FedAvg tiered round: delta_norm "
+          f"{float(m_dp['delta_norm']):.5f}; lite-only cohort: conv1 / conv2 "
+          f"bit for bit {frozen_same}, dense2 moved {moved}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: non-finite loss, or it did not fall")
+    if exact != {"fused/cuda/exact": ROUNDS}:
+        raise AssertionError(f"{label}: tiered rounds took {exact}")
+    if dict(routes) != {"fused/cuda/exact": ROUNDS + 1,
+                        "fused/cuda/coeff": 1}:
+        raise AssertionError(f"{label}: DP / lite rounds took {dict(routes)}")
+    if not (frozen_same and moved):
+        raise AssertionError(f"{label}: the lite-only cohort moved a leaf its "
+                             f"tier froze, or trained nothing")
+    if not all(torch.isfinite(leaf).all()
+               for leaf in tree_leaves(y) + tree_leaves(y_dp)):
+        raise AssertionError(f"{label}: non-finite parameters")
+    check_expected(label, counts, ("sumsq", "block_stats", "pack",
+                                   "apply_coeff"))
+    profile_round(lambda: round_fn(y, sstate, za, batch, w,
+                                   TIER_ASSIGN[:CLIENTS_PER_ROUND],
+                                   threefry.key(ROUNDS)), "tiered round")
+    return counts
+
+
+def drive_adaptive_tiers(ds, dev):
+    """examples/adaptive_tiers.py on the card: the adaptive-capability
+    policy re-tiering the pareto-mobile-diurnal fleet every ADAPT_REFIT
+    updates from observed round trips, ADAPT_UPDATES updates at int8, with
+    the launch counts set to 0 just before and read just after; the census
+    before and after, and the example's checks (observed EMAs moved off
+    their estimates, the final map the quantile split of the EMAs at the
+    last refit); then one flush's device work at the end state timed and
+    profiled. Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.models import paper_models as pm
+    from repro_torch.sim import grid
+    from repro_torch.sim.devices import quantile_tiers
+    from repro_torch.sim.selection import AdaptiveCapabilityPolicy
+    policy = AdaptiveCapabilityPolicy(refit_every=ADAPT_REFIT, ema=0.4)
+    gc = grid.GridConfig(mode="async", fleet="pareto-mobile-diurnal",
+                         concurrency=CONCURRENCY, goal_count=GOAL,
+                         staleness="polynomial", plan=TIERS,
+                         selection=policy)
+    kernels.reset_launches()
+    res = grid.run_grid(lambda s: pm.init_emnist_cnn(s, device=dev),
+                        emnist_loss, ds, quickstart_rc(8), ADAPT_UPDATES,
+                        grid=gc, freeze_spec=pm.EMNIST_FREEZE, seed=0,
+                        device=dev)
+    counts = {**kernels.LAUNCHES, **kernels.ROUTES}
+    static, final = np.asarray(policy._tiers), np.asarray(
+        policy.current_tiers())
+    names = list(TIERS)
+    census = [dict(zip(names, map(int, np.bincount(m, minlength=3))))
+              for m in (static, final)]
+    print(f"[tiers] adaptive-capability, {res.fleet.name}: loss "
+          f"{res.history[0]['loss']:.4f} -> {res.history[-1]['loss']:.4f} "
+          f"over {len(res.history)} updates, {res.virtual_seconds:.1f} "
+          f"virtual seconds; re-tiered {policy.refits}x, "
+          f"{int(np.sum(static != final))}/{len(final)} clients moved")
+    print(f"  census static {census[0]} -> adapted {census[1]}")
+    print(f"  tier_stats: {tier_table(res)}")
+    print(f"  seconds_per_round (per update, synchronized) "
+          f"{1e3 * res.seconds_per_round:.3f} ms; launches {counts}")
+    seed_est = np.asarray(policy.rtt_estimate, np.float64)
+    if not (policy.refits >= 1 and policy.observed.any() and not np.allclose(
+            policy.ema_rtt[policy.observed], seed_est[policy.observed])):
+        raise AssertionError("adaptive-capability: no refit, or the observed"
+                             " round trips never moved the EMAs")
+    if not np.array_equal(final, quantile_tiers(1.0 / policy.refit_ema, 3)):
+        raise AssertionError("adaptive-capability: the final map is not the "
+                             "split of the EMAs at the last refit")
+    if not all(math.isfinite(h["loss"]) for h in res.history):
+        raise AssertionError("adaptive-capability: non-finite loss")
+    check_expected("adaptive-capability", counts,
+                   ("fake_quantize_flat", "fake_quantize_flat/cluster"))
+    flush = flush_steps(dict(tiered_async_task(False), ds=ds), res, dev)
+    print(f"  one tiered flush's device work: wall median "
+          f"{wall_ms(flush):.3f} ms of 10, synchronized")
+    profile_round(flush, "tiered flush")
+    return counts
+
+
+def other_tree(src: str, what: str) -> int:
+    """``--kernel-times SRC`` / ``--dp-ftrl SRC``: build the kernels of the
+    package under SRC (another tree, unpacked with ``git archive``, run in
+    the same call as this one) and print :func:`ab_times`, or drive
+    :func:`drive_dp_ftrl`, for it alone."""
     sys.path.insert(0, os.path.abspath(src))
     from repro_torch.kernels import _build
     dev = torch.device("cuda", 0)
@@ -2424,7 +2841,10 @@ def kernel_times_only(src: str) -> int:
     _build.build_all()
     print(f"[build] {src}: {time.perf_counter() - t0:.1f} s; card "
           f"{card_line()}")
-    ab_times(dev, os.path.abspath(src))
+    if what == "--kernel-times":
+        ab_times(dev, os.path.abspath(src))
+    else:
+        drive_dp_ftrl(dev)
     return 0
 
 
@@ -2599,13 +3019,14 @@ def main(argv) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
         return 2
-    if argv[:1] == ["--kernel-times"] and len(argv) == 2:
-        return kernel_times_only(argv[1])
+    if argv[:1] in (["--kernel-times"], ["--dp-ftrl"]) and len(argv) == 2:
+        return other_tree(argv[1], argv[0])
     if argv == ["--sweep"]:
         return sweep()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              f"[--kernel-times SRC | --sweep]", file=sys.stderr)
+              f"[--kernel-times SRC | --dp-ftrl SRC | --sweep]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import kernels
@@ -2668,6 +3089,7 @@ def main(argv) -> int:
                + check_fused_kernels(layout_a, dev)
                + check_clip_kernels(layout, layout_a, dev)
                + check_serving_kernels(dev, logs))
+    check_tier_kernels(tier_layouts(y0)[1][1:], dev)
     ab_times(dev, "this tree")
     free_flush()
 
@@ -2726,7 +3148,15 @@ def main(argv) -> int:
     for name in launches:
         launches[name] += counts[name]
 
-    # --- phase 5: summary ------------------------------------------------
+    # --- phase 5: trainability tiers on the EMNIST CNN -------------------
+    for counts in (drive_tiered_async(ds, dev, dp=False),
+                   drive_tiered_async(ds, dev, dp=True),
+                   drive_sync_tiers(ds, ya, za, dev),
+                   drive_adaptive_tiers(ds, dev)):
+        for name in launches:
+            launches[name] += counts[name]
+
+    # --- phase 6: summary ------------------------------------------------
     if len(records) != 10:
         raise AssertionError(f"{len(records)} kernel records, not 10")
     for rec in records:

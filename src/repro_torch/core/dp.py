@@ -1,7 +1,8 @@
 """Per-flush differential privacy for buffered-async (FedBuff)
 aggregation and the DP-FTRL server optimizer, port of ``FlushDPConfig``,
-``FlushAccountant``, ``tree_noise``, ``DPFTRLConfig``,
-``dp_ftrl_server_opt`` and ``NOISE_TO_EPS`` from ``repro/core/dp.py``.
+``FlushAccountant`` (with its restorable state), ``tree_noise``,
+``DPFTRLConfig``, ``dp_ftrl_server_opt`` and ``NOISE_TO_EPS`` from
+``repro/core/dp.py``.
 
 The sync engine privatizes one *round*: sigma = z * C / clients_per_round
 with a fixed denominator so dropped clients shrink the numerator, never
@@ -114,6 +115,39 @@ class FlushAccountant:
                 n_real=int(n_real), multiplicity=int(multiplicity),
                 sigma=self.cfg.sigma, epsilon=self.epsilon(delta),
                 delta=delta, padded=bool(n_real < self.cfg.goal_count))
+
+    def state_dict(self) -> dict:
+        """Restorable ledger state (the config is not serialized: a
+        resumed run rebuilds it from GridConfig and :meth:`load_state`
+        cross-checks the calibration)."""
+        return {"flushes": self.flushes,
+                "padded_flushes": self.padded_flushes,
+                "max_multiplicity": self.max_multiplicity,
+                "sum_m2": self._sum_m2,
+                "sigma": self.cfg.sigma,
+                "noise_multiplier": self.cfg.noise_multiplier,
+                "goal_count": self.cfg.goal_count}
+
+    def load_state(self, state: dict) -> None:
+        """Restore the composition ledger in place. Raises if the saved
+        calibration (sigma / z / goal_count) does not match this
+        accountant's config: resuming under another mechanism would
+        misprice every flush before the restore."""
+        for field, have in (("sigma", self.cfg.sigma),
+                            ("noise_multiplier", self.cfg.noise_multiplier),
+                            ("goal_count", self.cfg.goal_count)):
+            want = state.get(field)
+            if want is not None and not math.isclose(
+                    float(want), float(have),
+                    rel_tol=1e-12, abs_tol=0.0):
+                raise ValueError(
+                    f"checkpointed DP calibration {field}={want!r} does "
+                    f"not match this run's {field}={have!r} — resume "
+                    "with the same dp_* GridConfig settings")
+        self.flushes = int(state["flushes"])
+        self.padded_flushes = int(state["padded_flushes"])
+        self.max_multiplicity = int(state["max_multiplicity"])
+        self._sum_m2 = float(state["sum_m2"])
 
     def epsilon(self, delta: float = 1e-5) -> float:
         z = self.cfg.noise_multiplier

@@ -1,5 +1,5 @@
-"""FedPT round engine — Algorithm 1 of the paper, port of the synchronous
-round of ``repro/core/fedpt.py`` (untiered, no sharding hooks).
+"""FedPT round engine — Algorithm 1 of the paper, port of
+``repro/core/fedpt.py`` (no sharding hooks).
 
 One federated round:
   1. every sampled client starts from the server's trainable tree ``y``
@@ -19,8 +19,14 @@ of the local step is dispatched once for the whole cohort; the tau-step
 ``loss_fn(params, batch)`` that ``vmap`` can batch.
 
 The async grid's hooks follow: staleness weightings, the single-client
-and lane-batched client steps, and the buffered server apply. All are
-untiered: a ``tier`` / ``plan`` raises ``NotImplementedError``.
+and lane-batched client steps, and the buffered server apply.
+
+Each engine takes a trainability plan (``core/plan.CompiledPlan``): the
+sync round masks each client's gradients with its tier's leaf mask and
+divides each block by its tier-mask-weighted weight sum; a tiered client
+or lane step trains the tier's own subtree at its ``tier_size`` width;
+the tiered apply re-masks each row to its tier. A trivial (one-tier)
+plan takes the untiered code.
 """
 from __future__ import annotations
 
@@ -58,12 +64,16 @@ class RoundConfig:
 
 def make_client_update(loss_fn: Callable, client_opt: opt_lib.Optimizer,
                        local_steps: int):
-    """Returns f(y, frozen, client_batch) -> (delta, metrics).
+    """Returns f(y, frozen, client_batch[, grad_mask]) -> (delta, metrics).
 
     client_batch: dict of tensors with leading axis tau (one microbatch
-    per local step). Gradients are taken with respect to y only."""
+    per local step). Gradients are taken with respect to y only.
+    ``grad_mask`` (optional 0/1 tree over y) zeroes the gradient of the
+    leaves a client's tier freezes at each local step (exact freezing
+    under SGD-family ClientOpts), and the final delta is masked again, so
+    a tiered client's upload is zero outside its tier."""
 
-    def client_update(y0, frozen, client_batch):
+    def client_update(y0, frozen, client_batch, grad_mask=None):
         frozen = tree_map(torch.Tensor.detach, frozen)
 
         def loss_of_y(yy, mb):
@@ -76,9 +86,15 @@ def make_client_update(loss_fn: Callable, client_opt: opt_lib.Optimizer,
         for t in range(local_steps):
             grads, (loss, _aux) = grad_fn(
                 y, {k: v[t] for k, v in client_batch.items()})
+            if grad_mask is not None:
+                grads = tree_map(lambda g, m: g * m.to(g.dtype), grads,
+                                 grad_mask)
             y, st = client_opt.update(y, grads, st)
             losses.append(loss)
         delta = opt_lib.tree_sub(y, y0)
+        if grad_mask is not None:
+            delta = tree_map(lambda d, m: d * m.to(d.dtype), delta,
+                             grad_mask)
         return delta, {"client_loss": torch.stack(losses).mean()}
 
     return client_update
@@ -108,10 +124,13 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
                   server_opt: Optional[opt_lib.Optimizer] = None,
                   device=None,
                   sanitize: Optional[sanitize_lib.SanitizeConfig] = None,
-                  fused_threshold: Optional[int] = None):
+                  fused_threshold: Optional[int] = None, plan=None):
     """Builds round_step(y, server_state, frozen, batch, weights, rng=None)
     -> (y_new, server_state, metrics), running on ``device`` (CUDA by
-    default; raises when there is none and the CPU was not asked for).
+    default; raises when there is none and the CPU was not asked for); or,
+    under a non-trivial trainability ``plan``, round_step(y, server_state,
+    frozen, batch, weights, tiers, rng=None) with ``tiers`` (clients,) the
+    tier index of each cohort slot.
 
     batch: dict of arrays, leaves (clients, tau, local_batch, ...);
     weights: (clients,) — e.g. #examples per client (the paper's p_i).
@@ -127,6 +146,15 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
     the metrics. ``fused_threshold`` overrides the tail's size threshold
     for the fused route (0 forces it).
 
+    ``plan`` (a ``core/plan.CompiledPlan``): a trivial plan takes the
+    untiered round. Otherwise each client's gradients are masked with its
+    tier's leaf mask every local step, so the blocks its tier froze carry
+    zero delta, and, without a clip, the mean divides each block by the
+    tier-mask-weighted weight sum (zero weight there too); under DP the
+    denominator stays the fixed ``clients_per_round``. The per-client
+    masks are picked outside ``vmap`` by indexing each leaf's (n_tiers,)
+    0/1 stack with the tier ids, which is exact.
+
     metrics: ``loss`` (mean client loss), ``delta_norm`` (norm of the
     aggregated update: of the flat vector through the sumsq kernel on
     CUDA, or of the unflattened tree when noised, since pad slots carry
@@ -141,8 +169,14 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
     if server_opt is None:
         server_opt = resolve_server_opt(rc)
     client_update = make_client_update(loss_fn, client_opt, rc.local_steps)
+    tiered = plan is not None and not plan.trivial
+    if tiered:
+        # leaf -> (n_tiers,) 0/1 on the device, made once
+        stacked = tree_map(lambda *ms: torch.stack(ms).to(dev),
+                           *plan.leaf_masks())
+        bmasks = plan.block_masks_on(dev)
 
-    def round_step(y, server_state, frozen, batch, weights, rng=None):
+    def _round_step(y, server_state, frozen, batch, weights, tiers, rng):
         if noised and rng is None:
             raise ValueError("DP noise is on: round_step needs the round's "
                              "threefry key rng")
@@ -156,11 +190,19 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
 
         # --- local training on every sampled client, vmapped over the
         # client axis; deltas are born flat, one (clients, size) buffer --
-        def flat_client(cb):
-            delta, metrics = client_update(y, frozen, cb)
+        def flat_client(cb, mask=None):
+            delta, metrics = client_update(y, frozen, cb, mask)
             return layout.flatten(delta), metrics["client_loss"]
 
-        deltas, losses = torch.func.vmap(flat_client)(batch)
+        bmask = None
+        if tiered:
+            tids = torch.as_tensor(tiers, dtype=torch.long, device=dev)
+            masks = tree_map(lambda st: st[tids], stacked)   # (clients,)
+            deltas, losses = torch.func.vmap(flat_client)(batch, masks)
+            if rc.dp_clip_norm <= 0:
+                bmask = bmasks[tids]
+        else:
+            deltas, losses = torch.func.vmap(flat_client)(batch)
 
         # --- server tail: screen / quantize / clip / mean / noise --------
         flat_delta, ainfo = kernel_ops.agg_tail(
@@ -174,6 +216,9 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
             wsum_fixed=(float(rc.clients_per_round)
                         if rc.dp_clip_norm > 0 else None),
             sigma=sigma, rng=rng if noised else None,
+            # per-block mask-weighted mean for tiers; under DP / clip the
+            # mean keeps the fixed denominator instead
+            bmask=bmask, block_denom=bmask is not None,
             screen=sanitize, threshold=fused_threshold)
 
         # --- ServerOpt on the pseudo-gradient ---------------------------
@@ -191,6 +236,16 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
             out_metrics["quarantine_outlier"] = ainfo["outlier"]
             out_metrics["quarantine_norms"] = ainfo["norms"]
         return y_new, server_state, out_metrics
+
+    if tiered:
+        def round_step(y, server_state, frozen, batch, weights, tiers,
+                       rng=None):
+            return _round_step(y, server_state, frozen, batch, weights,
+                               tiers, rng)
+    else:
+        def round_step(y, server_state, frozen, batch, weights, rng=None):
+            return _round_step(y, server_state, frozen, batch, weights,
+                               None, rng)
 
     return round_step, server_opt
 
@@ -241,12 +296,6 @@ def get_staleness_fn(name="polynomial", **kw) -> Callable[[float], float]:
                          f"options: {sorted(STALENESS_FNS)}") from None
 
 
-def _untiered(tier, plan) -> None:
-    if tier is not None or plan is not None:
-        raise NotImplementedError("trainability tiers (core/plan.py) are "
-                                  "not ported yet")
-
-
 def _uplink_tail(rc: RoundConfig, layout, rows: torch.Tensor):
     """The client-side uplink model over (rows, size) flat deltas, in the
     reference client step's order: int-k fake-quantize, then the DP clip.
@@ -264,29 +313,55 @@ def _on(dev, batch) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
+def _tier_split(y, frozen, tier, plan):
+    """(trained subtree, frozen side) of a client step: ``y`` and
+    ``frozen`` untiered; for a tier, its subtree of ``y`` and the frozen
+    side with the tier's extra-frozen leaves merged in."""
+    if tier is None:
+        return y, frozen
+    y_t, extra = plan.split(y, tier)
+    return y_t, part.merge(frozen, extra)
+
+
 def make_client_step(loss_fn: Callable, rc: RoundConfig,
                      client_opt: Optional[opt_lib.Optimizer] = None,
-                     tier=None, plan=None, device=None):
+                     tier=None, plan=None, scatter: bool = True,
+                     device=None):
     """Single-client step for the async grid's sequential engine:
     (y, frozen, client_batch) -> (flat_delta (size,), metrics). The delta
     is born flat on the ``FlatLayout`` of ``y``; the uplink quantization
     and the DP clip then run over it as a one-row buffer, through the
     same kernels as a lane (:func:`make_lane_step`). metrics:
     ``client_loss`` (a 0-d tensor, left on the device) and, when
-    clipping, ``update_norm``. Runs on ``device`` (CUDA by default)."""
-    _untiered(tier, plan)
+    clipping, ``update_norm``. Runs on ``device`` (CUDA by default).
+
+    ``tier`` (a ``core/plan.TierSlice``, with its ``plan``) builds the
+    step for one trainability tier: ``y`` is split structurally (the
+    tier's extra-frozen leaves join the frozen side), the delta is the
+    tier's contiguous ``(tier_size,)`` slice, and the quantization scales
+    and clip norm come from that slice, equal to those of the
+    zero-scattered full row. With ``scatter=True`` the step returns the
+    slice scattered to the global ``(size,)`` width, else the slice (the
+    wire payload)."""
+    if tier is not None and plan is None:
+        raise ValueError("a tiered client step needs the owning "
+                         "CompiledPlan (plan=...)")
     dev = resolve_device(device)
     if client_opt is None:
         client_opt = opt_lib.get_optimizer(rc.client_opt, rc.client_lr)
     client_update = make_client_update(loss_fn, client_opt, rc.local_steps)
 
     def client_step(y, frozen, client_batch):
-        layout = flat_lib.FlatLayout.of(y)
-        delta, metrics = client_update(y, frozen, _on(dev, client_batch))
+        y_t, z_t = _tier_split(y, frozen, tier, plan)
+        layout = flat_lib.FlatLayout.of(y_t)
+        delta, metrics = client_update(y_t, z_t, _on(dev, client_batch))
         rows, nrm = _uplink_tail(rc, layout, layout.flatten(delta)[None])
         if nrm is not None:
             metrics = dict(metrics, update_norm=nrm[0])
-        return rows[0], metrics
+        flat_delta = rows[0]
+        if tier is not None and scatter:
+            flat_delta = plan.scatter(flat_delta, tier)
+        return flat_delta, metrics
 
     return client_step
 
@@ -301,18 +376,27 @@ def make_lane_step(loss_fn: Callable, rc: RoundConfig, lane: int,
     lane; the uplink quantization and the DP clip then take the whole
     (lane, size) buffer in one kernel call each (a ctypes kernel cannot
     run inside ``vmap``), row by row what the reference's vmapped client
-    step gives each client. Runs on ``device`` (CUDA by default)."""
-    _untiered(tier, plan)
+    step gives each client. Runs on ``device`` (CUDA by default).
+
+    With a ``tier`` / ``plan`` pair the lane is tier-homogeneous: the
+    clients train the tier's subtree, the quantize and clip kernels run
+    at the tier's ``(lane, tier_size)`` width over its own block map, and
+    one static-index scatter widens the rows to the global ``(lane,
+    size)`` buffer, exact zeros outside the tier."""
+    if tier is not None and plan is None:
+        raise ValueError("a tiered lane step needs the owning CompiledPlan "
+                         "(plan=...)")
     dev = resolve_device(device)
     if client_opt is None:
         client_opt = opt_lib.get_optimizer(rc.client_opt, rc.client_lr)
     client_update = make_client_update(loss_fn, client_opt, rc.local_steps)
 
     def lane_step(y, frozen, lane_batch):
-        layout = flat_lib.FlatLayout.of(y)
+        y_t, z_t = _tier_split(y, frozen, tier, plan)
+        layout = flat_lib.FlatLayout.of(y_t)
 
         def flat_client(cb):
-            delta, metrics = client_update(y, frozen, cb)
+            delta, metrics = client_update(y_t, z_t, cb)
             return layout.flatten(delta), metrics["client_loss"]
 
         rows, losses = torch.func.vmap(flat_client)(_on(dev, lane_batch))
@@ -320,6 +404,8 @@ def make_lane_step(loss_fn: Callable, rc: RoundConfig, lane: int,
             raise ValueError(f"lane batch of {rows.shape[0]} clients, the "
                              f"lane is {lane} wide")
         rows, _ = _uplink_tail(rc, layout, rows)
+        if tier is not None:
+            rows = plan.scatter(rows, tier)
         return rows, losses
 
     return lane_step
@@ -344,16 +430,29 @@ def make_buffered_apply(server_opt: opt_lib.Optimizer, flush_dp=None,
     screens the buffer first; the quarantine masks ride back on the
     metrics. metrics: ``delta_norm`` (of the flat update through the
     sumsq kernel, or of the unflattened tree when noised, since pad
-    slots carry noise)."""
-    _untiered(None, plan)
+    slots carry noise).
+
+    ``plan`` (a non-trivial ``core/plan.CompiledPlan``) switches to
+    apply(y, server_state, flat_deltas, weights, tier_ids, rng=None):
+    ``tier_ids`` (K,) names each row's tier; the rows are re-masked to
+    their tiers and, without ``flush_dp``, each block is divided by its
+    tier-mask-weighted weight sum; with ``flush_dp`` the denominator
+    stays the fixed ``goal_count``. Padding rows carry weight 0 and tier
+    0."""
     dev = resolve_device(device)
     noised = flush_dp is not None and flush_dp.noise_multiplier > 0
+    tiered = plan is not None and not plan.trivial
+    bmasks = plan.block_masks_on(dev) if tiered else None
 
-    def apply_fn(y, server_state, flat_deltas, weights, rng=None):
+    def _apply(y, server_state, flat_deltas, weights, tier_ids, rng):
         if noised and rng is None:
             raise ValueError("flush DP noise needs a per-flush rng key")
         layout = flat_lib.FlatLayout.of(y)
         weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        bmask = None
+        if tiered:
+            bmask = bmasks[torch.as_tensor(tier_ids, dtype=torch.long,
+                                           device=dev)]
         flat_delta, ainfo = kernel_ops.agg_tail(
             flat_deltas, weights,
             block_leaf=layout.block_leaf_on(dev),
@@ -363,6 +462,8 @@ def make_buffered_apply(server_opt: opt_lib.Optimizer, flush_dp=None,
                         if flush_dp is not None else None),
             sigma=flush_dp.sigma if noised else 0.0,
             rng=rng if noised else None,
+            bmask=bmask, remask_rows=tiered,
+            block_denom=tiered and flush_dp is None,
             screen=sanitize, threshold=fused_threshold)
         delta = layout.unflatten(flat_delta, dtype=torch.float32)
         neg = tree_map(torch.neg, delta)
@@ -374,6 +475,15 @@ def make_buffered_apply(server_opt: opt_lib.Optimizer, flush_dp=None,
             out["quarantine_outlier"] = ainfo["outlier"]
             out["quarantine_norms"] = ainfo["norms"]
         return y_new, server_state, out
+
+    if tiered:
+        def apply_fn(y, server_state, flat_deltas, weights, tier_ids,
+                     rng=None):
+            return _apply(y, server_state, flat_deltas, weights, tier_ids,
+                          rng)
+    else:
+        def apply_fn(y, server_state, flat_deltas, weights, rng=None):
+            return _apply(y, server_state, flat_deltas, weights, None, rng)
 
     return apply_fn
 

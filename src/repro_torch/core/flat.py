@@ -95,6 +95,65 @@ class FlatLayout:
                     self.offsets)}
         return basic.unflatten_params(flat)
 
+    # -- block sub-layouts (core/plan.py trainability tiers) -------------
+
+    def leaf_blocks(self, leaf_on) -> np.ndarray:
+        """(k,) int32 global block ids owned by the leaves ``leaf_on``
+        selects (one bool per leaf, layout order). Every leaf owns whole
+        ``align`` blocks, so a subset of leaves is a subset of blocks: the
+        static index map that makes a tier's payload a contiguous slice."""
+        if len(leaf_on) != len(self.sizes):
+            raise ValueError(f"leaf_on has {len(leaf_on)} entries for "
+                             f"{len(self.sizes)} leaves")
+        keep = np.asarray(leaf_on, bool)[self.block_leaf()]
+        return np.nonzero(keep)[0].astype(np.int32)
+
+    def block_mask(self, leaf_on) -> np.ndarray:
+        """(num_blocks,) float32 0/1 mask over align-blocks for the leaves
+        ``leaf_on`` selects."""
+        mask = np.zeros((self.num_blocks,), np.float32)
+        mask[self.leaf_blocks(leaf_on)] = 1.0
+        return mask
+
+
+def _ids(block_ids, device) -> torch.Tensor:
+    return torch.as_tensor(block_ids, dtype=torch.long, device=device)
+
+
+def gather_blocks(vec: torch.Tensor, block_ids, align: int = ALIGN
+                  ) -> torch.Tensor:
+    """(size,) or (k, size) -> the selected blocks as one contiguous
+    (n*align,) vector or (k, n*align) matrix. ``block_ids``: numpy ids, or
+    an integer tensor already on ``vec``'s device (no copy then)."""
+    ids = _ids(block_ids, vec.device)
+    if vec.ndim == 1:
+        return vec.reshape(-1, align)[ids].reshape(-1)
+    k = vec.shape[0]
+    return vec.reshape(k, -1, align)[:, ids].reshape(k, -1)
+
+
+def scatter_blocks(sub: torch.Tensor, block_ids, num_blocks: int,
+                   align: int = ALIGN) -> torch.Tensor:
+    """Inverse of :func:`gather_blocks`: the contiguous block slice placed
+    back into a zero-filled full-width (size,) or (k, size) float32
+    buffer. Unselected blocks are exactly zero."""
+    ids = _ids(block_ids, sub.device)
+    if sub.ndim == 1:
+        out = torch.zeros((num_blocks, align), dtype=torch.float32,
+                          device=sub.device)
+        out[ids] = sub.reshape(-1, align).float()
+        return out.reshape(-1)
+    k = sub.shape[0]
+    out = torch.zeros((k, num_blocks, align), dtype=torch.float32,
+                      device=sub.device)
+    out[:, ids] = sub.reshape(k, -1, align).float()
+    return out.reshape(k, -1)
+
+
+def expand_block_mask(mask, align: int = ALIGN) -> torch.Tensor:
+    """(num_blocks,) 0/1 -> (size,) elementwise float32 mask."""
+    return torch.as_tensor(mask, dtype=torch.float32).repeat_interleave(align)
+
 
 # ---------------------------------------------------------------------------
 # Flat ops used by the round engine.
@@ -147,6 +206,21 @@ def weighted_mean(mat: torch.Tensor, weights: torch.Tensor,
     return torch.matmul(weights.float(), mat.float()) / wsum
 
 
+def block_masked_mean(mat: torch.Tensor, weights: torch.Tensor,
+                      block_masks: torch.Tensor,
+                      align: int = ALIGN) -> torch.Tensor:
+    """(C, size), (C,), (C, num_blocks) -> (size,): the trainability-tier
+    mean, shared by the sync round engine and the async buffered apply.
+    Per block j: sum_c w_c mat_c[j] / max(sum_c w_c m_c[j], 1e-12), the
+    denominator repeated to elements: a client adds zero weight on the
+    blocks its tier froze, and blocks nobody trained keep delta 0. A
+    tensor divided by a tensor (IEEE), as the reference divides."""
+    w = weights.float()
+    num = torch.matmul(w, mat.float())
+    den = torch.clamp_min(torch.matmul(w, block_masks.float()), 1e-12)
+    return num / den.repeat_interleave(align)
+
+
 def pad_rows(mat: torch.Tensor, rows: int) -> torch.Tensor:
     """Pad a (k, size) stack to (rows, size) with zero rows (k <= rows).
 
@@ -169,7 +243,7 @@ def draw_noise(rng: threefry.Key, size: int, sigma: float,
     ``add_noise(v, sigma, rng) == v + draw_noise(rng, v.numel(), sigma)``
     bit for bit (one threefry call from the key itself, no split; the
     same float32 scaling). The fused tail starts its accumulator from it."""
-    sig = torch.tensor(sigma, dtype=torch.float32, device=device)
+    sig = threefry.constant(sigma, torch.float32, device)
     return sig * threefry.normal(rng, (size,), device)
 
 

@@ -210,22 +210,27 @@ class _Stages:
 def compose(mat, weights, *, block_leaf, n_leaves: int, align: int = BLOCK,
             bits: int = 0, clip_norm: float = 0.0, uniform: bool = False,
             wsum_fixed: Optional[float] = None, sigma: float = 0.0,
-            rng=None, remask_rows: bool = False, block_denom: bool = False,
+            rng=None, bmask=None, remask_rows: bool = False,
+            block_denom: bool = False,
             screen: Optional[sanitize_lib.SanitizeConfig] = None,
             constrain_fn=None):
     """The fused tail over the (K, size) buffer; returns ``(update, info)``.
 
     Stage order is the staged route's: screen -> uniform weights ->
-    denominator -> quantize -> clip fold -> mean -> noise. ``info`` holds
-    the quarantine masks and norms (screen on), the per-row
-    post-quantize norms (clip on) and the ``route``. ``rng`` is a
-    threefry key (``nn/threefry.key``), drawn from directly. The row
-    re-mask and per-block denominator of trainability tiers and the
-    output sharding hook (``remask_rows``, ``block_denom``,
-    ``constrain_fn``) are not ported yet and raise."""
-    if remask_rows or block_denom or constrain_fn is not None:
-        raise NotImplementedError("trainability tiers (core/plan.py) and "
-                                  "sharding hooks are not ported yet")
+    denominator -> row re-mask -> quantize -> clip fold -> mean (per-block
+    denominator for tiers) -> noise. ``info`` holds the quarantine masks
+    and norms (screen on), the per-row post-quantize norms (clip on) and
+    the ``route``. ``rng`` is a threefry key (``nn/threefry.key``), drawn
+    from directly. ``bmask`` (K, NB) holds each row's tier block mask.
+    As in the reference, ``remask_rows`` re-masks the rows on the exact
+    route's unquantized branch alone (the quantized branches take the
+    rows as they come; the tiered client steps send exact zeros there),
+    and ``block_denom`` divides the exact route's GEMV per block. The
+    output sharding hook (``constrain_fn``) is not ported yet and
+    raises."""
+    if constrain_fn is not None:
+        raise NotImplementedError("sharding hooks (constrain_fn) are not "
+                                  "ported yet")
     K, size = mat.shape
     nb = size // align
     stages = _Stages(mat.device)
@@ -300,8 +305,16 @@ def compose(mat, weights, *, block_leaf, n_leaves: int, align: int = BLOCK,
                 # raw f32 rows: a quarantined NaN row must be zeroed, since
                 # NaN * 0 is NaN in the GEMV
                 x = torch.where(q_mask[:, None], torch.zeros_like(x), x)
+            if remask_rows:
+                x = (x.reshape(K, nb, align) * bmask[:, :, None]).reshape(
+                    K, size)
             x3 = x.reshape(K, nb, align)
-        out = ref.agg_apply_exact_ref(x3, w, sblock=sblock, wsum=wsum)
+        block_den = None
+        if block_denom:
+            block_den = torch.clamp_min(torch.matmul(w.float(), bmask), 1e-12)
+        out = ref.agg_apply_exact_ref(x3, w, sblock=sblock,
+                                      wsum=None if block_denom else wsum,
+                                      block_den=block_den)
         if noise is not None:
             out = out + noise
         info["route"] = f"fused/{stages.engine}/exact"

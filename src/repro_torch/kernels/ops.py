@@ -14,8 +14,9 @@ as the JAX dispatcher chooses them:
   kernels for a buffer on the card, their plain versions for one on the
   CPU.
 
-Trainability tiers (``remask_rows``, ``block_denom``) are not ported
-yet and raise ``NotImplementedError`` rather than quietly taking a route.
+Both take trainability tiers: ``bmask`` (K, NB) holds each row's tier
+block mask, ``remask_rows`` zeroes each row outside its tier, and
+``block_denom`` divides each block by its mask-weighted weight sum.
 """
 from __future__ import annotations
 
@@ -65,8 +66,12 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None,
                               round_p=round_p)
 
 
-def _staged_tail(mat, weights, block_leaf, rng, *, n_leaves, align, bits,
-                 clip_norm, uniform, wsum_fixed, sigma, screen):
+def _staged_tail(mat, weights, block_leaf, bmask, rng, *, n_leaves, align,
+                 bits, clip_norm, uniform, wsum_fixed, sigma, block_denom,
+                 remask_rows, screen):
+    """The op-by-op tail, in the reference's order: screen -> uniform
+    weights -> denominator -> tier re-mask -> quantize -> clip fold ->
+    mean (per-block denominator for tiers) -> noise."""
     info = {}
     if screen is not None:
         mat, weights, sinfo = sanitize_lib.screen_rows(mat, weights, screen,
@@ -78,6 +83,9 @@ def _staged_tail(mat, weights, block_leaf, rng, *, n_leaves, align, bits,
                             device=mat.device)
     else:
         wsum = torch.clamp_min(w.sum(), 1e-12)
+    if remask_rows:
+        K = mat.shape[0]
+        mat = (mat.reshape(K, -1, align) * bmask[:, :, None]).reshape(K, -1)
     if bits > 0:
         mat = _q.fake_quantize_flat(mat, block_leaf, n_leaves, bits=bits,
                                     block=align)
@@ -87,7 +95,10 @@ def _staged_tail(mat, weights, block_leaf, rng, *, n_leaves, align, bits,
         w = w * torch.clamp(torch.full_like(norms, clip_norm)
                             / torch.clamp_min(norms, 1e-12), max=1.0)
         info["update_norms"] = norms
-    out = flat_lib.weighted_mean(mat, w, wsum)
+    if block_denom:
+        out = flat_lib.block_masked_mean(mat, w, bmask, align)
+    else:
+        out = flat_lib.weighted_mean(mat, w, wsum)
     if sigma > 0:
         out = flat_lib.add_noise(out, sigma, rng)
     return out, info
@@ -95,28 +106,31 @@ def _staged_tail(mat, weights, block_leaf, rng, *, n_leaves, align, bits,
 
 def agg_tail(mat, weights, *, block_leaf, n_leaves: int, align: int = 1024,
              bits: int = 0, clip_norm: float = 0.0, uniform: bool = False,
-             wsum_fixed=None, sigma: float = 0.0, rng=None,
+             wsum_fixed=None, sigma: float = 0.0, rng=None, bmask=None,
              remask_rows: bool = False, block_denom: bool = False,
              screen=None, threshold=None):
     """Server aggregation tail over the (K, size) flat delta buffer:
-    quarantine ``screen``, int-``bits`` fake-quantize, clip folded into
-    the weights, weighted / fixed-denominator mean, DP noise of std
-    ``sigma`` drawn from the threefry key ``rng``. Returns ``(update
-    (size,), info)``: ``info["route"]`` (``"staged"``,
-    ``"fused/cuda/coeff"``, ``"fused/torch/exact"``, ...), the quarantine
-    ``nonfinite`` / ``outlier`` / ``norms`` with the screen on, and
-    ``update_norms`` when clipping.
+    quarantine ``screen``, tier re-mask (``remask_rows``), int-``bits``
+    fake-quantize, clip folded into the weights, weighted /
+    fixed-denominator mean (per block for tiers, ``block_denom``), DP
+    noise of std ``sigma`` drawn from the threefry key ``rng``. ``bmask``
+    (K, size // align) holds each row's tier block mask, needed by
+    ``remask_rows`` and ``block_denom``. Returns ``(update (size,),
+    info)``: ``info["route"]`` (``"staged"``, ``"fused/cuda/coeff"``,
+    ``"fused/torch/exact"``, ...), the quarantine ``nonfinite`` /
+    ``outlier`` / ``norms`` with the screen on, and ``update_norms`` when
+    clipping.
 
     Dispatch as in the JAX package: the fused route for quantized
     pipelines (``bits > 0``) on buffers of at least
     :data:`AGG_FUSE_THRESHOLD` elements, the staged route otherwise; an
     explicit ``threshold`` routes by size alone (0 forces fused, a value
     above ``K * size`` staged)."""
-    if remask_rows or block_denom:
-        raise NotImplementedError("trainability tiers (core/plan.py) are "
-                                  "not ported yet")
     if sigma > 0 and rng is None:
         raise ValueError("DP noise (sigma > 0) needs a threefry key rng")
+    if (remask_rows or block_denom) and bmask is None:
+        raise ValueError("remask_rows / block_denom need the rows' tier "
+                         "block masks (bmask)")
     K, size = mat.shape
     if threshold is None:
         fuse = bits > 0 and K * size >= AGG_FUSE_THRESHOLD
@@ -124,9 +138,11 @@ def agg_tail(mat, weights, *, block_leaf, n_leaves: int, align: int = 1024,
         fuse = K * size >= threshold
     kw = dict(n_leaves=n_leaves, align=align, bits=bits, clip_norm=clip_norm,
               uniform=uniform, wsum_fixed=wsum_fixed, sigma=sigma,
+              block_denom=block_denom, remask_rows=remask_rows,
               screen=screen)
     if not fuse:
-        out, info = _staged_tail(mat, weights, block_leaf, rng, **kw)
+        out, info = _staged_tail(mat, weights, block_leaf, bmask, rng, **kw)
         info["route"] = "staged"
         return out, info
-    return _agg.compose(mat, weights, block_leaf=block_leaf, rng=rng, **kw)
+    return _agg.compose(mat, weights, block_leaf=block_leaf, rng=rng,
+                        bmask=bmask, **kw)

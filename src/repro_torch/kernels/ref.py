@@ -197,14 +197,14 @@ def agg_apply_ref(q, coeff, noise=None, block: int = 1024):
     return acc.reshape(-1)
 
 
-def agg_apply_exact_ref(x3, weights, sblock=None, wsum=None,
+def agg_apply_exact_ref(x3, weights, sblock=None, wsum=None, block_den=None,
                         cols: int = 1024):
     """Column-chunked weighted-mean GEMV: x3 (K, NB, block) f32 blocks or
     int8 codes (dequantized chunk by chunk with ``sblock`` (K, NB), equal
     to the staged fake-quantize output); each output element is the
-    K-length dot ``torch.matmul(weights, mat)`` computes, then ``/ wsum``
-    elementwise. The JAX oracle's per-block denominator and noise
-    arguments serve trainability tiers and are not ported yet."""
+    K-length dot ``torch.matmul(weights, mat)`` computes, then ``/ wsum``,
+    or, for trainability tiers, ``/ block_den`` (NB,) repeated to
+    elements, each a tensor by a tensor."""
     K, NB, block = x3.shape
     w = weights.float()
     outs = []
@@ -213,7 +213,11 @@ def agg_apply_exact_ref(x3, weights, sblock=None, wsum=None,
         if sblock is not None:
             part = part * sblock[:, i:i + cols, None]
         t = torch.matmul(w, part.reshape(K, -1))
-        outs.append(t / wsum if wsum is not None else t)
+        if block_den is not None:
+            t = t / block_den[i:i + cols].repeat_interleave(block)
+        elif wsum is not None:
+            t = t / wsum
+        outs.append(t)
     return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 

@@ -18,7 +18,7 @@ the device). A key is a pair of Python ints.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +28,9 @@ from repro_torch.kernels.ref import _mul32
 Key = Tuple[int, int]
 
 M32 = 0xFFFFFFFF
+# 0-d constants on a device, by (value, dtype, device): made once, so a
+# draw on the card makes no blocking host-to-device copy of a scalar
+_CONSTS: Dict[Tuple[str, torch.dtype, torch.device], torch.Tensor] = {}
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
@@ -71,6 +74,18 @@ def split(k: Key, num: int = 2):
     return [threefry2x32(k[0], k[1], 0, i) for i in range(int(num))]
 
 
+def constant(value: float, dtype, device=None) -> torch.Tensor:
+    """``torch.tensor(value, dtype=dtype, device=device)``, made once per
+    (value, dtype, device) and reused: read-only. The key holds the
+    value's repr, so that -0.0 and 0.0 stay apart."""
+    device = torch.device("cpu" if device is None else device)
+    key = (repr(float(value)), dtype, device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(value, dtype=dtype, device=device)
+    return t
+
+
 def random_bits(k: Key, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(k, shape)`` (uint32) as int64 values in
     [0, 2**32): the counter of each element is its row-major index, split
@@ -99,8 +114,8 @@ def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0,
         one = torch.tensor(1.0, dtype=dtype).view(torch.int16).item()
         mant = ((bits & ((1 << width) - 1)) >> (width - nmant)) | one
         floats = mant.to(torch.int16).view(dtype) - 1.0
-    lo = torch.tensor(minval, dtype=dtype, device=floats.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=floats.device)
+    lo = constant(minval, dtype, floats.device)
+    hi = constant(maxval, dtype, floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -176,10 +191,8 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
 
     def coeff(i):
-        return torch.where(lt, torch.tensor(_ERFINV_W_LT_5[i], dtype=x.dtype,
-                                            device=x.device),
-                           torch.tensor(_ERFINV_W_GE_5[i], dtype=x.dtype,
-                                        device=x.device))
+        return torch.where(lt, constant(_ERFINV_W_LT_5[i], x.dtype, x.device),
+                           constant(_ERFINV_W_GE_5[i], x.dtype, x.device))
 
     p = coeff(0)
     for i in range(1, len(_ERFINV_W_LT_5)):

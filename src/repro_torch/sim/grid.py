@@ -14,12 +14,17 @@ stream). The host side (fleets, scheduler, dynamics, faults, selection,
 telemetry) is the reference's own code, copied; the device side runs the
 port's engines on ``device`` (CUDA unless the caller asks for the CPU).
 
+``GridConfig.plan`` (``core/plan.py``) gives each client a trainability
+tier: tier-sliced uplinks and compute charges on the virtual clock, the
+tiered round engine in sync mode, tier-homogeneous lanes in async mode,
+per-tier billing and ``GridResult.tier_stats``. A trivial (one-tier) plan
+runs the untiered engines.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-taking another route (``ROADMAP.md``, Queue 1): trainability plans
-(``GridConfig.plan``), mesh execution (``mesh``), the two-level topology
-(``topology``, and with it region shocks), checkpoint / resume
-(``checkpoint_every``, ``resume_from``) and the device profiler
-annotations (``TelemetryConfig.profile``).
+taking another route (``ROADMAP.md``, Queue 1): mesh execution
+(``mesh``), the two-level topology (``topology``, and with it region
+shocks), checkpoint / resume (``checkpoint_every``, ``resume_from``) and
+the device profiler annotations (``TelemetryConfig.profile``).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import repro_torch.core.partition as part
 from repro_torch import resolve_device
 from repro_torch.core import comm, dp as dp_lib, fedpt
 from repro_torch.core import flat as flat_lib
+from repro_torch.core import plan as plan_lib
 from repro_torch.core import sanitize as sanitize_lib
 from repro_torch.data import synthetic as syn
 from repro_torch.nn import basic, threefry
@@ -52,10 +58,9 @@ from repro_torch.sim import wire
 @dataclasses.dataclass
 class GridConfig:
     """The reference's grid configuration, field for field (see
-    ``repro/sim/grid.py`` for each knob). ``mesh``, ``plan``,
-    ``tier_assignment``, ``topology``, ``checkpoint_*`` and ``resume_from``
-    keep their fields so that configurations carry over, and raise when
-    set (module docstring)."""
+    ``repro/sim/grid.py`` for each knob). ``mesh``, ``topology``,
+    ``checkpoint_*`` and ``resume_from`` keep their fields so that
+    configurations carry over, and raise when set (module docstring)."""
     mode: str = "sync"                      # "sync" | "async"
     fleet: Union[str, dev_lib.Fleet] = "uniform"
     # virtual seconds one local step takes on the reference device; each
@@ -79,12 +84,19 @@ class GridConfig:
     # update (padded to goal_count with zero weights)
     async_deadline: float = math.inf
     mesh: Any = None                        # not ported
-    plan: Any = None                        # not ported
+    # trainability tiers: None = every client trains the whole trainable
+    # tree (as does a one-tier plan); a TrainPlan / {name: extra spec}
+    # dict / (name, spec) sequence gives each client a tier
+    plan: Any = None
+    # "capability" (quantile split of the capability score, most capable
+    # -> tier 0), an explicit per-client tier array, or a callable
+    # DeviceProfile -> tier index
     tier_assignment: Any = "capability"
     # None = the fleet preset's default; a preset name or DynamicsConfig
     dynamics: Any = None
-    # "uniform", "bandwidth-aware", or a SelectionPolicy instance (the
-    # tier policies need a plan)
+    # "uniform", "bandwidth-aware", "tier-rotation",
+    # "adaptive-capability" (the tier policies need a plan), or a
+    # SelectionPolicy instance
     selection: Any = "uniform"
     topology: Any = None                    # not ported
     # None = no event records; a TelemetryConfig / True / dict records the
@@ -120,7 +132,11 @@ class GridResult:
     # flushes, padded_flushes, max_multiplicity, sigma, noise_multiplier,
     # epsilon, delta
     dp: Optional[Dict[str, float]] = None
+    # per-tier breakdown (GridConfig.plan set): tier name -> {clients,
+    # down_bytes, up_bytes, transfers, uploads, up_bytes_per_upload,
+    # trainable_bytes, compute_seconds, rtt_mean}
     tier_stats: Optional[Dict[str, Dict[str, float]]] = None
+    # the CompiledPlan the run used (None without a plan)
     plan: Any = None
     # the bound SelectionPolicy and BoundDynamics the run used
     policy: Any = None
@@ -159,8 +175,6 @@ def _refuse_unported(grid: GridConfig, tel_cfg) -> None:
     def todo(what, item):
         return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                                    f"Queue 1 item {item})")
-    if grid.plan is not None:
-        raise todo("GridConfig.plan (trainability tiers, core/plan.py)", 9)
     if grid.mesh is not None:
         raise todo("GridConfig.mesh (mesh execution, launch/mesh.py)", 12)
     if grid.topology is not None:
@@ -215,6 +229,30 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
     registry.gauge("payload_up_bytes").set(int(up_bytes))
     registry.gauge("compute_seconds").set(float(compute_seconds))
 
+    # trainability plan: capability -> tier per client, tier-sliced uplink
+    # payloads (the downlink stays the full y + seed for every tier), and
+    # a per-tier compute charge on the virtual clock, scaled by the tier's
+    # trainable fraction (the full tier's is exactly 1.0, so one-tier
+    # plans keep the untiered clock)
+    if grid.plan is not None:
+        cplan = plan_lib.compile_plan(grid.plan, y)
+        tier_of_client = dev_lib.assign_tiers(fleet, len(cplan.tiers),
+                                              grid.tier_assignment)
+        tier_up = np.asarray(
+            [p["up"] for p in
+             wire.tier_payloads(y, cplan, rc.uplink_bits).values()],
+            np.int64)
+        total_params = sum(cplan.layout.sizes)
+        tier_compute = np.asarray(
+            [compute_seconds * (t.param_count / total_params
+                                if total_params else 1.0)
+             for t in cplan.tiers], np.float64)
+        for t in cplan.tiers:
+            registry.gauge("tier_compute").set(float(tier_compute[t.index]),
+                                               label=t.index)
+    else:
+        cplan = tier_of_client = tier_up = tier_compute = None
+
     data_rng = np.random.default_rng(seed + 77)  # == run_federated's stream
     dev_rng = np.random.default_rng([seed, grid.device_seed])
     # the dynamics stream: an independent child of [seed, device_seed];
@@ -241,21 +279,26 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
             "grid has none")
     san = sanitize_lib.resolve_sanitize(grid.sanitize)
 
+    # cohort-selection policy: estimates feed bandwidth-aware inclusion
+    # probabilities and seed the adaptive policy's observed-RTT EMA
     policy = sel_lib.resolve_policy(grid.selection)
+    est_up = (tier_up[tier_of_client] if cplan is not None
+              else np.full(N, up_bytes, np.int64))
+    est_comp = (tier_compute[tier_of_client] if cplan is not None
+                else np.full(N, compute_seconds, np.float64))
     rtt_estimate = np.asarray(
-        fleet.state.round_trip_seconds(down_bytes,
-                                       np.full(N, up_bytes, np.int64),
-                                       np.full(N, compute_seconds,
-                                               np.float64)),
+        fleet.state.round_trip_seconds(down_bytes, est_up, est_comp),
         np.float64)
-    policy.bind(fleet=fleet, num_clients=N, cplan=None, tiers=None,
-                rtt_estimate=rtt_estimate)
+    policy.bind(fleet=fleet, num_clients=N, cplan=cplan,
+                tiers=tier_of_client, rtt_estimate=rtt_estimate)
 
     common = dict(fleet=fleet, report=report, down_bytes=down_bytes,
                   up_bytes=up_bytes, compute_seconds=compute_seconds,
                   data_rng=data_rng, dev_rng=dev_rng, seed=seed,
                   data_kind=data_kind, eval_every=eval_every,
-                  eval_fn=eval_fn, log=log, dyn=dyn, dyn_rng=dyn_rng,
+                  eval_fn=eval_fn, log=log, cplan=cplan,
+                  tier_of_client=tier_of_client, tier_up=tier_up,
+                  tier_compute=tier_compute, dyn=dyn, dyn_rng=dyn_rng,
                   policy=policy, registry=registry, tracer=tracer,
                   bfaults=bfaults, san=san, dev=dev)
     if grid.mode == "sync":
@@ -286,6 +329,34 @@ def _stats_view(registry: metrics_lib.MetricsRegistry) -> Dict[str, int]:
     return {k: int(registry.counter(k).value) for k in STAT_KEYS}
 
 
+def _tier_stats(report, cplan, tier_of_client,
+                registry: metrics_lib.MetricsRegistry):
+    """GridResult.tier_stats: the comm ledger's per-tier traffic plus the
+    fleet census (the run's final tier map, which the rotation / adaptive
+    policies move), the measured bytes per upload, the tier's compute
+    charge per local run and the mean observed round trip of its uploads
+    (timing and compute from the registry, labels = tier indices)."""
+    if cplan is None:
+        return None
+    rtt_sum = registry.counter("tier_rtt_sum")
+    rtt_n = registry.counter("tier_rtt_n")
+    compute = registry.gauge("tier_compute")
+    out = {}
+    for t in cplan.tiers:
+        rec = dict(report.tier_traffic.get(
+            t.name, {"down_bytes": 0, "up_bytes": 0, "transfers": 0,
+                     "uploads": 0}))
+        rec["clients"] = int(np.sum(tier_of_client == t.index))
+        rec["up_bytes_per_upload"] = (rec["up_bytes"] / rec["uploads"]
+                                      if rec["uploads"] else 0.0)
+        rec["trainable_bytes"] = t.trainable_bytes
+        rec["compute_seconds"] = float(compute.get(t.index, 0.0))
+        n = rtt_n.get(t.index, 0)
+        rec["rtt_mean"] = (rtt_sum.get(t.index, 0.0) / n) if n else 0.0
+        out[t.name] = rec
+    return out
+
+
 def _faults_view(registry: metrics_lib.MetricsRegistry,
                  bfaults) -> Optional[Dict[str, int]]:
     """GridResult.faults: the fired-fault counters, when a failure model
@@ -300,10 +371,13 @@ def _faults_view(registry: metrics_lib.MetricsRegistry,
 def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
               fleet, report, down_bytes, up_bytes, compute_seconds,
               data_rng, dev_rng, seed, data_kind, eval_every, eval_fn, log,
-              dyn, dyn_rng, policy, registry, tracer, bfaults, san, dev):
+              cplan, tier_of_client, tier_up, tier_compute, dyn, dyn_rng,
+              policy, registry, tracer, bfaults, san, dev):
+    # a trivial (one-tier) plan routes through the untiered round
+    tiered = cplan is not None and not cplan.trivial
     round_fn, sopt = fedpt.make_round_fn(
         loss_fn, rc, server_opt=server_opt, device=dev, sanitize=san,
-        fused_threshold=grid.agg_tail_threshold)
+        fused_threshold=grid.agg_tail_threshold, plan=cplan)
     sstate = sopt.init(y)
     N = num_clients(dataset)
     C = rc.clients_per_round
@@ -316,11 +390,21 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
     for r in range(rounds):
         if bfaults is not None and vt > bfaults.kill_at:
             raise faults_lib.ServerKilled(at=vt, applied=r, checkpoint=None)
+        # the policy's tier map can move between rounds (tier-rotation,
+        # adaptive-capability); static policies return the bound map
+        tiers_now = policy.current_tiers() if cplan is not None else None
         cids = policy.select_cohort(data_rng, m)
+        # tier-sliced uplinks and per-tier compute feed the virtual clock
+        cohort_up = (tier_up[tiers_now[cids]] if cplan is not None
+                     else up_bytes)
+        cohort_comp = (tier_compute[tiers_now[cids]] if cplan is not None
+                       else compute_seconds)
         plan = sched_lib.plan_sync_round(
-            fleet, cids, down_bytes, up_bytes, compute_seconds, C, dev_rng,
+            fleet, cids, down_bytes, cohort_up, cohort_comp, C, dev_rng,
             deadline=grid.straggler_deadline, dynamics=dyn,
-            dyn_rng=dyn_rng, now=vt, tracer=tracer, faults=bfaults)
+            dyn_rng=dyn_rng, now=vt, tracer=tracer,
+            tiers=tiers_now[cids] if cplan is not None else None,
+            faults=bfaults)
         # the C slots the round engine sees: participants in arrival
         # order, padded (weight 0) with the remaining cohort in dispatch
         # order when drops leave the round short
@@ -339,7 +423,10 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
             iw = policy.cohort_weights(sel)
             if iw is not None:
                 w = (w * iw).astype(np.float32)
-        y, sstate, rmetrics = round_fn(y, sstate, frozen, batch, w,
+        args = (y, sstate, frozen, batch, w)
+        if tiered:
+            args += (tiers_now[sel].astype(np.int64),)
+        y, sstate, rmetrics = round_fn(*args,
                                        threefry.key(seed * 100_003 + r))
         if t0 is None:
             _synchronize(dev)
@@ -359,17 +446,40 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                 tracer.instant(
                     "quarantine", vt0, parent=rseq,
                     cause="nonfinite" if nonf[i] else "norm-outlier",
-                    cid=int(sel[i]), tier=None, norm=float(norms[i]),
-                    round=r)
+                    cid=int(sel[i]),
+                    tier=(int(tiers_now[sel[i]]) if cplan is not None
+                          else None),
+                    norm=float(norms[i]), round=r)
         registry.histogram("round_seconds").observe(plan.round_seconds)
         n_dispatched = int(np.sum(plan.dispatched))
         n_uploads = n_dispatched - plan.dropouts
+        # observed round trips flow back to the policy (adaptive
+        # re-tiering) and into the per-tier timing stats
         for i in np.nonzero(plan.completed)[0]:
             rtt = float(plan.arrival[i])
             policy.observe(int(plan.cids[i]), rtt)
             registry.histogram("upload_rtt").observe(rtt)
-        report.add_measured(down_bytes * n_dispatched, up_bytes * n_uploads,
-                            transfers=n_dispatched)
+            if cplan is not None:
+                t_idx = int(tiers_now[plan.cids[i]])
+                mc("tier_rtt_sum").inc(rtt, label=t_idx)
+                mc("tier_rtt_n").inc(label=t_idx)
+        if cplan is not None:
+            # bill per tier: dispatches pay the (tier-invariant) downlink,
+            # uploads pay the tier-sliced uplink
+            cohort_tiers = tiers_now[plan.cids]
+            uploaded = np.isfinite(plan.arrival)
+            for t in cplan.tiers:
+                sel_t = cohort_tiers == t.index
+                nd = int(np.sum(plan.dispatched & sel_t))
+                nu = int(np.sum(uploaded & sel_t))
+                if nd or nu:
+                    report.add_tier_measured(
+                        t.name, down_bytes * nd, int(tier_up[t.index]) * nu,
+                        transfers=nd, uploads=nu, now=vt, parent=rseq)
+        else:
+            report.add_measured(down_bytes * n_dispatched,
+                                up_bytes * n_uploads,
+                                transfers=n_dispatched)
         mc("dispatches").inc(n_dispatched)
         mc("uploads").inc(n_uploads)
         mc("offline").inc(plan.offline)
@@ -391,13 +501,18 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                 f"{k}={v:.4f}" for k, v in rec.items() if k != "round"))
     _synchronize(dev)
     spr = (time.time() - t0) / max(rounds - 1, 1) if t0 else float("nan")
+    final_tiers = (policy.current_tiers() if cplan is not None
+                   else tier_of_client)
     if tracer.enabled:
         tracer.flush_outputs()
     return GridResult(y=y, frozen=frozen, history=history, comm=report,
                       seconds_per_round=spr, virtual_seconds=vt,
                       fleet=fleet, mode="sync",
                       scheduler_stats=_stats_view(registry),
-                      policy=policy, dynamics=dyn, metrics=registry,
+                      tier_stats=_tier_stats(report, cplan, final_tiers,
+                                             registry),
+                      plan=cplan, policy=policy, dynamics=dyn,
+                      metrics=registry,
                       telemetry=tracer if tracer.enabled else None,
                       faults=_faults_view(registry, bfaults))
 
@@ -423,9 +538,13 @@ class _LaneCell:
 def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                fleet, report, down_bytes, up_bytes, compute_seconds,
                data_rng, dev_rng, seed, data_kind, eval_every, eval_fn, log,
-               dyn, dyn_rng, policy, registry, tracer, bfaults, san, dev):
+               cplan, tier_of_client, tier_up, tier_compute, dyn, dyn_rng,
+               policy, registry, tracer, bfaults, san, dev):
     if server_opt is None:
         server_opt = fedpt.resolve_server_opt(rc)
+    # trivial plans keep the untiered engines (lane-exact); per-tier
+    # metering still runs off the scheduler's tier counters
+    tiered = cplan is not None and not cplan.trivial
     # per-flush DP: the flush (goal_count buffered deltas, fixed
     # denominator) is the unit of composition — see core/dp.py
     flush_dp = accountant = None
@@ -440,12 +559,23 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
             goal_count=grid.goal_count)
         accountant = dp_lib.FlushAccountant(flush_dp, tracer=tracer)
     lane = grid.goal_count if grid.lanes is None else int(grid.lanes)
+    # one engine per tier: lanes are tier-homogeneous (pending clients
+    # group by tier below), each at its tier's (lane, tier_size) width
+    tier_keys = [t.index for t in cplan.tiers] if tiered else [None]
+
+    def engine_kw(k):
+        return ({} if k is None else
+                dict(tier=cplan.tiers[k], plan=cplan))
     if lane > 0:
-        lane_step = fedpt.make_lane_step(loss_fn, rc, lane, device=dev)
+        lane_steps = {k: fedpt.make_lane_step(loss_fn, rc, lane, device=dev,
+                                              **engine_kw(k))
+                      for k in tier_keys}
     else:
-        client_step = fedpt.make_client_step(loss_fn, rc, device=dev)
+        client_steps = {k: fedpt.make_client_step(loss_fn, rc, device=dev,
+                                                  **engine_kw(k))
+                        for k in tier_keys}
     apply_fn = fedpt.make_buffered_apply(
-        server_opt, flush_dp=flush_dp, sanitize=san,
+        server_opt, flush_dp=flush_dp, plan=cplan, sanitize=san,
         fused_threshold=grid.agg_tail_threshold, device=dev)
     staleness_fn = fedpt.get_staleness_fn(grid.staleness, **grid.staleness_kw)
     if flush_dp is not None:
@@ -469,25 +599,33 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
     # processed in virtual-time order, so "the model right now" is exactly
     # what a client dispatched at the current event time downloads
     state = {"y": y, "sstate": server_opt.init(y), "applied": 0}
-    # lane mode: client steps dispatched since the last flush. They all
+    # lane mode: client steps dispatched since the last flush, grouped by
+    # tier (each group runs as lane batches at its tier's width). They all
     # trained on the model of the CURRENT server version (y only changes
     # at flushes), so running them as (lane, ...) batches at the next
     # flush is exactly the sequential semantics.
-    pending: List = []
+    pending: Dict[Any, List] = {k: [] for k in tier_keys}
 
     def run_pending():
-        while pending:
-            chunk = pending[:lane]
-            del pending[:len(chunk)]
-            n = len(chunk)
-            # pad short lanes with a repeat of the last real batch: one
-            # fixed (lane, ...) shape
-            stacked = {k: np.stack([b[k] for b, _ in chunk]
-                                   + [chunk[-1][0][k]] * (lane - n))
-                       for k in chunk[0][0]}
-            deltas, losses = lane_step(state["y"], frozen, stacked)
-            for i, (_, cell) in enumerate(chunk):
-                cell.delta, cell.loss = deltas[i].clone(), losses[i]
+        for key, queue in pending.items():
+            while queue:
+                chunk = queue[:lane]
+                del queue[:len(chunk)]
+                n = len(chunk)
+                # pad short lanes with a repeat of the last real batch:
+                # one fixed (lane, ...) shape
+                stacked = {k: np.stack([b[k] for b, _ in chunk]
+                                       + [chunk[-1][0][k]] * (lane - n))
+                           for k in chunk[0][0]}
+                deltas, losses = lane_steps[key](state["y"], frozen, stacked)
+                for i, (_, cell) in enumerate(chunk):
+                    cell.delta, cell.loss = deltas[i].clone(), losses[i]
+
+    def tier_of(cid):
+        # the policy's map, queried at dispatch time (rotation / adaptive
+        # policies move it between server updates)
+        return (int(policy.current_tiers()[cid]) if cplan is not None
+                else None)
 
     def run_client(cid, version):
         b, w = batch_fn(dataset, cid, rc.local_steps, rc.local_batch,
@@ -496,15 +634,20 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
             w = 1.0  # DP / uniform weighting, as in the sync engine
         elif not policy.trivial:
             w = w * policy.client_weight(cid)
+        # the payload size is shape-determined: the once-measured
+        # (tier-sliced under a plan) value
+        t = tier_of(cid)
+        up = int(tier_up[t]) if cplan is not None else up_bytes
+        key = t if tiered else None
         if lane > 0:
             cell = _LaneCell()
-            pending.append((b, cell))
-            return {"cell": cell, "weight": w, "up_bytes": up_bytes,
-                    "cid": cid, "tier": None}
-        delta, metrics = client_step(state["y"], frozen, b)
+            pending[key].append((b, cell))
+            return {"cell": cell, "weight": w, "up_bytes": up,
+                    "cid": cid, "tier": t}
+        delta, metrics = client_steps[key](state["y"], frozen, b)
         # the loss stays a device scalar: converted once per flush
         return {"delta": delta, "loss": metrics["client_loss"],
-                "weight": w, "up_bytes": up_bytes, "cid": cid, "tier": None}
+                "weight": w, "up_bytes": up, "cid": cid, "tier": t}
 
     def entry_arrays(e):
         cell = e.work.get("cell")
@@ -534,6 +677,12 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
         wts = wts + [0.0] * (grid.goal_count - len(entries))
         args = (state["y"], state["sstate"], flat_deltas,
                 np.asarray(wts, np.float32))
+        if tiered:
+            # per-row tier ids drive the apply's block masks; padding rows
+            # carry tier 0 and weight 0 and fall out of both means
+            args += (np.asarray([e.work["tier"] for e in entries]
+                                + [0] * (grid.goal_count - len(entries)),
+                                np.int64),)
         if flush_dp is not None:
             # one threefry key per flush, from the sync engine's stream
             args += (threefry.key(seed * 100_003 + state["applied"]),)
@@ -558,11 +707,15 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                 tracer.instant(
                     "quarantine", now, parent=sched.last_flush_seq,
                     cause="nonfinite" if nonf[i] else "norm-outlier",
-                    cid=int(entries[i].work["cid"]), tier=None,
+                    cid=int(entries[i].work["cid"]),
+                    tier=(None if entries[i].work.get("tier") is None
+                          else int(entries[i].work["tier"])),
                     norm=float(norms[i]), flush=applied)
         state["applied"] = applied + 1
         if eval_fn and eval_every and state["applied"] % eval_every == 0:
             out.update(eval_fn(part.merge(y_new, frozen)))
+        # a flush is the async "round": rotation / adaptive policies step
+        # their tier maps here
         policy.end_round(applied)
         return out
 
@@ -572,6 +725,9 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
         sample_cid=policy.sample_cid, run_client=run_client,
         apply_update=apply_update, down_bytes=down_bytes,
         compute_seconds=compute_seconds, rng=dev_rng,
+        tier_of=tier_of if cplan is not None else None,
+        compute_of=((lambda cid: float(tier_compute[tier_of(cid)]))
+                    if cplan is not None else None),
         dynamics=dyn, dyn_rng=dyn_rng, observe=policy.observe,
         tracer=tracer, metrics=registry, faults=bfaults)
     t_wall = time.time()
@@ -584,8 +740,21 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                 f"{k}={v:.4f}" for k, v in rec.items() if k != "round"))
 
     vt = history[-1]["virtual_seconds"] if history else 0.0
-    report.add_measured(down_bytes * sched.dispatches, sched.up_bytes_total,
-                        transfers=sched.dispatches)
+    if cplan is not None:
+        for t in cplan.tiers:
+            nd = sched.tier_dispatches.get(t.index, 0)
+            if nd or sched.tier_uploads.get(t.index, 0):
+                report.add_tier_measured(
+                    t.name, down_bytes * nd,
+                    sched.tier_up_bytes.get(t.index, 0), transfers=nd,
+                    uploads=sched.tier_uploads.get(t.index, 0), now=vt,
+                    parent=sched.last_flush_seq)
+    else:
+        report.add_measured(down_bytes * sched.dispatches,
+                            sched.up_bytes_total,
+                            transfers=sched.dispatches)
+    final_tiers = (policy.current_tiers() if cplan is not None
+                   else tier_of_client)
     if tracer.enabled:
         tracer.flush_outputs()
     return GridResult(y=state["y"], frozen=frozen, history=history,
@@ -593,6 +762,9 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                       virtual_seconds=vt, fleet=fleet, mode="async",
                       scheduler_stats=_stats_view(registry),
                       dp=accountant.summary() if accountant else None,
-                      policy=policy, dynamics=dyn, metrics=registry,
+                      tier_stats=_tier_stats(report, cplan, final_tiers,
+                                             registry),
+                      plan=cplan, policy=policy, dynamics=dyn,
+                      metrics=registry,
                       telemetry=tracer if tracer.enabled else None,
                       faults=_faults_view(registry, bfaults))

@@ -157,10 +157,24 @@ def edge_flush_bytes(y) -> int:
 
 
 def tier_payloads(y, cplan, bits: int = 0) -> dict:
-    """Per-tier wire payload sizes under a trainability plan (not ported:
-    ``core/plan.py`` is not part of the port yet)."""
-    raise NotImplementedError("trainability tiers (core/plan.py) are not "
-                              "ported yet")
+    """Per-tier wire payload sizes under a trainability plan:
+    ``{tier name: {"down": bytes, "up": bytes}}``.
+
+    The uplink is the tier's sliced delta: only the leaves the tier trains
+    are serialized (measured for fp32 / int8, analytic int-k otherwise).
+    The downlink is the same for every tier, the full trainable tree plus
+    the seed: blocks a tier froze are still trained by other tiers and
+    cannot be regenerated from the seed."""
+    down = downlink_bytes(y)
+    out = {}
+    for t in cplan.tiers:
+        y_t, _ = cplan.split(y, t)
+        if bits in (0, 8):
+            up = uplink_bytes(y_t, bits=bits)
+        else:
+            up = compress.quantized_uplink_bytes(y_t, bits)
+        out[t.name] = {"down": down, "up": up}
+    return out
 
 
 def assert_matches_analytic(y, frozen, uplink_bits: int = 0) -> None:

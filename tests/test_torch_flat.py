@@ -2,7 +2,8 @@
 ``FlatLayout``, the plain versions of the three kernels against the
 Pallas kernels run with ``interpret=True`` (bit for bit for max-abs and
 Q->DQ, including an all-zero leaf, NaN and Inf; rtol 1e-5 for sumsq),
-``compress``, and the staged server tail.
+``compress``, and the staged server tail, with the trainability-tier
+arguments on both routes.
 """
 import numpy as np
 import pytest
@@ -210,16 +211,67 @@ def test_staged_tail_matches_jax(layouts, bits, clip, uniform):
                                 dict(remask_rows=True, threshold=0),
                                 dict(block_denom=True, sigma=0.1),
                                 dict(remask_rows=True, block_denom=True,
-                                     screen=object())])
-def test_tail_raises_for_later_slices(kw):
-    """Trainability tiers are not ported: both routes refuse them (the
-    fused route, DP noise and the screen landed with the fused tail)."""
-    mat = torch.zeros((2, 1024))
-    with pytest.raises(NotImplementedError):
-        tops.agg_tail(mat, torch.ones(2), block_leaf=np.zeros(1, np.int32),
-                      n_leaves=1, **kw)
-    big = torch.zeros((2, tops.AGG_FUSE_THRESHOLD // 2))
-    with pytest.raises(NotImplementedError):
-        tops.agg_tail(big, torch.ones(2),
-                      block_leaf=np.zeros(big.shape[1] // 1024, np.int32),
-                      n_leaves=1, bits=8, block_denom=True)
+                                     screen=True)])
+def test_tail_raises_for_later_slices(emnist_y, layouts, kw):
+    """The trainability-tier arguments, which both routes refused before
+    tiers were ported, against the JAX tail on the EMNIST layout: each
+    row's block mask from the three-tier plan of
+    ``examples/async_heterogeneous.py`` (tiers 1, 2, 1, 0; the full row at
+    weight 0, so that conv2 has no weight). Rows carry
+    values outside their tier where ``remask_rows`` must zero them, and
+    exact zeros there otherwise (what the tiered client steps send). The
+    update within rtol 1e-5 plus 4 ulps of max|update| (a float32 matmul
+    and, with ``block_denom``, its per-block denominator, reduced in
+    another order; the noise is the same draw within ulps), the route and
+    the screen's masks equal. At the fused threshold's size the default
+    route is fused and equals the staged route bit for bit."""
+    from repro.core import plan as jplan
+    from repro.core import sanitize as jsan
+    from repro_torch.core import sanitize as tsan
+    from repro_torch.nn import threefry
+    jl, _ = layouts
+    bm = jplan.compile_plan({"full": (), "mid": (r"^conv2/",),
+                             "lite": (r"^conv1/", r"^conv2/")},
+                            emnist_y).block_masks()[[1, 2, 1, 0]]
+    mat = _rows(jl, 4, "random", seed=11)
+    if not kw.get("remask_rows"):
+        mat = (mat.reshape(4, -1, jl.align) * bm[:, :, None]).reshape(4, -1)
+    w = np.array([50.0, 20.0, 35.0, 0.0], np.float32)
+    kw = dict(kw)
+    screen = kw.pop("screen", None)
+    base = dict(block_leaf=jl.block_leaf(), n_leaves=len(jl.sizes),
+                align=jl.align, **kw)
+    want, winfo = jops.agg_tail(
+        jnp.asarray(mat), jnp.asarray(w), bmask=jnp.asarray(bm),
+        rng=jax.random.key(4) if kw.get("sigma") else None,
+        screen=jsan.SanitizeConfig() if screen else None, **base)
+    got, ginfo = tops.agg_tail(
+        torch.from_numpy(mat), torch.from_numpy(w), bmask=torch.from_numpy(bm),
+        rng=threefry.key(4) if kw.get("sigma") else None,
+        screen=tsan.SanitizeConfig() if screen else None, **base)
+    assert ginfo["route"] == winfo["route"].replace("/jit/", "/torch/")
+    assert ginfo["route"] == ("fused/torch/exact" if "threshold" in kw
+                              else "staged")
+    want = np.asarray(want)
+    tol = 1e-5 * np.abs(want) + 4 * np.spacing(np.abs(want).max())
+    assert (np.abs(got.numpy() - want) <= tol).all()
+    if screen:
+        for key in ("nonfinite", "outlier"):
+            assert np.array_equal(ginfo[key].numpy(), np.asarray(winfo[key]))
+    # blocks no row trains keep delta 0 under the per-block denominator
+    if kw.get("block_denom") and not kw.get("sigma"):
+        dead = np.repeat((w[:, None] * bm).sum(0) == 0, jl.align)
+        assert dead.any() and not got.numpy()[dead].any()
+    nb = tops.AGG_FUSE_THRESHOLD // 1024 // 2
+    big = torch.randn((2, nb * 1024),
+                      generator=torch.Generator().manual_seed(0))
+    bmask = torch.ones((2, nb))
+    bmask[1, nb // 2:] = 0.0
+    big[1, nb // 2 * 1024:] = 0.0
+    args = dict(block_leaf=np.zeros(nb, np.int32), n_leaves=1, bits=8,
+                bmask=bmask, block_denom=True)
+    fused, finfo = tops.agg_tail(big, torch.ones(2), **args)
+    staged, sinfo = tops.agg_tail(big, torch.ones(2), threshold=1 << 60,
+                                  **args)
+    assert (finfo["route"], sinfo["route"]) == ("fused/torch/exact", "staged")
+    assert same_bits(fused.numpy(), staged.numpy())

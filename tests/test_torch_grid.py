@@ -258,8 +258,9 @@ def test_lane_step_rows_match_jax_client_steps(extra):
     """Each row of the port's lane step (training under vmap, then the
     quantize and clip kernels over the whole lane) against the JAX client
     step of that client alone; the port's sequential client step equals
-    its lane row bit for bit. Rows within 1e-5 of max|row|, plus one int8
-    step of the row (max|row| / 127) at 8 bits (module docstring)."""
+    its lane row bit for bit; a tiered lane step's rows against the JAX
+    tiered client steps. Rows within 1e-5 of max|row|, plus one int8 step
+    of the row (max|row| / 127) at 8 bits (module docstring)."""
     ds = make_ds(6)
     rng = np.random.default_rng(0)
     batches = [tsyn.client_batch_images(ds, c, 2, 8, rng)[0]
@@ -289,9 +290,40 @@ def test_lane_step_rows_match_jax_client_steps(extra):
         if "dp_clip_norm" in rc:
             assert float(m["update_norm"]) == pytest.approx(
                 float(wm["update_norm"]), rel=REL)
-    with pytest.raises(NotImplementedError):
-        tfedpt.make_lane_step(torch_loss, tfedpt.RoundConfig(**rc), 3,
-                              tier=object(), device="cpu")
+    # the tiered lane step (tier "lite": the kernel alone trains) against
+    # the JAX tiered client step of each client, scattered to full width:
+    # zero outside the tier, the same bound inside
+    from repro.core import plan as jplan
+    from repro_torch.core import plan as tplan
+    spec = {"full": (), "lite": (r"/bias$",)}
+    jcp, tcp = jplan.compile_plan(spec, jax_init(0)), tplan.compile_plan(
+        spec, y_t)
+    jtstep = jax.jit(jfedpt.make_client_step(
+        jax_loss, jfedpt.RoundConfig(**rc), tier=jcp.tiers[1], plan=jcp))
+    trows, tlosses = tfedpt.make_lane_step(
+        torch_loss, tfedpt.RoundConfig(**rc), 3, tier=tcp.tiers[1],
+        plan=tcp, device="cpu")(y_t, {}, lane_batch)
+    assert trows.shape == rows.shape
+    for i, b in enumerate(batches):
+        want, wm = jtstep(jax_init(0), {}, b)
+        want = np.asarray(want)
+        assert not want[:1024].any() and not trows[i, :1024].any()
+        scale = float(np.abs(want).max())
+        step = scale / 127 if rc.get("uplink_bits") else 0.0
+        assert float(np.abs(trows[i].numpy() - want).max()) <= (
+            REL * scale + step)
+        assert float(tlosses[i]) == pytest.approx(float(wm["client_loss"]),
+                                                  rel=REL)
+        # the sequential tiered step: its lane row bit for bit, scattered
+        # (the default) or as the tier's contiguous slice (the payload)
+        kw = dict(tier=tcp.tiers[1], plan=tcp, device="cpu")
+        one, _ = tfedpt.make_client_step(
+            torch_loss, tfedpt.RoundConfig(**rc), **kw)(y_t, {}, b)
+        sub, _ = tfedpt.make_client_step(
+            torch_loss, tfedpt.RoundConfig(**rc), scatter=False, **kw)(
+                y_t, {}, b)
+        assert torch.equal(one, trows[i]) and sub.shape == (tcp.tiers[1].size,)
+        assert torch.equal(tcp.scatter(sub, tcp.tiers[1]), one)
 
 
 @pytest.mark.parametrize("dp", [False, True])
@@ -327,7 +359,7 @@ def test_buffered_apply_matches_jax(dp):
         assert float(np.abs(a - b).max()) <= REL * float(np.abs(b).max())
 
 
-@pytest.mark.parametrize("kw", [dict(plan={"full": ()}), dict(mesh="debug"),
+@pytest.mark.parametrize("kw", [dict(resume_from="x"), dict(mesh="debug"),
                                 dict(topology=2), dict(checkpoint_every=1,
                                                        checkpoint_dir="x"),
                                 dict(telemetry={"profile": True})])

@@ -168,7 +168,7 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 # docstrings may be reworded where they narrate the reference's history
 COPIES = ("obs/schema", "obs/export", "obs/metrics", "obs/trace",
           "sim/dynamics", "sim/faults", "sim/devices", "sim/selection",
-          "sim/scheduler", "core/comm", "data/synthetic")
+          "sim/scheduler", "core/comm", "data/synthetic", "fl/tuning")
 
 
 def _code(text: str) -> str:

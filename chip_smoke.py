@@ -162,7 +162,31 @@ package. Phases, in order, each failing the run on error:
    - ``examples/adaptive_tiers.py``: the adaptive-capability policy on
      pareto-mobile-diurnal, 16 updates, re-tiered every 4, the census
      before and after;
-6. print the ``kernels`` JSON line, the card's name and power limit,
+6. drive checkpoint / resume and the edge topology on the full-width
+   EMNIST CNN under ``torch.backends.cudnn.deterministic = True``, with
+   snapshots in a temporary directory:
+   - async kill -> resume: the async DP path (12 updates) with
+     ``tests/test_resume.py``'s chaos faults, the screen and jittered
+     links, snapshots every 2, killed between updates 6 and 7 and resumed
+     from the kill's snapshot: history, y, stats, bytes and DP summary
+     bit for bit the straight run (run twice, also bit for bit), the
+     resumed segment on the cluster Q->DQ and clip; snapshot bytes, the
+     encode / save / load / decode times, the update wall with snapshots
+     on and off;
+   - sync kill -> resume: the quickstart at ``uplink_bits=8`` with
+     crashes (0.1), 10 rounds, killed between rounds 5 and 6, bit for
+     bit;
+   - the topology: one region and 4 regions bit for bit the flat grid
+     (the client->edge hop equal to the flat ledger), their update walls,
+     the blocking copies a flush with telemetry off and on; 4 shocked
+     regions (a region down 1.2 virtual seconds every 0.8, crashes 0.1):
+     shocks fired, the first 3 updates card vs CPU with the hop ledger,
+     edge counters and shocks equal, and a kill -> resume bit for bit;
+   - ``TelemetryConfig(profile=True)`` inside ``torch.profiler``: a
+     ``grid/server_apply`` range a flush of the trace and a
+     ``grid/lane_step[None]`` range a lane step; the update wall with
+     the ranges on and off (medians of 10 runs);
+7. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -170,6 +194,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -1308,11 +1333,23 @@ def async_run(ds, init, updates, dev, task=None):
                          data_kind=task["kind"], device=dev)
 
 
+def edge_view(res):
+    """A run's topology side: the per-hop ledger, the edge and region
+    counters by region, and the shocks its trace recorded."""
+    counters = {name: dict(res.metrics.counter(name).labels) for name in
+                ("edge_flushes", "edge_up_bytes", "edge_down_bytes",
+                 "region_dispatches", "region_uploads")}
+    shocks = ([(e.t, dict(e.payload)) for e in res.telemetry.events
+               if e.kind == "shock"] if res.telemetry is not None else [])
+    return res.comm.hop_traffic, counters, shocks
+
+
 def check_async_against_cpu(ds, dev, task=None):
     """The async path's first ASYNC_CHECKED updates on the card against
     the same run on the CPU through the plain versions, from the same
     parameters: the host side equal (clock, staleness, scheduler stats,
-    bytes, DP summary and, under a plan, ``tier_stats``), the losses
+    bytes, DP summary, under a plan ``tier_stats``, under a topology the
+    hop ledger, edge counters and shocks, :func:`edge_view`), the losses
     within rel 1e-4, and y within the DP bound below, or, without DP, the
     update by norm within UPDATE_NORM_REL (the int8 flips, unbounded a
     priori without the clip, and the convolutions' float orders)."""
@@ -1333,6 +1370,7 @@ def check_async_against_cpu(ds, dev, task=None):
              and card.scheduler_stats == cpu.scheduler_stats
              and card.dp == cpu.dp
              and card.tier_stats == cpu.tier_stats
+             and edge_view(card) == edge_view(cpu)
              and (card.comm.measured_down_bytes, card.comm.measured_up_bytes,
                   card.comm.transfers)
              == (cpu.comm.measured_down_bytes, cpu.comm.measured_up_bytes,
@@ -1360,7 +1398,9 @@ def check_async_against_cpu(ds, dev, task=None):
                 f"{UPDATE_NORM_REL:.0e}")
     print(f"  async, first {ASYNC_CHECKED} updates, card vs CPU: virtual "
           f"clock / staleness / scheduler stats / bytes / DP summary"
-          f"{' / tier_stats' if card.tier_stats else ''} equal {exact}; loss "
+          f"{' / tier_stats' if card.tier_stats else ''}"
+          f"{' / hops, edge counters, shocks' if card.topology else ''} "
+          f"equal {exact}; loss "
           f"rel {loss_rel:.3e} (tol 1e-4), max |y| diff {worst:.3e} "
           f"({held}); virtual seconds {card.virtual_seconds:.6f} / "
           f"{cpu.virtual_seconds:.6f}")
@@ -2826,6 +2866,374 @@ def drive_adaptive_tiers(ds, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: checkpoint / resume and the edge topology on the card
+
+# tests/test_resume.py's fault rates, and examples/async_heterogeneous.py
+# --regions' shocks (a region down for 1.2 virtual seconds, every 0.8)
+CHAOS = dict(crash_compute=0.05, truncate_upload=0.05, corrupt_nan=0.08,
+             corrupt_bitflip=0.08, duplicate_upload=0.05)
+REGION_SHOCKS = dict(every=0.8, duration=1.2, residual=0.0)
+REGIONS, CKPT_EVERY, WALL_RUNS = 4, 2, 10
+
+
+class snapshot_timer:
+    """Times the grid's snapshot calls inside a ``with`` (each wrapped in
+    ``torch.cuda.synchronize``): encode (the device-to-host copies), the
+    npz write, the read and the decode (the copies back to the card),
+    in ms, by name."""
+    NAMES = ("encode_async", "save_state", "load_state", "decode_async")
+
+    def __enter__(self):
+        from repro_torch.checkpoint import grid_state
+        self.mod, self.real = grid_state, {}
+        self.ms = {name: [] for name in self.NAMES}
+        for name in self.NAMES:
+            real = self.real[name] = getattr(grid_state, name)
+
+            def timed(*args, _real=real, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*args, **kw)
+                torch.cuda.synchronize()
+                self.ms[_name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            setattr(grid_state, name, timed)
+        return self.ms
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.mod, name, real)
+        return False
+
+
+def grid_run(ds, dev, n, mode="async", rc=None, **grid_kw):
+    """The phase's runs on the full-width EMNIST CNN from seed 0: async,
+    the async DP path's configuration (pareto-mobile, concurrency 12, goal
+    6, polynomial staleness, int8 with per-flush DP); sync, the quickstart
+    at ``uplink_bits=8``; ``grid_kw`` adds GridConfig fields."""
+    from repro_torch.models import paper_models as pm
+    from repro_torch.sim import grid
+    if mode == "async":
+        base = dict(mode="async", fleet="pareto-mobile",
+                    concurrency=CONCURRENCY, goal_count=GOAL,
+                    staleness="polynomial")
+        rc = rc or quickstart_rc(8, dp=True)
+    else:
+        base = dict(mode="sync")
+        rc = rc or quickstart_rc(8)
+    return grid.run_grid(lambda s: pm.init_emnist_cnn(s, device=dev),
+                         emnist_loss, ds, rc, n,
+                         grid=grid.GridConfig(**{**base, **grid_kw}),
+                         freeze_spec=pm.EMNIST_FREEZE, seed=0, device=dev)
+
+
+def same_run(a, b) -> bool:
+    """Bit for bit: the history (losses, norms, clock, staleness), every
+    leaf of y, the scheduler stats, the measured and per-hop bytes and
+    the DP summary."""
+    return (a.history == b.history
+            and all(torch.equal(x, z) for x, z in zip(leaves_of(a.y),
+                                                      leaves_of(b.y)))
+            and a.scheduler_stats == b.scheduler_stats
+            and (a.comm.measured_down_bytes, a.comm.measured_up_bytes,
+                 a.comm.transfers, a.comm.hop_traffic)
+            == (b.comm.measured_down_bytes, b.comm.measured_up_bytes,
+                b.comm.transfers, b.comm.hop_traffic)
+            and a.dp == b.dp)
+
+
+def kill_and_resume(label, ds, dev, tmp, straight, n, mode, faults, expect,
+                    **grid_kw):
+    """``straight``'s configuration killed halfway between updates (rounds)
+    n // 2 and n // 2 + 1, snapshotting every CKPT_EVERY, then resumed
+    from the kill's checkpoint with the launch counts set to 0 just
+    before and read just after; the resumed run must equal ``straight``
+    bit for bit, and launch each kernel of ``expect``. Returns the
+    resumed segment's launch counts."""
+    from repro_torch import kernels
+    from repro_torch.sim import faults as faults_lib
+    k = n // 2
+    kill = 0.5 * (straight.history[k - 1]["virtual_seconds"]
+                  + straight.history[k]["virtual_seconds"])
+    ckdir = os.path.join(tmp, label.replace(" ", "_"))
+    try:
+        grid_run(ds, dev, n, mode, faults=dict(faults, server_kill_at=kill),
+                 checkpoint_every=CKPT_EVERY, checkpoint_dir=ckdir,
+                 **grid_kw)
+        raise AssertionError(f"{label}: the server was not killed at "
+                             f"{kill:.4f}")
+    except faults_lib.ServerKilled as e:
+        snap = e.checkpoint
+    kernels.reset_launches()
+    resumed = grid_run(ds, dev, n, mode, faults=faults, resume_from=snap,
+                       **grid_kw)
+    counts = {**kernels.LAUNCHES, **kernels.ROUTES}
+    same = same_run(straight, resumed)
+    print(f"  {label}: killed at virtual {kill:.4f} s (between updates {k} "
+          f"and {k + 1}), resumed from {os.path.basename(snap)}: history, y, "
+          f"stats, bytes, hops, dp bit for bit {same}; resumed segment's "
+          f"launches {counts}")
+    if not same:
+        raise AssertionError(f"{label}: the resumed run differs from the "
+                             f"straight run")
+    check_expected(label, counts, expect)
+    return counts
+
+
+def profiled_copies(run, n: int) -> dict:
+    """Blocking copies and syncs a flush in the steady state: those of a
+    profiled run of 2n updates less those of a run of n (which cancels
+    the run's set-up), over n."""
+    from torch.profiler import ProfilerActivity, profile
+    totals = []
+    for updates in (n, 2 * n):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(updates)
+            torch.cuda.synchronize()
+        totals.append({name: sum(e.count for e in prof.key_averages()
+                                 if e.key == name)
+                       for name in HOST_COPY_OPS})
+    return {name: round((totals[1][name] - totals[0][name]) / n, 2)
+            for name in HOST_COPY_OPS}
+
+
+def in_turns(runs: dict) -> None:
+    """Prints each run's update wall (``seconds_per_round``,
+    synchronized), WALL_RUNS times each in turns (the order reversed every
+    other turn), as the median with the range, in ms."""
+    n = WALL_RUNS
+    walls = {label: [] for label in runs}
+    order = list(runs)
+    for i in range(n):
+        for label in (order if i % 2 == 0 else order[::-1]):
+            walls[label].append(1e3 * runs[label]().seconds_per_round)
+    print("  update wall (seconds_per_round, synchronized), median [min, "
+          f"max] of {n} runs in turns: " + ", ".join(
+              f"{label} {float(np.median(v)):.3f} [{min(v):.3f}, "
+              f"{max(v):.3f}] ms" for label, v in walls.items()))
+
+
+def drive_resume_topology(ds, dev):
+    """Phase 6 on the full-width EMNIST CNN, under
+    ``torch.backends.cudnn.deterministic = True``, snapshots in a
+    temporary directory. Returns the launch counts of the main-path
+    segments (the two resumed runs and the shocked 4-region run), each
+    set to 0 just before its run and read just after."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.checkpoint import grid_state
+    from repro_torch.sim import dynamics as dyn_lib
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    launches = {name: 0 for name in {**kernels.LAUNCHES, **kernels.ROUTES}}
+
+    def add(counts):
+        for name in launches:
+            launches[name] += counts.get(name, 0)
+    lane_expect = ("fake_quantize_flat", "fake_quantize_flat/cluster",
+                   "clip_flat", "clip_flat/cluster")
+    shocks = dyn_lib.DynamicsConfig(
+        shocks=dyn_lib.RegionShocks(**REGION_SHOCKS))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # 1. async kill -> resume, chaos faults + screen + jitter
+            chaos = dict(sanitize=True, dynamics="jitter")
+            print(f"[resume] async FedBuff int8 + per-flush DP, "
+                  f"{ASYNC_UPDATES} updates, faults {CHAOS}, sanitize, "
+                  f"jitter, snapshots every {CKPT_EVERY}")
+            straight = grid_run(ds, dev, ASYNC_UPDATES, faults=CHAOS,
+                                **chaos)
+            with snapshot_timer() as ms:
+                ckpt = grid_run(ds, dev, ASYNC_UPDATES, faults=CHAOS,
+                                checkpoint_every=CKPT_EVERY,
+                                checkpoint_dir=os.path.join(tmp, "every2"),
+                                **chaos)
+            snaps = sorted(os.listdir(os.path.join(tmp, "every2")))
+            nbytes = [os.path.getsize(os.path.join(tmp, "every2", f))
+                      for f in snaps]
+            print(f"  straight run: losses "
+                  f"{[round(h['loss'], 4) for h in straight.history]}, "
+                  f"stats {straight.scheduler_stats}, dp {straight.dp}")
+            again = grid_run(ds, dev, ASYNC_UPDATES, faults=CHAOS, **chaos)
+            print(f"  the straight run again: bit for bit the first "
+                  f"{same_run(straight, again)}")
+            print(f"  the same with checkpoint_every={CKPT_EVERY}: bit for "
+                  f"bit the straight run {same_run(straight, ckpt)}; "
+                  f"{len(snaps)} snapshots of {nbytes} bytes; encode "
+                  f"{[round(v, 3) for v in ms['encode_async']]} ms, "
+                  f"save_state {[round(v, 3) for v in ms['save_state']]} ms")
+            fresh = itertools.count()
+            in_turns({"off": lambda: grid_run(
+                ds, dev, ASYNC_UPDATES, faults=CHAOS, **chaos),
+                f"checkpoint_every={CKPT_EVERY}": lambda: grid_run(
+                    ds, dev, ASYNC_UPDATES, faults=CHAOS,
+                    checkpoint_every=CKPT_EVERY, checkpoint_dir=os.path.join(
+                        tmp, f"w{next(fresh)}"), **chaos)})
+            if not (same_run(straight, ckpt) and same_run(straight, again)) \
+                    or len(snaps) != ASYNC_UPDATES // CKPT_EVERY:
+                raise AssertionError("async: the run is not reproducible, "
+                                     "or snapshots changed it or went "
+                                     "missing")
+            path = os.path.join(tmp, "every2", snaps[-1])
+            meta, arrays = grid_state.load_state(path)
+            load_ms = wall_ms(lambda: grid_state.load_state(path), 5)
+            fresh = itertools.count()
+            save_ms = wall_ms(lambda: grid_state.save_state(
+                os.path.join(tmp, f"copy{next(fresh)}.npz"), meta, arrays),
+                5)
+            up_ms = wall_ms(lambda: grid_state.unpack_tree("y", arrays,
+                                                           dev), 5)
+            print(f"  last snapshot ({nbytes[-1]} bytes, {len(arrays)} "
+                  f"arrays): save_state {save_ms:.3f} ms, load_state "
+                  f"{load_ms:.3f} ms, y back to the card {up_ms:.3f} ms "
+                  f"(medians of 5)")
+            with snapshot_timer() as ms:
+                add(kill_and_resume("async kill -> resume", ds, dev, tmp,
+                                    straight, ASYNC_UPDATES, "async", CHAOS,
+                                    lane_expect, **chaos))
+            print(f"  resume: load_state {[round(v, 3) for v in ms['load_state']]}"
+                  f" ms, decode_async "
+                  f"{[round(v, 3) for v in ms['decode_async']]} ms")
+
+            # 2. sync kill -> resume, the quickstart at int8
+            crash = {"crash_compute": 0.1}
+            print(f"[resume] sync quickstart, uplink_bits=8, {ROUNDS} rounds,"
+                  f" faults {crash}")
+            sync = grid_run(ds, dev, ROUNDS, "sync", faults=crash)
+            print(f"  straight run: losses "
+                  f"{[round(h['loss'], 4) for h in sync.history]}, stats "
+                  f"{sync.scheduler_stats}")
+            add(kill_and_resume("sync kill -> resume", ds, dev, tmp, sync,
+                                ROUNDS, "sync", crash,
+                                ("sumsq", "fake_quantize_flat",
+                                 "fake_quantize_flat/cluster")))
+
+            # 3. the edge topology, async DP path
+            flat = grid_run(ds, dev, ASYNC_UPDATES)
+            one = grid_run(ds, dev, ASYNC_UPDATES, topology=1)
+            four = grid_run(ds, dev, ASYNC_UPDATES, topology=REGIONS)
+            ce = four.comm.hop_traffic["client_edge"]
+            same_one = (one.history == flat.history and all(
+                torch.equal(a, b) for a, b in zip(leaves_of(one.y),
+                                                  leaves_of(flat.y))))
+            same_four = (four.history == flat.history and all(
+                torch.equal(a, b) for a, b in zip(leaves_of(four.y),
+                                                  leaves_of(flat.y))))
+            ledger = ((ce["down_bytes"], ce["up_bytes"], ce["transfers"])
+                      == (flat.comm.measured_down_bytes,
+                          flat.comm.measured_up_bytes, flat.comm.transfers))
+            print(f"[topology] async DP path, {ASYNC_UPDATES} updates: one "
+                  f"region bit for bit flat {same_one}; {REGIONS} regions: "
+                  f"y and history bit for bit flat {same_four}, client_edge "
+                  f"hop == flat ledger {ledger}; hops "
+                  f"{four.comm.hop_traffic}")
+            in_turns({"flat": lambda: grid_run(ds, dev, ASYNC_UPDATES),
+                      "1 region": lambda: grid_run(ds, dev, ASYNC_UPDATES,
+                                                   topology=1),
+                      f"{REGIONS} regions": lambda: grid_run(
+                          ds, dev, ASYNC_UPDATES, topology=REGIONS)})
+            if not (same_one and same_four and ledger
+                    and four.comm.hop_traffic["edge_server"]["uploads"]):
+                raise AssertionError("topology: a region layout moved the "
+                                     "model, or the hops miss the ledger")
+            n_prof = ASYNC_CHECKED
+            copies = {
+                "flat": profiled_copies(
+                    lambda n: grid_run(ds, dev, n), n_prof),
+                f"{REGIONS} regions, telemetry off": profiled_copies(
+                    lambda n: grid_run(ds, dev, n, topology=REGIONS),
+                    n_prof),
+                f"{REGIONS} regions, telemetry on": profiled_copies(
+                    lambda n: grid_run(ds, dev, n, topology=REGIONS,
+                                       telemetry=True), n_prof)}
+            print(f"  copies and syncs a flush (profiled runs of "
+                  f"{2 * n_prof} less {n_prof} updates, over {n_prof}): "
+                  f"{copies}")
+
+            # shocked regions: the card against the CPU, then kill -> resume;
+            # crashes on, so that the kill's fault stream is the straight
+            # run's (the shock stream is the next spawned child)
+            regional = dict(topology=REGIONS, dynamics=shocks, faults=crash,
+                            telemetry=True)
+            task = dict(emnist_async(), label=f"{REGIONS} regions, shocked",
+                        grid=regional)
+            kernels.reset_launches()
+            shocked = grid_run(ds, dev, ASYNC_UPDATES, **regional)
+            counts = {**kernels.LAUNCHES, **kernels.ROUTES}
+            add(counts)
+            fired = [e for e in shocked.telemetry.events
+                     if e.kind == "shock"]
+            edges = [e for e in shocked.telemetry.events
+                     if e.kind == "edge_flush"]
+            print(f"[topology] {REGIONS} regions, shocks {REGION_SHOCKS}: "
+                  f"{len(fired)} shocks fired (regions "
+                  f"{[e.payload['region'] for e in fired]}), {len(edges)} "
+                  f"edge flushes, stats {shocked.scheduler_stats}, virtual "
+                  f"seconds {shocked.virtual_seconds:.4f}; launches {counts}")
+            if not fired:
+                raise AssertionError("shocked regions: no shock fired")
+            check_expected(task["label"], counts, lane_expect)
+            check_async_against_cpu(ds, dev, task)
+            add(kill_and_resume(
+                "shocked 4-region kill -> resume", ds, dev, tmp, shocked,
+                ASYNC_UPDATES, "async", crash, lane_expect,
+                **{k: v for k, v in regional.items() if k != "faults"}))
+
+            # 4. profiling: torch.profiler ranges against the trace's flushes
+            drive_profile_ranges(ds, dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return launches
+
+
+def drive_profile_ranges(ds, dev):
+    """One async run with ``TelemetryConfig(profile=True)`` inside
+    ``torch.profiler.profile``: a ``grid/server_apply`` range a flush of
+    the trace and a ``grid/lane_step[None]`` range a lane step; then the
+    update wall with the ranges on and off, medians of WALL_RUNS runs of
+    ASYNC_CHECKED updates, in turns."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import fedpt
+    calls = {"lane": 0}
+    make = fedpt.make_lane_step
+
+    def counting(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(*a):
+            calls["lane"] += 1
+            return step(*a)
+        return run
+    fedpt.make_lane_step = counting
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = grid_run(ds, dev, ASYNC_CHECKED,
+                           telemetry={"profile": True})
+            torch.cuda.synchronize()
+    finally:
+        fedpt.make_lane_step = make
+    # the host ranges (the profiler mirrors each as device-side
+    # annotations, one or more a range, which are not counted)
+    from torch.autograd import DeviceType
+    ranges = {name: sum(e.name == name and e.device_type == DeviceType.CPU
+                        for e in prof.events())
+              for name in ("grid/server_apply", "grid/lane_step[None]")}
+    flushes = sum(e.kind == "flush" for e in res.telemetry.events)
+    print(f"[profile] async run, {ASYNC_CHECKED} updates, profile=True: "
+          f"ranges {ranges} against {flushes} trace flushes and "
+          f"{calls['lane']} lane steps")
+    if (ranges["grid/server_apply"], ranges["grid/lane_step[None]"]) != (
+            flushes, calls["lane"]) or flushes != ASYNC_CHECKED:
+        raise AssertionError("profile: the ranges do not match the flushes")
+    in_turns({"profile off": lambda: grid_run(ds, dev, ASYNC_CHECKED),
+              "profile on": lambda: grid_run(ds, dev, ASYNC_CHECKED,
+                                             telemetry={"profile": True})})
+
+
 def other_tree(src: str, what: str) -> int:
     """``--kernel-times SRC`` / ``--dp-ftrl SRC``: build the kernels of the
     package under SRC (another tree, unpacked with ``git archive``, run in
@@ -3156,7 +3564,12 @@ def main(argv) -> int:
         for name in launches:
             launches[name] += counts[name]
 
-    # --- phase 6: summary ------------------------------------------------
+    # --- phase 6: checkpoint / resume and the edge topology -------------
+    counts = drive_resume_topology(ds, dev)
+    for name in launches:
+        launches[name] += counts[name]
+
+    # --- phase 7: summary ------------------------------------------------
     if len(records) != 10:
         raise AssertionError(f"{len(records)} kernel records, not 10")
     for rec in records:

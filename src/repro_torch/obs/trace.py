@@ -52,8 +52,8 @@ class TelemetryConfig:
 
     With both paths ``None`` the events just accumulate on
     ``Tracer.events`` (and ``GridResult.telemetry``) for in-process
-    inspection/export. ``profile=True`` additionally wraps the jitted
-    lane step and the server tail in ``jax.profiler`` annotations
+    inspection/export. ``profile=True`` additionally wraps the round,
+    lane step and server tail in ``torch.profiler`` ranges
     (``obs/profiling.py``) so a wall-time profile captured around the
     run lines up with the virtual-time spans."""
     jsonl_path: Optional[str] = None

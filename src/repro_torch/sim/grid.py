@@ -20,11 +20,19 @@ tiered round engine in sync mode, tier-homogeneous lanes in async mode,
 per-tier billing and ``GridResult.tier_stats``. A trivial (one-tier) plan
 runs the untiered engines.
 
+``GridConfig.topology`` (``sim/topology.py``) partitions the fleet into
+edge regions: per-hop billing, region shocks (``DynamicsConfig.shocks``)
+and, in async mode, each flush's edge pre-reduce on the rows' device.
+``checkpoint_every`` / ``resume_from`` snapshot and restore the whole
+run (``checkpoint/grid_state.py``, the reference's file format); a
+resumed run reproduces the straight run bit for bit on the CPU, and on
+CUDA with ``torch.backends.cudnn.deterministic = True`` (the caller's
+setting). ``TelemetryConfig.profile`` wraps the round, the lane steps and
+the server apply in ``torch.profiler`` / NVTX ranges (``obs/profiling``).
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
 taking another route (``ROADMAP.md``, Queue 1): mesh execution
-(``mesh``), the two-level topology (``topology``, and with it region
-shocks), checkpoint / resume (``checkpoint_every``, ``resume_from``) and
-the device profiler annotations (``TelemetryConfig.profile``).
+(``mesh``).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 
 import repro_torch.core.partition as part
 from repro_torch import resolve_device
+from repro_torch.checkpoint import grid_state as gstate_lib
 from repro_torch.core import comm, dp as dp_lib, fedpt
 from repro_torch.core import flat as flat_lib
 from repro_torch.core import plan as plan_lib
@@ -46,21 +55,23 @@ from repro_torch.core import sanitize as sanitize_lib
 from repro_torch.data import synthetic as syn
 from repro_torch.nn import basic, threefry
 from repro_torch.obs import metrics as metrics_lib
+from repro_torch.obs import profiling as prof_lib
 from repro_torch.obs import trace as trace_lib
 from repro_torch.sim import devices as dev_lib
 from repro_torch.sim import dynamics as dyn_lib
 from repro_torch.sim import faults as faults_lib
 from repro_torch.sim import scheduler as sched_lib
 from repro_torch.sim import selection as sel_lib
+from repro_torch.sim import topology as topo_lib
 from repro_torch.sim import wire
 
 
 @dataclasses.dataclass
 class GridConfig:
     """The reference's grid configuration, field for field (see
-    ``repro/sim/grid.py`` for each knob). ``mesh``, ``topology``,
-    ``checkpoint_*`` and ``resume_from`` keep their fields so that
-    configurations carry over, and raise when set (module docstring)."""
+    ``repro/sim/grid.py`` for each knob). ``mesh`` keeps its field so
+    that configurations carry over, and raises when set (module
+    docstring)."""
     mode: str = "sync"                      # "sync" | "async"
     fleet: Union[str, dev_lib.Fleet] = "uniform"
     # virtual seconds one local step takes on the reference device; each
@@ -98,9 +109,12 @@ class GridConfig:
     # "adaptive-capability" (the tier policies need a plan), or a
     # SelectionPolicy instance
     selection: Any = "uniform"
-    topology: Any = None                    # not ported
+    # None = the flat single-hop grid; an int region count, a
+    # TopologyConfig or an explicit per-client region array partitions the
+    # fleet into edge regions (per-hop billing, edge pre-reduce, shocks)
+    topology: Any = None
     # None = no event records; a TelemetryConfig / True / dict records the
-    # virtual-time trace (profile=True is not ported)
+    # virtual-time trace (profile=True adds torch.profiler ranges)
     telemetry: Any = None
     # None = no failure model; a preset name ("chaos"), FaultConfig or dict
     faults: Any = None
@@ -109,9 +123,12 @@ class GridConfig:
     # None = the tail's shape- and pipeline-aware default; an int routes by
     # size (0 forces the fused tail)
     agg_tail_threshold: Optional[int] = None
-    checkpoint_every: int = 0               # not ported
+    # checkpoint_every > 0 snapshots the run into checkpoint_dir every N
+    # server updates (async: flush boundaries; sync: round boundaries);
+    # resume_from restores a snapshot and continues
+    checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None
-    resume_from: Optional[str] = None       # not ported
+    resume_from: Optional[str] = None
     # --- rng plumbing ---
     fleet_seed: int = 0                     # profile sampling
     device_seed: int = 13                   # availability/dropout/latency
@@ -141,6 +158,7 @@ class GridResult:
     # the bound SelectionPolicy and BoundDynamics the run used
     policy: Any = None
     dynamics: Any = None
+    # the bound Topology (None = flat); per-hop traffic in comm.hop_traffic
     topology: Any = None
     # the run's MetricsRegistry (always present); scheduler_stats is a
     # dict view over it
@@ -171,19 +189,11 @@ def _uplink_bytes(tree, bits: int) -> int:
     return compress.quantized_uplink_bytes(tree, bits)
 
 
-def _refuse_unported(grid: GridConfig, tel_cfg) -> None:
-    def todo(what, item):
-        return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                                   f"Queue 1 item {item})")
+def _refuse_unported(grid: GridConfig) -> None:
     if grid.mesh is not None:
-        raise todo("GridConfig.mesh (mesh execution, launch/mesh.py)", 12)
-    if grid.topology is not None:
-        raise todo("GridConfig.topology (edge regions and region shocks, "
-                   "sim/topology.py)", 9)
-    if grid.checkpoint_every > 0 or grid.resume_from:
-        raise todo("checkpoint / resume (checkpoint/grid_state.py)", 9)
-    if tel_cfg is not None and tel_cfg.profile:
-        raise todo("TelemetryConfig.profile (obs/profiling.py)", 10)
+        raise NotImplementedError(
+            "GridConfig.mesh (mesh execution, launch/mesh.py) is not ported "
+            "yet (ROADMAP.md, Queue 1 item 12)")
 
 
 def _synchronize(dev: torch.device) -> None:
@@ -204,8 +214,7 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
     when there is none and the CPU was not asked for)."""
     dev = resolve_device(device)
     grid = grid or GridConfig()
-    tel_cfg = trace_lib.resolve_telemetry(grid.telemetry)
-    _refuse_unported(grid, tel_cfg)
+    _refuse_unported(grid)
     N = num_clients(dataset)
     if rc.clients_per_round > N:
         raise ValueError(f"clients_per_round={rc.clients_per_round} exceeds "
@@ -217,11 +226,19 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
     # the metrics registry is ALWAYS live (it backs scheduler_stats); the
     # tracer is the NULL no-op unless GridConfig.telemetry asks for records
     registry = metrics_lib.MetricsRegistry()
+    tel_cfg = trace_lib.resolve_telemetry(grid.telemetry)
     tracer = (trace_lib.Tracer(tel_cfg, registry) if tel_cfg is not None
               else trace_lib.NULL_TRACER)
+    profile = bool(tel_cfg and tel_cfg.profile)
 
     report = comm.report_for(y, frozen, uplink_bits=rc.uplink_bits)
     report.tracer = tracer
+    # two-level topology: None keeps the flat single-hop grid; otherwise
+    # every add_measured call mirrors into the client_edge hop ledger and
+    # the grid bills the edge_server hop separately
+    topo = topo_lib.resolve_topology(grid.topology, N)
+    if topo is not None:
+        report.bill_hops = True
     down_bytes = wire.downlink_bytes(y)          # y + 8-byte seed, measured
     up_bytes = _uplink_bytes(y, rc.uplink_bits)  # shape-determined
     compute_seconds = rc.local_steps * grid.base_step_time
@@ -272,12 +289,20 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
             "the async per-client wire path")
     bfaults = (faults_cfg.bind(dev_rng.spawn(1)[0])
                if faults_cfg is not None else None)
-    if dyn_cfg is not None and dyn_cfg.shocks is not None:
+    # the shock stream: a THIRD child, spawned ONLY when region shocks are
+    # configured, so shock-free runs see the same streams
+    shocks_cfg = dyn_cfg.shocks if dyn_cfg is not None else None
+    if shocks_cfg is not None and topo is None:
         raise ValueError(
             "DynamicsConfig.shocks needs a topology (GridConfig."
             "topology): shocks down whole edge regions, and the flat "
             "grid has none")
+    bshocks = (shocks_cfg.bind(topo.num_regions, dev_rng.spawn(1)[0],
+                               tracer=tracer)
+               if shocks_cfg is not None else None)
     san = sanitize_lib.resolve_sanitize(grid.sanitize)
+    if grid.checkpoint_every > 0 and not grid.checkpoint_dir:
+        raise ValueError("checkpoint_every > 0 needs a checkpoint_dir")
 
     # cohort-selection policy: estimates feed bandwidth-aware inclusion
     # probabilities and seed the adaptive policy's observed-RTT EMA
@@ -300,7 +325,8 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
                   tier_of_client=tier_of_client, tier_up=tier_up,
                   tier_compute=tier_compute, dyn=dyn, dyn_rng=dyn_rng,
                   policy=policy, registry=registry, tracer=tracer,
-                  bfaults=bfaults, san=san, dev=dev)
+                  profile=profile, bfaults=bfaults, san=san, topo=topo,
+                  bshocks=bshocks, dev=dev)
     if grid.mode == "sync":
         return _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid,
                          server_opt, **common)
@@ -372,24 +398,46 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
               fleet, report, down_bytes, up_bytes, compute_seconds,
               data_rng, dev_rng, seed, data_kind, eval_every, eval_fn, log,
               cplan, tier_of_client, tier_up, tier_compute, dyn, dyn_rng,
-              policy, registry, tracer, bfaults, san, dev):
+              policy, registry, tracer, profile, bfaults, san, topo, bshocks,
+              dev):
     # a trivial (one-tier) plan routes through the untiered round
     tiered = cplan is not None and not cplan.trivial
     round_fn, sopt = fedpt.make_round_fn(
         loss_fn, rc, server_opt=server_opt, device=dev, sanitize=san,
         fused_threshold=grid.agg_tail_threshold, plan=cplan)
+    round_fn = prof_lib.annotate(round_fn, "grid/round_fn", enabled=profile,
+                                 cuda=dev.type == "cuda")
     sstate = sopt.init(y)
     N = num_clients(dataset)
     C = rc.clients_per_round
     m = min(N, max(C, int(math.ceil(C * grid.over_selection))))
+    # one pre-reduced fp32 flat buffer per active edge per round
+    # (shape-determined, so measured once)
+    edge_bytes = wire.edge_flush_bytes(y) if topo is not None else 0
+
+    # every live RNG stream a snapshot must capture (the fault stream only
+    # exists when a failure model is active)
+    rngs = {"data": data_rng, "dev": dev_rng, "dyn": dyn_rng}
+    if bfaults is not None:
+        rngs["fault"] = bfaults.rng
 
     history: List[Dict[str, float]] = []
     mc = registry.counter
     vt = 0.0
+    start_round = 0
+    last_ckpt: Optional[str] = None
+    if grid.resume_from:
+        meta, arrays = gstate_lib.load_state(grid.resume_from)
+        y, sstate, start_round, vt, history = gstate_lib.decode_sync(
+            meta, arrays, sstate_template=sstate, rngs=rngs,
+            policy=policy, registry=registry, report=report, dev=dev,
+            shocks=bshocks, topo=topo)
+        last_ckpt = grid.resume_from
     t0 = None
-    for r in range(rounds):
+    for r in range(start_round, rounds):
         if bfaults is not None and vt > bfaults.kill_at:
-            raise faults_lib.ServerKilled(at=vt, applied=r, checkpoint=None)
+            raise faults_lib.ServerKilled(at=vt, applied=r,
+                                          checkpoint=last_ckpt)
         # the policy's tier map can move between rounds (tier-rotation,
         # adaptive-capability); static policies return the bound map
         tiers_now = policy.current_tiers() if cplan is not None else None
@@ -399,12 +447,13 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                      else up_bytes)
         cohort_comp = (tier_compute[tiers_now[cids]] if cplan is not None
                        else compute_seconds)
+        cohort_regions = topo.region_of[cids] if topo is not None else None
         plan = sched_lib.plan_sync_round(
             fleet, cids, down_bytes, cohort_up, cohort_comp, C, dev_rng,
             deadline=grid.straggler_deadline, dynamics=dyn,
             dyn_rng=dyn_rng, now=vt, tracer=tracer,
             tiers=tiers_now[cids] if cplan is not None else None,
-            faults=bfaults)
+            faults=bfaults, shocks=bshocks, regions=cohort_regions)
         # the C slots the round engine sees: participants in arrival
         # order, padded (weight 0) with the remaining cohort in dispatch
         # order when drops leave the round short
@@ -480,6 +529,30 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
             report.add_measured(down_bytes * n_dispatched,
                                 up_bytes * n_uploads,
                                 transfers=n_dispatched)
+        if topo is not None:
+            # hierarchical hop billing: every region with a dispatch
+            # downloads one model payload server->edge; every region with a
+            # completed upload pre-reduces its members' deltas and flushes
+            # one flat buffer upstream
+            disp_counts = np.bincount(cohort_regions[plan.dispatched],
+                                      minlength=topo.num_regions)
+            up_counts = np.bincount(cohort_regions[plan.completed],
+                                    minlength=topo.num_regions)
+            for k in np.nonzero(disp_counts)[0]:
+                mc("region_dispatches").inc(int(disp_counts[k]),
+                                            label=int(k))
+            active = np.nonzero(up_counts)[0]
+            for k in active:
+                mc("region_uploads").inc(int(up_counts[k]), label=int(k))
+                mc("edge_flushes").inc(label=int(k))
+                mc("edge_up_bytes").inc(edge_bytes, label=int(k))
+                tracer.instant("edge_flush", vt, parent=rseq,
+                               region=int(k), fill=int(up_counts[k]),
+                               up_bytes=edge_bytes, round=r)
+            n_down = int(np.sum(disp_counts > 0))
+            report.add_hop("edge_server", down_bytes=down_bytes * n_down,
+                           up_bytes=edge_bytes * len(active),
+                           transfers=n_down, uploads=len(active))
         mc("dispatches").inc(n_dispatched)
         mc("uploads").inc(n_uploads)
         mc("offline").inc(plan.offline)
@@ -496,11 +569,24 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
         rec["participants"] = float(len(kept_cids))
         history.append(rec)
         policy.end_round(r)
+        if grid.checkpoint_every > 0 \
+                and (r + 1) % grid.checkpoint_every == 0:
+            meta, arrays = gstate_lib.encode_sync(
+                y=y, sstate=sstate, round_idx=r, now=vt, history=history,
+                rngs=rngs, policy=policy, registry=registry, report=report,
+                shocks=bshocks, topo=topo)
+            last_ckpt = gstate_lib.save_state(
+                gstate_lib.checkpoint_path(grid.checkpoint_dir, r + 1,
+                                           "sync"), meta, arrays)
+            mc("checkpoints").inc()
+            tracer.instant("checkpoint", vt, parent=rseq, path=last_ckpt,
+                           round=r, mode="sync")
         if log and (r % max(1, rounds // 10) == 0):
             print(f"  round {r}: " + " ".join(
                 f"{k}={v:.4f}" for k, v in rec.items() if k != "round"))
     _synchronize(dev)
-    spr = (time.time() - t0) / max(rounds - 1, 1) if t0 else float("nan")
+    spr = ((time.time() - t0) / max(rounds - start_round - 1, 1) if t0
+           else float("nan"))
     final_tiers = (policy.current_tiers() if cplan is not None
                    else tier_of_client)
     if tracer.enabled:
@@ -512,7 +598,7 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                       tier_stats=_tier_stats(report, cplan, final_tiers,
                                              registry),
                       plan=cplan, policy=policy, dynamics=dyn,
-                      metrics=registry,
+                      topology=topo, metrics=registry,
                       telemetry=tracer if tracer.enabled else None,
                       faults=_faults_view(registry, bfaults))
 
@@ -539,7 +625,8 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                fleet, report, down_bytes, up_bytes, compute_seconds,
                data_rng, dev_rng, seed, data_kind, eval_every, eval_fn, log,
                cplan, tier_of_client, tier_up, tier_compute, dyn, dyn_rng,
-               policy, registry, tracer, bfaults, san, dev):
+               policy, registry, tracer, profile, bfaults, san, topo,
+               bshocks, dev):
     if server_opt is None:
         server_opt = fedpt.resolve_server_opt(rc)
     # trivial plans keep the untiered engines (lane-exact); per-tier
@@ -566,17 +653,26 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
     def engine_kw(k):
         return ({} if k is None else
                 dict(tier=cplan.tiers[k], plan=cplan))
+    # profiler ranges around the hot paths, so a wall-time profile lines
+    # up with the virtual-time spans
+    cuda = dev.type == "cuda"
     if lane > 0:
-        lane_steps = {k: fedpt.make_lane_step(loss_fn, rc, lane, device=dev,
-                                              **engine_kw(k))
-                      for k in tier_keys}
+        lane_steps = prof_lib.annotate_map(
+            {k: fedpt.make_lane_step(loss_fn, rc, lane, device=dev,
+                                     **engine_kw(k))
+             for k in tier_keys}, "grid/lane_step", enabled=profile,
+            cuda=cuda)
     else:
-        client_steps = {k: fedpt.make_client_step(loss_fn, rc, device=dev,
-                                                  **engine_kw(k))
-                        for k in tier_keys}
-    apply_fn = fedpt.make_buffered_apply(
-        server_opt, flush_dp=flush_dp, plan=cplan, sanitize=san,
-        fused_threshold=grid.agg_tail_threshold, device=dev)
+        client_steps = prof_lib.annotate_map(
+            {k: fedpt.make_client_step(loss_fn, rc, device=dev,
+                                       **engine_kw(k))
+             for k in tier_keys}, "grid/client_step", enabled=profile,
+            cuda=cuda)
+    apply_fn = prof_lib.annotate(
+        fedpt.make_buffered_apply(
+            server_opt, flush_dp=flush_dp, plan=cplan, sanitize=san,
+            fused_threshold=grid.agg_tail_threshold, device=dev),
+        "grid/server_apply", enabled=profile, cuda=cuda)
     staleness_fn = fedpt.get_staleness_fn(grid.staleness, **grid.staleness_kw)
     if flush_dp is not None:
         # the per-flush sensitivity bound (clip_norm / goal_count) assumes
@@ -594,6 +690,9 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
     N = num_clients(dataset)
     batch_fn = (syn.client_batch_images if data_kind == "images"
                 else syn.client_batch_tokens)
+    # one pre-reduced fp32 flat buffer per active edge per flush
+    # (shape-determined, so measured once)
+    edge_bytes = wire.edge_flush_bytes(y) if topo is not None else 0
 
     # mutable server state shared with the scheduler callbacks; events are
     # processed in virtual-time order, so "the model right now" is exactly
@@ -711,6 +810,32 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                     tier=(None if entries[i].work.get("tier") is None
                           else int(entries[i].work["tier"])),
                     norm=float(norms[i]), flush=applied)
+        if topo is not None and entries:
+            # edge pre-reduce on the rows' device: this flush's rows grouped
+            # by uploader region — each edge's (size,) buffer is what it
+            # transmits upstream (billed on the edge_server hop at the end
+            # of the run). The server reduce above consumed the same rows,
+            # so the model path is topology-invariant.
+            regs = topo.region_of[[int(e.work["cid"]) for e in entries]]
+            ebuf = topo_lib.edge_reduce(flat_deltas[:len(entries)],
+                                        wts[:len(entries)], regs,
+                                        topo.num_regions)
+            # the R norms in one copy, and only for a tracer that records
+            enorm = (torch.linalg.vector_norm(ebuf, dim=1).cpu().numpy()
+                     if tracer.enabled else None)
+            counts = np.bincount(regs, minlength=topo.num_regions)
+            for k in np.nonzero(counts)[0]:
+                registry.counter("edge_flushes").inc(label=int(k))
+                registry.counter("edge_up_bytes").inc(edge_bytes,
+                                                      label=int(k))
+                registry.counter("edge_down_bytes").inc(down_bytes,
+                                                        label=int(k))
+                if enorm is not None:
+                    tracer.instant("edge_flush", now,
+                                   parent=sched.last_flush_seq,
+                                   region=int(k), fill=int(counts[k]),
+                                   up_bytes=edge_bytes,
+                                   norm=float(enorm[k]), flush=applied)
         state["applied"] = applied + 1
         if eval_fn and eval_every and state["applied"] % eval_every == 0:
             out.update(eval_fn(part.merge(y_new, frozen)))
@@ -718,6 +843,32 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
         # their tier maps here
         policy.end_round(applied)
         return out
+
+    # every live RNG stream a snapshot must capture (the fault stream only
+    # exists when a failure model is active)
+    rngs = {"data": data_rng, "dev": dev_rng, "dyn": dyn_rng}
+    if bfaults is not None:
+        rngs["fault"] = bfaults.rng
+    last_ckpt = {"path": None}
+
+    def checkpoint_hook(s, now):
+        # called by the scheduler after every full-buffer flush — the one
+        # boundary where run_pending() has resolved every lane cell
+        if state["applied"] % grid.checkpoint_every != 0:
+            return
+        meta, arrays = gstate_lib.encode_async(
+            state=state, sched=s, rngs=rngs, accountant=accountant,
+            policy=policy, registry=registry, shocks=bshocks, topo=topo)
+        path = gstate_lib.save_state(
+            gstate_lib.checkpoint_path(grid.checkpoint_dir,
+                                       state["applied"], "async"),
+            meta, arrays)
+        last_ckpt["path"] = path
+        registry.counter("checkpoints").inc()
+        tracer.instant("checkpoint", now, parent=s.last_flush_seq,
+                       path=path, applied=state["applied"], mode="async",
+                       buffer_fill=float(len(s.buffer)),
+                       events_in_flight=len(s.q))
 
     sched = sched_lib.BufferedAsyncScheduler(
         fleet=fleet, concurrency=min(grid.concurrency, N),
@@ -728,10 +879,29 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
         tier_of=tier_of if cplan is not None else None,
         compute_of=((lambda cid: float(tier_compute[tier_of(cid)]))
                     if cplan is not None else None),
+        region_of=((lambda cid: int(topo.region_of[cid]))
+                   if topo is not None else None),
+        shocks=bshocks,
         dynamics=dyn, dyn_rng=dyn_rng, observe=policy.observe,
-        tracer=tracer, metrics=registry, faults=bfaults)
+        tracer=tracer, metrics=registry, faults=bfaults,
+        checkpoint_hook=(checkpoint_hook if grid.checkpoint_every > 0
+                         else None))
+    if grid.resume_from:
+        gstate_lib.decode_async(
+            *gstate_lib.load_state(grid.resume_from), state=state,
+            sched=sched, sstate_template=state["sstate"], rngs=rngs,
+            accountant=accountant, policy=policy, registry=registry,
+            dev=dev, shocks=bshocks, topo=topo,
+            make_cell=_LaneCell if lane > 0 else None)
+        last_ckpt["path"] = grid.resume_from
     t_wall = time.time()
-    history = sched.run(rounds, deadline=grid.async_deadline)
+    try:
+        history = sched.run(rounds, deadline=grid.async_deadline)
+    except faults_lib.ServerKilled as e:
+        # annotate the kill with the latest snapshot so callers can resume
+        # (None when checkpointing was off)
+        e.checkpoint = last_ckpt["path"]
+        raise
     _synchronize(dev)
     spr = (time.time() - t_wall) / max(rounds, 1)
     if log:
@@ -753,6 +923,16 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
         report.add_measured(down_bytes * sched.dispatches,
                             sched.up_bytes_total,
                             transfers=sched.dispatches)
+    if topo is not None:
+        # the edge_server hop, billed from the registry's per-region edge
+        # counters (snapshotted with the run, so a resumed run bills it
+        # exactly)
+        n_flush = int(registry.counter("edge_flushes").value)
+        report.add_hop(
+            "edge_server",
+            down_bytes=int(registry.counter("edge_down_bytes").value),
+            up_bytes=int(registry.counter("edge_up_bytes").value),
+            transfers=n_flush, uploads=n_flush)
     final_tiers = (policy.current_tiers() if cplan is not None
                    else tier_of_client)
     if tracer.enabled:
@@ -765,6 +945,6 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                       tier_stats=_tier_stats(report, cplan, final_tiers,
                                              registry),
                       plan=cplan, policy=policy, dynamics=dyn,
-                      metrics=registry,
+                      topology=topo, metrics=registry,
                       telemetry=tracer if tracer.enabled else None,
                       faults=_faults_view(registry, bfaults))

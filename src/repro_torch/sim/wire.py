@@ -16,8 +16,9 @@ so the grid reports **measured** communication:
 Leaves go to the host through ``.detach().cpu().numpy()``. For fp32
 payloads the measured sizes equal ``CommReport.download_fedpt`` /
 ``upload_fedpt`` exactly; for int8 they equal
-``compress.quantized_uplink_bytes``. Trainability tiers
-(``tier_payloads``) wait for ``core/plan.py``.
+``compress.quantized_uplink_bytes``. ``tier_payloads`` gives each
+trainability tier's sliced uplink (``core/plan.py``), and
+``edge_flush_bytes`` an edge aggregator's pre-reduced buffer.
 """
 from __future__ import annotations
 

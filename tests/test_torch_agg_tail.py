@@ -47,6 +47,7 @@ BL = np.array([0, 1, 1, 1, 2, 2, 3], np.int32)
 L, NB, BLOCK = 4, BL.size, 1024
 SIZE = NB * BLOCK
 K = 5
+U = 2.0 ** -24
 STAGED, FUSED = 1 << 60, 0
 SCREEN = (10.0, 0.0)   # norm_mult of the JAX tests; 0 turns outliers off
 
@@ -176,6 +177,14 @@ def test_apply_coeff_matches_pallas(with_noise):
 
 
 def test_apply_exact_matches_jax():
+    """Each output element is a K-length float32 dot over w_k * (q_k * s),
+    then a division by the float32 sum of the weights. Summed in another
+    order, a package's dot lies within K * 2**-24 * S of the exact one,
+    S = sum_k |w_k * q_k * s| (taken in float64), and the final scale
+    (the weights' sum, within (K - 1) * 2**-24, and the division, one
+    rounding) within K * 2**-24 of the result: the two packages within
+    twice that. The bound is relative to S, not to the result, which
+    cancellation can bring near zero."""
     mat = make_mat(seed=4)
     bmax, _ = tat.block_stats(t_(mat))
     sblock = tref.agg_scales_ref(bmax, BL, 8, L)
@@ -183,11 +192,15 @@ def test_apply_exact_matches_jax():
     w = make_weights()
     got = tref.agg_apply_exact_ref(q, t_(w), sblock=sblock, wsum=t_(w).sum(),
                                    cols=3)
-    want = jref.agg_apply_exact_ref(jnp.asarray(q.numpy()), jnp.asarray(w),
-                                    sblock=jnp.asarray(sblock.numpy()),
-                                    wsum=jnp.sum(w), cols=3)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
-                               atol=1e-9)
+    want = np.asarray(jref.agg_apply_exact_ref(
+        jnp.asarray(q.numpy()), jnp.asarray(w),
+        sblock=jnp.asarray(sblock.numpy()), wsum=jnp.sum(w), cols=3))
+    x = (q.numpy().astype(np.float64)
+         * sblock.numpy().astype(np.float64)[:, :, None]).reshape(K, -1)
+    terms = np.abs(w.astype(np.float64)[:, None] * x).sum(0)
+    wsum = float(w.astype(np.float64).sum())
+    bound = 2 * K * U * (terms / wsum + np.abs(want))
+    assert np.all(np.abs(got.numpy() - want) <= bound)
     # chunking along columns never reorders the K-length dots
     whole = tref.agg_apply_exact_ref(q, t_(w), sblock=sblock,
                                      wsum=t_(w).sum(), cols=NB)

@@ -363,13 +363,31 @@ def test_buffered_apply_matches_jax(dp):
                                 dict(topology=2), dict(checkpoint_every=1,
                                                        checkpoint_dir="x"),
                                 dict(telemetry={"profile": True})])
-def test_unported_grid_features_raise(kw):
+def test_unported_grid_features_raise(kw, tmp_path, monkeypatch):
+    """Only mesh execution is still refused; the topology, checkpoints,
+    resume and profiling run (a resume from a missing snapshot fails on
+    the file, not as unported)."""
+    monkeypatch.chdir(tmp_path)
     ds = make_ds(6)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tgrid.run_grid(torch_init, torch_loss, ds,
-                       tfedpt.RoundConfig(**RC), 1,
-                       grid=tgrid.GridConfig(mode="async", **kw),
-                       device="cpu")
+
+    def run():
+        return tgrid.run_grid(torch_init, torch_loss, ds,
+                              tfedpt.RoundConfig(**RC), 1,
+                              grid=tgrid.GridConfig(mode="async", **kw),
+                              device="cpu")
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            run()
+    elif "resume_from" in kw:
+        with pytest.raises(FileNotFoundError):
+            run()
+    else:
+        res = run()
+        assert len(res.history) == 1
+        if "topology" in kw:
+            assert res.topology.num_regions == 2
+        if "checkpoint_dir" in kw:
+            assert (tmp_path / "x" / "grid_async_000001.npz").exists()
 
 
 # ---------------------------------------------------------------------------

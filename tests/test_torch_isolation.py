@@ -47,7 +47,9 @@ def test_no_source_imports_jax_or_repro():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.core.fedpt" in mods and "repro_torch.kernels.ops" in mods
-    assert {"repro_torch.configs.mistral_nemo_12b", "repro_torch.nn.attention",
+    assert {"repro_torch.checkpoint.grid_state", "repro_torch.sim.topology",
+            "repro_torch.obs.profiling", "repro_torch.obs.analyze",
+            "repro_torch.configs.mistral_nemo_12b", "repro_torch.nn.attention",
             "repro_torch.models.decoder_lm", "repro_torch.launch.serve",
             "repro_torch.launch.specs", "repro_torch.kernels.swa_attention",
             "repro_torch.kernels.seed_reconstruct"} <= set(mods)
@@ -167,6 +169,7 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 # host code): the same code, with ``repro.`` read as ``repro_torch.``;
 # docstrings may be reworded where they narrate the reference's history
 COPIES = ("obs/schema", "obs/export", "obs/metrics", "obs/trace",
+          "obs/analyze", "obs/report", "obs/compare",
           "sim/dynamics", "sim/faults", "sim/devices", "sim/selection",
           "sim/scheduler", "core/comm", "data/synthetic", "fl/tuning")
 

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernel-times SRC   # another tree's redesigned kernels
     python3 chip_smoke.py --sweep   # sumsq, Q->DQ, clip, max-abs launch shapes
     python3 chip_smoke.py --dp-ftrl SRC     # DP-FTRL's rounds on another tree
+    python3 chip_smoke.py --mixtral   # phase 7 alone (Mixtral-8x7B)
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -186,7 +187,35 @@ package. Phases, in order, each failing the run on error:
      ``grid/server_apply`` range a flush of the trace and a
      ``grid/lane_step[None]`` range a lane step; the update wall with
      the ranges on and off (medians of 10 runs);
-7. print the ``kernels`` JSON line, the card's name and power limit,
+7. FedPT fine-tuning of Mixtral-8x7B at full width (d_model 4,096, 32
+   heads, 8 kv heads, head_dim 128, 8 experts top-2, expert FFN 14,336,
+   vocab 32,000, window 4,096; only depth is cut), each path with the
+   launch counts set to 0 just before and read just after:
+   - training, 2 of 32 layers, the config's dtypes (float32 parameters,
+     bf16 compute), its freeze spec (the routed experts frozen):
+     ``launch/train.arch_task``'s data and round configuration through
+     ``runtime.run_federated``, 8 rounds (``examples/
+     federated_llm_finetune.py``), the loss falling; 346,116,096 of
+     3,164,688,384 parameters trainable; ``sumsq`` once a round at that
+     width and within ``dp_clip.sumsq_rtol`` of a float64 sum, timed
+     there; the round walls, the peak memory of one client update, one
+     profiled round; ``moe_ffn`` at full width within rtol 2e-4 / atol
+     2e-5 of ``moe_ffn_dense_fallback`` (float32, capacity factor 8.0);
+     one round of the reduced config card vs CPU (``check_model_round``);
+   - serving, 4 of 32 layers on the serving split (5,637,144,576 frozen
+     bf16 expert weights): ``make_prefill_step`` on 1 x 32,768 tokens at
+     Mixtral's own window (median of 3, tokens/s, ``swa_attention`` once
+     a layer, a profiled split into the attention kernel, the expert
+     matmuls, routing / dispatch / combine and the rest), greedy
+     ``generate`` (batch 4, prompt 8, 32 steps); then a 1 x 512 prefill
+     through the kernel against the plain chunked attention (windows
+     4,096 and 200) and the step-by-step prefill against ``forward`` at
+     capacity factor 8.0, within 2**-4 of the largest |logit|, the second
+     side of each routed as the first (``routing_spy``: bf16 router
+     near-ties flip between two computations), the flips counted;
+   phase 2 also holds the round-once ``swa_attention`` at window 4,096 at
+   the prefill's shape within bound (i) and times it;
+8. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -1588,6 +1617,7 @@ WINDOW_GATE = 0.8
 # uniforms through CUDA's logf / cosf against torch's log / cos (each within
 # 2 ulps of exact), a sqrt and two multiplies: 8 ulps.
 SWA_REL, SWA_ABS, SEED_ULPS = 2.0 ** -8, 1e-5, 8
+MIXTRAL_WINDOW = 4096      # Mixtral-8x7B's own sliding window
 # the serving path's logits against its plain forms, relative to the largest
 # |logit|: bf16 compute through 4 layers, where the plain attention rounds p
 # to bf16 at the running max of 512-key chunks (the kernel at 64-key tiles)
@@ -1864,6 +1894,8 @@ def check_serving_kernels(dev, build_logs):
     for window in (0, 8192):
         check_swa(q, k, v, window)
         check_swa_round_p(q, k, v, window)
+    # Mixtral's own window, which its prefill (phase 7) runs
+    check_swa_round_p(q, k, v, MIXTRAL_WINDOW)
     pairs = swa.visible_pairs(PREFILL_LEN, 0)
     nbytes = sum(t.numel() for t in (q, k, v, q)) * 2
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1898,6 +1930,16 @@ def check_serving_kernels(dev, build_logs):
               f"window 8192: wrapper {wms:.3f} ms, device "
               f"{fmt_ms(wdev[label])} ms, bound {wb[0]:.3f} ms ({wb[1]}; "
               f"{wpairs} of {pairs} pairs)")
+    mpairs = swa.visible_pairs(PREFILL_LEN, MIXTRAL_WINDOW)
+    mb = bound(nbytes, 4 * 32 * 128 * mpairs, BF16_OPS_PER_S)
+    mms = time_ms(lambda: round_p(MIXTRAL_WINDOW), 10, 2)
+    mdev = device_ms(lambda: round_p(MIXTRAL_WINDOW), ("swa_kernel",), 10)
+    mplain = time_ms(lambda: ref.chunked_attention_ref(
+        q, k, v, MIXTRAL_WINDOW, chunk=swa.BK), 1, 0)
+    print(f"  swa_attention (round-once) at (1, 32, {PREFILL_LEN}, 128), "
+          f"window {MIXTRAL_WINDOW} (Mixtral's): wrapper {mms:.3f} ms, device "
+          f"{fmt_ms(mdev)} ms, bound {mb[0]:.3f} ms ({mb[1]}; {mpairs} of "
+          f"{pairs} pairs), plain {mplain:.3f} ms")
     # achieved rates: by the bound's count (4 D per visible pair) and by
     # what the kernel issues per pair of every 64-row x BK-key tile, each of
     # a block's two warpgroups computing all of the block's tiles: 4 D
@@ -2512,17 +2554,23 @@ def tier_layouts(y):
 
 
 class width_spy:
-    """Counts the launches of the uplink's Q->DQ and clip wrappers on the
-    card by row width (``(name, width)``) inside a ``with``: the tiered
-    lanes run them at each tier's width."""
+    """Counts the launches of kernel wrappers on the card by row width
+    (``(name, width)``) inside a ``with``; ``targets`` are (module of
+    ``repro_torch.kernels``, wrapper) pairs, by default the uplink's Q->DQ
+    and clip, which the tiered lanes run at each tier's width."""
+
+    def __init__(self, targets=(("quantize", "fake_quantize_flat"),
+                                ("dp_clip", "clip_flat"))):
+        self.targets = targets
 
     def __enter__(self):
+        import importlib
         from collections import Counter
-        from repro_torch.kernels import dp_clip, quantize
         counts = Counter()
-        self.saved = [(quantize, "fake_quantize_flat",
-                       quantize.fake_quantize_flat),
-                      (dp_clip, "clip_flat", dp_clip.clip_flat)]
+        self.saved = []
+        for modname, name in self.targets:
+            mod = importlib.import_module(f"repro_torch.kernels.{modname}")
+            self.saved.append((mod, name, getattr(mod, name)))
         for mod, name, real in self.saved:
             def spy(x, *a, _real=real, _name=name, **kw):
                 if x.device.type == "cuda":
@@ -3234,6 +3282,486 @@ def drive_profile_ranges(ds, dev):
                                              telemetry={"profile": True})})
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: FedPT fine-tuning of Mixtral-8x7B at full width, and its serving
+
+MIXTRAL = "mixtral-8x7b"
+# of its 32 layers: reduced_config's depth for training, NeMo's serving
+# cell's for serving; every width is the config's own
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_SERVE_LAYERS = 2, 4
+MIXTRAL_ROUNDS = 8        # examples/federated_llm_finetune.py's rounds
+# (trainable, total, flat size) at 2 layers: the two embedding tables
+# (262,144,000), 41,984,000 a layer and the final norm (4,096) train, every
+# leaf a multiple of the flat layout's 1,024; the routed experts'
+# 1,409,286,144 a layer are frozen
+MIXTRAL_TRAIN_SPLIT = (346_116_096, 3_164_688_384, 346_116_096)
+# (trainable f32, frozen bf16) of the 4 serving layers
+MIXTRAL_SERVE_SPLIT = (430_084_096, 5_637_144_576)
+MOE_CHECK_TOKENS = 512
+# moe_ffn against its dense oracle, float32 compute: tests/test_moe.py's
+# bounds
+MOE_RTOL, MOE_ATOL = 2e-4, 2e-5
+# the profiler ranges of the prefill's split: nn/moe's functions, by kind
+MOE_RANGES = {"router_topk": "dispatch", "_sort_dispatch": "dispatch",
+              "_combine_local": "dispatch", "_experts": "experts"}
+
+
+class round_timer:
+    """Times every round of the round functions that
+    ``fedpt.make_round_fn`` builds inside a ``with`` (host clock between two
+    ``torch.cuda.synchronize``), in ms."""
+
+    def __enter__(self):
+        from repro_torch.core import fedpt
+        self.mod, self.real, ms = fedpt, fedpt.make_round_fn, []
+
+        def make(*args, **kw):
+            round_fn, sopt = self.real(*args, **kw)
+
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = round_fn(*a, **k)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed, sopt
+        fedpt.make_round_fn = make
+        return ms
+
+    def __exit__(self, *exc):
+        self.mod.make_round_fn = self.real
+        return False
+
+
+def mixtral_task(layers, dev):
+    """``launch/train.arch_task`` on Mixtral-8x7B at full width, ``layers``
+    of its 32 layers."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    return train.arch_task(get_config(MIXTRAL).with_(num_layers=layers), 0,
+                           dev)
+
+
+def check_moe_full_width(params, cfg, dev):
+    """``moe_ffn`` against ``moe_ffn_dense_fallback`` on MOE_CHECK_TOKENS
+    Gaussian tokens through layer 0's router and experts at full width,
+    float32 compute (TF32 off) and capacity factor 8.0 (capacity 1,024
+    slots an expert: no token drops), within MOE_RTOL / MOE_ATOL."""
+    from repro_torch.nn import basic
+    from repro_torch.nn import moe as moe_lib
+    p = basic.tree_map(lambda t: t[0], params["layers"]["slot0"]["moe"])
+    c = cfg.with_(moe_capacity_factor=8.0, compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((MOE_CHECK_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)
+    got, aux = moe_lib.moe_ffn(x, p, c)
+    want, aux_d = moe_lib.moe_ffn_dense_fallback(x, p, c)
+    err = (got - want).abs()
+    worst = float((err / (MOE_ATOL + MOE_RTOL * want.abs())).max())
+    print(f"  moe_ffn vs moe_ffn_dense_fallback at full width ({x.shape[0]} "
+          f"tokens, float32, capacity {moe_lib.capacity(x.shape[0], c)} an "
+          f"expert): max |diff| {float(err.max()):.3e}, {worst:.3f} of rtol "
+          f"{MOE_RTOL} / atol {MOE_ATOL}; aux {float(aux):.6f} / "
+          f"{float(aux_d):.6f}")
+    if not (worst <= 1.0 and float(aux) == float(aux_d)):
+        raise AssertionError("moe_ffn disagrees with its dense oracle at "
+                             "full width")
+
+
+def drive_mixtral_training(dev):
+    """Phase 7's training path: FedPT on Mixtral-8x7B at full width, 2 of
+    its 32 layers, the config's dtypes (float32 parameters, bf16 compute)
+    and freeze spec (the routed experts frozen; router, attention, norms
+    and embeddings trained), MIXTRAL_ROUNDS rounds through
+    ``runtime.run_federated`` with ``run_reduced_arch``'s data and round
+    configuration, the launch counts set to 0 just before and read just
+    after. Gates: the trainable count, a falling loss, sumsq launched once
+    a round at the trainable width and within ``dp_clip.sumsq_rtol`` of a
+    float64 sum there; then sumsq timed at that width, the peak memory of
+    one client update, one profiled round, ``moe_ffn`` against its dense
+    oracle, and one round of the reduced config card vs CPU. Returns the
+    launch counts."""
+    from types import SimpleNamespace
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import fedpt, flat as flat_lib, partition as part
+    from repro_torch.fl import runtime
+    from repro_torch.kernels import dp_clip, ref
+    from repro_torch.launch import train
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.nn import threefry
+
+    at = mixtral_task(MIXTRAL_TRAIN_LAYERS, dev)
+    cfg = at.cfg
+    y_meta, z_meta = part.partition(dlm.init_model(cfg, 0, device="meta"),
+                                    cfg.freeze_spec)
+    n_y = part.count_params(y_meta)
+    n = n_y + part.count_params(z_meta)
+    size = flat_lib.FlatLayout.of(y_meta).size
+    print(f"[mixtral] {MIXTRAL} FedPT, {MIXTRAL_TRAIN_LAYERS} of 32 layers "
+          f"at full width (d_model {cfg.d_model}, {cfg.num_heads} heads, "
+          f"{cfg.num_kv_heads} kv heads, head_dim {cfg.resolved_head_dim}, "
+          f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}, expert "
+          f"FFN {cfg.expert_d_ff}, vocab {cfg.vocab_size}, window "
+          f"{cfg.sliding_window}; {cfg.param_dtype} parameters, "
+          f"{cfg.compute_dtype} compute): {n_y} of {n} trainable "
+          f"({100 * n_y / n:.2f}%), flat size {size}, freeze spec "
+          f"{cfg.freeze_spec}")
+    if (n_y, n, size) != MIXTRAL_TRAIN_SPLIT:
+        raise AssertionError(f"Mixtral's (trainable, total, flat size) "
+                             f"{(n_y, n, size)}, not {MIXTRAL_TRAIN_SPLIT}")
+    init_s = []
+
+    def init_fn(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = at.init_fn(seed)
+        torch.cuda.synchronize()
+        init_s.append(time.perf_counter() - t0)
+        return params
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with round_timer() as walls, width_spy((("dp_clip", "sumsq"),)) as widths:
+        res = runtime.run_federated(
+            init_fn, at.loss_fn, at.dataset, at.rc, MIXTRAL_ROUNDS,
+            freeze_spec=cfg.freeze_spec, seed=0, data_kind="tokens",
+            device=dev)
+    counts = {**kernels.LAUNCHES, **kernels.ROUTES}
+    losses = [h["loss"] for h in res.history]
+    print(f"[main path] Mixtral FedPT, {MIXTRAL_ROUNDS} rounds of "
+          f"{at.rc.clients_per_round} clients x {at.rc.local_steps} SGD steps "
+          f"x {at.rc.local_batch} sentences of 32 tokens: losses "
+          f"{[round(v, 4) for v in losses]}")
+    print(f"  init_model on the card {init_s[0]:.2f} s; round wall ms "
+          f"{[round(v, 3) for v in walls]} (median "
+          f"{float(np.median(walls)):.3f}, first round included); "
+          f"seconds_per_round {1e3 * res.seconds_per_round:.3f} ms; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; launches {counts}; sumsq by width {dict(widths)}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError("Mixtral FedPT: losses not finite or not falling")
+    if counts["sumsq"] != MIXTRAL_ROUNDS or \
+            dict(widths) != {("sumsq", size): MIXTRAL_ROUNDS}:
+        raise AssertionError(f"Mixtral FedPT: sumsq not once a round at "
+                             f"{size}: {counts['sumsq']}, {dict(widths)}")
+
+    # sumsq at the trainable width: the trained y's flat vector
+    x = flat_lib.FlatLayout.of(res.y).flatten(res.y)
+    got = float(dp_clip.sumsq(x))
+    want = float(x.double().pow(2).sum())
+    rtol = dp_clip.sumsq_rtol(x.numel())
+    print(f"  sumsq at n = {x.numel()} (grid {dp_clip.sumsq_plan(x.numel())[0]}"
+          f", chunk {dp_clip.sumsq_plan(x.numel())[1]} quads): {got!r} "
+          f"against the float64 sum {want!r}, rel err "
+          f"{abs(got - want) / want:.3e} (bound sumsq_rtol {rtol:.3e})")
+    if not abs(got - want) <= rtol * want:
+        raise AssertionError("sumsq off its a-priori bound at Mixtral's width")
+    rec, = kernel_records([
+        ("sumsq", "src/repro_torch/kernels/csrc/sumsq.cu",
+         "src/repro/kernels/dp_clip.py:54", lambda: dp_clip.sumsq(x),
+         lambda: ref.flat_sumsq_ref(x), lambda: torch.dot(x, x),
+         AB_KERNELS["sumsq"], 4 * x.numel(), 2 * x.numel())],
+        iters=(20, 3, 10))
+    print(f"  sumsq at n = {x.numel()}: wrapper {rec['ms']:.5f} ms, device "
+          f"{fmt_ms(rec['device_ms'])} ms, bound {rec['bound_ms']:.5f} ms "
+          f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, torch.dot "
+          f"{rec['library_ms']:.5f} ms (device "
+          f"{fmt_ms(rec['library_device_ms'])} ms), max abs err "
+          f"{rec['max_abs_err']:.3e}")
+    del x
+
+    pt = SimpleNamespace(loss_fn=at.loss_fn, rc=at.rc, dataset=at.dataset,
+                         kind="tokens")
+    batch, w = task_draws(pt, 1)[0]
+    peak, above = client_peak_mib(pt, res.y, res.frozen, batch, at.rc, dev)
+    print(f"  peak device memory around one client update: {peak:.1f} MiB "
+          f"({above:.1f} MiB above what was held before it)")
+    round_fn, sopt = fedpt.make_round_fn(at.loss_fn, at.rc, device=dev)
+    sstate = sopt.init(res.y)
+    profile_round(lambda: round_fn(res.y, sstate, res.frozen, batch, w,
+                                   threefry.key(MIXTRAL_ROUNDS)))
+    by_op = device_time_by_op(lambda: round_fn(
+        res.y, sstate, res.frozen, batch, w, threefry.key(MIXTRAL_ROUNDS)))
+    print(f"  a round's device ms ({sum(by_op.values()):.3f}) by op: "
+          f"{top_ops(by_op, 12)}")
+    del sstate
+    check_moe_full_width(part.merge(res.y, res.frozen), cfg, dev)
+    del res
+    torch.cuda.empty_cache()
+
+    # one round of the reduced config, card vs CPU
+    rat = train.arch_task(train.reduced_config(get_config(MIXTRAL)), 0, dev)
+    rpt = SimpleNamespace(loss_fn=rat.loss_fn, rc=rat.rc,
+                          dataset=rat.dataset, kind="tokens")
+    y0, frozen = part.partition(rat.init_fn(0), rat.cfg.freeze_spec)
+    check_model_round("Mixtral reduced (d_model 256, 4 experts, float32)",
+                      rpt, y0, frozen, *task_draws(rpt, 1)[0], dev)
+    return counts
+
+
+class routing_spy:
+    """Records the expert ids of every ``nn/moe.router_topk`` call inside a
+    ``with`` (``ids``, in call order); given ``replay`` (ids in the same
+    call order), routes each call to those ids instead, its weights its
+    own float32 probabilities there, renormalized as ``router_topk`` does,
+    and counts the tokens whose own top-k differs (``flipped`` of
+    ``routed``). Two bf16 computations of one model round differently,
+    and a router near-tie then sends a token to another expert, which
+    moves its output far more than the rounding; replaying one side's
+    routing holds the rest of the two computations against each other."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.ids, self.flipped, self.routed = [], 0, 0
+
+    def __enter__(self):
+        from repro_torch.nn import basic, moe as moe_lib
+        self.mod, self.real = moe_lib, moe_lib.router_topk
+
+        def spy(x, p, cfg):
+            w, idx, aux = self.real(x, p, cfg)
+            if self.replay is not None:
+                want = self.replay[len(self.ids)].to(idx.device, idx.dtype)
+                self.flipped += int((idx.sort(-1).values
+                                     != want.sort(-1).values).any(-1).sum())
+                probs = torch.softmax(
+                    basic.dense(x, p["router"], torch.float32), dim=-1)
+                w = probs.gather(-1, want.long())
+                w = (w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+                     ).to(x.dtype)
+                idx = want
+            self.routed += idx.shape[0]
+            self.ids.append(idx)
+            return w, idx, aux
+        moe_lib.router_topk = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.router_topk = self.real
+        return False
+
+
+def device_time_by_op(fn):
+    """Device time (ms) of one call of ``fn``, after a warm-up call, by
+    (kind, op). ``nn/moe``'s functions run inside profiler ranges, and a
+    device kernel counts for the op that launched it: its kind is the
+    MOE_RANGES kind of the range that holds that op ("experts": the expert
+    FFNs; "dispatch": routing, dispatch and combine), "attention" for the
+    swa_attention kernel, else "other"; its op is the launching aten op,
+    behind the autograd function whose backward runs it. The ranges'
+    device-side copies, which span their kernels, count for none; device
+    time no op claims is ("other", "unattributed")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.nn import moe as moe_lib
+    saved = {name: getattr(moe_lib, name) for name in MOE_RANGES}
+
+    def ranged(name, real):
+        def call(*a, **kw):
+            with record_function(f"moe/{name}"):
+                return real(*a, **kw)
+        return call
+    for name, real in saved.items():
+        setattr(moe_lib, name, ranged(name, real))
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for name, real in saved.items():
+            setattr(moe_lib, name, real)
+    out = {}
+
+    def add(key, ms):
+        out[key] = out.get(key, 0.0) + ms
+    events = prof.events()
+    total = 0.0
+    for ev in events:
+        if ev.device_type == DeviceType.CUDA and \
+                not ev.name.startswith("moe/"):
+            t = (ev.time_range.end - ev.time_range.start) / 1e3
+            total += t
+            if "swa_kernel" in ev.name:
+                add(("attention", "swa_kernel"), t)
+    backward = "autograd::engine::evaluate_function: "
+    for ev in events:
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        kind, op, parent = "other", ev.name, ev.cpu_parent
+        while parent is not None:
+            if parent.name.startswith("moe/"):
+                kind = MOE_RANGES[parent.name[4:]]
+            elif parent.name.startswith(backward) and op == ev.name:
+                op = f"{parent.name[len(backward):]} > {ev.name}"
+            parent = parent.cpu_parent
+        for k in ev.kernels:
+            if "swa_kernel" not in k.name:
+                add((kind, op), k.duration / 1e3)
+    add(("other", "unattributed"), total - sum(out.values()))
+    return out
+
+
+def top_ops(by_op, n: int, kind=None):
+    """The n largest (kind, op) entries of ``device_time_by_op`` (of one
+    kind when given), as (label, ms rounded to 3 places)."""
+    rows = [(f"{k}: {op}", ms) for (k, op), ms in by_op.items()
+            if kind is None or k == kind]
+    return [(label, round(ms, 3))
+            for label, ms in sorted(rows, key=lambda r: -r[1])[:n]]
+
+
+def drive_mixtral_serving(dev):
+    """Phase 7's serving path: Mixtral-8x7B at full width, 4 of its 32
+    layers, from ``init_model(cfg, 0)`` on the card, on the serving split
+    (trainable f32, frozen bf16); ``make_prefill_step`` on 1 x 32,768
+    tokens under ``serving_config`` of prefill_32k, which keeps Mixtral's
+    own window of 4,096 (median of 3 walls after one warm-up, tokens/s,
+    ``swa_attention`` once a layer, a profiled split), then greedy
+    ``generate`` (batch 4, prompt 8, 32 steps), with the launch counts set
+    to 0 just before and read just after; then, not counted, a 1 x 512
+    prefill through the kernel against the plain chunked attention and
+    the step-by-step prefill against ``forward`` at capacity factor 8.0.
+    Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import partition as part
+    from repro_torch.launch import serve, specs
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.nn import basic
+
+    base = get_config(MIXTRAL).with_(num_layers=MIXTRAL_SERVE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y, frozen = specs.serving_split(dlm.init_model(base, 0, device=dev), base)
+    torch.cuda.synchronize()
+    n_y, n_z = basic.tree_size(y), basic.tree_size(frozen)
+    print(f"[serving] {MIXTRAL}, {MIXTRAL_SERVE_LAYERS} of 32 layers at full "
+          f"width: init_model(cfg, 0) on the card and the serving split in "
+          f"{time.perf_counter() - t0:.2f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; trainable "
+          f"{n_y} f32 ({basic.tree_bytes(y) / 1e9:.2f} GB), frozen {n_z} bf16 "
+          f"({basic.tree_bytes(frozen) / 1e9:.2f} GB)")
+    if (n_y, n_z) != MIXTRAL_SERVE_SPLIT:
+        raise AssertionError(f"the Mixtral split {(n_y, n_z)} differs from "
+                             f"{MIXTRAL_SERVE_SPLIT} (trainable, frozen)")
+    cfg = specs.serving_config(base, "prefill_32k")
+    if cfg != base or cfg.sliding_window != MIXTRAL_WINDOW or \
+            specs.serving_config(base, "long_500k") != base:
+        raise AssertionError("serving_config changed Mixtral")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, base.vocab_size, (1, PREFILL_LEN), dtype=np.int64)
+    prompt = rng.integers(0, base.vocab_size, (DECODE_BATCH, DECODE_PROMPT),
+                          dtype=np.int64)
+    step = specs.make_prefill_step(cfg, device=dev)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    walls = []
+    for _ in range(4):   # the first call warms up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = step(y, frozen, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    per_call = kernels.LAUNCHES["swa_attention"] / len(walls)
+    if logits.shape != (1, PREFILL_LEN, base.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"Mixtral prefill: logits not finite or of the "
+                             f"wrong shape {tuple(logits.shape)}")
+    del logits
+    wall = float(np.median(walls[1:]))
+    print(f"[serving] Mixtral prefill 1 x {PREFILL_LEN} (prefill_32k, window "
+          f"{cfg.sliding_window}): wall ms {[round(v, 3) for v in walls]} "
+          f"(median of the last 3 {wall:.3f} ms, "
+          f"{PREFILL_LEN / wall * 1e3:.1f} tokens/s); swa_attention "
+          f"{per_call:g} launches a call; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if per_call != MIXTRAL_SERVE_LAYERS:
+        raise AssertionError("Mixtral prefill: swa_attention not once a layer")
+    by_op = device_time_by_op(lambda: step(y, frozen, batch))
+    split = dict.fromkeys(("attention", "experts", "dispatch", "other"), 0.0)
+    for (kind, _), ms in by_op.items():
+        split[kind] += ms
+    busy = sum(split.values())
+    print(f"[serving] Mixtral prefill device ms by kind "
+          f"{ {k: round(v, 3) for k, v in split.items()} } of {busy:.3f} ms: "
+          f"attention kernel {split['attention'] / MIXTRAL_SERVE_LAYERS:.3f} "
+          f"ms a layer ({100 * split['attention'] / busy:.1f}%), expert "
+          f"matmuls {100 * split['experts'] / busy:.1f}%, routing / "
+          f"dispatch / combine {100 * split['dispatch'] / busy:.1f}%")
+    print(f"  device ms by op: {top_ops(by_op, 8)}; routing / dispatch / "
+          f"combine by op: {top_ops(by_op, 6, 'dispatch')}")
+
+    params = part.merge(y, frozen)
+    serve.generate(params, cfg, prompt, 2, device=dev)   # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    seqs = serve.generate(params, cfg, prompt, DECODE_STEPS, device=dev)
+    torch.cuda.synchronize()
+    gwall = (time.perf_counter() - t1) * 1e3
+    counts = dict(kernels.LAUNCHES)
+    n_steps = DECODE_PROMPT + DECODE_STEPS
+    print(f"[serving] Mixtral generate (batch {DECODE_BATCH}, prompt "
+          f"{DECODE_PROMPT}, {DECODE_STEPS} greedy steps, capacity factor "
+          f"{cfg.moe_capacity_factor}): {gwall:.3f} ms, "
+          f"{gwall / n_steps:.3f} ms per decode step ({n_steps} steps with "
+          f"the step-by-step prefill); row 0: {seqs[0].tolist()}; launches "
+          f"{counts}")
+    if seqs.shape != (DECODE_BATCH, n_steps) or \
+            not bool(((seqs >= 0) & (seqs < base.vocab_size)).all()):
+        raise AssertionError("Mixtral generate: tokens of the wrong shape or "
+                             "range")
+
+    # consistency on the card, with the same weights; the second side of
+    # each pair takes the first side's routing (routing_spy)
+    short = torch.from_numpy(tokens[:, :CONSIST_LEN]).to(dev)
+    for c in (cfg, cfg.with_(sliding_window=200)):
+        s = specs.make_prefill_step(c, device=dev)
+        with routing_spy() as kern:
+            got = s(y, frozen, {"tokens": short})
+        with routing_spy(kern.ids) as plain:
+            want = plain_attention_forward(
+                lambda: s(y, frozen, {"tokens": short}))
+        rel = rel_to_max(got, want)
+        print(f"[serving] Mixtral prefill 1 x {CONSIST_LEN} (window "
+              f"{c.sliding_window}), kernel vs the plain chunked attention on "
+              f"the card, routed as the kernel's side ({plain.flipped} of "
+              f"{plain.routed} routings would differ): max |diff| / max "
+              f"|logit| {rel:.3e} (tolerance {LOGIT_REL:.3e}), argmax "
+              f"agreement "
+              f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.4f}")
+        if not rel <= LOGIT_REL:
+            raise AssertionError(f"Mixtral prefill: kernel vs plain {rel}")
+    c8 = cfg.with_(moe_capacity_factor=8.0)
+    with routing_spy() as fwd:
+        full = specs.make_prefill_step(c8, device=dev)(y, frozen,
+                                                       {"tokens": prompt})
+    # decode routes (step t, layer l) in turn; forward each layer at once
+    order = [ids.reshape(DECODE_BATCH, DECODE_PROMPT, -1)[:, t]
+             for t in range(DECODE_PROMPT) for ids in fwd.ids]
+    with routing_spy(order) as dec:
+        stepped, _ = serve.prefill_by_steps(params, c8, prompt, n_steps,
+                                            device=dev)
+    rel = rel_to_max(stepped, full)
+    print(f"[serving] Mixtral step-by-step prefill vs forward at capacity "
+          f"factor 8.0 (no drops) at the {DECODE_PROMPT} prompt positions of "
+          f"{DECODE_BATCH} rows, routed as forward ({dec.flipped} of "
+          f"{dec.routed} routings would differ): max |diff| / max |logit| "
+          f"{rel:.3e} (tolerance {LOGIT_REL:.3e}), argmax agreement "
+          f"{float((stepped.argmax(-1) == full.argmax(-1)).float().mean()):.4f}")
+    if not rel <= LOGIT_REL:
+        raise AssertionError(f"Mixtral decode vs forward logits: {rel}")
+    return counts
+
+
 def other_tree(src: str, what: str) -> int:
     """``--kernel-times SRC`` / ``--dp-ftrl SRC``: build the kernels of the
     package under SRC (another tree, unpacked with ``git archive``, run in
@@ -3253,6 +3781,24 @@ def other_tree(src: str, what: str) -> int:
         ab_times(dev, os.path.abspath(src))
     else:
         drive_dp_ftrl(dev)
+    return 0
+
+
+def mixtral_only() -> int:
+    """``--mixtral``: build the kernels and drive phase 7 (Mixtral-8x7B's
+    FedPT training and serving at full width) alone, with its gates."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build_all()
+    print(f"[mixtral] card {card_line()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t7 = time.perf_counter()
+    drive_mixtral_training(dev)
+    drive_mixtral_serving(dev)
+    print(f"[mixtral] phase 7 took {time.perf_counter() - t7:.1f} s")
     return 0
 
 
@@ -3431,9 +3977,11 @@ def main(argv) -> int:
         return other_tree(argv[1], argv[0])
     if argv == ["--sweep"]:
         return sweep()
+    if argv == ["--mixtral"]:
+        return mixtral_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              f"[--kernel-times SRC | --dp-ftrl SRC | --sweep]",
+              f"[--kernel-times SRC | --dp-ftrl SRC | --sweep | --mixtral]",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3569,7 +4117,14 @@ def main(argv) -> int:
     for name in launches:
         launches[name] += counts[name]
 
-    # --- phase 7: summary ------------------------------------------------
+    # --- phase 7: Mixtral-8x7B, FedPT fine-tuning and serving ------------
+    t7 = time.perf_counter()
+    for counts in (drive_mixtral_training(dev), drive_mixtral_serving(dev)):
+        for name in launches:
+            launches[name] += counts.get(name, 0)
+    print(f"[mixtral] phase 7 took {time.perf_counter() - t7:.1f} s")
+
+    # --- phase 8: summary ------------------------------------------------
     if len(records) != 10:
         raise AssertionError(f"{len(records)} kernel records, not 10")
     for rec in records:

@@ -141,18 +141,14 @@ class ModelConfig:
 
 _REGISTRY: dict = {}
 
-# the reference's other architectures and the port module each one needs
-# first (ROADMAP Queue 1, item 12)
+# the reference's architectures not ported yet and the port module each
+# one needs first (ROADMAP Queue 1, item 12)
 WAITING = {
-    "mixtral-8x7b": "nn/moe.py",
-    "deepseek-v2-236b": "MLA (nn/attention.py) and nn/moe.py",
-    "qwen2.5-3b": "the zoo slice that ports its config",
-    "jamba-v0.1-52b": "nn/ssm.py (Mamba) and nn/moe.py",
-    "glm4-9b": "the zoo slice that ports its config",
+    "deepseek-v2-236b": "MLA (nn/attention.py)",
+    "jamba-v0.1-52b": "nn/ssm.py (Mamba)",
     "paligemma-3b": "the VLM prefix of models/decoder_lm.py",
     "xlstm-350m": "nn/ssm.py (mLSTM / sLSTM)",
     "whisper-large-v3": "the encoder-decoder stack of models/decoder_lm.py",
-    "stablelm-1.6b": "the zoo slice that ports its config",
 }
 
 
@@ -171,6 +167,13 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_configs():
+    """The registry: every ported architecture's config by name."""
+    from repro_torch import configs as _c
+    _c.load_all()
+    return dict(_REGISTRY)
 
 
 def match_freeze(path: str, freeze_spec) -> bool:

@@ -1,16 +1,17 @@
-"""Training launcher, port of ``repro/launch/train.py``.
+"""Training launcher, port of ``repro/launch/train.py``. Two modes, on
+the card unless ``--device cpu``:
 
-Paper tasks: federated training of the paper's own models on synthetic
-federated data, on the card unless ``--device cpu``:
-
+* paper tasks: federated training of the paper's own models on synthetic
+  federated data —
     PYTHONPATH=src python -m repro_torch.launch.train --task emnist \\
         --rounds 100 [--fully-trainable] [--device cpu]
-
-``--task`` is ``emnist`` (Table 1), ``cifar`` (ResNet-18-GN, Table 2) or
-``stackoverflow`` (the NWP transformer, Table 3). The assigned
-architectures' training (``--arch``) waits for the model zoo's training
-loss (ROADMAP.md, Queue 1 item 12); ``reduced_config`` is here for the
-serving CLI and the tests.
+  ``--task`` is ``emnist`` (Table 1), ``cifar`` (ResNet-18-GN, Table 2)
+  or ``stackoverflow`` (the NWP transformer, Table 3);
+* assigned architectures: FedPT on the reduced variant of a ported
+  architecture (``reduced_config``; ``--reduced`` is accepted, as the
+  reference parses it, and every ``--arch`` run is reduced) —
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --reduced --rounds 10 [--device cpu]
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import get_config
 from repro_torch.core import fedpt
 from repro_torch.data import synthetic as syn
 from repro_torch.fl import runtime
@@ -143,17 +145,52 @@ def run_paper_task(task: str, rounds: int, fully_trainable: bool,
         device=device)
 
 
+@dataclasses.dataclass
+class ArchTask:
+    """An architecture's FedPT task, as ``run_reduced_arch`` trains it."""
+    cfg: Any
+    dataset: Any
+    init_fn: Callable[[int], Any]
+    loss_fn: Callable
+    rc: fedpt.RoundConfig
+
+
+def arch_task(cfg, seed: int = 0, device=None) -> ArchTask:
+    """The reference's ``run_reduced_arch`` settings for the config
+    ``cfg`` (reduced or not), with its parameters built on ``device``: 16
+    clients x 32 sentences of 32 tokens, 4 clients x 2 SGD steps (lr 0.1)
+    x 4 a round, server SGD with momentum (lr 0.5), ``train_loss`` with
+    the tokens as their own labels."""
+    dev = resolve_device(device)
+    ds = syn.make_federated_tokens(16, 32, seq_len=32, vocab=cfg.vocab_size,
+                                   seed=seed)
+
+    def loss_fn(params, b):
+        return dlm.train_loss(params, cfg, {"tokens": b["tokens"],
+                                            "labels": b["tokens"]})
+
+    return ArchTask(cfg, ds, lambda s: dlm.init_model(cfg, s, device=dev),
+                    loss_fn, fedpt.RoundConfig(4, 2, 4, "sgd", 0.1, "sgdm",
+                                               0.5))
+
+
 def run_reduced_arch(arch: str, rounds: int, seed: int = 0, log: bool = True,
                      device=None):
-    raise NotImplementedError(
-        f"training {arch!r} needs decoder_lm.train_loss and the model "
-        "zoo's training loop, not ported yet (ROADMAP.md, Queue 1 item 12)")
+    """FedPT on ``reduced_config`` of ``arch`` (its freeze spec) for
+    ``rounds`` rounds through ``run_federated``, on the card unless
+    ``device="cpu"``. Returns (TrainResult, cfg)."""
+    at = arch_task(reduced_config(get_config(arch)), seed, device)
+    return runtime.run_federated(at.init_fn, at.loss_fn, at.dataset, at.rc,
+                                 rounds, freeze_spec=at.cfg.freeze_spec,
+                                 seed=seed, data_kind="tokens", log=log,
+                                 device=device), at.cfg
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", choices=["emnist", "cifar", "stackoverflow"])
     ap.add_argument("--arch", default=None)
+    ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--fully-trainable", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -161,11 +198,14 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if not args.task:
-        run_reduced_arch(args.arch, args.rounds, args.seed,
-                         device=args.device)
-    res = run_paper_task(args.task, args.rounds, args.fully_trainable,
-                         args.seed, device=args.device)
+    if args.task:
+        res = run_paper_task(args.task, args.rounds, args.fully_trainable,
+                             args.seed, device=args.device)
+    else:
+        res, cfg = run_reduced_arch(args.arch, args.rounds, args.seed,
+                                    device=args.device)
+        print(f"arch={cfg.name} trainable share: "
+              f"{100 * res.comm.trainable_bytes / res.comm.full_bytes:.2f}%")
     print(f"final loss={res.history[-1]['loss']:.4f} "
           f"comm reduction={res.comm.reduction:.1f}x "
           f"sec/round={res.seconds_per_round:.2f}")

@@ -1,4 +1,5 @@
-"""Decoder-only LM, port of the dense family of ``repro/models/decoder_lm.py``.
+"""Decoder-only LM, port of the dense and MoE families of
+``repro/models/decoder_lm.py``.
 
 The layer stack is a *periodic program*: ``num_layers / period`` identical
 groups of ``period`` slots. Each leaf of the stack is stacked over the
@@ -12,9 +13,16 @@ KV caches: full-length buffers for global attention, or a ring buffer of
 (Mistral-style rolling cache, the ``long_500k`` serving shape). The
 cache's ``cache_len`` is a Python int (the decode loop is eager).
 
-Dense attention slots only: MoE, Mamba, xLSTM, MLA, VLM and
-encoder-decoder slots raise ``NotImplementedError`` until the slices that
-port ``nn/moe.py``, ``nn/ssm.py`` and MLA.
+Attention slots with a dense or MoE (``nn/moe.py``) FFN. Mamba, xLSTM,
+MLA, VLM and encoder-decoder stacks raise ``NotImplementedError`` until
+the slices that port ``nn/ssm.py``, MLA, the VLM prefix and the
+encoder-decoder stack.
+
+``forward`` takes the attention function explicitly: the serving prefill
+runs ``nn/attention.flash_attention`` (the ``swa_attention`` kernel on
+the card), while ``train_loss`` passes ``nn/attention.chunked_attention``,
+the reference's own chunked scan, which ``torch.func.vmap`` and ``grad``
+can trace (the kernel has no backward, as the TPU kernel has none).
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.nn import attention as attn_lib
-from repro_torch.nn import basic, threefry
+from repro_torch.nn import basic, moe as moe_lib, threefry
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +64,9 @@ def layer_program(cfg: ModelConfig) -> Tuple[Tuple[Slot, ...], int]:
     return slots, cfg.num_layers // period
 
 
-def _dense_only(cfg: ModelConfig, slots) -> None:
-    """Raise for what this slice does not port."""
+def _refuse_mla_ssm_vlm_encdec(cfg: ModelConfig, slots) -> None:
+    """Raise for the stacks not ported yet: MLA, SSM slots, the VLM prefix
+    and the encoder-decoder stack."""
     if cfg.family == "vlm" or cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} stack is "
                                   f"not ported yet")
@@ -67,9 +76,6 @@ def _dense_only(cfg: ModelConfig, slots) -> None:
         if slot.kind != ATTN:
             raise NotImplementedError(f"{cfg.name}: {slot.kind} slots "
                                       f"(nn/ssm.py) are not ported yet")
-        if slot.use_moe:
-            raise NotImplementedError(f"{cfg.name}: MoE FFNs (nn/moe.py) "
-                                      f"are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -79,35 +85,44 @@ def _dense_only(cfg: ModelConfig, slots) -> None:
 def _init_slot(key, cfg: ModelConfig, slot: Slot, si: int, device=None):
     dt = cfg.pdtype
     path = f"layers/slot{si}"
-    return {
+    p = {
         "ln1": basic.init_norm(key, f"{path}/ln1", cfg.d_model, dt,
                                cfg.norm_type, device),
         "attn": attn_lib.init_attention(key, f"{path}/attn", cfg, dt, device),
         "ln2": basic.init_norm(key, f"{path}/ln2", cfg.d_model, dt,
                                cfg.norm_type, device),
-        "ffn": basic.init_mlp(key, f"{path}/ffn", cfg.d_model, cfg.d_ff, dt,
-                              gated=cfg.gated_mlp, device=device),
     }
-
-
-def _stack(trees):
-    """Leafwise stack of same-structure trees along a new leading axis."""
-    return basic.tree_map(lambda *xs: torch.stack(xs), *trees)
+    if slot.use_moe:
+        p["moe"] = moe_lib.init_moe(key, f"{path}/moe", cfg, dt, device)
+    else:
+        p["ffn"] = basic.init_mlp(key, f"{path}/ffn", cfg.d_model, cfg.d_ff,
+                                  dt, gated=cfg.gated_mlp, device=device)
+    return p
 
 
 def _init_stack(seed, cfg: ModelConfig, device=None):
+    """Each slot's tree, its leaves stacked over the groups: group g's
+    leaves are drawn from ``fold_in(root, g)`` and copied into the stacked
+    leaves at once, so that one group's tree is held beside the stack."""
     slots, n_groups = layer_program(cfg)
     root = basic.path_key(seed, f"{cfg.name}/stack")
-    keys = [threefry.fold_in(root, g) for g in range(n_groups)]
-    return {f"slot{si}": _stack([_init_slot(k, cfg, slot, si, device)
-                                 for k in keys])
-            for si, slot in enumerate(slots)}
+    stacked = {}
+    for g in range(n_groups):
+        key = threefry.fold_in(root, g)
+        for si, slot in enumerate(slots):
+            tree = _init_slot(key, cfg, slot, si, device)
+            if g == 0:
+                stacked[f"slot{si}"] = basic.tree_map(
+                    lambda x: x.new_empty((n_groups,) + tuple(x.shape)), tree)
+            basic.tree_map(lambda dst, src: dst[g].copy_(src),
+                           stacked[f"slot{si}"], tree)
+    return stacked
 
 
 def init_model(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
     """The parameter tree, on the card unless ``device="cpu"``."""
     dev = resolve_device(device)
-    _dense_only(cfg, layer_program(cfg)[0])
+    _refuse_mla_ssm_vlm_encdec(cfg, layer_program(cfg)[0])
     dt = cfg.pdtype
     p: Dict[str, Any] = {
         "embed": basic.init_embedding(seed, "embed", cfg.vocab_size,
@@ -137,8 +152,20 @@ def sinusoid_pos(positions, d_model, dtype):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
-def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux):
-    """One residual block. Returns (x, aux, cache_entry)."""
+def _ffn(h2, sp, cfg: ModelConfig, slot: Slot):
+    """The slot's FFN on (B, S, d): the gated MLP, or ``moe_ffn`` on the
+    (B*S, d) tokens. Returns (y, the MoE aux loss or None)."""
+    if not slot.use_moe:
+        return basic.mlp(h2, sp["ffn"], cfg.act, cfg.cdtype), None
+    B, S, D = h2.shape
+    y, aux = moe_lib.moe_ffn(h2.reshape(B * S, D), sp["moe"], cfg)
+    return y.reshape(B, S, D), aux
+
+
+def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux,
+                attention):
+    """One residual block; ``attention`` is ``flash_attention`` or
+    ``chunked_attention``. Returns (x, aux, cache_entry)."""
     cd = cfg.cdtype
     h = basic.apply_norm(x, sp["ln1"], cfg.norm_type)
     q, k, v = attn_lib.qkv_project(h, sp["attn"], cfg)
@@ -147,11 +174,13 @@ def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux):
                                        positions)
         q = attn_lib.apply_rope(q, cos, sin)
         k = attn_lib.apply_rope(k, cos, sin)
-    o = attn_lib.flash_attention(q, k, v, cfg)
+    o = attention(q, k, v, cfg)
     o = basic.dense(o.reshape(o.shape[0], o.shape[1], -1), sp["attn"]["wo"], cd)
     x = x + o
     h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
-    y = basic.mlp(h2, sp["ffn"], cfg.act, cd)
+    y, aux_l = _ffn(h2, sp, cfg, slot)
+    if aux_l is not None:
+        aux = aux + aux_l
     return x + y, aux, (k, v)
 
 
@@ -159,7 +188,7 @@ def _group(tree, g: int):
     return basic.tree_map(lambda x: x[g], tree)
 
 
-def _run_stack(stack_params, cfg: ModelConfig, x, positions,
+def _run_stack(stack_params, cfg: ModelConfig, x, positions, attention,
                collect_caches=False):
     slots, n_groups = layer_program(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -169,7 +198,7 @@ def _run_stack(stack_params, cfg: ModelConfig, x, positions,
         caches = []
         for si, slot in enumerate(slots):
             x, aux, c = _apply_slot(x, gp[f"slot{si}"], cfg, slot, positions,
-                                    aux)
+                                    aux, attention)
             caches.append(c)
         if collect_caches:
             per_group.append(tuple(caches))
@@ -188,19 +217,25 @@ def _logits(x, params, cfg: ModelConfig):
     return x @ params["unembed"]["kernel"].to(cfg.cdtype)
 
 
-def forward(params, cfg: ModelConfig, tokens, return_caches: bool = False):
+def forward(params, cfg: ModelConfig, tokens, return_caches: bool = False,
+            attention=None):
     """tokens: (B, S) integer tensor on the parameters' device.
 
-    Returns (logits (B, S, V), metrics[, caches]); caches hold each slot's
-    (k, v), (G, B, S, kv_heads, head_dim), stacked over groups."""
+    ``attention``: the attention function of every layer, with
+    ``flash_attention``'s signature; None is ``nn/attention.flash_attention``
+    (the kernel on the card, the serving prefill's). Returns (logits (B,
+    S, V), metrics[, caches]); metrics' ``moe_aux_loss`` (float32) sums
+    the MoE layers' aux losses; caches hold each slot's (k, v), (G, B, S,
+    kv_heads, head_dim), stacked over groups."""
     cd = cfg.cdtype
-    _dense_only(cfg, layer_program(cfg)[0])
+    attention = attention or attn_lib.flash_attention
+    _refuse_mla_ssm_vlm_encdec(cfg, layer_program(cfg)[0])
     x = basic.embed(tokens, params["embed"], cd)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if not cfg.use_rope:
         x = x + sinusoid_pos(positions, cfg.d_model, cd)
     x, aux, caches = _run_stack(params["layers"], cfg, x, positions,
-                                collect_caches=return_caches)
+                                attention, collect_caches=return_caches)
     logits = _logits(x, params, cfg)
     metrics = {"moe_aux_loss": aux}
     if return_caches:
@@ -219,6 +254,27 @@ def lm_loss(logits, labels, mask=None):
     if mask is None:
         mask = torch.ones_like(ll)
     return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def train_loss(params, cfg: ModelConfig, batch):
+    """The shifted next-token cross-entropy of ``batch["tokens"]``
+    against ``batch["labels"]`` (optional ``batch["mask"]``), plus
+    ``router_aux_loss`` times the MoE aux loss. Returns (loss, metrics).
+
+    The forward runs ``nn/attention.chunked_attention``, the reference's
+    chunked scan, on every device: the round engine takes its gradient
+    under ``torch.func.vmap``, which the attention kernel does not
+    support. The VLM and encoder-decoder stacks raise in
+    :func:`forward`."""
+    logits, metrics = forward(params, cfg, batch["tokens"],
+                              attention=attn_lib.chunked_attention)
+    mask = batch.get("mask", None)
+    if mask is not None:
+        mask = mask[:, 1:].float()
+    loss = lm_loss(logits[:, :-1, :], batch["labels"][:, 1:], mask)
+    if cfg.router_aux_loss and cfg.num_experts:
+        loss = loss + cfg.router_aux_loss * metrics["moe_aux_loss"]
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +297,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     dev = resolve_device(device)
     cd = dtype or cfg.cdtype
     slots, G = layer_program(cfg)
-    _dense_only(cfg, slots)
+    _refuse_mla_ssm_vlm_encdec(cfg, slots)
     S = cache_capacity(cfg, max_len)
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     entries = {f"slot{i}": {
@@ -271,7 +327,7 @@ def _decode_slot(x, sp, cfg: ModelConfig, slot: Slot, cache, cache_len: int,
                                   cfg.with_(sliding_window=0))
     x = x + basic.dense(o.reshape(o.shape[0], 1, -1), sp["attn"]["wo"], cd)
     h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
-    return x + basic.mlp(h2, sp["ffn"], cfg.act, cd), cache
+    return x + _ffn(h2, sp, cfg, slot)[0], cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens):
@@ -282,7 +338,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     layer's cache per token) and returns it with ``cache_len + 1``."""
     cd = cfg.cdtype
     slots, G = layer_program(cfg)
-    _dense_only(cfg, slots)
+    _refuse_mla_ssm_vlm_encdec(cfg, slots)
     cache_len = int(cache["cache_len"])
     pos = torch.tensor([cache_len], device=tokens.device)
     x = basic.embed(tokens, params["embed"], cd)

@@ -1,0 +1,205 @@
+"""Mixture-of-Experts, port of ``repro/nn/moe.py``: a top-k router and a
+capacity-bounded dispatch into a dense (experts, capacity, d_model)
+buffer, the expert FFNs (a matrix product an expert), and the weighted
+combine.
+Tokens past an expert's capacity are dropped (Switch / GShard
+semantics); shared experts (DeepSeek-V2) run densely on every token.
+
+The reference places each routed token by a stable sort over expert ids;
+its place in the buffer is its rank among the earlier tokens routed to
+the same expert. Here the stable sort's position of each entry is one
+flat cumulative sum over the expert-major one-hot choices, the rank that
+position less its expert's start (an exclusive cumulative sum of the
+per-expert counts): the same integers without the sort. The buffer is a
+gather from the tokens padded with a zero row through an integer index
+scattered once. The combine gathers each token's k expert rows and adds
+them in a fixed order, where the reference scatter-adds: no float
+atomics, and at k = 2 the reference's bits given the same expert outputs
+((0 + a) + b is commutative). Every step is a ``torch.func.vmap``-
+batchable op, since the round engine vmaps the clients.
+
+The reference's ``maybe_constrain`` calls are sharding hints for the
+mesh, no-ops without one; they are left out until the port's mesh
+(ROADMAP.md, Queue 1 item 12's last bullet).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn import basic
+
+
+def init_moe(seed, path, cfg: ModelConfig, dtype, device=None):
+    d, e = cfg.d_model, cfg.num_experts
+    ff = cfg.expert_d_ff
+    p = {
+        "router": basic.init_dense(seed, f"{path}/router", d, e, dtype,
+                                   device=device),
+        # stacked expert weights: (E, d, ff) / (E, ff, d)
+        "wi_gate": basic.normal_init(seed, f"{path}/wi_gate", (e, d, ff),
+                                     dtype, fan_in=d, device=device),
+        "wi_up": basic.normal_init(seed, f"{path}/wi_up", (e, d, ff), dtype,
+                                   fan_in=d, device=device),
+        "wo": basic.normal_init(seed, f"{path}/wo", (e, ff, d), dtype,
+                                fan_in=ff, device=device),
+    }
+    if cfg.num_shared_experts > 0:
+        sff = cfg.expert_d_ff * cfg.num_shared_experts
+        p["shared"] = basic.init_mlp(seed, f"{path}/shared", d, sff, dtype,
+                                     gated=True, device=device)
+    return p
+
+
+def _one_hot(idx, e: int, dtype):
+    return (idx[..., None] == torch.arange(e, device=idx.device)).to(dtype)
+
+
+def router_topk(x, p, cfg: ModelConfig):
+    """Returns (weights (T,k) in x's dtype, experts (T,k) int32, aux loss
+    float32 scalar). Logits and softmax are float32."""
+    logits = basic.dense(x, p["router"], torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e
+    e = cfg.num_experts
+    me = probs.mean(0)
+    ce = _one_hot(idx, e, torch.float32).sum(1).mean(0)
+    aux = e * (me * ce).sum()
+    return w.to(x.dtype), idx.to(torch.int32), aux
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert: ``max(1, round(T * k / E * cf))``, Python's
+    round, as the reference computes it."""
+    return int(max(1, round(tokens * cfg.num_experts_per_tok
+                            / cfg.num_experts * cfg.moe_capacity_factor)))
+
+
+def _sort_dispatch(x, w, idx, e: int, cap: int, cd):
+    """Dispatch of (T, d) tokens into an (E, cap, d) buffer.
+
+    Entry f = t * k + j (token t's j-th expert) takes slot ``expert * cap
+    + rank``, its rank being the count of earlier entries routed to the
+    same expert (the reference's stable-sort position); ranks from cap on
+    are dropped. Returns (buf, meta), meta = (slot, keep, weight) per
+    entry in token order for :func:`_combine_local`."""
+    T, d = x.shape
+    k = idx.shape[1]
+    n = T * k
+    flat_e = idx.reshape(-1).long()                       # (T*k,)
+    hot = _one_hot(flat_e, e, torch.long).T               # (E, T*k)
+    # the expert-major running count (one scan of a flat vector): at
+    # (expert of f, f) it is f's position in the stable sort, plus one
+    pos = torch.cumsum(hot.reshape(-1), 0).reshape(e, n)
+    pos = pos.gather(0, flat_e[None, :])[0] - 1
+    counts = hot.sum(1)
+    rank = pos - (torch.cumsum(counts, 0) - counts).gather(0, flat_e)
+    keep = rank < cap
+    entry = torch.arange(n, device=x.device)
+    # a dropped entry takes a drop row of its own past the E*cap slots, so
+    # that no two entries share a row of the scattered index
+    slot = torch.where(keep, flat_e * cap + rank, e * cap + entry)
+    src = torch.full((e * cap + n,), T, dtype=torch.long, device=x.device)
+    src = src.scatter(0, slot, entry // k)                # token of each slot
+    xp = torch.cat([x.to(cd), torch.zeros((1, d), dtype=cd, device=x.device)])
+    buf = xp.index_select(0, src[:e * cap]).reshape(e, cap, d)
+    return buf, (slot, keep, w.reshape(-1))
+
+
+def _combine_local(y_flat, meta, T: int, e: int, cap: int, cd):
+    """Inverse of :func:`_sort_dispatch`: each token's k weighted expert
+    rows, gathered and summed in a fixed order into (T, d)."""
+    slot, keep, sw = meta
+    d = y_flat.shape[-1]
+    rows = y_flat.index_select(0, torch.clamp_max(slot, e * cap - 1))
+    gathered = torch.where(keep[:, None], rows, 0.0) * sw[:, None].to(cd)
+    gathered = gathered.reshape(T, -1, d)
+    out = torch.zeros((T, d), dtype=cd, device=y_flat.device)
+    for j in range(gathered.shape[1]):
+        out = out + gathered[:, j]
+    return out
+
+
+def _experts(buf, p, cd):
+    """The expert FFNs on the (..., E, cap, d) dispatch buffer, in ``cd``:
+    silu(x @ wi_gate[e]) * (x @ wi_up[e]) @ wo[e] for each expert e's
+    (..., cap, d) slots. One matrix product an expert: under ``vmap`` the
+    clients' rows then stack onto one unbatched weight, where a batched
+    (E, cap, d) x (E, d, ff) product copies the weights once a client."""
+    out = []
+    for e in range(buf.shape[-3]):
+        x = buf.select(-3, e)
+        g = x @ p["wi_gate"][e].to(cd)
+        u = x @ p["wi_up"][e].to(cd)
+        out.append((torch.nn.functional.silu(g) * u) @ p["wo"][e].to(cd))
+    return torch.stack(out, dim=-3)
+
+
+def moe_ffn(x, p, cfg: ModelConfig):
+    """x: (T, d) flat tokens -> ((T, d), aux loss).
+
+    Capacity from :func:`capacity`. With ``cfg.moe_dispatch_groups > 1``
+    (and T divisible into groups of at least k tokens) routing, dispatch
+    and combine run per group (:func:`_moe_ffn_grouped`)."""
+    T, d = x.shape
+    g = cfg.moe_dispatch_groups
+    if g and g > 1 and T % g == 0 and T // g >= cfg.num_experts_per_tok:
+        return _moe_ffn_grouped(x, p, cfg, g)
+    e = cfg.num_experts
+    cap = capacity(T, cfg)
+    cd = cfg.cdtype
+    w, idx, aux = router_topk(x, p, cfg)
+    buf, meta = _sort_dispatch(x, w, idx, e, cap, cd)
+    y = _experts(buf, p, cd)
+    out = _combine_local(y.reshape(e * cap, d), meta, T, e, cap, cd)
+    if cfg.num_shared_experts > 0:
+        out = out + basic.mlp(x, p["shared"], "silu", cd)
+    return out, aux
+
+
+def _moe_ffn_grouped(x, p, cfg: ModelConfig, g: int):
+    """Group-local dispatch: tokens reshape to (g, T/g, d); routing,
+    dispatch and combine run per group (vmapped), the expert products over
+    all groups at once. Capacity is per group; aux is the groups' mean."""
+    T, d = x.shape
+    e = cfg.num_experts
+    cd = cfg.cdtype
+    Tl = T // g
+    cap = capacity(Tl, cfg)
+
+    def local(xl):
+        w, idx, aux = router_topk(xl, p, cfg)
+        buf, meta = _sort_dispatch(xl, w, idx, e, cap, cd)
+        return buf, meta, aux
+
+    bufs, metas, auxs = torch.func.vmap(local)(x.reshape(g, Tl, d))
+    y = _experts(bufs, p, cd)
+    out = torch.func.vmap(
+        lambda yl, *m: _combine_local(yl.reshape(e * cap, d), m, Tl, e, cap,
+                                      cd))(y, *metas)
+    out = out.reshape(T, d)
+    if cfg.num_shared_experts > 0:
+        out = out + basic.mlp(x, p["shared"], "silu", cd)
+    return out, auxs.mean()
+
+
+def moe_ffn_dense_fallback(x, p, cfg: ModelConfig):
+    """Reference: run every expert on every token in float32 and mask
+    (the oracle for the tests)."""
+    T, d = x.shape
+    cd = torch.float32
+    w, idx, aux = router_topk(x, p, cfg)
+    xf = x.to(cd)
+    g = torch.einsum("td,edf->tef", xf, p["wi_gate"].to(cd))
+    u = torch.einsum("td,edf->tef", xf, p["wi_up"].to(cd))
+    h = torch.nn.functional.silu(g) * u
+    y = torch.einsum("tef,efd->ted", h, p["wo"].to(cd))
+    # a token's k experts are distinct: one weight a (token, expert)
+    mask = torch.zeros((T, cfg.num_experts), dtype=cd, device=x.device)
+    mask = mask.scatter(1, idx.long(), w.to(cd))
+    out = torch.einsum("ted,te->td", y, mask)
+    if cfg.num_shared_experts > 0:
+        out = out + basic.mlp(xf, p["shared"], "silu", cd)
+    return out.to(x.dtype), aux

@@ -85,8 +85,8 @@ def test_configs_match_the_reference():
     assert tspecs.serving_config(cfg, "long_500k").sliding_window == 8192
     assert tspecs.serving_config(cfg, "prefill_32k").sliding_window == 0
     assert tspecs.SHAPES == jspecs.SHAPES
-    with pytest.raises(KeyError, match="nn/moe.py"):
-        tbase.get_config("mixtral-8x7b")
+    with pytest.raises(KeyError, match="nn/ssm.py"):
+        tbase.get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError, match="unknown"):
         tbase.get_config("no-such-arch")
 
@@ -224,7 +224,7 @@ def test_steps_refuse_parameters_on_another_device(params):
 
 def test_unported_features_raise(params):
     tcfg = _cfgs()[1]
-    for cfg in (tcfg.with_(num_experts=4, num_experts_per_tok=2),
+    for cfg in (tcfg.with_(family="vlm"),
                 tcfg.with_(family="ssm"), tcfg.with_(use_mla=True),
                 tcfg.with_(is_encoder_decoder=True)):
         with pytest.raises(NotImplementedError):

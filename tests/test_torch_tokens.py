@@ -204,5 +204,5 @@ def test_train_cli_runs_the_so_task_on_the_cpu(capsys):
                         r"sec/round=(\d+\.\d\d|nan)", out[-1]), out[-1]
     assert any(line.startswith("  round 0: loss=") and "accuracy=" in line
                for line in out)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttrain.main(["--arch", "qwen2.5-3b", "--device", "cpu"])
+    with pytest.raises(KeyError, match="nn/ssm.py"):
+        ttrain.main(["--arch", "jamba-v0.1-52b", "--device", "cpu"])

@@ -10,6 +10,7 @@ from repro_torch.configs.base import (ModelConfig, get_config, list_configs,
 
 _MODULES = (
     "mixtral_8x7b",
+    "deepseek_v2_236b",
     "qwen2_5_3b",
     "mistral_nemo_12b",
     "glm4_9b",

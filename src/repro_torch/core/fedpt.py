@@ -16,7 +16,10 @@ One federated round:
 The client axis is ``torch.func.vmap``, as in the reference, so each op
 of the local step is dispatched once for the whole cohort; the tau-step
 ``scan`` is a Python loop over steps. The engine takes any
-``loss_fn(params, batch)`` that ``vmap`` can batch.
+``loss_fn(params, batch)`` that ``vmap`` can batch. A cohort whose
+clients' copies of ``y`` pass ``VMAP_BYTES`` is vmapped a chunk of
+clients at a time, each chunk's rows written into the one delta buffer
+(DeepSeek-V2's 1.25 G trainable values: a client at a time).
 
 The async grid's hooks follow: staleness weightings, the single-client
 and lane-batched client steps, and the buffered server apply.
@@ -60,6 +63,32 @@ class RoundConfig:
     uniform_weights: bool = False  # DP requires fixed (uniform) weighting
     # lossy uplink compression of client deltas (0 = off)
     uplink_bits: int = 0
+
+
+# The bytes of float32 ``y`` copies that one vmap over clients may hold:
+# every client holds its own y and gradient, and the optimizer step a
+# third, so a larger cohort runs in chunks of clients.
+VMAP_BYTES = 8 << 30
+
+
+def _vmap_clients(fn, n: int, row_size: int, dev, *args):
+    """``torch.func.vmap(fn)(*args)`` for fn -> (float32 row (row_size,),
+    loss), the client axis leading every leaf of ``args``; when n rows
+    pass VMAP_BYTES, ``VMAP_BYTES // (4 * row_size)`` clients (at least
+    one) at a time, their rows written into one (n, row_size) buffer on
+    ``dev``, allocated before the first chunk runs."""
+    chunk = max(1, VMAP_BYTES // (4 * row_size))
+    if chunk >= n:
+        return torch.func.vmap(fn)(*args)
+    rows = torch.empty((n, row_size), dtype=torch.float32, device=dev)
+    losses = []
+    for a in range(0, n, chunk):
+        part_rows, part_losses = torch.func.vmap(fn)(
+            *(tree_map(lambda x: x[a:a + chunk], t) for t in args))
+        rows[a:a + part_rows.shape[0]] = part_rows
+        losses.append(part_losses)
+        del part_rows
+    return rows, torch.cat(losses)
 
 
 def make_client_update(loss_fn: Callable, client_opt: opt_lib.Optimizer,
@@ -195,14 +224,17 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
             return layout.flatten(delta), metrics["client_loss"]
 
         bmask = None
+        n = weights.shape[0]
         if tiered:
             tids = torch.as_tensor(tiers, dtype=torch.long, device=dev)
             masks = tree_map(lambda st: st[tids], stacked)   # (clients,)
-            deltas, losses = torch.func.vmap(flat_client)(batch, masks)
+            deltas, losses = _vmap_clients(flat_client, n, layout.size,
+                                           dev, batch, masks)
             if rc.dp_clip_norm <= 0:
                 bmask = bmasks[tids]
         else:
-            deltas, losses = torch.func.vmap(flat_client)(batch)
+            deltas, losses = _vmap_clients(flat_client, n, layout.size,
+                                           dev, batch)
 
         # --- server tail: screen / quantize / clip / mean / noise --------
         flat_delta, ainfo = kernel_ops.agg_tail(

@@ -5,12 +5,18 @@
 // every attention layer of models/decoder_lm.forward (prefill), through
 // nn/attention.flash_attention and kernels/ops.swa_attention.
 //
+// q and k have one head dim (DK), v and the output another (DV): MLA
+// (DeepSeek-V2) attends with 192-wide q / k heads (128 + a 64-wide rope
+// part) and 128-wide v heads; the other models have DK = DV.
+//
 // Bound on this card: operations. Each (q, k) pair that the mask lets
-// through costs 4 * D flops (q.k and p.v); at B = 1, H = 32, D = 128,
-// S = 32768 the causal pairs (536.9 M per head) need 8.8 TFLOP, 8.9 ms at
-// the 989 TFLOP/s of the bf16 tensor cores, and a window of 8192 (234.9 M
-// pairs per head) 3.9 ms. The bytes (q and o with 32 heads, k and v with
-// 8 kv heads, each read or written once: 0.67 GB in bf16) take 0.2 ms.
+// through costs 2 * (DK + DV) flops (q.k and p.v); at B = 1, H = 32,
+// DK = DV = 128, S = 32768 the causal pairs (536.9 M per head) need
+// 8.8 TFLOP, 8.9 ms at the 989 TFLOP/s of the bf16 tensor cores, and a
+// window of 8192 (234.9 M pairs per head) 3.9 ms; MLA's 128 heads at
+// (192, 128) need 44.0 TFLOP, 44.5 ms. The bytes (q and o with 32 heads, k
+// and v with 8 kv heads, each read or written once: 0.67 GB in bf16) take
+// 0.2 ms.
 //
 // The function (the reference's arithmetic, every dtype): s = (q.k) * scale
 // in float32, masked to NEG_INF = -1e30; m_new = max(m, rowmax(s));
@@ -57,18 +63,23 @@
 // - p.v at float32-p accuracy: p = p_hi + p_lo with p_hi = T(p) and
 //   p_lo = T(p - p_hi) (kernels/ref.split_p), |p - p_hi - p_lo| <= 2^-16 p
 //   in bf16 (2^-22 p in fp16); acc += p_hi v + p_lo v by two register-A
-//   wgmmas m64nDk16 per 16 keys, V read transposed through its descriptor.
-//   The score accumulators' layout is the A fragments' layout, so p never
-//   goes through shared memory. 6 * D flops per pair are issued where the
-//   bound counts 4 * D. In the round_p mode (template flag kRoundP) only
-//   p_hi is formed and multiplied: one wgmma per 16 keys, 4 * D flops a
-//   pair, and no p_lo registers.
+//   wgmmas m64nDVk16 per 16 keys, V read transposed through its
+//   descriptor. The score accumulators' layout is the A fragments' layout,
+//   so p never goes through shared memory. 2 * DK + 4 * DV flops per pair
+//   are issued where the bound counts 2 * (DK + DV). In the round_p mode
+//   (template flag kRoundP) only p_hi is formed and multiplied: one wgmma
+//   per 16 keys, 2 * (DK + DV) flops a pair, and no p_lo registers.
 // - The two consumer warpgroups take turns through two named barriers:
 //   one issues acc += p_i v_i and s = q k_{i+1}^T, lets the other issue
 //   its own, then waits for its products and runs tile i + 1's softmax
 //   while the other's products hold the tensor cores.
-// - Head dims below the template's D (64 or 128) are zero-filled; accurate
-//   expf; a ragged S is masked in the kernel.
+// - Instances (DK, DV): (64, 64), (128, 128) and (192, 128), the first
+//   that holds a call's head dims; smaller head dims are zero-filled. q and
+//   each K stage hold DK / 64 swizzled 64-column blocks, each V stage
+//   DV / 64, each with its own TMA byte count; q.k^T takes DK / 16 k-steps
+//   and acc holds DV / 2 floats a thread, so (192, 128) keeps (128, 128)'s
+//   registers and takes 168 KiB of shared memory. Accurate expf; a ragged
+//   S is masked in the kernel.
 // - What holds it back (PERF.md): at the prefill's shape the card runs at
 //   its 700 W power limit with the clock lowered, and the float32 softmax
 //   (accurate expf, the split, the rescale: ~25 instructions per score)
@@ -76,8 +87,9 @@
 //
 // float32 (the reduced tests only; no serving config): swa_kernel, on the
 // CUDA cores: one block of 256 threads per 64-row q tile, q, K and V staged
-// as float32 in shared memory, float32 FMAs, each thread holding a 4 x 4
-// block of scores and a 4 x D/16 block of the accumulator.
+// as float32 in shared memory (a K tile and then its V tile in one buffer),
+// float32 FMAs, each thread holding a 4 x 4 block of scores and a
+// 4 x DV/16 block of the accumulator; the same (DK, DV) instances.
 // cuda.h: CUtensorMap, header only (the encoder is fetched at run time)
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -130,19 +142,22 @@ __device__ __forceinline__ void load_tile(float* tile, int ld, const T* base,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
     swa_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o, int H, int rep,
-               int S, int d, Strides qs, Strides ks, Strides vs, Strides os,
-               int window, int causal, float scale) {
-  constexpr int kLd = D + 1;
+               int S, int dk, int dv, Strides qs, Strides ks, Strides vs,
+               Strides os, int window, int causal, float scale) {
+  constexpr int kLdK = DK + 1;
+  constexpr int kLdV = DV + 1;
+  constexpr int kLdKv = kLdK > kLdV ? kLdK : kLdV;
   constexpr int kPLd = kTile + 1;
-  constexpr int kCols = D / 16;  // accumulator columns per thread
+  constexpr int kCols = DV / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
-  float* qt = smem;               // kTile x kLd
-  float* kvt = qt + kTile * kLd;  // kTile x kLd: a K tile, then its V tile
-  float* pt = kvt + kTile * kLd;  // kTile x kPLd: the tile's p
+  float* qt = smem;                // kTile x kLdK
+  float* kvt = qt + kTile * kLdK;  // a K tile (pitch kLdK), then its V tile
+                                   // (pitch kLdV)
+  float* pt = kvt + kTile * kLdKv; // kTile x kPLd: the tile's p
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int64_t b = blockIdx.y / H;
@@ -167,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
   }
 
-  load_tile<T, D>(qt, kLd, qb, qs.s, q0, S, d);
+  load_tile<T, DK>(qt, kLdK, qb, qs.s, q0, S, dk);
 
   // the KV tiles that intersect the mask of rows [q0, q0 + kTile)
   const int q_last = min(q0 + kTile, S) - 1;
@@ -177,7 +192,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's V and p reads are done
-    load_tile<T, D>(kvt, kLd, kb, ks.s, k0, S, d);
+    load_tile<T, DK>(kvt, kLdK, kb, ks.s, k0, S, dk);
     __syncthreads();
 
     float s[4][4];
@@ -187,12 +202,12 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     }
 #pragma unroll 8
-    for (int c = 0; c < D; ++c) {
+    for (int c = 0; c < DK; ++c) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qt[(ty + 16 * i) * kLd + c];
+      for (int i = 0; i < 4; ++i) qv[i] = qt[(ty + 16 * i) * kLdK + c];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kvt[(tx + 16 * j) * kLd + c];
+      for (int j = 0; j < 4; ++j) kv[j] = kvt[(tx + 16 * j) * kLdK + c];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -237,7 +252,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int j = 0; j < 4; ++j) pt[(ty + 16 * i) * kPLd + tx + 16 * j] = s[i][j];
     }
     __syncthreads();  // every K read is done and p is written
-    load_tile<T, D>(kvt, kLd, vb, vs.s, k0, S, d);
+    load_tile<T, DV>(kvt, kLdV, vb, vs.s, k0, S, dv);
     __syncthreads();
 
     float pv[4][kCols];
@@ -252,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pr[i] = pt[(ty + 16 * i) * kPLd + kk];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) vv[j] = kvt[kk * kLd + tx + 16 * j];
+      for (int j = 0; j < kCols; ++j) vv[j] = kvt[kk * kLdV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -274,28 +289,30 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = tx + 16 * j;
-      if (c < d) {
+      if (c < dv) {
         ob[static_cast<int64_t>(row) * os.s + c] = from_float<T>(acc[i][j] / den);
       }
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KVH, int S, int d, Strides qs, Strides ks, Strides vs,
+           int KVH, int S, int dk, int dv, Strides qs, Strides ks, Strides vs,
            Strides os, int window, int causal, float scale, cudaStream_t st) {
+  constexpr int kLdKv = (DK > DV ? DK : DV) + 1;
   const int smem = static_cast<int>(sizeof(float)) *
-                   (2 * kTile * (D + 1) + kTile * (kTile + 1));
+                   (kTile * (DK + 1) + kTile * kLdKv + kTile * (kTile + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      swa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      swa_kernel<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((S + kTile - 1) / kTile),
                   static_cast<unsigned>(B * H));
-  swa_kernel<T, D><<<grid, kThreads, smem, st>>>(
+  swa_kernel<T, DK, DV><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / KVH, S, d, qs, ks,
-      vs, os, window, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), H, H / KVH, S, dk, dv,
+      qs, ks, vs, os, window, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -553,9 +570,9 @@ __device__ __forceinline__ void copy_tile(uint32_t dst, const void* src,
 // rescale acc, and split p (kRoundP: round it) into the A fragments of the
 // p.v product: fragment register i over keys 16 (i / 4) ... holds s[2 i],
 // s[2 i + 1]. l sums the float32 p in both modes.
-template <typename T, int D, bool kRoundP>
+template <typename T, int DV, bool kRoundP>
 __device__ __forceinline__ void tile_softmax(
-    float (&s)[kBk / 2], float (&acc)[D / 2], uint32_t (&p_hi)[kBk / 4],
+    float (&s)[kBk / 2], float (&acc)[DV / 2], uint32_t (&p_hi)[kBk / 4],
     uint32_t (&p_lo)[kBk / 4], float (&m)[2], float (&l)[2], bool full,
     int row_a, int k0, int t4, int S, int window, int causal, float scale) {
   if (full) {
@@ -604,7 +621,7 @@ __device__ __forceinline__ void tile_softmax(
     l[r] = l[r] * corr[r] + sum[r];
   }
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+  for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i / 2) % 2];
 #pragma unroll
   for (int i = 0; i < kBk / 4; ++i) {
     if constexpr (kRoundP) {
@@ -615,26 +632,29 @@ __device__ __forceinline__ void tile_softmax(
   }
 }
 
-template <typename T, int D, bool kRoundP>
+template <typename T, int DK, int DV, bool kRoundP>
 __global__ void __launch_bounds__(kTcThreads, 1)
     swa_kernel_tc(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
                   const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int H, int rep,
-                  int S, int d, Strides qs, Strides ks, Strides vs,
+                  int S, int dk, int dv, Strides qs, Strides ks, Strides vs,
                   Strides os, int window, int causal, float scale,
                   int use_tma) {
-  constexpr int kNb = D / 64;
-  constexpr int kQTile = kNb * kQBlk;
-  constexpr int kKvTile = kNb * kKvBlk;
+  // 64-column blocks of a q or K tile (head dim DK) and of a V tile (DV)
+  constexpr int kNbK = DK / 64;
+  constexpr int kNbV = DV / 64;
+  constexpr int kQTile = kNbK * kQBlk;
+  constexpr int kKTile = kNbK * kKvBlk;
+  constexpr int kVTile = kNbV * kKvBlk;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle repeats every 1024 bytes: align the tiles to it
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t q_s = smem_u32(smem);
-  const uint32_t k_s = q_s + kQTile;                 // + stage * kKvTile
-  const uint32_t v_s = k_s + kStages * kKvTile;
-  const uint32_t bar = v_s + kStages * kKvTile;      // kBars x 8 bytes
+  const uint32_t k_s = q_s + kQTile;                 // + stage * kKTile
+  const uint32_t v_s = k_s + kStages * kKTile;       // + stage * kVTile
+  const uint32_t bar = v_s + kStages * kVTile;       // kBars x 8 bytes
   const uint32_t q_full = bar;
   const uint32_t k_full = bar + 8;                   // + 8 * stage
   const uint32_t v_full = k_full + 8 * kStages;
@@ -672,7 +692,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (use_tma) {
       if (lane != 0) return;
       mbar_expect_tx(q_full, kQTile);
-      for (int c = 0; c < kNb; ++c) {
+      for (int c = 0; c < kNbK; ++c) {
         tma_load(q_s + c * kQBlk, &qmap, q_full, 64 * c, q0, h, b);
       }
       for (int i = 0; i < n_tiles; ++i) {
@@ -680,15 +700,15 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const uint32_t ph = (i / kStages) & 1;
         const int k0 = (kt_lo + i) * kBk;
         mbar_wait(k_empty + 8 * st, ph ^ 1);
-        mbar_expect_tx(k_full + 8 * st, kKvTile);
-        for (int c = 0; c < kNb; ++c) {
-          tma_load(k_s + st * kKvTile + c * kKvBlk, &kmap, k_full + 8 * st,
+        mbar_expect_tx(k_full + 8 * st, kKTile);
+        for (int c = 0; c < kNbK; ++c) {
+          tma_load(k_s + st * kKTile + c * kKvBlk, &kmap, k_full + 8 * st,
                    64 * c, k0, hk, b);
         }
         mbar_wait(v_empty + 8 * st, ph ^ 1);
-        mbar_expect_tx(v_full + 8 * st, kKvTile);
-        for (int c = 0; c < kNb; ++c) {
-          tma_load(v_s + st * kKvTile + c * kKvBlk, &vmap, v_full + 8 * st,
+        mbar_expect_tx(v_full + 8 * st, kVTile);
+        for (int c = 0; c < kNbV; ++c) {
+          tma_load(v_s + st * kVTile + c * kKvBlk, &vmap, v_full + 8 * st,
                    64 * c, k0, hk, b);
         }
       }
@@ -696,17 +716,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       const T* qb = q + b * qs.b + h * qs.h;
       const T* kb = k + b * ks.b + hk * ks.h;
       const T* vb = v + b * vs.b + hk * vs.h;
-      copy_tile<kBq, D>(q_s, qb, qs.s, q0, S, d, lane);
+      copy_tile<kBq, DK>(q_s, qb, qs.s, q0, S, dk, lane);
       mbar_arrive(q_full);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
         const uint32_t ph = (i / kStages) & 1;
         const int k0 = (kt_lo + i) * kBk;
         mbar_wait(k_empty + 8 * st, ph ^ 1);
-        copy_tile<kBk, D>(k_s + st * kKvTile, kb, ks.s, k0, S, d, lane);
+        copy_tile<kBk, DK>(k_s + st * kKTile, kb, ks.s, k0, S, dk, lane);
         mbar_arrive(k_full + 8 * st);
         mbar_wait(v_empty + 8 * st, ph ^ 1);
-        copy_tile<kBk, D>(v_s + st * kKvTile, vb, vs.s, k0, S, d, lane);
+        copy_tile<kBk, DV>(v_s + st * kVTile, vb, vs.s, k0, S, dv, lane);
         mbar_arrive(v_full + 8 * st);
       }
     }
@@ -730,14 +750,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int full_hi = key_hi(r0, S, causal);
 
   float s[kBk / 2];
-  float acc[D / 2];
+  float acc[DV / 2];
   uint32_t p_hi[kBk / 4], p_lo[kBk / 4];
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < kBk / 2; ++i) s[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kBk / 4; ++i) p_hi[i] = 0u;
   if constexpr (!kRoundP) {
@@ -746,10 +766,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 
   const uint32_t q_wg = q_s + wg * 64 * 128;   // its rows in each block
-  // s = q k^T over the K tile at k_st (issued, not waited for)
+  // s = q k^T over the K tile at k_st (issued, not waited for): DK / 16
+  // k-steps, four a 64-column block
   auto issue_qk = [&](uint32_t k_st) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
       Mma<T>::ss64(s, sw128_desc(q_wg + (kk / 4) * kQBlk + off, 0),
                    sw128_desc(k_st + (kk / 4) * kKvBlk + off, 0), kk > 0);
@@ -764,7 +785,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int kk = 0; kk < kBk / 16; ++kk) {
         const uint32_t vd = sw128_desc(v_st + kk * 2048, kKvBlk);
         const uint32_t* a = t == 0 ? &p_hi[4 * kk] : &p_lo[4 * kk];
-        if constexpr (D == 128) {
+        if constexpr (DV == 128) {
           Mma<T>::rs128(acc, a, vd);
         } else {
           Mma<T>::rs64(acc, a, vd);
@@ -774,7 +795,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   };
   auto softmax = [&](int kt) {
     const int k0 = kt * kBk;
-    tile_softmax<T, D, kRoundP>(s, acc, p_hi, p_lo, m, l,
+    tile_softmax<T, DV, kRoundP>(s, acc, p_hi, p_lo, m, l,
                        k0 >= full_lo && k0 + kBk - 1 <= full_hi &&
                            k0 + kBk <= S,
                        row_a, k0, t4, S, window, causal, scale);
@@ -809,8 +830,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     fence_regs(p_hi);
     if constexpr (!kRoundP) fence_regs(p_lo);
     wg_fence();
-    issue_pv(v_s + st * kKvTile);
-    issue_qk(k_s + st_n * kKvTile);
+    issue_pv(v_s + st * kVTile);
+    issue_qk(k_s + st_n * kKTile);
     wg_commit();
     named_arrive(kTurn0 + 1 - wg);
     wg_wait_all();
@@ -833,7 +854,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     fence_regs(p_hi);
     if constexpr (!kRoundP) fence_regs(p_lo);
     wg_fence();
-    issue_pv(v_s + st * kKvTile);
+    issue_pv(v_s + st * kVTile);
     wg_commit();
     if (wg == 0) named_arrive(kTurn0 + 1);
     wg_wait_all();
@@ -850,11 +871,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (row >= S) continue;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * t4 + e;
-        if (c < d) {
+        if (c < dv) {
           ob[static_cast<int64_t>(row) * os.s + c] =
               from_float<T>(acc[4 * j + 2 * r + e] / den);
         }
@@ -928,106 +949,137 @@ int encode_view(CUtensorMap* map, CUtensorMapDataType ty, const void* p,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int D, bool kRoundP>
+template <typename T, int DK, int DV, bool kRoundP>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int KVH, int S, int d, Strides qs, Strides ks,
+              int H, int KVH, int S, int dk, int dv, Strides qs, Strides ks,
               Strides vs, Strides os, int window, int causal, float scale,
               cudaStream_t st) {
-  const int smem =
-      D / 64 * (kQBlk + 2 * kStages * kKvBlk) + 8 * kBars + 1024;
+  // the q tile, kStages K and kStages V tiles, the mbarriers, 1024 bytes
+  // to align: at (192, 128) 48 + 72 + 48 KiB
+  const int smem = DK / 64 * (kQBlk + kStages * kKvBlk) +
+                   DV / 64 * kStages * kKvBlk + 8 * kBars + 1024;
   const CUtensorMapDataType ty = Mma<T>::kMapType;
   CUtensorMap maps[3] = {};
   const int use_tma = tma_view(q, B, H, qs) && tma_view(k, B, KVH, ks) &&
                       tma_view(v, B, KVH, vs);
   if (use_tma) {
-    int err = encode_view(&maps[0], ty, q, d, S, H, B, qs, kBq);
-    if (!err) err = encode_view(&maps[1], ty, k, d, S, KVH, B, ks, kBk);
-    if (!err) err = encode_view(&maps[2], ty, v, d, S, KVH, B, vs, kBk);
+    int err = encode_view(&maps[0], ty, q, dk, S, H, B, qs, kBq);
+    if (!err) err = encode_view(&maps[1], ty, k, dk, S, KVH, B, ks, kBk);
+    if (!err) err = encode_view(&maps[2], ty, v, dv, S, KVH, B, vs, kBk);
     if (err) return err;
   }
   cudaError_t err = cudaFuncSetAttribute(
-      swa_kernel_tc<T, D, kRoundP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      swa_kernel_tc<T, DK, DV, kRoundP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((S + kBq - 1) / kBq),
                   static_cast<unsigned>(B * H));
-  swa_kernel_tc<T, D, kRoundP><<<grid, kTcThreads, smem, st>>>(
+  swa_kernel_tc<T, DK, DV, kRoundP><<<grid, kTcThreads, smem, st>>>(
       maps[0], maps[1], maps[2], static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-      H, H / KVH, S, d, qs, ks, vs, os, window, causal, scale, use_tma);
+      H, H / KVH, S, dk, dv, qs, ks, vs, os, window, causal, scale, use_tma);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for head dims (dk, dv): (64, 64), (128, 128) or (192, 128),
+// the first that holds both (a smaller head dim is zero-filled); the
+// wrapper refuses dk > 192 and dv > 128.
+enum class Dims { k64, k128, k192 };
+
+inline Dims pick_dims(int dk, int dv) {
+  if (dk <= 64 && dv <= 64) return Dims::k64;
+  if (dk <= 128) return Dims::k128;
+  return Dims::k192;
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int KVH, int S, int d, Strides qs, Strides ks, Strides vs,
-             Strides os, int window, int causal, float scale,
+             int H, int KVH, int S, int dk, int dv, Strides qs, Strides ks,
+             Strides vs, Strides os, int window, int causal, float scale,
              cudaStream_t st) {
-  if (d <= 64) {
-    return launch<T, 64>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os, window,
-                         causal, scale, st);
+  switch (pick_dims(dk, dv)) {
+    case Dims::k64:
+      return launch<T, 64, 64>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs,
+                               os, window, causal, scale, st);
+    case Dims::k128:
+      return launch<T, 128, 128>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks,
+                                 vs, os, window, causal, scale, st);
+    default:
+      return launch<T, 192, 128>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks,
+                                 vs, os, window, causal, scale, st);
   }
-  return launch<T, 128>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os, window,
-                        causal, scale, st);
 }
 
 template <typename T, bool kRoundP>
 int launch_tc_d(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KVH, int S, int d, Strides qs, Strides ks,
+                int H, int KVH, int S, int dk, int dv, Strides qs, Strides ks,
                 Strides vs, Strides os, int window, int causal, float scale,
                 cudaStream_t st) {
-  if (d <= 64) {
-    return launch_tc<T, 64, kRoundP>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs,
-                                     os, window, causal, scale, st);
+  switch (pick_dims(dk, dv)) {
+    case Dims::k64:
+      return launch_tc<T, 64, 64, kRoundP>(q, k, v, o, B, H, KVH, S, dk, dv,
+                                           qs, ks, vs, os, window, causal,
+                                           scale, st);
+    case Dims::k128:
+      return launch_tc<T, 128, 128, kRoundP>(q, k, v, o, B, H, KVH, S, dk,
+                                             dv, qs, ks, vs, os, window,
+                                             causal, scale, st);
+    default:
+      return launch_tc<T, 192, 128, kRoundP>(q, k, v, o, B, H, KVH, S, dk,
+                                             dv, qs, ks, vs, os, window,
+                                             causal, scale, st);
   }
-  return launch_tc<T, 128, kRoundP>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs,
-                                    os, window, causal, scale, st);
 }
 
 template <typename T>
 int launch_tc_p(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KVH, int S, int d, Strides qs, Strides ks,
+                int H, int KVH, int S, int dk, int dv, Strides qs, Strides ks,
                 Strides vs, Strides os, int window, int causal, float scale,
                 int round_p, cudaStream_t st) {
   if (round_p) {
-    return launch_tc_d<T, true>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
-                                window, causal, scale, st);
+    return launch_tc_d<T, true>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs,
+                                os, window, causal, scale, st);
   }
-  return launch_tc_d<T, false>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
-                               window, causal, scale, st);
+  return launch_tc_d<T, false>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs,
+                               os, window, causal, scale, st);
 }
 
 }  // namespace
 
-// o = softmax(mask(q k^T * scale)) v per (batch, head); q, o (B, H, S, d),
-// k, v (B, KVH, S, d), H a multiple of KVH, 0 < d <= 128, every tensor with
-// a contiguous head dim and the given (batch, head, seq) element strides.
+// o = softmax(mask(q k^T * scale)) v per (batch, head); q (B, H, S, dk),
+// k (B, KVH, S, dk), v (B, KVH, S, dv), o (B, H, S, dv), H a multiple of
+// KVH, 0 < dk <= 192, 0 < dv <= 128, every tensor with a contiguous head
+// dim and the given (batch, head, seq) element strides.
 // dtype: 0 float32, 1 bfloat16, 2 float16 (all four tensors alike).
 // window <= 0: no sliding window. round_p: round p to the input's type
 // before p @ v (bf16 / fp16; float32 ignores it). Returns the CUDA error of
 // the launch.
 extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int dtype, int B, int H, int KVH,
-                                 int S, int d, int64_t qsb, int64_t qsh,
-                                 int64_t qss, int64_t ksb, int64_t ksh,
-                                 int64_t kss, int64_t vsb, int64_t vsh,
-                                 int64_t vss, int64_t osb, int64_t osh,
-                                 int64_t oss, int window, int causal,
-                                 float scale, int round_p, void* stream) {
+                                 int S, int dk, int dv, int64_t qsb,
+                                 int64_t qsh, int64_t qss, int64_t ksb,
+                                 int64_t ksh, int64_t kss, int64_t vsb,
+                                 int64_t vsh, int64_t vss, int64_t osb,
+                                 int64_t osh, int64_t oss, int window,
+                                 int causal, float scale, int round_p,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
+  if (dk <= 0 || dv <= 0 || dk > 192 || dv > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (dtype) {
     case 0:
-      return launch_d<float>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
+      return launch_d<float>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs, os,
                              window, causal, scale, st);
     case 1:
-      return launch_tc_p<__nv_bfloat16>(q, k, v, o, B, H, KVH, S, d, qs, ks,
-                                        vs, os, window, causal, scale,
+      return launch_tc_p<__nv_bfloat16>(q, k, v, o, B, H, KVH, S, dk, dv, qs,
+                                        ks, vs, os, window, causal, scale,
                                         round_p, st);
     case 2:
-      return launch_tc_p<__half>(q, k, v, o, B, H, KVH, S, d, qs, ks, vs, os,
-                                 window, causal, scale, round_p, st);
+      return launch_tc_p<__half>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs,
+                                 os, window, causal, scale, round_p, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

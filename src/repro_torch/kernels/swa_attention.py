@@ -8,7 +8,9 @@ q's heads and k/v's (fewer, under GQA) heads as they are, and strided
 views: the model's (B, S, H, D) tensors go in transposed, with no copy.
 bf16 and fp16 run on the tensor cores (wgmma, TMA-fed K/V ring), float32
 on the CUDA cores; :func:`tile_plan` is the CPU twin of the tiles the
-tensor-core kernel reads and masks.
+tensor-core kernel reads and masks. v's head dim may differ from q's and
+k's (MLA: 192-wide q / k heads, 128-wide v heads); the kernels are built
+for (q/k, v) head dims (64, 64), (128, 128) and (192, 128).
 
 Two modes for bf16 / fp16. The default keeps p at float32 accuracy, the
 TPU kernel's function (``ops.swa_attention`` keeps its parity with the
@@ -28,7 +30,8 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import _build, ref
 
-MAX_HEAD_DIM = 128
+# the largest q / k head dim and v head dim the kernel's instances hold
+MAX_QK_DIM, MAX_V_DIM = 192, 128
 # the tensor-core kernel's q rows per block (two warpgroups of 64) and keys
 # per KV tile
 BQ, BK = 128, 64
@@ -36,7 +39,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {"swa_attention_fwd": [_P, _P, _P, _P, _INT, _INT, _INT, _INT,
-                                     _INT, _INT] + [_I64] * 12
+                                     _INT, _INT, _INT] + [_I64] * 12
                + [_INT, _INT, ctypes.c_float, _INT, _P]}
 # half an ulp of each output type, relative: one rounding to nearest
 HALF_ULP = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8,
@@ -61,28 +64,33 @@ def _check(q, k, v, out) -> None:
     if q.dtype not in _DTYPES:
         raise TypeError(f"swa_attention: {q.dtype} is not supported")
     B, H, S, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, D):
+    DV = v.shape[-1]
+    if k.shape != (B, k.shape[1], S, D) or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"swa_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if out.shape != q.shape:
-        raise ValueError(f"swa_attention: out {tuple(out.shape)} is not q's "
-                         f"{tuple(q.shape)}")
+    if out.shape != (B, H, S, DV):
+        raise ValueError(f"swa_attention: out {tuple(out.shape)} is not "
+                         f"{(B, H, S, DV)}")
     if H % k.shape[1]:
         raise ValueError(f"swa_attention: {H} q heads are not a multiple of "
                          f"{k.shape[1]} kv heads")
-    if not 0 < D <= MAX_HEAD_DIM:
-        raise ValueError(f"swa_attention: head dim {D} outside (0, "
-                         f"{MAX_HEAD_DIM}]")
+    if not 0 < D <= MAX_QK_DIM:
+        raise ValueError(f"swa_attention: q / k head dim {D} outside (0, "
+                         f"{MAX_QK_DIM}]")
+    if not 0 < DV <= MAX_V_DIM:
+        raise ValueError(f"swa_attention: v head dim {DV} outside (0, "
+                         f"{MAX_V_DIM}]")
     if B * H > 65535:
         raise ValueError("swa_attention: batch * heads above 65535")
 
 
 def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None,
                   round_p: bool = False):
-    """softmax(mask(q k^T / sqrt(D))) v: q (B, H, S, D), k and v (B, KVH,
-    S, D) with H a multiple of KVH (q head h reads kv head h // (H //
-    KVH)); ``window`` > 0 keeps the keys with ``q - k < window``. Returns
-    (B, H, S, D) in q's dtype, written into ``out`` when given.
+    """softmax(mask(q k^T / sqrt(D))) v: q (B, H, S, D), k (B, KVH, S, D)
+    and v (B, KVH, S, DV) with H a multiple of KVH (q head h reads kv head
+    h // (H // KVH)), D <= 192 and DV <= 128; ``window`` > 0 keeps the
+    keys with ``q - k < window``. Returns (B, H, S, DV) in q's dtype,
+    written into ``out`` when given.
 
     CUDA tensors: the ``swa_attention`` kernel, which reads only the KV
     tiles inside the window (float32 scores and online softmax over
@@ -99,7 +107,8 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None,
             res = ref.swa_attention_ref(q, k, v, window, causal).to(q.dtype)
         return res if out is None else out.copy_(res)
     if out is None:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
+                          device=q.device)
     _check(q, k, v, out)
     B, H, S, D = q.shape
     if S == 0:
@@ -109,8 +118,9 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None,
     scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
     err = lib.swa_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 out.data_ptr(), _DTYPES[q.dtype], B, H,
-                                k.shape[1], S, D, *strides, int(window),
-                                int(causal), scale, int(round_p),
+                                k.shape[1], S, D, v.shape[-1], *strides,
+                                int(window), int(causal), scale,
+                                int(round_p),
                                 _build.stream_ptr(q))
     _build.raise_on_error("swa_attention", err)
     kernels.LAUNCHES["swa_attention"] += 1

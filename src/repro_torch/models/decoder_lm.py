@@ -1,5 +1,5 @@
 """Decoder-only LM, port of the dense and MoE families of
-``repro/models/decoder_lm.py``.
+``repro/models/decoder_lm.py``, with GQA or MLA attention.
 
 The layer stack is a *periodic program*: ``num_layers / period`` identical
 groups of ``period`` slots. Each leaf of the stack is stacked over the
@@ -10,13 +10,14 @@ scans. Group g's leaves are drawn from ``fold_in(path_key(seed,
 
 KV caches: full-length buffers for global attention, or a ring buffer of
 ``sliding_window`` entries when the window is shorter than the cache
-(Mistral-style rolling cache, the ``long_500k`` serving shape). The
-cache's ``cache_len`` is a Python int (the decode loop is eager).
+(Mistral-style rolling cache, the ``long_500k`` serving shape); MLA
+caches the compressed (c_kv, k_pe) pair instead of K and V. The cache's
+``cache_len`` is a Python int (the decode loop is eager).
 
-Attention slots with a dense or MoE (``nn/moe.py``) FFN. Mamba, xLSTM,
-MLA, VLM and encoder-decoder stacks raise ``NotImplementedError`` until
-the slices that port ``nn/ssm.py``, MLA, the VLM prefix and the
-encoder-decoder stack.
+Attention slots (GQA, or MLA when ``cfg.use_mla``) with a dense or MoE
+(``nn/moe.py``) FFN. Mamba, xLSTM, VLM and encoder-decoder stacks raise
+``NotImplementedError`` until the slices that port ``nn/ssm.py``, the VLM
+prefix and the encoder-decoder stack.
 
 ``forward`` takes the attention function explicitly: the serving prefill
 runs ``nn/attention.flash_attention`` (the ``swa_attention`` kernel on
@@ -64,14 +65,12 @@ def layer_program(cfg: ModelConfig) -> Tuple[Tuple[Slot, ...], int]:
     return slots, cfg.num_layers // period
 
 
-def _refuse_mla_ssm_vlm_encdec(cfg: ModelConfig, slots) -> None:
-    """Raise for the stacks not ported yet: MLA, SSM slots, the VLM prefix
-    and the encoder-decoder stack."""
+def _refuse_ssm_vlm_encdec(cfg: ModelConfig, slots) -> None:
+    """Raise for the stacks not ported yet: SSM slots, the VLM prefix and
+    the encoder-decoder stack."""
     if cfg.family == "vlm" or cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} stack is "
                                   f"not ported yet")
-    if cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: MLA is not ported yet")
     for slot in slots:
         if slot.kind != ATTN:
             raise NotImplementedError(f"{cfg.name}: {slot.kind} slots "
@@ -88,7 +87,9 @@ def _init_slot(key, cfg: ModelConfig, slot: Slot, si: int, device=None):
     p = {
         "ln1": basic.init_norm(key, f"{path}/ln1", cfg.d_model, dt,
                                cfg.norm_type, device),
-        "attn": attn_lib.init_attention(key, f"{path}/attn", cfg, dt, device),
+        "attn": (attn_lib.init_mla if cfg.use_mla else
+                 attn_lib.init_attention)(key, f"{path}/attn", cfg, dt,
+                                          device),
         "ln2": basic.init_norm(key, f"{path}/ln2", cfg.d_model, dt,
                                cfg.norm_type, device),
     }
@@ -122,7 +123,7 @@ def _init_stack(seed, cfg: ModelConfig, device=None):
 def init_model(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
     """The parameter tree, on the card unless ``device="cpu"``."""
     dev = resolve_device(device)
-    _refuse_mla_ssm_vlm_encdec(cfg, layer_program(cfg)[0])
+    _refuse_ssm_vlm_encdec(cfg, layer_program(cfg)[0])
     dt = cfg.pdtype
     p: Dict[str, Any] = {
         "embed": basic.init_embedding(seed, "embed", cfg.vocab_size,
@@ -168,20 +169,26 @@ def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux,
     ``chunked_attention``. Returns (x, aux, cache_entry)."""
     cd = cfg.cdtype
     h = basic.apply_norm(x, sp["ln1"], cfg.norm_type)
-    q, k, v = attn_lib.qkv_project(h, sp["attn"], cfg)
-    if cfg.use_rope:
-        cos, sin = attn_lib.rope_freqs(cfg.resolved_head_dim, cfg.rope_theta,
-                                       positions)
-        q = attn_lib.apply_rope(q, cos, sin)
-        k = attn_lib.apply_rope(k, cos, sin)
-    o = attention(q, k, v, cfg)
+    if cfg.use_mla:
+        q, k, v, cache = attn_lib.mla_qkv(h, sp["attn"], cfg, positions)
+        o = attention(q, k, v, cfg.with_(sliding_window=0))
+    else:
+        q, k, v = attn_lib.qkv_project(h, sp["attn"], cfg)
+        if cfg.use_rope:
+            cos, sin = attn_lib.rope_freqs(cfg.resolved_head_dim,
+                                           cfg.rope_theta, positions)
+            q = attn_lib.apply_rope(q, cos, sin)
+            k = attn_lib.apply_rope(k, cos, sin)
+        o = attention(q, k, v, cfg)
+        cache = (k, v)
+    del q, k, v
     o = basic.dense(o.reshape(o.shape[0], o.shape[1], -1), sp["attn"]["wo"], cd)
     x = x + o
     h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
     y, aux_l = _ffn(h2, sp, cfg, slot)
     if aux_l is not None:
         aux = aux + aux_l
-    return x + y, aux, (k, v)
+    return x + y, aux, cache
 
 
 def _group(tree, g: int):
@@ -226,10 +233,11 @@ def forward(params, cfg: ModelConfig, tokens, return_caches: bool = False,
     (the kernel on the card, the serving prefill's). Returns (logits (B,
     S, V), metrics[, caches]); metrics' ``moe_aux_loss`` (float32) sums
     the MoE layers' aux losses; caches hold each slot's (k, v), (G, B, S,
-    kv_heads, head_dim), stacked over groups."""
+    kv_heads, head_dim), or with MLA its (c_kv (G, B, S, kv_lora_rank),
+    k_pe (G, B, S, qk_rope_head_dim)), stacked over groups."""
     cd = cfg.cdtype
     attention = attention or attn_lib.flash_attention
-    _refuse_mla_ssm_vlm_encdec(cfg, layer_program(cfg)[0])
+    _refuse_ssm_vlm_encdec(cfg, layer_program(cfg)[0])
     x = basic.embed(tokens, params["embed"], cd)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if not cfg.use_rope:
@@ -297,13 +305,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     dev = resolve_device(device)
     cd = dtype or cfg.cdtype
     slots, G = layer_program(cfg)
-    _refuse_mla_ssm_vlm_encdec(cfg, slots)
+    _refuse_ssm_vlm_encdec(cfg, slots)
     S = cache_capacity(cfg, max_len)
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if cfg.use_mla:
+        dims = {"ckv": (cfg.kv_lora_rank,), "kpe": (cfg.qk_rope_head_dim,)}
+    else:
+        kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
+        dims = {"k": kv, "v": kv}
     entries = {f"slot{i}": {
-        "k": torch.zeros((G, batch, S, kvh, hd), dtype=cd, device=dev),
-        "v": torch.zeros((G, batch, S, kvh, hd), dtype=cd, device=dev)}
-        for i in range(len(slots))}
+        name: torch.zeros((G, batch, S) + d, dtype=cd, device=dev)
+        for name, d in dims.items()} for i in range(len(slots))}
     return {"slots": entries, "cache_len": 0}
 
 
@@ -312,20 +323,28 @@ def _decode_slot(x, sp, cfg: ModelConfig, slot: Slot, cache, cache_len: int,
     """x: (B,1,d). Returns (x, new_cache); the cache is written in place."""
     cd = cfg.cdtype
     h = basic.apply_norm(x, sp["ln1"], cfg.norm_type)
-    S = cache["k"].shape[1]
+    S = cache["ckv" if cfg.use_mla else "k"].shape[1]
     widx = cache_len % S                       # ring write index
     cl_eff = min(cache_len + 1, S)
-    q, k, v = attn_lib.qkv_project(h, sp["attn"], cfg)
-    if cfg.use_rope:
-        cos, sin = attn_lib.rope_freqs(cfg.resolved_head_dim, cfg.rope_theta,
-                                       pos[None, :])
-        q = attn_lib.apply_rope(q, cos, sin)
-        k = attn_lib.apply_rope(k, cos, sin)
-    cache["k"][:, widx:widx + 1] = k.to(cache["k"].dtype)
-    cache["v"][:, widx:widx + 1] = v.to(cache["v"].dtype)
-    o = attn_lib.decode_attention(q, cache["k"], cache["v"], cl_eff,
-                                  cfg.with_(sliding_window=0))
-    x = x + basic.dense(o.reshape(o.shape[0], 1, -1), sp["attn"]["wo"], cd)
+    if cfg.use_mla:
+        ckv, kpe = attn_lib.mla_compress(h, sp["attn"], cfg, pos[None, :])
+        cache["ckv"][:, widx:widx + 1] = ckv.to(cache["ckv"].dtype)
+        cache["kpe"][:, widx:widx + 1] = kpe.to(cache["kpe"].dtype)
+        o = attn_lib.mla_decode(h, sp["attn"], cfg, cache["ckv"],
+                                cache["kpe"], cl_eff)
+    else:
+        q, k, v = attn_lib.qkv_project(h, sp["attn"], cfg)
+        if cfg.use_rope:
+            cos, sin = attn_lib.rope_freqs(cfg.resolved_head_dim,
+                                           cfg.rope_theta, pos[None, :])
+            q = attn_lib.apply_rope(q, cos, sin)
+            k = attn_lib.apply_rope(k, cos, sin)
+        cache["k"][:, widx:widx + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, widx:widx + 1] = v.to(cache["v"].dtype)
+        o = attn_lib.decode_attention(q, cache["k"], cache["v"], cl_eff,
+                                      cfg.with_(sliding_window=0))
+        o = basic.dense(o.reshape(o.shape[0], 1, -1), sp["attn"]["wo"], cd)
+    x = x + o
     h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
     return x + _ffn(h2, sp, cfg, slot)[0], cache
 
@@ -338,7 +357,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     layer's cache per token) and returns it with ``cache_len + 1``."""
     cd = cfg.cdtype
     slots, G = layer_program(cfg)
-    _refuse_mla_ssm_vlm_encdec(cfg, slots)
+    _refuse_ssm_vlm_encdec(cfg, slots)
     cache_len = int(cache["cache_len"])
     pos = torch.tensor([cache_len], device=tokens.device)
     x = basic.embed(tokens, params["embed"], cd)

@@ -1,6 +1,7 @@
-"""Attention, port of the dense GQA part of ``repro/nn/attention.py``:
-RoPE, the q/k/v projections, causal (optionally sliding-window) attention
-for prefill, and single-token decode against a KV cache.
+"""Attention, port of ``repro/nn/attention.py``: RoPE, the q/k/v
+projections, causal (optionally sliding-window) attention for prefill,
+single-token decode against a KV cache, and MLA (DeepSeek-V2's
+multi-head latent attention).
 
 ``flash_attention`` on a CUDA tensor is the hand-written sliding-window
 flash-attention kernel (``kernels/ops.swa_attention``, the port of the
@@ -10,7 +11,15 @@ reference does. On a CPU tensor it is the reference's chunked online
 softmax: KV chunks of 512, f32 scores and running (max, sum, acc), ``p``
 cast to v's dtype before the PV product.
 ``decode_attention`` stays plain torch, as the JAX package computes it
-outside any Pallas kernel. MLA waits for the slice that ports DeepSeek.
+outside any Pallas kernel.
+
+MLA compresses K and V into a ``kv_lora_rank`` latent c_kv plus one
+shared rope key k_pe. Prefill expands them to 128 heads of 192-wide q / k
+and 128-wide v (``mla_qkv``), which ``flash_attention`` takes to the
+kernel with its two head dims; decode caches only (c_kv, k_pe), 576
+values a token, and scores in the latent space (``mla_decode``, W_UK
+folded into q, W_UV applied after the attention). The projections and the
+absorbed einsums are plain torch, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -107,8 +116,9 @@ def flash_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
                     causal: bool = True, prefix_len: int = 0):
     """Causal (optionally sliding-window, ``cfg.sliding_window``) attention.
 
-    q: (b, sq, h, hd); k, v: (b, skv, kv_heads, hd). q_offset: position
-    of q[0] relative to k[0]. Returns (b, sq, h, hd) in q's dtype.
+    q: (b, sq, h, hd); k: (b, skv, kv_heads, hd); v: (b, skv, kv_heads,
+    dv), whose head dim may differ from q's (MLA). q_offset: position of
+    q[0] relative to k[0]. Returns (b, sq, h, dv) in q's dtype.
 
     CUDA tensors: the ``swa_attention`` kernel in its ``round_p`` mode,
     reading each q head's kv head ``h // rep`` in place (no repeat) and
@@ -117,24 +127,23 @@ def flash_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
     to v's dtype before PV while ``l`` sums the float32 ``p``, over
     64-key tiles (``chunked_attention(..., chunk=64)`` is its plain
     version; the chunk moves only where each ``p`` is rounded).
-    Softcapping, a bidirectional prefix, a v head dim unlike q's (MLA) and
-    an offset q are outside what it computes and raise. CPU tensors:
-    :func:`chunked_attention`.
+    Softcapping, a bidirectional prefix and an offset q are outside what
+    it computes and raise; head dims past the kernel's (192 for q / k, 128
+    for v) raise in its wrapper. CPU tensors: :func:`chunked_attention`.
     """
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, cfg, q_offset=q_offset, chunk=chunk,
                                  causal=causal, prefix_len=prefix_len)
     unported = {"attn_logit_softcap > 0": cfg.attn_logit_softcap > 0,
                 "prefix_len > 0": prefix_len > 0,
-                "a v head dim unlike q's (MLA)": v.shape[3] != q.shape[3],
                 "q_offset != 0 or sq != skv": (q_offset != 0
                                               or q.shape[1] != k.shape[1])}
     for what, present in unported.items():
         if present:
             raise NotImplementedError(f"flash_attention on the card: {what} "
                                       f"is outside the swa_attention kernel")
-    b, s, h, hd = q.shape
-    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    b, s, h, _ = q.shape
+    out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
     # the window applies only to causal attention, as on the CPU (the
     # kernel, like the TPU's, would also window a non-causal call)
     ops.swa_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -169,3 +178,106 @@ def decode_attention(q, k_cache, v_cache, cache_len, cfg: ModelConfig):
     p = torch.softmax(s, dim=-1).to(vh.dtype)
     out = torch.einsum("bhqs,bshd->bqhd", p.float(), vh.float())
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA: DeepSeek-V2 multi-head latent attention (arXiv:2405.04434)
+
+
+def init_mla(seed, path, cfg: ModelConfig, dtype, device=None):
+    d, h = cfg.d_model, cfg.num_heads
+    qn, qr, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r, qlr = cfg.kv_lora_rank, cfg.q_lora_rank
+
+    def dense(name, d_in, d_out):
+        return basic.init_dense(seed, f"{path}/{name}", d_in, d_out, dtype,
+                                device=device)
+    p = {
+        "wkv_a": dense("wkv_a", d, r + qr),
+        "kv_norm": basic.init_norm(seed, f"{path}/kv_norm", r, dtype,
+                                   "rmsnorm", device),
+        "wk_b": dense("wk_b", r, h * qn),
+        "wv_b": dense("wv_b", r, h * vd),
+        "wo": dense("wo", h * vd, d),
+    }
+    if qlr > 0:
+        p["wq_a"] = dense("wq_a", d, qlr)
+        p["q_norm"] = basic.init_norm(seed, f"{path}/q_norm", qlr, dtype,
+                                      "rmsnorm", device)
+        p["wq_b"] = dense("wq_b", qlr, h * (qn + qr))
+    else:
+        p["wq"] = dense("wq", d, h * (qn + qr))
+    return p
+
+
+def _mla_q(x, p, cfg: ModelConfig):
+    """q (b, s, h, qn + qr) before RoPE: through the q_lora_rank bottleneck
+    (``wq_a``, ``q_norm``, ``wq_b``) when the config has one."""
+    b, s, _ = x.shape
+    h, cd = cfg.num_heads, cfg.cdtype
+    width = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    if "wq_a" in p:
+        qc = basic.rmsnorm(basic.dense(x, p["wq_a"], cd), p["q_norm"]["scale"])
+        return basic.dense(qc, p["wq_b"], cd).reshape(b, s, h, width)
+    return basic.dense(x, p["wq"], cd).reshape(b, s, h, width)
+
+
+def mla_compress(x, p, cfg: ModelConfig, positions):
+    """The compressed cache entries of x (b, s, d): c_kv (b, s, r), normed,
+    and the roped shared key k_pe (b, s, qr)."""
+    r, qr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    kv = basic.dense(x, p["wkv_a"], cfg.cdtype)
+    c_kv = basic.rmsnorm(kv[..., :r], p["kv_norm"]["scale"])
+    cos, sin = rope_freqs(qr, cfg.rope_theta, positions)
+    return c_kv, apply_rope(kv[..., None, r:], cos, sin)[..., 0, :]
+
+
+def mla_qkv(x, p, cfg: ModelConfig, positions):
+    """Full (non-absorbed) MLA for training and prefill: q and k (b, s, h,
+    qn + qr), RoPE on their last qr dims (k's one shared rope head
+    broadcast to every head), v (b, s, h, v_head_dim), and the (c_kv,
+    k_pe) pair the cache holds."""
+    b, s, _ = x.shape
+    h, qn, vd = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    cd = cfg.cdtype
+    q = _mla_q(x, p, cfg)
+    c_kv, k_pe = mla_compress(x, p, cfg, positions)
+    k_nope = basic.dense(c_kv, p["wk_b"], cd).reshape(b, s, h, qn)
+    v = basic.dense(c_kv, p["wv_b"], cd).reshape(b, s, h, vd)
+    cos, sin = rope_freqs(cfg.qk_rope_head_dim, cfg.rope_theta, positions)
+    q = torch.cat([q[..., :qn], apply_rope(q[..., qn:], cos, sin)], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, -1)], dim=-1)
+    return q, k, v, (c_kv, k_pe)
+
+
+def mla_decode(x, p, cfg: ModelConfig, ckv_cache, kpe_cache, cache_len):
+    """Absorbed-form decode of x (b, 1, d) against the compressed cache:
+    ckv_cache (b, S, r), kpe_cache (b, S, qr), the first ``cache_len``
+    positions valid (an int or a (b,) tensor). W_UK is folded into q, the
+    scores are the latent scores plus the rope scores (float32), and the
+    attention over the latents is lifted by W_UV before ``wo``."""
+    b = x.shape[0]
+    h, qn, qr, vd, r = (cfg.num_heads, cfg.qk_nope_head_dim,
+                        cfg.qk_rope_head_dim, cfg.v_head_dim,
+                        cfg.kv_lora_rank)
+    cd = cfg.cdtype
+    S = ckv_cache.shape[1]
+    q = _mla_q(x, p, cfg)
+    cl = torch.as_tensor(cache_len, device=x.device)
+    pos = (cl - 1).reshape(-1, 1).expand(b, 1)
+    cos, sin = rope_freqs(qr, cfg.rope_theta, pos)
+    q_pe = apply_rope(q[..., qn:], cos, sin)
+    wkb = p["wk_b"]["kernel"].to(cd).reshape(r, h, qn)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q[..., :qn], wkb)
+    ckv, kpe = ckv_cache.to(cd), kpe_cache.to(cd)
+    # bf16 products are exact in float32: the reference's float32 scores
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), ckv.float())
+         + torch.einsum("bqhr,bsr->bhqs", q_pe.float(), kpe.float())) \
+        * _scale(qn + qr)
+    valid = torch.arange(S, device=x.device) < cl.reshape(-1, 1, 1, 1)
+    pr = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", pr.to(cd).float(),
+                         ckv.float()).to(cd)
+    wvb = p["wv_b"]["kernel"].to(cd).reshape(r, h, vd)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat, wvb).reshape(b, 1, h * vd)
+    return basic.dense(o, p["wo"], cd)

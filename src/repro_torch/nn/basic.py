@@ -39,8 +39,9 @@ def normal_init(root_seed, path: str, shape, dtype=torch.float32,
         stddev = 1.0 / np.sqrt(max(fan_in, 1))
     dev = resolve_device(device)
     z = threefry.normal(path_key(root_seed, path), shape, dev)
-    # JAX multiplies the f32 draw by the f32-rounded stddev
-    return (z * float(np.float32(stddev))).to(dtype)
+    # JAX multiplies the f32 draw by the f32-rounded stddev (in place here:
+    # one leaf-sized buffer)
+    return z.mul_(float(np.float32(stddev))).to(dtype)
 
 
 def zeros_init(_root_seed, _path, shape, dtype=torch.float32, device=None,

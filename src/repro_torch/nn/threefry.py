@@ -14,6 +14,12 @@ torch has no full uint32 arithmetic, so a 32-bit word is held in int64
 and masked to 32 bits after every add and shift. The same functions take
 Python ints (key derivation on the host) and int64 tensors (bulk bits on
 the device). A key is a pair of Python ints.
+
+Bulk draws (:func:`random_bits`, :func:`uniform`, :func:`normal`) fill
+their output ``PIECE`` elements at a time: element i's counter is its
+row-major index whatever the piece, so the result is the whole draw's
+bits, while the int64 temporaries of the hash stay a piece long (a 1.26 G
+-value expert leaf would otherwise need several 10 GB temporaries).
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ M32 = 0xFFFFFFFF
 # draw on the card makes no blocking host-to-device copy of a scalar
 _CONSTS: Dict[Tuple[str, torch.dtype, torch.device], torch.Tensor] = {}
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+# elements a bulk draw hashes at once
+PIECE = 1 << 26
 _PARITY = 0x1BD11BDA
 
 
@@ -86,14 +94,34 @@ def constant(value: float, dtype, device=None) -> torch.Tensor:
     return t
 
 
+def _bits(k: Key, start: int, stop: int, device) -> torch.Tensor:
+    """The bits of the elements [start, stop) of a draw: the counter of
+    each is its row-major index, split into (hi, lo) words; the two hash
+    words are xor-ed."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k[0], k[1], idx >> 32, idx & M32)
+    return b1 ^ b2
+
+
+def _in_pieces(shape, dtype, device, piece_fn) -> torch.Tensor:
+    """A tensor of ``shape`` whose elements [a, b) in row-major order are
+    ``piece_fn(a, b)``, filled PIECE elements at a time (a draw of one
+    piece is returned as it is made)."""
+    n = math.prod(shape)
+    if n <= PIECE:
+        return piece_fn(0, n).reshape(tuple(shape))
+    out = torch.empty(n, dtype=dtype, device=device)
+    for a in range(0, n, PIECE):
+        b = min(a + PIECE, n)
+        out[a:b] = piece_fn(a, b)
+    return out.reshape(tuple(shape))
+
+
 def random_bits(k: Key, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(k, shape)`` (uint32) as int64 values in
-    [0, 2**32): the counter of each element is its row-major index, split
-    into (hi, lo) words; the two hash words are xor-ed."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(k[0], k[1], idx >> 32, idx & M32)
-    return (b1 ^ b2).reshape(tuple(shape))
+    [0, 2**32)."""
+    return _in_pieces(shape, torch.int64, device,
+                      lambda a, b: _bits(k, a, b, device))
 
 
 def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0,
@@ -104,7 +132,12 @@ def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0,
     23 of 32 bits; a 16-bit type takes the low 8 (bfloat16, 7 mantissa
     bits) or 16 (float16) bits of the 32-bit word, as JAX draws them, and
     keeps the top ``nmant`` of those."""
-    bits = random_bits(k, shape, device)
+    return _in_pieces(shape, dtype, device, lambda a, b: _uniform(
+        _bits(k, a, b, device), minval, maxval, dtype))
+
+
+def _uniform(bits, minval: float, maxval: float, dtype) -> torch.Tensor:
+    """:func:`uniform` of the given bits."""
     if dtype == torch.float32:
         mant = (bits >> 9) | 0x3F800000
         floats = mant.to(torch.int32).view(torch.float32) - 1.0
@@ -204,5 +237,7 @@ def normal(k: Key, shape, device=None) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) * erfinv(u) with u
     uniform on (-1, 1). The bits and u are JAX's exactly; the values
     agree to a few ulps (see :func:`erfinv`)."""
-    u = uniform(k, shape, _NORMAL_LO, 1.0, device)
-    return _SQRT2 * erfinv(u)
+    def piece(a, b):
+        u = _uniform(_bits(k, a, b, device), _NORMAL_LO, 1.0, torch.float32)
+        return _SQRT2 * erfinv(u)
+    return _in_pieces(shape, torch.float32, device, piece)

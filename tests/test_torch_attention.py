@@ -192,13 +192,13 @@ def test_visible_pairs_counts_the_mask():
 def test_card_path_refuses_what_the_kernel_does_not_compute():
     """A tensor off the CPU takes the kernel's path; features the kernel
     does not compute raise before any launch (meta tensors stand in for
-    the card here)."""
+    the card here). A v head dim unlike q's (MLA) is the kernel's: it
+    reaches the wrapper."""
     _, tcfg = _cfgs()
     q = torch.empty((1, 64, 4, 64), device="meta")
     k = torch.empty((1, 64, 2, 64), device="meta")
     cases = [(tcfg.with_(attn_logit_softcap=30.0), q, k, k, {}),
              (tcfg, q, k, k, {"prefix_len": 8}),
-             (tcfg, q, k, torch.empty((1, 64, 2, 32), device="meta"), {}),
              (tcfg, q, k, k, {"q_offset": 4})]
     for cfg, qq, kk, vv, kw in cases:
         with pytest.raises(NotImplementedError):
@@ -206,3 +206,6 @@ def test_card_path_refuses_what_the_kernel_does_not_compute():
     # and the kernel's wrapper refuses a tensor that is not on the card
     with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_attention(q, k, k, tcfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_attention(q, k, torch.empty((1, 64, 2, 32),
+                                                device="meta"), tcfg)

@@ -223,9 +223,12 @@ def test_steps_refuse_parameters_on_another_device(params):
 
 
 def test_unported_features_raise(params):
+    """The stacks still waiting for their slices (the VLM prefix, SSM
+    slots, the encoder-decoder stack) raise; MLA is ported
+    (tests/test_torch_mla.py)."""
     tcfg = _cfgs()[1]
     for cfg in (tcfg.with_(family="vlm"),
-                tcfg.with_(family="ssm"), tcfg.with_(use_mla=True),
+                tcfg.with_(family="ssm"),
                 tcfg.with_(is_encoder_decoder=True)):
         with pytest.raises(NotImplementedError):
             tdlm.init_model(cfg, 0, device="cpu")

@@ -852,6 +852,73 @@ def test_swa_attention_round_p_edges(dev, B, H, KVH, S, D, dtype, window,
                                        round_p=True), got)
 
 
+# MLA's head dims: q / k heads of 192 (128 + a 64-wide rope part) and v
+# heads of 128 (the (192, 128) instance), and the reduced config's 48 / 32
+# (zero-filled in the (64, 64) instance), in the model's (B, S, H, D)
+# layout: the float32-p mode against the dense plain version (HALF_ULP),
+# the round-once mode within bound (i) of chunked_attention_ref(chunk=64),
+# a ragged S, the same bits twice.
+@pytest.mark.parametrize("B,H,S,DK,DV,dtype,window,causal", [
+    (1, 16, 4096, 192, 128, BF16, 0, True),
+    (1, 16, 4000, 192, 128, BF16, 0, True),
+    (1, 8, 1000, 192, 128, FP16, 129, True),
+    (1, 8, 513, 192, 128, BF16, 0, False),
+    (1, 4, 1000, 48, 32, torch.float32, 0, True),
+    (1, 4, 1000, 192, 128, torch.float32, 100, True),
+    (2, 4, 300, 48, 32, BF16, 0, True)])
+def test_swa_attention_mla_head_dims(dev, B, H, S, DK, DV, dtype, window,
+                                     causal):
+    from repro_torch.kernels import swa_attention as swa
+    g = torch.Generator().manual_seed(S + DK + window)
+    q, k, v = (torch.randn((B, S, H, d), generator=g).to(dev, dtype)
+               .transpose(1, 2) for d in (DK, DK, DV))
+    kernels.reset_launches()
+    got = ops.swa_attention(q, k, v, window=window, causal=causal)
+    assert kernels.LAUNCHES["swa_attention"] == 1
+    assert got.shape == (B, H, S, DV) and got.dtype == dtype
+    want = ref.swa_attention_ref(q, k, v, window, causal)
+    err = (got.float() - want).abs()
+    assert bool((err <= HALF_ULP[dtype] * want.abs() + 1e-5).all()), \
+        float(err.max())
+    assert same_bits(ops.swa_attention(q, k, v, window=window,
+                                       causal=causal), got)
+    if dtype == torch.float32:
+        return
+    got = ops.swa_attention(q, k, v, window=window, causal=causal,
+                            round_p=True)
+    want = ref.chunked_attention_ref(q, k, v, window, causal, chunk=swa.BK)
+    tol = swa.round_p_tolerance(q, k, v, window, causal, got, want)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+    assert same_bits(ops.swa_attention(q, k, v, window=window, causal=causal,
+                                       round_p=True), got)
+
+
+def test_mla_decoder_on_card_matches_cpu(dev):
+    """Reduced DeepSeek-V2 (MLA, q / k heads of 48, v heads of 32) in
+    float32: forward logits on the card (the kernel, once a layer) against
+    the CPU (the chunked plain version), rtol / atol 1e-4, and greedy
+    tokens from the compressed cache equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.nn.basic import tree_map
+    cfg = reduced_config(get_config("deepseek-v2-236b")).with_(
+        moe_capacity_factor=8.0)
+    params = dlm.init_model(cfg, 0, device="cpu")
+    on_card = tree_map(lambda x: x.to(dev), params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 40)))
+    kernels.reset_launches()
+    got, _ = dlm.forward(on_card, cfg, toks.to(dev))
+    assert kernels.LAUNCHES["swa_attention"] == cfg.num_layers
+    want, _ = dlm.forward(params, cfg, toks)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    seq_card = serve.generate(on_card, cfg, toks[:, :8], 16, device=dev)
+    seq_cpu = serve.generate(params, cfg, toks[:, :8], 16, device="cpu")
+    assert torch.equal(seq_card.cpu(), seq_cpu)
+
+
 def test_swa_attention_reads_strided_layouts(dev):
     """The model's (B, S, H, D) tensors go in as transposed views and the
     output is written into a transposed view: the same bits as the
@@ -873,8 +940,12 @@ def test_swa_attention_checks_inputs(dev):
         ops.swa_attention(q, k.float(), v)
     with pytest.raises(ValueError):
         ops.swa_attention(q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1))
+    # q / k heads above 192, v heads above 128 (192 / 128 is MLA's, taken)
     with pytest.raises(ValueError):
-        ops.swa_attention(*_qkv(dev, 1, 2, 1, 8, 192, torch.bfloat16))
+        ops.swa_attention(*_qkv(dev, 1, 2, 1, 8, 256, torch.bfloat16))
+    qm, km, _ = _qkv(dev, 1, 2, 1, 8, 192, torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops.swa_attention(qm, km, km)
     with pytest.raises(ValueError):
         ops.swa_attention(q, k.cpu(), v)
     with pytest.raises(ValueError):

@@ -1,7 +1,8 @@
 """The threefry port (``repro_torch/nn/threefry.py``) against ``jax.random``
 in partitionable mode: raw bits and uniforms bit for bit, normals and
 the path-keyed init within a few ulps (the erfinv polynomial's log1p and
-fused multiply-adds round differently in torch and XLA).
+fused multiply-adds round differently in torch and XLA); a draw taken in
+several pieces (``threefry.PIECE`` set small) bit for bit the whole draw.
 """
 import numpy as np
 import pytest
@@ -86,3 +87,35 @@ def test_emnist_init_matches_jax_leaf_by_leaf():
         g = got[path].numpy()
         assert g.shape == w.shape, path
         assert _ulps(g, np.asarray(w)) <= ULPS, path
+
+
+@pytest.mark.parametrize("piece", [7, 64, 1000])
+@pytest.mark.parametrize("shape", [(3, 5, 17), (1000,), (64, 31)])
+def test_a_draw_in_pieces_is_the_whole_draw(monkeypatch, shape, piece):
+    """Bits, uniforms (float32 and bf16) and normals filled ``piece``
+    elements at a time (a shape past the piece, with a ragged last piece,
+    or within one) equal the one-piece draw bit for bit, and the bits and
+    uniforms still equal JAX's."""
+    tk = threefry.fold_in(threefry.key(11), 5)
+    jk = jax.random.fold_in(jax.random.key(11), 5)
+    draws = {
+        "bits": lambda: threefry.random_bits(tk, shape),
+        "uniform": lambda: threefry.uniform(tk, shape),
+        "uniform_bf16": lambda: threefry.uniform(tk, shape,
+                                                 dtype=torch.bfloat16),
+        "normal": lambda: threefry.normal(tk, shape),
+    }
+    whole = {name: fn() for name, fn in draws.items()}
+    monkeypatch.setattr(threefry, "PIECE", piece)
+    for name, fn in draws.items():
+        got = fn()
+        assert got.shape == shape and got.dtype == whole[name].dtype
+        assert torch.equal(got.view(-1).view(torch.uint8),
+                           whole[name].view(-1).view(torch.uint8)), name
+    want = np.asarray(jax.random.bits(jk, shape)).astype(np.int64)
+    np.testing.assert_array_equal(threefry.random_bits(tk, shape).numpy(), want)
+    ju = np.asarray(jax.random.uniform(jk, shape, jnp.float32))
+    np.testing.assert_array_equal(
+        threefry.uniform(tk, shape).numpy().view(np.int32), ju.view(np.int32))
+    jn = np.asarray(jax.random.normal(jk, shape, jnp.float32))
+    assert _ulps(threefry.normal(tk, shape).numpy(), jn) <= ULPS

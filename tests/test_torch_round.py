@@ -25,6 +25,7 @@ from repro.nn import basic as jbasic
 from repro.nn import conv as jconv
 from repro_torch import bridge
 from repro_torch.core import fedpt as tfedpt
+from repro_torch.core import flat as tflat
 from repro_torch.core import partition as tpart
 from repro_torch.core import sanitize as tsan
 from repro_torch.data import synthetic as tsyn
@@ -184,6 +185,40 @@ def test_two_rounds_match_jax(bits):
         for k in jy:
             np.testing.assert_allclose(ty[k], jy[k], rtol=0,
                                        atol=moved / 127)
+
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_rounds_in_client_chunks(monkeypatch, chunk):
+    """A cohort past ``VMAP_BYTES`` is vmapped ``chunk`` clients at a time
+    (here 3 clients: 1 + 1 + 1, or 2 + 1): the two rounds' losses and
+    norms equal the whole-cohort vmap's to rel 1e-6 and y to 1e-6 of
+    max|y| (float32 reassociation of batched against per-chunk matrix
+    products; measured 0 here), and still match JAX's as
+    ``test_two_rounds_match_jax`` holds them."""
+    cohorts = _cohorts(tsyn, _data(tsyn))
+    whole_hist, whole_y = _run_torch(0, cohorts)
+    y, _ = tpart.partition(torch_init(0), FREEZE)
+    size = tflat.FlatLayout.of(y).size
+    monkeypatch.setattr(tfedpt, "VMAP_BYTES", chunk * 4 * size)
+    calls = []
+    real = torch.func.vmap
+    monkeypatch.setattr(torch.func, "vmap",
+                        lambda fn, *a, **k: calls.append(1) or real(fn, *a,
+                                                                   **k))
+    hist, ty = _run_torch(0, cohorts)
+    assert len(calls) == ROUNDS * -(-CLIENTS // chunk)
+    for (tl, tn), (wl, wn) in zip(hist, whole_hist):
+        assert tl == pytest.approx(wl, rel=1e-6)
+        assert tn == pytest.approx(wn, rel=1e-6)
+    ty, whole_y = dict(tbasic.flatten_params(ty)), dict(
+        tbasic.flatten_params(whole_y))
+    for k in ty:
+        np.testing.assert_allclose(ty[k], whole_y[k], rtol=0,
+                                   atol=1e-6 * np.abs(whole_y[k]).max())
+    jhist, _ = _run_jax(0, cohorts)
+    for (tl, tn), (jl, jn) in zip(hist, jhist):
+        assert tl == pytest.approx(jl, rel=1e-5)
+        assert tn == pytest.approx(jn, rel=1e-5)
 
 
 DP = dict(uplink_bits=8, dp_clip_norm=0.5, dp_noise_multiplier=0.4)

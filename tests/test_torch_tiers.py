@@ -268,6 +268,33 @@ def test_tiered_round_matches_jax(extra):
         tround(ty, tsopt.init(ty), {}, batch, w)
 
 
+def test_tiered_round_in_client_chunks_matches_whole(monkeypatch):
+    """The tiered round vmapped a client at a time (``VMAP_BYTES`` below
+    one client's row): each client's tier mask goes with its slice of the
+    cohort, so y, the loss and delta_norm equal the whole-cohort round's
+    within rel 1e-6 (float32 reassociation only)."""
+    ds = make_ds(8)
+    rng = np.random.default_rng(3)
+    batch, w = tsyn.cohort_batch(ds, np.arange(4), RC["local_steps"],
+                                 RC["local_batch"], rng)
+    tiers = np.array([0, 1, 2, 1])
+    ty, _ = tpart.partition(torch_init(0), ())
+    tcp = tplan.compile_plan(TIER_PLAN, ty)
+    out = []
+    for vmap_bytes in (tfedpt.VMAP_BYTES, 1):
+        monkeypatch.setattr(tfedpt, "VMAP_BYTES", vmap_bytes)
+        tround, tsopt = tfedpt.make_round_fn(
+            torch_loss, tfedpt.RoundConfig(**RC), plan=tcp, device="cpu")
+        out.append(tround(ty, tsopt.init(ty), {}, batch, w, tiers,
+                          threefry.key(2)))
+    (y_whole, _, m_whole), (y_chunk, _, m_chunk) = out
+    for a, b in zip(leaves(y_chunk), leaves(y_whole)):
+        assert float(np.abs(a - b).max()) <= 1e-6 * float(np.abs(b).max())
+    for k in ("loss", "delta_norm"):
+        assert float(m_chunk[k]) == pytest.approx(float(m_whole[k]),
+                                                  rel=1e-6)
+
+
 def test_lite_only_sync_cohort_leaves_frozen_leaves_bit_for_bit():
     """A cohort of kernel-frozen clients leaves every kernel as it was,
     in both packages; the bias moves as JAX's does."""

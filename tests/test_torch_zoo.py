@@ -49,9 +49,10 @@ from repro_torch.models import decoder_lm as tdlm
 from repro_torch.nn import basic as tbasic
 
 load_all()
-ARCHS = ["mixtral-8x7b", "qwen2.5-3b", "glm4-9b", "stablelm-1.6b"]
-WAITING = ["deepseek-v2-236b", "jamba-v0.1-52b", "paligemma-3b",
-           "xlstm-350m", "whisper-large-v3"]
+ARCHS = ["mixtral-8x7b", "deepseek-v2-236b", "qwen2.5-3b", "glm4-9b",
+         "stablelm-1.6b"]
+WAITING = ["jamba-v0.1-52b", "paligemma-3b", "xlstm-350m",
+           "whisper-large-v3"]
 RTOL = ATOL = 1e-4
 GRAD_REL = 1e-4
 ULPS = 4

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --dp-ftrl SRC     # DP-FTRL's rounds on another tree
     python3 chip_smoke.py --mixtral   # phase 7 alone (Mixtral-8x7B)
     python3 chip_smoke.py --deepseek  # phase 8 alone (DeepSeek-V2, MLA)
+    python3 chip_smoke.py --ssm       # phase 9 alone (xLSTM-350M, Jamba-v0.1)
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -247,7 +248,22 @@ package. Phases, in order, each failing the run on error:
    / 32) against their plain versions, and times it at the prefill's
    (1, 128, 32,768, 192 / 128) against its 44.47 ms bound beside
    ``scaled_dot_product_attention``;
-9. print the ``kernels`` JSON line, the card's name and power limit,
+9. the SSM families at full width (``nn/ssm.py``): xLSTM-350M, all 24
+   layers, trained by FedPT (its frozen split asserted, 8 rounds of
+   ``run_reduced_arch``'s data and round, a finite falling loss, sumsq
+   once a round at the flat width and within its bound of a float64 sum,
+   one profiled round, the reduced config's round card vs CPU) and served
+   (a 16 x 2,048 prefill, profiled at 16 x 128, greedy decode with the
+   recurrent state's bytes, the step-by-step prefill against ``forward``
+   over 160 positions in float32, the bf16 gap printed); Jamba-v0.1
+   served at one period, 8 of its 32 layers (a 1 x 32,768 prefill with
+   ``swa_attention`` in its attention
+   layer, profiled at 1 x 4,096 into Mamba's scan and projections,
+   attention, experts, dispatch and the rest, greedy decode, kernel vs
+   plain attention and step-by-step prefill against ``forward`` on 1 x
+   512, the second side routed as the first) and its reduced round card
+   vs CPU;
+10. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -1145,18 +1161,23 @@ def device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
-def profile_round(step, what: str = "round"):
+def profile_round(step, what: str = "round", host: bool = True):
     """One round (or flush) under the profiler, printed on one line: wall
     ms; device-busy ms (:func:`device_busy_ms`) and its share; the device
     ops and their summed time (above the busy time where kernels
     overlap); the host ops with the most self time, with the calls of
     ``cudaMemcpyAsync`` / ``cudaStreamSynchronize`` (a blocking copy to
-    the card makes one of each) and ``cudaLaunchKernel``."""
+    the card makes one of each) and ``cudaLaunchKernel``. Without
+    ``host`` only the CUDA activity is traced (the runtime calls and the
+    device ops, no aten ops): a round of tens of thousands of launches
+    then takes the profiler a fraction of the time to walk."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -3370,7 +3391,11 @@ RANGES = {("moe", "router_topk"): "dispatch",
           ("moe", "_sort_dispatch"): "dispatch",
           ("moe", "_combine_local"): "dispatch",
           ("moe", "_experts"): "experts",
-          ("attention", "mla_qkv"): "mla"}
+          ("attention", "mla_qkv"): "mla",
+          ("ssm", "mamba_forward"): "mamba",
+          ("ssm", "_mamba_scan"): "mamba_scan",
+          ("ssm", "mlstm_forward"): "mlstm",
+          ("ssm", "slstm_forward"): "slstm"}
 
 
 class round_timer:
@@ -3446,13 +3471,22 @@ def check_moe_full_width(params, cfg, dev):
 
 def zoo_widths(cfg) -> str:
     """A config's widths, for the phase headers."""
+    from repro_torch.nn import ssm
+    if cfg.family == "ssm":
+        d_in, nh, dh = ssm.xlstm_dims(cfg)
+        return (f"d_model {cfg.d_model}, mLSTM {nh} heads of {dh} (d_in "
+                f"{d_in}), an sLSTM block every {cfg.slstm_every} (gated FFN "
+                f"{ssm.slstm_up_width(cfg.d_model)}), vocab {cfg.vocab_size}")
     attn = (f"MLA kv_lora {cfg.kv_lora_rank} / q_lora {cfg.q_lora_rank}, "
             f"q / k heads {cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim}, "
             f"v heads {cfg.v_head_dim}" if cfg.use_mla else
             f"{cfg.num_kv_heads} kv heads, head_dim {cfg.resolved_head_dim}")
     shared = (f" + {cfg.num_shared_experts} shared"
               if cfg.num_shared_experts else "")
-    return (f"d_model {cfg.d_model}, {cfg.num_heads} heads, {attn}, "
+    mamba = (f"Mamba d_inner {ssm.mamba_dims(cfg)[0]}, d_state "
+             f"{cfg.mamba_d_state} in {cfg.attn_period - 1} of every "
+             f"{cfg.attn_period} layers, " if cfg.family == "hybrid" else "")
+    return (f"d_model {cfg.d_model}, {mamba}{cfg.num_heads} heads, {attn}, "
             f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}{shared} "
             f"of {cfg.expert_d_ff}, vocab {cfg.vocab_size}, window "
             f"{cfg.sliding_window}")
@@ -3477,7 +3511,7 @@ def float64_sumsq(x, piece: int = 1 << 26) -> float:
 
 
 def drive_zoo_training(arch, layers, rounds, split, dev, after=None,
-                       **tols):
+                       by_op=True, **tols):
     """FedPT on ``arch`` at full width, ``layers`` of its layers, the
     config's dtypes (float32 parameters, bf16 compute) and freeze spec
     (the routed experts frozen; the rest trained), ``rounds`` rounds
@@ -3487,9 +3521,10 @@ def drive_zoo_training(arch, layers, rounds, split, dev, after=None,
     finite falling loss, sumsq launched once a round at the flat width and
     within ``dp_clip.sumsq_rtol`` of a float64 sum there; then sumsq timed
     at that width, the peak memory with the init and around one client
-    update, one profiled round and its device time by op, ``after(params,
-    cfg)`` on the trained parameters, and one round of the reduced config
-    card vs CPU (``check_model_round`` with ``tols``). Returns the launch
+    update, one profiled round and (with ``by_op``; else the round's
+    CUDA activity alone) its device time by op, ``after(params, cfg)`` on
+    the trained parameters, and one round of the reduced config card vs
+    CPU (``check_model_round`` with ``tols``). Returns the launch
     counts."""
     from types import SimpleNamespace
     from repro_torch import kernels
@@ -3581,25 +3616,34 @@ def drive_zoo_training(arch, layers, rounds, split, dev, after=None,
     round_fn, sopt = fedpt.make_round_fn(at.loss_fn, at.rc, device=dev)
     sstate = sopt.init(res.y)
     profile_round(lambda: round_fn(res.y, sstate, res.frozen, batch, w,
-                                   threefry.key(rounds)))
-    by_op = device_time_by_op(lambda: round_fn(
-        res.y, sstate, res.frozen, batch, w, threefry.key(rounds)))
-    print(f"  a round's device ms ({sum(by_op.values()):.3f}) by op: "
-          f"{top_ops(by_op, 12)}")
+                                   threefry.key(rounds)), host=by_op)
+    if by_op:
+        ops = device_time_by_op(lambda: round_fn(
+            res.y, sstate, res.frozen, batch, w, threefry.key(rounds)))
+        print(f"  a round's device ms ({sum(ops.values()):.3f}) by op: "
+              f"{top_ops(ops, 12)}")
     del sstate
     if after is not None:
         after(part.merge(res.y, res.frozen), cfg)
     del res
     torch.cuda.empty_cache()
+    check_reduced_round(arch, dev, **tols)
+    return counts
 
-    # one round of the reduced config, card vs CPU
-    rat = train.arch_task(train.reduced_config(full), 0, dev)
+
+def check_reduced_round(arch, dev, **tols):
+    """One round of ``arch``'s reduced config (float32 compute), card vs
+    CPU: ``check_model_round`` with ``tols``."""
+    from types import SimpleNamespace
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import partition as part
+    from repro_torch.launch import train
+    rat = train.arch_task(train.reduced_config(get_config(arch)), 0, dev)
     rpt = SimpleNamespace(loss_fn=rat.loss_fn, rc=rat.rc,
                           dataset=rat.dataset, kind="tokens")
     y0, frozen = part.partition(rat.init_fn(0), rat.cfg.freeze_spec)
     check_model_round(f"{arch} reduced ({zoo_widths(rat.cfg)}, float32)",
                       rpt, y0, frozen, *task_draws(rpt, 1)[0], dev, **tols)
-    return counts
 
 
 def drive_mixtral_training(dev):
@@ -3653,17 +3697,20 @@ class routing_spy:
         return False
 
 
-def device_time_by_op(fn):
+def device_time_by_op(fn, launched=None):
     """Device time (ms) of one call of ``fn``, after a warm-up call, by
     (kind, op). The RANGES functions of ``nn/moe`` and ``nn/attention``
     run inside profiler ranges, and a device kernel counts for the op that
     launched it: its kind is the RANGES kind of the range that holds that
     op ("experts": the expert FFNs; "dispatch": routing, dispatch and
-    combine; "mla": MLA's q, kv and up projections and RoPE), "attention"
-    for the swa_attention kernel, else "other"; its op is the launching
-    aten op, behind the autograd function whose backward runs it. The
-    ranges' device-side copies, which span their kernels, count for none;
-    device time no op claims is ("other", "unattributed")."""
+    combine; "mla": MLA's q, kv and up projections and RoPE; "mamba":
+    Mamba's projections and conv, "mamba_scan" its time loop; "mlstm" /
+    "slstm": the xLSTM blocks), the innermost one where ranges nest,
+    "attention" for the swa_attention kernel, else "other"; its op is the
+    launching aten op, behind the autograd function whose backward runs
+    it. The ranges' device-side copies, which span their kernels, count
+    for none; device time no op claims is ("other", "unattributed").
+    ``launched``, a dict, gets the number of device kernels by kind."""
     import importlib
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -3704,21 +3751,56 @@ def device_time_by_op(fn):
             total += t
             if "swa_kernel" in ev.name:
                 add(("attention", "swa_kernel"), t)
+                if launched is not None:
+                    launched["attention"] = launched.get("attention", 0) + 1
     backward = "autograd::engine::evaluate_function: "
     for ev in events:
         if ev.device_type != DeviceType.CPU or not ev.kernels:
             continue
-        kind, op, parent = "other", ev.name, ev.cpu_parent
+        kind, op, parent = None, ev.name, ev.cpu_parent
         while parent is not None:
-            if parent.name in kinds:
+            if kind is None and parent.name in kinds:
                 kind = kinds[parent.name]
             elif parent.name.startswith(backward) and op == ev.name:
                 op = f"{parent.name[len(backward):]} > {ev.name}"
             parent = parent.cpu_parent
+        kind = kind or "other"
         for k in ev.kernels:
             if "swa_kernel" not in k.name:
                 add((kind, op), k.duration / 1e3)
+                if launched is not None:
+                    launched[kind] = launched.get(kind, 0) + 1
     add(("other", "unattributed"), total - sum(out.values()))
+    return out
+
+
+def ssm_walls(fn):
+    """Host wall (ms) of one call of ``fn`` inside each recurrent block
+    (``nn/ssm``'s Mamba scan, mLSTM and sLSTM forwards), the card
+    synchronized before and after each block's call, by kind."""
+    from repro_torch.nn import ssm
+    names = {"_mamba_scan": "mamba_scan", "mlstm_forward": "mlstm",
+             "slstm_forward": "slstm"}
+    saved = {name: getattr(ssm, name) for name in names}
+    out = {}
+
+    def timed(name, real):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = real(*a, **kw)
+            torch.cuda.synchronize()
+            kind = names[name]
+            out[kind] = out.get(kind, 0.0) + (time.perf_counter() - t0) * 1e3
+            return r
+        return call
+    for name, real in saved.items():
+        setattr(ssm, name, timed(name, real))
+    try:
+        fn()
+    finally:
+        for name, real in saved.items():
+            setattr(ssm, name, real)
     return out
 
 
@@ -3731,23 +3813,50 @@ def top_ops(by_op, n: int, kind=None):
             for label, ms in sorted(rows, key=lambda r: -r[1])[:n]]
 
 
-def drive_zoo_serving(arch, layers, split, dev, consist_cf,
-                      windows=()):
+def cache_bytes(cache, slots):
+    """(bytes a token of one attention layer's cache, bytes a sequence of
+    the recurrent slots' states over all their layers) of an
+    ``init_cache`` tree: the first grow with the length, the second do
+    not."""
+    kinds = [s.kind for s in slots]
+    first = kinds.index("attn") if "attn" in kinds else None
+    per_token = per_seq = 0
+    for si, kind in enumerate(kinds):
+        for t in cache["slots"][f"slot{si}"].values():
+            if si == first:
+                per_token += t[0, 0, 0].numel() * t.element_size()
+            elif kind != "attn":
+                per_seq += t[:, 0].numel() * t.element_size()
+    return per_token, per_seq
+
+
+def drive_zoo_serving(arch, layers, split, dev, consist_cf, windows=(),
+                      prefill=(1, PREFILL_LEN), timed=3, profile=None,
+                      stepped=None, stepped_f32=False):
     """Serving ``arch`` at full width, ``layers`` of its layers, from
     ``init_model(cfg, 0)`` on the card, on the serving split (trainable
-    f32, frozen bf16); ``make_prefill_step`` on 1 x 32,768 tokens under
-    ``serving_config`` of prefill_32k, which must keep the config as it is
-    (median of 3 walls after one warm-up, tokens/s, ``swa_attention``
-    once a layer by the wrapper's count, the profiler's launches, a
-    profiled split into the attention kernel, expert matmuls, routing /
-    dispatch / combine, MLA projections and the rest), then greedy
-    ``generate`` (batch 4, prompt 8, 32 steps) with the cache's bytes a
-    token a layer, with the launch counts set to 0 just before and read
-    just after; then, not counted, a 1 x 512 prefill through the kernel
-    against the plain chunked attention (at the config's window and each
-    of ``windows``) and the step-by-step prefill against ``forward`` at
-    capacity factor ``consist_cf`` (no drops), the second side of each
-    routed as the first. Returns the launch counts."""
+    f32, frozen bf16); ``make_prefill_step`` on ``prefill`` (rows,
+    tokens) under ``serving_config`` of prefill_32k, which must keep the
+    config as it is (median of ``timed`` walls after one warm-up,
+    tokens/s, ``swa_attention`` once an attention layer by the wrapper's
+    count; at the ``profile`` shape, default the prefill's, the
+    profiler's launches by kind (the kernel's among them) and a split
+    into the attention kernel, expert matmuls, routing / dispatch /
+    combine, MLA projections, Mamba's
+    projections and scan, the mLSTM and sLSTM blocks, and the rest, and
+    the host walls of the recurrent loops (``ssm_walls``)), then greedy
+    ``generate`` (batch 4, prompt 8, 32 steps) with the attention cache's
+    bytes a token a layer and the recurrent states' bytes a sequence, with
+    the launch counts set to 0 just before and read just after; then, not
+    counted, a 1 x 512 prefill through the kernel against the plain
+    chunked attention (at the config's window and each of ``windows``;
+    with attention slots only) and the step-by-step prefill against
+    ``forward`` at capacity factor ``consist_cf`` (no drops), on the
+    4 x 8 decode prompt, or with ``stepped`` (rows, tokens) on the first
+    of the prefill's tokens, the second side of each routed as the
+    first; with ``stepped_f32`` that check runs in float32 compute on the
+    same weights, and the bf16 one on the decode prompt is printed, not
+    gated. Returns the launch counts."""
     from repro_torch import kernels
     from repro_torch.configs.base import get_config
     from repro_torch.core import partition as part
@@ -3758,6 +3867,8 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf,
     torch.cuda.empty_cache()
     full = get_config(arch)
     base = full.with_(num_layers=layers)
+    slots, groups = dlm.layer_program(base)
+    n_attn = groups * sum(s.kind == "attn" for s in slots)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3776,8 +3887,9 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf,
     cfg = specs.serving_config(base, "prefill_32k")
     if cfg != base or specs.serving_config(base, "long_500k") != base:
         raise AssertionError(f"serving_config changed {arch}")
+    rows, length = prefill
     rng = np.random.default_rng(0)
-    tokens = rng.integers(0, base.vocab_size, (1, PREFILL_LEN), dtype=np.int64)
+    tokens = rng.integers(0, base.vocab_size, prefill, dtype=np.int64)
     prompt = rng.integers(0, base.vocab_size, (DECODE_BATCH, DECODE_PROMPT),
                           dtype=np.int64)
     step = specs.make_prefill_step(cfg, device=dev)
@@ -3786,56 +3898,69 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     walls = []
-    for _ in range(4):   # the first call warms up
+    for _ in range(1 + timed):   # the first call warms up
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         logits = step(y, frozen, batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t1) * 1e3)
     per_call = kernels.LAUNCHES["swa_attention"] / len(walls)
-    if logits.shape != (1, PREFILL_LEN, base.vocab_size) or \
+    if logits.shape != (rows, length, base.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch} prefill: logits not finite or of the "
                              f"wrong shape {tuple(logits.shape)}")
     del logits
     wall = float(np.median(walls[1:]))
-    recorded = recorded_launches(lambda: step(y, frozen, batch),
-                                 "swa_kernel", 1)
-    print(f"[serving] {arch} prefill 1 x {PREFILL_LEN} (prefill_32k, window "
+    print(f"[serving] {arch} prefill {rows} x {length} (prefill_32k, window "
           f"{cfg.sliding_window}): wall ms {[round(v, 3) for v in walls]} "
-          f"(median of the last 3 {wall:.3f} ms, "
-          f"{PREFILL_LEN / wall * 1e3:.1f} tokens/s); swa_attention "
-          f"{per_call:g} launches a call ({recorded} recorded by the "
-          f"profiler in one call); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"(median of the last {timed} {wall:.3f} ms, "
+          f"{rows * length / wall * 1e3:.1f} tokens/s); swa_attention "
+          f"{per_call:g} launches a call ({n_attn} attention layers); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    pbatch = batch
+    if profile is not None and tuple(profile) != tuple(prefill):
+        pbatch = {"tokens": batch["tokens"][:profile[0], :profile[1]]}
+    pshape = tuple(pbatch["tokens"].shape)
+    launched = {}
+    by_op = device_time_by_op(lambda: step(y, frozen, pbatch), launched)
     # a trace may drop a long kernel (device_ms): the wrapper's count is
     # the gate, the profiler's must show the kernel on the card
-    if per_call != layers or recorded < 1:
-        raise AssertionError(f"{arch} prefill: swa_attention not once a "
-                             f"layer")
-    by_op = device_time_by_op(lambda: step(y, frozen, batch))
+    if per_call != n_attn or (n_attn and launched.get("attention", 0) < 1):
+        raise AssertionError(f"{arch} prefill: swa_attention not once an "
+                             f"attention layer ({launched} recorded by the "
+                             f"profiler)")
     split_ms = dict.fromkeys(("attention", "experts", "dispatch", "mla",
+                              "mamba", "mamba_scan", "mlstm", "slstm",
                               "other"), 0.0)
     for (kind, _), ms in by_op.items():
         split_ms[kind] += ms
     busy = sum(split_ms.values())
-    print(f"[serving] {arch} prefill device ms by kind "
-          f"{ {k: round(v, 3) for k, v in split_ms.items()} } of {busy:.3f} "
-          f"ms: attention kernel {split_ms['attention'] / layers:.3f} ms a "
-          f"layer ({100 * split_ms['attention'] / busy:.1f}%), expert "
-          f"matmuls {100 * split_ms['experts'] / busy:.1f}%, routing / "
-          f"dispatch / combine {100 * split_ms['dispatch'] / busy:.1f}%, MLA "
-          f"projections {100 * split_ms['mla'] / busy:.1f}%, other "
-          f"{100 * split_ms['other'] / busy:.1f}%")
+    print(f"[serving] {arch} prefill {pshape[0]} x {pshape[1]} device ms by "
+          f"kind { {k: round(v, 3) for k, v in split_ms.items() if v} } of "
+          f"{busy:.3f} ms: "
+          + ", ".join(f"{k} {100 * v / busy:.1f}%"
+                      for k, v in split_ms.items() if v)
+          + f"; device kernels by kind {launched}")
     print(f"  device ms by op: {top_ops(by_op, 8)}; routing / dispatch / "
           f"combine by op: {top_ops(by_op, 6, 'dispatch')}; other by op: "
           f"{top_ops(by_op, 6, 'other')}")
+    if any(s.kind != "attn" for s in slots):
+        def per_position(slot_kind, kind):
+            n = groups * sum(s.kind == slot_kind for s in slots)
+            return launched.get(kind, 0) / max(1, n * pshape[1])
+        loops = ssm_walls(lambda: step(y, frozen, pbatch))
+        print(f"[serving] {arch} prefill {pshape[0]} x {pshape[1]}: host "
+              f"wall of the recurrent blocks (synchronized at each call) "
+              f"{ {k: round(v, 3) for k, v in loops.items()} } ms; launches "
+              f"a Mamba scan position "
+              f"{per_position('mamba', 'mamba_scan'):.3f}"
+              f", an sLSTM position {per_position('slstm', 'slstm'):.3f}")
 
     params = part.merge(y, frozen)
     n_steps = DECODE_PROMPT + DECODE_STEPS
     cache = dlm.init_cache(cfg, DECODE_BATCH, n_steps, device=dev)
-    per_token = sum(t[0, 0, 0].numel() * t.element_size()
-                    for t in cache["slots"]["slot0"].values())
+    per_token, per_seq = cache_bytes(cache, slots)
     del cache
     serve.generate(params, cfg, prompt, 2, device=dev)   # warm-up
     torch.cuda.synchronize()
@@ -3849,7 +3974,9 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf,
           f"{cfg.moe_capacity_factor}): {gwall:.3f} ms, "
           f"{gwall / n_steps:.3f} ms per decode step ({n_steps} steps with "
           f"the step-by-step prefill); the cache holds {per_token} bytes a "
-          f"token a layer; row 0: {seqs[0].tolist()}; launches {counts}")
+          f"token an attention layer and {per_seq} bytes a sequence of "
+          f"recurrent state ({per_seq / 2**20:.3f} MiB, whatever the "
+          f"length); row 0: {seqs[0].tolist()}; launches {counts}")
     if cfg.use_mla and \
             per_token != (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2:
         raise AssertionError(f"{arch}'s MLA cache: {per_token} bytes a "
@@ -3861,8 +3988,10 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf,
 
     # consistency on the card, with the same weights; the second side of
     # each pair takes the first side's routing (routing_spy)
-    short = torch.from_numpy(tokens[:, :CONSIST_LEN]).to(dev)
+    short = torch.from_numpy(tokens[:1, :CONSIST_LEN]).to(dev)
     for c in (cfg,) + tuple(cfg.with_(sliding_window=w) for w in windows):
+        if not n_attn:
+            break
         s = specs.make_prefill_step(c, device=dev)
         with routing_spy() as kern:
             got = s(y, frozen, {"tokens": short})
@@ -3879,27 +4008,43 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf,
               f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.4f}")
         if not rel <= LOGIT_REL:
             raise AssertionError(f"{arch} prefill: kernel vs plain {rel}")
+    sp = prompt if stepped is None else tokens[:stepped[0], :stepped[1]]
     cc = cfg.with_(moe_capacity_factor=consist_cf)
+    if stepped_f32:
+        check_stepped(arch, params, y, frozen, cc, prompt, dev, gated=False)
+        cc = cc.with_(compute_dtype="float32")
+    check_stepped(arch, params, y, frozen, cc, sp, dev)
+    return counts
+
+
+def check_stepped(arch, params, y, frozen, cfg, tokens, dev, gated=True):
+    """The step-by-step prefill (``serve.prefill_by_steps``) of ``tokens``
+    against ``make_prefill_step``'s forward, routed as forward
+    (``routing_spy``), max |diff| / max |logit| within LOGIT_REL when
+    ``gated``, else printed only."""
+    from repro_torch.launch import serve, specs
+    rows, length = tokens.shape
     with routing_spy() as fwd:
-        full_logits = specs.make_prefill_step(cc, device=dev)(
-            y, frozen, {"tokens": prompt})
+        full_logits = specs.make_prefill_step(cfg, device=dev)(
+            y, frozen, {"tokens": tokens})
     # decode routes (step t, layer l) in turn; forward each layer at once
-    order = [ids.reshape(DECODE_BATCH, DECODE_PROMPT, -1)[:, t]
-             for t in range(DECODE_PROMPT) for ids in fwd.ids]
+    order = [ids.reshape(rows, length, -1)[:, t]
+             for t in range(length) for ids in fwd.ids]
     with routing_spy(order) as dec:
-        stepped, _ = serve.prefill_by_steps(params, cc, prompt, n_steps,
+        stepped, _ = serve.prefill_by_steps(params, cfg, tokens, length,
                                             device=dev)
     rel = rel_to_max(stepped, full_logits)
-    print(f"[serving] {arch} step-by-step prefill vs forward at capacity "
-          f"factor {consist_cf} (no drops) at the {DECODE_PROMPT} prompt "
-          f"positions of {DECODE_BATCH} rows, routed as forward "
-          f"({dec.flipped} of {dec.routed} routings would differ): max "
-          f"|diff| / max |logit| {rel:.3e} (tolerance {LOGIT_REL:.3e}), "
-          f"argmax agreement "
+    print(f"[serving] {arch} step-by-step prefill vs forward, "
+          f"{cfg.compute_dtype} compute, capacity factor "
+          f"{cfg.moe_capacity_factor} (no drops), at the {length} prompt "
+          f"positions of {rows} rows, routed as forward ({dec.flipped} of "
+          f"{dec.routed} routings would differ): max |diff| / max |logit| "
+          f"{rel:.3e} ("
+          + (f"tolerance {LOGIT_REL:.3e}" if gated else "not gated")
+          + f"), argmax agreement "
           f"{float((stepped.argmax(-1) == full_logits.argmax(-1)).float().mean()):.4f}")
-    if not rel <= LOGIT_REL:
+    if gated and not rel <= LOGIT_REL:
         raise AssertionError(f"{arch} decode vs forward logits: {rel}")
-    return counts
 
 
 def drive_mixtral_serving(dev):
@@ -4038,6 +4183,104 @@ def drive_deepseek_serving(dev):
                              DEEPSEEK_SERVE_SPLIT, dev, DEEPSEEK_CONSIST_CF)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the SSM families at full width: xLSTM-350M trained and served at
+# all 24 layers, Jamba-v0.1 served at one period of its layer program
+
+XLSTM = "xlstm-350m"
+XLSTM_LAYERS = 24          # of 24
+XLSTM_ROUNDS = 8
+# (trainable, total, flat size): the tied embedding (51,511,296), the
+# mLSTM gates, convs, biases and norms and the sLSTM gates, convs and norms
+# train; the mLSTM q / k / v / up / down kernels and the sLSTM recurrent
+# and FFN kernels are frozen; the flat layout pads the small leaves to
+# multiples of 1,024
+XLSTM_TRAIN_SPLIT = (77_390_992, 448_562_320, 77_393_920)
+XLSTM_SERVE_SPLIT = (77_390_992, 371_171_328)
+# 16 rows of the xLSTM paper's 2,048-token training context: the other zoo
+# prefills' 32,768 tokens; profiled at one mLSTM chunk, 128 tokens a row
+# (the sLSTM's time loop launches 19 kernels a position a layer)
+XLSTM_PREFILL, XLSTM_PROFILE = (16, 2048), (16, 128)
+JAMBA = "jamba-v0.1-52b"
+# of its 32 layers: one period of the layer program (4 Mamba + MoE, 3
+# Mamba + dense FFN, 1 attention + dense FFN); serving only, since FedPT
+# at full width needs more than the card (PERF.md, section 6)
+JAMBA_LAYERS = 8
+JAMBA_SERVE_SPLIT = (611_659_776, 12_683_575_296)
+# prefill_32k's length at batch 1, profiled at 4,096 (the Mamba loops
+# launch a kernel a position a layer)
+JAMBA_PREFILL, JAMBA_PROFILE = (1, PREFILL_LEN), (1, 4096)
+# decode against forward over 512 positions of one row at a capacity
+# factor where nothing drops: forward's 512 tokens x 2 of 16 experts get
+# round(512 * 2 / 16 * 8) = 512 slots an expert, a decode step's one token
+# 1 slot in each of its 2 experts
+JAMBA_CONSIST_CF = 8.0
+JAMBA_STEPPED = (1, CONSIST_LEN)
+# xLSTM's decode against forward, in float32: across the mLSTM's first
+# chunk boundary (128 positions). In bf16 the two differ by 4e-2 of the
+# largest |logit| at the first position and 1.6e-1 over 512 (one-ulp
+# flips grown ~3x by each sLSTM block through 24 layers; 4.6e-5 in
+# float32), so the bf16 gap is printed on the decode prompt
+XLSTM_STEPPED = (1, 160)
+
+
+def drive_xlstm_training(dev):
+    """Phase 9's training path: ``drive_zoo_training`` on xLSTM-350M, all
+    24 of its layers at full width, XLSTM_ROUNDS rounds, the profiled
+    round's busy share and launches from its CUDA activity alone, without
+    the by-op split (the profiler walks its ~39 k launches and their aten
+    ops in tens of seconds), the reduced round held at
+    REDUCED_LOSS_REL / REDUCED_UPDATE_REL (no MoE routing, no ReLU
+    kinks)."""
+    return drive_zoo_training(
+        XLSTM, XLSTM_LAYERS, XLSTM_ROUNDS, XLSTM_TRAIN_SPLIT, dev,
+        by_op=False, loss_rel=REDUCED_LOSS_REL,
+        update_rel=REDUCED_UPDATE_REL)
+
+
+def drive_xlstm_serving(dev):
+    """Phase 9's xLSTM serving: ``drive_zoo_serving`` on all 24 layers, a
+    16 x 2,048 prefill (1 warm-up, 2 timed), step-by-step prefill against
+    ``forward`` over XLSTM_STEPPED in float32 (the bf16 gap printed)."""
+    return drive_zoo_serving(XLSTM, XLSTM_LAYERS, XLSTM_SERVE_SPLIT, dev,
+                             1.25, prefill=XLSTM_PREFILL, timed=2,
+                             profile=XLSTM_PROFILE, stepped=XLSTM_STEPPED,
+                             stepped_f32=True)
+
+
+def drive_jamba_serving(dev):
+    """Phase 9's Jamba serving: ``drive_zoo_serving`` on one period (8 of
+    32 layers), a 1 x 32,768 prefill (1 warm-up, 2 timed) profiled at 1 x
+    4,096, kernel vs plain at 1 x 512 and step-by-step prefill against
+    ``forward`` over 512 positions at capacity factor JAMBA_CONSIST_CF;
+    then one reduced round card vs CPU (``check_model_round``'s default
+    bounds: a router near-tie may flip between the devices)."""
+    counts = drive_zoo_serving(JAMBA, JAMBA_LAYERS, JAMBA_SERVE_SPLIT, dev,
+                               JAMBA_CONSIST_CF, prefill=JAMBA_PREFILL,
+                               timed=2, profile=JAMBA_PROFILE,
+                               stepped=JAMBA_STEPPED)
+    torch.cuda.empty_cache()
+    check_reduced_round(JAMBA, dev)
+    return counts
+
+
+def drive_ssm(dev) -> dict:
+    """Phase 9: xLSTM-350M FedPT and serving, Jamba-v0.1 serving. Returns
+    the summed launch counts."""
+    totals = {}
+    for leg in (drive_xlstm_training, drive_xlstm_serving,
+                drive_jamba_serving):
+        t0 = time.perf_counter()
+        for name, n in leg(dev).items():
+            totals[name] = totals.get(name, 0) + n
+        print(f"[ssm] {leg.__name__} took {time.perf_counter() - t0:.1f} s")
+    if totals.get("sumsq", 0) < XLSTM_ROUNDS or \
+            totals.get("swa_attention", 0) <= 0:
+        raise AssertionError(f"phase 9: sumsq or swa_attention not "
+                             f"launched: {totals}")
+    return totals
+
+
 def other_tree(src: str, what: str) -> int:
     """``--kernel-times SRC`` / ``--dp-ftrl SRC``: build the kernels of the
     package under SRC (another tree, unpacked with ``git archive``, run in
@@ -4098,6 +4341,24 @@ def deepseek_only() -> int:
     drive_deepseek_training(dev)
     drive_deepseek_serving(dev)
     print(f"[deepseek] phase 8 took {time.perf_counter() - t8:.1f} s")
+    return 0
+
+
+def ssm_only() -> int:
+    """``--ssm``: build the kernels and drive phase 9 (xLSTM-350M's FedPT
+    training and serving, Jamba-v0.1's serving, at full width) alone, with
+    its gates."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build_all()
+    print(f"[ssm] card {card_line()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t9 = time.perf_counter()
+    drive_ssm(dev)
+    print(f"[ssm] phase 9 took {time.perf_counter() - t9:.1f} s")
     return 0
 
 
@@ -4280,10 +4541,12 @@ def main(argv) -> int:
         return mixtral_only()
     if argv == ["--deepseek"]:
         return deepseek_only()
+    if argv == ["--ssm"]:
+        return ssm_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               f"[--kernel-times SRC | --dp-ftrl SRC | --sweep | --mixtral | "
-              f"--deepseek]", file=sys.stderr)
+              f"--deepseek | --ssm]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import kernels
@@ -4433,7 +4696,14 @@ def main(argv) -> int:
             launches[name] += counts.get(name, 0)
     print(f"[deepseek] phase 8 took {time.perf_counter() - t8:.1f} s")
 
-    # --- phase 9: summary ------------------------------------------------
+    # --- phase 9: the SSM families: xLSTM-350M and Jamba-v0.1 ------------
+    t9 = time.perf_counter()
+    counts = drive_ssm(dev)
+    for name in launches:
+        launches[name] += counts.get(name, 0)
+    print(f"[ssm] phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    # --- phase 10: summary -----------------------------------------------
     if len(records) != 10:
         raise AssertionError(f"{len(records)} kernel records, not 10")
     for rec in records:

@@ -12,8 +12,10 @@ _MODULES = (
     "mixtral_8x7b",
     "deepseek_v2_236b",
     "qwen2_5_3b",
+    "jamba_v0_1_52b",
     "mistral_nemo_12b",
     "glm4_9b",
+    "xlstm_350m",
     "stablelm_1_6b",
 )
 

@@ -144,9 +144,7 @@ _REGISTRY: dict = {}
 # the reference's architectures not ported yet and the port module each
 # one needs first (ROADMAP Queue 1, item 12)
 WAITING = {
-    "jamba-v0.1-52b": "nn/ssm.py (Mamba)",
     "paligemma-3b": "the VLM prefix of models/decoder_lm.py",
-    "xlstm-350m": "nn/ssm.py (mLSTM / sLSTM)",
     "whisper-large-v3": "the encoder-decoder stack of models/decoder_lm.py",
 }
 

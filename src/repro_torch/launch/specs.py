@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, match_freeze
 from repro_torch.core import partition as part
 from repro_torch.models import decoder_lm as dlm
 from repro_torch.nn import basic
@@ -42,10 +42,25 @@ def serving_config(cfg: ModelConfig, shape: str) -> ModelConfig:
 
 def serving_split(params, cfg: ModelConfig):
     """(trainable f32, frozen bf16) halves of a parameter tree, split by
-    the config's freeze spec."""
-    y, z = part.partition(params, cfg.freeze_spec)
-    return (basic.tree_map(lambda x: x.float(), y),
-            basic.tree_map(lambda x: x.to(torch.bfloat16), z))
+    the config's freeze spec.
+
+    ``params`` is consumed: each frozen leaf is taken out of it as its
+    bf16 copy is made, so that the float32 leaf is freed at once (when
+    the caller holds it nowhere else) rather than after the whole frozen
+    half is copied. Eight layers of Jamba-v0.1 at full width would
+    otherwise hold 47.2 GiB of frozen float32 beside its 23.6 GiB bf16
+    copy. The trainable leaves stay in ``params``."""
+    y, z = {}, {}
+    for path in [p for p, _ in basic.flatten_params(params)]:
+        *dirs, name = path.split("/")
+        parent = params
+        for d in dirs:
+            parent = parent[d]
+        if match_freeze(path, cfg.freeze_spec):
+            z[path] = parent.pop(name).to(torch.bfloat16)
+        else:
+            y[path] = parent[name].float()
+    return basic.unflatten_params(y), basic.unflatten_params(z)
 
 
 def param_structs(cfg: ModelConfig, seed: int = 0):

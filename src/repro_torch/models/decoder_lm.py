@@ -1,5 +1,6 @@
-"""Decoder-only LM, port of the dense and MoE families of
-``repro/models/decoder_lm.py``, with GQA or MLA attention.
+"""Decoder-only LM, port of the dense, MoE, hybrid (Jamba) and SSM
+(xLSTM) families of ``repro/models/decoder_lm.py``, with GQA or MLA
+attention, Mamba, mLSTM and sLSTM blocks (``nn/ssm.py``).
 
 The layer stack is a *periodic program*: ``num_layers / period`` identical
 groups of ``period`` slots. Each leaf of the stack is stacked over the
@@ -11,13 +12,17 @@ scans. Group g's leaves are drawn from ``fold_in(path_key(seed,
 KV caches: full-length buffers for global attention, or a ring buffer of
 ``sliding_window`` entries when the window is shorter than the cache
 (Mistral-style rolling cache, the ``long_500k`` serving shape); MLA
-caches the compressed (c_kv, k_pe) pair instead of K and V. The cache's
-``cache_len`` is a Python int (the decode loop is eager).
+caches the compressed (c_kv, k_pe) pair instead of K and V. Mamba,
+mLSTM and sLSTM slots carry constant-size recurrent states (float32,
+their conv windows in the compute dtype), which decode writes in place
+as it writes K / V. The cache's ``cache_len`` is a Python int (the
+decode loop is eager).
 
-Attention slots (GQA, or MLA when ``cfg.use_mla``) with a dense or MoE
-(``nn/moe.py``) FFN. Mamba, xLSTM, VLM and encoder-decoder stacks raise
-``NotImplementedError`` until the slices that port ``nn/ssm.py``, the VLM
-prefix and the encoder-decoder stack.
+Attention slots (GQA, or MLA when ``cfg.use_mla``) and Mamba slots take a
+dense or MoE (``nn/moe.py``) FFN after a second norm; mLSTM and sLSTM
+blocks carry their own projections and have none. VLM and
+encoder-decoder stacks raise ``NotImplementedError`` until the slices
+that port the VLM prefix and the encoder-decoder stack.
 
 ``forward`` takes the attention function explicitly: the serving prefill
 runs ``nn/attention.flash_attention`` (the ``swa_attention`` kernel on
@@ -33,9 +38,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from repro_torch.nn import attention as attn_lib
-from repro_torch.nn import basic, moe as moe_lib, threefry
+from repro_torch.nn import basic, moe as moe_lib, ssm as ssm_lib, threefry
 
 
 # ---------------------------------------------------------------------------
@@ -65,16 +70,12 @@ def layer_program(cfg: ModelConfig) -> Tuple[Tuple[Slot, ...], int]:
     return slots, cfg.num_layers // period
 
 
-def _refuse_ssm_vlm_encdec(cfg: ModelConfig, slots) -> None:
-    """Raise for the stacks not ported yet: SSM slots, the VLM prefix and
-    the encoder-decoder stack."""
+def _refuse_vlm_encdec(cfg: ModelConfig) -> None:
+    """Raise for the stacks not ported yet: the VLM prefix and the
+    encoder-decoder stack."""
     if cfg.family == "vlm" or cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} stack is "
                                   f"not ported yet")
-    for slot in slots:
-        if slot.kind != ATTN:
-            raise NotImplementedError(f"{cfg.name}: {slot.kind} slots "
-                                      f"(nn/ssm.py) are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -84,15 +85,20 @@ def _refuse_ssm_vlm_encdec(cfg: ModelConfig, slots) -> None:
 def _init_slot(key, cfg: ModelConfig, slot: Slot, si: int, device=None):
     dt = cfg.pdtype
     path = f"layers/slot{si}"
-    p = {
-        "ln1": basic.init_norm(key, f"{path}/ln1", cfg.d_model, dt,
-                               cfg.norm_type, device),
-        "attn": (attn_lib.init_mla if cfg.use_mla else
-                 attn_lib.init_attention)(key, f"{path}/attn", cfg, dt,
-                                          device),
-        "ln2": basic.init_norm(key, f"{path}/ln2", cfg.d_model, dt,
-                               cfg.norm_type, device),
-    }
+    p = {"ln1": basic.init_norm(key, f"{path}/ln1", cfg.d_model, dt,
+                                cfg.norm_type, device)}
+    if slot.kind == ATTN:
+        p["attn"] = (attn_lib.init_mla if cfg.use_mla else
+                     attn_lib.init_attention)(key, f"{path}/attn", cfg, dt,
+                                              device)
+    else:
+        init = {MAMBA: ssm_lib.init_mamba, MLSTM: ssm_lib.init_mlstm,
+                SLSTM: ssm_lib.init_slstm}[slot.kind]
+        p[slot.kind] = init(key, f"{path}/{slot.kind}", cfg, dt, device)
+    if slot.kind not in (ATTN, MAMBA):  # the xLSTM cells have no FFN
+        return p
+    p["ln2"] = basic.init_norm(key, f"{path}/ln2", cfg.d_model, dt,
+                               cfg.norm_type, device)
     if slot.use_moe:
         p["moe"] = moe_lib.init_moe(key, f"{path}/moe", cfg, dt, device)
     else:
@@ -123,7 +129,7 @@ def _init_stack(seed, cfg: ModelConfig, device=None):
 def init_model(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
     """The parameter tree, on the card unless ``device="cpu"``."""
     dev = resolve_device(device)
-    _refuse_ssm_vlm_encdec(cfg, layer_program(cfg)[0])
+    _refuse_vlm_encdec(cfg)
     dt = cfg.pdtype
     p: Dict[str, Any] = {
         "embed": basic.init_embedding(seed, "embed", cfg.vocab_size,
@@ -166,9 +172,32 @@ def _ffn(h2, sp, cfg: ModelConfig, slot: Slot):
 def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux,
                 attention):
     """One residual block; ``attention`` is ``flash_attention`` or
-    ``chunked_attention``. Returns (x, aux, cache_entry)."""
-    cd = cfg.cdtype
+    ``chunked_attention``. Returns (x, aux, cache_entry): an attention
+    slot's (k, v) or MLA's (c_kv, k_pe), Mamba's (h, conv tail), the
+    mLSTM's (C, n), the sLSTM's (c, n, h, m)."""
     h = basic.apply_norm(x, sp["ln1"], cfg.norm_type)
+    if slot.kind == MLSTM:
+        o, cache = ssm_lib.mlstm_forward(h, sp["mlstm"], cfg)
+        return x + o, aux, cache
+    if slot.kind == SLSTM:
+        o, cache = ssm_lib.slstm_forward(h, sp["slstm"], cfg)
+        return x + o, aux, cache
+    if slot.kind == MAMBA:
+        o, cache = ssm_lib.mamba_forward(h, sp["mamba"], cfg)
+        x = x + o
+    else:
+        x, cache = _attend(x, h, sp, cfg, positions, attention)
+    h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
+    y, aux_l = _ffn(h2, sp, cfg, slot)
+    if aux_l is not None:
+        aux = aux + aux_l
+    return x + y, aux, cache
+
+
+def _attend(x, h, sp, cfg: ModelConfig, positions, attention):
+    """The attention half of an attention slot: (x + attention output,
+    the cache entry)."""
+    cd = cfg.cdtype
     if cfg.use_mla:
         q, k, v, cache = attn_lib.mla_qkv(h, sp["attn"], cfg, positions)
         o = attention(q, k, v, cfg.with_(sliding_window=0))
@@ -183,12 +212,7 @@ def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux,
         cache = (k, v)
     del q, k, v
     o = basic.dense(o.reshape(o.shape[0], o.shape[1], -1), sp["attn"]["wo"], cd)
-    x = x + o
-    h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
-    y, aux_l = _ffn(h2, sp, cfg, slot)
-    if aux_l is not None:
-        aux = aux + aux_l
-    return x + y, aux, cache
+    return x + o, cache
 
 
 def _group(tree, g: int):
@@ -232,12 +256,16 @@ def forward(params, cfg: ModelConfig, tokens, return_caches: bool = False,
     ``flash_attention``'s signature; None is ``nn/attention.flash_attention``
     (the kernel on the card, the serving prefill's). Returns (logits (B,
     S, V), metrics[, caches]); metrics' ``moe_aux_loss`` (float32) sums
-    the MoE layers' aux losses; caches hold each slot's (k, v), (G, B, S,
-    kv_heads, head_dim), or with MLA its (c_kv (G, B, S, kv_lora_rank),
-    k_pe (G, B, S, qk_rope_head_dim)), stacked over groups."""
+    the MoE layers' aux losses; caches hold each slot's entry stacked over
+    groups: an attention slot's (k, v), (G, B, S, kv_heads, head_dim), or
+    with MLA its (c_kv (G, B, S, kv_lora_rank), k_pe (G, B, S,
+    qk_rope_head_dim)); Mamba's (h (G, B, d_inner, d_state) float32, the
+    pre-conv tail (G, B, d_conv - 1, d_inner)); the mLSTM's (C (G, B, nh,
+    dh, dh), n (G, B, nh, dh)); the sLSTM's (c, n, h, m), each (G, B, nh,
+    dh), all float32."""
     cd = cfg.cdtype
     attention = attention or attn_lib.flash_attention
-    _refuse_ssm_vlm_encdec(cfg, layer_program(cfg)[0])
+    _refuse_vlm_encdec(cfg)
     x = basic.embed(tokens, params["embed"], cd)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if not cfg.use_rope:
@@ -300,29 +328,83 @@ def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None):
     """Zero caches for decoding up to max_len tokens: a per-slot entry
-    stacked over groups, plus ``cache_len`` (an int). On the card unless
-    ``device="cpu"``."""
+    stacked over groups, plus ``cache_len`` (an int). Attention slots hold
+    K / V (or MLA's c_kv / k_pe) in ``dtype`` (default the compute
+    dtype); Mamba slots h (G, B, d_inner, d_state) and the conv window
+    (G, B, d_conv - 1, d_inner); mLSTM slots C, n and the conv window (G,
+    B, 3, d_in); sLSTM slots c, n, h, m (m = -30) and the conv window (G,
+    B, 3, d_model): the states float32, the windows in ``dtype``. On the
+    card unless ``device="cpu"``."""
     dev = resolve_device(device)
     cd = dtype or cfg.cdtype
+    f32 = torch.float32
     slots, G = layer_program(cfg)
-    _refuse_ssm_vlm_encdec(cfg, slots)
+    _refuse_vlm_encdec(cfg)
     S = cache_capacity(cfg, max_len)
-    if cfg.use_mla:
-        dims = {"ckv": (cfg.kv_lora_rank,), "kpe": (cfg.qk_rope_head_dim,)}
-    else:
-        kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
-        dims = {"k": kv, "v": kv}
-    entries = {f"slot{i}": {
-        name: torch.zeros((G, batch, S) + d, dtype=cd, device=dev)
-        for name, d in dims.items()} for i in range(len(slots))}
+    d_in_x, nh_x, dh_x = ssm_lib.xlstm_dims(cfg)
+    di, _ = ssm_lib.mamba_dims(cfg)
+    nh, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+
+    def zeros(*shape, dt=cd):
+        return torch.zeros((G, batch) + shape, dtype=dt, device=dev)
+    entries = {}
+    for i, slot in enumerate(slots):
+        if slot.kind == ATTN and cfg.use_mla:
+            e = {"ckv": zeros(S, cfg.kv_lora_rank),
+                 "kpe": zeros(S, cfg.qk_rope_head_dim)}
+        elif slot.kind == ATTN:
+            kv = (S, cfg.num_kv_heads, cfg.resolved_head_dim)
+            e = {"k": zeros(*kv), "v": zeros(*kv)}
+        elif slot.kind == MAMBA:
+            e = {"h": zeros(di, cfg.mamba_d_state, dt=f32),
+                 "conv": zeros(cfg.mamba_d_conv - 1, di)}
+        elif slot.kind == MLSTM:
+            e = {"C": zeros(nh_x, dh_x, dh_x, dt=f32),
+                 "n": zeros(nh_x, dh_x, dt=f32), "conv": zeros(3, d_in_x)}
+        else:
+            e = {name: zeros(nh, dh, dt=f32) for name in "cnh"}
+            e["m"] = zeros(nh, dh, dt=f32) - 30.0
+            e["conv"] = zeros(3, cfg.d_model)
+        entries[f"slot{i}"] = e
     return {"slots": entries, "cache_len": 0}
+
+
+def _write(cache, new):
+    """Write a recurrent slot's new state into its cache in place."""
+    for name, t in new.items():
+        cache[name].copy_(t)
 
 
 def _decode_slot(x, sp, cfg: ModelConfig, slot: Slot, cache, cache_len: int,
                  pos):
     """x: (B,1,d). Returns (x, new_cache); the cache is written in place."""
-    cd = cfg.cdtype
     h = basic.apply_norm(x, sp["ln1"], cfg.norm_type)
+    if slot.kind == MLSTM:
+        o, (C, n, conv) = ssm_lib.mlstm_step(
+            h[:, 0], sp["mlstm"], cfg, (cache["C"], cache["n"], cache["conv"]))
+        _write(cache, {"C": C, "n": n, "conv": conv})
+        return x + o[:, None, :], cache
+    if slot.kind == SLSTM:
+        cell = tuple(cache[name] for name in "cnhm")
+        o, (cell, conv) = ssm_lib.slstm_step(h[:, 0], sp["slstm"], cfg,
+                                             (cell, cache["conv"]))
+        _write(cache, dict(zip("cnhm", cell), conv=conv))
+        return x + o[:, None, :], cache
+    if slot.kind == MAMBA:
+        o, (hh, conv) = ssm_lib.mamba_step(h[:, 0], sp["mamba"], cfg,
+                                           (cache["h"], cache["conv"]))
+        _write(cache, {"h": hh, "conv": conv})
+        x = x + o[:, None, :]
+    else:
+        x = x + _decode_attend(h, sp, cfg, cache, cache_len, pos)
+    h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
+    return x + _ffn(h2, sp, cfg, slot)[0], cache
+
+
+def _decode_attend(h, sp, cfg: ModelConfig, cache, cache_len: int, pos):
+    """An attention slot's decode output for the normed x ``h`` (B, 1,
+    d), its K / V (or c_kv / k_pe) written into the ring in place."""
+    cd = cfg.cdtype
     S = cache["ckv" if cfg.use_mla else "k"].shape[1]
     widx = cache_len % S                       # ring write index
     cl_eff = min(cache_len + 1, S)
@@ -330,34 +412,31 @@ def _decode_slot(x, sp, cfg: ModelConfig, slot: Slot, cache, cache_len: int,
         ckv, kpe = attn_lib.mla_compress(h, sp["attn"], cfg, pos[None, :])
         cache["ckv"][:, widx:widx + 1] = ckv.to(cache["ckv"].dtype)
         cache["kpe"][:, widx:widx + 1] = kpe.to(cache["kpe"].dtype)
-        o = attn_lib.mla_decode(h, sp["attn"], cfg, cache["ckv"],
-                                cache["kpe"], cl_eff)
-    else:
-        q, k, v = attn_lib.qkv_project(h, sp["attn"], cfg)
-        if cfg.use_rope:
-            cos, sin = attn_lib.rope_freqs(cfg.resolved_head_dim,
-                                           cfg.rope_theta, pos[None, :])
-            q = attn_lib.apply_rope(q, cos, sin)
-            k = attn_lib.apply_rope(k, cos, sin)
-        cache["k"][:, widx:widx + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, widx:widx + 1] = v.to(cache["v"].dtype)
-        o = attn_lib.decode_attention(q, cache["k"], cache["v"], cl_eff,
-                                      cfg.with_(sliding_window=0))
-        o = basic.dense(o.reshape(o.shape[0], 1, -1), sp["attn"]["wo"], cd)
-    x = x + o
-    h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
-    return x + _ffn(h2, sp, cfg, slot)[0], cache
+        return attn_lib.mla_decode(h, sp["attn"], cfg, cache["ckv"],
+                                   cache["kpe"], cl_eff)
+    q, k, v = attn_lib.qkv_project(h, sp["attn"], cfg)
+    if cfg.use_rope:
+        cos, sin = attn_lib.rope_freqs(cfg.resolved_head_dim,
+                                       cfg.rope_theta, pos[None, :])
+        q = attn_lib.apply_rope(q, cos, sin)
+        k = attn_lib.apply_rope(k, cos, sin)
+    cache["k"][:, widx:widx + 1] = k.to(cache["k"].dtype)
+    cache["v"][:, widx:widx + 1] = v.to(cache["v"].dtype)
+    o = attn_lib.decode_attention(q, cache["k"], cache["v"], cl_eff,
+                                  cfg.with_(sliding_window=0))
+    return basic.dense(o.reshape(o.shape[0], 1, -1), sp["attn"]["wo"], cd)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens):
     """tokens: (B, 1) integer -> (logits (B, 1, V), new cache).
 
     The reference returns a new cache; this one writes the new token's K/V
-    into the ring slots of ``cache`` in place (saving a copy of every
-    layer's cache per token) and returns it with ``cache_len + 1``."""
+    into the ring slots of ``cache``, and the recurrent slots' new states
+    over their old ones, in place (saving a copy of every layer's cache
+    per token) and returns it with ``cache_len + 1``."""
     cd = cfg.cdtype
     slots, G = layer_program(cfg)
-    _refuse_ssm_vlm_encdec(cfg, slots)
+    _refuse_vlm_encdec(cfg)
     cache_len = int(cache["cache_len"])
     pos = torch.tensor([cache_len], device=tokens.device)
     x = basic.embed(tokens, params["embed"], cd)

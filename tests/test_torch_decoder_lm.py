@@ -85,8 +85,8 @@ def test_configs_match_the_reference():
     assert tspecs.serving_config(cfg, "long_500k").sliding_window == 8192
     assert tspecs.serving_config(cfg, "prefill_32k").sliding_window == 0
     assert tspecs.SHAPES == jspecs.SHAPES
-    with pytest.raises(KeyError, match="nn/ssm.py"):
-        tbase.get_config("jamba-v0.1-52b")
+    with pytest.raises(KeyError, match="VLM prefix"):
+        tbase.get_config("paligemma-3b")
     with pytest.raises(KeyError, match="unknown"):
         tbase.get_config("no-such-arch")
 
@@ -185,7 +185,8 @@ def test_prefill_and_decode_steps_on_the_split(jax_params, params):
     """The serving split (trainable f32, frozen bf16) through both
     packages' step functions: the same frozen bf16 values, merged back."""
     jcfg, tcfg = _cfgs(16)
-    y, z = tspecs.serving_split(params, tcfg)
+    # serving_split consumes its tree's frozen leaves: give it a copy
+    y, z = tspecs.serving_split(tbasic.tree_map(lambda x: x, params), tcfg)
     assert {p for p, _ in tbasic.flatten_params(z)} == {
         f"layers/slot0/ffn/{n}/kernel" for n in ("wi_gate", "wi_up", "wo")}
     assert all(x.dtype == torch.bfloat16 for x in tbasic.tree_leaves(z))
@@ -215,7 +216,7 @@ def test_prefill_and_decode_steps_on_the_split(jax_params, params):
 
 def test_steps_refuse_parameters_on_another_device(params):
     tcfg = _cfgs()[1]
-    y, z = tspecs.serving_split(params, tcfg)
+    y, z = tspecs.serving_split(tbasic.tree_map(lambda x: x, params), tcfg)
     meta = tbasic.tree_map(lambda x: x.to("meta"), y)
     with pytest.raises(ValueError, match="meta"):
         tspecs.make_prefill_step(tcfg, device="cpu")(meta, z,
@@ -223,12 +224,11 @@ def test_steps_refuse_parameters_on_another_device(params):
 
 
 def test_unported_features_raise(params):
-    """The stacks still waiting for their slices (the VLM prefix, SSM
-    slots, the encoder-decoder stack) raise; MLA is ported
-    (tests/test_torch_mla.py)."""
+    """The stacks still waiting for their slices (the VLM prefix, the
+    encoder-decoder stack) raise; MLA (tests/test_torch_mla.py) and the
+    SSM slots (tests/test_torch_ssm.py) are ported."""
     tcfg = _cfgs()[1]
     for cfg in (tcfg.with_(family="vlm"),
-                tcfg.with_(family="ssm"),
                 tcfg.with_(is_encoder_decoder=True)):
         with pytest.raises(NotImplementedError):
             tdlm.init_model(cfg, 0, device="cpu")

@@ -283,7 +283,8 @@ def test_serving_split_and_steps(params):
     decode steps on it run, and the full-width shapes-only split counts
     DeepSeek-V2's parameters at 2 layers."""
     tcfg = _cfgs()[1]
-    y, z = tspecs.serving_split(params, tcfg)
+    # serving_split consumes its tree's frozen leaves: give it a copy
+    y, z = tspecs.serving_split(tbasic.tree_map(lambda x: x, params), tcfg)
     assert {p for p, _ in tbasic.flatten_params(z)} == {
         f"layers/slot0/moe/{n}" for n in ("wi_gate", "wi_up", "wo")}
     toks = _tokens(5, 1, 10)

@@ -1,6 +1,7 @@
 """The port's model zoo against the JAX package, on each ported assigned
-architecture's ``reduced_config`` (2 layers, d_model 256, 4 heads, vocab
-512, at most 4 experts, float32 compute): configs, the stacked init,
+architecture's ``reduced_config`` (2 layers, or one period of the layer
+program: Jamba's 8, xLSTM's 4; d_model 256, 4 heads, vocab 512, at most
+4 experts, float32 compute): configs, the stacked init,
 ``forward`` logits and the MoE aux loss, ``train_loss`` and its gradient
 into the trainable tree, and one federated step; for Mixtral also decode
 against JAX's decode (capacity 1.25, drops included), decode against
@@ -50,9 +51,8 @@ from repro_torch.nn import basic as tbasic
 
 load_all()
 ARCHS = ["mixtral-8x7b", "deepseek-v2-236b", "qwen2.5-3b", "glm4-9b",
-         "stablelm-1.6b"]
-WAITING = ["jamba-v0.1-52b", "paligemma-3b", "xlstm-350m",
-           "whisper-large-v3"]
+         "stablelm-1.6b", "jamba-v0.1-52b", "xlstm-350m"]
+WAITING = ["paligemma-3b", "whisper-large-v3"]
 RTOL = ATOL = 1e-4
 GRAD_REL = 1e-4
 ULPS = 4
@@ -138,8 +138,10 @@ def test_init_leaves_match_jax(arch):
         if "/ln" in path or "norm" in path or path.endswith("/bias"):
             assert not g.any(), path
     jcfg = _cfgs(arch)[0]
-    if jcfg.num_experts:
-        assert got["layers/slot0/moe/wi_gate"].shape == (2, 4, 256, 512)
+    if jcfg.num_experts:   # the first MoE slot's experts, stacked over groups
+        slots, G = tdlm.layer_program(_cfgs(arch)[1])
+        si = next(i for i, slot in enumerate(slots) if slot.use_moe)
+        assert got[f"layers/slot{si}/moe/wi_gate"].shape == (G, 4, 256, 512)
     assert ("unembed/kernel" in got) != jcfg.tie_embeddings
 
 

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --mixtral   # phase 7 alone (Mixtral-8x7B)
     python3 chip_smoke.py --deepseek  # phase 8 alone (DeepSeek-V2, MLA)
     python3 chip_smoke.py --ssm       # phase 9 alone (xLSTM-350M, Jamba-v0.1)
+    python3 chip_smoke.py --vlm-encdec  # phase 10 alone (PaliGemma, Whisper)
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -248,14 +249,15 @@ package. Phases, in order, each failing the run on error:
    / 32) against their plain versions, and times it at the prefill's
    (1, 128, 32,768, 192 / 128) against its 44.47 ms bound beside
    ``scaled_dot_product_attention``;
-9. the SSM families at full width (``nn/ssm.py``): xLSTM-350M, all 24
-   layers, trained by FedPT (its frozen split asserted, 8 rounds of
+9. the SSM families at full width (``nn/ssm.py``): xLSTM-350M, 8 of its
+   24 layers, trained by FedPT (its frozen split asserted, 8 rounds of
    ``run_reduced_arch``'s data and round, a finite falling loss, sumsq
    once a round at the flat width and within its bound of a float64 sum,
    one profiled round, the reduced config's round card vs CPU) and served
    (a 16 x 2,048 prefill, profiled at 16 x 128, greedy decode with the
    recurrent state's bytes, the step-by-step prefill against ``forward``
-   over 160 positions in float32, the bf16 gap printed); Jamba-v0.1
+   over 160 positions in float32, the bf16 gap printed) at all 24;
+   Jamba-v0.1
    served at one period, 8 of its 32 layers (a 1 x 32,768 prefill with
    ``swa_attention`` in its attention
    layer, profiled at 1 x 4,096 into Mamba's scan and projections,
@@ -263,8 +265,25 @@ package. Phases, in order, each failing the run on error:
    plain attention and step-by-step prefill against ``forward`` on 1 x
    512, the second side routed as the first) and its reduced round card
    vs CPU;
-10. print the ``kernels`` JSON line, the card's name and power limit,
-   and, last, the ``{"ok": true, "device": ...}`` line.
+10. the VLM and the encoder-decoder at full width: PaliGemma-3B trained
+   by FedPT at 8 of its 18 layers (the 18-layer split asserted on meta
+   tensors; 256 zero patch embeddings before each sentence) and served
+   at all 18 (a 64 x (256 + 256) prefill through
+   ``swa_attention`` with the bidirectional prefix at head dim 256,
+   profiled at 8 x (256 + 256), greedy text decode, kernel vs plain on 1
+   x (256 + 64) and the step-by-step prefill against ``forward``);
+   Whisper large-v3 trained by FedPT at 3 + 3 layers over the full 1,500
+   zero frames and served at 32 + 32 (16 x 1,500 frames and 16 x 448
+   tokens: ``swa_attention`` in every encoder, decoder and
+   cross-attention call, 96 a prefill; decode against
+   ``build_cross_cache``'s K / V, the cross cache's bytes a sequence;
+   kernel vs plain and stepped decode vs ``forward`` at 1 x 1,500 frames
+   and 64 tokens); each with its split asserted, a falling loss,
+   ``sumsq`` once a round and a reduced round card vs CPU; phase 2 holds
+   and times the kernel at their three shapes;
+11. print the ``kernels`` JSON line, the card's name and power limit,
+   and, last, the ``{"ok": true, "device": ...}`` line. Each phase prints
+   its seconds on a line of its own.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -1826,32 +1845,39 @@ def recorded_launches(fn, name: str, iters: int) -> int:
     return sum(ev.count for ev in profiled_calls(fn, iters) if name in ev.key)
 
 
-def swa_where(q, k, v, window) -> str:
+def swa_where(q, k, v, window, causal=True, prefix_len=0) -> str:
     """``((1, 32, 4096), DK 128 / DV 128, bfloat16, 8 kv heads, window
-    0)``: the shape and window a swa_attention check names."""
+    0)``: the shape and window a swa_attention check names (and the keys,
+    the mask and the prefix where they are not the causal default)."""
+    more = "" if k.shape[2] == q.shape[2] else f", {k.shape[2]} keys"
+    more += "" if causal else ", non-causal"
+    more += f", prefix {prefix_len}" if prefix_len else ""
     return (f"({tuple(q.shape[:3])}, DK {q.shape[3]} / DV {v.shape[3]}, "
-            f"{str(q.dtype)[6:]}, {k.shape[1]} kv heads, window {window})")
+            f"{str(q.dtype)[6:]}, {k.shape[1]} kv heads, window "
+            f"{window}{more})")
 
 
-def check_swa(q, k, v, window):
+def check_swa(q, k, v, window, causal=True, prefix_len=0):
     """swa_attention's float32-p mode within SWA_REL (2**-20 in float32)
     relative + SWA_ABS of ``ref.swa_attention_ref``, in q's dtype and
-    (B, H, S, DV) shape, and the same bits twice."""
+    (B, H, Sq, DV) shape, and the same bits twice."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import swa_attention as swa
-    got = swa.swa_attention(q, k, v, window=window)
-    want = ref.swa_attention_ref(q, k, v, window)
+    kw = dict(window=window, causal=causal, prefix_len=prefix_len)
+    got = swa.swa_attention(q, k, v, **kw)
+    want = ref.swa_attention_ref(q, k, v, window, causal,
+                                 prefix_len=prefix_len)
     rel = 2.0 ** -20 if q.dtype == torch.float32 else SWA_REL
     err = (got.float() - want).abs()
     worst = float((err / (rel * want.abs() + SWA_ABS)).max())
     del want
-    where = swa_where(q, k, v, window)
+    where = swa_where(q, k, v, window, causal, prefix_len)
     if (got.dtype != q.dtype or got.shape != q.shape[:3] + v.shape[3:]
             or worst > 1.0):
         raise AssertionError(f"swa_attention off its plain version "
                              f"{where}: max err {float(err.max())}, "
                              f"{worst:.3f} of the tolerance")
-    if not same_bits(swa.swa_attention(q, k, v, window=window), got):
+    if not same_bits(swa.swa_attention(q, k, v, **kw), got):
         raise AssertionError(f"swa_attention differs between two runs "
                              f"{where}")
     print(f"  swa_attention == plain within 2**{int(math.log2(rel))} rel + "
@@ -1860,7 +1886,8 @@ def check_swa(q, k, v, window):
           f"bits twice {where}")
 
 
-def check_swa_round_p(q, k, v, window, want=None):
+def check_swa_round_p(q, k, v, window, want=None, causal=True,
+                      prefix_len=0):
     """swa_attention's round-once mode within bound (i)
     (``swa.round_p_tolerance``) of ``want``, by default
     ``ref.chunked_attention_ref(..., chunk=64)`` computed here, closer to it
@@ -1868,27 +1895,29 @@ def check_swa_round_p(q, k, v, window, want=None):
     twice."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import swa_attention as swa
-    got = swa.swa_attention(q, k, v, window=window, round_p=True)
+    kw = dict(window=window, causal=causal, prefix_len=prefix_len)
+    got = swa.swa_attention(q, k, v, round_p=True, **kw)
     if want is None:
-        want = ref.chunked_attention_ref(q, k, v, window, chunk=swa.BK)
-    tol = swa.round_p_tolerance(q, k, v, window, True, got, want)
+        want = ref.chunked_attention_ref(q, k, v, window, causal,
+                                         chunk=swa.BK, prefix_len=prefix_len)
+    tol = swa.round_p_tolerance(q, k, v, window, causal, got, want,
+                                prefix_len=prefix_len)
     err = (got.float() - want.float()).abs()
     worst = float((err / tol).max())
     del tol
-    where = swa_where(q, k, v, window)
+    where = swa_where(q, k, v, window, causal, prefix_len)
     if (got.dtype != q.dtype or got.shape != q.shape[:3] + v.shape[3:]
             or worst > 1.0):
         raise AssertionError(f"swa_attention round_p off its plain version "
                              f"{where}: max err {float(err.max())}, "
                              f"{worst:.3f} of bound (i)")
     rms = [float((a.float() - want.float()).pow(2).mean().sqrt())
-           for a in (got, swa.swa_attention(q, k, v, window=window))]
+           for a in (got, swa.swa_attention(q, k, v, **kw))]
     if not rms[0] < 0.5 * rms[1]:
         raise AssertionError(f"swa_attention round_p is not closer to the "
                              f"round-once oracle than the float32-p mode "
                              f"{where}: RMS {rms}")
-    if not same_bits(swa.swa_attention(q, k, v, window=window, round_p=True),
-                     got):
+    if not same_bits(swa.swa_attention(q, k, v, round_p=True, **kw), got):
         raise AssertionError(f"swa_attention round_p differs between two "
                              f"runs {where}")
     print(f"  swa_attention round_p == chunked_attention_ref(chunk=64) "
@@ -3385,8 +3414,8 @@ MOE_CHECK_TOKENS = 512
 # moe_ffn against its dense oracle, float32 compute: tests/test_moe.py's
 # bounds
 MOE_RTOL, MOE_ATOL = 2e-4, 2e-5
-# the profiler ranges of the prefill's split: nn/moe's and nn/attention's
-# functions (module, name), by kind
+# the profiler ranges of the prefill's split: nn/moe's, nn/attention's,
+# nn/ssm's and models/decoder_lm's functions (module, name), by kind
 RANGES = {("moe", "router_topk"): "dispatch",
           ("moe", "_sort_dispatch"): "dispatch",
           ("moe", "_combine_local"): "dispatch",
@@ -3395,7 +3424,17 @@ RANGES = {("moe", "router_topk"): "dispatch",
           ("ssm", "mamba_forward"): "mamba",
           ("ssm", "_mamba_scan"): "mamba_scan",
           ("ssm", "mlstm_forward"): "mlstm",
-          ("ssm", "slstm_forward"): "slstm"}
+          ("ssm", "slstm_forward"): "slstm",
+          ("decoder_lm", "encode"): "encoder",
+          ("decoder_lm", "_cross_attend"): "cross_attn"}
+
+
+def range_module(mod: str):
+    """The port's module of a RANGES entry: ``models/decoder_lm`` or one
+    of ``nn/``."""
+    import importlib
+    pkg = "models" if mod == "decoder_lm" else "nn"
+    return importlib.import_module(f"repro_torch.{pkg}.{mod}")
 
 
 class round_timer:
@@ -3469,9 +3508,31 @@ def check_moe_full_width(params, cfg, dev):
                              "full width")
 
 
+def stub_note(cfg) -> str:
+    """What the stubbed frontend feeds the VLM or the encoder-decoder in
+    ``arch_task``'s rounds, for the phase lines."""
+    if cfg.family == "vlm":
+        return (f" after {cfg.num_prefix_tokens} zero patch embeddings "
+                f"({cfg.num_prefix_tokens + 32} positions)")
+    if cfg.is_encoder_decoder:
+        return f" against {cfg.encoder_seq_len} zero frames"
+    return ""
+
+
 def zoo_widths(cfg) -> str:
     """A config's widths, for the phase headers."""
     from repro_torch.nn import ssm
+    if cfg.family in ("vlm", "audio"):
+        front = (f"{cfg.num_prefix_tokens} prefix positions from "
+                 f"{cfg.num_prefix_tokens} x 1152 patch embeddings"
+                 if cfg.family == "vlm" else
+                 f"{cfg.encoder_layers} encoder layers over "
+                 f"{cfg.encoder_seq_len} frames, cross-attention in each "
+                 f"decoder layer")
+        return (f"d_model {cfg.d_model}, {cfg.num_heads} heads over "
+                f"{cfg.num_kv_heads} kv heads of {cfg.resolved_head_dim}, "
+                f"{cfg.norm_type}, {'gated ' if cfg.gated_mlp else ''}"
+                f"{cfg.act} d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {front}")
     if cfg.family == "ssm":
         d_in, nh, dh = ssm.xlstm_dims(cfg)
         return (f"d_model {cfg.d_model}, mLSTM {nh} heads of {dh} (d_in "
@@ -3511,15 +3572,20 @@ def float64_sumsq(x, piece: int = 1 << 26) -> float:
 
 
 def drive_zoo_training(arch, layers, rounds, split, dev, after=None,
-                       by_op=True, **tols):
-    """FedPT on ``arch`` at full width, ``layers`` of its layers, the
+                       by_op=True, encoder_layers=None, may_overflow=(),
+                       **tols):
+    """FedPT on ``arch`` at full width, ``layers`` of its layers (and
+    ``encoder_layers`` of an encoder-decoder's encoder layers), the
     config's dtypes (float32 parameters, bf16 compute) and freeze spec
     (the routed experts frozen; the rest trained), ``rounds`` rounds
     through ``runtime.run_federated`` with ``run_reduced_arch``'s data and
     round configuration, the launch counts set to 0 just before and read
     just after. Gates: the (trainable, total, flat size) ``split``, a
     finite falling loss, sumsq launched once a round at the flat width and
-    within ``dp_clip.sumsq_rtol`` of a float64 sum there; then sumsq timed
+    within ``dp_clip.sumsq_rtol`` of a float64 sum of the trained y there
+    (where that sum passes float32's range: inf, the leaves whose own sums
+    pass it exactly ``may_overflow``, and the bound held on the trained y
+    with those leaves zeroed, at the same width); then sumsq timed
     at that width, the peak memory with the init and around one client
     update, one profiled round and (with ``by_op``; else the round's
     CUDA activity alone) its device time by op, ``after(params, cfg)`` on
@@ -3533,16 +3599,22 @@ def drive_zoo_training(arch, layers, rounds, split, dev, after=None,
     from repro_torch.fl import runtime
     from repro_torch.kernels import dp_clip, ref
     from repro_torch.launch import train
-    from repro_torch.nn import threefry
+    from repro_torch.nn import basic, threefry
 
     # the caching allocator keeps what earlier phases freed in segments of
     # their sizes; the 1.25 G-value buffers here need them released
     torch.cuda.empty_cache()
     full = get_config(arch)
-    at = train.arch_task(full.with_(num_layers=layers), 0, dev)
+    cut = {"num_layers": layers}
+    depth = f"{layers} of {full.num_layers} layers"
+    if encoder_layers is not None:
+        cut["encoder_layers"] = encoder_layers
+        depth = (f"{encoder_layers} of {full.encoder_layers} encoder and "
+                 f"{depth}")
+    at = train.arch_task(full.with_(**cut), 0, dev)
     cfg = at.cfg
     n_y, n, size = train_split(cfg)
-    print(f"[{arch}] FedPT, {layers} of {full.num_layers} layers at full "
+    print(f"[{arch}] FedPT, {depth} at full "
           f"width ({zoo_widths(cfg)}; {cfg.param_dtype} parameters, "
           f"{cfg.compute_dtype} compute): {n_y} of {n} trainable "
           f"({100 * n_y / n:.2f}%), flat size {size}, freeze spec "
@@ -3563,7 +3635,8 @@ def drive_zoo_training(arch, layers, rounds, split, dev, after=None,
     losses = [h["loss"] for h in res.history]
     print(f"[main path] {arch} FedPT, {rounds} rounds of "
           f"{at.rc.clients_per_round} clients x {at.rc.local_steps} SGD steps "
-          f"x {at.rc.local_batch} sentences of 32 tokens: losses "
+          f"x {at.rc.local_batch} sentences of 32 tokens{stub_note(cfg)}: "
+          f"losses "
           f"{[round(v, 4) for v in losses]} (ln {cfg.vocab_size} = "
           f"{math.log(cfg.vocab_size):.4f})")
     print(f"  init_model on the card {init_s[0][0]:.2f} s, peak device "
@@ -3584,6 +3657,33 @@ def drive_zoo_training(arch, layers, rounds, split, dev, after=None,
     # sumsq at the trainable width: the trained y's flat vector
     x = flat_lib.FlatLayout.of(res.y).flatten(res.y)
     got, want = float(dp_clip.sumsq(x)), float64_sumsq(x)
+    top = max(((float(t.abs().max()), path)
+               for path, t in basic.flatten_params(res.y)))
+    print(f"  the trained y's largest |entry| {top[0]:.4e}, in {top[1]}")
+    f32_max = float(torch.finfo(torch.float32).max)
+    if want > f32_max:
+        # the float32 sum overflows: its float32 answer is inf. Only the
+        # leaves named in may_overflow may pass float32's range (PaliGemma's
+        # mm_proj bias: its first step from 0 under the zero patch
+        # embeddings carries 1 / sqrt(eps) a layer, as the reference's
+        # does: tests/test_torch_vlm.py); the kernel is then held within
+        # its bound on the trained y with those leaves zeroed
+        over = sorted(path for path, t in basic.flatten_params(res.y)
+                      if float64_sumsq(t.reshape(-1)) > f32_max)
+        print(f"  sumsq at n = {x.numel()} of the trained y: {got!r} against "
+              f"the float64 sum {want!r}, past float32's range in {over}")
+        if got != math.inf or over != sorted(may_overflow):
+            raise AssertionError(f"sumsq at {arch}'s width: {got!r} where "
+                                 f"the float32 sum overflows, in {over} "
+                                 f"(allowed: {list(may_overflow)})")
+        del x
+        y1 = basic.unflatten_params({
+            path: torch.zeros_like(t) if path in over else t
+            for path, t in basic.flatten_params(res.y)})
+        x = flat_lib.FlatLayout.of(y1).flatten(y1)
+        del y1
+        got, want = float(dp_clip.sumsq(x)), float64_sumsq(x)
+        print(f"  with {over} zeroed:")
     rtol = dp_clip.sumsq_rtol(x.numel())
     print(f"  sumsq at n = {x.numel()} (grid {dp_clip.sumsq_plan(x.numel())[0]}"
           f", chunk {dp_clip.sumsq_plan(x.numel())[1]} quads): {got!r} "
@@ -3705,17 +3805,18 @@ def device_time_by_op(fn, launched=None):
     op ("experts": the expert FFNs; "dispatch": routing, dispatch and
     combine; "mla": MLA's q, kv and up projections and RoPE; "mamba":
     Mamba's projections and conv, "mamba_scan" its time loop; "mlstm" /
-    "slstm": the xLSTM blocks), the innermost one where ranges nest,
+    "slstm": the xLSTM blocks; "encoder": the encoder-decoder's encoder
+    pass, "cross_attn" its decoder's cross-attention projections), the
+    innermost one where ranges nest,
     "attention" for the swa_attention kernel, else "other"; its op is the
     launching aten op, behind the autograd function whose backward runs
     it. The ranges' device-side copies, which span their kernels, count
     for none; device time no op claims is ("other", "unattributed").
     ``launched``, a dict, gets the number of device kernels by kind."""
-    import importlib
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    saved = {(mod, name): getattr(importlib.import_module(
-        f"repro_torch.nn.{mod}"), name) for mod, name in RANGES}
+    saved = {(mod, name): getattr(range_module(mod), name)
+             for mod, name in RANGES}
     kinds = {f"range/{name}": kind for (_, name), kind in RANGES.items()}
 
     def ranged(name, real):
@@ -3726,7 +3827,7 @@ def device_time_by_op(fn, launched=None):
 
     def put(wrap):
         for (mod, name), real in saved.items():
-            setattr(importlib.import_module(f"repro_torch.nn.{mod}"), name,
+            setattr(range_module(mod), name,
                     ranged(name, real) if wrap else real)
     put(True)
     try:
@@ -3830,33 +3931,60 @@ def cache_bytes(cache, slots):
     return per_token, per_seq
 
 
+def stub_inputs(cfg, rows: int, dev, seed: int = 0) -> dict:
+    """The prefill batch's stubbed-frontend entries: the VLM's
+    ``prefix_embeds`` (rows, num_prefix_tokens, 1152), the
+    encoder-decoder's ``encoder_embeds`` (rows, encoder_seq_len, d_model),
+    bf16 N(0, 1) from ``seed`` (the reference's prefill specs are bf16);
+    nothing for the other families."""
+    from repro_torch.models import decoder_lm as dlm
+    if cfg.family == "vlm":
+        shape = (rows, cfg.num_prefix_tokens, dlm.VISION_TOWER_DIM)
+        name = "prefix_embeds"
+    elif cfg.is_encoder_decoder:
+        shape = (rows, cfg.encoder_seq_len, cfg.d_model)
+        name = "encoder_embeds"
+    else:
+        return {}
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return {name: torch.randn(shape, generator=gen).to(dev, torch.bfloat16)}
+
+
 def drive_zoo_serving(arch, layers, split, dev, consist_cf, windows=(),
                       prefill=(1, PREFILL_LEN), timed=3, profile=None,
-                      stepped=None, stepped_f32=False):
+                      stepped=None, stepped_f32=False,
+                      decode_prompt=DECODE_PROMPT, consist=(1, CONSIST_LEN)):
     """Serving ``arch`` at full width, ``layers`` of its layers, from
     ``init_model(cfg, 0)`` on the card, on the serving split (trainable
     f32, frozen bf16); ``make_prefill_step`` on ``prefill`` (rows,
-    tokens) under ``serving_config`` of prefill_32k, which must keep the
-    config as it is (median of ``timed`` walls after one warm-up,
-    tokens/s, ``swa_attention`` once an attention layer by the wrapper's
-    count; at the ``profile`` shape, default the prefill's, the
-    profiler's launches by kind (the kernel's among them) and a split
-    into the attention kernel, expert matmuls, routing / dispatch /
-    combine, MLA projections, Mamba's
-    projections and scan, the mLSTM and sLSTM blocks, and the rest, and
-    the host walls of the recurrent loops (``ssm_walls``)), then greedy
-    ``generate`` (batch 4, prompt 8, 32 steps) with the attention cache's
-    bytes a token a layer and the recurrent states' bytes a sequence, with
-    the launch counts set to 0 just before and read just after; then, not
-    counted, a 1 x 512 prefill through the kernel against the plain
-    chunked attention (at the config's window and each of ``windows``;
-    with attention slots only) and the step-by-step prefill against
-    ``forward`` at capacity factor ``consist_cf`` (no drops), on the
-    4 x 8 decode prompt, or with ``stepped`` (rows, tokens) on the first
-    of the prefill's tokens, the second side of each routed as the
-    first; with ``stepped_f32`` that check runs in float32 compute on the
-    same weights, and the bf16 one on the decode prompt is printed, not
-    gated. Returns the launch counts."""
+    tokens), with ``stub_inputs`` for the VLM (its prefix) and the
+    encoder-decoder (its frames), under ``serving_config`` of prefill_32k,
+    which must keep the config as it is (median of ``timed`` walls after
+    one warm-up, positions/s, ``swa_attention`` once an attention call by
+    the wrapper's count: once a layer, and for the encoder-decoder in each
+    encoder layer and in each decoder layer's self- and cross-attention;
+    at the ``profile`` shape, default the prefill's, the profiler's
+    launches by kind (the kernel's among them) and a split into the
+    attention kernel, expert matmuls, routing / dispatch / combine, MLA
+    projections, Mamba's projections and scan, the mLSTM and sLSTM
+    blocks, the encoder, cross-attention and the rest, and the host walls
+    of the recurrent loops (``ssm_walls``)), then greedy ``generate``
+    (batch 4, prompt ``decode_prompt``, 32 steps; an encoder-decoder
+    against the encoder's K / V from ``build_cross_cache``, as a server
+    runs it) with the attention cache's bytes a token, the cross cache's
+    and the recurrent states' bytes a sequence, with the launch counts set
+    to 0 just before and read just after; then, not counted, a
+    ``consist`` (rows, tokens) prefill with the stub inputs through the
+    kernel against the plain chunked attention (at the config's window and
+    each of ``windows``; with attention slots only) and the step-by-step
+    prefill against ``forward`` at capacity factor ``consist_cf`` (no
+    drops; text only for the VLM, as its decode runs; against the cross
+    cache of the same frames for the encoder-decoder), on the decode
+    prompt, or with ``stepped`` (rows, tokens) on the first of the
+    prefill's tokens, the second side of each routed as the first; with
+    ``stepped_f32`` that check runs in float32 compute on the same
+    weights, and the bf16 one on the decode prompt is printed, not gated.
+    Returns the launch counts."""
     from repro_torch import kernels
     from repro_torch.configs.base import get_config
     from repro_torch.core import partition as part
@@ -3869,6 +3997,10 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf, windows=(),
     base = full.with_(num_layers=layers)
     slots, groups = dlm.layer_program(base)
     n_attn = groups * sum(s.kind == "attn" for s in slots)
+    # the kernel's calls a prefill: the encoder's layers and the decoder's
+    # cross-attention besides each attention layer's own
+    n_calls = n_attn * (2 if base.is_encoder_decoder else 1) + (
+        base.encoder_layers if base.is_encoder_decoder else 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3890,10 +4022,16 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf, windows=(),
     rows, length = prefill
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, base.vocab_size, prefill, dtype=np.int64)
-    prompt = rng.integers(0, base.vocab_size, (DECODE_BATCH, DECODE_PROMPT),
+    prompt = rng.integers(0, base.vocab_size, (DECODE_BATCH, decode_prompt),
                           dtype=np.int64)
     step = specs.make_prefill_step(cfg, device=dev)
-    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             **stub_inputs(cfg, rows, dev)}
+    # the positions a prefill computes: the VLM's prefix and the
+    # encoder's frames besides the tokens
+    extra = (cfg.num_prefix_tokens if cfg.family == "vlm" else
+             cfg.encoder_seq_len if cfg.is_encoder_decoder else 0)
+    n_out = length + (extra if cfg.family == "vlm" else 0)
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -3905,40 +4043,44 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf, windows=(),
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t1) * 1e3)
     per_call = kernels.LAUNCHES["swa_attention"] / len(walls)
-    if logits.shape != (rows, length, base.vocab_size) or \
+    if logits.shape != (rows, n_out, base.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch} prefill: logits not finite or of the "
                              f"wrong shape {tuple(logits.shape)}")
     del logits
     wall = float(np.median(walls[1:]))
-    print(f"[serving] {arch} prefill {rows} x {length} (prefill_32k, window "
-          f"{cfg.sliding_window}): wall ms {[round(v, 3) for v in walls]} "
-          f"(median of the last {timed} {wall:.3f} ms, "
-          f"{rows * length / wall * 1e3:.1f} tokens/s); swa_attention "
-          f"{per_call:g} launches a call ({n_attn} attention layers); peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB")
+    what = ("" if not extra else
+            f" + {extra} prefix positions" if cfg.family == "vlm" else
+            f" tokens + {extra} frames")
+    print(f"[serving] {arch} prefill {rows} x {length}{what} (prefill_32k, "
+          f"window {cfg.sliding_window}): wall ms "
+          f"{[round(v, 3) for v in walls]} (median of the last {timed} "
+          f"{wall:.3f} ms, {rows * (length + extra) / wall * 1e3:.1f} "
+          f"positions/s); swa_attention {per_call:g} launches a call "
+          f"({n_calls} attention calls); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     pbatch = batch
     if profile is not None and tuple(profile) != tuple(prefill):
-        pbatch = {"tokens": batch["tokens"][:profile[0], :profile[1]]}
+        pbatch = {name: t[:profile[0], :profile[1]] if name == "tokens"
+                  else t[:profile[0]] for name, t in batch.items()}
     pshape = tuple(pbatch["tokens"].shape)
     launched = {}
     by_op = device_time_by_op(lambda: step(y, frozen, pbatch), launched)
     # a trace may drop a long kernel (device_ms): the wrapper's count is
     # the gate, the profiler's must show the kernel on the card
-    if per_call != n_attn or (n_attn and launched.get("attention", 0) < 1):
+    if per_call != n_calls or (n_calls and launched.get("attention", 0) < 1):
         raise AssertionError(f"{arch} prefill: swa_attention not once an "
-                             f"attention layer ({launched} recorded by the "
+                             f"attention call ({launched} recorded by the "
                              f"profiler)")
     split_ms = dict.fromkeys(("attention", "experts", "dispatch", "mla",
                               "mamba", "mamba_scan", "mlstm", "slstm",
-                              "other"), 0.0)
+                              "encoder", "cross_attn", "other"), 0.0)
     for (kind, _), ms in by_op.items():
         split_ms[kind] += ms
     busy = sum(split_ms.values())
-    print(f"[serving] {arch} prefill {pshape[0]} x {pshape[1]} device ms by "
-          f"kind { {k: round(v, 3) for k, v in split_ms.items() if v} } of "
-          f"{busy:.3f} ms: "
+    print(f"[serving] {arch} prefill {pshape[0]} x {pshape[1]}{what} device "
+          f"ms by kind { {k: round(v, 3) for k, v in split_ms.items() if v} } "
+          f"of {busy:.3f} ms: "
           + ", ".join(f"{k} {100 * v / busy:.1f}%"
                       for k, v in split_ms.items() if v)
           + f"; device kernels by kind {launched}")
@@ -3958,23 +4100,39 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf, windows=(),
               f", an sLSTM position {per_position('slstm', 'slstm'):.3f}")
 
     params = part.merge(y, frozen)
-    n_steps = DECODE_PROMPT + DECODE_STEPS
+    n_steps = decode_prompt + DECODE_STEPS
     cache = dlm.init_cache(cfg, DECODE_BATCH, n_steps, device=dev)
     per_token, per_seq = cache_bytes(cache, slots)
+    cross_bytes = sum(t[:, 0].numel() * t.element_size() for entry in
+                      cache.get("cross", {}).values() for t in entry.values())
     del cache
-    serve.generate(params, cfg, prompt, 2, device=dev)   # warm-up
+    cross = None
+    if cfg.is_encoder_decoder:   # the encoder's K / V, made once a request
+        frames = stub_inputs(cfg, DECODE_BATCH, dev, seed=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cross = dlm.build_cross_cache(params, cfg, frames["encoder_embeds"])
+        torch.cuda.synchronize()
+        print(f"[serving] {arch} build_cross_cache (batch {DECODE_BATCH} x "
+              f"{cfg.encoder_seq_len} frames through the encoder): "
+              f"{(time.perf_counter() - t1) * 1e3:.3f} ms")
+    serve.generate(params, cfg, prompt, 2, device=dev, cross=cross)  # warm-up
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    seqs = serve.generate(params, cfg, prompt, DECODE_STEPS, device=dev)
+    seqs = serve.generate(params, cfg, prompt, DECODE_STEPS, device=dev,
+                          cross=cross)
     torch.cuda.synchronize()
     gwall = (time.perf_counter() - t1) * 1e3
     counts = dict(kernels.LAUNCHES)
     print(f"[serving] {arch} generate (batch {DECODE_BATCH}, prompt "
-          f"{DECODE_PROMPT}, {DECODE_STEPS} greedy steps, capacity factor "
-          f"{cfg.moe_capacity_factor}): {gwall:.3f} ms, "
-          f"{gwall / n_steps:.3f} ms per decode step ({n_steps} steps with "
-          f"the step-by-step prefill); the cache holds {per_token} bytes a "
-          f"token an attention layer and {per_seq} bytes a sequence of "
+          f"{decode_prompt}, {DECODE_STEPS} greedy steps, capacity factor "
+          f"{cfg.moe_capacity_factor}"
+          + (", against build_cross_cache's K / V" if cross else "")
+          + f"): {gwall:.3f} ms, {gwall / n_steps:.3f} ms per decode step "
+          f"({n_steps} steps with the step-by-step prefill); the cache holds "
+          f"{per_token} bytes a token an attention layer ({per_token * n_attn} "
+          f"over the {n_attn} layers), {cross_bytes} bytes a sequence of "
+          f"cross-attention K / V and {per_seq} bytes a sequence of "
           f"recurrent state ({per_seq / 2**20:.3f} MiB, whatever the "
           f"length); row 0: {seqs[0].tolist()}; launches {counts}")
     if cfg.use_mla and \
@@ -3985,59 +4143,73 @@ def drive_zoo_serving(arch, layers, split, dev, consist_cf, windows=(),
             not bool(((seqs >= 0) & (seqs < base.vocab_size)).all()):
         raise AssertionError(f"{arch} generate: tokens of the wrong shape or "
                              f"range")
+    del cross
 
     # consistency on the card, with the same weights; the second side of
     # each pair takes the first side's routing (routing_spy)
-    short = torch.from_numpy(tokens[:1, :CONSIST_LEN]).to(dev)
+    cbatch = {"tokens": torch.from_numpy(
+        tokens[:consist[0], :consist[1]]).to(dev),
+        **stub_inputs(cfg, consist[0], dev, seed=2)}
     for c in (cfg,) + tuple(cfg.with_(sliding_window=w) for w in windows):
         if not n_attn:
             break
         s = specs.make_prefill_step(c, device=dev)
         with routing_spy() as kern:
-            got = s(y, frozen, {"tokens": short})
+            got = s(y, frozen, cbatch)
         with routing_spy(kern.ids) as plain:
-            want = plain_attention_forward(
-                lambda: s(y, frozen, {"tokens": short}))
+            want = plain_attention_forward(lambda: s(y, frozen, cbatch))
         rel = rel_to_max(got, want)
-        print(f"[serving] {arch} prefill 1 x {CONSIST_LEN} (window "
-              f"{c.sliding_window}), kernel vs the plain chunked attention on "
-              f"the card, routed as the kernel's side ({plain.flipped} of "
-              f"{plain.routed} routings would differ): max |diff| / max "
-              f"|logit| {rel:.3e} (tolerance {LOGIT_REL:.3e}), argmax "
-              f"agreement "
+        print(f"[serving] {arch} prefill {consist[0]} x {consist[1]}{what} "
+              f"(window {c.sliding_window}), kernel vs the plain chunked "
+              f"attention on the card, routed as the kernel's side "
+              f"({plain.flipped} of {plain.routed} routings would differ): "
+              f"max |diff| / max |logit| {rel:.3e} (tolerance "
+              f"{LOGIT_REL:.3e}), argmax agreement "
               f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.4f}")
         if not rel <= LOGIT_REL:
             raise AssertionError(f"{arch} prefill: kernel vs plain {rel}")
     sp = prompt if stepped is None else tokens[:stepped[0], :stepped[1]]
+    frames = (stub_inputs(cfg, sp.shape[0], dev, seed=3)
+              if cfg.is_encoder_decoder else {})
     cc = cfg.with_(moe_capacity_factor=consist_cf)
     if stepped_f32:
-        check_stepped(arch, params, y, frozen, cc, prompt, dev, gated=False)
+        check_stepped(arch, params, cc, prompt, dev, gated=False)
         cc = cc.with_(compute_dtype="float32")
-    check_stepped(arch, params, y, frozen, cc, sp, dev)
+    check_stepped(arch, params, cc, sp, dev, **frames)
     return counts
 
 
-def check_stepped(arch, params, y, frozen, cfg, tokens, dev, gated=True):
+def check_stepped(arch, params, cfg, tokens, dev, gated=True,
+                  encoder_embeds=None):
     """The step-by-step prefill (``serve.prefill_by_steps``) of ``tokens``
-    against ``make_prefill_step``'s forward, routed as forward
-    (``routing_spy``), max |diff| / max |logit| within LOGIT_REL when
-    ``gated``, else printed only."""
-    from repro_torch.launch import serve, specs
+    against ``forward``, routed as forward (``routing_spy``), max |diff| /
+    max |logit| within LOGIT_REL when ``gated``, else printed only; an
+    encoder-decoder steps against ``build_cross_cache`` of
+    ``encoder_embeds``, which ``forward`` encodes."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decoder_lm as dlm
     rows, length = tokens.shape
+    kw, cross = {}, None
+    if encoder_embeds is not None:
+        kw["encoder_embeds"] = encoder_embeds
+        cross = dlm.build_cross_cache(params, cfg, encoder_embeds)
+    tokens = torch.as_tensor(tokens, device=dev)
     with routing_spy() as fwd:
-        full_logits = specs.make_prefill_step(cfg, device=dev)(
-            y, frozen, {"tokens": tokens})
+        full_logits, _ = dlm.forward(params, cfg, tokens, **kw)
     # decode routes (step t, layer l) in turn; forward each layer at once
     order = [ids.reshape(rows, length, -1)[:, t]
              for t in range(length) for ids in fwd.ids]
     with routing_spy(order) as dec:
         stepped, _ = serve.prefill_by_steps(params, cfg, tokens, length,
-                                            device=dev)
+                                            device=dev, cross=cross)
     rel = rel_to_max(stepped, full_logits)
     print(f"[serving] {arch} step-by-step prefill vs forward, "
           f"{cfg.compute_dtype} compute, capacity factor "
           f"{cfg.moe_capacity_factor} (no drops), at the {length} prompt "
-          f"positions of {rows} rows, routed as forward ({dec.flipped} of "
+          f"positions of {rows} rows"
+          + (f" against {encoder_embeds.shape[1]} frames' cross cache"
+             if cross else "")
+          + f", routed as forward ({dec.flipped} of "
           f"{dec.routed} routings would differ): max |diff| / max |logit| "
           f"{rel:.3e} ("
           + (f"tolerance {LOGIT_REL:.3e}" if gated else "not gated")
@@ -4165,6 +4337,64 @@ def check_mla_kernel(dev):
     return out
 
 
+def check_vlm_encdec_kernels(dev) -> dict:
+    """Phase 2 at VLM_ENCDEC_SHAPES, in the model's (B, S, H, D) layout:
+    each held in the round-once mode by :func:`check_swa_round_p` and in
+    the float32-p mode by :func:`check_swa`, then timed in the round-once
+    mode the prefills launch (wrapper by CUDA events, device by the
+    profiler) against its bound (2 (DK + DV) flops a visible pair at the
+    bf16 peak, or q, k, v and the output's bytes once), the plain version
+    once, and ``scaled_dot_product_attention`` on the same inputs (k, v
+    repeated to q's heads; the prefix as a boolean ``attn_mask``).
+    Returns {label: numbers}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cpu").manual_seed(26)
+    out = {}
+    for label, (B, H, KVH, SQ, SKV, DK, DV), causal, prefix in \
+            VLM_ENCDEC_SHAPES:
+        def one(rows, heads, d):
+            return torch.randn((B, rows, heads, d), generator=gen).to(
+                dev, torch.bfloat16).transpose(1, 2)
+        q, k, v = one(SQ, H, DK), one(SKV, KVH, DK), one(SKV, KVH, DV)
+        check_swa_round_p(q, k, v, 0, causal=causal, prefix_len=prefix)
+        check_swa(q, k, v, 0, causal=causal, prefix_len=prefix)
+        pairs = swa.visible_pairs(SQ, 0, causal, prefix_len=prefix, skv=SKV)
+        flops = B * H * pairs * 2 * (DK + DV)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * H * SQ * DV)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S)
+
+        def kernel():
+            return swa.swa_attention(q, k, v, causal=causal, round_p=True,
+                                     prefix_len=prefix)
+        ms = time_ms(kernel, 50, 5)
+        dms = device_ms(kernel, ("swa_kernel",), 50)
+        plain_ms = time_ms(lambda: ref.chunked_attention_ref(
+            q, k, v, 0, causal, chunk=swa.BK, prefix_len=prefix), 3, 1)
+        kr, vr = ((t.repeat_interleave(H // KVH, dim=1) if H > KVH else t)
+                  for t in (k, v))
+        mask = None
+        if causal:
+            pos = torch.arange(SQ, device=dev)
+            mask = (pos[:, None] >= pos[None, :]) | (pos[None, :] < prefix)
+        lib_ms = time_ms(lambda: sdpa(q, kr, vr, attn_mask=mask), 50, 5)
+        lib_dms = device_ms(lambda: sdpa(q, kr, vr, attn_mask=mask), None, 50)
+        out[label] = dict(ms=ms, device_ms=dms, bound_ms=bound_ms,
+                          plain_ms=plain_ms, library_ms=lib_ms)
+        print(f"  swa_attention (round-once) {label} "
+              f"{swa_where(q, k, v, 0, causal, prefix)}: wrapper {ms:.5f} "
+              f"ms, device {fmt_ms(dms)} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}; {pairs} pairs a head, {flops / 1e9:.3f} "
+              f"GFLOP), x{(dms or ms) / bound_ms:.2f} of the bound; plain "
+              f"{plain_ms:.3f} ms; scaled_dot_product_attention "
+              f"{'with a bool attn_mask ' if causal else ''}{lib_ms:.5f} ms "
+              f"(device {fmt_ms(lib_dms)} ms)")
+        del q, k, v, kr, vr, mask
+    torch.cuda.empty_cache()
+    return out
+
+
 def drive_deepseek_training(dev):
     """Phase 8's training path: ``drive_zoo_training`` on DeepSeek-V2, 1
     of its 60 layers, DEEPSEEK_ROUNDS rounds, the reduced round held at
@@ -4188,14 +4418,17 @@ def drive_deepseek_serving(dev):
 # all 24 layers, Jamba-v0.1 served at one period of its layer program
 
 XLSTM = "xlstm-350m"
-XLSTM_LAYERS = 24          # of 24
+XLSTM_LAYERS = 24          # of 24, to serve
+# to train: two periods of its layer program, the depth cut to make room
+# for phase 10 in the script's time (24 layers took 36-95 s, PERF.md)
+XLSTM_TRAIN_LAYERS = 8
 XLSTM_ROUNDS = 8
-# (trainable, total, flat size): the tied embedding (51,511,296), the
-# mLSTM gates, convs, biases and norms and the sLSTM gates, convs and norms
-# train; the mLSTM q / k / v / up / down kernels and the sLSTM recurrent
-# and FFN kernels are frozen; the flat layout pads the small leaves to
-# multiples of 1,024
-XLSTM_TRAIN_SPLIT = (77_390_992, 448_562_320, 77_393_920)
+# (trainable, total, flat size) at 8 layers: the tied embedding
+# (51,511,296), the mLSTM gates, convs, biases and norms and the sLSTM
+# gates, convs and norms train; the mLSTM q / k / v / up / down kernels
+# and the sLSTM recurrent and FFN kernels are frozen; the flat layout pads
+# the small leaves to multiples of 1,024
+XLSTM_TRAIN_SPLIT = (60_138_544, 183_862_320, 60_141_568)
 XLSTM_SERVE_SPLIT = (77_390_992, 371_171_328)
 # 16 rows of the xLSTM paper's 2,048-token training context: the other zoo
 # prefills' 32,768 tokens; profiled at one mLSTM chunk, 128 tokens a row
@@ -4225,15 +4458,15 @@ XLSTM_STEPPED = (1, 160)
 
 
 def drive_xlstm_training(dev):
-    """Phase 9's training path: ``drive_zoo_training`` on xLSTM-350M, all
-    24 of its layers at full width, XLSTM_ROUNDS rounds, the profiled
+    """Phase 9's training path: ``drive_zoo_training`` on xLSTM-350M, 8
+    of its 24 layers at full width, XLSTM_ROUNDS rounds, the profiled
     round's busy share and launches from its CUDA activity alone, without
     the by-op split (the profiler walks its ~39 k launches and their aten
     ops in tens of seconds), the reduced round held at
     REDUCED_LOSS_REL / REDUCED_UPDATE_REL (no MoE routing, no ReLU
     kinks)."""
     return drive_zoo_training(
-        XLSTM, XLSTM_LAYERS, XLSTM_ROUNDS, XLSTM_TRAIN_SPLIT, dev,
+        XLSTM, XLSTM_TRAIN_LAYERS, XLSTM_ROUNDS, XLSTM_TRAIN_SPLIT, dev,
         by_op=False, loss_rel=REDUCED_LOSS_REL,
         update_rel=REDUCED_UPDATE_REL)
 
@@ -4277,6 +4510,141 @@ def drive_ssm(dev) -> dict:
     if totals.get("sumsq", 0) < XLSTM_ROUNDS or \
             totals.get("swa_attention", 0) <= 0:
         raise AssertionError(f"phase 9: sumsq or swa_attention not "
+                             f"launched: {totals}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the VLM and the encoder-decoder at full width: PaliGemma-3B
+# (a bidirectional prefix, head dim 256) and Whisper large-v3 (encoder,
+# cross-attention), FedPT and serving
+
+PALIGEMMA = "paligemma-3b"
+PALIGEMMA_LAYERS = 18      # of 18, to serve
+# to train: all 18 layers ran out of the card's 80 GB in the first
+# round's backward (3 clients vmapped past VMAP_BYTES: their copies, the
+# tied 257,216-wide embedding's gradients and casts, ~47 GB whatever the
+# depth, beside ~1.7 GB a layer); 8 layers reckon to ~61 GB (PERF.md)
+PALIGEMMA_TRAIN_LAYERS = 8
+PALIGEMMA_ROUNDS = 8
+# (trainable, total, flat size): the tied embedding (526,778,368), mm_proj,
+# the attention and the norms train; the GeGLU FFN kernels, 3 x 2,048 x
+# 16,384 a layer, are frozen; at 18 layers, and at the 8 trained
+PALIGEMMA_FULL_SPLIT = (699_084_800, 2_511_024_128, 699_084_800)
+PALIGEMMA_TRAIN_SPLIT = (604_672_000, 1_409_978_368, 604_672_000)
+PALIGEMMA_SERVE_SPLIT = (699_084_800, 1_811_939_328)
+# 64 rows of 256 patches + 256 tokens: the other zoo prefills' 32,768
+# positions (its logits take 64 x 512 x 257,216 x 2 B = 16.9 GB); profiled
+# at 8 rows; kernel vs plain on 1 x (256 + 64), the step-by-step prefill
+# (text only, as decode runs) on 1 x 64
+PALIGEMMA_PREFILL, PALIGEMMA_PROFILE = (64, 256), (8, 256)
+PALIGEMMA_CONSIST = (1, 64)
+WHISPER = "whisper-large-v3"
+# to train: 3 of its 32 encoder and 3 of its 32 decoder layers over the
+# full 1,500 frames. The plain chunked attention under grad keeps float32
+# scores, p and rounded p, ~2.2 GB a client an encoder layer (4 sentences
+# x 20 heads x 1,500 x 1,500), and the round engine vmaps the 4 clients:
+# 4 + 4 layers ran out of the card's 80 GB in the first round, 2 + 2
+# peaked at 47.58 GiB, so a layer pair takes >= 14.3 GiB (PERF.md)
+WHISPER_TRAIN_LAYERS = 3
+WHISPER_ROUNDS = 8
+WHISPER_TRAIN_SPLIT = (231_124_480, 270_446_080, 231_131_136)
+WHISPER_SERVE_LAYERS = 32  # of 32, with all 32 encoder layers
+WHISPER_SERVE_SPLIT = (1_181_767_680, 419_430_400)
+# 16 rows of 1,500 frames and 448 tokens (Whisper's text context),
+# profiled at 4 rows; decode with a 4-token prompt; kernel vs plain and
+# the stepped decode against the cross cache on 1 x (1,500 frames, 64
+# tokens)
+WHISPER_PREFILL, WHISPER_PROFILE = (16, 448), (4, 448)
+WHISPER_PROMPT = 4
+WHISPER_CONSIST = (1, 64)
+# The VLM's and the encoder-decoder's swa_attention calls at the prefills'
+# own shapes, bf16: (label, (B, H, KVH, Sq, Skv, DK, DV), causal, prefix):
+# PaliGemma's (64 rows, 8 q heads over one kv head of 256, 256 patches
+# before 256 tokens: the (256, 128) instance in two v slices), Whisper's
+# encoder (16 rows, 20 heads of 64 over 1,500 frames) and its
+# cross-attention (448 tokens, its text context, against the 1,500 frames)
+VLM_ENCDEC_SHAPES = (
+    ("PaliGemma prefix", (PALIGEMMA_PREFILL[0], 8, 1, 512, 512, 256, 256),
+     True, 256),
+    ("Whisper encoder", (WHISPER_PREFILL[0], 20, 20, 1500, 1500, 64, 64),
+     False, 0),
+    ("Whisper cross", (WHISPER_PREFILL[0], 20, 20, 448, 1500, 64, 64),
+     False, 0))
+
+
+def drive_paligemma_training(dev):
+    """Phase 10's PaliGemma FedPT: the 18-layer split asserted on meta
+    tensors, then ``drive_zoo_training`` at 8 of the 18 layers, full
+    width, ``arch_task``'s zero patch embeddings (256 + 32 positions a
+    sentence), PALIGEMMA_ROUNDS rounds, the reduced round at
+    REDUCED_LOSS_REL / REDUCED_UPDATE_REL (no MoE routing, no ReLU
+    kinks)."""
+    from repro_torch.configs.base import get_config
+    full = train_split(get_config(PALIGEMMA))
+    print(f"[{PALIGEMMA}] FedPT split at all {PALIGEMMA_LAYERS} layers, on "
+          f"meta tensors: {full[0]} of {full[1]} trainable "
+          f"({100 * full[0] / full[1]:.2f}%), flat size {full[2]}")
+    if full != PALIGEMMA_FULL_SPLIT:
+        raise AssertionError(f"{PALIGEMMA}'s 18-layer split {full}, not "
+                             f"{PALIGEMMA_FULL_SPLIT}")
+    return drive_zoo_training(
+        PALIGEMMA, PALIGEMMA_TRAIN_LAYERS, PALIGEMMA_ROUNDS,
+        PALIGEMMA_TRAIN_SPLIT, dev, may_overflow=("mm_proj/bias",),
+        loss_rel=REDUCED_LOSS_REL, update_rel=REDUCED_UPDATE_REL)
+
+
+def drive_paligemma_serving(dev):
+    """Phase 10's PaliGemma serving: ``drive_zoo_serving`` at all 18
+    layers, a 64 x (256 + 256) prefill through ``swa_attention`` with the
+    bidirectional prefix at head dim 256 (1 warm-up, 2 timed), profiled
+    at 8 rows, greedy text decode, kernel vs plain on 1 x (256 + 64) and
+    the step-by-step prefill against ``forward`` on 1 x 64."""
+    return drive_zoo_serving(
+        PALIGEMMA, PALIGEMMA_LAYERS, PALIGEMMA_SERVE_SPLIT, dev, 1.25,
+        prefill=PALIGEMMA_PREFILL, timed=2, profile=PALIGEMMA_PROFILE,
+        stepped=PALIGEMMA_CONSIST, consist=PALIGEMMA_CONSIST)
+
+
+def drive_whisper_training(dev):
+    """Phase 10's Whisper FedPT: ``drive_zoo_training`` at 3 + 3 layers,
+    full width, ``arch_task``'s 1,500 zero frames a sentence,
+    WHISPER_ROUNDS rounds, the reduced round at REDUCED_LOSS_REL /
+    REDUCED_UPDATE_REL."""
+    return drive_zoo_training(
+        WHISPER, WHISPER_TRAIN_LAYERS, WHISPER_ROUNDS, WHISPER_TRAIN_SPLIT,
+        dev, encoder_layers=WHISPER_TRAIN_LAYERS, loss_rel=REDUCED_LOSS_REL,
+        update_rel=REDUCED_UPDATE_REL)
+
+
+def drive_whisper_serving(dev):
+    """Phase 10's Whisper serving: ``drive_zoo_serving`` at 32 + 32
+    layers, a 16 x (1,500 frames, 448 tokens) prefill (``swa_attention``
+    96 times: 32 encoder, 32 decoder, 32 cross calls; 1 warm-up, 2 timed),
+    profiled at 4 rows; decode against ``build_cross_cache`` (batch 4, a
+    4-token prompt, 32 greedy steps); kernel vs plain and the stepped
+    decode against ``forward`` on 1 x (1,500 frames, 64 tokens)."""
+    return drive_zoo_serving(
+        WHISPER, WHISPER_SERVE_LAYERS, WHISPER_SERVE_SPLIT, dev, 1.25,
+        prefill=WHISPER_PREFILL, timed=2, profile=WHISPER_PROFILE,
+        stepped=WHISPER_CONSIST, decode_prompt=WHISPER_PROMPT,
+        consist=WHISPER_CONSIST)
+
+
+def drive_vlm_encdec(dev) -> dict:
+    """Phase 10: PaliGemma-3B and Whisper large-v3 FedPT and serving.
+    Returns the summed launch counts."""
+    totals = {}
+    for leg in (drive_paligemma_training, drive_paligemma_serving,
+                drive_whisper_training, drive_whisper_serving):
+        t0 = time.perf_counter()
+        for name, n in leg(dev).items():
+            totals[name] = totals.get(name, 0) + n
+        print(f"[vlm-encdec] {leg.__name__} took "
+              f"{time.perf_counter() - t0:.1f} s")
+    if totals.get("sumsq", 0) < PALIGEMMA_ROUNDS + WHISPER_ROUNDS or \
+            totals.get("swa_attention", 0) <= 0:
+        raise AssertionError(f"phase 10: sumsq or swa_attention not "
                              f"launched: {totals}")
     return totals
 
@@ -4359,6 +4727,31 @@ def ssm_only() -> int:
     t9 = time.perf_counter()
     drive_ssm(dev)
     print(f"[ssm] phase 9 took {time.perf_counter() - t9:.1f} s")
+    return 0
+
+
+def vlm_encdec_only() -> int:
+    """``--vlm-encdec``: build the kernels, hold and time ``swa_attention``
+    at the VLM's and the encoder-decoder's shapes (phase 2's part) and
+    drive phase 10 (PaliGemma-3B's and Whisper large-v3's FedPT training
+    and serving at full width) alone, with its gates."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    logs = _build.build_all()
+    print(f"[vlm-encdec] card {card_line()}")
+    for name, info in ptxas_summary(logs.get("swa_attention.cu", ""),
+                                    "swa_kernel").items():
+        print(f"  ptxas {name}: {info}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t10 = time.perf_counter()
+    check_vlm_encdec_kernels(dev)
+    print(f"[vlm-encdec] kernel checks took {time.perf_counter() - t10:.1f} s")
+    t10 = time.perf_counter()
+    drive_vlm_encdec(dev)
+    print(f"[vlm-encdec] phase 10 took {time.perf_counter() - t10:.1f} s")
     return 0
 
 
@@ -4528,6 +4921,14 @@ def sweep() -> int:
     return 0
 
 
+def phase_seconds(n: int, what: str, t0: float) -> float:
+    """Print phase ``n``'s seconds since ``t0`` on a line of its own;
+    returns the time now, the next phase's start."""
+    now = time.perf_counter()
+    print(f"[phase {n}] {what} took {now - t0:.1f} s")
+    return now
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4543,10 +4944,12 @@ def main(argv) -> int:
         return deepseek_only()
     if argv == ["--ssm"]:
         return ssm_only()
+    if argv == ["--vlm-encdec"]:
+        return vlm_encdec_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               f"[--kernel-times SRC | --dp-ftrl SRC | --sweep | --mixtral | "
-              f"--deepseek | --ssm]", file=sys.stderr)
+              f"--deepseek | --ssm | --vlm-encdec]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import kernels
@@ -4561,7 +4964,7 @@ def main(argv) -> int:
     torch.cuda.set_device(dev)
 
     # --- phase 1: build and identify -------------------------------------
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"[build] {len(_build.SOURCES)} sources, {len(logs)} compiled in "
           f"{time.perf_counter() - t0:.1f} s (nvcc -gencode "
@@ -4602,6 +5005,7 @@ def main(argv) -> int:
     if (part.count_params(ya), layout_a.size) != (1_690_174, 1_695_744):
         raise AssertionError("the FedAvg layout differs from 1,690,174 / "
                              "1,695,744")
+    t0 = phase_seconds(1, "build and identify", t0)
 
     # --- phase 2: kernels against their plain versions -------------------
     print("[kernels] against their plain versions at the main paths' shapes")
@@ -4611,8 +5015,10 @@ def main(argv) -> int:
                + check_serving_kernels(dev, logs))
     check_tier_kernels(tier_layouts(y0)[1][1:], dev)
     check_mla_kernel(dev)
+    check_vlm_encdec_kernels(dev)
     ab_times(dev, "this tree")
     free_flush()
+    t0 = phase_seconds(2, "kernels against their plain versions", t0)
 
     # --- phase 3: the main paths -----------------------------------------
     paths = [  # label, bits, dp, (y, frozen), kernels that must launch
@@ -4647,6 +5053,7 @@ def main(argv) -> int:
         raise AssertionError("swa_attention never launched on the serving "
                              "path")
     check_categorical(dev)
+    t0 = phase_seconds(3, "the main paths", t0)
 
     # --- phase 4: the paper's ResNet-18-GN and SO transformer ------------
     bl_so, _, _ = so_lane_block_leaf("cpu")
@@ -4668,6 +5075,7 @@ def main(argv) -> int:
     counts = drive_dp_ftrl(dev)
     for name in launches:
         launches[name] += counts[name]
+    t0 = phase_seconds(4, "ResNet-18-GN and the SO transformer", t0)
 
     # --- phase 5: trainability tiers on the EMNIST CNN -------------------
     for counts in (drive_tiered_async(ds, dev, dp=False),
@@ -4676,34 +5084,43 @@ def main(argv) -> int:
                    drive_adaptive_tiers(ds, dev)):
         for name in launches:
             launches[name] += counts[name]
+    t0 = phase_seconds(5, "trainability tiers", t0)
 
     # --- phase 6: checkpoint / resume and the edge topology -------------
     counts = drive_resume_topology(ds, dev)
     for name in launches:
         launches[name] += counts[name]
+    t0 = phase_seconds(6, "checkpoint / resume and the edge topology", t0)
 
     # --- phase 7: Mixtral-8x7B, FedPT fine-tuning and serving ------------
-    t7 = time.perf_counter()
-    for counts in (drive_mixtral_training(dev), drive_mixtral_serving(dev)):
-        for name in launches:
-            launches[name] += counts.get(name, 0)
-    print(f"[mixtral] phase 7 took {time.perf_counter() - t7:.1f} s")
+    for leg in (drive_mixtral_training, drive_mixtral_serving):
+        t1 = time.perf_counter()
+        for name, n in leg(dev).items():
+            launches[name] += n
+        print(f"[mixtral] {leg.__name__} took "
+              f"{time.perf_counter() - t1:.1f} s")
+    t0 = phase_seconds(7, "Mixtral-8x7B", t0)
 
     # --- phase 8: DeepSeek-V2 (MLA), FedPT fine-tuning and serving -------
-    t8 = time.perf_counter()
-    for counts in (drive_deepseek_training(dev), drive_deepseek_serving(dev)):
-        for name in launches:
-            launches[name] += counts.get(name, 0)
-    print(f"[deepseek] phase 8 took {time.perf_counter() - t8:.1f} s")
+    for leg in (drive_deepseek_training, drive_deepseek_serving):
+        t1 = time.perf_counter()
+        for name, n in leg(dev).items():
+            launches[name] += n
+        print(f"[deepseek] {leg.__name__} took "
+              f"{time.perf_counter() - t1:.1f} s")
+    t0 = phase_seconds(8, "DeepSeek-V2", t0)
 
     # --- phase 9: the SSM families: xLSTM-350M and Jamba-v0.1 ------------
-    t9 = time.perf_counter()
-    counts = drive_ssm(dev)
-    for name in launches:
-        launches[name] += counts.get(name, 0)
-    print(f"[ssm] phase 9 took {time.perf_counter() - t9:.1f} s")
+    for name, n in drive_ssm(dev).items():
+        launches[name] += n
+    t0 = phase_seconds(9, "the SSM families", t0)
 
-    # --- phase 10: summary -----------------------------------------------
+    # --- phase 10: the VLM and the encoder-decoder ----------------------
+    for name, n in drive_vlm_encdec(dev).items():
+        launches[name] += n
+    t0 = phase_seconds(10, "the VLM and the encoder-decoder", t0)
+
+    # --- phase 11: summary -----------------------------------------------
     if len(records) != 10:
         raise AssertionError(f"{len(records)} kernel records, not 10")
     for rec in records:
@@ -4713,6 +5130,7 @@ def main(argv) -> int:
                                  f"a main path")
     print(f"[main path] launches by route: "
           f"{ {k: v for k, v in launches.items() if '/' in k} }")
+    print(f"[phase 11] the script took {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

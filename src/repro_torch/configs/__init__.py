@@ -1,7 +1,6 @@
 """Architecture configs, port of ``repro/configs``. ``load_all()`` imports
 every ported per-arch module so the registry is populated;
-``get_config(name)`` fetches one, and names the slice that brings an
-architecture not ported yet.
+``get_config(name)`` fetches one.
 """
 import importlib
 
@@ -15,7 +14,9 @@ _MODULES = (
     "jamba_v0_1_52b",
     "mistral_nemo_12b",
     "glm4_9b",
+    "paligemma_3b",
     "xlstm_350m",
+    "whisper_large_v3",
     "stablelm_1_6b",
 )
 

@@ -141,13 +141,6 @@ class ModelConfig:
 
 _REGISTRY: dict = {}
 
-# the reference's architectures not ported yet and the port module each
-# one needs first (ROADMAP Queue 1, item 12)
-WAITING = {
-    "paligemma-3b": "the VLM prefix of models/decoder_lm.py",
-    "whisper-large-v3": "the encoder-decoder stack of models/decoder_lm.py",
-}
-
 
 def register(cfg: ModelConfig) -> ModelConfig:
     _REGISTRY[cfg.name] = cfg
@@ -158,9 +151,6 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         from repro_torch import configs as _c
         _c.load_all()
-    if name in WAITING:
-        raise KeyError(f"architecture {name!r} is not ported yet: it comes "
-                       f"with the slice that ports {WAITING[name]}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -7,7 +7,14 @@
 //
 // q and k have one head dim (DK), v and the output another (DV): MLA
 // (DeepSeek-V2) attends with 192-wide q / k heads (128 + a 64-wide rope
-// part) and 128-wide v heads; the other models have DK = DV.
+// part) and 128-wide v heads; the other models have DK = DV (PaliGemma:
+// 256).
+//
+// The mask is the reference's (nn/attention._attend_chunk): causal, with an
+// optional bidirectional prefix of P keys that every row sees (PaliGemma's
+// 256 image positions), and an optional window (q - k < window); or
+// non-causal, where q may have other rows than k and v (Sq != Skv:
+// Whisper's cross-attention, decoder tokens against 1,500 frames).
 //
 // Bound on this card: operations. Each (q, k) pair that the mask lets
 // through costs 2 * (DK + DV) flops (q.k and p.v); at B = 1, H = 32,
@@ -43,7 +50,10 @@
 //   formulas are kernels/swa_attention.tile_plan's: the block's range is
 //   tile_plan(bq=128, bk=64)'s; each warpgroup masks element by element
 //   only the tiles that are not whole and visible from all its rows, those
-//   that straddle the diagonal, the window's edge or S (tile_plan(bq=64)).
+//   that straddle the diagonal, the prefix's edge, the window's edge or Skv
+//   (tile_plan(bq=64)). Row r sees keys [key_lo(r), key_hi(r)], key_hi(r) =
+//   max(r, P - 1) under the causal mask, Skv - 1 otherwise: both
+//   nondecreasing in r, so the prefix and Skv change only key_hi.
 //   Both warpgroups compute every tile of the block: a wgmma under a
 //   per-warpgroup condition is serialized by ptxas. A tile that none of a
 //   warpgroup's rows sees is masked whole, which changes no output bit
@@ -73,13 +83,18 @@
 //   one issues acc += p_i v_i and s = q k_{i+1}^T, lets the other issue
 //   its own, then waits for its products and runs tile i + 1's softmax
 //   while the other's products hold the tensor cores.
-// - Instances (DK, DV): (64, 64), (128, 128) and (192, 128), the first
-//   that holds a call's head dims; smaller head dims are zero-filled. q and
-//   each K stage hold DK / 64 swizzled 64-column blocks, each V stage
-//   DV / 64, each with its own TMA byte count; q.k^T takes DK / 16 k-steps
-//   and acc holds DV / 2 floats a thread, so (192, 128) keeps (128, 128)'s
-//   registers and takes 168 KiB of shared memory. Accurate expf; a ragged
-//   S is masked in the kernel.
+// - Instances (DK, DV): (64, 64), (128, 128), (192, 128) and (256, 128),
+//   the first that holds a call's head dims; smaller head dims are
+//   zero-filled. A v head dim above 128 runs in 128-wide column slices of v
+//   and the output, one a blockIdx.z: each slice recomputes the block's
+//   float32 scores, so m and l are the same bits in every slice and the
+//   output is a single pass's (2 * DK + 2 * DV flops a pair become
+//   4 * DK + 2 * DV at DK = DV = 256). q and each K stage hold DK / 64
+//   swizzled 64-column blocks, each V stage DV / 64, each with its own TMA
+//   byte count; q.k^T takes DK / 16 k-steps and acc holds DV / 2 floats a
+//   thread, so (192, 128) and (256, 128) keep (128, 128)'s registers and
+//   take 168 and 209 KiB of shared memory. Accurate expf; a ragged Sq or
+//   Skv is masked in the kernel.
 // - What holds it back (PERF.md): at the prefill's shape the card runs at
 //   its 700 W power limit with the clock lowered, and the float32 softmax
 //   (accurate expf, the split, the rescale: ~25 instructions per score)
@@ -89,7 +104,8 @@
 // CUDA cores: one block of 256 threads per 64-row q tile, q, K and V staged
 // as float32 in shared memory (a K tile and then its V tile in one buffer),
 // float32 FMAs, each thread holding a 4 x 4 block of scores and a
-// 4 x DV/16 block of the accumulator; the same (DK, DV) instances.
+// 4 x DV/16 block of the accumulator; the same (DK, DV) instances and v
+// slices, two blocks an SM but one at (256, 128) (145 KiB of tiles).
 // cuda.h: CUtensorMap, header only (the encoder is fetched at run time)
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -124,6 +140,28 @@ struct Strides {
   int64_t b, h, s;  // in elements; the head dim is contiguous
 };
 
+// The visible keys of query row r are [key_lo(r), key_hi(r)]
+// (kernels/swa_attention.tile_plan uses the same formulas): the causal mask
+// with a bidirectional prefix of P keys sees up to max(r, P - 1), a
+// non-causal call every one of its Skv keys; a window cuts below.
+__device__ __forceinline__ int key_lo(int r, int window) {
+  return window > 0 ? max(r - window + 1, 0) : 0;
+}
+__device__ __forceinline__ int key_hi(int r, int skv, int causal,
+                                      int prefix) {
+  return causal ? max(r, prefix - 1) : skv - 1;
+}
+// The reference's mask (nn/attention._attend_chunk): kpos < Skv, and
+// (kpos <= qpos or kpos < P) under the causal mask, and qpos - kpos <
+// window with a window.
+__device__ __forceinline__ bool visible(int qpos, int kpos, int skv,
+                                        int window, int causal, int prefix) {
+  bool vis = kpos < skv;
+  if (causal) vis = vis && (qpos >= kpos || kpos < prefix);
+  if (window > 0) vis = vis && qpos - kpos < window;
+  return vis;
+}
+
 // kTile rows of one head from seq position row0 into a float tile of pitch
 // ld; rows past S and columns past d are zero.
 template <typename T, int D>
@@ -142,12 +180,14 @@ __device__ __forceinline__ void load_tile(float* tile, int ld, const T* base,
   }
 }
 
+// Two blocks an SM, but one at DK 256, whose tiles take 145 KiB.
 template <typename T, int DK, int DV>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, DK > 192 ? 1 : 2)
     swa_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o, int H, int rep,
-               int S, int dk, int dv, Strides qs, Strides ks, Strides vs,
-               Strides os, int window, int causal, float scale) {
+               int sq, int skv, int dk, int dv, Strides qs, Strides ks,
+               Strides vs, Strides os, int window, int causal, int prefix,
+               float scale) {
   constexpr int kLdK = DK + 1;
   constexpr int kLdV = DV + 1;
   constexpr int kLdKv = kLdK > kLdV ? kLdK : kLdV;
@@ -163,10 +203,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int64_t b = blockIdx.y / H;
   const int64_t h = blockIdx.y % H;
   const int64_t hk = h / rep;
+  // blockIdx.z: the DV-wide column slice of v and the output
+  const int vc0 = blockIdx.z * DV;
+  const int dvh = min(dv - vc0, DV);
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-  T* ob = o + b * os.b + h * os.h;
+  const T* vb = v + b * vs.b + hk * vs.h + vc0;
+  T* ob = o + b * os.b + h * os.h + vc0;
 
   // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j; the 16
   // threads of a row are the lanes of one half-warp
@@ -182,17 +225,17 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
   }
 
-  load_tile<T, DK>(qt, kLdK, qb, qs.s, q0, S, dk);
+  load_tile<T, DK>(qt, kLdK, qb, qs.s, q0, sq, dk);
 
   // the KV tiles that intersect the mask of rows [q0, q0 + kTile)
-  const int q_last = min(q0 + kTile, S) - 1;
-  const int kt_hi = (causal ? q_last : S - 1) / kTile;
-  const int kt_lo = (window > 0 ? max(q0 - window + 1, 0) : 0) / kTile;
+  const int q_last = min(q0 + kTile, sq) - 1;
+  const int kt_hi = key_hi(q_last, skv, causal, prefix) / kTile;
+  const int kt_lo = key_lo(q0, window) / kTile;
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's V and p reads are done
-    load_tile<T, DK>(kvt, kLdK, kb, ks.s, k0, S, dk);
+    load_tile<T, DK>(kvt, kLdK, kb, ks.s, k0, skv, dk);
     __syncthreads();
 
     float s[4][4];
@@ -223,10 +266,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        bool live = kpos < S;
-        if (causal) live = live && qpos >= kpos;
-        if (window > 0) live = live && qpos - kpos < window;
-        s[i][j] = live ? s[i][j] * scale : kNegInf;
+        s[i][j] = visible(qpos, kpos, skv, window, causal, prefix)
+                      ? s[i][j] * scale
+                      : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -252,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int j = 0; j < 4; ++j) pt[(ty + 16 * i) * kPLd + tx + 16 * j] = s[i][j];
     }
     __syncthreads();  // every K read is done and p is written
-    load_tile<T, DV>(kvt, kLdV, vb, vs.s, k0, S, dv);
+    load_tile<T, DV>(kvt, kLdV, vb, vs.s, k0, skv, dvh);
     __syncthreads();
 
     float pv[4][kCols];
@@ -284,12 +326,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
+    if (row >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = tx + 16 * j;
-      if (c < dv) {
+      if (c < dvh) {
         ob[static_cast<int64_t>(row) * os.s + c] = from_float<T>(acc[i][j] / den);
       }
     }
@@ -298,8 +340,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <typename T, int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KVH, int S, int dk, int dv, Strides qs, Strides ks, Strides vs,
-           Strides os, int window, int causal, float scale, cudaStream_t st) {
+           int KVH, int sq, int skv, int dk, int dv, Strides qs, Strides ks,
+           Strides vs, Strides os, int window, int causal, int prefix,
+           float scale, cudaStream_t st) {
   constexpr int kLdKv = (DK > DV ? DK : DV) + 1;
   const int smem = static_cast<int>(sizeof(float)) *
                    (kTile * (DK + 1) + kTile * kLdKv + kTile * (kTile + 1));
@@ -307,12 +350,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
       swa_kernel<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((S + kTile - 1) / kTile),
-                  static_cast<unsigned>(B * H));
+  const dim3 grid(static_cast<unsigned>((sq + kTile - 1) / kTile),
+                  static_cast<unsigned>(B * H),
+                  static_cast<unsigned>((dv + DV - 1) / DV));
   swa_kernel<T, DK, DV><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / KVH, S, dk, dv,
-      qs, ks, vs, os, window, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), H, H / KVH, sq, skv, dk,
+      dv, qs, ks, vs, os, window, causal, prefix, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,15 +374,6 @@ constexpr int kBars = 1 + 4 * kStages;   // q full; K / V full and empty
 // named barriers (0 is __syncthreads's): the consumer warpgroups' turns
 constexpr int kTurn0 = 1;
 constexpr uint64_t kStallNs = 4000000000ull;
-
-// The visible keys of query row r are [key_lo(r), key_hi(r)]
-// (kernels/swa_attention.tile_plan uses the same formulas).
-__device__ __forceinline__ int key_lo(int r, int window) {
-  return window > 0 ? max(r - window + 1, 0) : 0;
-}
-__device__ __forceinline__ int key_hi(int r, int S, int causal) {
-  return causal ? r : S - 1;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -574,7 +609,8 @@ template <typename T, int DV, bool kRoundP>
 __device__ __forceinline__ void tile_softmax(
     float (&s)[kBk / 2], float (&acc)[DV / 2], uint32_t (&p_hi)[kBk / 4],
     uint32_t (&p_lo)[kBk / 4], float (&m)[2], float (&l)[2], bool full,
-    int row_a, int k0, int t4, int S, int window, int causal, float scale) {
+    int row_a, int k0, int t4, int skv, int window, int causal, int prefix,
+    float scale) {
   if (full) {
 #pragma unroll
     for (int i = 0; i < kBk / 2; ++i) s[i] *= scale;
@@ -585,10 +621,9 @@ __device__ __forceinline__ void tile_softmax(
       for (int e = 0; e < 4; ++e) {
         const int qpos = row_a + 8 * (e / 2);
         const int kpos = k0 + 8 * j + 2 * t4 + e % 2;
-        bool vis = kpos < S;
-        if (causal) vis = vis && qpos >= kpos;
-        if (window > 0) vis = vis && qpos - kpos < window;
-        s[4 * j + e] = vis ? s[4 * j + e] * scale : kNegInf;
+        s[4 * j + e] = visible(qpos, kpos, skv, window, causal, prefix)
+                           ? s[4 * j + e] * scale
+                           : kNegInf;
       }
     }
   }
@@ -639,9 +674,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                   const __grid_constant__ CUtensorMap vmap,
                   const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int H, int rep,
-                  int S, int dk, int dv, Strides qs, Strides ks, Strides vs,
-                  Strides os, int window, int causal, float scale,
-                  int use_tma) {
+                  int sq, int skv, int dk, int dv, Strides qs, Strides ks,
+                  Strides vs, Strides os, int window, int causal, int prefix,
+                  float scale, int use_tma) {
   // 64-column blocks of a q or K tile (head dim DK) and of a V tile (DV)
   constexpr int kNbK = DK / 64;
   constexpr int kNbV = DV / 64;
@@ -665,9 +700,15 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int hk = h / rep;
-  // the block's KV tiles: tile_plan(S, window, causal, kBq, kBk)
+  // blockIdx.z: the DV-wide column slice of v and the output (a v head
+  // dim of 256 in the DV = 128 instances: each slice recomputes the same
+  // float32 scores, so m and l, and every output bit, are a single pass's)
+  const int vc0 = blockIdx.z * DV;
+  const int dvh = min(dv - vc0, DV);
+  // the block's KV tiles: tile_plan(sq, window, causal, kBq, kBk, prefix,
+  // skv)
   const int kt_lo = key_lo(q0, window) / kBk;
-  const int kt_hi = key_hi(min(q0 + kBq, S) - 1, S, causal) / kBk;
+  const int kt_hi = key_hi(min(q0 + kBq, sq) - 1, skv, causal, prefix) / kBk;
   const int n_tiles = kt_hi - kt_lo + 1;
 
   if (threadIdx.x == 0) {
@@ -709,24 +750,24 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         mbar_expect_tx(v_full + 8 * st, kVTile);
         for (int c = 0; c < kNbV; ++c) {
           tma_load(v_s + st * kVTile + c * kKvBlk, &vmap, v_full + 8 * st,
-                   64 * c, k0, hk, b);
+                   vc0 + 64 * c, k0, hk, b);
         }
       }
     } else {
       const T* qb = q + b * qs.b + h * qs.h;
       const T* kb = k + b * ks.b + hk * ks.h;
-      const T* vb = v + b * vs.b + hk * vs.h;
-      copy_tile<kBq, DK>(q_s, qb, qs.s, q0, S, dk, lane);
+      const T* vb = v + b * vs.b + hk * vs.h + vc0;
+      copy_tile<kBq, DK>(q_s, qb, qs.s, q0, sq, dk, lane);
       mbar_arrive(q_full);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
         const uint32_t ph = (i / kStages) & 1;
         const int k0 = (kt_lo + i) * kBk;
         mbar_wait(k_empty + 8 * st, ph ^ 1);
-        copy_tile<kBk, DK>(k_s + st * kKTile, kb, ks.s, k0, S, dk, lane);
+        copy_tile<kBk, DK>(k_s + st * kKTile, kb, ks.s, k0, skv, dk, lane);
         mbar_arrive(k_full + 8 * st);
         mbar_wait(v_empty + 8 * st, ph ^ 1);
-        copy_tile<kBk, DV>(v_s + st * kVTile, vb, vs.s, k0, S, dv, lane);
+        copy_tile<kBk, DV>(v_s + st * kVTile, vb, vs.s, k0, skv, dvh, lane);
         mbar_arrive(v_full + 8 * st);
       }
     }
@@ -739,15 +780,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // this thread's accumulator rows: row_a and row_a + 8
   const int row_a = q0 + wg * 64 + (threadIdx.x / 32) % 4 * 16 + lane / 4;
   const int r0 = q0 + wg * 64;
-  const int r1 = min(r0 + 63, S - 1);
+  const int r1 = min(r0 + 63, sq - 1);
   // Both warpgroups compute every tile of the block (no condition around a
   // wgmma, or ptxas serializes them); a warpgroup masks a tile unless it
-  // is whole and visible from all its rows, tile_plan(S, window, causal,
-  // 64, kBk): k0 >= full_lo, k0 + kBk - 1 <= full_hi, k0 + kBk <= S. A
+  // is whole and visible from all its rows, tile_plan(sq, window, causal,
+  // 64, kBk, prefix, skv): k0 >= full_lo, k0 + kBk - 1 <= full_hi,
+  // k0 + kBk <= skv. A
   // tile that none of its rows sees is then masked whole, which changes no
   // output bit (see the note at the top).
   const int full_lo = key_lo(r1, window);
-  const int full_hi = key_hi(r0, S, causal);
+  const int full_hi = key_hi(r0, skv, causal, prefix);
 
   float s[kBk / 2];
   float acc[DV / 2];
@@ -797,8 +839,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int k0 = kt * kBk;
     tile_softmax<T, DV, kRoundP>(s, acc, p_hi, p_lo, m, l,
                        k0 >= full_lo && k0 + kBk - 1 <= full_hi &&
-                           k0 + kBk <= S,
-                       row_a, k0, t4, S, window, causal, scale);
+                           k0 + kBk <= skv,
+                       row_a, k0, t4, skv, window, causal, prefix, scale);
   };
 
   mbar_wait(q_full, 0);
@@ -864,18 +906,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 
   // acc[4 j + e]: row row_a + 8 * (e / 2), column 8 j + 2 t4 + e % 2
-  T* ob = o + b * os.b + h * os.h;
+  T* ob = o + b * os.b + h * os.h + vc0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
-    if (row >= S) continue;
+    if (row >= sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * t4 + e;
-        if (c < dv) {
+        if (c < dvh) {
           ob[static_cast<int64_t>(row) * os.s + c] =
               from_float<T>(acc[4 * j + 2 * r + e] / den);
         }
@@ -951,11 +993,11 @@ int encode_view(CUtensorMap* map, CUtensorMapDataType ty, const void* p,
 
 template <typename T, int DK, int DV, bool kRoundP>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int KVH, int S, int dk, int dv, Strides qs, Strides ks,
-              Strides vs, Strides os, int window, int causal, float scale,
-              cudaStream_t st) {
+              int H, int KVH, int sq, int skv, int dk, int dv, Strides qs,
+              Strides ks, Strides vs, Strides os, int window, int causal,
+              int prefix, float scale, cudaStream_t st) {
   // the q tile, kStages K and kStages V tiles, the mbarriers, 1024 bytes
-  // to align: at (192, 128) 48 + 72 + 48 KiB
+  // to align: at (192, 128) 48 + 72 + 48 KiB, at (256, 128) 64 + 96 + 48
   const int smem = DK / 64 * (kQBlk + kStages * kKvBlk) +
                    DV / 64 * kStages * kKvBlk + 8 * kBars + 1024;
   const CUtensorMapDataType ty = Mma<T>::kMapType;
@@ -963,123 +1005,120 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   const int use_tma = tma_view(q, B, H, qs) && tma_view(k, B, KVH, ks) &&
                       tma_view(v, B, KVH, vs);
   if (use_tma) {
-    int err = encode_view(&maps[0], ty, q, dk, S, H, B, qs, kBq);
-    if (!err) err = encode_view(&maps[1], ty, k, dk, S, KVH, B, ks, kBk);
-    if (!err) err = encode_view(&maps[2], ty, v, dv, S, KVH, B, vs, kBk);
+    int err = encode_view(&maps[0], ty, q, dk, sq, H, B, qs, kBq);
+    if (!err) err = encode_view(&maps[1], ty, k, dk, skv, KVH, B, ks, kBk);
+    if (!err) err = encode_view(&maps[2], ty, v, dv, skv, KVH, B, vs, kBk);
     if (err) return err;
   }
   cudaError_t err = cudaFuncSetAttribute(
       swa_kernel_tc<T, DK, DV, kRoundP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((S + kBq - 1) / kBq),
-                  static_cast<unsigned>(B * H));
+  const dim3 grid(static_cast<unsigned>((sq + kBq - 1) / kBq),
+                  static_cast<unsigned>(B * H),
+                  static_cast<unsigned>((dv + DV - 1) / DV));
   swa_kernel_tc<T, DK, DV, kRoundP><<<grid, kTcThreads, smem, st>>>(
       maps[0], maps[1], maps[2], static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-      H, H / KVH, S, dk, dv, qs, ks, vs, os, window, causal, scale, use_tma);
+      H, H / KVH, sq, skv, dk, dv, qs, ks, vs, os, window, causal, prefix,
+      scale, use_tma);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance for head dims (dk, dv): (64, 64), (128, 128) or (192, 128),
-// the first that holds both (a smaller head dim is zero-filled); the
-// wrapper refuses dk > 192 and dv > 128.
-enum class Dims { k64, k128, k192 };
+// The instance for head dims (dk, dv): (64, 64), (128, 128), (192, 128) or
+// (256, 128), the first whose DK holds dk and whose DV holds dv or, in the
+// DV = 128 instances, a 128-wide slice of it (blockIdx.z picks the slice:
+// v heads up to 256); a smaller head dim is zero-filled. The wrapper
+// refuses dk > 256 and dv > 256.
+enum class Dims { k64, k128, k192, k256 };
 
 inline Dims pick_dims(int dk, int dv) {
   if (dk <= 64 && dv <= 64) return Dims::k64;
   if (dk <= 128) return Dims::k128;
-  return Dims::k192;
+  if (dk <= 192) return Dims::k192;
+  return Dims::k256;
 }
 
+// The arguments every launcher passes on as they are.
+#define SWA_ARGS                                                        \
+  q, k, v, o, B, H, KVH, sq, skv, dk, dv, qs, ks, vs, os, window, causal, \
+      prefix, scale, st
+#define SWA_PARAMS                                                         \
+  const void *q, const void *k, const void *v, void *o, int B, int H,      \
+      int KVH, int sq, int skv, int dk, int dv, Strides qs, Strides ks,    \
+      Strides vs, Strides os, int window, int causal, int prefix,          \
+      float scale, cudaStream_t st
+
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int KVH, int S, int dk, int dv, Strides qs, Strides ks,
-             Strides vs, Strides os, int window, int causal, float scale,
-             cudaStream_t st) {
+int launch_d(SWA_PARAMS) {
   switch (pick_dims(dk, dv)) {
     case Dims::k64:
-      return launch<T, 64, 64>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs,
-                               os, window, causal, scale, st);
+      return launch<T, 64, 64>(SWA_ARGS);
     case Dims::k128:
-      return launch<T, 128, 128>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks,
-                                 vs, os, window, causal, scale, st);
+      return launch<T, 128, 128>(SWA_ARGS);
+    case Dims::k192:
+      return launch<T, 192, 128>(SWA_ARGS);
     default:
-      return launch<T, 192, 128>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks,
-                                 vs, os, window, causal, scale, st);
+      return launch<T, 256, 128>(SWA_ARGS);
   }
 }
 
 template <typename T, bool kRoundP>
-int launch_tc_d(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KVH, int S, int dk, int dv, Strides qs, Strides ks,
-                Strides vs, Strides os, int window, int causal, float scale,
-                cudaStream_t st) {
+int launch_tc_d(SWA_PARAMS) {
   switch (pick_dims(dk, dv)) {
     case Dims::k64:
-      return launch_tc<T, 64, 64, kRoundP>(q, k, v, o, B, H, KVH, S, dk, dv,
-                                           qs, ks, vs, os, window, causal,
-                                           scale, st);
+      return launch_tc<T, 64, 64, kRoundP>(SWA_ARGS);
     case Dims::k128:
-      return launch_tc<T, 128, 128, kRoundP>(q, k, v, o, B, H, KVH, S, dk,
-                                             dv, qs, ks, vs, os, window,
-                                             causal, scale, st);
+      return launch_tc<T, 128, 128, kRoundP>(SWA_ARGS);
+    case Dims::k192:
+      return launch_tc<T, 192, 128, kRoundP>(SWA_ARGS);
     default:
-      return launch_tc<T, 192, 128, kRoundP>(q, k, v, o, B, H, KVH, S, dk,
-                                             dv, qs, ks, vs, os, window,
-                                             causal, scale, st);
+      return launch_tc<T, 256, 128, kRoundP>(SWA_ARGS);
   }
 }
 
 template <typename T>
-int launch_tc_p(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KVH, int S, int dk, int dv, Strides qs, Strides ks,
-                Strides vs, Strides os, int window, int causal, float scale,
-                int round_p, cudaStream_t st) {
-  if (round_p) {
-    return launch_tc_d<T, true>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs,
-                                os, window, causal, scale, st);
-  }
-  return launch_tc_d<T, false>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs,
-                               os, window, causal, scale, st);
+int launch_tc_p(SWA_PARAMS, int round_p) {
+  if (round_p) return launch_tc_d<T, true>(SWA_ARGS);
+  return launch_tc_d<T, false>(SWA_ARGS);
 }
 
 }  // namespace
 
-// o = softmax(mask(q k^T * scale)) v per (batch, head); q (B, H, S, dk),
-// k (B, KVH, S, dk), v (B, KVH, S, dv), o (B, H, S, dv), H a multiple of
-// KVH, 0 < dk <= 192, 0 < dv <= 128, every tensor with a contiguous head
-// dim and the given (batch, head, seq) element strides.
+// o = softmax(mask(q k^T * scale)) v per (batch, head); q (B, H, sq, dk),
+// k (B, KVH, skv, dk), v (B, KVH, skv, dv), o (B, H, sq, dv), H a multiple
+// of KVH, 0 < dk <= 256, 0 < dv <= 256, every tensor with a contiguous head
+// dim and the given (batch, head, seq) element strides; sq != skv only for
+// a non-causal call without a window.
 // dtype: 0 float32, 1 bfloat16, 2 float16 (all four tensors alike).
-// window <= 0: no sliding window. round_p: round p to the input's type
-// before p @ v (bf16 / fp16; float32 ignores it). Returns the CUDA error of
-// the launch.
+// window <= 0: no sliding window. prefix: the causal mask's bidirectional
+// prefix, keys [0, prefix) visible from every row (0 <= prefix <= skv).
+// round_p: round p to the input's type before p @ v (bf16 / fp16; float32
+// ignores it). Returns the CUDA error of the launch.
 extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, int dtype, int B, int H, int KVH,
-                                 int S, int dk, int dv, int64_t qsb,
+                                 int sq, int skv, int dk, int dv, int64_t qsb,
                                  int64_t qsh, int64_t qss, int64_t ksb,
                                  int64_t ksh, int64_t kss, int64_t vsb,
                                  int64_t vsh, int64_t vss, int64_t osb,
                                  int64_t osh, int64_t oss, int window,
-                                 int causal, float scale, int round_p,
-                                 void* stream) {
+                                 int causal, int prefix, float scale,
+                                 int round_p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
-  if (dk <= 0 || dv <= 0 || dk > 192 || dv > 128) {
+  if (dk <= 0 || dv <= 0 || dk > 256 || dv > 256 || skv <= 0 ||
+      prefix < 0 || prefix > skv ||
+      (sq != skv && (causal || window > 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (dtype) {
     case 0:
-      return launch_d<float>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs, os,
-                             window, causal, scale, st);
+      return launch_d<float>(SWA_ARGS);
     case 1:
-      return launch_tc_p<__nv_bfloat16>(q, k, v, o, B, H, KVH, S, dk, dv, qs,
-                                        ks, vs, os, window, causal, scale,
-                                        round_p, st);
+      return launch_tc_p<__nv_bfloat16>(SWA_ARGS, round_p);
     case 2:
-      return launch_tc_p<__half>(q, k, v, o, B, H, KVH, S, dk, dv, qs, ks, vs,
-                                 os, window, causal, scale, round_p, st);
+      return launch_tc_p<__half>(SWA_ARGS, round_p);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -56,14 +56,15 @@ def seed_reconstruct(seed: int, leaf_id: int, shape, stddev: float,
 
 
 def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None,
-                  round_p: bool = False):
-    """Causal (optionally sliding-window) attention over (B, H, S, D) q and
-    (B, KVH, S, D) k, v: the kernel for CUDA tensors, the plain version
-    for CPU ones; p at float32 accuracy (the TPU kernel's function) or,
-    with ``round_p``, rounded to v's dtype once (the reference's
-    ``flash_attention``)."""
+                  round_p: bool = False, prefix_len: int = 0):
+    """Causal (optionally with a bidirectional prefix of ``prefix_len``
+    keys, optionally sliding-window) or non-causal attention over (B, H,
+    Sq, D) q and (B, KVH, Skv, D) k, v: the kernel for CUDA tensors, the
+    plain version for CPU ones; p at float32 accuracy (the TPU kernel's
+    function) or, with ``round_p``, rounded to v's dtype once (the
+    reference's ``flash_attention``)."""
     return _swa.swa_attention(q, k, v, window=window, causal=causal, out=out,
-                              round_p=round_p)
+                              round_p=round_p, prefix_len=prefix_len)
 
 
 def _staged_tail(mat, weights, block_leaf, bmask, rng, *, n_leaves, align,

@@ -252,46 +252,50 @@ def _repeat_kv(x, heads: int):
     return xf.repeat_interleave(rep, dim=1) if rep > 1 else xf
 
 
-def _swa_scores(q, kf, q0: int, q_chunk: int, window: int, causal: bool):
-    """Masked float32 scores (B, H, rows, S) of q rows [q0, q0 + q_chunk)."""
+def _swa_scores(q, kf, q0: int, q_chunk: int, window: int, causal: bool,
+                prefix_len: int = 0):
+    """Masked float32 scores (B, H, rows, Skv) of q rows [q0, q0 +
+    q_chunk)."""
     D, S = q.shape[3], kf.shape[2]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
     qc = q[:, :, q0:q0 + q_chunk].float()
     s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale
     qpos = q0 + torch.arange(qc.shape[2], device=q.device)
-    mask = _swa_mask(qpos, torch.arange(S, device=q.device), window, causal)
+    mask = _swa_mask(qpos, torch.arange(S, device=q.device), window, causal,
+                     prefix_len)
     return torch.where(mask[None, None], s, NEG_INF)
 
 
 def swa_attention_ref(q, k, v, window: int, causal: bool = True,
-                      q_chunk: int = 512):
+                      q_chunk: int = 512, prefix_len: int = 0):
     """Dense sliding-window attention oracle (``ref.swa_attention_ref`` of
-    the JAX package), float32 (B, H, S, D).
+    the JAX package), float32 (B, H, Sq, DV).
 
-    q: (B, H, S, D); k, v: (B, KVH, S, D) with H a multiple of KVH: q head
-    h reads kv head h // (H // KVH), as ``jnp.repeat`` lays them out.
-    window: past positions visible (<= 0: full causal). Rows are taken
+    q: (B, H, Sq, D); k, v: (B, KVH, Skv, D | DV) with H a multiple of
+    KVH: q head h reads kv head h // (H // KVH), as ``jnp.repeat`` lays
+    them out. window: past positions visible (<= 0: full causal);
+    ``prefix_len``: the causal mask's bidirectional prefix. Rows are taken
     ``q_chunk`` at a time so that a long sequence's score matrix never
     exists whole; every row's softmax runs over all its keys, so the
     chunking changes no value."""
     kf, vf = _repeat_kv(k, q.shape[1]), _repeat_kv(v, q.shape[1])
     outs = []
     for q0 in range(0, q.shape[2], q_chunk):
-        s = _swa_scores(q, kf, q0, q_chunk, window, causal)
+        s = _swa_scores(q, kf, q0, q_chunk, window, causal, prefix_len)
         outs.append(torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), vf))
     return torch.cat(outs, dim=2)
 
 
 def swa_softmax_peak(q, k, window: int, causal: bool = True,
-                     q_chunk: int = 512):
-    """(B, H, S) float32: each row's largest softmax weight, max_j p_j / l
+                     q_chunk: int = 512, prefix_len: int = 0):
+    """(B, H, Sq) float32: each row's largest softmax weight, max_j p_j / l
     = 1 / l with l = sum_j exp(s_j - max s), for the masks of
     :func:`swa_attention_ref`. It bounds the share of the output that one
     key's p carries."""
     kf = _repeat_kv(k, q.shape[1])
     outs = []
     for q0 in range(0, q.shape[2], q_chunk):
-        s = _swa_scores(q, kf, q0, q_chunk, window, causal)
+        s = _swa_scores(q, kf, q0, q_chunk, window, causal, prefix_len)
         outs.append(torch.exp(s.amax(-1) - torch.logsumexp(s, -1)))
     return torch.cat(outs, dim=2)
 

@@ -1,4 +1,5 @@
-"""Causal, optionally sliding-window, flash attention: the CUDA kernel of
+"""Causal (optionally with a bidirectional prefix, optionally
+sliding-window) or non-causal flash attention: the CUDA kernel of
 ``csrc/swa_attention.cu`` (port of ``repro/kernels/swa_attention.py``'s
 ``_swa_kernel`` / ``swa_attention``).
 
@@ -10,7 +11,12 @@ bf16 and fp16 run on the tensor cores (wgmma, TMA-fed K/V ring), float32
 on the CUDA cores; :func:`tile_plan` is the CPU twin of the tiles the
 tensor-core kernel reads and masks. v's head dim may differ from q's and
 k's (MLA: 192-wide q / k heads, 128-wide v heads); the kernels are built
-for (q/k, v) head dims (64, 64), (128, 128) and (192, 128).
+for (q/k, v) head dims (64, 64), (128, 128), (192, 128) and (256, 128),
+and a v head dim above 128 runs as 128-wide column slices, one a
+``blockIdx.z`` (PaliGemma's 256 / 256). The causal mask may carry a
+bidirectional prefix of ``prefix_len`` keys (PaliGemma's image
+positions); a non-causal call may take other rows in q than in k and v
+(Whisper's cross-attention).
 
 Two modes for bf16 / fp16. The default keeps p at float32 accuracy, the
 TPU kernel's function (``ops.swa_attention`` keeps its parity with the
@@ -31,7 +37,8 @@ from repro_torch import kernels
 from repro_torch.kernels import _build, ref
 
 # the largest q / k head dim and v head dim the kernel's instances hold
-MAX_QK_DIM, MAX_V_DIM = 192, 128
+# (v above 128 through 128-wide slices)
+MAX_QK_DIM, MAX_V_DIM = 256, 256
 # the tensor-core kernel's q rows per block (two warpgroups of 64) and keys
 # per KV tile
 BQ, BK = 128, 64
@@ -39,14 +46,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {"swa_attention_fwd": [_P, _P, _P, _P, _INT, _INT, _INT, _INT,
-                                     _INT, _INT, _INT] + [_I64] * 12
-               + [_INT, _INT, ctypes.c_float, _INT, _P]}
+                                     _INT, _INT, _INT, _INT] + [_I64] * 12
+               + [_INT, _INT, _INT, ctypes.c_float, _INT, _P]}
 # half an ulp of each output type, relative: one rounding to nearest
 HALF_ULP = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8,
             torch.float16: 2.0 ** -11}
 
 
-def _check(q, k, v, out) -> None:
+def _check(q, k, v, out, window: int, causal: bool, prefix_len: int) -> None:
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.device.type != "cuda":
             raise ValueError(f"swa_attention: {name} is not a CUDA tensor "
@@ -64,10 +71,19 @@ def _check(q, k, v, out) -> None:
     if q.dtype not in _DTYPES:
         raise TypeError(f"swa_attention: {q.dtype} is not supported")
     B, H, S, D = q.shape
-    DV = v.shape[-1]
-    if k.shape != (B, k.shape[1], S, D) or v.shape[:3] != k.shape[:3]:
+    skv, DV = k.shape[2], v.shape[-1]
+    if k.shape != (B, k.shape[1], skv, D) or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"swa_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if skv != S and (causal or window > 0):
+        raise ValueError(f"swa_attention: {S} q rows against {skv} keys: "
+                         f"only a non-causal call without a window takes "
+                         f"other rows in q than in k")
+    if skv == 0:
+        raise ValueError("swa_attention: no keys")
+    if not 0 <= prefix_len <= skv:
+        raise ValueError(f"swa_attention: prefix_len {prefix_len} outside "
+                         f"[0, {skv}]")
     if out.shape != (B, H, S, DV):
         raise ValueError(f"swa_attention: out {tuple(out.shape)} is not "
                          f"{(B, H, S, DV)}")
@@ -85,12 +101,15 @@ def _check(q, k, v, out) -> None:
 
 
 def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None,
-                  round_p: bool = False):
-    """softmax(mask(q k^T / sqrt(D))) v: q (B, H, S, D), k (B, KVH, S, D)
-    and v (B, KVH, S, DV) with H a multiple of KVH (q head h reads kv head
-    h // (H // KVH)), D <= 192 and DV <= 128; ``window`` > 0 keeps the
-    keys with ``q - k < window``. Returns (B, H, S, DV) in q's dtype,
-    written into ``out`` when given.
+                  round_p: bool = False, prefix_len: int = 0):
+    """softmax(mask(q k^T / sqrt(D))) v: q (B, H, Sq, D), k (B, KVH, Skv,
+    D) and v (B, KVH, Skv, DV) with H a multiple of KVH (q head h reads kv
+    head h // (H // KVH)), D <= 256 and DV <= 256. The mask keeps the keys
+    k <= q, or k < ``prefix_len`` (a bidirectional prefix), under
+    ``causal``, every key otherwise; ``window`` > 0 then keeps only those
+    with ``q - k < window``. Sq may differ from Skv only in a non-causal
+    call without a window. Returns (B, H, Sq, DV) in q's dtype, written
+    into ``out`` when given.
 
     CUDA tensors: the ``swa_attention`` kernel, which reads only the KV
     tiles inside the window (float32 scores and online softmax over
@@ -102,14 +121,16 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None,
     ``ref.chunked_attention_ref`` at the kernel's 64-key tiles."""
     if q.device.type == "cpu":
         if round_p:
-            res = ref.chunked_attention_ref(q, k, v, window, causal, chunk=BK)
+            res = ref.chunked_attention_ref(q, k, v, window, causal, chunk=BK,
+                                            prefix_len=prefix_len)
         else:
-            res = ref.swa_attention_ref(q, k, v, window, causal).to(q.dtype)
+            res = ref.swa_attention_ref(q, k, v, window, causal,
+                                        prefix_len=prefix_len).to(q.dtype)
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
                           device=q.device)
-    _check(q, k, v, out)
+    _check(q, k, v, out, window, causal, prefix_len)
     B, H, S, D = q.shape
     if S == 0:
         return out
@@ -118,16 +139,17 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True, out=None,
     scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
     err = lib.swa_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 out.data_ptr(), _DTYPES[q.dtype], B, H,
-                                k.shape[1], S, D, v.shape[-1], *strides,
-                                int(window), int(causal), scale,
-                                int(round_p),
+                                k.shape[1], S, k.shape[2], D, v.shape[-1],
+                                *strides, int(window), int(causal),
+                                int(prefix_len), scale, int(round_p),
                                 _build.stream_ptr(q))
     _build.raise_on_error("swa_attention", err)
     kernels.LAUNCHES["swa_attention"] += 1
     return out
 
 
-def round_p_tolerance(q, k, v, window: int, causal: bool, got, want):
+def round_p_tolerance(q, k, v, window: int, causal: bool, got, want,
+                      prefix_len: int = 0):
     """The per-element bound on |got - want| between the ``round_p``
     kernel's output ``got`` and its plain version's ``want``
     (``ref.chunked_attention_ref(..., chunk=BK)``), both in q's dtype:
@@ -149,50 +171,55 @@ def round_p_tolerance(q, k, v, window: int, causal: bool, got, want):
     rounding's spacing (~2**-12 in bf16), so a row sees a few flips of
     typical terms, far below one of its largest."""
     u = HALF_ULP[q.dtype]
-    peak = ref.swa_softmax_peak(q, k, window, causal)
+    peak = ref.swa_softmax_peak(q, k, window, causal, prefix_len=prefix_len)
     vmax = float(v.float().abs().max())
     return (u * (got.float().abs() + want.float().abs())
             + 2 * u * vmax * peak[..., None] + 1e-5)
-
-
-def visible_pairs(S: int, window: int, causal: bool = True) -> int:
-    """The (q, k) pairs the mask lets through, per (batch, head): the
-    operations' count behind the kernel's bound."""
-    q = np.arange(S, dtype=np.int64)
-    hi = q + 1 if causal else np.full(S, S, np.int64)
-    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(S, np.int64)
-    return int((hi - lo).sum())
 
 
 def _key_lo(r: int, window: int) -> int:
     return max(r - window + 1, 0) if window > 0 else 0
 
 
-def _key_hi(r: int, S: int, causal: bool) -> int:
-    return r if causal else S - 1
+def _key_hi(r: int, skv: int, causal: bool, prefix_len: int) -> int:
+    return max(r, prefix_len - 1) if causal else skv - 1
+
+
+def visible_pairs(S: int, window: int, causal: bool = True,
+                  prefix_len: int = 0, skv=None) -> int:
+    """The (q, k) pairs the mask lets through, per (batch, head), for
+    ``S`` q rows against ``skv`` keys (default ``S``): the operations'
+    count behind the kernel's bound."""
+    skv = S if skv is None else skv
+    return sum(max(min(_key_hi(r, skv, causal, prefix_len), skv - 1)
+                   - _key_lo(r, window) + 1, 0) for r in range(S))
 
 
 def tile_plan(S: int, window: int, causal: bool = True, bq: int = BQ,
-              bk: int = BK):
-    """The KV tiles the tensor-core kernel reads for each ``bq``-row q tile,
-    as ``csrc/swa_attention.cu`` computes them: a list of (first, last,
+              bk: int = BK, prefix_len: int = 0, skv=None):
+    """The KV tiles the tensor-core kernel reads for each ``bq``-row q tile
+    of ``S`` rows against ``skv`` keys (default ``S``), as
+    ``csrc/swa_attention.cu`` computes them: a list of (first, last,
     masked), one per q tile. Row r sees keys [lo(r), hi(r)] (lo = r -
-    window + 1 clipped at 0, or 0 without a window; hi = r under the causal
-    mask, else S - 1), both nondecreasing in r, so tile t is read when it
-    lies in [lo(q0) // bk, hi(q_last) // bk], and needs the per-element mask
-    unless it is whole (inside S) and visible from every row: t * bk >=
-    lo(q_last) and (t + 1) * bk - 1 <= hi(q0). A block of the kernel reads
-    and computes the tiles of ``tile_plan(bq=128)``; each of its two
-    warpgroups masks a tile of that range unless it is one of
-    ``tile_plan(bq=64)``'s unmasked tiles for its 64 rows."""
+    window + 1 clipped at 0, or 0 without a window; hi = max(r,
+    prefix_len - 1) under the causal mask, else skv - 1), both
+    nondecreasing in r, so tile t is read when it lies in [lo(q0) // bk,
+    hi(q_last) // bk], and needs the per-element mask unless it is whole
+    (inside skv) and visible from every row: t * bk >= lo(q_last) and (t +
+    1) * bk - 1 <= hi(q0). A block of the kernel reads and computes the
+    tiles of ``tile_plan(bq=128)``; each of its two warpgroups masks a
+    tile of that range unless it is one of ``tile_plan(bq=64)``'s unmasked
+    tiles for its 64 rows."""
+    skv = S if skv is None else skv
     plan = []
     for q0 in range(0, S, bq):
         q_last = min(q0 + bq, S) - 1
         first = _key_lo(q0, window) // bk
-        last = _key_hi(q_last, S, causal) // bk
-        full_lo, full_hi = _key_lo(q_last, window), _key_hi(q0, S, causal)
+        last = _key_hi(q_last, skv, causal, prefix_len) // bk
+        full_lo = _key_lo(q_last, window)
+        full_hi = _key_hi(q0, skv, causal, prefix_len)
         masked = tuple(t for t in range(first, last + 1)
                        if not (t * bk >= full_lo and (t + 1) * bk - 1 <= full_hi
-                               and (t + 1) * bk <= S))
+                               and (t + 1) * bk <= skv))
         plan.append((first, last, masked))
     return plan

@@ -18,14 +18,19 @@ from repro_torch.models import decoder_lm as dlm
 from repro_torch.nn import threefry
 
 
-def prefill_by_steps(params, cfg, prompt_tokens, max_len: int, device=None):
+def prefill_by_steps(params, cfg, prompt_tokens, max_len: int, device=None,
+                     cross=None):
     """Step the prompt (B, P) through ``decode_step`` one position at a
-    time, as the reference's ``generate`` prefills. Returns (logits of
-    every prompt position (B, P, V), cache)."""
+    time, as the reference's ``generate`` prefills; an encoder-decoder
+    attends to ``cross`` (``dlm.build_cross_cache`` of its frames) where
+    given, else to ``init_cache``'s zeros, as the reference's does.
+    Returns (logits of every prompt position (B, P, V), cache)."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt_tokens, device=dev)
     B, P = prompt.shape
     cache = dlm.init_cache(cfg, B, max_len, device=dev)
+    if cross is not None:
+        cache["cross"] = cross
     logits = []
     for t in range(P):
         step_logits, cache = dlm.decode_step(params, cfg, cache,
@@ -35,17 +40,20 @@ def prefill_by_steps(params, cfg, prompt_tokens, max_len: int, device=None):
 
 
 def generate(params, cfg, prompt_tokens, steps: int, max_len: int = 0,
-             temperature: float = 0.0, seed: int = 0, device=None):
+             temperature: float = 0.0, seed: int = 0, device=None,
+             cross=None):
     """Greedy / sampled generation. prompt_tokens: (B, P) -> (B, P +
     steps) int32, on the card unless ``device="cpu"``. With ``temperature
     > 0`` each step splits the key of ``seed`` and draws
     ``threefry.categorical`` from the last logits over the temperature,
-    as the reference draws ``jax.random.categorical``."""
+    as the reference draws ``jax.random.categorical``. Text only: the VLM
+    decodes without its prefix, and an encoder-decoder against ``cross``
+    when given (else the zero cross cache), as in the reference."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt_tokens, device=dev).to(torch.int32)
     B, P = prompt.shape
     logits, cache = prefill_by_steps(params, cfg, prompt, max_len or (P + steps),
-                                     dev)
+                                     dev, cross)
     out = [prompt]
     key = threefry.key(seed)
     for _ in range(steps):

@@ -80,14 +80,23 @@ def _on(device, *trees) -> None:
 def make_prefill_step(cfg: ModelConfig, device=None):
     """prefill_step(y, frozen, batch) -> logits (B, S, V), on the card
     unless ``device="cpu"``; ``batch["tokens"]`` (B, S) may be any
-    integer array."""
+    integer array. The VLM also takes ``batch["prefix_embeds"]`` (B, P,
+    1152) (the logits then cover P + S positions), the encoder-decoder
+    ``batch["encoder_embeds"]`` (B, E, d_model)."""
     dev = resolve_device(device)
 
     def prefill_step(y, frozen, batch):
         _on(dev, y, frozen)
         params = part.merge(y, frozen)
         tokens = torch.as_tensor(batch["tokens"], device=dev)
-        logits, _ = dlm.forward(params, cfg, tokens)
+        kw = {}
+        if cfg.family == "vlm":
+            kw["prefix_embeds"] = torch.as_tensor(batch["prefix_embeds"],
+                                                  device=dev)
+        if cfg.is_encoder_decoder:
+            kw["encoder_embeds"] = torch.as_tensor(batch["encoder_embeds"],
+                                                   device=dev)
+        logits, _ = dlm.forward(params, cfg, tokens, **kw)
         return logits
 
     return prefill_step

@@ -160,14 +160,26 @@ def arch_task(cfg, seed: int = 0, device=None) -> ArchTask:
     ``cfg`` (reduced or not), with its parameters built on ``device``: 16
     clients x 32 sentences of 32 tokens, 4 clients x 2 SGD steps (lr 0.1)
     x 4 a round, server SGD with momentum (lr 0.5), ``train_loss`` with
-    the tokens as their own labels."""
+    the tokens as their own labels; the VLM gets zero ``prefix_embeds``
+    (B, num_prefix_tokens, 1152), the encoder-decoder zero
+    ``encoder_embeds`` (B, encoder_seq_len, d_model), float32, as the
+    reference's stubs."""
     dev = resolve_device(device)
     ds = syn.make_federated_tokens(16, 32, seq_len=32, vocab=cfg.vocab_size,
                                    seed=seed)
 
     def loss_fn(params, b):
-        return dlm.train_loss(params, cfg, {"tokens": b["tokens"],
-                                            "labels": b["tokens"]})
+        toks = b["tokens"]
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.family == "vlm":
+            batch["prefix_embeds"] = torch.zeros(
+                (toks.shape[0], cfg.num_prefix_tokens, dlm.VISION_TOWER_DIM),
+                device=toks.device)
+        if cfg.is_encoder_decoder:
+            batch["encoder_embeds"] = torch.zeros(
+                (toks.shape[0], cfg.encoder_seq_len, cfg.d_model),
+                device=toks.device)
+        return dlm.train_loss(params, cfg, batch)
 
     return ArchTask(cfg, ds, lambda s: dlm.init_model(cfg, s, device=dev),
                     loss_fn, fedpt.RoundConfig(4, 2, 4, "sgd", 0.1, "sgdm",

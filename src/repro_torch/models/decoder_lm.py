@@ -1,13 +1,16 @@
-"""Decoder-only LM, port of the dense, MoE, hybrid (Jamba) and SSM
-(xLSTM) families of ``repro/models/decoder_lm.py``, with GQA or MLA
-attention, Mamba, mLSTM and sLSTM blocks (``nn/ssm.py``).
+"""The decoder LM, port of ``repro/models/decoder_lm.py``: the dense,
+MoE, hybrid (Jamba), SSM (xLSTM), VLM (PaliGemma) and encoder-decoder
+(Whisper) families, with GQA or MLA attention, Mamba, mLSTM and sLSTM
+blocks (``nn/ssm.py``).
 
 The layer stack is a *periodic program*: ``num_layers / period`` identical
 groups of ``period`` slots. Each leaf of the stack is stacked over the
 groups along a leading axis, as the reference's ``jax.vmap`` init stacks
 it, and the forward pass loops over the groups where the reference
 scans. Group g's leaves are drawn from ``fold_in(path_key(seed,
-"<name>/stack"), g)``, so they are the reference's bits.
+"<name>/stack"), g)`` (an encoder-decoder's decoder stack from
+``"<name>/stack/dec"``, its encoder stack from ``"<name>/stack"``), so
+they are the reference's bits.
 
 KV caches: full-length buffers for global attention, or a ring buffer of
 ``sliding_window`` entries when the window is shorter than the cache
@@ -20,9 +23,20 @@ decode loop is eager).
 
 Attention slots (GQA, or MLA when ``cfg.use_mla``) and Mamba slots take a
 dense or MoE (``nn/moe.py``) FFN after a second norm; mLSTM and sLSTM
-blocks carry their own projections and have none. VLM and
-encoder-decoder stacks raise ``NotImplementedError`` until the slices
-that port the VLM prefix and the encoder-decoder stack.
+blocks carry their own projections and have none.
+
+The VLM projects ``prefix_embeds`` (B, P, 1152), the stubbed vision
+tower's patch embeddings, through ``mm_proj`` and prepends them; every
+attention layer sees the P prefix positions from every query (a
+bidirectional prefix), and ``train_loss`` drops their logits. The
+encoder-decoder runs ``encoder_embeds`` (B, E, d_model), the stubbed audio
+frontend's frames, through a non-causal encoder stack (sinusoid
+positions, no window) and ``enc_norm``; each decoder attention slot then
+adds cross-attention (``ln_cross``, ``cross_attn``) from the decoder's
+queries to the encoder's keys and values. Decode runs text only: the
+VLM without a prefix, the encoder-decoder against the cache's ``cross``
+K / V (zeros from ``init_cache``, the encoder's from
+``build_cross_cache``).
 
 ``forward`` takes the attention function explicitly: the serving prefill
 runs ``nn/attention.flash_attention`` (the ``swa_attention`` kernel on
@@ -70,19 +84,22 @@ def layer_program(cfg: ModelConfig) -> Tuple[Tuple[Slot, ...], int]:
     return slots, cfg.num_layers // period
 
 
-def _refuse_vlm_encdec(cfg: ModelConfig) -> None:
-    """Raise for the stacks not ported yet: the VLM prefix and the
-    encoder-decoder stack."""
-    if cfg.family == "vlm" or cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} stack is "
-                                  f"not ported yet")
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's config: ``encoder_layers`` layers, no window."""
+    return cfg.with_(num_layers=cfg.encoder_layers or cfg.num_layers,
+                     sliding_window=0)
 
 
 # ---------------------------------------------------------------------------
 # Init
 
+# the width of the stubbed vision tower's patch embeddings (SigLIP's), which
+# the VLM's ``mm_proj`` takes to d_model
+VISION_TOWER_DIM = 1152
 
-def _init_slot(key, cfg: ModelConfig, slot: Slot, si: int, device=None):
+
+def _init_slot(key, cfg: ModelConfig, slot: Slot, si: int, device=None,
+               decoder_cross: bool = False):
     dt = cfg.pdtype
     path = f"layers/slot{si}"
     p = {"ln1": basic.init_norm(key, f"{path}/ln1", cfg.d_model, dt,
@@ -91,6 +108,12 @@ def _init_slot(key, cfg: ModelConfig, slot: Slot, si: int, device=None):
         p["attn"] = (attn_lib.init_mla if cfg.use_mla else
                      attn_lib.init_attention)(key, f"{path}/attn", cfg, dt,
                                               device)
+        if decoder_cross:
+            p["ln_cross"] = basic.init_norm(key, f"{path}/ln_cross",
+                                            cfg.d_model, dt, cfg.norm_type,
+                                            device)
+            p["cross_attn"] = attn_lib.init_attention(
+                key, f"{path}/cross_attn", cfg, dt, device)
     else:
         init = {MAMBA: ssm_lib.init_mamba, MLSTM: ssm_lib.init_mlstm,
                 SLSTM: ssm_lib.init_slstm}[slot.kind]
@@ -107,17 +130,21 @@ def _init_slot(key, cfg: ModelConfig, slot: Slot, si: int, device=None):
     return p
 
 
-def _init_stack(seed, cfg: ModelConfig, device=None):
+def _init_stack(seed, cfg: ModelConfig, device=None,
+                decoder_cross: bool = False):
     """Each slot's tree, its leaves stacked over the groups: group g's
     leaves are drawn from ``fold_in(root, g)`` and copied into the stacked
-    leaves at once, so that one group's tree is held beside the stack."""
+    leaves at once, so that one group's tree is held beside the stack. An
+    encoder-decoder's decoder stack (``decoder_cross``: attention slots
+    with cross-attention) has the root ``"<name>/stack/dec"``."""
     slots, n_groups = layer_program(cfg)
-    root = basic.path_key(seed, f"{cfg.name}/stack")
+    root = basic.path_key(seed, f"{cfg.name}/stack"
+                          + ("/dec" if decoder_cross else ""))
     stacked = {}
     for g in range(n_groups):
         key = threefry.fold_in(root, g)
         for si, slot in enumerate(slots):
-            tree = _init_slot(key, cfg, slot, si, device)
+            tree = _init_slot(key, cfg, slot, si, device, decoder_cross)
             if g == 0:
                 stacked[f"slot{si}"] = basic.tree_map(
                     lambda x: x.new_empty((n_groups,) + tuple(x.shape)), tree)
@@ -127,21 +154,33 @@ def _init_stack(seed, cfg: ModelConfig, device=None):
 
 
 def init_model(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
-    """The parameter tree, on the card unless ``device="cpu"``."""
+    """The parameter tree, on the card unless ``device="cpu"``. The VLM
+    adds ``mm_proj``; the encoder-decoder ``enc_layers`` and
+    ``enc_norm``, its decoder stack drawn from its own root (the reference
+    draws a plain decoder stack first and replaces it: the bits come from
+    the ``/dec`` root alone, so that one is never made)."""
     dev = resolve_device(device)
-    _refuse_vlm_encdec(cfg)
     dt = cfg.pdtype
     p: Dict[str, Any] = {
         "embed": basic.init_embedding(seed, "embed", cfg.vocab_size,
                                       cfg.d_model, dt, dev),
         "final_norm": basic.init_norm(seed, "final_norm", cfg.d_model, dt,
                                       cfg.norm_type, dev),
-        "layers": _init_stack(seed, cfg, dev),
+        "layers": _init_stack(seed, cfg, dev,
+                              decoder_cross=cfg.is_encoder_decoder),
     }
     if not cfg.tie_embeddings:
         p["unembed"] = {"kernel": basic.normal_init(
             seed, "unembed/kernel", (cfg.d_model, cfg.vocab_size), dt,
             fan_in=cfg.d_model, device=dev)}
+    if cfg.family == "vlm":
+        p["mm_proj"] = basic.init_dense(seed, "mm_proj", VISION_TOWER_DIM,
+                                        cfg.d_model, dt, bias=True,
+                                        device=dev)
+    if cfg.is_encoder_decoder:
+        p["enc_layers"] = _init_stack(seed, _encoder_cfg(cfg), dev)
+        p["enc_norm"] = basic.init_norm(seed, "enc_norm", cfg.d_model, dt,
+                                        cfg.norm_type, dev)
     return p
 
 
@@ -170,11 +209,13 @@ def _ffn(h2, sp, cfg: ModelConfig, slot: Slot):
 
 
 def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux,
-                attention):
+                attention, causal=True, encoder_out=None, prefix_len=0):
     """One residual block; ``attention`` is ``flash_attention`` or
-    ``chunked_attention``. Returns (x, aux, cache_entry): an attention
-    slot's (k, v) or MLA's (c_kv, k_pe), Mamba's (h, conv tail), the
-    mLSTM's (C, n), the sLSTM's (c, n, h, m)."""
+    ``chunked_attention``. A decoder slot with ``cross_attn`` attends to
+    ``encoder_out`` after its self-attention. Returns (x, aux,
+    cache_entry): an attention slot's (k, v) or MLA's (c_kv, k_pe),
+    Mamba's (h, conv tail), the mLSTM's (C, n), the sLSTM's (c, n, h,
+    m)."""
     h = basic.apply_norm(x, sp["ln1"], cfg.norm_type)
     if slot.kind == MLSTM:
         o, cache = ssm_lib.mlstm_forward(h, sp["mlstm"], cfg)
@@ -186,7 +227,10 @@ def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux,
         o, cache = ssm_lib.mamba_forward(h, sp["mamba"], cfg)
         x = x + o
     else:
-        x, cache = _attend(x, h, sp, cfg, positions, attention)
+        x, cache = _attend(x, h, sp, cfg, positions, attention, causal,
+                           prefix_len)
+        if "cross_attn" in sp and encoder_out is not None:
+            x = x + _cross_attend(x, encoder_out, sp, cfg, attention)
     h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
     y, aux_l = _ffn(h2, sp, cfg, slot)
     if aux_l is not None:
@@ -194,13 +238,15 @@ def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux,
     return x + y, aux, cache
 
 
-def _attend(x, h, sp, cfg: ModelConfig, positions, attention):
+def _attend(x, h, sp, cfg: ModelConfig, positions, attention, causal=True,
+            prefix_len=0):
     """The attention half of an attention slot: (x + attention output,
     the cache entry)."""
     cd = cfg.cdtype
     if cfg.use_mla:
         q, k, v, cache = attn_lib.mla_qkv(h, sp["attn"], cfg, positions)
-        o = attention(q, k, v, cfg.with_(sliding_window=0))
+        o = attention(q, k, v, cfg.with_(sliding_window=0), causal=causal,
+                      prefix_len=prefix_len)
     else:
         q, k, v = attn_lib.qkv_project(h, sp["attn"], cfg)
         if cfg.use_rope:
@@ -208,11 +254,39 @@ def _attend(x, h, sp, cfg: ModelConfig, positions, attention):
                                            cfg.rope_theta, positions)
             q = attn_lib.apply_rope(q, cos, sin)
             k = attn_lib.apply_rope(k, cos, sin)
-        o = attention(q, k, v, cfg)
+        o = attention(q, k, v, cfg, causal=causal, prefix_len=prefix_len)
         cache = (k, v)
     del q, k, v
     o = basic.dense(o.reshape(o.shape[0], o.shape[1], -1), sp["attn"]["wo"], cd)
     return x + o, cache
+
+
+def _cross_kv(enc, p, cfg: ModelConfig):
+    """Cross-attention's k and v (b, e, kv_heads, hd) of the encoder's
+    output (the k / v half of ``qkv_project``)."""
+    b, e, _ = enc.shape
+    shape = (b, e, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (basic.dense(enc, p["wk"], cfg.cdtype).reshape(shape),
+            basic.dense(enc, p["wv"], cfg.cdtype).reshape(shape))
+
+
+def _cross_q(x, sp, cfg: ModelConfig):
+    """Cross-attention's q (b, s, heads, hd) from the decoder's x, normed
+    by ``ln_cross`` (the q half of ``qkv_project``)."""
+    b, s, _ = x.shape
+    hc = basic.apply_norm(x, sp["ln_cross"], cfg.norm_type)
+    return basic.dense(hc, sp["cross_attn"]["wq"], cfg.cdtype).reshape(
+        b, s, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def _cross_attend(x, encoder_out, sp, cfg: ModelConfig, attention):
+    """The cross-attention output of a decoder slot: its queries against
+    the encoder's keys, non-causal, no window."""
+    kc, vc = _cross_kv(encoder_out, sp["cross_attn"], cfg)
+    oc = attention(_cross_q(x, sp, cfg), kc, vc, cfg.with_(sliding_window=0),
+                   causal=False)
+    return basic.dense(oc.reshape(oc.shape[0], oc.shape[1], -1),
+                       sp["cross_attn"]["wo"], cfg.cdtype)
 
 
 def _group(tree, g: int):
@@ -220,7 +294,8 @@ def _group(tree, g: int):
 
 
 def _run_stack(stack_params, cfg: ModelConfig, x, positions, attention,
-               collect_caches=False):
+               collect_caches=False, causal=True, encoder_out=None,
+               prefix_len=0):
     slots, n_groups = layer_program(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_group = []
@@ -229,7 +304,8 @@ def _run_stack(stack_params, cfg: ModelConfig, x, positions, attention,
         caches = []
         for si, slot in enumerate(slots):
             x, aux, c = _apply_slot(x, gp[f"slot{si}"], cfg, slot, positions,
-                                    aux, attention)
+                                    aux, attention, causal, encoder_out,
+                                    prefix_len)
             caches.append(c)
         if collect_caches:
             per_group.append(tuple(caches))
@@ -248,9 +324,31 @@ def _logits(x, params, cfg: ModelConfig):
     return x @ params["unembed"]["kernel"].to(cfg.cdtype)
 
 
+def encode(params, cfg: ModelConfig, encoder_embeds, attention=None):
+    """The encoder-decoder's encoder output (B, E, d_model) in the compute
+    dtype: ``encoder_embeds`` (B, E, d_model) plus sinusoid positions
+    through the non-causal encoder stack (no window) and ``enc_norm``."""
+    cd = cfg.cdtype
+    attention = attention or attn_lib.flash_attention
+    pos = torch.arange(encoder_embeds.shape[1],
+                       device=encoder_embeds.device)[None, :]
+    x = encoder_embeds.to(cd)
+    if not cfg.use_rope:
+        x = x + sinusoid_pos(pos, cfg.d_model, cd)
+    x = _run_stack(params["enc_layers"], _encoder_cfg(cfg), x, pos,
+                   attention, causal=False)[0]
+    return basic.apply_norm(x, params["enc_norm"], cfg.norm_type)
+
+
 def forward(params, cfg: ModelConfig, tokens, return_caches: bool = False,
-            attention=None):
+            attention=None, prefix_embeds=None, encoder_embeds=None):
     """tokens: (B, S) integer tensor on the parameters' device.
+    ``prefix_embeds`` (B, P, 1152): the VLM's stubbed vision input,
+    projected and prepended (the logits then cover P + S positions);
+    ``encoder_embeds`` (B, E, d_model): the encoder-decoder's stubbed
+    audio frames, encoded for the decoder's cross-attention. Without them
+    the VLM runs text only and the decoder without cross-attention, as in
+    the reference.
 
     ``attention``: the attention function of every layer, with
     ``flash_attention``'s signature; None is ``nn/attention.flash_attention``
@@ -265,13 +363,22 @@ def forward(params, cfg: ModelConfig, tokens, return_caches: bool = False,
     dh), all float32."""
     cd = cfg.cdtype
     attention = attention or attn_lib.flash_attention
-    _refuse_vlm_encdec(cfg)
     x = basic.embed(tokens, params["embed"], cd)
+    prefix_len = 0
+    if cfg.family == "vlm" and prefix_embeds is not None:
+        pe = basic.dense(prefix_embeds.to(cd), params["mm_proj"], cd)
+        x = torch.cat([pe, x], dim=1)
+        prefix_len = pe.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if not cfg.use_rope:
         x = x + sinusoid_pos(positions, cfg.d_model, cd)
+    encoder_out = None
+    if cfg.is_encoder_decoder and encoder_embeds is not None:
+        encoder_out = encode(params, cfg, encoder_embeds, attention)
     x, aux, caches = _run_stack(params["layers"], cfg, x, positions,
-                                attention, collect_caches=return_caches)
+                                attention, collect_caches=return_caches,
+                                encoder_out=encoder_out,
+                                prefix_len=prefix_len)
     logits = _logits(x, params, cfg)
     metrics = {"moe_aux_loss": aux}
     if return_caches:
@@ -296,14 +403,22 @@ def train_loss(params, cfg: ModelConfig, batch):
     """The shifted next-token cross-entropy of ``batch["tokens"]``
     against ``batch["labels"]`` (optional ``batch["mask"]``), plus
     ``router_aux_loss`` times the MoE aux loss. Returns (loss, metrics).
+    The VLM takes ``batch["prefix_embeds"]`` and drops the prefix's
+    logits; the encoder-decoder takes ``batch["encoder_embeds"]``.
 
     The forward runs ``nn/attention.chunked_attention``, the reference's
     chunked scan, on every device: the round engine takes its gradient
     under ``torch.func.vmap``, which the attention kernel does not
-    support. The VLM and encoder-decoder stacks raise in
-    :func:`forward`."""
+    support."""
+    kw = {}
+    if cfg.family == "vlm":
+        kw["prefix_embeds"] = batch["prefix_embeds"]
+    if cfg.is_encoder_decoder:
+        kw["encoder_embeds"] = batch["encoder_embeds"]
     logits, metrics = forward(params, cfg, batch["tokens"],
-                              attention=attn_lib.chunked_attention)
+                              attention=attn_lib.chunked_attention, **kw)
+    if cfg.family == "vlm":   # the logits cover prefix + text
+        logits = logits[:, kw["prefix_embeds"].shape[1]:]
     mask = batch.get("mask", None)
     if mask is not None:
         mask = mask[:, 1:].float()
@@ -333,13 +448,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     dtype); Mamba slots h (G, B, d_inner, d_state) and the conv window
     (G, B, d_conv - 1, d_inner); mLSTM slots C, n and the conv window (G,
     B, 3, d_in); sLSTM slots c, n, h, m (m = -30) and the conv window (G,
-    B, 3, d_model): the states float32, the windows in ``dtype``. On the
-    card unless ``device="cpu"``."""
+    B, 3, d_model): the states float32, the windows in ``dtype``. An
+    encoder-decoder's cache adds ``cross``: zero K / V (G, B,
+    encoder_seq_len, kv_heads, head_dim) a decoder attention slot, which
+    :func:`build_cross_cache` fills. On the card unless
+    ``device="cpu"``."""
     dev = resolve_device(device)
     cd = dtype or cfg.cdtype
     f32 = torch.float32
     slots, G = layer_program(cfg)
-    _refuse_vlm_encdec(cfg)
     S = cache_capacity(cfg, max_len)
     d_in_x, nh_x, dh_x = ssm_lib.xlstm_dims(cfg)
     di, _ = ssm_lib.mamba_dims(cfg)
@@ -366,7 +483,38 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             e["m"] = zeros(nh, dh, dt=f32) - 30.0
             e["conv"] = zeros(3, cfg.d_model)
         entries[f"slot{i}"] = e
-    return {"slots": entries, "cache_len": 0}
+    cache = {"slots": entries, "cache_len": 0}
+    if cfg.is_encoder_decoder:
+        kv = (cfg.encoder_seq_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["cross"] = {f"slot{i}": {"k": zeros(*kv), "v": zeros(*kv)}
+                          for i, slot in enumerate(slots)
+                          if slot.kind == ATTN}
+    return cache
+
+
+def build_cross_cache(params, cfg: ModelConfig, encoder_embeds,
+                      attention=None):
+    """The encoder's K / V for every decoder cross-attention slot, the
+    ``cross`` entry of the cache: {slot: {"k", "v"}}, each (G, B, E,
+    kv_heads, head_dim) in the compute dtype, from :func:`encode` of
+    ``encoder_embeds`` (B, E, d_model)."""
+    enc = encode(params, cfg, encoder_embeds, attention)
+    slots, G = layer_program(cfg)
+    out = {}
+    for i, slot in enumerate(slots):
+        if slot.kind != ATTN:
+            continue
+        stack = params["layers"][f"slot{i}"]["cross_attn"]
+        entry = None
+        for g in range(G):
+            k, v = _cross_kv(enc, _group(stack, g), cfg)
+            if entry is None:
+                entry = {name: t.new_empty((G,) + tuple(t.shape))
+                         for name, t in (("k", k), ("v", v))}
+            entry["k"][g].copy_(k)
+            entry["v"][g].copy_(v)
+        out[f"slot{i}"] = entry
+    return out
 
 
 def _write(cache, new):
@@ -376,8 +524,9 @@ def _write(cache, new):
 
 
 def _decode_slot(x, sp, cfg: ModelConfig, slot: Slot, cache, cache_len: int,
-                 pos):
-    """x: (B,1,d). Returns (x, new_cache); the cache is written in place."""
+                 pos, cross=None):
+    """x: (B,1,d); ``cross``: the slot's cross-attention K / V, if any.
+    Returns (x, new_cache); the cache is written in place."""
     h = basic.apply_norm(x, sp["ln1"], cfg.norm_type)
     if slot.kind == MLSTM:
         o, (C, n, conv) = ssm_lib.mlstm_step(
@@ -397,6 +546,12 @@ def _decode_slot(x, sp, cfg: ModelConfig, slot: Slot, cache, cache_len: int,
         x = x + o[:, None, :]
     else:
         x = x + _decode_attend(h, sp, cfg, cache, cache_len, pos)
+        if cross is not None and "cross_attn" in sp:
+            oc = attn_lib.decode_attention(
+                _cross_q(x, sp, cfg), cross["k"], cross["v"],
+                cross["k"].shape[1], cfg.with_(sliding_window=0))
+            x = x + basic.dense(oc.reshape(oc.shape[0], 1, -1),
+                                sp["cross_attn"]["wo"], cfg.cdtype)
     h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
     return x + _ffn(h2, sp, cfg, slot)[0], cache
 
@@ -428,7 +583,8 @@ def _decode_attend(h, sp, cfg: ModelConfig, cache, cache_len: int, pos):
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens):
-    """tokens: (B, 1) integer -> (logits (B, 1, V), new cache).
+    """tokens: (B, 1) integer -> (logits (B, 1, V), new cache); an
+    encoder-decoder's decoder slots attend to the cache's ``cross`` K / V.
 
     The reference returns a new cache; this one writes the new token's K/V
     into the ring slots of ``cache``, and the recurrent slots' new states
@@ -436,16 +592,18 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     per token) and returns it with ``cache_len + 1``."""
     cd = cfg.cdtype
     slots, G = layer_program(cfg)
-    _refuse_vlm_encdec(cfg)
     cache_len = int(cache["cache_len"])
     pos = torch.tensor([cache_len], device=tokens.device)
     x = basic.embed(tokens, params["embed"], cd)
     if not cfg.use_rope:
         x = x + sinusoid_pos(pos[None, :], cfg.d_model, cd)
+    cross = cache.get("cross") or {}
     for g in range(G):
         gp = _group(params["layers"], g)
         for si, slot in enumerate(slots):
             key = f"slot{si}"
             gc = _group(cache["slots"][key], g)
-            x, _ = _decode_slot(x, gp[key], cfg, slot, gc, cache_len, pos)
+            cr = _group(cross[key], g) if key in cross else None
+            x, _ = _decode_slot(x, gp[key], cfg, slot, gc, cache_len, pos,
+                                cr)
     return _logits(x, params, cfg), {**cache, "cache_len": cache_len + 1}

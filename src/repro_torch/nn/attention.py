@@ -118,7 +118,10 @@ def flash_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
 
     q: (b, sq, h, hd); k: (b, skv, kv_heads, hd); v: (b, skv, kv_heads,
     dv), whose head dim may differ from q's (MLA). q_offset: position of
-    q[0] relative to k[0]. Returns (b, sq, h, dv) in q's dtype.
+    q[0] relative to k[0]; ``prefix_len``: keys visible from every query
+    under the causal mask (the VLM's bidirectional prefix); ``causal=False``
+    sees every key, with skv free (the encoder, and cross-attention against
+    it). Returns (b, sq, h, dv) in q's dtype.
 
     CUDA tensors: the ``swa_attention`` kernel in its ``round_p`` mode,
     reading each q head's kv head ``h // rep`` in place (no repeat) and
@@ -126,30 +129,32 @@ def flash_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
     reference's function: float32 scores and online softmax, ``p`` cast
     to v's dtype before PV while ``l`` sums the float32 ``p``, over
     64-key tiles (``chunked_attention(..., chunk=64)`` is its plain
-    version; the chunk moves only where each ``p`` is rounded).
-    Softcapping, a bidirectional prefix and an offset q are outside what
-    it computes and raise; head dims past the kernel's (192 for q / k, 128
-    for v) raise in its wrapper. CPU tensors: :func:`chunked_attention`.
+    version; the chunk moves only where each ``p`` is rounded). Every call
+    of the decoder LM reaches it: causal ones (with the window, and with a
+    prefix), non-causal ones (encoder self-attention, and cross-attention
+    with sq != skv), head dims up to 256. Softcapping (no config sets it)
+    and an offset q are outside what it computes and raise. CPU tensors:
+    :func:`chunked_attention`.
     """
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, cfg, q_offset=q_offset, chunk=chunk,
                                  causal=causal, prefix_len=prefix_len)
     unported = {"attn_logit_softcap > 0": cfg.attn_logit_softcap > 0,
-                "prefix_len > 0": prefix_len > 0,
-                "q_offset != 0 or sq != skv": (q_offset != 0
-                                              or q.shape[1] != k.shape[1])}
+                "q_offset != 0": q_offset != 0}
     for what, present in unported.items():
         if present:
             raise NotImplementedError(f"flash_attention on the card: {what} "
                                       f"is outside the swa_attention kernel")
     b, s, h, _ = q.shape
     out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
-    # the window applies only to causal attention, as on the CPU (the
-    # kernel, like the TPU's, would also window a non-causal call)
+    # the window applies only to causal attention, and the prefix only
+    # under the causal mask, as on the CPU (the kernel, like the TPU's,
+    # would also window a non-causal call)
     ops.swa_attention(q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2),
                       window=cfg.sliding_window if causal else 0,
-                      causal=causal, out=out.transpose(1, 2), round_p=True)
+                      causal=causal, out=out.transpose(1, 2), round_p=True,
+                      prefix_len=prefix_len if causal else 0)
     return out
 
 

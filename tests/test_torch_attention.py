@@ -191,18 +191,24 @@ def test_visible_pairs_counts_the_mask():
 
 def test_card_path_refuses_what_the_kernel_does_not_compute():
     """A tensor off the CPU takes the kernel's path; features the kernel
-    does not compute raise before any launch (meta tensors stand in for
-    the card here). A v head dim unlike q's (MLA) is the kernel's: it
-    reaches the wrapper."""
+    does not compute (softcapping, an offset q) raise before any launch
+    (meta tensors stand in for the card here). A v head dim unlike q's
+    (MLA), a bidirectional prefix (the VLM) and a non-causal call with
+    other rows in q than in k (cross-attention) are the kernel's: they
+    reach the wrapper."""
     _, tcfg = _cfgs()
     q = torch.empty((1, 64, 4, 64), device="meta")
     k = torch.empty((1, 64, 2, 64), device="meta")
     cases = [(tcfg.with_(attn_logit_softcap=30.0), q, k, k, {}),
-             (tcfg, q, k, k, {"prefix_len": 8}),
              (tcfg, q, k, k, {"q_offset": 4})]
     for cfg, qq, kk, vv, kw in cases:
         with pytest.raises(NotImplementedError):
             tattn.flash_attention(qq, kk, vv, cfg, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_attention(q, k, k, tcfg, prefix_len=8)
+    kx = torch.empty((1, 100, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_attention(q, kx, kx, tcfg, causal=False)
     # and the kernel's wrapper refuses a tensor that is not on the card
     with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_attention(q, k, k, tcfg)

@@ -85,8 +85,8 @@ def test_configs_match_the_reference():
     assert tspecs.serving_config(cfg, "long_500k").sliding_window == 8192
     assert tspecs.serving_config(cfg, "prefill_32k").sliding_window == 0
     assert tspecs.SHAPES == jspecs.SHAPES
-    with pytest.raises(KeyError, match="VLM prefix"):
-        tbase.get_config("paligemma-3b")
+    assert tbase.get_config("paligemma-3b").family == "vlm"
+    assert tbase.get_config("whisper-large-v3").is_encoder_decoder
     with pytest.raises(KeyError, match="unknown"):
         tbase.get_config("no-such-arch")
 
@@ -224,16 +224,28 @@ def test_steps_refuse_parameters_on_another_device(params):
 
 
 def test_unported_features_raise(params):
-    """The stacks still waiting for their slices (the VLM prefix, the
-    encoder-decoder stack) raise; MLA (tests/test_torch_mla.py) and the
-    SSM slots (tests/test_torch_ssm.py) are ported."""
+    """The stacks that waited for their slices now build and run: the
+    VLM prefix and the encoder-decoder stack on NeMo's reduced widths
+    (``tests/test_torch_vlm.py`` and ``test_torch_encdec.py`` hold them
+    against the JAX package); MLA (tests/test_torch_mla.py) and the SSM
+    slots (tests/test_torch_ssm.py) were ported before."""
     tcfg = _cfgs()[1]
-    for cfg in (tcfg.with_(family="vlm"),
-                tcfg.with_(is_encoder_decoder=True)):
-        with pytest.raises(NotImplementedError):
-            tdlm.init_model(cfg, 0, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tdlm.forward(params, cfg, torch.zeros((1, 4), dtype=torch.int64))
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    vlm = tcfg.with_(family="vlm", num_prefix_tokens=3)
+    p = tdlm.init_model(vlm, 0, device="cpu")
+    assert tuple(p["mm_proj"]["kernel"].shape) == (1152, vlm.d_model)
+    pe = torch.ones((1, 3, 1152))
+    logits, _ = tdlm.forward(p, vlm, toks, prefix_embeds=pe)
+    assert logits.shape == (1, 7, vlm.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    encdec = tcfg.with_(is_encoder_decoder=True, encoder_layers=1,
+                        encoder_seq_len=5)
+    p = tdlm.init_model(encdec, 0, device="cpu")
+    assert "cross_attn" in p["layers"]["slot0"] and "enc_norm" in p
+    logits, _ = tdlm.forward(p, encdec, toks,
+                             encoder_embeds=torch.ones((1, 5, tcfg.d_model)))
+    assert logits.shape == (1, 4, encdec.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):

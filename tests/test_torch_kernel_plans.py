@@ -39,6 +39,12 @@
   output exactly once, and its 32-bit counters are the plain version's
   index (and hash to its words) wherever the plan is enumerated, past the
   32-bit wrap too.
+* ``swa_attention``: ``tile_plan`` and ``visible_pairs`` (the CPU twins
+  of the tiles the attention kernel reads and masks, and of the pairs
+  behind its bound) with a bidirectional prefix and with other rows in q
+  than in k, against a brute-force mask (the reference's: (k <= q or k <
+  prefix) and q - k < window under the causal mask, every key
+  otherwise).
 
 Imports neither JAX nor the JAX package, so the card test runs on the
 card's machine as well:
@@ -53,6 +59,7 @@ import torch
 
 from repro_torch.core import flat as tflat
 from repro_torch.kernels import dp_clip, quantize, ref
+from repro_torch.kernels import swa_attention as swa
 
 SUMSQ_SIZES = [0, 1, 3, 1023, 89_088, 89_088 + 77, 1_695_744, 3_000_001]
 
@@ -504,3 +511,81 @@ def test_seed_plan_counters_wrap_at_32_bits(itemsize):
     first = 2 ** 32 // cols               # the row the counter wraps in
     for row in (first - 1, first, first + 1, rows - 1):
         _check_words(rows, cols, itemsize, row)
+
+
+def _brute_mask(sq, skv, window, causal, prefix):
+    qp, kp = np.arange(sq)[:, None], np.arange(skv)[None, :]
+    mask = ((qp >= kp) | (kp < prefix)) if causal else \
+        np.ones((sq, skv), bool)
+    if window > 0:
+        mask = mask & (qp - kp < window)
+    return mask
+
+
+def _check_swa_plan(sq, skv, window, causal, prefix, bq, bk):
+    """Every tile outside the plan's range holds no visible pair; every
+    unmasked tile is whole and visible from each of the q tile's rows; the
+    range's pairs are visible_pairs'."""
+    mask = _brute_mask(sq, skv, window, causal, prefix)
+    plan = swa.tile_plan(sq, window, causal, bq, bk, prefix_len=prefix,
+                         skv=skv)
+    assert len(plan) == -(-sq // bq)
+    pairs = 0
+    for i, (first, last, masked) in enumerate(plan):
+        rows = mask[i * bq:(i + 1) * bq]
+        assert 0 <= first <= last < -(-skv // bk)
+        for t in range(-(-skv // bk)):
+            tile = rows[:, t * bk:(t + 1) * bk]
+            if t < first or t > last:
+                assert not tile.any(), (i, t)
+                continue
+            pairs += int(tile.sum())
+            if t not in masked:
+                assert tile.shape[1] == bk and tile.all(), (i, t)
+    assert pairs == int(mask.sum()) == swa.visible_pairs(
+        sq, window, causal, prefix_len=prefix, skv=skv)
+
+
+@pytest.mark.parametrize("sq,skv,window,causal,prefix", [
+    (512, 512, 0, True, 256),     # PaliGemma: 256 patches + 256 tokens
+    (320, 320, 0, True, 256),     # its consistency check's 256 + 64
+    (300, 300, 0, True, 100),     # the prefix's edge inside a tile
+    (300, 300, 50, True, 100),    # a window ANDed on the prefix mask
+    (300, 300, 0, True, 300),     # all prefix: every key from every row
+    (129, 129, 1, True, 64),      # window 1 past the prefix
+    (300, 300, 0, False, 100),    # non-causal: the prefix changes nothing
+    (448, 1500, 0, False, 0),     # Whisper's cross-attention
+    (64, 1500, 0, False, 0),
+    (1500, 448, 0, False, 0),
+    (1, 1500, 0, False, 0),
+    (1500, 1500, 0, False, 0)])   # Whisper's encoder
+def test_swa_tile_plan_with_a_prefix_and_cross_rows(sq, skv, window, causal,
+                                                    prefix):
+    for bq in (64, swa.BQ):
+        _check_swa_plan(sq, skv, window, causal, prefix, bq, swa.BK)
+
+
+def test_swa_visible_pairs_at_the_new_cells():
+    """The pairs behind the bounds of PaliGemma's and Whisper's calls."""
+    # 256 prefix rows see 256 keys; text row r sees r + 1
+    assert swa.visible_pairs(512, 0, prefix_len=256) == \
+        256 * 256 + sum(range(257, 513))
+    assert swa.visible_pairs(1500, 0, causal=False) == 1500 * 1500
+    assert swa.visible_pairs(448, 0, causal=False, skv=1500) == 448 * 1500
+    assert swa.visible_pairs(448, 0) == 448 * 449 // 2
+
+
+def test_swa_tile_plan_random_shapes():
+    """300 random (sq, skv, window, causal, prefix) against the brute mask
+    (skv != sq only without the causal mask and a window, as the kernel
+    takes them)."""
+    rng = np.random.default_rng(3)
+    for _ in range(300):
+        causal = bool(rng.integers(2))
+        sq = int(rng.integers(1, 400))
+        skv = sq if causal or rng.integers(2) else int(rng.integers(1, 400))
+        window = int(rng.integers(0, 300)) if skv == sq and \
+            rng.integers(2) else 0
+        prefix = int(rng.integers(0, skv + 1))
+        _check_swa_plan(sq, skv, window, causal, prefix,
+                        int(rng.choice([64, 128])), swa.BK)

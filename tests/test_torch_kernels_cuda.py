@@ -894,6 +894,95 @@ def test_swa_attention_mla_head_dims(dev, B, H, S, DK, DV, dtype, window,
                                        round_p=True), got)
 
 
+# The VLM's and the encoder-decoder's calls: a bidirectional prefix under
+# the causal mask (PaliGemma's 256 patches before 256 tokens, q / k / v
+# heads of 256: the (256, 128) instance in two 128-wide v slices), with a
+# window ANDed on it, all prefix; non-causal with Sq == Skv (Whisper's
+# encoder) and Sq != Skv (its cross-attention, 448 tokens against 1,500
+# frames), both ways, over more than one row of the batch; v wider than
+# q / k; float32 on the CUDA cores at DK 256 and across rows. In the
+# model's (B, S, H, D) layout: the float32-p
+# mode against the dense plain version (HALF_ULP), the round-once mode
+# within bound (i) of chunked_attention_ref(chunk=64), the same bits twice.
+@pytest.mark.parametrize("B,H,KVH,SQ,SKV,DK,DV,dtype,window,causal,prefix", [
+    (3, 8, 1, 512, 512, 256, 256, BF16, 0, True, 256),
+    (1, 8, 1, 320, 320, 256, 256, FP16, 0, True, 256),
+    (2, 4, 2, 300, 300, 128, 128, BF16, 50, True, 100),
+    (1, 4, 1, 200, 200, 64, 64, BF16, 0, True, 200),
+    (1, 4, 1, 300, 300, 256, 256, torch.float32, 0, True, 100),
+    (2, 20, 20, 1500, 1500, 64, 64, BF16, 0, False, 0),
+    (2, 20, 20, 448, 1500, 64, 64, BF16, 0, False, 0),
+    (2, 4, 4, 7, 300, 128, 128, FP16, 0, False, 0),
+    (1, 4, 2, 300, 7, 64, 64, BF16, 0, False, 0),
+    (1, 4, 4, 100, 300, 64, 64, torch.float32, 0, False, 0),
+    (1, 4, 1, 300, 300, 128, 256, BF16, 0, True, 0)])
+def test_swa_attention_prefix_cross_and_wide_heads(dev, B, H, KVH, SQ, SKV,
+                                                   DK, DV, dtype, window,
+                                                   causal, prefix):
+    from repro_torch.kernels import swa_attention as swa
+    g = torch.Generator().manual_seed(SQ + SKV + DK + prefix)
+
+    def one(s, h, d):
+        return torch.randn((B, s, h, d), generator=g).to(dev, dtype) \
+            .transpose(1, 2)
+    q, k, v = one(SQ, H, DK), one(SKV, KVH, DK), one(SKV, KVH, DV)
+    kw = dict(window=window, causal=causal, prefix_len=prefix)
+    kernels.reset_launches()
+    got = ops.swa_attention(q, k, v, **kw)
+    assert kernels.LAUNCHES["swa_attention"] == 1
+    assert got.shape == (B, H, SQ, DV) and got.dtype == dtype
+    want = ref.swa_attention_ref(q, k, v, window, causal, prefix_len=prefix)
+    err = (got.float() - want).abs()
+    assert bool((err <= HALF_ULP[dtype] * want.abs() + 1e-5).all()), \
+        float(err.max())
+    assert same_bits(ops.swa_attention(q, k, v, **kw), got)
+    if dtype == torch.float32:
+        return
+    got = ops.swa_attention(q, k, v, round_p=True, **kw)
+    want = ref.chunked_attention_ref(q, k, v, window, causal, chunk=swa.BK,
+                                     prefix_len=prefix)
+    tol = swa.round_p_tolerance(q, k, v, window, causal, got, want,
+                                prefix_len=prefix)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+    assert same_bits(ops.swa_attention(q, k, v, round_p=True, **kw), got)
+
+
+@pytest.mark.parametrize("arch,launches", [("paligemma-3b", 2),
+                                           ("whisper-large-v3", 6)])
+def test_vlm_and_encdec_decoders_on_card_match_cpu(dev, arch, launches):
+    """Reduced PaliGemma (a prefix of 8 patches) and Whisper (16 frames)
+    in float32: forward logits on the card (the kernel in every attention
+    call: PaliGemma's 2 layers; Whisper's 2 encoder, 2 decoder and 2
+    cross-attention calls) against the CPU (the chunked plain version),
+    rtol / atol 1e-4, and greedy tokens (text only, as the reference's
+    ``generate``) equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.nn.basic import tree_map
+    cfg = reduced_config(get_config(arch))
+    params = dlm.init_model(cfg, 0, device="cpu")
+    on_card = tree_map(lambda x: x.to(dev), params)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, 512, (2, 40)))
+    kw = ({"prefix_embeds": torch.from_numpy(rng.standard_normal(
+        (2, cfg.num_prefix_tokens, 1152)).astype(np.float32))}
+        if cfg.family == "vlm" else
+        {"encoder_embeds": torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32))})
+    kernels.reset_launches()
+    got, _ = dlm.forward(on_card, cfg, toks.to(dev),
+                         **{n: t.to(dev) for n, t in kw.items()})
+    assert kernels.LAUNCHES["swa_attention"] == launches
+    want, _ = dlm.forward(params, cfg, toks, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    seq_card = serve.generate(on_card, cfg, toks[:, :8], 16, device=dev)
+    seq_cpu = serve.generate(params, cfg, toks[:, :8], 16, device="cpu")
+    assert torch.equal(seq_card.cpu(), seq_cpu)
+
+
 def test_mla_decoder_on_card_matches_cpu(dev):
     """Reduced DeepSeek-V2 (MLA, q / k heads of 48, v heads of 32) in
     float32: forward logits on the card (the kernel, once a layer) against
@@ -940,12 +1029,21 @@ def test_swa_attention_checks_inputs(dev):
         ops.swa_attention(q, k.float(), v)
     with pytest.raises(ValueError):
         ops.swa_attention(q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1))
-    # q / k heads above 192, v heads above 128 (192 / 128 is MLA's, taken)
+    # q / k heads and v heads above 256 (256 / 256 is PaliGemma's, taken)
     with pytest.raises(ValueError):
-        ops.swa_attention(*_qkv(dev, 1, 2, 1, 8, 256, torch.bfloat16))
+        ops.swa_attention(*_qkv(dev, 1, 2, 1, 8, 320, torch.bfloat16))
     qm, km, _ = _qkv(dev, 1, 2, 1, 8, 192, torch.bfloat16)
+    vm = _qkv(dev, 1, 2, 1, 8, 320, torch.bfloat16)[2]
     with pytest.raises(ValueError):
-        ops.swa_attention(qm, km, km)
+        ops.swa_attention(qm, km, vm)
+    # other rows in q than in k only for a non-causal call without a
+    # window; a prefix inside [0, Skv]
+    kx, vx = k[:, :, :40], v[:, :, :40]
+    for kw in ({}, {"causal": False, "window": 8}):
+        with pytest.raises(ValueError):
+            ops.swa_attention(q, kx, vx, **kw)
+    with pytest.raises(ValueError):
+        ops.swa_attention(q, k, v, prefix_len=65)
     with pytest.raises(ValueError):
         ops.swa_attention(q, k.cpu(), v)
     with pytest.raises(ValueError):

@@ -119,7 +119,6 @@ def test_config_is_the_references():
     assert (full.kv_lora_rank, full.q_lora_rank) == (512, 1536)
     assert (full.qk_nope_head_dim + full.qk_rope_head_dim,
             full.v_head_dim) == (192, 128)
-    assert ARCH not in tbase.WAITING
     assert dataclasses.asdict(ttrain.reduced_config(full)) \
         == dataclasses.asdict(_cfgs()[0])
     assert tbase.match_freeze("layers/slot0/moe/wi_gate", full.freeze_spec)

@@ -204,12 +204,12 @@ def test_train_cli_runs_the_so_task_on_the_cpu(capsys):
                         r"sec/round=(\d+\.\d\d|nan)", out[-1]), out[-1]
     assert any(line.startswith("  round 0: loss=") and "accuracy=" in line
                for line in out)
-    with pytest.raises(KeyError, match="VLM prefix"):
-        ttrain.main(["--arch", "paligemma-3b", "--device", "cpu"])
-    ttrain.main(["--arch", "xlstm-350m", "--reduced", "--rounds", "1",
-                 "--device", "cpu"])
-    out = capsys.readouterr().out.splitlines()
-    assert any(line.startswith("arch=xlstm-350m trainable share: ")
-               for line in out)
-    assert re.fullmatch(r"final loss=\d+\.\d{4} comm reduction=\d+\.\dx "
-                        r"sec/round=(\d+\.\d\d|nan)", out[-1]), out[-1]
+    for arch in ("paligemma-3b", "whisper-large-v3", "xlstm-350m"):
+        ttrain.main(["--arch", arch, "--reduced", "--rounds", "1",
+                     "--device", "cpu"])
+        out = capsys.readouterr().out.splitlines()
+        assert any(line.startswith(f"arch={arch} trainable share: ")
+                   for line in out)
+        assert re.fullmatch(r"final loss=\d+\.\d{4} comm reduction="
+                            r"\d+\.\dx sec/round=(\d+\.\d\d|nan)",
+                            out[-1]), out[-1]

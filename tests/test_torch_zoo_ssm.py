@@ -1,0 +1,13 @@
+"""The port's xLSTM-350M (the SSM family: mLSTM and sLSTM blocks) against
+the JAX package, on its ``reduced_config`` (one period of 4 layers,
+d_model 256, vocab 512, float32 compute): the stacked init, ``forward``
+logits, ``train_loss`` and its gradient into the trainable tree, one
+federated step. The cases and their tolerances are
+``tests/_torch_zoo_cases.py``'s.
+"""
+from _torch_zoo_cases import (  # noqa: F401
+    _one_intra_op_thread, pytest_generate_tests,
+    test_forward_logits_and_aux_match_jax, test_init_leaves_match_jax,
+    test_one_federated_train_step, test_train_loss_and_gradient_match_jax)
+
+FAMILY = ["xlstm-350m"]

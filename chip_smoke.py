@@ -9,6 +9,7 @@
     python3 chip_smoke.py --deepseek  # phase 8 alone (DeepSeek-V2, MLA)
     python3 chip_smoke.py --ssm       # phase 9 alone (xLSTM-350M, Jamba-v0.1)
     python3 chip_smoke.py --vlm-encdec  # phase 10 alone (PaliGemma, Whisper)
+    python3 chip_smoke.py --mesh      # phase 11 alone (the mesh)
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -30,14 +31,14 @@ package. Phases, in order, each failing the run on error:
      max-abs'
      record carries its whole call's device time and, at the FedAvg width,
      its warm and L2-cold times against their bounds (``call_times``);
-     then sumsq at 89,088 and 1,695,744 and Q->DQ at (10, 89,088) and
-     (6, 89,088) timed by ``ab_times`` (wrapper, named kernels' and whole
+     ``--kernel-times SRC`` times the package under SRC (``src`` for
+     this tree, or another tree unpacked by ``git archive``) and nothing
+     else: sumsq at 89,088 and 1,695,744 and Q->DQ at (10, 89,088) and
+     (6, 89,088) by ``ab_times`` (wrapper, named kernels' and whole
      call's device time, ``torch.dot``'s wall and device time), max-abs
      and the two-pass Q->DQ at the FedAvg width warm and L2-cold, with the
      blocking host-to-device copies of ``core/flat.fake_quantize`` and of
-     a quickstart round at int8; ``--kernel-times SRC`` prints the same
-     for the package under SRC (another tree, unpacked by ``git
-     archive``) and nothing else;
+     a quickstart round at int8 (not in the default run);
    - the fused tail's stats, pack and apply at the FedAvg baseline's
      (10, 1,695,744) buffer with its 10-leaf map: block max-abs, block
      sum of squares, codes (finite rows) and the apply bit for bit, the
@@ -52,9 +53,9 @@ package. Phases, in order, each failing the run on error:
      asserted: one launch on the cluster route at (6, 89,088) and with a
      ragged last block, there bit for bit the three-launch entry's values
      and norms, and the three-launch route at (6, 1,695,744) and n + 77;
-     ``ab_times`` also times clip_flat and seed_reconstruct (float32 and
-     bf16) and prints digests of their outputs, so that ``--kernel-times``
-     on another tree shows whether the two give the same bits;
+     ``--kernel-times``' ``ab_times`` also times clip_flat and
+     seed_reconstruct (float32 and bf16) and prints digests of their
+     outputs, so that two trees show whether they give the same bits;
    - ``swa_attention`` at (1, 32, 4096, 128) bf16 with 8 kv heads (GQA rep
      4), windows 0 and 1,000, at a ragged S = 4,000, and at the
      prefill's (1, 32, 32768, 128) in its layout under windows 0 and
@@ -281,7 +282,16 @@ package. Phases, in order, each failing the run on error:
    and 64 tokens); each with its split asserted, a falling loss,
    ``sumsq`` once a round and a reduced round card vs CPU; phase 2 holds
    and times the kernel at their three shapes;
-11. print the ``kernels`` JSON line, the card's name and power limit,
+11. the mesh: a 1-rank NCCL group and the ``single`` mesh; the
+   quickstart at int8, FedAvg B (fused coefficient route, DP, screen) and
+   the async DP FedBuff grid run with ``mesh="single"`` and without, bit
+   for bit with equal kernel launches (cuDNN deterministic);
+   ``launch/specs.make_train_step`` for StableLM-2-1.6B at full width (2
+   of 24 layers) on the mesh against the unmeshed round (1 client x tau
+   2 x 1 sequence of 4,096); one ``launch/dryrun`` subprocess (Mixtral-8x7B x
+   train_4k in a fake (16, 16) world on the host), its traced per-rank
+   peak beside the card's memory;
+12. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line. Each phase prints
    its seconds on a line of its own.
 
@@ -4401,7 +4411,10 @@ def drive_deepseek_training(dev):
     REDUCED_LOSS_REL / REDUCED_UPDATE_REL."""
     return drive_zoo_training(
         DEEPSEEK, DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_ROUNDS, DEEPSEEK_TRAIN_SPLIT,
-        dev, loss_rel=REDUCED_LOSS_REL, update_rel=REDUCED_UPDATE_REL)
+        dev, loss_rel=REDUCED_LOSS_REL, update_rel=REDUCED_UPDATE_REL,
+        # its by-op profile of ~40 k ops left the default run for phase
+        # 11's time (PERF.md keeps the breakdown it gave)
+        by_op=False)
 
 
 def drive_deepseek_serving(dev):
@@ -4647,6 +4660,272 @@ def drive_vlm_encdec(dev) -> dict:
         raise AssertionError(f"phase 10: sumsq or swa_attention not "
                              f"launched: {totals}")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the mesh. The 1-rank NCCL "single" mesh runs the EMNIST main
+# paths through the meshed code, bit for bit the unmeshed runs with the
+# same launches; StableLM-2-1.6B's train step (launch/specs) at full width
+# and depth on it; one dry run in a fake (16, 16) world on the host
+
+STABLELM = "stablelm-1.6b"
+# train_4k's sequence; its global batch of 256 cut to 1 client x tau 2 x 1
+# sequence (one card)
+STABLELM_SEQ = 4096
+# depth cut 24 -> 2: at 4,096 positions the plain chunked attention keeps
+# ~11 GB a layer under grad (the float32 scores, masked scores, p and
+# bf16 p of 8 chunks of 512 keys, 32 heads), and 24 and 6 layers ran out
+# of the card's memory (PERF.md)
+STABLELM_TRAIN_LAYERS = 2
+# the meshed step against the unmeshed round, by update norm: one rank
+# adds no partial sums, so 0 is expected; the bound states the float32
+# round-off a reordered GEMV could leave
+STABLELM_UPDATE_REL = 1e-6
+DRYRUN = ("mixtral-8x7b", "train_4k")
+DRYRUN_TIMEOUT = 900
+
+
+def start_dryrun():
+    """(d) ``launch/dryrun`` on DRYRUN in a fake (16, 16) world, as a
+    subprocess on the host's CPU (no card), run beside the card's work;
+    :func:`finish_dryrun` reads it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN[0], "--shape", DRYRUN[1]], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def finish_dryrun(proc, dev):
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run failed:\n{err[-3000:]}")
+    r = json.loads(out.strip().splitlines()[-1])
+    if r["status"] != "ok" or r["cost"]["flops"] <= 0 or \
+            r["memory"]["peak_bytes"] <= 0:
+        raise AssertionError(f"the dry run: {r}")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    mem = r["memory"]
+    print(f"[mesh] (d) dry run {DRYRUN[0]} x {DRYRUN[1]} on a fake "
+          f"{r['mesh']} world (traced counts, per rank, not measured): "
+          f"peak {mem['peak_bytes']} B ({mem['peak_bytes'] / total:.2f} x "
+          f"this card's total_memory {total} B), arguments "
+          f"{mem['argument_bytes']} B, outputs {mem['output_bytes']} B, "
+          f"{r['cost']['flops']} FLOPs, collectives {r['collectives']}, "
+          f"{r['clients']} clients, traced in {r['trace_s']} s; step "
+          f"layout: {r['layout']}")
+    return r
+
+
+def mesh_pair(label, run, expect):
+    """``run(mesh)`` with no mesh and with the "single" preset, the launch
+    counts set to 0 just before each and read just after; both must give
+    the same bits and launch the same kernels as often. ``run`` returns
+    (losses, y). Returns the two runs' counts, added."""
+    from repro_torch import kernels
+    outs, counts = [], []
+    for mesh in (None, "single"):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs.append(run(mesh))
+        torch.cuda.synchronize()
+        counts.append({**kernels.LAUNCHES, **kernels.ROUTES})
+        print(f"[mesh] {label}, mesh={mesh}: {time.perf_counter() - t0:.2f} "
+              f"s, losses {[round(v, 4) for v in outs[-1][0]]}")
+    (la, ya), (lb, yb) = outs
+    same = la == lb and all(torch.equal(a, b) for a, b in
+                            zip(leaves_of(ya), leaves_of(yb)))
+    used = {k: v for k, v in counts[0].items() if v}
+    print(f"  bit for bit {same}; launches equal {counts[0] == counts[1]}: "
+          f"{used}")
+    if not same or counts[0] != counts[1]:
+        raise AssertionError(f"{label}: the single mesh differs from the "
+                             f"unmeshed run")
+    check_expected(label, counts[1], expect)
+    return {k: counts[0][k] + counts[1][k] for k in counts[0]}
+
+
+def mesh_rounds(ys, zs, bits, dp, draws, dev):
+    """The quickstart's round (``dp``: DP-FedAvg with the screen) for ROUNDS
+    rounds, as ``run(mesh)`` for :func:`mesh_pair`."""
+    from repro_torch.core import fedpt, sanitize
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shard_lib
+    from repro_torch.nn import threefry
+
+    def run(mesh):
+        kw = {}
+        if mesh is not None:
+            m = mesh_lib.resolve_mesh(mesh, dev)
+            kw = dict(constrain_flat_fn=shard_lib.flat_constrainer(m))
+        round_fn, sopt = fedpt.make_round_fn(
+            emnist_loss, quickstart_rc(bits, dp), device=dev,
+            sanitize=sanitize.SanitizeConfig() if dp else None, **kw)
+        y, ss, losses = ys, sopt.init(ys), []
+        for r, (batch, w) in enumerate(draws[:ROUNDS]):
+            y, ss, met = round_fn(y, ss, zs, batch, w, threefry.key(r))
+            losses.append(float(met["loss"]))
+        return losses, y
+    return run
+
+
+def drive_mesh_train_step(dev):
+    """(c) ``specs.make_train_step`` for StableLM-2-1.6B at full width
+    (STABLELM_TRAIN_LAYERS of its 24 layers) on the "single" mesh (y and
+    the server state DTensors placed by the reference's rules), against the same round from ``make_round_fn``
+    with no mesh. Returns the two runs' launch counts, added."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import fedpt
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shard_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.nn.basic import tree_map
+    cfg = get_config(STABLELM).with_(num_layers=STABLELM_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    y, z = specs.serving_split(dlm.init_model(cfg, 0, device=dev), cfg)
+    print(f"[mesh] (c) {STABLELM}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}; {sum(v.numel() for v in leaves_of(y))} "
+          f"trainable (f32), {sum(v.numel() for v in leaves_of(z))} frozen "
+          f"(bf16), made in {time.perf_counter() - t0:.1f} s; one client x "
+          f"tau 2 x 1 sequence of {STABLELM_SEQ} (train_4k's 256 cut to "
+          f"one card)")
+    tok = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 2, 1, STABLELM_SEQ)).astype(np.int32)
+    batch = {"tokens": tok, "labels": tok}
+    w = torch.ones(1, device=dev)
+    rc = fedpt.RoundConfig(clients_per_round=0, local_steps=2, local_batch=0,
+                           client_opt="sgd", client_lr=0.02,
+                           server_opt="sgdm", server_lr=0.5)
+    round_fn, sopt = fedpt.make_round_fn(
+        lambda p, mb: dlm.train_loss(p, cfg, mb), rc, device=dev)
+    counts = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    y_ref, _, m_ref = round_fn(y, sopt.init(y), z, batch, w, None)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    counts.append(dict(kernels.LAUNCHES))
+    mesh = mesh_lib.resolve_mesh("single", dev)
+    step, sopt = specs.make_train_step(cfg, mesh, y, device=dev)
+    place = shard_lib.param_shardings(y, cfg, mesh)
+    yd = tree_map(lambda x, pl: shard_lib.distribute(x, mesh, pl), y, place)
+    ssd = tree_map(lambda x, pl: shard_lib.distribute(x, mesh, pl),
+                   sopt.init(y), place)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    y_new, _, m = step(yd, ssd, z, batch, w)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    counts.append(dict(kernels.LAUNCHES))
+    y_mesh = shard_lib.gathered(y_new)
+    gap = upd = 0.0
+    for a0, a, b in zip(leaves_of(y), leaves_of(y_ref), leaves_of(y_mesh)):
+        gap += float(((a.double() - b.double()) ** 2).sum())
+        upd += float(((a.double() - a0.double()) ** 2).sum())
+    rel = gap ** 0.5 / max(upd ** 0.5, 1e-30)
+    bits = all(torch.equal(a, b) for a, b in zip(leaves_of(y_ref),
+                                                  leaves_of(y_mesh)))
+    print(f"  unmeshed round {t_ref:.2f} s, loss {float(m_ref['loss']):.4f}; "
+          f"meshed step {t_mesh:.2f} s, loss {float(m['loss']):.4f}; bit for "
+          f"bit {bits}; gap by update norm {rel:.3e} (bound "
+          f"{STABLELM_UPDATE_REL:g}; update norm {upd ** 0.5:.4e}); "
+          f"launches {counts[1]}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if not (math.isfinite(float(m["loss"])) and rel <= STABLELM_UPDATE_REL
+            and counts[0] == counts[1] and counts[1]["sumsq"] > 0):
+        raise AssertionError(f"(c) {STABLELM}: the meshed step is off the "
+                             f"unmeshed round")
+    return {k: counts[0][k] + counts[1][k] for k in counts[0]}
+
+
+def drive_mesh(ds, y0, frozen, ya, za, dev):
+    """Phase 11: (a) the 1-rank NCCL group and the "single" mesh; (b) the
+    quickstart at int8, FedAvg B (fused coefficient route, DP, screen) and
+    the async DP FedBuff grid, each with and without the mesh, bit for bit
+    with equal launches (cuDNN deterministic); (c) StableLM-2-1.6B's train
+    step; (d) the dry run, started first and read last. Returns the
+    launch counts of (b) and (c)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    proc = start_dryrun()
+    try:
+        mesh = mesh_lib.resolve_mesh("single", dev)
+        t = torch.ones(4, device=dev)
+        dist.all_reduce(t, group=mesh.get_group("data"))
+        torch.cuda.synchronize()
+        print(f"[mesh] (a) backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, mesh {mesh_lib.axis_sizes(mesh)}; "
+              f"an all-reduce over 'data' gave {t.tolist()}")
+        if dist.get_backend() != "nccl" or t.tolist() != [1.0] * 4:
+            raise AssertionError("(a) the 1-rank NCCL group")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        launches = {}
+        try:
+            draws = cohorts(ds, ROUNDS)
+            task = emnist_async()
+
+            def async_mesh(mesh):
+                task["grid"] = {"mesh": mesh}
+                res = async_run(ds, lambda s: task["init"](s, device=dev),
+                                ASYNC_UPDATES, dev, task)
+                return [h["loss"] for h in res.history], res.y
+            for counts in (
+                    mesh_pair("(b) quickstart, uplink_bits=8",
+                              mesh_rounds(y0, frozen, 8, False, draws, dev),
+                              ("sumsq", "fake_quantize_flat",
+                               "fake_quantize_flat/cluster")),
+                    mesh_pair("(b) FedAvg B, int8 DP-FedAvg + screen",
+                              mesh_rounds(ya, za, 8, True, draws, dev),
+                              ("block_stats", "pack", "apply_coeff")),
+                    mesh_pair(f"(b) {task['label']}, {ASYNC_UPDATES} "
+                              f"updates", async_mesh, task["expect"])):
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        for k, v in drive_mesh_train_step(dev).items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+        finish_dryrun(proc, dev)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return launches
+
+
+def mesh_only() -> int:
+    """``--mesh``: build the kernels and drive phase 11 (the mesh) alone."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import reconstruct
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import _build
+    from repro_torch.models import paper_models as pm
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build_all()
+    print(f"[mesh] card {card_line()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t11 = time.perf_counter()
+    ds = syn.make_federated_images(N_CLIENTS, EXAMPLES, (28, 28, 1), 62,
+                                   alpha=1.0, seed=0)
+    y0, frozen = reconstruct.init_partitioned(pm.init_emnist_cnn, 0,
+                                              pm.EMNIST_FREEZE, device=dev)
+    ya, za = reconstruct.init_partitioned(pm.init_emnist_cnn, 0, (),
+                                          device=dev)
+    print(f"[mesh] launches {drive_mesh(ds, y0, frozen, ya, za, dev)}")
+    print(f"[mesh] phase 11 took {time.perf_counter() - t11:.1f} s")
+    return 0
 
 
 def other_tree(src: str, what: str) -> int:
@@ -4946,10 +5225,12 @@ def main(argv) -> int:
         return ssm_only()
     if argv == ["--vlm-encdec"]:
         return vlm_encdec_only()
+    if argv == ["--mesh"]:
+        return mesh_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               f"[--kernel-times SRC | --dp-ftrl SRC | --sweep | --mixtral | "
-              f"--deepseek | --ssm | --vlm-encdec]", file=sys.stderr)
+              f"--deepseek | --ssm | --vlm-encdec | --mesh]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import kernels
@@ -5016,7 +5297,8 @@ def main(argv) -> int:
     check_tier_kernels(tier_layouts(y0)[1][1:], dev)
     check_mla_kernel(dev)
     check_vlm_encdec_kernels(dev)
-    ab_times(dev, "this tree")
+    # the redesigned kernels' A/B timings (ab_times) left the default run
+    # for phase 11's time: `chip_smoke.py --kernel-times src` prints them
     free_flush()
     t0 = phase_seconds(2, "kernels against their plain versions", t0)
 
@@ -5120,7 +5402,12 @@ def main(argv) -> int:
         launches[name] += n
     t0 = phase_seconds(10, "the VLM and the encoder-decoder", t0)
 
-    # --- phase 11: summary -----------------------------------------------
+    # --- phase 11: the mesh ----------------------------------------------
+    for name, n in drive_mesh(ds, y0, frozen, ya, za, dev).items():
+        launches[name] += n
+    t0 = phase_seconds(11, "the mesh", t0)
+
+    # --- phase 12: summary -----------------------------------------------
     if len(records) != 10:
         raise AssertionError(f"{len(records)} kernel records, not 10")
     for rec in records:
@@ -5130,7 +5417,7 @@ def main(argv) -> int:
                                  f"a main path")
     print(f"[main path] launches by route: "
           f"{ {k: v for k, v in launches.items() if '/' in k} }")
-    print(f"[phase 11] the script took {time.perf_counter() - t_run:.1f} s")
+    print(f"[phase 12] the script took {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

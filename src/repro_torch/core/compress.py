@@ -32,6 +32,21 @@ def dequantize_leaf(q, scale):
     return q.float() * scale
 
 
+def quantize_tree(tree, bits: int = 8):
+    """(codes tree, scales tree): each leaf's int-k codes (int8 at 8 bits,
+    else int32) and its float32 scale."""
+    flat = list(basic.flatten_params(tree))
+    pairs = [quantize_leaf(leaf, bits) for _, leaf in flat]
+    return (basic.unflatten_params({p: q for (p, _), (q, _) in
+                                    zip(flat, pairs)}),
+            basic.unflatten_params({p: s for (p, _), (_, s) in
+                                    zip(flat, pairs)}))
+
+
+def dequantize_tree(qtree, scales):
+    return basic.tree_map(dequantize_leaf, qtree, scales)
+
+
 def fake_quantize_tree(tree, bits: int = 8):
     """Q->DQ of every leaf (the in-graph uplink model)."""
     def one(x):

@@ -1,5 +1,5 @@
 """FedPT round engine — Algorithm 1 of the paper, port of
-``repro/core/fedpt.py`` (no sharding hooks).
+``repro/core/fedpt.py``.
 
 One federated round:
   1. every sampled client starts from the server's trainable tree ``y``
@@ -30,6 +30,18 @@ divides each block by its tier-mask-weighted weight sum; a tiered client
 or lane step trains the tier's own subtree at its ``tier_size`` width;
 the tiered apply re-masks each row to its tier. A trivial (one-tier)
 plan takes the untiered code.
+
+On a mesh each engine takes the reference's sharding hooks, made by
+``launch/sharding.py``. Every rank runs the same host code from the same
+inputs (SPMD). ``constrain_flat_fn`` is the mesh's flat plane: a rank
+trains the clients (or lane slots) of its rows along the data axes, the
+tail runs on its block of the delta buffer
+(``kernels/ops.agg_tail``), and the update's columns are gathered whole;
+a lane's rows are gathered whole, since the async grid buffers them on
+the host. ``constrain_fn(y, clients)`` gives the tree the clients train
+from (``clients=True``) and lays the new ``y`` out as the server holds
+it (``clients=False``), e.g. DTensors gathered and re-sharded. With no
+hook the engines are the unmeshed ones.
 """
 from __future__ import annotations
 
@@ -89,6 +101,15 @@ def _vmap_clients(fn, n: int, row_size: int, dev, *args):
         losses.append(part_losses)
         del part_rows
     return rows, torch.cat(losses)
+
+
+def _vmap_rows(fn, n: int, row_size: int, dev, *args):
+    """:func:`_vmap_clients`, or empty rows and losses for a rank with no
+    rows of its own (a cohort or lane narrower than the data axes)."""
+    if n == 0:
+        return (torch.zeros((0, row_size), dtype=torch.float32, device=dev),
+                torch.zeros((0,), dtype=torch.float32, device=dev))
+    return _vmap_clients(fn, n, row_size, dev, *args)
 
 
 def make_client_update(loss_fn: Callable, client_opt: opt_lib.Optimizer,
@@ -153,7 +174,9 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
                   server_opt: Optional[opt_lib.Optimizer] = None,
                   device=None,
                   sanitize: Optional[sanitize_lib.SanitizeConfig] = None,
-                  fused_threshold: Optional[int] = None, plan=None):
+                  fused_threshold: Optional[int] = None, plan=None,
+                  constrain_fn: Optional[Callable] = None,
+                  constrain_flat_fn=None):
     """Builds round_step(y, server_state, frozen, batch, weights, rng=None)
     -> (y_new, server_state, metrics), running on ``device`` (CUDA by
     default; raises when there is none and the CPU was not asked for); or,
@@ -189,8 +212,14 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
     CUDA, or of the unflattened tree when noised, since pad slots carry
     noise), ``update_norm`` when clipping, and ``quarantine_nonfinite``
     / ``quarantine_outlier`` / ``quarantine_norms`` (per row) with the
-    screen on."""
+    screen on.
+
+    The mesh hooks (module docstring): ``constrain_flat_fn`` (the flat
+    plane, ``launch/sharding.flat_constrainer``) makes each rank train its
+    rows of the cohort (the plane's rows of the batch) and aggregate its
+    block; ``constrain_fn`` lays out ``y``."""
     dev = resolve_device(device)
+    plane = constrain_flat_fn
     noised = rc.dp_clip_norm > 0 and rc.dp_noise_multiplier > 0
     sigma = (rc.dp_noise_multiplier * rc.dp_clip_norm
              / rc.clients_per_round) if noised else 0.0
@@ -209,13 +238,19 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
         if noised and rng is None:
             raise ValueError("DP noise is on: round_step needs the round's "
                              "threefry key rng")
+        if constrain_fn is not None:
+            y = constrain_fn(y, clients=True)
         for leaf in tree_leaves(y) + tree_leaves(frozen):
             if leaf.device != dev:
                 raise ValueError(f"parameters on {leaf.device}, the round "
                                  f"runs on {dev}")
         layout = flat_lib.FlatLayout.of(y)
-        batch = _on(dev, batch)
         weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        n = weights.shape[0]
+        r0, r1 = (0, n) if plane is None else plane.rows(n)
+        if plane is not None:
+            batch = {k: plane.local_rows(v) for k, v in batch.items()}
+        batch = _on(dev, batch)
 
         # --- local training on every sampled client, vmapped over the
         # client axis; deltas are born flat, one (clients, size) buffer --
@@ -224,17 +259,19 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
             return layout.flatten(delta), metrics["client_loss"]
 
         bmask = None
-        n = weights.shape[0]
         if tiered:
             tids = torch.as_tensor(tiers, dtype=torch.long, device=dev)
-            masks = tree_map(lambda st: st[tids], stacked)   # (clients,)
-            deltas, losses = _vmap_clients(flat_client, n, layout.size,
-                                           dev, batch, masks)
+            masks = tree_map(lambda st: st[tids[r0:r1]], stacked)
+            deltas, losses = _vmap_rows(flat_client, r1 - r0, layout.size,
+                                        dev, batch, masks)
             if rc.dp_clip_norm <= 0:
                 bmask = bmasks[tids]
         else:
-            deltas, losses = _vmap_clients(flat_client, n, layout.size,
-                                           dev, batch)
+            deltas, losses = _vmap_rows(flat_client, r1 - r0, layout.size,
+                                        dev, batch)
+        if plane is not None:
+            deltas = plane.local_cols(deltas).contiguous()
+            losses = plane.gather_rows(losses, n)
 
         # --- server tail: screen / quantize / clip / mean / noise --------
         flat_delta, ainfo = kernel_ops.agg_tail(
@@ -251,12 +288,16 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
             # per-block mask-weighted mean for tiers; under DP / clip the
             # mean keeps the fixed denominator instead
             bmask=bmask, block_denom=bmask is not None,
-            screen=sanitize, threshold=fused_threshold)
+            screen=sanitize, constrain_fn=plane, threshold=fused_threshold)
+        if plane is not None:
+            flat_delta = plane.gather_cols(flat_delta, layout.size)
 
         # --- ServerOpt on the pseudo-gradient ---------------------------
         delta = layout.unflatten(flat_delta, dtype=torch.float32)
         neg = tree_map(torch.neg, delta)
         y_new, server_state = server_opt.update(y, neg, server_state)
+        if constrain_fn is not None:
+            y_new = constrain_fn(y_new, clients=False)
         out_metrics = {"loss": losses.mean(),
                        "delta_norm": opt_lib.tree_global_norm(delta)
                        if noised else torch.sqrt(
@@ -400,7 +441,8 @@ def make_client_step(loss_fn: Callable, rc: RoundConfig,
 
 def make_lane_step(loss_fn: Callable, rc: RoundConfig, lane: int,
                    client_opt: Optional[opt_lib.Optimizer] = None,
-                   tier=None, plan=None, device=None):
+                   tier=None, plan=None, device=None,
+                   constrain_flat_fn=None):
     """Batched client step for the async grid's fixed-width lanes:
     (y, frozen, lane_batch) -> (flat_deltas (lane, size), losses (lane,)).
 
@@ -414,7 +456,11 @@ def make_lane_step(loss_fn: Callable, rc: RoundConfig, lane: int,
     clients train the tier's subtree, the quantize and clip kernels run
     at the tier's ``(lane, tier_size)`` width over its own block map, and
     one static-index scatter widens the rows to the global ``(lane,
-    size)`` buffer, exact zeros outside the tier."""
+    size)`` buffer, exact zeros outside the tier.
+
+    ``constrain_flat_fn`` (the mesh's flat plane): each rank trains, and
+    quantizes and clips, the lane slots of its rows along the data axes,
+    then the rows and losses are gathered whole on every rank."""
     if tier is not None and plan is None:
         raise ValueError("a tiered lane step needs the owning CompiledPlan "
                          "(plan=...)")
@@ -422,6 +468,8 @@ def make_lane_step(loss_fn: Callable, rc: RoundConfig, lane: int,
     if client_opt is None:
         client_opt = opt_lib.get_optimizer(rc.client_opt, rc.client_lr)
     client_update = make_client_update(loss_fn, client_opt, rc.local_steps)
+
+    plane = constrain_flat_fn
 
     def lane_step(y, frozen, lane_batch):
         y_t, z_t = _tier_split(y, frozen, tier, plan)
@@ -431,13 +479,24 @@ def make_lane_step(loss_fn: Callable, rc: RoundConfig, lane: int,
             delta, metrics = client_update(y_t, z_t, cb)
             return layout.flatten(delta), metrics["client_loss"]
 
-        rows, losses = torch.func.vmap(flat_client)(_on(dev, lane_batch))
-        if rows.shape[0] != lane:
-            raise ValueError(f"lane batch of {rows.shape[0]} clients, the "
-                             f"lane is {lane} wide")
-        rows, _ = _uplink_tail(rc, layout, rows)
+        width = len(next(iter(lane_batch.values())))
+        if width != lane:
+            raise ValueError(f"lane batch of {width} clients, the lane is "
+                             f"{lane} wide")
+        if plane is not None:
+            lane_batch = {k: plane.local_rows(v)
+                          for k, v in lane_batch.items()}
+        r0, r1 = (0, lane) if plane is None else plane.rows(lane)
+        if r1 > r0:
+            rows, losses = torch.func.vmap(flat_client)(_on(dev, lane_batch))
+            rows, _ = _uplink_tail(rc, layout, rows)
+        else:
+            rows, losses = _vmap_rows(flat_client, 0, layout.size, dev)
         if tier is not None:
             rows = plan.scatter(rows, tier)
+        if plane is not None:
+            rows = plane.gather_rows(rows, lane)
+            losses = plane.gather_rows(losses, lane)
         return rows, losses
 
     return lane_step
@@ -445,7 +504,7 @@ def make_lane_step(loss_fn: Callable, rc: RoundConfig, lane: int,
 
 def make_buffered_apply(server_opt: opt_lib.Optimizer, flush_dp=None,
                         plan=None, sanitize=None, fused_threshold=None,
-                        device=None):
+                        device=None, constrain_flat_fn=None):
     """Server-side flush of an async buffer: apply(y, server_state,
     flat_deltas, weights, rng=None) -> (y_new, server_state, metrics),
     with ``flat_deltas`` the (K, size) stack of flat client deltas and
@@ -470,11 +529,16 @@ def make_buffered_apply(server_opt: opt_lib.Optimizer, flush_dp=None,
     their tiers and, without ``flush_dp``, each block is divided by its
     tier-mask-weighted weight sum; with ``flush_dp`` the denominator
     stays the fixed ``goal_count``. Padding rows carry weight 0 and tier
-    0."""
+    0.
+
+    ``constrain_flat_fn`` (the mesh's flat plane): each rank aggregates
+    its block of the buffer (its rows along the data axes, its blocks
+    along "model"), and the update's columns are gathered whole."""
     dev = resolve_device(device)
     noised = flush_dp is not None and flush_dp.noise_multiplier > 0
     tiered = plan is not None and not plan.trivial
     bmasks = plan.block_masks_on(dev) if tiered else None
+    plane = constrain_flat_fn
 
     def _apply(y, server_state, flat_deltas, weights, tier_ids, rng):
         if noised and rng is None:
@@ -485,6 +549,8 @@ def make_buffered_apply(server_opt: opt_lib.Optimizer, flush_dp=None,
         if tiered:
             bmask = bmasks[torch.as_tensor(tier_ids, dtype=torch.long,
                                            device=dev)]
+        if plane is not None:
+            flat_deltas = plane(flat_deltas, clients=True).contiguous()
         flat_delta, ainfo = kernel_ops.agg_tail(
             flat_deltas, weights,
             block_leaf=layout.block_leaf_on(dev),
@@ -496,7 +562,9 @@ def make_buffered_apply(server_opt: opt_lib.Optimizer, flush_dp=None,
             rng=rng if noised else None,
             bmask=bmask, remask_rows=tiered,
             block_denom=tiered and flush_dp is None,
-            screen=sanitize, threshold=fused_threshold)
+            screen=sanitize, constrain_fn=plane, threshold=fused_threshold)
+        if plane is not None:
+            flat_delta = plane.gather_cols(flat_delta, layout.size)
         delta = layout.unflatten(flat_delta, dtype=torch.float32)
         neg = tree_map(torch.neg, delta)
         y_new, server_state = server_opt.update(y, neg, server_state)

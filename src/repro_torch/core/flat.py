@@ -129,7 +129,8 @@ def gather_blocks(vec: torch.Tensor, block_ids, align: int = ALIGN
     if vec.ndim == 1:
         return vec.reshape(-1, align)[ids].reshape(-1)
     k = vec.shape[0]
-    return vec.reshape(k, -1, align)[:, ids].reshape(k, -1)
+    return vec.reshape(k, vec.shape[1] // align, align)[:, ids].reshape(
+        k, ids.numel() * align)
 
 
 def scatter_blocks(sub: torch.Tensor, block_ids, num_blocks: int,
@@ -146,8 +147,8 @@ def scatter_blocks(sub: torch.Tensor, block_ids, num_blocks: int,
     k = sub.shape[0]
     out = torch.zeros((k, num_blocks, align), dtype=torch.float32,
                       device=sub.device)
-    out[:, ids] = sub.reshape(k, -1, align).float()
-    return out.reshape(k, -1)
+    out[:, ids] = sub.reshape(k, sub.shape[1] // align, align).float()
+    return out.reshape(k, num_blocks * align)
 
 
 def expand_block_mask(mask, align: int = ALIGN) -> torch.Tensor:
@@ -173,8 +174,17 @@ def row_sumsq(mat: torch.Tensor, align: int = ALIGN) -> torch.Tensor:
     return ref.row_sumsq_ref(mat, chunk=align)
 
 
-def row_norms(mat: torch.Tensor, align: int = ALIGN) -> torch.Tensor:
-    return torch.sqrt(row_sumsq(mat, align))
+def row_norms(mat: torch.Tensor, align: int = ALIGN, plane=None,
+              k: Optional[int] = None, nb: Optional[int] = None
+              ) -> torch.Tensor:
+    """(C, size) -> (C,) per-row L2 norms, :func:`row_sumsq`'s bits. On a
+    mesh (``plane``, ``launch/sharding.FlatPlane``) ``mat`` is this rank's
+    block of the (``k``, ``nb * align``) buffer: the per-block sums are
+    gathered over "model" and the norms over the data ranks, so every rank
+    gets the whole rows' norms, the same bits."""
+    plane = WHOLE if plane is None else plane
+    part = plane.gather_blocks(block_sumsq(mat, align), nb)
+    return plane.gather_rows(torch.sqrt(ref._row_combine(part)), k)
 
 
 def clip(vec: torch.Tensor, clip_norm: float,
@@ -201,24 +211,34 @@ def fake_quantize(mat: torch.Tensor, layout: FlatLayout, bits: int = 8):
 
 
 def weighted_mean(mat: torch.Tensor, weights: torch.Tensor,
-                  wsum: torch.Tensor) -> torch.Tensor:
-    """(C, size), (C,) -> (size,): sum_c w_c * mat_c / wsum as one matmul."""
-    return torch.matmul(weights.float(), mat.float()) / wsum
+                  wsum: torch.Tensor, plane=None) -> torch.Tensor:
+    """(C, size), (C,) -> (size,): sum_c w_c * mat_c / wsum as one matmul.
+    On a mesh (``plane``) ``mat`` is this rank's block and the result its
+    columns: each data rank's matmul over its rows, the partials added in
+    rank order."""
+    plane = WHOLE if plane is None else plane
+    r0, r1 = plane.rows(weights.shape[0])
+    return plane.sum_rows(torch.matmul(weights[r0:r1].float(),
+                                       mat.float())) / wsum
 
 
 def block_masked_mean(mat: torch.Tensor, weights: torch.Tensor,
                       block_masks: torch.Tensor,
-                      align: int = ALIGN) -> torch.Tensor:
+                      align: int = ALIGN, plane=None) -> torch.Tensor:
     """(C, size), (C,), (C, num_blocks) -> (size,): the trainability-tier
     mean, shared by the sync round engine and the async buffered apply.
     Per block j: sum_c w_c mat_c[j] / max(sum_c w_c m_c[j], 1e-12), the
     denominator repeated to elements: a client adds zero weight on the
     blocks its tier froze, and blocks nobody trained keep delta 0. A
-    tensor divided by a tensor (IEEE), as the reference divides."""
+    tensor divided by a tensor (IEEE), as the reference divides. On a mesh
+    (``plane``) as :func:`weighted_mean`, ``block_masks`` whole."""
+    plane = WHOLE if plane is None else plane
     w = weights.float()
-    num = torch.matmul(w, mat.float())
+    r0, r1 = plane.rows(w.shape[0])
+    b0, b1 = plane.blocks(block_masks.shape[1])
+    num = plane.sum_rows(torch.matmul(w[r0:r1], mat.float()))
     den = torch.clamp_min(torch.matmul(w, block_masks.float()), 1e-12)
-    return num / den.repeat_interleave(align)
+    return num / den[b0:b1].repeat_interleave(align)
 
 
 def pad_rows(mat: torch.Tensor, rows: int) -> torch.Tensor:
@@ -238,20 +258,89 @@ def pad_rows(mat: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def draw_noise(rng: threefry.Key, size: int, sigma: float,
-               device=None) -> torch.Tensor:
+               device=None, cols=None) -> torch.Tensor:
     """Pre-draw the (size,) Gaussian :func:`add_noise` would add:
     ``add_noise(v, sigma, rng) == v + draw_noise(rng, v.numel(), sigma)``
     bit for bit (one threefry call from the key itself, no split; the
-    same float32 scaling). The fused tail starts its accumulator from it."""
+    same float32 scaling). The fused tail starts its accumulator from it.
+    ``cols=(start, stop)`` draws only those elements of the (size,) draw,
+    bit for bit its slice (a "model" rank's columns on a mesh)."""
     sig = threefry.constant(sigma, torch.float32, device)
+    if cols is not None:
+        return sig * threefry.normal_range(rng, cols[0], cols[1], device)
     return sig * threefry.normal(rng, (size,), device)
 
 
-def add_noise(vec: torch.Tensor, sigma: float, rng: threefry.Key
-              ) -> torch.Tensor:
+def add_noise(vec: torch.Tensor, sigma: float, rng: threefry.Key,
+              plane=None, size: Optional[int] = None) -> torch.Tensor:
     """Add N(0, sigma^2) to the flat vector in one PRNG call. Pad slots
     receive noise too: ``unflatten`` drops them, so only flat-vector norms
     see the extra energy (the round engine reports the noised update's
-    norm from the unflattened tree)."""
-    return vec + draw_noise(rng, vec.numel(), sigma,
-                            vec.device).reshape(vec.shape)
+    norm from the unflattened tree). On a mesh whose "model" axis splits
+    the (``size``,) vector (``plane``), ``vec`` is this rank's columns and
+    gets their slice of the whole draw."""
+    plane = WHOLE if plane is None else plane
+    size = vec.numel() if size is None else size
+    cols = None if plane.M == 1 else plane.cols(size)
+    return vec + draw_noise(rng, size, sigma, vec.device,
+                            cols=cols).reshape(vec.shape)
+
+
+# ---------------------------------------------------------------------------
+# The plane of the aggregation tail
+
+
+class WholePlane:
+    """The flat plane of one rank that holds the whole (K, size) buffer:
+    every piece is the whole, every cross-rank step is none. The tail runs
+    the same code with it as with ``launch/sharding.FlatPlane`` on a mesh,
+    whose 1-rank form computes the same bits."""
+    D = M = 1
+    d = m = 0
+
+    def rows(self, k: int):
+        return 0, k
+
+    def blocks(self, nb: int):
+        return 0, nb
+
+    def gather_rows(self, x, k: int):
+        return x
+
+    def gather_blocks(self, x, nb: int):
+        return x
+
+    def gather_table(self, x, k: int, nb: int):
+        return x
+
+    def sum_rows(self, partial):
+        return partial
+
+    def max_model(self, t):
+        return t
+
+    def all_model(self, b):
+        return b
+
+
+WHOLE = WholePlane()
+
+
+def as_plane(constrain_fn):
+    """The tail's plane: :data:`WHOLE` for None, a flat plane as it is."""
+    if constrain_fn is None:
+        return WHOLE
+    if not all(hasattr(constrain_fn, a) for a in ("rows", "blocks",
+                                                     "sum_rows")):
+        raise TypeError("constrain_fn must be a flat plane "
+                        "(launch/sharding.flat_constrainer(mesh)), got "
+                        f"{type(constrain_fn).__name__}")
+    return constrain_fn
+
+
+def block_sumsq(mat: torch.Tensor, align: int = ALIGN) -> torch.Tensor:
+    """(R, n) -> (R, n // align) per-block sums of squares in the order
+    every row norm of the port takes (``ref._sumsq_blocks``; one block
+    when ``align`` does not divide n): their ``ref._row_combine`` is
+    :func:`row_sumsq` bit for bit."""
+    return ref._sumsq_blocks(ref._chunked(mat.float(), align))

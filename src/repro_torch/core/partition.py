@@ -9,6 +9,8 @@ from __future__ import annotations
 import re
 from typing import Any, Dict, Tuple
 
+import torch
+
 from repro_torch.core import comm
 from repro_torch.nn import basic
 
@@ -29,6 +31,12 @@ def merge(trainable: Dict[str, Any], frozen: Dict[str, Any]) -> Dict[str, Any]:
     flat = dict(basic.flatten_params(trainable))
     flat.update(dict(basic.flatten_params(frozen)))
     return basic.unflatten_params(flat)
+
+
+def stop_gradient_frozen(trainable, frozen):
+    """Merge with the frozen side detached (gradients are only taken with
+    respect to the trainable argument anyway)."""
+    return merge(trainable, basic.tree_map(torch.Tensor.detach, frozen))
 
 
 def count_params(tree) -> int:

@@ -22,6 +22,16 @@ def reconstruct(init_fn: Callable[..., Dict[str, Any]], seed: int,
     return part.partition(init_fn(seed, device=device), freeze_spec)[1]
 
 
+def make_reconstructor(init_fn, seed: int, freeze_spec, device=None):
+    """Zero-argument reconstructor of the frozen tree (the reference jits
+    it; eager torch draws every leaf and keeps the frozen ones)."""
+
+    def _rec():
+        return reconstruct(init_fn, seed, freeze_spec, device=device)
+
+    return _rec
+
+
 def init_partitioned(init_fn, seed: int, freeze_spec, device=None):
     """Server-side round-0 split: (y0, frozen)."""
     return part.partition(init_fn(seed, device=device), freeze_spec)

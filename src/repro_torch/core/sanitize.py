@@ -89,19 +89,29 @@ def screen_from_stats(norms: torch.Tensor, row_finite: torch.Tensor,
 
 
 def screen_rows(mat: torch.Tensor, weights: torch.Tensor,
-                cfg: SanitizeConfig, align: int = flat_lib.ALIGN
+                cfg: SanitizeConfig, align: int = flat_lib.ALIGN,
+                plane=None, nb: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Dict[str, torch.Tensor]]:
     """Screen a flat ``(K, size)`` buffer with its own sweeps: returns
     ``(clean_mat, clean_weights, info)``, quarantined rows zeroed in
     both. Norms come from a NaN-free view, so a poisoned row cannot
-    poison the median."""
+    poison the median.
+
+    On a mesh (``plane``, ``launch/sharding.FlatPlane``) ``mat`` is this
+    rank's block of the buffer, of ``nb`` blocks in all: the finite flags
+    are ANDed over "model", the norms made whole
+    (:func:`flat_lib.row_norms`), every row decided on every rank, and
+    this rank's rows zeroed."""
+    plane = flat_lib.WHOLE if plane is None else plane
+    K = weights.shape[0]
     finite = torch.isfinite(mat)
-    row_finite = finite.all(dim=1)
+    row_finite = plane.gather_rows(plane.all_model(finite.all(dim=1)), K)
     safe = torch.where(finite, mat, torch.zeros_like(mat))
-    norms = flat_lib.row_norms(safe, align)
+    norms = flat_lib.row_norms(safe, align, plane, K, nb)
     clean_w, q, info = screen_from_stats(norms, row_finite, weights, cfg)
-    clean = torch.where(q[:, None], torch.zeros_like(mat), mat)
+    r0, r1 = plane.rows(K)
+    clean = torch.where(q[r0:r1, None], torch.zeros_like(mat), mat)
     return clean, clean_w, info
 
 

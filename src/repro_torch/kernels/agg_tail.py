@@ -52,6 +52,7 @@ _SIGNATURES = {
     "agg_pack_f32": [_P, _P, _I64, _I64, _INT, ctypes.c_float, _P, _P, _P,
                      _P],
     "agg_apply_coeff_f32": [_P, _P, _P, _I64, _I64, _INT, _P, _P],
+    "agg_row_combine_f32": [_P, _I64, _I64, _P, _P],
 }
 
 
@@ -121,7 +122,25 @@ def _pack_cuda(mat: torch.Tensor, sblock: torch.Tensor, bits: int,
                                   _build.stream_ptr(mat))
         _build.raise_on_error("pack", err)
         kernels.LAUNCHES["pack"] += 1
-    return q, qss
+    return q, qss, bqss
+
+
+def _row_combine_cuda(bqss: torch.Tensor) -> torch.Tensor:
+    """(K, nb) per-block quantized sums of squares -> (K,) in the order
+    pack's own combine takes: on a mesh, the blocks gathered whole give
+    the unmeshed qss bit for bit. Counted as a route of pack."""
+    _build.check_cuda("pack (row combine)", bqss, torch.float32, 2)
+    K, nb = bqss.shape
+    _check_rows("pack (row combine)", K)
+    qss = torch.zeros((K,), dtype=torch.float32, device=bqss.device)
+    if K and nb:
+        bqss = bqss.contiguous()
+        err = _lib().agg_row_combine_f32(bqss.data_ptr(), K, nb,
+                                         qss.data_ptr(),
+                                         _build.stream_ptr(bqss))
+        _build.raise_on_error("pack (row combine)", err)
+        kernels.ROUTES["pack/row_combine"] += 1
+    return qss
 
 
 def _apply_cuda(q: torch.Tensor, coeff: torch.Tensor,
@@ -168,7 +187,7 @@ def pack(mat: torch.Tensor, sblock: torch.Tensor, bits: int = 8,
     if mat.device.type == "cpu":
         q = ref.agg_pack_ref(mat, sblock, bits, block)
         return q, ref.agg_quant_sumsq_ref(q, sblock)
-    return _pack_cuda(mat, sblock, bits, block)
+    return _pack_cuda(mat, sblock, bits, block)[:2]
 
 
 def apply_coeff(q: torch.Tensor, coeff: torch.Tensor,
@@ -196,10 +215,22 @@ class _Stages:
         return ref.agg_block_stats_ref(mat, block, with_sumsq=with_sumsq)
 
     def pack(self, mat, sblock, bits, block, need_qss):
+        """(codes, quantized row sums of squares, and their per-block
+        terms); the sums are None unless ``need_qss`` (the kernel writes
+        them either way)."""
         if self.cuda:
             return _pack_cuda(mat, sblock, bits, block)
         q = ref.agg_pack_ref(mat, sblock, bits, block)
-        return q, (ref.agg_quant_sumsq_ref(q, sblock) if need_qss else None)
+        if not need_qss:
+            return q, None, None
+        bqss = ref._sumsq_blocks(q) * (sblock.float() * sblock.float())
+        return q, ref._row_combine(bqss), bqss
+
+    def row_combine(self, bqss):
+        """Pack's combine of per-block sums into row sums."""
+        if self.cuda:
+            return _row_combine_cuda(bqss)
+        return ref._row_combine(bqss)
 
     def apply_coeff(self, q, coeff, noise, block):
         if self.cuda:
@@ -225,14 +256,24 @@ def compose(mat, weights, *, block_leaf, n_leaves: int, align: int = BLOCK,
     As in the reference, ``remask_rows`` re-masks the rows on the exact
     route's unquantized branch alone (the quantized branches take the
     rows as they come; the tiered client steps send exact zeros there),
-    and ``block_denom`` divides the exact route's GEMV per block. The
-    output sharding hook (``constrain_fn``) is not ported yet and
-    raises."""
-    if constrain_fn is not None:
-        raise NotImplementedError("sharding hooks (constrain_fn) are not "
-                                  "ported yet")
-    K, size = mat.shape
-    nb = size // align
+    and ``block_denom`` divides the exact route's GEMV per block.
+
+    On a mesh (``constrain_fn``: the flat plane,
+    ``launch/sharding.FlatPlane``) ``mat`` is this rank's block and the
+    result this rank's columns (``kernels/ops.agg_tail``): the stats
+    kernel reads the block, its per-(row, block) tables are gathered
+    whole, so the scales, norms and screen are the unmeshed ones bit for
+    bit; the pack and apply kernels run on the block, the clip's
+    quantized sums of squares combine per-block terms gathered over
+    "model", and the apply's partial sums are added over the data ranks
+    in rank order, the noise folded in on data rank 0 alone."""
+    plane = flat_lib.as_plane(constrain_fn)
+    K = weights.shape[0]
+    nb = len(block_leaf)
+    size = nb * align
+    r0, r1 = plane.rows(K)
+    b0, b1 = plane.blocks(nb)
+    R = mat.shape[0]
     stages = _Stages(mat.device)
     info = {}
 
@@ -242,10 +283,12 @@ def compose(mat, weights, *, block_leaf, n_leaves: int, align: int = BLOCK,
     bmax = raw_norms = None
     if need_max:
         bmax, bsumsq = stages.stats(mat, align, with_sumsq=need_raw)
+        bmax = plane.gather_table(bmax, K, nb)
         if need_raw:
-            raw_norms = torch.sqrt(ref._row_combine(bsumsq))
+            raw_norms = torch.sqrt(ref._row_combine(
+                plane.gather_table(bsumsq, K, nb)))
     elif need_raw:
-        raw_norms = flat_lib.row_norms(mat, align)
+        raw_norms = flat_lib.row_norms(mat, align, plane, K, nb)
 
     # ---- quarantine screen off the stats --------------------------------
     q_mask = None
@@ -274,8 +317,13 @@ def compose(mat, weights, *, block_leaf, n_leaves: int, align: int = BLOCK,
             # zero coefficient)
             sblock = torch.where(q_mask[:, None], torch.ones_like(sblock),
                                  sblock)
-        q8, qss = stages.pack(mat, sblock, bits, align,
-                              need_qss=clip_norm > 0)
+        q8, qss, bqss = stages.pack(
+            mat, sblock[r0:r1, b0:b1].contiguous(), bits, align,
+            need_qss=clip_norm > 0)
+        if clip_norm > 0 and plane.M > 1:
+            qss = stages.row_combine(plane.gather_blocks(bqss, nb))
+        if clip_norm > 0:
+            qss = plane.gather_rows(qss, K)
 
     # ---- clip fold: one scale per row, into the weights ------------------
     if clip_norm > 0:
@@ -287,16 +335,19 @@ def compose(mat, weights, *, block_leaf, n_leaves: int, align: int = BLOCK,
                             / torch.clamp_min(norms, 1e-12), max=1.0)
         info["update_norms"] = norms
 
-    noise = (flat_lib.draw_noise(rng, size, sigma, mat.device)
+    noise = (flat_lib.draw_noise(rng, size, sigma, mat.device,
+                                 cols=(b0 * align, b1 * align))
              if sigma > 0 else None)
 
     # ---- apply: coefficients where scales and clip fold together, else
     # the exact GEMV (bitwise the staged mean) ------------------------------
     if bits > 0 and (clip_norm > 0 or sigma > 0):
-        coeff = (w / wsum)[:, None] * sblock
-        out = stages.apply_coeff(q8, coeff, noise, align)
+        coeff = ((w / wsum)[:, None] * sblock)[r0:r1, b0:b1].contiguous()
+        out = plane.sum_rows(stages.apply_coeff(
+            q8, coeff, noise if plane.d == 0 else None, align))
         info["route"] = f"fused/{stages.engine}/coeff"
     else:
+        nbl = b1 - b0
         if bits > 0:
             x3 = q8            # dequantized chunk by chunk by the GEMV
         else:
@@ -304,17 +355,19 @@ def compose(mat, weights, *, block_leaf, n_leaves: int, align: int = BLOCK,
             if q_mask is not None:
                 # raw f32 rows: a quarantined NaN row must be zeroed, since
                 # NaN * 0 is NaN in the GEMV
-                x = torch.where(q_mask[:, None], torch.zeros_like(x), x)
+                x = torch.where(q_mask[r0:r1, None], torch.zeros_like(x), x)
             if remask_rows:
-                x = (x.reshape(K, nb, align) * bmask[:, :, None]).reshape(
-                    K, size)
-            x3 = x.reshape(K, nb, align)
-        block_den = None
+                x = (x.reshape(R, nbl, align)
+                     * bmask[r0:r1, b0:b1, None]).reshape(R, nbl * align)
+            x3 = x.reshape(R, nbl, align)
+        num = plane.sum_rows(ref.agg_apply_exact_ref(
+            x3, w[r0:r1],
+            sblock=None if sblock is None else sblock[r0:r1, b0:b1]))
         if block_denom:
             block_den = torch.clamp_min(torch.matmul(w.float(), bmask), 1e-12)
-        out = ref.agg_apply_exact_ref(x3, w, sblock=sblock,
-                                      wsum=None if block_denom else wsum,
-                                      block_den=block_den)
+            out = num / block_den[b0:b1].repeat_interleave(align)
+        else:
+            out = num / wsum
         if noise is not None:
             out = out + noise
         info["route"] = f"fused/{stages.engine}/exact"

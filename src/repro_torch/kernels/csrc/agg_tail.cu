@@ -311,6 +311,16 @@ extern "C" int agg_pack_f32(const float* x, const float* sblock, int64_t rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// qss (rows,) = the sum of each row of part (rows, nb), in pack's combine
+// order: a mesh's per-block sums gathered whole give the whole call's qss
+extern "C" int agg_row_combine_f32(const float* part, int64_t rows,
+                                   int64_t nb, float* qss, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  row_combine_kernel<<<static_cast<unsigned>(rows), kThreads, 0, st>>>(
+      part, nb, qss);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out (n,) = noise (or 0) + sum over k, in order, of q[k] * coeff[k, block];
 // q (rows, n) int8, coeff (rows, n / block) float32, noise (n,) or null.
 extern "C" int agg_apply_coeff_f32(const int8_t* q, const float* coeff,

@@ -162,7 +162,8 @@ def leaf_maxabs(x: torch.Tensor, block_leaf, n_leaves: int,
 
 
 def fake_quantize_flat(x: torch.Tensor, block_leaf, n_leaves: int,
-                       bits: int = 8, block: int = BLOCK) -> torch.Tensor:
+                       bits: int = 8, block: int = BLOCK,
+                       reduce_maxabs=None) -> torch.Tensor:
     """Q->DQ of block-aligned flat rows (..., N) with per-(row, leaf)
     scales max(max|x|, 1e-12) / qmax, bit for bit
     ``compress.quantize_leaf`` + ``dequantize_leaf``. On CUDA, one launch
@@ -170,10 +171,20 @@ def fake_quantize_flat(x: torch.Tensor, block_leaf, n_leaves: int,
     Q->DQ launch on the two-pass route (:func:`qdq_route`); on the CPU:
     ``ref.fake_quantize_flat_ref``. ``block_leaf`` is checked when it is
     a numpy array; pass it as an int32 tensor on the card
-    (``FlatLayout.block_leaf_on``) to save the host-to-device copy."""
+    (``FlatLayout.block_leaf_on``) to save the host-to-device copy.
+
+    ``reduce_maxabs`` (the flat plane's ``max_model`` on a mesh whose
+    "model" axis splits the rows' blocks) takes the (R, L) per-leaf
+    max-abs of this rank's blocks and returns that of the whole rows: the
+    two-pass route then runs with the reduced maxima between its passes
+    (on the CPU, the plain max-abs and Q->DQ around it)."""
     if not 2 <= bits <= 8:
         raise ValueError(f"bits must lie in [2, 8], got {bits}")
     if x.device.type == "cpu":
+        if reduce_maxabs is not None:
+            lmax = reduce_maxabs(ref.leaf_maxabs_ref(x, block_leaf, n_leaves,
+                                                     block))
+            return ref.qdq_from_leaf_max_ref(x, lmax, block_leaf, bits, block)
         return ref.fake_quantize_flat_ref(x, block_leaf, bits=bits,
                                           block=block, n_leaves=n_leaves)
     rows = _as_rows(x, block)
@@ -184,7 +195,8 @@ def fake_quantize_flat(x: torch.Tensor, block_leaf, n_leaves: int,
         return out.reshape(x.shape)
     qmax = 2.0 ** (bits - 1) - 1
     lib = _build.load("quantize.cu", _SIGNATURES)
-    route = qdq_route(n, block, n_leaves)
+    route = "two_pass" if reduce_maxabs is not None else qdq_route(
+        n, block, n_leaves)
     if route == "cluster":
         ctas, groups, per_thread = cluster_split(n // block)
         err = lib.fake_quantize_cluster_f32(
@@ -192,6 +204,8 @@ def fake_quantize_flat(x: torch.Tensor, block_leaf, n_leaves: int,
             n_leaves, qmax, out.data_ptr(), _build.stream_ptr(x))
     else:
         maxabs = leaf_maxabs(rows, bl, n_leaves, block)
+        if reduce_maxabs is not None:
+            maxabs = reduce_maxabs(maxabs).contiguous()
         err = lib.fake_quantize_flat_f32(
             rows.data_ptr(), bl.data_ptr(), maxabs.data_ptr(), R, n, block,
             n_leaves, qmax, out.data_ptr(), _build.stream_ptr(x))

@@ -131,6 +131,23 @@ def fake_quantize_flat_ref(mat, block_leaf, bits: int = 8,
     return (q * sblock).reshape(mat.shape)
 
 
+def qdq_from_leaf_max_ref(mat, lmax, block_leaf, bits: int = 8,
+                          block: int = 1024):
+    """Q->DQ of block-aligned flat rows (R, N) from given per-(row, leaf)
+    max-abs (R, L): ``fake_quantize_flat_ref`` with its own maxima
+    replaced, bit for bit that function when they are its own."""
+    qmax = 2.0 ** (bits - 1) - 1
+    dev = mat.device
+    floor = torch.tensor(1e-12, dtype=torch.float32, device=dev)
+    scales = (torch.maximum(lmax.float(), floor) / torch.tensor(
+        qmax, dtype=torch.float32, device=dev))[
+            :, _leaf_index(block_leaf, dev)][..., None]
+    x = mat.float()
+    x3 = x.reshape(x.shape[0], -1, block)
+    q = torch.clamp(torch.round(x3 / scales), -qmax, qmax)
+    return (q * scales).reshape(mat.shape)
+
+
 # ---------------------------------------------------------------------------
 # The fused aggregation tail's stages (``kernels/agg_tail.py``'s plain
 # versions): stats -> scales -> pack -> apply over the (K, N) buffer.
@@ -212,7 +229,7 @@ def agg_apply_exact_ref(x3, weights, sblock=None, wsum=None, block_den=None,
         part = x3[:, i:i + cols].float()
         if sblock is not None:
             part = part * sblock[:, i:i + cols, None]
-        t = torch.matmul(w, part.reshape(K, -1))
+        t = torch.matmul(w, part.reshape(K, part.shape[1] * block))
         if block_den is not None:
             t = t / block_den[i:i + cols].repeat_interleave(block)
         elif wsum is not None:

@@ -1,10 +1,12 @@
-"""Serving shapes and step functions, port of the serving part of
-``repro/launch/specs.py``.
+"""Input specifications and step builders for every (architecture x
+input-shape) pair, port of ``repro/launch/specs.py``: the substrate of
+the dry run (``launch/dryrun.py``) and of the serving entry point.
 
 The FROZEN tree is held in bf16 (read-only weights) and the TRAINABLE
 tree in f32 (the master copy): the standard mixed-precision split of the
-reference's ``param_structs``. The prefill and decode steps take the two
-halves and merge them.
+reference's ``param_structs``. Structures are tensors on the meta device
+(no memory). The prefill and decode steps take the two halves and merge
+them; the train step is one FedPT round on a mesh (:func:`make_train_step`).
 
 Shapes (the reference's):
   train_4k     seq 4,096   global_batch 256   -> fedpt_round_step
@@ -14,13 +16,23 @@ Shapes (the reference's):
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, Optional
+
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig, match_freeze
+from repro_torch.configs.base import ModelConfig, get_config, match_freeze
+from repro_torch.core import fedpt
 from repro_torch.core import partition as part
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shard_lib
 from repro_torch.models import decoder_lm as dlm
 from repro_torch.nn import basic
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+I32 = torch.int32
 
 SHAPES = {
     "train_4k": dict(seq=4096, global_batch=256, kind="train"),
@@ -29,9 +41,20 @@ SHAPES = {
     "long_500k": dict(seq=524288, global_batch=1, kind="decode"),
 }
 
+# long_500k needs sub-quadratic attention: sliding-window, SSM and hybrid
+# architectures (and mistral-nemo through its serving window) take it;
+# pure full-attention architectures skip it, as in the reference
+LONG_OK = {"mixtral-8x7b", "jamba-v0.1-52b", "xlstm-350m", "mistral-nemo-12b"}
 # the sliding window applied to mistral-nemo for long_500k only (the
 # reference's serving variant: a rolling-buffer SWA cache)
 NEMO_SERVE_WINDOW = 8192
+VISION_TOWER_DIM = 1152
+
+
+def skip_reason(arch: str, shape: str) -> Optional[str]:
+    if shape == "long_500k" and arch not in LONG_OK:
+        return "pure full-attention arch: 500k decode excluded by design"
+    return None
 
 
 def serving_config(cfg: ModelConfig, shape: str) -> ModelConfig:
@@ -114,3 +137,199 @@ def make_decode_step(cfg: ModelConfig, device=None):
                                torch.as_tensor(tokens, device=dev))
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Input specs per shape kind (tensors on the meta device)
+
+
+def _sds(shape, dtype):
+    return torch.empty(tuple(int(x) for x in shape), dtype=dtype,
+                       device="meta")
+
+
+def train_specs(cfg: ModelConfig, mesh, seq: int, global_batch: int,
+                tau: int = 2):
+    """(batch_struct, weights_struct, clients) for one federated round:
+    one client a data rank, ``global_batch`` sequences split over the
+    clients and their ``tau`` local steps."""
+    clients = 1
+    for a in mesh_lib.data_axes(mesh):
+        clients *= mesh_lib.axis_size(mesh, a)
+    b = global_batch // (clients * tau)
+    assert b >= 1, (cfg.name, global_batch, clients, tau)
+    tok_seq = seq - cfg.num_prefix_tokens if cfg.family == "vlm" else seq
+    batch = {
+        "tokens": _sds((clients, tau, b, tok_seq), I32),
+        "labels": _sds((clients, tau, b, tok_seq), I32),
+    }
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = _sds(
+            (clients, tau, b, cfg.num_prefix_tokens, VISION_TOWER_DIM), BF16)
+    if cfg.is_encoder_decoder:
+        batch["encoder_embeds"] = _sds(
+            (clients, tau, b, cfg.encoder_seq_len, cfg.d_model), BF16)
+    weights = _sds((clients,), F32)
+    return batch, weights, clients
+
+
+def prefill_specs(cfg: ModelConfig, seq: int, global_batch: int):
+    tok_seq = seq - cfg.num_prefix_tokens if cfg.family == "vlm" else seq
+    batch = {"tokens": _sds((global_batch, tok_seq), I32)}
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = _sds(
+            (global_batch, cfg.num_prefix_tokens, VISION_TOWER_DIM), BF16)
+    if cfg.is_encoder_decoder:
+        batch["encoder_embeds"] = _sds(
+            (global_batch, cfg.encoder_seq_len, cfg.d_model), BF16)
+    return batch
+
+
+def decode_specs(cfg: ModelConfig, seq: int, global_batch: int):
+    cache = dlm.init_cache(cfg, global_batch, seq, dtype=BF16, device="meta")
+    tokens = _sds((global_batch, 1), I32)
+    return cache, tokens
+
+
+# ---------------------------------------------------------------------------
+# The train step on a mesh
+
+
+def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
+    """FedPT round step for this architecture (client sgd, server sgdm),
+    on ``mesh``: train_step(y, sstate, frozen, batch, weights, seed) ->
+    (y_new, sstate_new, metrics).
+
+    ``y`` may arrive as DTensors placed by :func:`sharding.param_shardings`
+    (the reference's layout); the round gathers them whole for the
+    clients, whose copies ``torch.func.vmap`` never materializes, and
+    lays the new ``y`` out the same way (``constrain_fn``). The server
+    state, the frozen tree, the batch and the weights are gathered whole
+    on entry (DTensors, explicitly) and the state laid out again as it
+    came. Each data rank trains its client; the flat plane
+    (``sharding.flat_constrainer``) aggregates each rank's block of the
+    delta buffer. The round has no DP noise, so ``seed`` draws nothing.
+    Runs on ``device`` (CUDA unless ``device="cpu"``)."""
+    rc = fedpt.RoundConfig(clients_per_round=0, local_steps=2, local_batch=0,
+                           client_opt="sgd", client_lr=0.02,
+                           server_opt="sgdm", server_lr=0.5)
+    shard_y = shard_lib.param_shardings(y_struct, cfg, mesh)
+
+    def constrain(tree, clients: bool):
+        if clients:
+            return shard_lib.gathered(tree)
+        return basic.tree_map(
+            lambda x, pl: shard_lib.distribute(x, mesh, pl), tree, shard_y)
+
+    def loss_fn(params, mb):
+        return dlm.train_loss(params, cfg, mb)
+
+    round_step, server_opt = fedpt.make_round_fn(
+        loss_fn, rc, device=device, constrain_fn=constrain,
+        constrain_flat_fn=shard_lib.flat_constrainer(mesh))
+
+    def train_step(y, sstate, frozen, batch, weights, seed=None):
+        y_new, ss_new, metrics = round_step(
+            y, shard_lib.gathered(sstate), shard_lib.gathered(frozen),
+            shard_lib.gathered(batch), shard_lib.gathered(weights), None)
+        return y_new, _laid_out_as(ss_new, sstate), metrics
+
+    return train_step, server_opt
+
+
+def _laid_out_as(tree, like):
+    """Each leaf of ``tree`` as a DTensor placed as its twin in ``like``
+    is, or as it is where the twin is no DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    def one(x, ref):
+        if isinstance(ref, DTensor):
+            return shard_lib.distribute(x, ref.device_mesh, ref.placements)
+        return x
+    return basic.tree_map(one, tree, like)
+
+
+def _data_local(tree):
+    """Each DTensor leaf redistributed so that only its data-axis shards
+    stay (the "model" axis gathered) and taken as its local tensor: a data
+    rank's rows, whole in every other dim."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def one(x):
+        if not isinstance(x, DTensor):
+            return x
+        names = mesh_lib.axis_names(x.device_mesh)
+        pl = tuple(p if n in ("pod", "data") else Replicate()
+                   for n, p in zip(names, x.placements))
+        return x.redistribute(x.device_mesh, pl).to_local()
+    return basic.tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# Assembled lowering spec per (arch, shape, mesh)
+
+
+@dataclasses.dataclass
+class LoweringJob:
+    arch: str
+    shape: str
+    fn: Callable
+    args: tuple                 # tensors on the meta device
+    in_shardings: tuple         # trees of placements, as args
+    cfg: ModelConfig
+    clients: int = 0
+
+
+def build_job(arch: str, shape: str, mesh, cfg_override=None,
+              device="cpu") -> LoweringJob:
+    """The step of ``shape``'s kind for ``arch`` on ``mesh``, its argument
+    structures and their placements. The prefill and decode steps run
+    data-parallel: their parameters gathered whole, the batch (and the
+    cache, its "model" shards gathered) a data rank's rows."""
+    base_cfg = cfg_override if cfg_override is not None else get_config(arch)
+    info = SHAPES[shape]
+    cfg = serving_config(base_cfg, shape)
+    y_struct, z_struct = param_structs(cfg)
+    shard_y = shard_lib.param_shardings(y_struct, cfg, mesh)
+    shard_z = shard_lib.param_shardings(z_struct, cfg, mesh)
+    rep = shard_lib.placements_of((), mesh)
+
+    if info["kind"] == "train":
+        batch, weights, clients = train_specs(cfg, mesh, info["seq"],
+                                              info["global_batch"])
+        train_step, server_opt = make_train_step(cfg, mesh, y_struct, device)
+        sstate_struct = server_opt.init(y_struct)
+        # sgdm state mirrors y's structure -> the same placements
+        shard_sstate = shard_lib.param_shardings(sstate_struct, cfg, mesh)
+        args = (y_struct, sstate_struct, z_struct, batch, weights,
+                _sds((1,), I32))
+        inshard = (shard_y, shard_sstate, shard_z,
+                   shard_lib.batch_sharding(batch, mesh),
+                   shard_lib.batch_sharding(weights, mesh), rep)
+        return LoweringJob(arch, shape, train_step, args, inshard, cfg,
+                           clients)
+
+    if info["kind"] == "prefill":
+        batch = prefill_specs(cfg, info["seq"], info["global_batch"])
+        step = make_prefill_step(cfg, device)
+
+        def prefill(y, frozen, batch):
+            return step(shard_lib.gathered(y), shard_lib.gathered(frozen),
+                        _data_local(batch))
+        args = (y_struct, z_struct, batch)
+        inshard = (shard_y, shard_z, shard_lib.batch_sharding(batch, mesh))
+        return LoweringJob(arch, shape, prefill, args, inshard, cfg)
+
+    cache, tokens = decode_specs(cfg, info["seq"], info["global_batch"])
+    step = make_decode_step(cfg, device)
+    long_ctx = shape == "long_500k"
+
+    def decode(y, frozen, cache, tokens):
+        return step(shard_lib.gathered(y), shard_lib.gathered(frozen),
+                    _data_local(cache), _data_local(tokens))
+    shard_cache = shard_lib.cache_shardings(cache, cfg, mesh, long_ctx)
+    tok_shard = (shard_lib.batch_sharding(tokens, mesh)
+                 if not long_ctx else rep)
+    args = (y_struct, z_struct, cache, tokens)
+    inshard = (shard_y, shard_z, shard_cache, tok_shard)
+    return LoweringJob(arch, shape, decode, args, inshard, cfg)

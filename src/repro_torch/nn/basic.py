@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import threefry
 
 Params = Dict[str, Any]
@@ -52,6 +53,15 @@ def zeros_init(_root_seed, _path, shape, dtype=torch.float32, device=None,
 def ones_init(_root_seed, _path, shape, dtype=torch.float32, device=None,
               **_kw):
     return torch.ones(shape, dtype=dtype, device=resolve_device(device))
+
+
+# Initializer registry used by reconstruct: every leaf records how it was
+# made so the frozen side can be regenerated without shipping bytes.
+INITIALIZERS = {
+    "normal": normal_init,
+    "zeros": zeros_init,
+    "ones": ones_init,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -220,3 +230,46 @@ def mlp(x, p, act: str, compute_dtype):
         return dense(f(g) * u, p["wo"], compute_dtype)
     h = f(dense(x, p["wi"], compute_dtype))
     return dense(h, p["wo"], compute_dtype)
+
+
+def maybe_constrain(x, spec):
+    """Best-effort sharding constraint, port of the reference's
+    GSPMD hint.
+
+    Filters the spec per dimension: an axis that is absent from the
+    ambient mesh (``launch/mesh.use_mesh``), or that does not divide the
+    dimension, degrades to None for that dim only, instead of dropping
+    the whole constraint. A no-op without an ambient mesh and on a plain
+    tensor (a rank's local computation has nothing to place); a DTensor
+    is redistributed to the filtered spec (a dim left None replicates,
+    as the reference's constraint replicates it)."""
+    mesh = mesh_lib.get_abstract_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    sizes = mesh_lib.axis_sizes(mesh)
+    filt = []
+    for d, ax in enumerate(spec):
+        if ax is None:
+            filt.append(())
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        # keep the subset of axes that exist on the ambient mesh
+        present = tuple(a for a in axes if a in sizes)
+        total = 1
+        for a in present:
+            total *= sizes[a]
+        if present and d < x.ndim and x.shape[d] % total == 0 \
+                and x.shape[d] >= total:
+            filt.append(present)
+        else:
+            filt.append(())
+    if not any(filt):
+        return x
+    placements = []
+    for name in mesh_lib.axis_names(mesh):
+        dims = [d for d, axes in enumerate(filt) if name in axes]
+        placements.append(Shard(dims[0]) if dims else Replicate())
+    return x.redistribute(x.device_mesh, tuple(placements))

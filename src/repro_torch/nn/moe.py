@@ -18,9 +18,10 @@ atomics, and at k = 2 the reference's bits given the same expert outputs
 ((0 + a) + b is commutative). Every step is a ``torch.func.vmap``-
 batchable op, since the round engine vmaps the clients.
 
-The reference's ``maybe_constrain`` calls are sharding hints for the
-mesh, no-ops without one; they are left out until the port's mesh
-(ROADMAP.md, Queue 1 item 12's last bullet).
+The reference's three sharding hints sit at its sites
+(``nn/basic.maybe_constrain``: the dispatch buffer, the experts' hidden
+activations, their outputs), no-ops without an ambient mesh or on plain
+tensors.
 """
 from __future__ import annotations
 
@@ -122,18 +123,22 @@ def _combine_local(y_flat, meta, T: int, e: int, cap: int, cd):
     return out
 
 
-def _experts(buf, p, cd):
+def _experts(buf, p, cd, ff_axis=None):
     """The expert FFNs on the (..., E, cap, d) dispatch buffer, in ``cd``:
     silu(x @ wi_gate[e]) * (x @ wi_up[e]) @ wo[e] for each expert e's
     (..., cap, d) slots. One matrix product an expert: under ``vmap`` the
     clients' rows then stack onto one unbatched weight, where a batched
-    (E, cap, d) x (E, d, ff) product copies the weights once a client."""
+    (E, cap, d) x (E, d, ff) product copies the weights once a client.
+    ``ff_axis`` hints each expert's hidden activations' FFN dim onto that
+    mesh axis (an expert's slice of the reference's hint)."""
     out = []
     for e in range(buf.shape[-3]):
         x = buf.select(-3, e)
         g = x @ p["wi_gate"][e].to(cd)
         u = x @ p["wi_up"][e].to(cd)
-        out.append((torch.nn.functional.silu(g) * u) @ p["wo"][e].to(cd))
+        h = basic.maybe_constrain(torch.nn.functional.silu(g) * u,
+                                  (None, ff_axis))
+        out.append(h @ p["wo"][e].to(cd))
     return torch.stack(out, dim=-3)
 
 
@@ -151,8 +156,17 @@ def moe_ffn(x, p, cfg: ModelConfig):
     cap = capacity(T, cfg)
     cd = cfg.cdtype
     w, idx, aux = router_topk(x, p, cfg)
+    # the expert dim's mesh axis mirrors launch/sharding.py: "data" for
+    # huge banks (2-D expert sharding), else "model" (the FFN dim then
+    # left to the weights' own layout)
+    if cfg.num_experts >= 64:
+        expert_axis, ff_axis = "data", "model"
+    else:
+        expert_axis, ff_axis = "model", None
     buf, meta = _sort_dispatch(x, w, idx, e, cap, cd)
-    y = _experts(buf, p, cd)
+    buf = basic.maybe_constrain(buf, (expert_axis, None, None))
+    y = _experts(buf, p, cd, ff_axis)
+    y = basic.maybe_constrain(y, (expert_axis, None, None))
     out = _combine_local(y.reshape(e * cap, d), meta, T, e, cap, cd)
     if cfg.num_shared_experts > 0:
         out = out + basic.mlp(x, p["shared"], "silu", cd)

@@ -106,8 +106,11 @@ def _bits(k: Key, start: int, stop: int, device) -> torch.Tensor:
 def _in_pieces(shape, dtype, device, piece_fn) -> torch.Tensor:
     """A tensor of ``shape`` whose elements [a, b) in row-major order are
     ``piece_fn(a, b)``, filled PIECE elements at a time (a draw of one
-    piece is returned as it is made)."""
+    piece is returned as it is made). On the meta device (shapes only) the
+    pieces hold no values, so one empty tensor stands for them."""
     n = math.prod(shape)
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     if n <= PIECE:
         return piece_fn(0, n).reshape(tuple(shape))
     out = torch.empty(n, dtype=dtype, device=device)
@@ -233,11 +236,24 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1, x * float("inf"), p * x)
 
 
+def _normal_piece(k: Key, a: int, b: int, device) -> torch.Tensor:
+    u = _uniform(_bits(k, a, b, device), _NORMAL_LO, 1.0, torch.float32)
+    return _SQRT2 * erfinv(u)
+
+
 def normal(k: Key, shape, device=None) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) * erfinv(u) with u
     uniform on (-1, 1). The bits and u are JAX's exactly; the values
     agree to a few ulps (see :func:`erfinv`)."""
-    def piece(a, b):
-        u = _uniform(_bits(k, a, b, device), _NORMAL_LO, 1.0, torch.float32)
-        return _SQRT2 * erfinv(u)
-    return _in_pieces(shape, torch.float32, device, piece)
+    return _in_pieces(shape, torch.float32, device,
+                      lambda a, b: _normal_piece(k, a, b, device))
+
+
+def normal_range(k: Key, start: int, stop: int, device=None) -> torch.Tensor:
+    """The elements [start, stop) of a flat ``normal(k, (n,))`` draw for
+    any n >= stop, bit for bit (each element is a function of its counter
+    alone), drawn PIECE elements at a time: a rank's columns of a draw
+    over a mesh."""
+    return _in_pieces((stop - start,), torch.float32, device,
+                      lambda a, b: _normal_piece(k, start + a, start + b,
+                                                 device))

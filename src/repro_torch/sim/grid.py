@@ -30,9 +30,16 @@ CUDA with ``torch.backends.cudnn.deterministic = True`` (the caller's
 setting). ``TelemetryConfig.profile`` wraps the round, the lane steps and
 the server apply in ``torch.profiler`` / NVTX ranges (``obs/profiling``).
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-taking another route (``ROADMAP.md``, Queue 1): mesh execution
-(``mesh``).
+``mesh`` (a ``launch/mesh.py`` preset name or a DeviceMesh) runs the
+grid's device work on ``torch.distributed``: every rank runs this host
+loop from the same seeds (SPMD), so the clock, scheduler, wire ledger
+and accountant come out the same on every rank; the sync round and the
+lanes train each data rank's rows of the cohort or lane, and the server
+tail aggregates each rank's block of the (K, size) buffer
+(``launch/sharding.flat_constrainer``). A preset other than ``single``
+needs a world of exactly its size (``torch.distributed.
+init_process_group``); ``single`` makes a 1-rank group when there is
+none.
 """
 from __future__ import annotations
 
@@ -53,6 +60,8 @@ from repro_torch.core import flat as flat_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import sanitize as sanitize_lib
 from repro_torch.data import synthetic as syn
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding as shard_lib
 from repro_torch.nn import basic, threefry
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs import profiling as prof_lib
@@ -69,9 +78,8 @@ from repro_torch.sim import wire
 @dataclasses.dataclass
 class GridConfig:
     """The reference's grid configuration, field for field (see
-    ``repro/sim/grid.py`` for each knob). ``mesh`` keeps its field so
-    that configurations carry over, and raises when set (module
-    docstring)."""
+    ``repro/sim/grid.py`` for each knob); ``mesh`` as in the module
+    docstring."""
     mode: str = "sync"                      # "sync" | "async"
     fleet: Union[str, dev_lib.Fleet] = "uniform"
     # virtual seconds one local step takes on the reference device; each
@@ -94,7 +102,10 @@ class GridConfig:
     # it ends the run, flushing the partial buffer as one final short
     # update (padded to goal_count with zero weights)
     async_deadline: float = math.inf
-    mesh: Any = None                        # not ported
+    # None = one device; a launch/mesh.py preset name ("single",
+    # "debug", "debug-pod", "production", ...) or a DeviceMesh shards the
+    # grid's device work (module docstring)
+    mesh: Any = None
     # trainability tiers: None = every client trains the whole trainable
     # tree (as does a one-tier plan); a TrainPlan / {name: extra spec}
     # dict / (name, spec) sequence gives each client a tier
@@ -189,13 +200,6 @@ def _uplink_bytes(tree, bits: int) -> int:
     return compress.quantized_uplink_bytes(tree, bits)
 
 
-def _refuse_unported(grid: GridConfig) -> None:
-    if grid.mesh is not None:
-        raise NotImplementedError(
-            "GridConfig.mesh (mesh execution, launch/mesh.py) is not ported "
-            "yet (ROADMAP.md, Queue 1 item 12)")
-
-
 def _synchronize(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -214,7 +218,7 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
     when there is none and the CPU was not asked for)."""
     dev = resolve_device(device)
     grid = grid or GridConfig()
-    _refuse_unported(grid)
+    mesh = mesh_lib.resolve_mesh(grid.mesh, dev)
     N = num_clients(dataset)
     if rc.clients_per_round > N:
         raise ValueError(f"clients_per_round={rc.clients_per_round} exceeds "
@@ -326,7 +330,8 @@ def run_grid(init_fn: Callable[[int], Any], loss_fn: Callable, dataset,
                   tier_compute=tier_compute, dyn=dyn, dyn_rng=dyn_rng,
                   policy=policy, registry=registry, tracer=tracer,
                   profile=profile, bfaults=bfaults, san=san, topo=topo,
-                  bshocks=bshocks, dev=dev)
+                  bshocks=bshocks, dev=dev,
+                  plane=shard_lib.flat_constrainer(mesh) if mesh else None)
     if grid.mode == "sync":
         return _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid,
                          server_opt, **common)
@@ -399,12 +404,13 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
               data_rng, dev_rng, seed, data_kind, eval_every, eval_fn, log,
               cplan, tier_of_client, tier_up, tier_compute, dyn, dyn_rng,
               policy, registry, tracer, profile, bfaults, san, topo, bshocks,
-              dev):
+              dev, plane):
     # a trivial (one-tier) plan routes through the untiered round
     tiered = cplan is not None and not cplan.trivial
     round_fn, sopt = fedpt.make_round_fn(
         loss_fn, rc, server_opt=server_opt, device=dev, sanitize=san,
-        fused_threshold=grid.agg_tail_threshold, plan=cplan)
+        fused_threshold=grid.agg_tail_threshold, plan=cplan,
+        constrain_flat_fn=plane)
     round_fn = prof_lib.annotate(round_fn, "grid/round_fn", enabled=profile,
                                  cuda=dev.type == "cuda")
     sstate = sopt.init(y)
@@ -626,7 +632,7 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
                data_rng, dev_rng, seed, data_kind, eval_every, eval_fn, log,
                cplan, tier_of_client, tier_up, tier_compute, dyn, dyn_rng,
                policy, registry, tracer, profile, bfaults, san, topo,
-               bshocks, dev):
+               bshocks, dev, plane):
     if server_opt is None:
         server_opt = fedpt.resolve_server_opt(rc)
     # trivial plans keep the untiered engines (lane-exact); per-tier
@@ -659,6 +665,7 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
     if lane > 0:
         lane_steps = prof_lib.annotate_map(
             {k: fedpt.make_lane_step(loss_fn, rc, lane, device=dev,
+                                     constrain_flat_fn=plane,
                                      **engine_kw(k))
              for k in tier_keys}, "grid/lane_step", enabled=profile,
             cuda=cuda)
@@ -671,7 +678,8 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
     apply_fn = prof_lib.annotate(
         fedpt.make_buffered_apply(
             server_opt, flush_dp=flush_dp, plan=cplan, sanitize=san,
-            fused_threshold=grid.agg_tail_threshold, device=dev),
+            fused_threshold=grid.agg_tail_threshold, device=dev,
+            constrain_flat_fn=plane),
         "grid/server_apply", enabled=profile, cuda=cuda)
     staleness_fn = fedpt.get_staleness_fn(grid.staleness, **grid.staleness_kw)
     if flush_dp is not None:

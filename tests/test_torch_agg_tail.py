@@ -421,8 +421,16 @@ def test_dispatcher_routes_like_jax():
     assert info["route"] == "fused/torch/exact"
     with pytest.raises(ValueError, match="rng"):
         tops.agg_tail(t_(small), t_(w), **kw, sigma=0.1)
-    with pytest.raises(NotImplementedError):
+    # the output hook is the flat plane of a mesh: a bare function is
+    # refused, the plane of one rank holding the whole buffer is the
+    # unmeshed tail
+    with pytest.raises(TypeError, match="flat plane"):
         tat.compose(t_(small), t_(w), **kw, constrain_fn=lambda v: v)
+    rows = np.random.default_rng(0).normal(size=(2, SIZE)).astype(np.float32)
+    want, _ = tat.compose(t_(rows), t_(w), **kw, bits=8)
+    got, _ = tat.compose(t_(rows), t_(w), **kw, bits=8,
+                         constrain_fn=tflat.WHOLE)
+    assert torch.equal(got, want)
 
 
 def test_kernel_paths_refuse_other_devices():

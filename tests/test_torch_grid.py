@@ -363,10 +363,11 @@ def test_buffered_apply_matches_jax(dp):
                                 dict(topology=2), dict(checkpoint_every=1,
                                                        checkpoint_dir="x"),
                                 dict(telemetry={"profile": True})])
-def test_unported_grid_features_raise(kw, tmp_path, monkeypatch):
-    """Only mesh execution is still refused; the topology, checkpoints,
-    resume and profiling run (a resume from a missing snapshot fails on
-    the file, not as unported)."""
+def test_grid_features_run_or_name_their_fault(kw, tmp_path, monkeypatch):
+    """Every grid feature is ported: the topology, checkpoints and
+    profiling run; a resume from a missing snapshot fails on the file; a
+    mesh preset in a process without its world fails naming the preset
+    and both sizes (tests/test_torch_mesh.py runs it on its world)."""
     monkeypatch.chdir(tmp_path)
     ds = make_ds(6)
 
@@ -376,7 +377,9 @@ def test_unported_grid_features_raise(kw, tmp_path, monkeypatch):
                               grid=tgrid.GridConfig(mode="async", **kw),
                               device="cpu")
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(RuntimeError,
+                           match=r"mesh preset 'debug' \(2, 2\) needs a "
+                                 r"world of 4 ranks.*(world of 1|has 1)"):
             run()
     elif "resume_from" in kw:
         with pytest.raises(FileNotFoundError):

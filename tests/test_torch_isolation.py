@@ -199,3 +199,25 @@ def test_host_copies_match_reference(name):
                if a != b]
     assert len(ref.splitlines()) == len(port.splitlines())
     assert len(changed) <= 5, changed
+
+
+# tables the port keeps as literal copies of the reference's
+RULE_TABLES = [("launch/sharding", n) for n in
+               ("_RULES", "_RULES_2D_EXPERTS", "_RULES_FFN_EXPERTS",
+                "_RULES_2D_EXPERTS_SWAPPED")] + [("launch/specs", "LONG_OK")]
+
+
+def _assigned_literal(path: Path, name: str):
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{name} is not assigned in {path}")
+
+
+@pytest.mark.parametrize("module,name", RULE_TABLES)
+def test_rule_tables_match_reference(module, name):
+    """The sharding rule tables (and the long-context set) are the
+    reference's, entry for entry and in order."""
+    assert _assigned_literal(SRC / "repro_torch" / f"{module}.py", name) \
+        == _assigned_literal(SRC / "repro" / f"{module}.py", name)

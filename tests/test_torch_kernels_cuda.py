@@ -410,6 +410,98 @@ def test_staged_tail_on_card_matches_cpu(dev, bits, clip):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-9)
 
 
+@pytest.mark.parametrize("route", ["staged", "fused"])
+def test_single_mesh_tail_is_the_unmeshed_tail(dev, route):
+    """The tail on the 1-rank NCCL ``single`` mesh's flat plane launches
+    the same kernels as often and gives the unmeshed tail's bits, with
+    the screen, int8, the clip and DP noise."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shard_lib
+    plane = shard_lib.flat_constrainer(mesh_lib.resolve_mesh("single"))
+    m = _mat(10, FEDAVG_BLOCK_LEAF, seed=3).to(dev)
+    w = torch.linspace(1, 2, 10, device=dev)
+    kw = dict(block_leaf=torch.as_tensor(FEDAVG_BLOCK_LEAF, device=dev),
+              n_leaves=10, bits=8, clip_norm=0.05, uniform=True,
+              wsum_fixed=10.0, sigma=1e-3, rng=threefry.key(4),
+              screen=sanitize.SanitizeConfig(),
+              threshold=0 if route == "fused" else 1 << 62)
+    outs, counts = [], []
+    for constrain in (None, plane):
+        kernels.reset_launches()
+        out, info = ops.agg_tail(m if constrain is None
+                                 else constrain(m, clients=True), w,
+                                 constrain_fn=constrain, **kw)
+        torch.cuda.synchronize()
+        outs.append((out, info["update_norms"], info["norms"]))
+        counts.append(dict(kernels.LAUNCHES))
+    assert counts[0] == counts[1] and sum(counts[0].values()) > 0
+    for a, b in zip(*outs):
+        assert same_bits(a, b)
+
+
+def _int32_max_with(other):
+    """``FlatPlane.max_model`` over two "model" ranks, the other rank's
+    per-leaf max-abs given: an int32 max of the float32 bit patterns."""
+    return lambda t: torch.maximum(t.contiguous().view(torch.int32),
+                                   other.view(torch.int32)).view(
+                                       torch.float32)
+
+
+# a buffer split into two "model" halves at a block boundary, a leaf
+# spanning both
+HALVES = [(RAGGED_BLOCK_LEAF, 2), (FEDAVG_BLOCK_LEAF, 828)]
+
+
+@pytest.mark.parametrize("case", ["random", "zero_leaf", "nan", "inf"])
+@pytest.mark.parametrize("block_leaf,split", HALVES)
+def test_qdq_on_model_halves_with_reduced_maxima_is_the_whole(
+        dev, block_leaf, split, case):
+    """The two-pass route a mesh's "model" ranks take: each column half of
+    an (R, N) buffer Q->DQ'd with its per-leaf max-abs reduced against the
+    other half's gives, put back together, the whole call's bits."""
+    m = _mat(10, block_leaf, seed=5, case=case).to(dev)
+    L = int(block_leaf.max()) + 1
+    c = split * 1024
+    halves = [(m[:, :c].contiguous(), block_leaf[:split]),
+              (m[:, c:].contiguous(), block_leaf[split:])]
+    maxima = [quantize.leaf_maxabs(h, bl, L) for h, bl in halves]
+    kernels.reset_launches()
+    outs = [quantize.fake_quantize_flat(h, bl, L,
+                                        reduce_maxabs=_int32_max_with(
+                                            maxima[1 - i]))
+            for i, (h, bl) in enumerate(halves)]
+    assert kernels.LAUNCHES["leaf_maxabs"] == 2
+    assert kernels.ROUTES["fake_quantize_flat/two_pass"] == 2
+    assert same_bits(torch.cat(outs, 1),
+                     quantize.fake_quantize_flat(m, block_leaf, L))
+
+
+@pytest.mark.parametrize("case", ["random", "zero_leaf"])
+@pytest.mark.parametrize("block_leaf,split", HALVES)
+def test_pack_on_model_halves_combines_to_the_whole(dev, block_leaf, split,
+                                                    case):
+    """compose on a mesh whose "model" axis splits the blocks: each half's
+    codes and per-block quantized sums of squares are the whole call's,
+    and pack's row combine over the gathered per-block sums gives the
+    whole call's qss bit for bit."""
+    m = _mat(10, block_leaf, seed=6, case=case).to(dev)
+    L = int(block_leaf.max()) + 1
+    bmax, _ = agg_tail.block_stats(m)
+    sblock = ref.agg_scales_ref(bmax, block_leaf, 8, L)
+    q, qss, bqss = agg_tail._pack_cuda(m, sblock, 8, 1024)
+    c = split * 1024
+    parts = [agg_tail._pack_cuda(m[:, a:b].contiguous(),
+                                 sblock[:, a // 1024:b // 1024].contiguous(),
+                                 8, 1024)
+             for a, b in ((0, c), (c, m.shape[1]))]
+    assert torch.equal(torch.cat([p[0] for p in parts], 1), q)
+    gathered = torch.cat([p[2] for p in parts], 1)
+    assert same_bits(gathered, bqss)
+    kernels.reset_launches()
+    assert same_bits(agg_tail._row_combine_cuda(gathered), qss)
+    assert kernels.ROUTES["pack/row_combine"] == 1
+
+
 # ---------------------------------------------------------------------------
 # the fused tail: stats, pack, apply
 

@@ -1,0 +1,170 @@
+"""The port's sharding rules (``repro_torch.launch.sharding``) against the
+reference's (``repro.launch.sharding``), on the CPU.
+
+For every architecture at full width (the port's init on the meta
+device, ``jax.eval_shape`` in the reference) and at the (16, 16),
+(2, 16, 16) and (2, 4) mesh shapes, the port's placements, read back as
+the reference's spec, equal the reference's spec of each leaf of ``y``
+and ``frozen``, in every ``expert_shard`` mode; the cache placements of
+the serving shapes likewise. The reference's rules need only a mesh's
+``axis_names`` and ``devices.shape`` (a duck-typed mesh); its
+``NamedSharding`` is read as the bare spec. Also: ``maybe_constrain``
+on a DTensor of a 1-rank mesh.
+"""
+import functools
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import repro  # noqa: F401
+import jax
+import jax.numpy as jnp
+
+from repro.configs import ARCH_IDS, get_config as jget_config
+from repro.configs import load_all as jload_all
+from repro.core import partition as jpart
+from repro.launch import sharding as jshard
+from repro.models import decoder_lm as jdlm
+from repro_torch.configs import get_config as tget_config
+from repro_torch.configs import load_all as tload_all
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import sharding as tshard
+from repro_torch.launch import specs as tspecs
+from repro_torch.models import decoder_lm as tdlm
+from repro_torch.nn import basic as tbasic
+
+MESHES = {(16, 16): ("data", "model"), (2, 16, 16): ("pod", "data", "model"),
+          (2, 4): ("data", "model")}
+MODES = ("auto", "model", "2d", "2d_swapped", "ffn")
+
+
+def duck(shape):
+    return types.SimpleNamespace(axis_names=MESHES[shape],
+                                 devices=np.empty(shape, dtype=object))
+
+
+@pytest.fixture(autouse=True)
+def _bare_specs(monkeypatch):
+    monkeypatch.setattr(jshard, "NamedSharding", lambda mesh, spec: spec)
+
+
+@functools.lru_cache(maxsize=None)
+def ref_structs(arch):
+    jload_all()
+    cfg = jget_config(arch)
+    full = jax.eval_shape(lambda: jdlm.init_model(cfg, 0))
+    return jpart.partition(full, cfg.freeze_spec)
+
+
+@functools.lru_cache(maxsize=None)
+def port_structs(arch):
+    tload_all()
+    return tspecs.param_structs(tget_config(arch))
+
+
+def ref_spec(spec, ndim):
+    spec = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+    return tuple(tuple(a) if isinstance(a, (tuple, list)) else a
+                 for a in spec)
+
+
+def flat(tree):
+    out = {}
+    for path, leaf in tbasic.flatten_params(tree):
+        out[path] = leaf
+    return out
+
+
+def held_to_reference(jspecs, tplacements, structs, mesh):
+    js, tp, st = flat(jspecs), flat(tplacements), flat(structs)
+    assert set(js) == set(tp)
+    for path, pl in tp.items():
+        ndim = len(st[path].shape)
+        assert tshard.spec_of(pl, mesh, ndim) == ref_spec(js[path], ndim), \
+            path
+
+
+@pytest.mark.parametrize("shape", list(MESHES))
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+def test_param_placements_match_reference(arch, shape):
+    jy, jz = ref_structs(arch)
+    ty, tz = port_structs(arch)
+    mesh = tmesh.AbstractMesh(shape, MESHES[shape])
+    assert {p: tuple(v.shape) for p, v in flat(ty).items()} == \
+        {p: tuple(v.shape) for p, v in flat(jy).items()}
+    for mode in MODES:
+        jcfg = jget_config(arch).with_(expert_shard=mode)
+        tcfg = tget_config(arch).with_(expert_shard=mode)
+        for jt, tt in ((jy, ty), (jz, tz)):
+            held_to_reference(jshard.param_shardings(jt, jcfg, duck(shape)),
+                              tshard.param_shardings(tt, tcfg, mesh), tt,
+                              mesh)
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+def test_cache_placements_match_reference(arch, shape):
+    jload_all()
+    tload_all()
+    info = tspecs.SHAPES[shape]
+    jcfg = jget_config(arch)
+    tcfg = tspecs.serving_config(tget_config(arch), shape)
+    from repro.launch import specs as jspecs
+    jcfg = jspecs.serving_config(jcfg, shape)
+    jcache = jax.eval_shape(lambda: jdlm.init_cache(
+        jcfg, info["global_batch"], info["seq"], dtype=jnp.bfloat16))
+    tcache = tdlm.init_cache(tcfg, info["global_batch"], info["seq"],
+                             dtype=torch.bfloat16, device="meta")
+    long_ctx = shape == "long_500k"
+    for mshape in ((16, 16), (2, 16, 16)):
+        mesh = tmesh.AbstractMesh(mshape, MESHES[mshape])
+        js = flat(jshard.cache_shardings(jcache, jcfg, duck(mshape),
+                                         long_ctx))
+        tp = flat(tshard.cache_shardings(tcache, tcfg, mesh, long_ctx))
+        tc = flat(tcache)
+        assert set(js) == set(tp)
+        for path, pl in tp.items():
+            ndim = len(getattr(tc[path], "shape", ()))
+            assert tshard.spec_of(pl, mesh, ndim) == \
+                ref_spec(js[path], ndim), path
+
+
+@pytest.mark.parametrize("shape", list(MESHES))
+def test_flat_and_batch_rules_match_reference(shape):
+    """``batch_sharding`` (the cohort rule too): the leading axis on the
+    data axes when they divide it, replicated otherwise."""
+    mesh = tmesh.AbstractMesh(shape, MESHES[shape])
+    for n in (1, 2, 4, 32, 256, 512):
+        s = jax.ShapeDtypeStruct((n, 3), jnp.float32)
+        want = ref_spec(jshard.batch_sharding(s, duck(shape)), 2)
+        got = tshard.batch_sharding(torch.empty((n, 3), device="meta"),
+                                    mesh)
+        assert tshard.spec_of(got, mesh, 2) == want, n
+
+
+def test_chunk_ranges_split_as_torch_chunk():
+    for n in range(0, 12):
+        for parts in (1, 2, 3, 4, 8):
+            want = [len(c) for c in torch.arange(n).chunk(parts)] if n \
+                else []
+            got = [b - a for a, b in (tshard.chunk_range(n, parts, i)
+                                      for i in range(parts))]
+            assert got[:len(want)] == want and not any(got[len(want):])
+
+
+def test_maybe_constrain_on_a_one_rank_mesh():
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = tmesh.resolve_mesh("single", "cpu")
+    x = torch.arange(24.0).reshape(4, 6)
+    dx = tshard.distribute(x, mesh, (Replicate(), Replicate()))
+    assert tbasic.maybe_constrain(dx, ("model", None)) is dx    # no mesh
+    with tmesh.use_mesh(mesh):
+        out = tbasic.maybe_constrain(dx, ("model", "galaxy"))
+        assert isinstance(out, DTensor)
+        assert out.placements == (Replicate(), Shard(0))
+        assert torch.equal(out.full_tensor(), x)
+        assert tbasic.maybe_constrain(x, ("model", None)) is x  # plain
+        assert tbasic.maybe_constrain(dx, (None, None)) is dx
+    assert tmesh.get_abstract_mesh() is None

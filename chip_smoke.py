@@ -286,11 +286,26 @@ package. Phases, in order, each failing the run on error:
    quickstart at int8, FedAvg B (fused coefficient route, DP, screen) and
    the async DP FedBuff grid run with ``mesh="single"`` and without, bit
    for bit with equal kernel launches (cuDNN deterministic);
-   ``launch/specs.make_train_step`` for StableLM-2-1.6B at full width (2
-   of 24 layers) on the mesh against the unmeshed round (1 client x tau
-   2 x 1 sequence of 4,096); one ``launch/dryrun`` subprocess (Mixtral-8x7B x
-   train_4k in a fake (16, 16) world on the host), its traced per-rank
-   peak beside the card's memory;
+   (c) ``launch/specs.make_train_step``'s gathered layout: Mixtral-8x7B
+   with 2-D experts at phase 7's 2 layers (1 client x tau 2 x 1
+   sequence of 4,096), bit for bit the unmeshed round with equal
+   launches; (e) the tensor-parallel step's wiring on that 1-rank mesh
+   (on a 1-rank "model" axis the pieces are whole and no layer splits):
+   ``make_train_step`` for StableLM-2-1.6B at full width (2 of 24
+   layers, as (c)) and ``specs.make_tp_prefill_step`` for Mixtral-8x7B
+   at phase 7's 4 layers (1 x 32,768, window 4,096, ``swa_attention``),
+   each bit for bit the unmeshed run with equal launches; (f) the
+   tensor-parallel layers on a 4-rank "model" axis on the one card
+   (four threads, a threaded process group, mesh (1, 4)): Mixtral-8x7B
+   at full width, 2 layers, its tensor-parallel prefill
+   (``swa_attention`` on each rank's 8 q / 2 kv heads) held to the
+   unmeshed one routed alike, and one tensor-parallel train step in
+   float32 compute held to the unmeshed round by update norm, the
+   frozen leaves the model received on each rank its pieces, and
+   ``swa_attention`` timed at the local-head shape; (d) one
+   ``launch/dryrun`` subprocess (Mixtral-8x7B x train_4k in a fake (16,
+   16) world on the host, tensor-parallel), its traced per-rank peak
+   beside the card's memory and the largest tensors that hold it;
 12. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line. Each phase prints
    its seconds on a line of its own.
@@ -3774,11 +3789,14 @@ class routing_spy:
     ``routed``). Two bf16 computations of one model round differently,
     and a router near-tie then sends a token to another expert, which
     moves its output far more than the rounding; replaying one side's
-    routing holds the rest of the two computations against each other."""
+    routing holds the rest of the two computations against each other.
+    Each thread replays from the first call (a thread a rank of a
+    threaded mesh, every rank routing the same tokens)."""
 
     def __init__(self, replay=None):
         self.replay = replay
         self.ids, self.flipped, self.routed = [], 0, 0
+        self.calls = {}
 
     def __enter__(self):
         from repro_torch.nn import basic, moe as moe_lib
@@ -3787,7 +3805,9 @@ class routing_spy:
         def spy(x, p, cfg):
             w, idx, aux = self.real(x, p, cfg)
             if self.replay is not None:
-                want = self.replay[len(self.ids)].to(idx.device, idx.dtype)
+                call = self.calls.get(threading.get_ident(), 0)
+                self.calls[threading.get_ident()] = call + 1
+                want = self.replay[call].to(idx.device, idx.dtype)
                 self.flipped += int((idx.sort(-1).values
                                      != want.sort(-1).values).any(-1).sum())
                 probs = torch.softmax(
@@ -3797,7 +3817,8 @@ class routing_spy:
                      ).to(x.dtype)
                 idx = want
             self.routed += idx.shape[0]
-            self.ids.append(idx)
+            if self.replay is None:
+                self.ids.append(idx)
             return w, idx, aux
         moe_lib.router_topk = spy
         return self
@@ -4665,24 +4686,41 @@ def drive_vlm_encdec(dev) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 11: the mesh. The 1-rank NCCL "single" mesh runs the EMNIST main
 # paths through the meshed code, bit for bit the unmeshed runs with the
-# same launches; StableLM-2-1.6B's train step (launch/specs) at full width
-# and depth on it; one dry run in a fake (16, 16) world on the host
+# same launches; the train step in the gathered layout (Mixtral-8x7B with
+# 2-D experts) and the tensor-parallel train step (StableLM-2-1.6B) and
+# prefill (Mixtral-8x7B) on it, bit for bit; Mixtral-8x7B on a 4-rank
+# "model" axis of threads on the one card; one dry run in a fake (16, 16)
+# world on the host
 
 STABLELM = "stablelm-1.6b"
 # train_4k's sequence; its global batch of 256 cut to 1 client x tau 2 x 1
 # sequence (one card)
-STABLELM_SEQ = 4096
+TRAIN_4K_SEQ = 4096
 # depth cut 24 -> 2: at 4,096 positions the plain chunked attention keeps
 # ~11 GB a layer under grad (the float32 scores, masked scores, p and
 # bf16 p of 8 chunks of 512 keys, 32 heads), and 24 and 6 layers ran out
 # of the card's memory (PERF.md)
 STABLELM_TRAIN_LAYERS = 2
-# the meshed step against the unmeshed round, by update norm: one rank
-# adds no partial sums, so 0 is expected; the bound states the float32
-# round-off a reordered GEMV could leave
-STABLELM_UPDATE_REL = 1e-6
 DRYRUN = ("mixtral-8x7b", "train_4k")
 DRYRUN_TIMEOUT = 900
+# (f): a 4-rank "model" axis of threads on the one card, Mixtral-8x7B at
+# full width and 2 of its layers (phase 7's training depth); its round:
+# 2 clients x tau 2 x 2 sequences of 256 tokens
+TP_RANKS = 4
+TP_LAYERS = MIXTRAL_TRAIN_LAYERS
+TP_ROUND = (2, 2, 2, 256)
+TP_TIMEOUT = 600          # seconds the threads may take, all together
+# (f)'s train step against the unmeshed round by update norm, in float32
+# compute: the ranks' partial products, each its own GEMM, are summed in
+# another order than one GEMM sums them, over 4,096 to 14,336 terms (about
+# sqrt(K) u = 7e-6 of a product), through 2 layers, 2 local steps and the
+# server's momentum; tests/test_torch_tp.py holds 1e-5 at its reduced
+# widths (measured ~2e-6), and at full width the step measured 2.4e-5
+# on the H100 (PERF.md): 1e-4. (In bf16 compute a router near-tie can
+# flip between two roundings and move a token's whole expert output, and
+# the round's routing under vmap and grad is not replayed, so no bound
+# there would be tighter than the bf16 round's own distance from float32.)
+TP_F32_UPDATE_REL = 1e-4
 
 
 def start_dryrun():
@@ -4720,6 +4758,10 @@ def finish_dryrun(proc, dev):
           f"{r['cost']['flops']} FLOPs, collectives {r['collectives']}, "
           f"{r['clients']} clients, traced in {r['trace_s']} s; step "
           f"layout: {r['layout']}")
+    print(f"  what holds the peak: {mem['near_peak_bytes']} B live within "
+          f"1% of it; its largest groups (op, dtype, shape: bytes, count):")
+    for label, nbytes, n in mem["near_peak_top"]:
+        print(f"    {label}: {nbytes} B, {n}")
     return r
 
 
@@ -4775,11 +4817,24 @@ def mesh_rounds(ys, zs, bits, dp, draws, dev):
     return run
 
 
-def drive_mesh_train_step(dev):
-    """(c) ``specs.make_train_step`` for StableLM-2-1.6B at full width
-    (STABLELM_TRAIN_LAYERS of its 24 layers) on the "single" mesh (y and
-    the server state DTensors placed by the reference's rules), against the same round from ``make_round_fn``
-    with no mesh. Returns the two runs' launch counts, added."""
+def update_rel(y0, ya, yb) -> float:
+    """||yb - ya|| / ||ya - y0|| over the leaves, in float64."""
+    gap = upd = 0.0
+    for a0, a, b in zip(leaves_of(y0), leaves_of(ya), leaves_of(yb)):
+        gap += float(((a.double() - b.double()) ** 2).sum())
+        upd += float(((a.double() - a0.double()) ** 2).sum())
+    return gap ** 0.5 / max(upd ** 0.5, 1e-30)
+
+
+def drive_mesh_train_step(dev, label, arch, layers, over, tp):
+    """``specs.make_train_step`` for ``arch`` (with ``over``) at full width,
+    ``layers`` of its layers, on the "single" mesh (y and the server state
+    DTensors placed by the reference's rules), against the same round
+    from ``make_round_fn`` with no mesh, bit for bit with equal launches:
+    (c) a config that keeps the gathered layout (``tp`` False), (e) one
+    that takes the tensor-parallel step (``tp`` True; on a 1-rank "model"
+    axis its wiring alone: the pieces are whole and no layer splits).
+    Returns the two runs' launch counts, added."""
     from repro_torch import kernels
     from repro_torch.configs.base import get_config
     from repro_torch.core import fedpt
@@ -4788,17 +4843,26 @@ def drive_mesh_train_step(dev):
     from repro_torch.launch import specs
     from repro_torch.models import decoder_lm as dlm
     from repro_torch.nn.basic import tree_map
-    cfg = get_config(STABLELM).with_(num_layers=STABLELM_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    cfg = get_config(arch).with_(num_layers=layers, **over)
+    mesh = mesh_lib.resolve_mesh("single", dev)
+    layout = (specs.TP_LAYOUT if shard_lib.tensor_parallel_ok(cfg, mesh)
+              else specs.GATHERED_LAYOUT)
     t0 = time.perf_counter()
     y, z = specs.serving_split(dlm.init_model(cfg, 0, device=dev), cfg)
-    print(f"[mesh] (c) {STABLELM}: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}; {sum(v.numel() for v in leaves_of(y))} "
-          f"trainable (f32), {sum(v.numel() for v in leaves_of(z))} frozen "
-          f"(bf16), made in {time.perf_counter() - t0:.1f} s; one client x "
-          f"tau 2 x 1 sequence of {STABLELM_SEQ} (train_4k's 256 cut to "
-          f"one card)")
+    print(f"[mesh] {label} {arch}{' ' + str(over) if over else ''}: "
+          f"{cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}; "
+          f"{sum(v.numel() for v in leaves_of(y))} trainable (f32), "
+          f"{sum(v.numel() for v in leaves_of(z))} frozen (bf16), made in "
+          f"{time.perf_counter() - t0:.1f} s; one client x tau 2 x 1 "
+          f"sequence of {TRAIN_4K_SEQ} (train_4k's 256 cut to one card); "
+          f"step layout: {layout}")
+    if (layout == specs.TP_LAYOUT) != tp:
+        raise AssertionError(f"{label} {arch}: the step's layout is "
+                             f"{layout}")
     tok = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, 2, 1, STABLELM_SEQ)).astype(np.int32)
+        0, cfg.vocab_size, (1, 2, 1, TRAIN_4K_SEQ)).astype(np.int32)
     batch = {"tokens": tok, "labels": tok}
     w = torch.ones(1, device=dev)
     rc = fedpt.RoundConfig(clients_per_round=0, local_steps=2, local_batch=0,
@@ -4813,7 +4877,6 @@ def drive_mesh_train_step(dev):
     torch.cuda.synchronize()
     t_ref = time.perf_counter() - t0
     counts.append(dict(kernels.LAUNCHES))
-    mesh = mesh_lib.resolve_mesh("single", dev)
     step, sopt = specs.make_train_step(cfg, mesh, y, device=dev)
     place = shard_lib.param_shardings(y, cfg, mesh)
     yd = tree_map(lambda x, pl: shard_lib.distribute(x, mesh, pl), y, place)
@@ -4826,33 +4889,341 @@ def drive_mesh_train_step(dev):
     t_mesh = time.perf_counter() - t0
     counts.append(dict(kernels.LAUNCHES))
     y_mesh = shard_lib.gathered(y_new)
-    gap = upd = 0.0
-    for a0, a, b in zip(leaves_of(y), leaves_of(y_ref), leaves_of(y_mesh)):
-        gap += float(((a.double() - b.double()) ** 2).sum())
-        upd += float(((a.double() - a0.double()) ** 2).sum())
-    rel = gap ** 0.5 / max(upd ** 0.5, 1e-30)
+    rel = update_rel(y, y_ref, y_mesh)
     bits = all(torch.equal(a, b) for a, b in zip(leaves_of(y_ref),
                                                   leaves_of(y_mesh)))
     print(f"  unmeshed round {t_ref:.2f} s, loss {float(m_ref['loss']):.4f}; "
           f"meshed step {t_mesh:.2f} s, loss {float(m['loss']):.4f}; bit for "
-          f"bit {bits}; gap by update norm {rel:.3e} (bound "
-          f"{STABLELM_UPDATE_REL:g}; update norm {upd ** 0.5:.4e}); "
+          f"bit {bits}; gap by update norm {rel:.3e}; "
           f"launches {counts[1]}; peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    if not (math.isfinite(float(m["loss"])) and rel <= STABLELM_UPDATE_REL
+    if not (math.isfinite(float(m["loss"])) and bits
             and counts[0] == counts[1] and counts[1]["sumsq"] > 0):
-        raise AssertionError(f"(c) {STABLELM}: the meshed step is off the "
+        raise AssertionError(f"{label} {arch}: the meshed step is off the "
                              f"unmeshed round")
     return {k: counts[0][k] + counts[1][k] for k in counts[0]}
+
+
+def drive_gathered_train_step(dev):
+    """(c) the gathered layout: Mixtral-8x7B with 2-D experts, phase 7's
+    training depth."""
+    return drive_mesh_train_step(dev, "(c)", MIXTRAL, MIXTRAL_TRAIN_LAYERS,
+                                 {"expert_shard": "2d"}, tp=False)
+
+
+def drive_tp_single_train_step(dev):
+    """(e) the tensor-parallel step's wiring on one rank: StableLM-2-1.6B,
+    STABLELM_TRAIN_LAYERS layers."""
+    return drive_mesh_train_step(dev, "(e)", STABLELM, STABLELM_TRAIN_LAYERS,
+                                 {}, tp=True)
+
+
+def drive_tp_single_prefill(dev):
+    """(e) ``specs.make_tp_prefill_step`` for Mixtral-8x7B at full width,
+    phase 7's MIXTRAL_SERVE_LAYERS layers, on the 1-rank "single" mesh
+    against ``make_prefill_step`` with no mesh, 1 x PREFILL_LEN tokens at
+    its window: bit for bit, ``swa_attention`` once a layer in each.
+    Returns the two runs' launch counts, added."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import decoder_lm as dlm
+    torch.cuda.empty_cache()
+    cfg = get_config(MIXTRAL).with_(num_layers=MIXTRAL_SERVE_LAYERS)
+    y, z = specs.serving_split(dlm.init_model(cfg, 0, device=dev), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_LEN))).to(dev)
+    mesh = mesh_lib.resolve_mesh("single", dev)
+    outs, counts, walls = [], [], []
+    for step in (specs.make_prefill_step(cfg, device=dev),
+                 specs.make_tp_prefill_step(cfg, mesh, device=dev)):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(y, z, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(dict(kernels.LAUNCHES))
+        outs.append(out if isinstance(out, torch.Tensor)
+                    and not hasattr(out, "placements") else out.to_local())
+    same = torch.equal(outs[0], outs[1])
+    print(f"[mesh] (e) {MIXTRAL} tensor-parallel prefill on the 1-rank "
+          f"mesh, {cfg.num_layers} layers, 1 x {PREFILL_LEN} at window "
+          f"{cfg.sliding_window}: unmeshed {walls[0]:.2f} s, meshed "
+          f"{walls[1]:.2f} s (first calls); bit for bit {same}; launches "
+          f"equal {counts[0] == counts[1]}: "
+          f"{ {k: v for k, v in counts[1].items() if v} }")
+    if not (same and counts[0] == counts[1]
+            and counts[1]["swa_attention"] == cfg.num_layers
+            and bool(torch.isfinite(outs[1]).all())):
+        raise AssertionError("(e) the tensor-parallel prefill differs from "
+                             "the unmeshed one")
+    return {k: counts[0][k] + counts[1][k] for k in counts[0]}
+
+
+def threaded_world(n: int, fn, timeout: float):
+    """``fn(rank)`` on ``n`` threads of this process, each rank of a
+    threaded process group (``torch.testing._internal.distributed.
+    multi_threaded_pg``: collectives copy tensors between the threads, on
+    the card too). An exception in one rank wakes the others and is
+    raised here; so is a rank still running at ``timeout``. Returns the
+    ranks' results."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+    out = [None] * n
+    errors = []
+    # each thread's groups live in its thread-local world, dropped with the
+    # threads and the world at the end
+    mt._install_threaded_pg()
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    store = dist.HashStore()
+    cur = torch.cuda.current_device() if torch.cuda.is_initialized() \
+        else None
+
+    def rank_main(rank):
+        if cur is not None:
+            torch.cuda.set_device(cur)
+        dist.init_process_group("threaded", rank=rank, world_size=n,
+                                store=store)
+        try:
+            out[rank] = fn(rank)
+        except BaseException as e:  # noqa: BLE001 — raised by the caller
+            errors.append((rank, e))
+            mt.ProcessLocalGroup.exception_handle(e)
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True)
+               for r in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        t_end = time.perf_counter() + timeout
+        for t in threads:
+            t.join(max(0.0, t_end - time.perf_counter()))
+        alive = [r for r, t in enumerate(threads) if t.is_alive()]
+        if alive:
+            mt.ProcessLocalGroup.exception_handle(TimeoutError())
+            raise TimeoutError(f"ranks {alive} still running after "
+                               f"{timeout} s")
+        if errors:
+            raise RuntimeError(f"rank {errors[0][0]} failed") from \
+                errors[0][1]
+    finally:
+        mt.ProcessLocalGroup.reset()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        mt._uninstall_threaded_pg()
+    return out
+
+
+class FrozenSeen:
+    """Inside a ``with``, records the element counts of the frozen leaves
+    (``paths``) that ``models/decoder_lm``'s ``train_loss`` and
+    ``forward`` receive, on every thread: what the step's layers compute
+    on, as against what the caller placed."""
+
+    NAMES = ("train_loss", "forward")
+
+    def __init__(self, paths):
+        self.paths = set(paths)
+        self.seen = {}
+
+    def __enter__(self):
+        from repro_torch.models import decoder_lm as dlm
+        self.mod = dlm
+        self.real = {n: getattr(dlm, n) for n in self.NAMES}
+        for n, fn in self.real.items():
+            setattr(dlm, n, self._spy(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.mod, n, fn)
+
+    def _spy(self, fn):
+        def spy(params, *args, **kw):
+            from repro_torch.nn import basic
+            for p, v in basic.flatten_params(params):
+                if p in self.paths:
+                    self.seen.setdefault(p, set()).add(v.numel())
+            return fn(params, *args, **kw)
+        return spy
+
+
+def drive_tp_threads(dev):
+    """(f) Mixtral-8x7B at full width, TP_LAYERS layers, on a (1,
+    TP_RANKS) mesh of threads on the one card (``threaded_world``): each
+    rank's y and frozen pieces as DTensors placed by the reference's
+    rules (the ``model`` expert mode: 2 experts a rank). Its tensor-
+    parallel prefill (1 x PREFILL_LEN at window 4,096; ``swa_attention``
+    on each rank's 8 q / 2 kv heads) against the unmeshed prefill, routed
+    as it (``routing_spy``), within LOGIT_REL of the largest |logit|; one
+    tensor-parallel train step (TP_ROUND) in float32 compute against the
+    unmeshed float32 round by update norm (TP_F32_UPDATE_REL). The frozen
+    leaves that the model's loss and forward receive on every rank
+    (``FrozenSeen``) are each rank's pieces: a split leaf's elements over
+    TP_RANKS. Returns the meshed runs' launch counts."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import fedpt
+    from repro_torch.launch import sharding as shard_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.nn import basic
+    from repro_torch.nn.basic import tree_map
+    torch.cuda.empty_cache()
+    cfg = get_config(MIXTRAL).with_(num_layers=TP_LAYERS)
+    cfg32 = cfg.with_(compute_dtype="float32")
+    y, z = specs.serving_split(dlm.init_model(cfg, 0, device=dev), cfg)
+    rng = np.random.default_rng(0)
+    clients, tau, b, seq = TP_ROUND
+    tok = rng.integers(0, cfg.vocab_size, (clients, tau, b, seq),
+                       dtype=np.int32)
+    batch = {"tokens": tok, "labels": tok}
+    w = torch.ones(clients, device=dev)
+    ptok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, PREFILL_LEN))).to(dev)
+    # the unmeshed runs: the round in float32 compute, the prefill
+    rc = fedpt.RoundConfig(clients_per_round=0, local_steps=tau,
+                           local_batch=0, client_opt="sgd", client_lr=0.02,
+                           server_opt="sgdm", server_lr=0.5)
+    round_fn, sopt = fedpt.make_round_fn(
+        lambda p, mb: dlm.train_loss(p, cfg32, mb), rc, device=dev)
+    y_ref = round_fn(y, sopt.init(y), z, batch, w, None)[0]
+    with routing_spy() as rec:
+        want = specs.make_prefill_step(cfg, device=dev)(y, z,
+                                                        {"tokens": ptok})
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    def placed_pieces():
+        mesh = init_device_mesh(torch.device(dev).type, (1, TP_RANKS),
+                                mesh_dim_names=("data", "model"))
+
+        def placed(tree):
+            pl = shard_lib.param_shardings(tree, cfg, mesh)
+            return tree_map(lambda x, p: shard_lib.distribute(x, mesh, p),
+                            tree, pl)
+        return mesh, placed
+
+    def train_rank(rank):
+        mesh, placed = placed_pieces()
+        yd, zd = placed(y), placed(z)
+        step, sopt = specs.make_train_step(cfg32, mesh, y, device=dev)
+        t0 = time.perf_counter()
+        y_new, _, m = step(yd, placed(sopt.init(y)), zd, batch, w)
+        torch.cuda.synchronize()
+        out = (shard_lib.gathered(y_new), float(m["loss"]),
+               time.perf_counter() - t0)
+        local = {p: (v.to_local().numel(), v.numel())
+                 for p, v in basic.flatten_params(zd)}
+        return (out, local) if rank == 0 else None
+
+    def prefill_rank(rank):
+        mesh, placed = placed_pieces()
+        prefill = specs.make_tp_prefill_step(cfg, mesh, device=dev)
+        yd, zd = placed(y), placed(z)
+        t0 = time.perf_counter()
+        logits = prefill(yd, zd, {"tokens": ptok})
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        whole = logits.full_tensor()
+        return (whole, logits.placements, t_pre) if rank == 0 else None
+
+    paths = [p for p, _ in basic.flatten_params(z)]
+    t0 = time.perf_counter()
+    with FrozenSeen(paths) as train_seen:
+        (y_tp, loss, t_step), local = threaded_world(
+            TP_RANKS, train_rank, TP_TIMEOUT)[0]
+    replay = routing_spy(rec.ids)
+    with replay, FrozenSeen(paths) as prefill_seen:
+        logits, placements, t_pre = threaded_world(TP_RANKS, prefill_rank,
+                                                   TP_TIMEOUT)[0]
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    rel = update_rel(y, y_ref, y_tp)
+    rel_l = rel_to_max(logits, want)
+    split = {p for p, (n, whole) in local.items() if n != whole}
+    pieces = all(n * (TP_RANKS if p in split else 1) == whole
+                 and train_seen.seen.get(p) == {n}
+                 and prefill_seen.seen.get(p) == {n}
+                 for p, (n, whole) in local.items())
+    experts = all(any(p.endswith(k) for p in split)
+                  for k in ("/moe/wi_gate", "/moe/wi_up", "/moe/wo"))
+    print(f"[mesh] (f) {MIXTRAL}, {cfg.num_layers} layers at full width on "
+          f"a (1, {TP_RANKS}) mesh of threads on the one card: the train "
+          f"step ({clients} clients x tau {tau} x {b} x {seq}) in float32 "
+          f"compute {t_step:.2f} s on rank 0, loss {loss:.4f}, against the "
+          f"unmeshed float32 round by update norm {rel:.3e} (bound "
+          f"{TP_F32_UPDATE_REL:g}); the prefill 1 x {PREFILL_LEN} "
+          f"{t_pre:.2f} s on rank 0, logits {placements}, against the "
+          f"unmeshed prefill routed alike ({replay.flipped} of "
+          f"{replay.routed} routings would differ): max |diff| / max |logit| "
+          f"{rel_l:.3e} (tolerance {LOGIT_REL:.3e}); {len(split)} of "
+          f"{len(local)} frozen leaves split a rank (the experts "
+          f"{experts}), and the loss and forward received each rank's "
+          f"pieces {pieces}; both worlds {wall:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"{({k: v for k, v in counts.items() if v})}")
+    if not (rel <= TP_F32_UPDATE_REL and rel_l <= LOGIT_REL
+            and math.isfinite(loss) and pieces and experts
+            and counts["swa_attention"] > 0 and counts["sumsq"] > 0):
+        raise AssertionError("(f) the 4-rank tensor-parallel Mixtral is "
+                             "off the unmeshed runs")
+    swa_local_heads(dev)
+    return counts
+
+
+def swa_local_heads(dev):
+    """``swa_attention`` (round-once) at a (1, TP_RANKS) rank's local
+    heads of Mixtral's prefill: (1, 8 q / 2 kv, PREFILL_LEN, 128) at
+    window 4,096 (wrapper and device ms, the bound), its plain version
+    (``chunked_attention_ref``) and ``scaled_dot_product_attention`` with
+    a (1, 1, S, S) boolean window mask, k and v repeated to q's heads."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator().manual_seed(0)
+    hq, hk = 32 // TP_RANKS, 8 // TP_RANKS
+    q, k, v = swa_inputs((1, hq, PREFILL_LEN, 128), hk, gen, dev)
+
+    def call():
+        return ops.swa_attention(q, k, v, window=MIXTRAL_WINDOW,
+                                 causal=True, round_p=True)
+    pairs = swa.visible_pairs(PREFILL_LEN, MIXTRAL_WINDOW)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    bnd = bound(nbytes, 4 * hq * 128 * pairs, BF16_OPS_PER_S)
+    ms = time_ms(call, 10, 2)
+    dms = device_ms(call, ("swa_kernel",), 10)
+    plain_ms = time_ms(lambda: ref.chunked_attention_ref(
+        q, k, v, MIXTRAL_WINDOW, chunk=swa.BK), 3, 1)
+    pos = torch.arange(PREFILL_LEN, device=dev)
+    wmask = ((pos[:, None] >= pos[None, :])
+             & (pos[:, None] - pos[None, :] < MIXTRAL_WINDOW))[None, None]
+    kr, vr = (t.repeat_interleave(hq // hk, dim=1) for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(q, kr, vr, attn_mask=wmask), 10, 2)
+    lib_dms = device_ms(lambda: sdpa(q, kr, vr, attn_mask=wmask), None, 10)
+    print(f"[mesh] (f) swa_attention (round-once) at a rank's local heads "
+          f"(1, {hq} q / {hk} kv, {PREFILL_LEN}, 128), window "
+          f"{MIXTRAL_WINDOW}: wrapper {ms:.4f} ms, device {fmt_ms(dms)} ms, "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]}); plain (chunked_attention_ref, "
+          f"chunk {swa.BK}) {plain_ms:.3f} ms; scaled_dot_product_attention "
+          f"with a (1, 1, S, S) bool window mask, k / v repeated "
+          f"{lib_ms:.4f} ms (device {fmt_ms(lib_dms)} ms)")
+    del q, k, v, kr, vr, wmask
+    torch.cuda.empty_cache()
 
 
 def drive_mesh(ds, y0, frozen, ya, za, dev):
     """Phase 11: (a) the 1-rank NCCL group and the "single" mesh; (b) the
     quickstart at int8, FedAvg B (fused coefficient route, DP, screen) and
     the async DP FedBuff grid, each with and without the mesh, bit for bit
-    with equal launches (cuDNN deterministic); (c) StableLM-2-1.6B's train
-    step; (d) the dry run, started first and read last. Returns the
-    launch counts of (b) and (c)."""
+    with equal launches (cuDNN deterministic); (c) Mixtral-8x7B's train
+    step in the gathered layout (2-D experts); (e) StableLM-2-1.6B's
+    train step and Mixtral-8x7B's prefill, tensor-parallel on the 1-rank
+    mesh; (f) Mixtral-8x7B on a 4-rank "model" axis of threads; (d) the
+    dry run, started first and read last. Returns the launch counts of
+    (b), (c), (e) and (f)."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     proc = start_dryrun()
@@ -4892,9 +5263,14 @@ def drive_mesh(ds, y0, frozen, ya, za, dev):
                     launches[k] = launches.get(k, 0) + v
         finally:
             torch.backends.cudnn.deterministic = deterministic
-        for k, v in drive_mesh_train_step(dev).items():
-            launches[k] = launches.get(k, 0) + v
-        torch.cuda.empty_cache()
+        for leg in (drive_gathered_train_step, drive_tp_single_train_step,
+                    drive_tp_single_prefill, drive_tp_threads):
+            t0 = time.perf_counter()
+            for k, v in leg(dev).items():
+                launches[k] = launches.get(k, 0) + v
+            torch.cuda.empty_cache()
+            print(f"[mesh] {leg.__name__} took "
+                  f"{time.perf_counter() - t0:.1f} s")
         finish_dryrun(proc, dev)
     finally:
         if proc.poll() is None:

@@ -176,7 +176,7 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
                   sanitize: Optional[sanitize_lib.SanitizeConfig] = None,
                   fused_threshold: Optional[int] = None, plan=None,
                   constrain_fn: Optional[Callable] = None,
-                  constrain_flat_fn=None):
+                  constrain_flat_fn=None, model_shards=None):
     """Builds round_step(y, server_state, frozen, batch, weights, rng=None)
     -> (y_new, server_state, metrics), running on ``device`` (CUDA by
     default; raises when there is none and the CPU was not asked for); or,
@@ -217,7 +217,14 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
     The mesh hooks (module docstring): ``constrain_flat_fn`` (the flat
     plane, ``launch/sharding.flat_constrainer``) makes each rank train its
     rows of the cohort (the plane's rows of the batch) and aggregate its
-    block; ``constrain_fn`` lays out ``y``."""
+    block; ``constrain_fn`` lays out ``y``.
+
+    ``model_shards`` (``launch/sharding.ModelShards``): the tensor-parallel
+    step. ``y``, the server state and ``frozen`` are this rank's pieces on
+    "model" and ``loss_fn`` computes on them; each client's delta is
+    gathered whole over "model" for the flat buffer (its layout is the
+    whole tree's), and the server steps on its pieces of the aggregated
+    update."""
     dev = resolve_device(device)
     plane = constrain_flat_fn
     noised = rc.dp_clip_norm > 0 and rc.dp_noise_multiplier > 0
@@ -228,6 +235,9 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
         server_opt = resolve_server_opt(rc)
     client_update = make_client_update(loss_fn, client_opt, rc.local_steps)
     tiered = plan is not None and not plan.trivial
+    if tiered and model_shards is not None:
+        raise NotImplementedError("a trainability plan in the tensor-"
+                                  "parallel round (model_shards)")
     if tiered:
         # leaf -> (n_tiers,) 0/1 on the device, made once
         stacked = tree_map(lambda *ms: torch.stack(ms).to(dev),
@@ -244,7 +254,8 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
             if leaf.device != dev:
                 raise ValueError(f"parameters on {leaf.device}, the round "
                                  f"runs on {dev}")
-        layout = flat_lib.FlatLayout.of(y)
+        layout = flat_lib.FlatLayout.of(
+            y if model_shards is None else model_shards.struct)
         weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
         n = weights.shape[0]
         r0, r1 = (0, n) if plane is None else plane.rows(n)
@@ -256,6 +267,8 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
         # client axis; deltas are born flat, one (clients, size) buffer --
         def flat_client(cb, mask=None):
             delta, metrics = client_update(y, frozen, cb, mask)
+            if model_shards is not None:
+                delta = model_shards.whole(delta)
             return layout.flatten(delta), metrics["client_loss"]
 
         bmask = None
@@ -294,7 +307,8 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
 
         # --- ServerOpt on the pseudo-gradient ---------------------------
         delta = layout.unflatten(flat_delta, dtype=torch.float32)
-        neg = tree_map(torch.neg, delta)
+        neg = tree_map(torch.neg, delta if model_shards is None
+                       else model_shards.local(delta))
         y_new, server_state = server_opt.update(y, neg, server_state)
         if constrain_fn is not None:
             y_new = constrain_fn(y_new, clients=False)

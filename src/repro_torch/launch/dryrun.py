@@ -18,19 +18,27 @@ rank:
 * ``memory``: ``argument_bytes`` and ``output_bytes`` (the local pieces of
   the step's arguments and results), ``peak_bytes`` (the most bytes of
   live storage at any op, arguments included, from a dispatch mode that
-  follows each fake storage until its last tensor dies);
+  follows each fake storage until its last tensor dies), and what holds
+  it: ``near_peak_bytes``, the live bytes kept within 1% of the peak,
+  and ``near_peak_top``, the largest groups of those storages by the op
+  that made them, dtype and shape;
 * ``cost.flops`` from ``torch.utils.flop_counter.FlopCounterMode``;
 * ``collectives``: count and result bytes by kind, from a dispatch mode
   over the ``_c10d_functional`` ops (DTensor redistributes and the flat
   plane's explicit collectives);
 * ``clients``, ``status`` and, for a skipped pair, ``reason``
   (``specs.skip_reason``);
-* ``layout`` (:data:`LAYOUT`): the step traced is the port's, not the
-  reference's. ``specs.build_job`` runs it data-parallel with the
-  parameters gathered whole on every rank; only the flat aggregation
-  plane is sharded. The reference's GSPMD step keeps the parameters
-  sharded by its rules through the forward, so the per-rank bytes and
-  the collectives here are not comparable to its dry run's.
+* ``layout``: the layout the traced step ran in (``specs.build_job``'s).
+  ``specs.TP_LAYOUT`` for the tensor-parallel train steps and prefills
+  (dense attention and dense or MoE FFNs): every rank computes on its
+  pieces of the parameters, placed by the reference's rules, so the
+  per-rank argument bytes are the rule sum (``rule_argument_bytes``,
+  also in ``memory``). ``specs.GATHERED_LAYOUT`` for the rest (MLA, 2-D
+  experts, the SSM, VLM and encoder-decoder families, and every decode):
+  the step
+  runs data-parallel with the parameters gathered whole on every rank;
+  only the flat aggregation plane is sharded, so its per-rank bytes and
+  collectives are not comparable to the reference's dry run.
 
 Left out, as torch cannot produce them: XLA's ``transcendentals`` and
 ``bytes accessed`` costs, ``temp_bytes``, and the collectives'
@@ -104,14 +112,20 @@ def _nbytes(tree) -> int:
 
 class LiveBytes(TorchDispatchMode):
     """The bytes of live storage: each op's outputs are followed until the
-    last tensor on their storage dies; ``peak`` is the most at any op."""
+    last tensor on their storage dies; ``peak`` is the most at any op.
+    The live storages are kept (``at_peak``) each time the total passes
+    the last kept total by PEAK_STEP, so the kept set is within that
+    share of the peak; :meth:`peak_top` groups it."""
+
+    PEAK_STEP = 1.01
 
     def __init__(self):
         super().__init__()
         self.live = {}
         self.now = self.peak = 0
+        self.at_peak, self.at_peak_bytes = {}, 0
 
-    def track(self, t) -> None:
+    def track(self, t, op="argument") -> None:
         if not isinstance(t, torch.Tensor):
             return
         t = _local(t)
@@ -119,9 +133,12 @@ class LiveBytes(TorchDispatchMode):
         key = st._cdata
         rec = self.live.get(key)
         if rec is None:
-            rec = self.live[key] = [st.nbytes(), 0]
+            rec = self.live[key] = [st.nbytes(), 0,
+                                    (op, t.dtype, tuple(t.shape))]
             self.now += rec[0]
             self.peak = max(self.peak, self.now)
+            if self.now > self.at_peak_bytes * self.PEAK_STEP:
+                self.at_peak, self.at_peak_bytes = dict(self.live), self.now
         rec[1] += 1
         weakref.finalize(t, self._drop, key)
 
@@ -134,10 +151,22 @@ class LiveBytes(TorchDispatchMode):
             del self.live[key]
             self.now -= rec[0]
 
+    def peak_top(self, n: int = 10):
+        """The storages live near the peak, grouped by the op that made
+        them, their dtype and shape, the n largest groups first:
+        [label, bytes, count]."""
+        groups = {}
+        for nbytes, _, (op, dtype, shape) in self.at_peak.values():
+            label = f"{op} {str(dtype).replace('torch.', '')} {list(shape)}"
+            g = groups.setdefault(label, [label, 0, 0])
+            g[1] += nbytes
+            g[2] += 1
+        return sorted(groups.values(), key=lambda g: -g[1])[:n]
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         for t in tree_leaves(out):
-            self.track(t)
+            self.track(t, func)
         return out
 
 
@@ -177,9 +206,24 @@ def _fake_args(args, shardings, mesh):
     return tuple(basic.tree_map(one, a, s) for a, s in zip(args, shardings))
 
 
-LAYOUT = ("data-parallel, parameters gathered whole on every rank (not "
-          "the reference's sharded layout: per-rank bytes and collectives "
-          "are not comparable to its dry run)")
+def rule_argument_bytes(job, mesh) -> int:
+    """The per-rank bytes of the job's arguments by its placements: each
+    leaf's bytes over the product of the sizes of the mesh axes that shard
+    it (every rule divides its dim)."""
+    sizes = mesh_lib.mesh_shape(mesh)
+    total = 0
+    for arg, pl_tree in zip(job.args, job.in_shardings):
+        structs = dict(basic.flatten_params(arg)) if isinstance(arg, dict) \
+            else {"": arg}
+        pls = dict(basic.flatten_params(pl_tree)) if isinstance(arg, dict) \
+            else {"": pl_tree}
+        for path, t in structs.items():
+            if not isinstance(t, torch.Tensor):
+                continue
+            split = math.prod(n for n, p in zip(sizes, pls[path])
+                              if p.is_shard())
+            total += t.numel() * t.element_size() // split
+    return total
 
 
 def run_one(arch: str, shape: str, multi_pod: bool = False, mesh=None,
@@ -211,16 +255,19 @@ def run_one(arch: str, shape: str, multi_pod: bool = False, mesh=None,
             "mesh": list(mesh_lib.mesh_shape(mesh)),
             "trace_s": round(time.time() - t0, 1),
             "memory": {"argument_bytes": _nbytes(args),
-                       "output_bytes": out_bytes, "peak_bytes": peak},
+                       "rule_argument_bytes": rule_argument_bytes(job, mesh),
+                       "output_bytes": out_bytes, "peak_bytes": peak,
+                       "near_peak_bytes": live.at_peak_bytes,
+                       "near_peak_top": live.peak_top()},
             "cost": {"flops": flops.get_total_flops()},
             "collectives": colls.stats,
             "clients": job.clients,
-            "layout": LAYOUT,
+            "layout": job.layout,
         }
         if verbose:
             print(f"[ok] {arch} x {shape} mesh={res['mesh']} "
                   f"trace={res['trace_s']}s flops={res['cost']['flops']} "
-                  f"peak={peak} layout: {LAYOUT}")
+                  f"peak={peak} layout: {job.layout}")
         return res
     except Exception as e:  # noqa: BLE001 — report, don't crash the matrix
         if verbose:

@@ -16,12 +16,19 @@ sharding rules (``launch/sharding.py``) read only those, so placements at
 the production shapes need no world. ``use_mesh`` sets the ambient mesh
 that ``nn/basic.maybe_constrain`` reads, the twin of
 ``jax.sharding.get_abstract_mesh``.
+
+Tensor parallelism on "model" (Megatron's): :func:`tensor_parallel` sets
+the ambient group the decoder LM's layers read, and :func:`tp_copy`,
+:func:`tp_reduce`, :func:`tp_gather` and :func:`tp_max` are its
+collectives with a gradient and a ``torch.func.vmap`` rule, every sum in
+rank order.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -176,6 +183,198 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     return _waited(gather(t.contiguous(), 0, group))
 
 
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """(ranks * c,) on each rank -> (ranks * c,): piece j of every rank
+    goes to rank j, received in rank order."""
+    from torch.distributed import _functional_collectives as funcol
+    return _waited(funcol.all_to_all_single(t.contiguous(), None, None,
+                                            group))
+
+
 def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     from torch.distributed import _functional_collectives as funcol
     return _waited(funcol.all_reduce(t.contiguous(), op, group))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism on "model": Megatron's collectives with a gradient
+#
+# A rank computes on its pieces of the parameters, placed by
+# ``launch/sharding.param_shardings``. A tensor every rank holds the same
+# (replicated) enters rank-local work through :func:`tp_copy` (identity
+# forward, all-reduce backward: the column-parallel input), and the
+# partial results leave it through :func:`tp_reduce` (all-reduce forward,
+# identity backward: the row-parallel output). :func:`tp_gather` joins
+# pieces along a dim (its backward keeps this rank's piece).
+#
+# A sum over the ranks is a reduce-scatter made of an all-to-all (rank j
+# receives every rank's j-th piece, in rank order, and adds them in that
+# order in float32) and an all-gather of the summed pieces, cast back: no
+# float atomics and no backend reduction order, so the sums repeat bit for
+# bit from run to run and are the same bits on every rank. Both moves are
+# in float32: the bytes of a float32 ring all-reduce, twice a bf16 one's.
+# Each op has its own
+# ``torch.func.vmap`` rule (the collective of a vmapped tensor is the
+# collective of the batched tensor), since the round engine vmaps a
+# rank's clients; under ``torch.func.grad`` each backward is again one of
+# these ops. The active group is ambient (:func:`tensor_parallel`, one a
+# thread); with none, or a "model" axis of one rank, every op is the
+# identity and no collective runs.
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The "model" axis of a mesh: its process group, size and this
+    rank's index on it."""
+    group: object
+    size: int
+    rank: int
+
+
+def model_parallel(mesh) -> TensorParallel:
+    """The ``TensorParallel`` of ``mesh``'s "model" axis."""
+    size = axis_size(mesh, "model")
+    if size == 1:
+        return TensorParallel(None, 1, 0)
+    rank = dict(zip(axis_names(mesh), mesh.get_coordinate()))["model"]
+    return TensorParallel(mesh.get_group("model"), size, rank)
+
+
+_TP = threading.local()
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp: Optional[TensorParallel]):
+    """Make ``tp`` the ambient tensor-parallel group inside the block (of
+    this thread): the decoder LM's layers then compute on the pieces of
+    the parameters they are given."""
+    stack = _TP.__dict__.setdefault("stack", [])
+    stack.append(tp)
+    try:
+        yield tp
+    finally:
+        stack.pop()
+
+
+def current_tp() -> Optional[TensorParallel]:
+    """The ambient ``TensorParallel``, or None when there is none or its
+    axis has one rank."""
+    stack = getattr(_TP, "stack", None)
+    tp = stack[-1] if stack else None
+    return tp if tp is not None and tp.size > 1 else None
+
+
+class _Stack(torch.autograd.Function):
+    """(...) on each rank -> (size, ...), the ranks' tensors in rank
+    order; backward: this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(x, tp):
+        return all_gather(x[None], tp.group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.tp = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.tp.rank], None
+
+    @staticmethod
+    def vmap(info, in_dims, x, tp):
+        if in_dims[0] is None:
+            return _Stack.apply(x, tp), None
+        return _Stack.apply(x.movedim(in_dims[0], 0), tp), 1
+
+
+def _sum_over(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The ranks' ``x`` summed in rank order in float32, in ``x``'s dtype:
+    an all-to-all of equal pieces of the flat vector (padded to a multiple
+    of the ranks), each rank adding its piece's M parts, and an
+    all-gather of the sums."""
+    n, m = x.numel(), tp.size
+    c = -(-n // m)
+    flat = x.reshape(-1).float()
+    if c * m != n:
+        flat = torch.nn.functional.pad(flat, (0, c * m - n))
+    parts = all_to_all(flat, tp.group).view(m, c)
+    acc = parts[0]
+    for i in range(1, m):
+        acc = acc + parts[i]
+    return all_gather(acc, tp.group)[:n].view(x.shape).to(x.dtype)
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce (sum) forward, identity backward."""
+
+    @staticmethod
+    def forward(x, tp):
+        return _sum_over(x, tp)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, tp):
+        return _Reduce.apply(x, tp), in_dims[0]
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(x, tp):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.tp = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Reduce.apply(g, ctx.tp), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, tp):
+        return _Copy.apply(x, tp), in_dims[0]
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """A replicated tensor entering rank-local work (Megatron's ``f``)."""
+    tp = current_tp()
+    return x if tp is None else _Copy.apply(x, tp)
+
+
+def tp_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the "model" ranks of their partials (Megatron's
+    ``g``): added in rank order in float32, cast back to ``x``'s dtype."""
+    tp = current_tp()
+    return x if tp is None else _Reduce.apply(x, tp)
+
+
+def tp_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the "model" ranks (exact in any order);
+    no gradient flows through it."""
+    tp = current_tp()
+    if tp is None:
+        return x
+    return _Stack.apply(x.detach(), tp).amax(0)
+
+
+def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' equal pieces joined along ``dim`` in rank order (a
+    vocab- or column-parallel all-gather); backward: this rank's piece.
+    Where the whole tensor then feeds rank-local work, wrap it in
+    :func:`tp_copy` (the backward becomes a reduce-scatter)."""
+    tp = current_tp()
+    if tp is None:
+        return x
+    dim = dim % x.ndim
+    parts = _Stack.apply(x, tp)                       # (size, ...)
+    parts = parts.movedim(0, dim)                     # (..., size, n, ...)
+    return parts.reshape(x.shape[:dim] + (-1,) + x.shape[dim + 1:])

@@ -24,6 +24,11 @@ the reference's spec tuple. A mesh here is a ``DeviceMesh`` or a
 ``launch/mesh.AbstractMesh``: the rules read its shape and axis names
 only.
 
+:func:`tensor_parallel_ok` names the configs whose steps run tensor-
+parallel (``launch/specs``); :func:`local_pieces` takes a rank's pieces
+of a tree without making any leaf whole, and :class:`ModelShards` is the
+round engine's hook for the trainable tree's pieces.
+
 The flat aggregation plane (:func:`flat_constrainer`) is where the mesh
 meets the kernels. The kernels take raw pointers, so each rank runs them
 on its local block of the ``(K, size)`` delta buffer, and every
@@ -143,15 +148,36 @@ def _spec_for(path: str, shape, mesh, rules) -> Placements:
     return placements_of(spec, mesh)
 
 
-def param_shardings(params_struct, cfg: ModelConfig, mesh):
-    """Tree of placements matching the (possibly stacked) param tree."""
-    rules = list(_RULES)
-    msize = mesh_lib.axis_size(mesh, "model")
+def expert_mode(cfg: ModelConfig, mesh) -> str:
+    """The expert stacks' layout on ``mesh``: ``cfg.expert_shard``, or
+    for "auto" the reference's choice ("2d" for 64 experts or more, "ffn"
+    when the expert count does not divide "model", else "model")."""
     mode = cfg.expert_shard
     if mode == "auto":
+        msize = mesh_lib.axis_size(mesh, "model")
         mode = ("2d" if cfg.num_experts >= 64 else
                 ("ffn" if cfg.num_experts and cfg.num_experts % msize else
                  "model"))
+    return mode
+
+
+def tensor_parallel_ok(cfg: ModelConfig, mesh) -> bool:
+    """True for the families whose steps run tensor-parallel on "model"
+    (``launch/specs``): slots of dense GQA attention and a dense or MoE
+    FFN, with the experts in the ``model`` or ``ffn`` mode, so that every
+    rule places its leaf on "model" alone. MLA, 2-D experts, the SSM
+    slots, the VLM prefix and the encoder-decoder keep the gathered
+    layout."""
+    return (cfg.family in ("dense", "moe") and not cfg.use_mla
+            and not cfg.is_encoder_decoder
+            and (not cfg.num_experts
+                 or expert_mode(cfg, mesh) in ("model", "ffn")))
+
+
+def param_shardings(params_struct, cfg: ModelConfig, mesh):
+    """Tree of placements matching the (possibly stacked) param tree."""
+    rules = list(_RULES)
+    mode = expert_mode(cfg, mesh)
     if mode == "2d":
         rules = _RULES_2D_EXPERTS + rules
     elif mode == "2d_swapped":
@@ -276,6 +302,79 @@ def distribute(full: torch.Tensor, mesh, placements: Placements):
     return DTensor.from_local(local_piece(full, mesh, placements).contiguous(),
                               mesh, placements, run_check=False,
                               shape=full.shape, stride=full.stride())
+
+
+def local_pieces(tree, placements, mesh):
+    """This rank's piece of each leaf under ``placements``: a DTensor's
+    local tensor (redistributed first if it is placed otherwise), a whole
+    tensor's slice (a view: nothing is copied); no leaf is made whole."""
+    from torch.distributed.tensor import DTensor
+
+    def one(x, pl):
+        if isinstance(x, DTensor):
+            if tuple(x.placements) != tuple(pl):
+                x = x.redistribute(x.device_mesh, pl)
+            return x.to_local()
+        return local_piece(x, mesh, pl)
+    return basic.tree_map(one, tree, placements)
+
+
+def from_local(t: torch.Tensor, mesh, placements: Placements, shape):
+    """A DTensor of global ``shape`` over ``mesh`` from this rank's piece
+    ``t``, with no communication."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(int(n) for n in shape)
+    stride, step = [], 1
+    for n in reversed(shape):            # the whole tensor's, contiguous
+        stride.append(step)
+        step *= max(n, 1)
+    return DTensor.from_local(t.contiguous(), mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=tuple(reversed(stride)))
+
+
+class ModelShards:
+    """The trainable tree's pieces on "model" in a tensor-parallel step
+    (``launch/specs.make_train_step``): the round engine's
+    ``model_shards`` hook. Each client trains this rank's pieces;
+    :meth:`whole` gathers a client's delta over "model" (an exact
+    concatenation, under ``torch.func.vmap``) for the flat plane, and
+    :meth:`local` takes the aggregated update's pieces for the server's
+    step on them. ``struct`` has the whole leaves' shapes (tensors on the
+    meta device), for the flat layout."""
+
+    def __init__(self, mesh, struct, placements):
+        self.mesh = mesh
+        self.placements = placements
+        self.struct = basic.tree_map(
+            lambda x: torch.empty(tuple(x.shape), dtype=x.dtype,
+                                  device="meta"), struct)
+        names = mesh_lib.axis_names(mesh)
+        self.model_dim = (names.index("model") if "model" in names
+                          else None)
+        self.tp = mesh_lib.model_parallel(mesh)
+
+    def _dim(self, pl):
+        if self.model_dim is None:
+            return None
+        p = pl[self.model_dim]
+        return p.dim if isinstance(p, Shard) else None
+
+    def local(self, tree):
+        return local_pieces(tree, self.placements, self.mesh)
+
+    def whole(self, tree):
+        def one(x, pl):
+            d = self._dim(pl)
+            return x if d is None else mesh_lib.tp_gather(x, d)
+        with mesh_lib.tensor_parallel(self.tp):
+            return basic.tree_map(one, tree, self.placements)
+
+    def dtensors(self, tree):
+        """This rank's pieces as DTensors of the whole shapes."""
+        return basic.tree_map(
+            lambda x, pl, st: from_local(x, self.mesh, pl, st.shape), tree,
+            self.placements, self.struct)
 
 
 def gathered(tree):

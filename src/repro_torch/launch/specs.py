@@ -7,6 +7,10 @@ tree in f32 (the master copy): the standard mixed-precision split of the
 reference's ``param_structs``. Structures are tensors on the meta device
 (no memory). The prefill and decode steps take the two halves and merge
 them; the train step is one FedPT round on a mesh (:func:`make_train_step`).
+On a mesh the train step and the prefill of dense attention with dense
+or MoE FFNs are tensor-parallel on "model" (:func:`make_train_step`,
+:func:`make_tp_prefill_step`): each rank computes on its pieces of the
+parameters and never gathers the frozen tree.
 
 Shapes (the reference's):
   train_4k     seq 4,096   global_batch 256   -> fedpt_round_step
@@ -200,20 +204,32 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
     on ``mesh``: train_step(y, sstate, frozen, batch, weights, seed) ->
     (y_new, sstate_new, metrics).
 
-    ``y`` may arrive as DTensors placed by :func:`sharding.param_shardings`
-    (the reference's layout); the round gathers them whole for the
-    clients, whose copies ``torch.func.vmap`` never materializes, and
-    lays the new ``y`` out the same way (``constrain_fn``). The server
-    state, the frozen tree, the batch and the weights are gathered whole
-    on entry (DTensors, explicitly) and the state laid out again as it
-    came. Each data rank trains its client; the flat plane
-    (``sharding.flat_constrainer``) aggregates each rank's block of the
-    delta buffer. The round has no DP noise, so ``seed`` draws nothing.
-    Runs on ``device`` (CUDA unless ``device="cpu"``)."""
+    ``y``, the server state and ``frozen`` may arrive as DTensors placed
+    by :func:`sharding.param_shardings` (the reference's layout) or whole.
+    Where ``sharding.tensor_parallel_ok`` holds (dense attention and
+    dense or MoE FFNs), the step is tensor-parallel on "model": each rank
+    trains its data rank's clients on its pieces of ``y`` and of the
+    frozen tree, which is never made whole (``nn/attention.tp_attention``,
+    ``nn/basic.mlp`` / ``embed`` / ``unembed``, ``nn/moe``, the
+    vocab-parallel loss); each client's delta is gathered over "model"
+    into the flat plane's rows (``sharding.ModelShards``), and the server
+    steps on its pieces, returned as DTensors of that layout. The other
+    families keep the gathered layout: ``y`` gathered whole for the
+    clients, whose copies ``torch.func.vmap`` never materializes, the
+    server state and the frozen tree gathered on entry, and the new ``y``
+    laid out again (``constrain_fn``). Either way the batch and weights
+    are gathered on entry, each data rank trains its clients, and the
+    flat plane (``sharding.flat_constrainer``) aggregates each rank's
+    block of the delta buffer. The round has no DP noise, so ``seed``
+    draws nothing. Runs on ``device`` (CUDA unless ``device="cpu"``)."""
     rc = fedpt.RoundConfig(clients_per_round=0, local_steps=2, local_batch=0,
                            client_opt="sgd", client_lr=0.02,
                            server_opt="sgdm", server_lr=0.5)
     shard_y = shard_lib.param_shardings(y_struct, cfg, mesh)
+    plane = shard_lib.flat_constrainer(mesh)
+    if shard_lib.tensor_parallel_ok(cfg, mesh):
+        return _tp_train_step(cfg, mesh, y_struct, shard_y, rc, plane,
+                              device)
 
     def constrain(tree, clients: bool):
         if clients:
@@ -226,13 +242,37 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
 
     round_step, server_opt = fedpt.make_round_fn(
         loss_fn, rc, device=device, constrain_fn=constrain,
-        constrain_flat_fn=shard_lib.flat_constrainer(mesh))
+        constrain_flat_fn=plane)
 
     def train_step(y, sstate, frozen, batch, weights, seed=None):
         y_new, ss_new, metrics = round_step(
             y, shard_lib.gathered(sstate), shard_lib.gathered(frozen),
             shard_lib.gathered(batch), shard_lib.gathered(weights), None)
         return y_new, _laid_out_as(ss_new, sstate), metrics
+
+    return train_step, server_opt
+
+
+def _tp_train_step(cfg, mesh, y_struct, shard_y, rc, plane, device):
+    """:func:`make_train_step`'s tensor-parallel step."""
+    shards = shard_lib.ModelShards(mesh, y_struct, shard_y)
+    tp = mesh_lib.model_parallel(mesh)
+
+    def loss_fn(params, mb):
+        with mesh_lib.tensor_parallel(tp):
+            return dlm.train_loss(params, cfg, mb)
+
+    round_step, server_opt = fedpt.make_round_fn(
+        loss_fn, rc, device=device, constrain_flat_fn=plane,
+        model_shards=shards)
+
+    def train_step(y, sstate, frozen, batch, weights, seed=None):
+        shard_z = shard_lib.param_shardings(frozen, cfg, mesh)
+        y_new, ss_new, metrics = round_step(
+            shards.local(y), shards.local(sstate),
+            shard_lib.local_pieces(frozen, shard_z, mesh),
+            shard_lib.gathered(batch), shard_lib.gathered(weights), None)
+        return shards.dtensors(y_new), shards.dtensors(ss_new), metrics
 
     return train_step, server_opt
 
@@ -269,6 +309,16 @@ def _data_local(tree):
 # Assembled lowering spec per (arch, shape, mesh)
 
 
+# the layouts a job's step runs in (``LoweringJob.layout``, the dry run's
+# ``layout`` key)
+TP_LAYOUT = ("tensor-parallel on 'model' by the reference's rules: each "
+             "rank computes on its pieces of y and the frozen tree, which "
+             "is never gathered")
+GATHERED_LAYOUT = ("data-parallel, parameters gathered whole on every rank "
+                   "(not the reference's sharded layout: per-rank bytes and "
+                   "collectives are not comparable to its dry run)")
+
+
 @dataclasses.dataclass
 class LoweringJob:
     arch: str
@@ -278,12 +328,53 @@ class LoweringJob:
     in_shardings: tuple         # trees of placements, as args
     cfg: ModelConfig
     clients: int = 0
+    layout: str = GATHERED_LAYOUT
+
+
+def make_tp_prefill_step(cfg: ModelConfig, mesh, device=None):
+    """The tensor-parallel prefill on ``mesh`` (``sharding.tensor_parallel_ok``
+    configs): prefill(y, frozen, batch) -> logits as a DTensor of (B, S,
+    V), its vocab split on "model" where the unembedding's is, its rows
+    on the data axes where the batch's are. Each rank runs
+    :func:`make_prefill_step`'s forward on its pieces of ``y`` and the
+    frozen tree (DTensors or whole) and its data rank's rows (so an
+    MoE's capacity is counted over those rows, as a serving replica
+    batches its own requests): attention on its heads through
+    ``flash_attention`` (the ``swa_attention`` kernel on the card), the
+    FFN or experts on its pieces; no parameter is gathered. A caller that wants whole logits asks the DTensor
+    (``full_tensor()``)."""
+    step = make_prefill_step(cfg, device)
+    tp = mesh_lib.model_parallel(mesh)
+    names = mesh_lib.axis_names(mesh)
+
+    def prefill(y, frozen, batch):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        yl = shard_lib.local_pieces(
+            y, shard_lib.param_shardings(y, cfg, mesh), mesh)
+        zl = shard_lib.local_pieces(
+            frozen, shard_lib.param_shardings(frozen, cfg, mesh), mesh)
+        tokens = batch["tokens"]
+        with mesh_lib.tensor_parallel(tp):
+            logits = step(yl, zl, _data_local(batch))
+        rows = (tokens.placements if isinstance(tokens, DTensor)
+                else (Replicate(),) * len(names))
+        vocab = (Shard(2) if logits.shape[-1] != cfg.vocab_size
+                 else Replicate())
+        pl = tuple(vocab if n == "model" else rows[i]
+                   for i, n in enumerate(names))
+        shape = (tokens.shape[0], logits.shape[1], cfg.vocab_size)
+        return shard_lib.from_local(logits, mesh, pl, shape)
+
+    return prefill
 
 
 def build_job(arch: str, shape: str, mesh, cfg_override=None,
               device="cpu") -> LoweringJob:
     """The step of ``shape``'s kind for ``arch`` on ``mesh``, its argument
-    structures and their placements. The prefill and decode steps run
+    structures and their placements. Where ``sharding.tensor_parallel_ok``
+    holds, the train step and the prefill are tensor-parallel
+    (:func:`make_train_step`, :func:`make_tp_prefill_step`; ``layout``
+    :data:`TP_LAYOUT`); otherwise, and for decode, the steps run
     data-parallel: their parameters gathered whole, the batch (and the
     cache, its "model" shards gathered) a data rank's rows."""
     base_cfg = cfg_override if cfg_override is not None else get_config(arch)
@@ -293,6 +384,9 @@ def build_job(arch: str, shape: str, mesh, cfg_override=None,
     shard_y = shard_lib.param_shardings(y_struct, cfg, mesh)
     shard_z = shard_lib.param_shardings(z_struct, cfg, mesh)
     rep = shard_lib.placements_of((), mesh)
+    tp = shard_lib.tensor_parallel_ok(cfg, mesh)
+    layout = TP_LAYOUT if tp and info["kind"] != "decode" \
+        else GATHERED_LAYOUT
 
     if info["kind"] == "train":
         batch, weights, clients = train_specs(cfg, mesh, info["seq"],
@@ -307,18 +401,22 @@ def build_job(arch: str, shape: str, mesh, cfg_override=None,
                    shard_lib.batch_sharding(batch, mesh),
                    shard_lib.batch_sharding(weights, mesh), rep)
         return LoweringJob(arch, shape, train_step, args, inshard, cfg,
-                           clients)
+                           clients, layout)
 
     if info["kind"] == "prefill":
         batch = prefill_specs(cfg, info["seq"], info["global_batch"])
-        step = make_prefill_step(cfg, device)
+        if tp:
+            prefill = make_tp_prefill_step(cfg, mesh, device)
+        else:
+            step = make_prefill_step(cfg, device)
 
-        def prefill(y, frozen, batch):
-            return step(shard_lib.gathered(y), shard_lib.gathered(frozen),
-                        _data_local(batch))
+            def prefill(y, frozen, batch):
+                return step(shard_lib.gathered(y),
+                            shard_lib.gathered(frozen), _data_local(batch))
         args = (y_struct, z_struct, batch)
         inshard = (shard_y, shard_z, shard_lib.batch_sharding(batch, mesh))
-        return LoweringJob(arch, shape, prefill, args, inshard, cfg)
+        return LoweringJob(arch, shape, prefill, args, inshard, cfg,
+                           layout=layout)
 
     cache, tokens = decode_specs(cfg, info["seq"], info["global_batch"])
     step = make_decode_step(cfg, device)

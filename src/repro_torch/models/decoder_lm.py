@@ -38,6 +38,15 @@ VLM without a prefix, the encoder-decoder against the cache's ``cross``
 K / V (zeros from ``init_cache``, the encoder's from
 ``build_cross_cache``).
 
+Under tensor parallelism (``launch/mesh.tensor_parallel``, the train step
+and prefill of ``launch/specs`` on a mesh) each rank holds its pieces of
+the parameters, placed by the reference's rules: attention slots run
+``nn/attention.tp_attention`` on the rank's heads, the FFNs and experts
+their pieces (``nn/basic.mlp``, ``nn/moe``), the embedding a masked
+lookup of the rank's vocab rows, the logits the rank's vocab columns,
+and ``lm_loss`` the vocab-parallel cross-entropy; the (B, S, V) logits
+are never gathered in training.
+
 ``forward`` takes the attention function explicitly: the serving prefill
 runs ``nn/attention.flash_attention`` (the ``swa_attention`` kernel on
 the card), while ``train_loss`` passes ``nn/attention.chunked_attention``,
@@ -53,6 +62,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import basic, moe as moe_lib, ssm as ssm_lib, threefry
 
@@ -202,7 +212,8 @@ def _ffn(h2, sp, cfg: ModelConfig, slot: Slot):
     """The slot's FFN on (B, S, d): the gated MLP, or ``moe_ffn`` on the
     (B*S, d) tokens. Returns (y, the MoE aux loss or None)."""
     if not slot.use_moe:
-        return basic.mlp(h2, sp["ffn"], cfg.act, cfg.cdtype), None
+        return basic.mlp(h2, sp["ffn"], cfg.act, cfg.cdtype,
+                         d_ff=cfg.d_ff), None
     B, S, D = h2.shape
     y, aux = moe_lib.moe_ffn(h2.reshape(B * S, D), sp["moe"], cfg)
     return y.reshape(B, S, D), aux
@@ -247,6 +258,10 @@ def _attend(x, h, sp, cfg: ModelConfig, positions, attention, causal=True,
         q, k, v, cache = attn_lib.mla_qkv(h, sp["attn"], cfg, positions)
         o = attention(q, k, v, cfg.with_(sliding_window=0), causal=causal,
                       prefix_len=prefix_len)
+    elif attn_lib.heads_split(sp["attn"], cfg):
+        o, cache = attn_lib.tp_attention(h, sp["attn"], cfg, positions,
+                                         attention, causal, prefix_len)
+        return x + o, cache
     else:
         q, k, v = attn_lib.qkv_project(h, sp["attn"], cfg)
         if cfg.use_rope:
@@ -318,10 +333,17 @@ def _run_stack(stack_params, cfg: ModelConfig, x, positions, attention,
 
 
 def _logits(x, params, cfg: ModelConfig):
+    """The logits (B, S, V); under tensor parallelism with the vocab
+    split on "model", this rank's vocab columns of them."""
     x = basic.apply_norm(x, params["final_norm"], cfg.norm_type)
     if cfg.tie_embeddings:
-        return basic.unembed(x, params["embed"], cfg.cdtype)
-    return x @ params["unembed"]["kernel"].to(cfg.cdtype)
+        return basic.unembed(x, params["embed"], cfg.cdtype,
+                             vocab=cfg.vocab_size)
+    kernel = params["unembed"]["kernel"]
+    if mesh_lib.current_tp() is not None \
+            and kernel.shape[-1] != cfg.vocab_size:
+        x = mesh_lib.tp_copy(x)
+    return x @ kernel.to(cfg.cdtype)
 
 
 def encode(params, cfg: ModelConfig, encoder_embeds, attention=None):
@@ -363,7 +385,7 @@ def forward(params, cfg: ModelConfig, tokens, return_caches: bool = False,
     dh), all float32."""
     cd = cfg.cdtype
     attention = attention or attn_lib.flash_attention
-    x = basic.embed(tokens, params["embed"], cd)
+    x = basic.embed(tokens, params["embed"], cd, vocab=cfg.vocab_size)
     prefix_len = 0
     if cfg.family == "vlm" and prefix_embeds is not None:
         pe = basic.dense(prefix_embeds.to(cd), params["mm_proj"], cd)
@@ -390,10 +412,32 @@ def forward(params, cfg: ModelConfig, tokens, return_caches: bool = False,
 # Loss
 
 
-def lm_loss(logits, labels, mask=None):
-    """Cross-entropy; labels: (B, S) integer, mask 1.0 where counted."""
-    lp = torch.log_softmax(logits.float(), dim=-1)
-    ll = lp.gather(-1, labels[..., None].long())[..., 0]
+def _vocab_parallel_ll(logits, labels, tp):
+    """Each position's log-likelihood of its label from this rank's vocab
+    columns of the logits: the max, the sum of exponentials and the
+    label's logit summed over the "model" ranks (float32); the (B, S, V)
+    logits are never gathered."""
+    lf = logits.float()
+    n = lf.shape[-1]
+    m = mesh_lib.tp_max(lf.amax(-1))
+    s = mesh_lib.tp_reduce(torch.exp(lf - m[..., None]).sum(-1))
+    local = labels.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    t = lf.gather(-1, torch.where(inside, local, 0)[..., None])[..., 0]
+    t = mesh_lib.tp_reduce(torch.where(inside, t, 0.0))
+    return t - m - torch.log(s)
+
+
+def lm_loss(logits, labels, mask=None, vocab: int = 0):
+    """Cross-entropy; labels: (B, S) integer, mask 1.0 where counted.
+    Under tensor parallelism, logits holding this rank's columns of a
+    ``vocab``-wide vocab give the vocab-parallel cross-entropy."""
+    tp = mesh_lib.current_tp()
+    if tp is not None and vocab and logits.shape[-1] != vocab:
+        ll = _vocab_parallel_ll(logits, labels, tp)
+    else:
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        ll = lp.gather(-1, labels[..., None].long())[..., 0]
     if mask is None:
         mask = torch.ones_like(ll)
     return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
@@ -422,7 +466,8 @@ def train_loss(params, cfg: ModelConfig, batch):
     mask = batch.get("mask", None)
     if mask is not None:
         mask = mask[:, 1:].float()
-    loss = lm_loss(logits[:, :-1, :], batch["labels"][:, 1:], mask)
+    loss = lm_loss(logits[:, :-1, :], batch["labels"][:, 1:], mask,
+                   vocab=cfg.vocab_size)
     if cfg.router_aux_loss and cfg.num_experts:
         loss = loss + cfg.router_aux_loss * metrics["moe_aux_loss"]
     return loss, metrics

@@ -11,7 +11,8 @@ reference does. On a CPU tensor it is the reference's chunked online
 softmax: KV chunks of 512, f32 scores and running (max, sum, acc), ``p``
 cast to v's dtype before the PV product.
 ``decode_attention`` stays plain torch, as the JAX package computes it
-outside any Pallas kernel.
+outside any Pallas kernel. ``tp_attention`` is a GQA slot's attention on
+one rank's heads under tensor parallelism (``launch/mesh.tensor_parallel``).
 
 MLA compresses K and V into a ``kv_lora_rank`` latent c_kv plus one
 shared rope key k_pe. Prefill expands them to 128 heads of 192-wide q / k
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import basic
 
 NEG_INF = -1e30
@@ -90,6 +92,81 @@ def qkv_project(x, p, cfg: ModelConfig):
     k = basic.dense(x, p["wk"], cd).reshape(b, s, kv, hd)
     v = basic.dense(x, p["wv"], cd).reshape(b, s, kv, hd)
     return q, k, v
+
+
+def heads_split(p, cfg: ModelConfig) -> bool:
+    """True when ``p``'s q projection holds only this rank's columns
+    under the ambient tensor-parallel group (``launch/mesh.tensor_parallel``)."""
+    return (mesh_lib.current_tp() is not None and p["wq"]["kernel"].shape[-1]
+            != cfg.num_heads * cfg.resolved_head_dim)
+
+
+def _heads_of(local, c0: int, lo: int, hi: int, hd: int):
+    """Heads [lo, hi) of a projection of which this rank holds the
+    columns from ``c0`` (``local``, (b, s, width)): the local columns when
+    they are exactly those heads, else the ranks' pieces gathered over
+    "model" and the heads taken (through ``tp_copy``: the rank uses its
+    heads of a whole tensor, so the gradient is summed over the ranks
+    before each keeps its piece)."""
+    if c0 == lo * hd and local.shape[-1] == (hi - lo) * hd:
+        return local
+    whole = mesh_lib.tp_copy(mesh_lib.tp_gather(local, -1))
+    return whole[..., lo * hd:hi * hd]
+
+
+def tp_attention(h, p, cfg: ModelConfig, positions, attention, causal=True,
+                 prefix_len: int = 0):
+    """GQA attention on this rank's heads, under the ambient tensor-
+    parallel group, with ``wq`` / ``wk`` / ``wv`` (and their biases)
+    column-parallel and ``wo`` row-parallel, as ``launch/sharding``'s rules
+    place them: returns (the slot's attention output, summed over the
+    "model" ranks, (k, v) of the heads this rank ran).
+
+    The rules split only on whole columns, so a piece may end inside a
+    head (Mixtral's 8 kv heads on a 16-wide axis: half a head a rank).
+    Then the projection's pieces are gathered over "model" and the rank
+    takes the heads it needs: the q heads that ``wo``'s rows on this rank
+    read, and the kv heads those q heads use. A kv projection the rules
+    replicate is computed whole from the un-copied input and enters
+    through ``tp_copy``, so its gradient is summed once over the ranks."""
+    tp = mesh_lib.current_tp()
+    b, s, _ = h.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    cd = cfg.cdtype
+    rep = nh // nkv
+    kw = nkv * hd
+    q0 = tp.rank * p["wq"]["kernel"].shape[-1]
+    q1 = q0 + p["wq"]["kernel"].shape[-1]
+    lo, hi = q0 // hd, -(-q1 // hd)          # the q heads wo's rows read
+    klo, khi = lo // rep, (hi - 1) // rep + 1
+    hc = mesh_lib.tp_copy(h)
+    q = _heads_of(basic.dense(hc, p["wq"], cd), q0, lo, hi,
+                  hd).reshape(b, s, hi - lo, hd)
+    kv = []
+    for name in ("wk", "wv"):
+        width = p[name]["kernel"].shape[-1]
+        if width == kw:     # replicated by the rules' guard
+            t = mesh_lib.tp_copy(basic.dense(h, p[name], cd))
+            t = t[..., klo * hd:khi * hd]
+        else:
+            t = _heads_of(basic.dense(hc, p[name], cd), tp.rank * width,
+                          klo, khi, hd)
+        kv.append(t.reshape(b, s, khi - klo, hd))
+    k, v = kv
+    nq, nk = hi - lo, khi - klo
+    need = [g // rep - klo for g in range(lo, hi)]
+    if nq % nk or need != [i // (nq // nk) for i in range(nq)]:
+        # the local q heads do not map onto the kv heads in GQA's order:
+        # one kv head a q head
+        idx = torch.tensor(need, device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    if cfg.use_rope:
+        cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    o = attention(q, k, v, cfg, causal=causal, prefix_len=prefix_len)
+    o = o.reshape(b, s, -1)[..., q0 - lo * hd:q1 - lo * hd]
+    return basic.row_parallel(o, p["wo"], cd), (k, v)
 
 
 # ---------------------------------------------------------------------------

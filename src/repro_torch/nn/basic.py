@@ -194,12 +194,37 @@ def init_embedding(seed, path, vocab, d, dtype, device=None):
                                      dtype, stddev=0.02, device=device)}
 
 
-def embed(ids, p, compute_dtype):
-    return p["embedding"][ids].to(compute_dtype)
+def _vocab_piece(table_rows: int, vocab: int):
+    """The ambient tensor-parallel group when a (vocab, ...) table holds
+    only this rank's rows of ``vocab`` (its vocab dim split on "model"),
+    else None."""
+    tp = mesh_lib.current_tp()
+    return tp if tp is not None and vocab and table_rows != vocab else None
 
 
-def unembed(x, p, compute_dtype):
-    return x.to(compute_dtype) @ p["embedding"].to(compute_dtype).T
+def embed(ids, p, compute_dtype, vocab: int = 0):
+    """The rows of ``ids``. Under tensor parallelism with the table's
+    vocab rows split (``vocab`` the whole vocab), a masked lookup of this
+    rank's rows, the others' ids zero, summed over the ranks (exact: one
+    rank holds each id)."""
+    table = p["embedding"]
+    tp = _vocab_piece(table.shape[0], vocab)
+    if tp is None:
+        return table[ids].to(compute_dtype)
+    n = table.shape[0]
+    local = ids.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[torch.where(inside, local, 0)].to(compute_dtype)
+    return mesh_lib.tp_reduce(torch.where(inside[..., None], rows, 0.0))
+
+
+def unembed(x, p, compute_dtype, vocab: int = 0):
+    """Tied logits ``x @ embedding.T``; with the vocab rows split on
+    "model", this rank's vocab columns of them."""
+    table = p["embedding"]
+    if _vocab_piece(table.shape[0], vocab) is not None:
+        x = mesh_lib.tp_copy(x)
+    return x.to(compute_dtype) @ table.to(compute_dtype).T
 
 
 def _gelu(x):
@@ -222,14 +247,33 @@ def init_mlp(seed, path, d_model, d_ff, dtype, gated: bool = True,
             for n in names}
 
 
-def mlp(x, p, act: str, compute_dtype):
+def row_parallel(x, p, compute_dtype=None):
+    """``dense`` on a row-parallel (input-dim split) kernel: this rank's
+    partial product, summed over the "model" ranks, then the bias."""
+    y = mesh_lib.tp_reduce(dense(x, {"kernel": p["kernel"]}, compute_dtype))
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+def mlp(x, p, act: str, compute_dtype, d_ff: int = 0):
+    """The (gated) MLP. Under tensor parallelism with the FFN dim split
+    on "model" (``d_ff`` the whole width, ``wo``'s rows this rank's):
+    the input enters through ``tp_copy``, the up projections give this
+    rank's columns, and ``wo``'s partial products are summed over the
+    ranks."""
     f = activation(act)
+    split = (mesh_lib.current_tp() is not None and d_ff
+             and p["wo"]["kernel"].shape[-2] != d_ff)
+    out = row_parallel if split else dense
+    if split:
+        x = mesh_lib.tp_copy(x)
     if "wi_gate" in p:
         g = dense(x, p["wi_gate"], compute_dtype)
         u = dense(x, p["wi_up"], compute_dtype)
-        return dense(f(g) * u, p["wo"], compute_dtype)
+        return out(f(g) * u, p["wo"], compute_dtype)
     h = f(dense(x, p["wi"], compute_dtype))
-    return dense(h, p["wo"], compute_dtype)
+    return out(h, p["wo"], compute_dtype)
 
 
 def maybe_constrain(x, spec):

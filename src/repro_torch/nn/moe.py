@@ -22,12 +22,23 @@ The reference's three sharding hints sit at its sites
 (``nn/basic.maybe_constrain``: the dispatch buffer, the experts' hidden
 activations, their outputs), no-ops without an ambient mesh or on plain
 tensors.
+
+Under tensor parallelism (``launch/mesh.tensor_parallel``) the expert
+stacks are this rank's pieces: E / m experts (the ``model`` mode) or
+each expert's FFN columns (``ffn``). Routing and dispatch stay the same
+on every rank (a float32 router on the same tokens); the rank runs its
+pieces, combines its partial output and the partials are summed over
+"model" in rank order (at k = 2 in the ``model`` mode, the unmeshed bits
+given the same expert outputs: one rank's partial holds both of a
+token's rows or each holds one, and the float32 sum of two bf16 rows is
+exact before its one rounding).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import basic
 
 
@@ -142,6 +153,52 @@ def _experts(buf, p, cd, ff_axis=None):
     return torch.stack(out, dim=-3)
 
 
+def _expert_split(p, cfg: ModelConfig):
+    """How this rank's expert stacks are split under the ambient tensor-
+    parallel group: "model" (the expert dim on "model": E / m experts a
+    rank), "ffn" (each expert's FFN dim), or None (whole)."""
+    if mesh_lib.current_tp() is None:
+        return None
+    el, ffl = p["wi_gate"].shape[-3], p["wi_gate"].shape[-1]
+    split = {(True, True): None, (False, True): "model",
+             (True, False): "ffn"}.get((el == cfg.num_experts,
+                                       ffl == cfg.expert_d_ff), "2d")
+    if split == "2d":
+        raise NotImplementedError("experts split on both the expert and "
+                                  "the FFN dim (2-D expert sharding)")
+    return split
+
+
+def _experts_tp(buf, p, cfg: ModelConfig, cd, split, ff_axis=None):
+    """:func:`_experts` on this rank's pieces of the expert stacks
+    (``split`` from :func:`_expert_split`) -> y (..., E, cap, d). In the
+    ``model`` mode the rank runs its experts' slots and the others' rows
+    are zero; in the ``ffn`` mode it runs every expert on its FFN columns.
+    Either way the output combined from it is this rank's partial sum; the
+    dispatch buffer, the same on every rank, enters through ``tp_copy``."""
+    if split is None:
+        return _experts(buf, p, cd, ff_axis)
+    buf = mesh_lib.tp_copy(buf)
+    if split == "ffn":
+        return _experts(buf, p, cd, ff_axis)
+    el = p["wi_gate"].shape[-3]
+    e0 = mesh_lib.current_tp().rank * el
+    y = _experts(buf.narrow(-3, e0, el), p, cd, ff_axis)
+
+    def zeros(n):
+        return y.new_zeros(y.shape[:-3] + (n,) + y.shape[-2:])
+    return torch.cat([zeros(e0), y, zeros(cfg.num_experts - e0 - el)],
+                     dim=-3)
+
+
+def _partial_meta(meta):
+    """The combine's per-entry (slot, keep, weight) for a partial combine:
+    the router weights, the same on every rank, enter through
+    ``tp_copy`` (each rank's combine reads them for its own rows)."""
+    slot, keep, sw = meta
+    return slot, keep, mesh_lib.tp_copy(sw)
+
+
 def moe_ffn(x, p, cfg: ModelConfig):
     """x: (T, d) flat tokens -> ((T, d), aux loss).
 
@@ -163,14 +220,24 @@ def moe_ffn(x, p, cfg: ModelConfig):
         expert_axis, ff_axis = "data", "model"
     else:
         expert_axis, ff_axis = "model", None
+    split = _expert_split(p, cfg)
     buf, meta = _sort_dispatch(x, w, idx, e, cap, cd)
     buf = basic.maybe_constrain(buf, (expert_axis, None, None))
-    y = _experts(buf, p, cd, ff_axis)
+    y = _experts_tp(buf, p, cfg, cd, split, ff_axis)
     y = basic.maybe_constrain(y, (expert_axis, None, None))
+    if split:
+        meta = _partial_meta(meta)
     out = _combine_local(y.reshape(e * cap, d), meta, T, e, cap, cd)
+    if split:
+        out = mesh_lib.tp_reduce(out)
     if cfg.num_shared_experts > 0:
-        out = out + basic.mlp(x, p["shared"], "silu", cd)
+        out = out + _shared(x, p, cfg, cd)
     return out, aux
+
+
+def _shared(x, p, cfg: ModelConfig, cd):
+    return basic.mlp(x, p["shared"], "silu", cd,
+                     d_ff=cfg.expert_d_ff * cfg.num_shared_experts)
 
 
 def _moe_ffn_grouped(x, p, cfg: ModelConfig, g: int):
@@ -189,13 +256,18 @@ def _moe_ffn_grouped(x, p, cfg: ModelConfig, g: int):
         return buf, meta, aux
 
     bufs, metas, auxs = torch.func.vmap(local)(x.reshape(g, Tl, d))
-    y = _experts(bufs, p, cd)
+    split = _expert_split(p, cfg)
+    y = _experts_tp(bufs, p, cfg, cd, split)
+    if split:
+        metas = _partial_meta(metas)
     out = torch.func.vmap(
         lambda yl, *m: _combine_local(yl.reshape(e * cap, d), m, Tl, e, cap,
                                       cd))(y, *metas)
     out = out.reshape(T, d)
+    if split:
+        out = mesh_lib.tp_reduce(out)
     if cfg.num_shared_experts > 0:
-        out = out + basic.mlp(x, p["shared"], "silu", cd)
+        out = out + _shared(x, p, cfg, cd)
     return out, auxs.mean()
 
 

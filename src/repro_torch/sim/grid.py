@@ -39,7 +39,9 @@ tail aggregates each rank's block of the (K, size) buffer
 (``launch/sharding.flat_constrainer``). A preset other than ``single``
 needs a world of exactly its size (``torch.distributed.
 init_process_group``); ``single`` makes a 1-rank group when there is
-none.
+none. On a mesh of more than one rank, rank 0 of the world writes each
+snapshot once while the others wait at a barrier; every rank reads it on
+resume.
 """
 from __future__ import annotations
 
@@ -51,9 +53,11 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.core.partition as part
 from repro_torch import resolve_device
+from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.checkpoint import grid_state as gstate_lib
 from repro_torch.core import comm, dp as dp_lib, fedpt
 from repro_torch.core import flat as flat_lib
@@ -198,6 +202,23 @@ def _uplink_bytes(tree, bits: int) -> int:
         return wire.uplink_bytes(tree, bits=bits)
     from repro_torch.core import compress
     return compress.quantized_uplink_bytes(tree, bits)
+
+
+def _snapshot(plane, path: str, encode) -> str:
+    """Write the grid-state snapshot ``encode()`` (meta, arrays) to
+    ``path`` once a world: on a multi-rank mesh (``plane``) rank 0 of the
+    world writes it and every rank waits at a barrier until it is on
+    disk, since every rank holds the same host state; returns the file's
+    path (with its suffix) on every rank."""
+    world = (plane is not None and dist.is_initialized()
+             and dist.get_world_size() > 1)
+    if world and dist.get_rank() != 0:
+        path = ckpt_lib.with_suffix(path)
+    else:
+        path = gstate_lib.save_state(path, *encode())
+    if world:
+        dist.barrier()
+    return path
 
 
 def _synchronize(dev: torch.device) -> None:
@@ -577,13 +598,14 @@ def _run_sync(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
         policy.end_round(r)
         if grid.checkpoint_every > 0 \
                 and (r + 1) % grid.checkpoint_every == 0:
-            meta, arrays = gstate_lib.encode_sync(
-                y=y, sstate=sstate, round_idx=r, now=vt, history=history,
-                rngs=rngs, policy=policy, registry=registry, report=report,
-                shocks=bshocks, topo=topo)
-            last_ckpt = gstate_lib.save_state(
-                gstate_lib.checkpoint_path(grid.checkpoint_dir, r + 1,
-                                           "sync"), meta, arrays)
+            last_ckpt = _snapshot(
+                plane, gstate_lib.checkpoint_path(grid.checkpoint_dir, r + 1,
+                                                  "sync"),
+                lambda: gstate_lib.encode_sync(
+                    y=y, sstate=sstate, round_idx=r, now=vt,
+                    history=history, rngs=rngs, policy=policy,
+                    registry=registry, report=report, shocks=bshocks,
+                    topo=topo))
             mc("checkpoints").inc()
             tracer.instant("checkpoint", vt, parent=rseq, path=last_ckpt,
                            round=r, mode="sync")
@@ -864,13 +886,13 @@ def _run_async(y, frozen, loss_fn, dataset, rc, rounds, grid, server_opt, *,
         # boundary where run_pending() has resolved every lane cell
         if state["applied"] % grid.checkpoint_every != 0:
             return
-        meta, arrays = gstate_lib.encode_async(
-            state=state, sched=s, rngs=rngs, accountant=accountant,
-            policy=policy, registry=registry, shocks=bshocks, topo=topo)
-        path = gstate_lib.save_state(
-            gstate_lib.checkpoint_path(grid.checkpoint_dir,
-                                       state["applied"], "async"),
-            meta, arrays)
+        path = _snapshot(
+            plane, gstate_lib.checkpoint_path(grid.checkpoint_dir,
+                                              state["applied"], "async"),
+            lambda: gstate_lib.encode_async(
+                state=state, sched=s, rngs=rngs, accountant=accountant,
+                policy=policy, registry=registry, shocks=bshocks,
+                topo=topo))
         last_ckpt["path"] = path
         registry.counter("checkpoints").inc()
         tracer.instant("checkpoint", now, parent=s.last_flush_seq,

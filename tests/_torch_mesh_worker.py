@@ -1,16 +1,19 @@
 """One rank of the port's multi-rank mesh scenarios (``gloo`` on the CPU),
-spawned by ``tests/test_torch_mesh.py``:
+spawned by ``tests/test_torch_mesh.py`` and ``tests/test_torch_tp.py``:
 
-    python tests/_torch_mesh_worker.py RANK WORLD STORE OUT INIT
+    python tests/_torch_mesh_worker.py RANK WORLD STORE OUT INIT [tp]
 
 joins a world of WORLD ranks over the file store STORE, runs every
 scenario of that world size on the port's meshes and writes its results
 to OUT/rank<RANK>.pkl. INIT holds the tiny and the wide dense models'
 parameters (numpy, made once by the test from the reference's init),
-the wide engines' inputs and the reduced StableLM's round inputs. The
-test imports this module for the scenarios' settings and runs the
-unmeshed twins of its engines and grids itself. Imports no JAX.
+the wide engines' inputs and the reduced StableLM's round inputs; with
+``tp``, the tensor-parallel cases' configs, parameters and batches, and
+only those run. The test imports this module for the scenarios'
+settings and runs the unmeshed twins of its engines and grids itself.
+Imports no JAX.
 """
+import dataclasses
 import os
 import pickle
 import sys
@@ -243,11 +246,13 @@ def flat_shardings(mesh, name):
     return out
 
 
-def train_step_case(init, mesh):
-    """make_train_step on the reduced StableLM over the mesh, y and the
-    server state placed as DTensors by the reference's rules."""
-    cfg = init["stablelm_cfg"]
-    params = basic.tree_map(torch.as_tensor, init["stablelm_params"])
+def train_step_case(init, mesh, key="stablelm"):
+    """make_train_step on a reduced config over the mesh (``key``: the
+    StableLM, tensor-parallel, or ``gathered``, a config that keeps the
+    gathered layout), y and the server state placed as DTensors by the
+    reference's rules."""
+    cfg = init[f"{key}_cfg"]
+    params = basic.tree_map(torch.as_tensor, init[f"{key}_params"])
     y, z = part.partition(params, cfg.freeze_spec)
     step, sopt = specs.make_train_step(cfg, mesh, y, device="cpu")
     shard_y = shard_lib.param_shardings(y, cfg, mesh)
@@ -255,18 +260,205 @@ def train_step_case(init, mesh):
                         y, shard_y)
     ss = basic.tree_map(lambda x, pl: shard_lib.distribute(x, mesh, pl),
                         sopt.init(y), shard_y)
-    batch = {k: torch.as_tensor(v) for k, v in init["stablelm_batch"].items()}
+    batch = {k: torch.as_tensor(v) for k, v in init[f"{key}_batch"].items()}
     w = torch.ones(batch["tokens"].shape[0])
     y_new, ss_new, m = step(yd, ss, z, batch, w, torch.zeros(1, dtype=torch.int32))
     return {"y": numpy_tree(shard_lib.gathered(y_new)),
             "ss": numpy_tree(shard_lib.gathered(ss_new)),
             "loss": float(m["loss"]),
+            "tensor_parallel": shard_lib.tensor_parallel_ok(cfg, mesh),
             "placements": {p: repr(v.placements) for p, v in
                            basic.flatten_params(y_new)}}
 
 
+# the kill -> resume cases on the mesh: (mode, rounds or updates, the
+# fault model every run carries, the update or round the kill follows)
+CKPT_CASES = {"sync": (6, {"crash_compute": 0.1}, 3),
+              "async": (8, {"crash_compute": 0.05}, 4)}
 
-def main(rank, world, store, out_dir, init_path):
+
+def checkpoint_case(mesh_name, mode, out_dir):
+    """A meshed grid with ``checkpoint_every=2`` killed between two
+    updates of its straight run, then resumed from the snapshot the kill
+    carries: the snapshot files, this rank's writes of them
+    (``grid_state.save_state`` calls), and whether the resumed run is the
+    straight one bit for bit."""
+    from repro_torch.checkpoint import grid_state as gstate
+    from repro_torch.sim import faults as faults_lib
+    n, faults, lo = CKPT_CASES[mode]
+    kw = dict(concurrency=6, goal_count=3) if mode == "async" else {}
+    base = simgrid.GridConfig(mesh=mesh_name, mode=mode, faults=faults, **kw)
+    ds = make_ds()
+
+    def init_fn(seed):
+        return {"dense": basic.init_dense(seed, "dense", 64, 4,
+                                          torch.float32, bias=True,
+                                          device="cpu")}
+
+    def run(gc):
+        return simgrid.run_grid(init_fn, loss_fn, ds, RC, n, grid=gc,
+                                seed=3, device="cpu")
+    straight = run(base)
+    h = straight.history
+    ckdir = os.path.join(out_dir, f"ckpt_{mode}")
+    killed = dataclasses.replace(
+        base, faults=dict(faults, server_kill_at=0.5 * (
+            h[lo]["virtual_seconds"] + h[lo + 1]["virtual_seconds"])),
+        checkpoint_every=2, checkpoint_dir=ckdir)
+    writes = []
+    save = gstate.save_state
+
+    def spy(path, meta, arrays):
+        writes.append(path)
+        return save(path, meta, arrays)
+    gstate.save_state = spy
+    try:
+        run(killed)
+        path = None
+    except faults_lib.ServerKilled as e:
+        path = e.checkpoint
+    finally:
+        gstate.save_state = save
+    dist.barrier()
+    resumed = run(dataclasses.replace(base, resume_from=path))
+    same = (straight.history == resumed.history
+            and straight.scheduler_stats == resumed.scheduler_stats
+            and straight.comm.measured_up_bytes
+            == resumed.comm.measured_up_bytes
+            and all(torch.equal(a, b) for a, b in
+                    zip(basic.tree_leaves(straight.y),
+                        basic.tree_leaves(resumed.y))))
+    return {"files": sorted(os.listdir(ckdir)), "writes": len(writes),
+            "path": path, "same": same}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (tests/test_torch_tp.py): the reduced configs' train
+# step and prefill on each rank's pieces
+
+
+TP_ROUND = dict(clients=4, tau=2, batch=1, seq=16)
+
+
+class FrozenSeen:
+    """Inside a ``with``, records the element counts of the frozen leaves
+    (``paths``) that the decoder LM's ``train_loss`` and ``forward``
+    receive: what the step's layers compute on, as against what the
+    caller placed."""
+
+    NAMES = ("train_loss", "forward")
+
+    def __init__(self, paths):
+        self.paths = set(paths)
+        self.seen = {}
+
+    def __enter__(self):
+        from repro_torch.models import decoder_lm as dlm
+        self.mod = dlm
+        self.real = {n: getattr(dlm, n) for n in self.NAMES}
+        for n, fn in self.real.items():
+            setattr(dlm, n, self._spy(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.mod, n, fn)
+
+    def _spy(self, fn):
+        def spy(params, *args, **kw):
+            for p, v in basic.flatten_params(params):
+                if p in self.paths:
+                    self.seen.setdefault(p, set()).add(v.numel())
+            return fn(params, *args, **kw)
+        return spy
+
+
+def tp_case(case, mesh):
+    """``specs.make_train_step`` (twice, from the same inputs) and
+    ``specs.make_tp_prefill_step`` for one reduced config: y, the server
+    state and the frozen tree placed as DTensors by the reference's rules,
+    the batch's rows on the data axes."""
+    from torch.distributed.tensor import DTensor
+    cfg = case["cfg"]
+    y, z = part.partition(basic.tree_map(torch.as_tensor, case["params"]),
+                          cfg.freeze_spec)
+    shard_y = shard_lib.param_shardings(y, cfg, mesh)
+    shard_z = shard_lib.param_shardings(z, cfg, mesh)
+
+    def placed(tree, pl):
+        return basic.tree_map(
+            lambda x, p: shard_lib.distribute(x, mesh, p), tree, pl)
+    zd = placed(z, shard_z)
+    step, sopt = specs.make_train_step(cfg, mesh, y, device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
+    w = torch.ones(batch["tokens"].shape[0])
+    runs = []
+    paths = [p for p, _ in basic.flatten_params(z)]
+    with FrozenSeen(paths) as train_seen:
+        for _ in range(2):
+            y_new, ss_new, m = step(placed(y, shard_y),
+                                    placed(sopt.init(y), shard_y), zd, batch,
+                                    w)
+            runs.append((numpy_tree(shard_lib.gathered(y_new)),
+                         float(m["loss"]), float(m["delta_norm"])))
+    prefill = specs.make_tp_prefill_step(cfg, mesh, "cpu")
+    tok = torch.as_tensor(case["prefill"])
+    tokd = shard_lib.distribute(
+        tok, mesh, shard_lib.batch_sharding({"t": tok}, mesh)["t"])
+    with FrozenSeen(paths) as prefill_seen:
+        logits = prefill(placed(y, shard_y), zd, {"tokens": tokd})
+    return {"runs": runs, "logits": logits.full_tensor().float().numpy(),
+            "logit_placements": repr(logits.placements),
+            "y_placements": {p: repr(v.placements) for p, v in
+                             basic.flatten_params(y_new)},
+            "frozen_local": {p: (v.to_local().numel(), v.numel(),
+                                 isinstance(v, DTensor))
+                             for p, v in basic.flatten_params(zd)},
+            "frozen_seen": {"train": train_seen.seen,
+                            "prefill": prefill_seen.seen},
+            "layout": specs.build_job(case["arch"], "train_4k", mesh,
+                                      cfg_override=cfg).layout}
+
+
+SPAWN_TIMEOUT = 420          # seconds a world may take, ranks together
+
+
+def spawn(world, tmp, init, *scenarios):
+    """Run this module on ``world`` ``gloo`` ranks (one process and one
+    intra-op thread a rank) over ``init`` (pickled into ``tmp``) within
+    SPAWN_TIMEOUT; returns each rank's results, in rank order."""
+    import subprocess
+    init_path = os.path.join(tmp, "init.pkl")
+    with open(init_path, "wb") as f:
+        pickle.dump(init, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    store = os.path.join(tmp, "store")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(r), str(world),
+         store, tmp, init_path, *scenarios],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SPAWN_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"rank {r}:\n{log[-2000:]}"
+              for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    assert not failed, "\n".join(failed)
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def main(rank, world, store, out_dir, init_path, scenarios="mesh"):
     torch.set_num_threads(1)
     with open(init_path, "rb") as f:
         init = pickle.load(f)
@@ -274,12 +466,18 @@ def main(rank, world, store, out_dir, init_path):
                             rank=rank, world_size=world)
     name = {4: "debug", 8: "debug-pod"}[world]
     mesh = mesh_lib.resolve_mesh(name, "cpu")
-    res = {"grid": grid_runs(init, name, debug=world == 4),
-           "wide": wide_runs(init, name, mesh),
-           "shardings": flat_shardings(mesh, name)}
-    if world == 4:
+    if scenarios == "tp":
+        res = {k: tp_case(case, mesh) for k, case in init["tp"].items()}
+    else:
+        res = {"grid": grid_runs(init, name, debug=world == 4),
+               "wide": wide_runs(init, name, mesh),
+               "shardings": flat_shardings(mesh, name)}
+    if world == 4 and scenarios != "tp":
         res["apply"] = apply_pairs(init, mesh)
-        res["train_step"] = train_step_case(init, mesh)
+        res["train_step"] = {k: train_step_case(init, mesh, k)
+                             for k in ("stablelm", "gathered")}
+        res["checkpoint"] = {mode: checkpoint_case(name, mode, out_dir)
+                             for mode in CKPT_CASES}
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     dist.barrier()
@@ -287,5 +485,4 @@ def main(rank, world, store, out_dir, init_path):
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-         sys.argv[5])
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])

@@ -3,7 +3,10 @@ reference's ``tests/test_multidevice.py`` with its tolerances and exact
 fields, on 4 ranks (``debug``, 2 x 2) and, for the async grid, on 8
 (``debug-pod``, 2 x 2 x 2); the meshed async grid against the
 reference's single-device run; and ``launch/specs.make_train_step`` on a
-reduced StableLM over 2 x 2 against the unsharded round.
+reduced StableLM (tensor-parallel) and a reduced Mixtral with 2-D
+experts (the gathered layout) over 2 x 2 against the unsharded round;
+and the grid's snapshots on 2 x 2, written once a world and resumed on
+every rank.
 
 The wide cases take every cross-rank step of the flat plane on both
 worlds: int8 uplinks, the screen (NaN, exponent-flipped and norm-outlier
@@ -21,9 +24,6 @@ worker's own scenario code and settings.
 """
 import dataclasses
 import os
-import pickle
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -48,12 +48,12 @@ from repro_torch.sim import grid as tgrid
 
 import _torch_mesh_worker as worker
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(ROOT, "tests", "_torch_mesh_worker.py")
-SPAWN_TIMEOUT = 420          # seconds a world may take, ranks together
 REL = 1e-5                   # tests/test_torch_grid.py's tolerance
 
 RC, RC_DP, PLAN, ASSIGN = worker.RC, worker.RC_DP, worker.PLAN, worker.ASSIGN
+# a reduced config that keeps make_train_step's gathered layout: Mixtral
+# with its experts on "data" and "model" (the 2-D mode)
+GATHERED_ARCH, GATHERED_OVER = "mixtral-8x7b", {"expert_shard": "2d"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -99,43 +99,13 @@ def single(rc, rounds, seed, **gkw):
                           device="cpu")
 
 
-def stablelm_round_inputs():
-    cfg = ttrain.reduced_config(get_config("stablelm-1.6b"), max_layers=2,
-                                d_model=128, vocab=300)
+def round_inputs(arch="stablelm-1.6b", **over):
+    cfg = ttrain.reduced_config(get_config(arch), max_layers=2, d_model=128,
+                                vocab=300).with_(**over)
     params = tdlm.init_model(cfg, 0, device="cpu")
     tok = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 2, 1, 16)).astype(np.int32)
     return cfg, params, {"tokens": tok, "labels": tok}
-
-
-def _spawn(world, tmp, init):
-    init_path = os.path.join(tmp, "init.pkl")
-    with open(init_path, "wb") as f:
-        pickle.dump(init, f)
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-    env.pop("JAX_PLATFORMS", None)
-    store = os.path.join(tmp, "store")
-    procs = [subprocess.Popen(
-        [sys.executable, WORKER, str(r), str(world), store, tmp, init_path],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=SPAWN_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    failed = [f"rank {r}:\n{log[-2000:]}"
-              for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
-    assert not failed, "\n".join(failed)
-    out = []
-    for r in range(world):
-        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-            out.append(pickle.load(f))
-    return out
 
 
 def _drain_cut():
@@ -168,9 +138,13 @@ def wide_inputs():
 @pytest.fixture(scope="module")
 def init():
     data = {s: init_numpy(s) for s in range(4)}
-    cfg, params, batch = stablelm_round_inputs()
+    cfg, params, batch = round_inputs()
+    gcfg, gparams, gbatch = round_inputs(GATHERED_ARCH, **GATHERED_OVER)
     data.update(stablelm_cfg=cfg, stablelm_batch=batch,
                 stablelm_params=tbasic.tree_map(lambda t: t.numpy(), params),
+                gathered_cfg=gcfg, gathered_batch=gbatch,
+                gathered_params=tbasic.tree_map(lambda t: t.numpy(),
+                                                gparams),
                 drain_cut=_drain_cut(),
                 wide={s: jax.tree_util.tree_map(np.asarray, jax_wide_init(s))
                       for s in range(3)},
@@ -180,12 +154,12 @@ def init():
 
 @pytest.fixture(scope="module")
 def world4(init, tmp_path_factory):
-    return _spawn(4, str(tmp_path_factory.mktemp("mesh4")), init)
+    return worker.spawn(4, str(tmp_path_factory.mktemp("mesh4")), init)
 
 
 @pytest.fixture(scope="module")
 def world8(init, tmp_path_factory):
-    return _spawn(8, str(tmp_path_factory.mktemp("mesh8")), init)
+    return worker.spawn(8, str(tmp_path_factory.mktemp("mesh8")), init)
 
 
 def _leaves(tree):
@@ -366,38 +340,80 @@ def test_async_mesh_matches_the_reference(world4):
         assert float(np.abs(a - b).max()) <= REL * float(np.abs(a).max())
 
 
-# the reduced StableLM round on 2 x 2 against the unsharded round: the two
-# data ranks' partial sums are added in another order than the one GEMV,
-# so the update is held by its norm (measured 0 on this CPU: see
-# CHANGES.md), within this bound
+# the reduced StableLM round on 2 x 2 against the unsharded round: the
+# step is tensor-parallel on "model" (each rank's partial products summed
+# in rank order, where one GEMM sums them in another) and the two data
+# ranks' partial sums are added in another order than the one GEMV, so
+# the update is held by its norm within this bound
 TRAIN_STEP_UPDATE_REL = 1e-5
 
 
-def test_train_step_on_mesh_matches_unsharded_round(world4, init):
-    cfg = init["stablelm_cfg"]
-    params = tbasic.tree_map(torch.as_tensor, init["stablelm_params"])
+def _train_step_matches_unsharded_round(world4, init, key):
+    """The meshed train step of ``key``'s reduced config (the worker's
+    ``train_step_case``) against the unsharded round: the loss, the
+    update within TRAIN_STEP_UPDATE_REL of its norm, the server state,
+    and y laid out by the reference's rules. Returns the rank-0 result."""
+    cfg = init[f"{key}_cfg"]
+    params = tbasic.tree_map(torch.as_tensor, init[f"{key}_params"])
     y, z = tpart.partition(params, cfg.freeze_spec)
     rc = tfedpt.RoundConfig(clients_per_round=0, local_steps=2,
                             local_batch=0, client_opt="sgd", client_lr=0.02,
                             server_opt="sgdm", server_lr=0.5)
     step, sopt = tfedpt.make_round_fn(
         lambda p, mb: tdlm.train_loss(p, cfg, mb), rc, device="cpu")
-    batch = {k: torch.as_tensor(v) for k, v in init["stablelm_batch"].items()}
+    batch = {k: torch.as_tensor(v) for k, v in init[f"{key}_batch"].items()}
     y_ref, ss_ref, m = step(y, sopt.init(y), z, batch, torch.ones(2), None)
-    got = world4[0]["train_step"]
+    got = world4[0]["train_step"][key]
     assert got["loss"] == pytest.approx(float(m["loss"]), rel=1e-6)
     num = den = 0.0
     for (path, a0), a, b in zip(tbasic.flatten_params(y), _leaves(y_ref),
                                 _leaves(got["y"])):
         num += float(((a - b).astype(np.float64) ** 2).sum())
         den += float(((a - a0.numpy()).astype(np.float64) ** 2).sum())
-    assert num ** 0.5 <= TRAIN_STEP_UPDATE_REL * den ** 0.5
+    assert den > 0 and num ** 0.5 <= TRAIN_STEP_UPDATE_REL * den ** 0.5
     for a, b in zip(_leaves(ss_ref), _leaves(got["ss"])):
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-7)
-    # y stays laid out by the reference's rules
     pl = got["placements"]
     assert pl["layers/slot0/attn/wq/kernel"] == "(Replicate(), Shard(dim=2))"
     assert pl["final_norm/scale"] == "(Replicate(), Replicate())"
+    return got
+
+
+def test_train_step_on_mesh_matches_unsharded_round(world4, init):
+    got = _train_step_matches_unsharded_round(world4, init, "stablelm")
+    assert got["tensor_parallel"]
+
+
+def test_gathered_train_step_on_mesh_matches_unsharded_round(world4, init):
+    """``make_train_step``'s gathered layout (a config that
+    ``sharding.tensor_parallel_ok`` refuses: a reduced Mixtral with 2-D
+    experts) on 2 x 2: y, the server state and the frozen tree gathered
+    for each data rank's clients, the flat plane on each rank's blocks,
+    and the new y laid out again by the rules."""
+    got = _train_step_matches_unsharded_round(world4, init, "gathered")
+    assert not got["tensor_parallel"]
+    assert all(w["train_step"]["gathered"]["loss"] == got["loss"]
+               for w in world4)
+
+
+@pytest.mark.parametrize("mode", list(worker.CKPT_CASES))
+def test_mesh_checkpoint_written_once_and_resumed_on_every_rank(world4,
+                                                                 mode):
+    """A 2 x 2 meshed grid with ``checkpoint_every=2``, killed between two
+    updates: each snapshot is one file, written by rank 0 of the world
+    alone (the other ranks wait at a barrier), and every rank resumes
+    from the path its kill carries into the uninterrupted meshed run, bit
+    for bit (history, scheduler stats, wire bytes, y)."""
+    res = [w["checkpoint"][mode] for w in world4]
+    files = res[0]["files"]
+    assert len(files) == 2                    # snapshots after 2 and 4
+    assert all(r["files"] == files for r in res)
+    assert res[0]["writes"] == len(files)
+    assert [r["writes"] for r in res[1:]] == [0] * (len(res) - 1)
+    assert os.path.basename(res[0]["path"]) == files[-1]
+    for r in res:
+        assert r["path"] == res[0]["path"]
+        assert r["same"]
 
 
 @pytest.mark.parametrize("mode", ["sync", "async"])

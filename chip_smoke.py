@@ -10,6 +10,7 @@
     python3 chip_smoke.py --ssm       # phase 9 alone (xLSTM-350M, Jamba-v0.1)
     python3 chip_smoke.py --vlm-encdec  # phase 10 alone (PaliGemma, Whisper)
     python3 chip_smoke.py --mesh      # phase 11 alone (the mesh)
+    python3 chip_smoke.py --examples  # phase 12 alone (examples_torch/)
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -306,7 +307,18 @@ package. Phases, in order, each failing the run on error:
    ``launch/dryrun`` subprocess (Mixtral-8x7B x train_4k in a fake (16,
    16) world on the host, tensor-parallel), its traced per-rank peak
    beside the card's memory and the largest tensors that hold it;
-12. print the ``kernels`` JSON line, the card's name and power limit,
+12. the examples: each ``examples_torch/`` twin's ``main`` in this
+   process on the card, at every invocation that ``ci.yml``'s
+   ``examples``, ``telemetry`` and ``chaos`` jobs make of the reference
+   example, the quickstart and ``dp_federated_lm`` at their defaults,
+   ``federated_llm_finetune`` on one id of each family (8 rounds) and
+   ``serve_longcontext`` as is; each run's own assertions, the kernels
+   its path must launch (counts set to 0 just before it), its wall
+   time, its traced event streams held by ``repro_torch.obs.schema``
+   (the kinds the CI requires, and causal ids) and the hostile
+   hierarchical run's metrics held to ``GOLDEN_telemetry_metrics.json``
+   by ``repro_torch.obs.compare`` with the CI's ``--fail-on`` counters;
+13. print the ``kernels`` JSON line, the card's name and power limit,
    and, last, the ``{"ok": true, "device": ...}`` line. Each phase prints
    its seconds on a line of its own.
 
@@ -2047,7 +2059,7 @@ def check_serving_kernels(dev, build_logs):
          lambda: ref.chunked_attention_ref(q, k, v, 0, chunk=swa.BK),
          lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
          ("swa_kernel",), nbytes, 4 * 32 * 128 * pairs)],
-        iters=(10, 1, 10), warmup=2, ops_per_s=BF16_OPS_PER_S)
+        iters=(10, 1, 10), warmup=1, ops_per_s=BF16_OPS_PER_S)
     f32p_ms = time_ms(f32p, 10, 2)
     f32p_dev = device_ms(f32p, ("swa_kernel",), 10)
     print(f"  swa_attention at (1, 32, {PREFILL_LEN}, 128) causal: round-once "
@@ -2104,10 +2116,10 @@ def check_serving_kernels(dev, build_logs):
               f"({label})")
     # under sustained load the kernel and SDPA run at the card's power limit
     for label, fn, iters in (
-            ("swa_attention round-once causal", round_p, 60),
-            ("swa_attention float32-p causal", f32p, 60),
+            ("swa_attention round-once causal", round_p, 20),
+            ("swa_attention float32-p causal", f32p, 20),
             ("scaled_dot_product_attention causal",
-             lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 120)):
+             lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 40)):
         ms, clock, watts = clock_power(fn, iters)
         print(f"  {label}, {iters} calls back to back: {ms:.3f} ms a call, "
               f"median SM clock {fmt_ms(clock)} MHz, median power "
@@ -4327,8 +4339,8 @@ def check_mla_kernel(dev):
     out = {"bound_ms": bound_ms, "bound_by": bound_by}
     for label, rp in (("round-once", True), ("float32-p", False)):
         fn = (lambda rp=rp: swa.swa_attention(q, k, v, round_p=rp))
-        ms = time_ms(fn, 10, 2)
-        dms = device_ms(fn, ("swa_kernel",), 10)
+        ms = time_ms(fn, 5, 1)
+        dms = device_ms(fn, ("swa_kernel",), 5)
         out[label] = (ms, dms)
         print(f"  swa_attention ({label}) at (1, {MLA_HEADS}, {PREFILL_LEN}, "
               f"{MLA_DK} / {MLA_DV}) causal: wrapper {ms:.3f} ms, device "
@@ -4353,10 +4365,10 @@ def check_mla_kernel(dev):
                            ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
         try:
             if backend is None:
-                ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 5, 1)
+                ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 3, 1)
             else:
                 with sdpa_kernel(backend):
-                    ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 5, 1)
+                    ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 3, 1)
             out.setdefault("library_ms", ms)
             print(f"  scaled_dot_product_attention ({label}) with Ev {MLA_DV} "
                   f"unlike E {MLA_DK}: {ms:.3f} ms")
@@ -5279,6 +5291,150 @@ def drive_mesh(ds, y0, frozen, ya, za, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the examples. Each examples_torch/ twin's main, in this process,
+# on the card, at the reference CI's invocations (.github/workflows/ci.yml's
+# examples, telemetry and chaos jobs), the quickstart and dp_federated_lm
+# at their defaults, federated_llm_finetune on one id of each family and
+# serve_longcontext as is
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples_torch")
+QDQ = ("fake_quantize_flat", "fake_quantize_flat/cluster")
+# the async grid at uplink_bits=8: delta_norm's sumsq and the lane's Q->DQ
+ASYNC_KERNELS = ("sumsq",) + QDQ
+# the golden gate of the CI's telemetry job
+FAIL_ON = ("counter.dispatches", "counter.uploads", "counter.dropouts",
+           "counter.crashes", "counter.truncated", "counter.duplicates",
+           "counter.corrupted", "counter.quarantined")
+# one id of each family: MoE, MLA, the SSMs (xLSTM, Jamba), the VLM and
+# the encoder-decoder; each reference run's loss falls over 8 rounds on
+# the CPU
+FINETUNE_ARCHS = ("mixtral-8x7b", "deepseek-v2-236b", "xlstm-350m",
+                  "jamba-v0.1-52b", "paligemma-3b", "whisper-large-v3")
+# (CI job, twin, argv, kernels that must launch, schema checks: argv of
+# repro_torch.obs.schema, relative to the run's directory)
+EXAMPLE_RUNS = [
+    ("examples", "async_heterogeneous",
+     ["--rounds", "4", "--trace", "trace.json", "--trace-jsonl",
+      "trace.jsonl"], ASYNC_KERNELS, []),
+    ("examples", "async_heterogeneous", ["--tiers", "--rounds", "4"],
+     ASYNC_KERNELS, []),
+    ("examples", "async_heterogeneous", ["--regions", "--rounds", "4"],
+     ASYNC_KERNELS, []),
+    ("examples", "async_heterogeneous", ["--chaos", "--rounds", "4"],
+     ASYNC_KERNELS, []),
+    ("examples", "adaptive_tiers", ["--rounds", "8"], QDQ, []),
+    ("telemetry", "async_heterogeneous",
+     ["--rounds", "3", "--trace", "t3.json", "--trace-jsonl", "t3.jsonl"],
+     ASYNC_KERNELS,
+     [["t3.jsonl", "--perfetto", "t3.json", "--require", "dispatch",
+       "upload", "flush"], ["t3.jsonl", "--require-ids"]]),
+    ("telemetry", "async_heterogeneous",
+     ["--regions", "--rounds", "6", "--trace", "regions.json",
+      "--trace-jsonl", "regions.jsonl"], ASYNC_KERNELS,
+     [["regions.jsonl", "--perfetto", "regions.json", "--require",
+       "dispatch", "upload", "flush", "edge_flush", "shock"],
+      ["regions.jsonl", "--require-ids"]]),
+    ("telemetry", "async_heterogeneous",
+     ["--chaos", "--regions", "--rounds", "4", "--trace-jsonl",
+      "combined.jsonl", "--report", "report.md", "--metrics-out",
+      "metrics.json"], ASYNC_KERNELS,
+     [["combined.jsonl", "--require-ids", "--require", "dispatch",
+       "upload", "flush", "edge_flush", "fault", "quarantine"]]),
+    ("chaos", "async_heterogeneous",
+     ["--chaos", "--rounds", "4", "--trace", "chaos.json", "--trace-jsonl",
+      "chaos.jsonl"], ASYNC_KERNELS,
+     [["chaos.jsonl", "--perfetto", "chaos.json", "--require", "fault",
+       "quarantine", "checkpoint"]]),
+    ("default", "quickstart", [], ("sumsq",), []),
+    ("default", "dp_federated_lm", [], ("sumsq",), []),
+] + [("family", "federated_llm_finetune",
+      ["--arch", arch, "--rounds", "8"], ("sumsq",), [])
+     for arch in FINETUNE_ARCHS] + [
+    ("default", "serve_longcontext", [], (), []),
+]
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (its main not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drive_examples(dev) -> dict:
+    """Phase 12: every run of EXAMPLE_RUNS from a directory of its own
+    (the relative file arguments land there), the launch counts set to 0
+    just before its main and read just after; its kernels, schema checks
+    and wall time; the golden gate on the hostile hierarchical run's
+    metrics; serve_longcontext's caches and decoded lengths. Returns the
+    launch counts summed over the runs."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.obs import compare, schema
+    total = {name: 0 for name in {**kernels.LAUNCHES, **kernels.ROUTES}}
+    here = os.getcwd()
+    walls = []
+    with tempfile.TemporaryDirectory(prefix="examples_") as tmp:
+        for i, (job, name, argv, expect, checks) in enumerate(EXAMPLE_RUNS):
+            label = " ".join([f"examples_torch/{name}.py"] + argv)
+            run_dir = os.path.join(tmp, f"run{i}")
+            os.makedirs(run_dir)
+            main = load_example(name).main
+            os.chdir(run_dir)
+            try:
+                print(f"[examples] {label} ({job})")
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                out = main(list(argv) + ["--device", str(dev)])
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = {**kernels.LAUNCHES, **kernels.ROUTES}
+                for check in checks:
+                    if schema.main(list(check)) != 0:
+                        raise AssertionError(f"{label}: schema check "
+                                             f"{check} failed")
+                if "--metrics-out" in argv:
+                    gate = [os.path.join(ROOT,
+                                         "GOLDEN_telemetry_metrics.json"),
+                            "metrics.json", "--changed-only", "-o",
+                            "metrics_diff.md"]
+                    for counter in FAIL_ON:
+                        gate += ["--fail-on", counter]
+                    if compare.main(gate) != 0:
+                        raise AssertionError(f"{label}: the metrics drift "
+                                             f"from the golden")
+                    print("  golden gate: every --fail-on counter within "
+                          "tolerance")
+            finally:
+                os.chdir(here)
+            check_expected(label, counts, expect)
+            if name == "serve_longcontext":
+                for arch, rec in out.items():
+                    if rec["decoded"] != 48 or rec["tokens"].shape != (2, 56):
+                        raise AssertionError(f"{label}: {arch} decoded "
+                                             f"{rec['tokens'].shape}")
+            # the unscreened chaos run is meant to NaN-poison; the twin
+            # asserts the screened one finite
+            runs = out.get("runs", {"": out})
+            losses = [v for run, r in runs.items() if run != "async unscreened"
+                      for v in r.get("losses", [])]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{label}: non-finite loss")
+            print(f"[examples] {label}: {wall:.1f} s wall; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            walls.append((label, wall))
+            for k in total:
+                total[k] += counts[k]
+    print(f"[examples] {len(walls)} runs in "
+          f"{sum(w for _, w in walls):.1f} s of wall time")
+    return total
+
+
 def mesh_only() -> int:
     """``--mesh``: build the kernels and drive phase 11 (the mesh) alone."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -5301,6 +5457,23 @@ def mesh_only() -> int:
                                           device=dev)
     print(f"[mesh] launches {drive_mesh(ds, y0, frozen, ya, za, dev)}")
     print(f"[mesh] phase 11 took {time.perf_counter() - t11:.1f} s")
+    return 0
+
+
+def examples_only() -> int:
+    """``--examples``: build the kernels and drive phase 12 (the
+    examples) alone."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build_all()
+    print(f"[examples] card {card_line()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t12 = time.perf_counter()
+    print(f"[examples] launches {drive_examples(dev)}")
+    print(f"[examples] phase 12 took {time.perf_counter() - t12:.1f} s")
     return 0
 
 
@@ -5576,6 +5749,15 @@ def sweep() -> int:
     return 0
 
 
+def timed(what: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds printed on a line of its own:
+    a phase's breakdown."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"[time] {what}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def phase_seconds(n: int, what: str, t0: float) -> float:
     """Print phase ``n``'s seconds since ``t0`` on a line of its own;
     returns the time now, the next phase's start."""
@@ -5603,10 +5785,13 @@ def main(argv) -> int:
         return vlm_encdec_only()
     if argv == ["--mesh"]:
         return mesh_only()
+    if argv == ["--examples"]:
+        return examples_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               f"[--kernel-times SRC | --dp-ftrl SRC | --sweep | --mixtral | "
-              f"--deepseek | --ssm | --vlm-encdec | --mesh]", file=sys.stderr)
+              f"--deepseek | --ssm | --vlm-encdec | --mesh | --examples]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import kernels
@@ -5666,13 +5851,17 @@ def main(argv) -> int:
 
     # --- phase 2: kernels against their plain versions -------------------
     print("[kernels] against their plain versions at the main paths' shapes")
-    records = (check_kernels(layout, layout_a, dev)
-               + check_fused_kernels(layout_a, dev)
-               + check_clip_kernels(layout, layout_a, dev)
-               + check_serving_kernels(dev, logs))
-    check_tier_kernels(tier_layouts(y0)[1][1:], dev)
-    check_mla_kernel(dev)
-    check_vlm_encdec_kernels(dev)
+    records = (timed("check_kernels", check_kernels, layout, layout_a, dev)
+               + timed("check_fused_kernels", check_fused_kernels, layout_a,
+                       dev)
+               + timed("check_clip_kernels", check_clip_kernels, layout,
+                       layout_a, dev)
+               + timed("check_serving_kernels", check_serving_kernels, dev,
+                       logs))
+    timed("check_tier_kernels", check_tier_kernels,
+          tier_layouts(y0)[1][1:], dev)
+    timed("check_mla_kernel", check_mla_kernel, dev)
+    timed("check_vlm_encdec_kernels", check_vlm_encdec_kernels, dev)
     # the redesigned kernels' A/B timings (ab_times) left the default run
     # for phase 11's time: `chip_smoke.py --kernel-times src` prints them
     free_flush()
@@ -5716,21 +5905,24 @@ def main(argv) -> int:
     # --- phase 4: the paper's ResNet-18-GN and SO transformer ------------
     bl_so, _, _ = so_lane_block_leaf("cpu")
     for path in MODEL_SHAPES:
-        pt, ys, zs = model_task(path, dev)
+        pt, ys, zs = timed(f"model_task {path}", model_task, path, dev)
         if path == "SO PT" and not np.array_equal(
                 bl_so.numpy(), flat_lib.FlatLayout.of(ys).block_leaf()):
             raise AssertionError("so_lane_block_leaf differs from the SO "
                                  "PT layout's map")
         draws = task_draws(pt, ROUNDS + 1)
-        check_model_round(path, pt, ys, zs, *draws[0], dev)
-        counts = drive_model_path(path, pt, ys, zs, draws, ("sumsq",), dev)
+        timed(f"check_model_round {path}", check_model_round, path, pt, ys,
+              zs, *draws[0], dev)
+        counts = timed(f"drive_model_path {path}", drive_model_path, path,
+                       pt, ys, zs, draws, ("sumsq",), dev)
         if path == "SO PT":
             counts = {k: counts[k] + v for k, v in
-                      drive_so_async(pt, dev).items()}
+                      timed("drive_so_async", drive_so_async, pt,
+                            dev).items()}
         for name in launches:
             launches[name] += counts[name]
         del pt, ys, zs
-    counts = drive_dp_ftrl(dev)
+    counts = timed("drive_dp_ftrl", drive_dp_ftrl, dev)
     for name in launches:
         launches[name] += counts[name]
     t0 = phase_seconds(4, "ResNet-18-GN and the SO transformer", t0)
@@ -5783,7 +5975,12 @@ def main(argv) -> int:
         launches[name] += n
     t0 = phase_seconds(11, "the mesh", t0)
 
-    # --- phase 12: summary -----------------------------------------------
+    # --- phase 12: the examples ------------------------------------------
+    for name, n in drive_examples(dev).items():
+        launches[name] += n
+    t0 = phase_seconds(12, "the examples", t0)
+
+    # --- phase 13: summary -----------------------------------------------
     if len(records) != 10:
         raise AssertionError(f"{len(records)} kernel records, not 10")
     for rec in records:
@@ -5793,7 +5990,7 @@ def main(argv) -> int:
                                  f"a main path")
     print(f"[main path] launches by route: "
           f"{ {k: v for k, v in launches.items() if '/' in k} }")
-    print(f"[phase 12] the script took {time.perf_counter() - t_run:.1f} s")
+    print(f"[phase 13] the script took {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,11 @@ the ambient group the decoder LM's layers read, and :func:`tp_copy`,
 :func:`tp_reduce`, :func:`tp_gather` and :func:`tp_max` are its
 collectives with a gradient and a ``torch.func.vmap`` rule, every sum in
 rank order.
+
+A serving step whose batch rows are split over the data axes sets the
+ambient :class:`DataSplit` (:func:`data_split`): an MoE layer then counts
+its capacity and slot ranks over the global batch, as the reference's
+one GSPMD program does, through :func:`data_gather`.
 """
 from __future__ import annotations
 
@@ -378,3 +383,61 @@ def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     parts = _Stack.apply(x, tp)                       # (size, ...)
     parts = parts.movedim(0, dim)                     # (..., size, n, ...)
     return parts.reshape(x.shape[:dim] + (-1,) + x.shape[dim + 1:])
+
+
+# ---------------------------------------------------------------------------
+# A batch split over the data axes
+#
+# The reference's prefill and decode are one program over the global
+# batch: an MoE layer's capacity and each entry's slot rank are counted
+# over all of its rows. A meshed step that gives each data rank its own
+# rows keeps that rule through the ambient ``DataSplit`` (one a thread):
+# ``nn/moe`` gathers every data rank's per-expert counts (one small
+# integer all-gather over the flattened data axes, in global row order)
+# and ranks its entries after the earlier data ranks'. A data rank with
+# no rows still joins the gather. With no split, or a data axis of one
+# rank, nothing is gathered. The train step sets none: in both packages
+# each client's tokens form their own MoE call.
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSplit:
+    """The data ranks a batch's rows are split over: their process group
+    (the flattened ``("pod", "data")`` axes), their number, this rank's
+    pod-major index, and the global batch's row count."""
+    group: object
+    size: int
+    rank: int
+    rows: int
+
+
+_DS = threading.local()
+
+
+@contextlib.contextmanager
+def data_split(ds: Optional[DataSplit]):
+    """Make ``ds`` the ambient data split inside the block (of this
+    thread)."""
+    stack = _DS.__dict__.setdefault("stack", [])
+    stack.append(ds)
+    try:
+        yield ds
+    finally:
+        stack.pop()
+
+
+def current_data_split() -> Optional[DataSplit]:
+    """The ambient ``DataSplit``, or None when there is none or it spans
+    one rank."""
+    stack = getattr(_DS, "stack", None)
+    ds = stack[-1] if stack else None
+    return ds if ds is not None and ds.size > 1 else None
+
+
+def data_gather(t: torch.Tensor) -> torch.Tensor:
+    """(...) on each data rank of the ambient split -> (size, ...), the
+    ranks' tensors in data-rank order (no gradient)."""
+    ds = current_data_split()
+    if ds is None:
+        return t[None]
+    return all_gather(t.detach()[None], ds.group)

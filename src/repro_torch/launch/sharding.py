@@ -212,6 +212,29 @@ def batch_sharding(tree_struct, mesh, batch_axes=("pod", "data"),
     return basic.tree_map(one, tree_struct)
 
 
+def batch_split(mesh, tokens) -> mesh_lib.DataSplit:
+    """The data split of a step's batch rows ``tokens``: a DTensor's rows
+    (dim 0) split over every data axis of more than one rank, in
+    ``torch.chunk``'s pieces (the last short or empty), or over none (a
+    whole tensor, or rows replicated). Uses the flat plane's data group
+    (:class:`FlatPlane`)."""
+    from torch.distributed.tensor import DTensor
+    rows = int(tokens.shape[0])
+    if not isinstance(tokens, DTensor):
+        return mesh_lib.DataSplit(None, 1, 0, rows)
+    names = mesh_lib.axis_names(mesh)
+    sizes = mesh_lib.axis_sizes(mesh)
+    axes = [a for a in mesh_lib.data_axes(mesh) if sizes[a] > 1]
+    on = [a for a in axes if tokens.placements[names.index(a)] == Shard(0)]
+    if not on:
+        return mesh_lib.DataSplit(None, 1, 0, rows)
+    if on != axes:
+        raise NotImplementedError(f"batch rows split over {on} but not over "
+                                  f"every data axis {axes}")
+    plane = flat_constrainer(mesh)
+    return mesh_lib.DataSplit(plane.data_group, plane.D, plane.d, rows)
+
+
 def cache_shardings(cache_struct, cfg: ModelConfig, mesh, long_context: bool):
     """KV-cache / SSM-state placements for serving.
 

@@ -220,8 +220,10 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
     laid out again (``constrain_fn``). Either way the batch and weights
     are gathered on entry, each data rank trains its clients, and the
     flat plane (``sharding.flat_constrainer``) aggregates each rank's
-    block of the delta buffer. The round has no DP noise, so ``seed``
-    draws nothing. Runs on ``device`` (CUDA unless ``device="cpu"``)."""
+    block of the delta buffer. Each client's tokens form their own MoE
+    call, in the reference's round as here, so no data split is set. The
+    round has no DP noise, so ``seed`` draws nothing. Runs on ``device``
+    (CUDA unless ``device="cpu"``)."""
     rc = fedpt.RoundConfig(clients_per_round=0, local_steps=2, local_batch=0,
                            client_opt="sgd", client_lr=0.02,
                            server_opt="sgdm", server_lr=0.5)
@@ -337,12 +339,13 @@ def make_tp_prefill_step(cfg: ModelConfig, mesh, device=None):
     V), its vocab split on "model" where the unembedding's is, its rows
     on the data axes where the batch's are. Each rank runs
     :func:`make_prefill_step`'s forward on its pieces of ``y`` and the
-    frozen tree (DTensors or whole) and its data rank's rows (so an
-    MoE's capacity is counted over those rows, as a serving replica
-    batches its own requests): attention on its heads through
-    ``flash_attention`` (the ``swa_attention`` kernel on the card), the
-    FFN or experts on its pieces; no parameter is gathered. A caller that wants whole logits asks the DTensor
-    (``full_tensor()``)."""
+    frozen tree (DTensors or whole) and its data rank's rows: attention
+    on its heads through ``flash_attention`` (the ``swa_attention`` kernel
+    on the card), the FFN or experts on its pieces; no parameter is
+    gathered. An MoE's capacity and slot ranks are counted over the
+    global batch, as the reference's forward counts them
+    (``sharding.batch_split``). A caller that wants whole logits asks the
+    DTensor (``full_tensor()``)."""
     step = make_prefill_step(cfg, device)
     tp = mesh_lib.model_parallel(mesh)
     names = mesh_lib.axis_names(mesh)
@@ -354,7 +357,8 @@ def make_tp_prefill_step(cfg: ModelConfig, mesh, device=None):
         zl = shard_lib.local_pieces(
             frozen, shard_lib.param_shardings(frozen, cfg, mesh), mesh)
         tokens = batch["tokens"]
-        with mesh_lib.tensor_parallel(tp):
+        with mesh_lib.tensor_parallel(tp), mesh_lib.data_split(
+                shard_lib.batch_split(mesh, tokens)):
             logits = step(yl, zl, _data_local(batch))
         rows = (tokens.placements if isinstance(tokens, DTensor)
                 else (Replicate(),) * len(names))
@@ -366,6 +370,22 @@ def make_tp_prefill_step(cfg: ModelConfig, mesh, device=None):
         return shard_lib.from_local(logits, mesh, pl, shape)
 
     return prefill
+
+
+def make_mesh_decode_step(cfg: ModelConfig, mesh, device=None):
+    """The data-parallel decode on ``mesh``: serve_step(y, frozen, cache,
+    tokens) -> (this data rank's logits (B_local, 1, V), its cache), the
+    parameters gathered whole, the cache's "model" shards gathered for
+    its rows; an MoE's capacity and slot ranks counted over the global
+    batch's ``B`` rows (``sharding.batch_split``)."""
+    step = make_decode_step(cfg, device)
+
+    def decode(y, frozen, cache, tokens):
+        with mesh_lib.data_split(shard_lib.batch_split(mesh, tokens)):
+            return step(shard_lib.gathered(y), shard_lib.gathered(frozen),
+                        _data_local(cache), _data_local(tokens))
+
+    return decode
 
 
 def build_job(arch: str, shape: str, mesh, cfg_override=None,
@@ -411,20 +431,20 @@ def build_job(arch: str, shape: str, mesh, cfg_override=None,
             step = make_prefill_step(cfg, device)
 
             def prefill(y, frozen, batch):
-                return step(shard_lib.gathered(y),
-                            shard_lib.gathered(frozen), _data_local(batch))
+                # an MoE's capacity and slot ranks over the global batch
+                with mesh_lib.data_split(
+                        shard_lib.batch_split(mesh, batch["tokens"])):
+                    return step(shard_lib.gathered(y),
+                                shard_lib.gathered(frozen),
+                                _data_local(batch))
         args = (y_struct, z_struct, batch)
         inshard = (shard_y, shard_z, shard_lib.batch_sharding(batch, mesh))
         return LoweringJob(arch, shape, prefill, args, inshard, cfg,
                            layout=layout)
 
     cache, tokens = decode_specs(cfg, info["seq"], info["global_batch"])
-    step = make_decode_step(cfg, device)
+    decode = make_mesh_decode_step(cfg, mesh, device)
     long_ctx = shape == "long_500k"
-
-    def decode(y, frozen, cache, tokens):
-        return step(shard_lib.gathered(y), shard_lib.gathered(frozen),
-                    _data_local(cache), _data_local(tokens))
     shard_cache = shard_lib.cache_shardings(cache, cfg, mesh, long_ctx)
     tok_shard = (shard_lib.batch_sharding(tokens, mesh)
                  if not long_ctx else rep)

@@ -215,7 +215,8 @@ def _ffn(h2, sp, cfg: ModelConfig, slot: Slot):
         return basic.mlp(h2, sp["ffn"], cfg.act, cfg.cdtype,
                          d_ff=cfg.d_ff), None
     B, S, D = h2.shape
-    y, aux = moe_lib.moe_ffn(h2.reshape(B * S, D), sp["moe"], cfg)
+    y, aux = moe_lib.moe_ffn(h2.reshape(B * S, D), sp["moe"], cfg,
+                             row_len=S)
     return y.reshape(B, S, D), aux
 
 
@@ -272,7 +273,7 @@ def _attend(x, h, sp, cfg: ModelConfig, positions, attention, causal=True,
         o = attention(q, k, v, cfg, causal=causal, prefix_len=prefix_len)
         cache = (k, v)
     del q, k, v
-    o = basic.dense(o.reshape(o.shape[0], o.shape[1], -1), sp["attn"]["wo"], cd)
+    o = basic.dense(o.flatten(2), sp["attn"]["wo"], cd)
     return x + o, cache
 
 
@@ -300,7 +301,7 @@ def _cross_attend(x, encoder_out, sp, cfg: ModelConfig, attention):
     kc, vc = _cross_kv(encoder_out, sp["cross_attn"], cfg)
     oc = attention(_cross_q(x, sp, cfg), kc, vc, cfg.with_(sliding_window=0),
                    causal=False)
-    return basic.dense(oc.reshape(oc.shape[0], oc.shape[1], -1),
+    return basic.dense(oc.flatten(2),
                        sp["cross_attn"]["wo"], cfg.cdtype)
 
 
@@ -595,7 +596,7 @@ def _decode_slot(x, sp, cfg: ModelConfig, slot: Slot, cache, cache_len: int,
             oc = attn_lib.decode_attention(
                 _cross_q(x, sp, cfg), cross["k"], cross["v"],
                 cross["k"].shape[1], cfg.with_(sliding_window=0))
-            x = x + basic.dense(oc.reshape(oc.shape[0], 1, -1),
+            x = x + basic.dense(oc.flatten(2),
                                 sp["cross_attn"]["wo"], cfg.cdtype)
     h2 = basic.apply_norm(x, sp["ln2"], cfg.norm_type)
     return x + _ffn(h2, sp, cfg, slot)[0], cache
@@ -624,7 +625,7 @@ def _decode_attend(h, sp, cfg: ModelConfig, cache, cache_len: int, pos):
     cache["v"][:, widx:widx + 1] = v.to(cache["v"].dtype)
     o = attn_lib.decode_attention(q, cache["k"], cache["v"], cl_eff,
                                   cfg.with_(sliding_window=0))
-    return basic.dense(o.reshape(o.shape[0], 1, -1), sp["attn"]["wo"], cd)
+    return basic.dense(o.flatten(2), sp["attn"]["wo"], cd)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens):

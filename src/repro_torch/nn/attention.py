@@ -165,7 +165,8 @@ def tp_attention(h, p, cfg: ModelConfig, positions, attention, causal=True,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     o = attention(q, k, v, cfg, causal=causal, prefix_len=prefix_len)
-    o = o.reshape(b, s, -1)[..., q0 - lo * hd:q1 - lo * hd]
+    # the width named, not -1: a data rank with no rows has b = 0
+    o = o.reshape(b, s, nq * hd)[..., q0 - lo * hd:q1 - lo * hd]
     return basic.row_parallel(o, p["wo"], cd), (k, v)
 
 

@@ -18,6 +18,15 @@ atomics, and at k = 2 the reference's bits given the same expert outputs
 ((0 + a) + b is commutative). Every step is a ``torch.func.vmap``-
 batchable op, since the round engine vmaps the clients.
 
+A serving step whose batch rows are split over data ranks (the meshed
+prefill and decode, ``launch/mesh.data_split``) keeps the reference's
+global-batch rule: the capacity is counted over the global batch's
+tokens and each entry's rank within its expert is its place in the
+global stable order, its local rank plus the earlier data ranks' counts
+for that expert (one small integer all-gather). The expert FFN is
+row-independent, so a rank keeps its local buffer and marks ``keep``
+from the global rank.
+
 The reference's three sharding hints sit at its sites
 (``nn/basic.maybe_constrain``: the dispatch buffer, the experts' hidden
 activations, their outputs), no-ops without an ambient mesh or on plain
@@ -89,14 +98,32 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
                             / cfg.num_experts * cfg.moe_capacity_factor)))
 
 
-def _sort_dispatch(x, w, idx, e: int, cap: int, cd):
+def _global_slots(idx, cfg: ModelConfig, row_len):
+    """Under a data split (``launch/mesh.current_data_split``): the
+    capacity of the global batch's tokens (``row_len`` positions a row)
+    and, per expert, the count of the earlier data ranks' entries routed
+    to it (an exclusive prefix in data-rank order, the global row
+    order)."""
+    ds = mesh_lib.current_data_split()
+    if row_len is None:
+        raise ValueError("moe_ffn on a batch split over data ranks needs "
+                         "row_len, the positions a row")
+    e = cfg.num_experts
+    counts = _one_hot(idx.reshape(-1).long(), e, torch.long).sum(0)
+    every = mesh_lib.data_gather(counts)                  # (D, E)
+    return capacity(ds.rows * row_len, cfg), every[:ds.rank].sum(0)
+
+
+def _sort_dispatch(x, w, idx, e: int, cap: int, cd, offset=None):
     """Dispatch of (T, d) tokens into an (E, cap, d) buffer.
 
     Entry f = t * k + j (token t's j-th expert) takes slot ``expert * cap
     + rank``, its rank being the count of earlier entries routed to the
-    same expert (the reference's stable-sort position); ranks from cap on
-    are dropped. Returns (buf, meta), meta = (slot, keep, weight) per
-    entry in token order for :func:`_combine_local`."""
+    same expert (the reference's stable-sort position), plus
+    ``offset[expert]`` (the earlier data ranks' entries, from
+    :func:`_global_slots`); ranks from cap on are dropped. Returns (buf,
+    meta), meta = (slot, keep, weight) per entry in token order for
+    :func:`_combine_local`."""
     T, d = x.shape
     k = idx.shape[1]
     n = T * k
@@ -108,6 +135,8 @@ def _sort_dispatch(x, w, idx, e: int, cap: int, cd):
     pos = pos.gather(0, flat_e[None, :])[0] - 1
     counts = hot.sum(1)
     rank = pos - (torch.cumsum(counts, 0) - counts).gather(0, flat_e)
+    if offset is not None:
+        rank = rank + offset.gather(0, flat_e)
     keep = rank < cap
     entry = torch.arange(n, device=x.device)
     # a dropped entry takes a drop row of its own past the E*cap slots, so
@@ -127,7 +156,8 @@ def _combine_local(y_flat, meta, T: int, e: int, cap: int, cd):
     d = y_flat.shape[-1]
     rows = y_flat.index_select(0, torch.clamp_max(slot, e * cap - 1))
     gathered = torch.where(keep[:, None], rows, 0.0) * sw[:, None].to(cd)
-    gathered = gathered.reshape(T, -1, d)
+    # k named, not -1: a data rank with no rows has T = 0
+    gathered = gathered.reshape(T, slot.shape[-1] // max(T, 1), d)
     out = torch.zeros((T, d), dtype=cd, device=y_flat.device)
     for j in range(gathered.shape[1]):
         out = out + gathered[:, j]
@@ -199,20 +229,29 @@ def _partial_meta(meta):
     return slot, keep, mesh_lib.tp_copy(sw)
 
 
-def moe_ffn(x, p, cfg: ModelConfig):
+def moe_ffn(x, p, cfg: ModelConfig, row_len=None):
     """x: (T, d) flat tokens -> ((T, d), aux loss).
 
     Capacity from :func:`capacity`. With ``cfg.moe_dispatch_groups > 1``
     (and T divisible into groups of at least k tokens) routing, dispatch
-    and combine run per group (:func:`_moe_ffn_grouped`)."""
+    and combine run per group (:func:`_moe_ffn_grouped`). Under a data
+    split the capacity and the slot ranks are the global batch's
+    (:func:`_global_slots`; ``row_len``: the positions of a row); the aux
+    loss stays this rank's tokens'."""
     T, d = x.shape
     g = cfg.moe_dispatch_groups
+    split_rows = mesh_lib.current_data_split() is not None
+    if split_rows and g and g > 1:
+        raise NotImplementedError(
+            f"moe_dispatch_groups={g} on a batch split over data ranks: "
+            "the reference's groups span the global batch")
     if g and g > 1 and T % g == 0 and T // g >= cfg.num_experts_per_tok:
         return _moe_ffn_grouped(x, p, cfg, g)
     e = cfg.num_experts
-    cap = capacity(T, cfg)
     cd = cfg.cdtype
     w, idx, aux = router_topk(x, p, cfg)
+    cap, offset = ((capacity(T, cfg), None) if not split_rows
+                   else _global_slots(idx, cfg, row_len))
     # the expert dim's mesh axis mirrors launch/sharding.py: "data" for
     # huge banks (2-D expert sharding), else "model" (the FFN dim then
     # left to the weights' own layout)
@@ -221,7 +260,7 @@ def moe_ffn(x, p, cfg: ModelConfig):
     else:
         expert_axis, ff_axis = "model", None
     split = _expert_split(p, cfg)
-    buf, meta = _sort_dispatch(x, w, idx, e, cap, cd)
+    buf, meta = _sort_dispatch(x, w, idx, e, cap, cd, offset)
     buf = basic.maybe_constrain(buf, (expert_axis, None, None))
     y = _experts_tp(buf, p, cfg, cd, split, ff_axis)
     y = basic.maybe_constrain(y, (expert_axis, None, None))

@@ -23,6 +23,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
+from torch.distributed.tensor import Replicate, Shard  # noqa: E402
 
 from repro_torch.core import dp as dp_lib  # noqa: E402
 from repro_torch.core import fedpt  # noqa: E402
@@ -338,6 +339,7 @@ def checkpoint_case(mesh_name, mode, out_dir):
 
 
 TP_ROUND = dict(clients=4, tau=2, batch=1, seq=16)
+DECODE_MAX_LEN = 8           # the decode cases' cache length
 
 
 class FrozenSeen:
@@ -403,11 +405,19 @@ def tp_case(case, mesh):
                          float(m["loss"]), float(m["delta_norm"])))
     prefill = specs.make_tp_prefill_step(cfg, mesh, "cpu")
     tok = torch.as_tensor(case["prefill"])
-    tokd = shard_lib.distribute(
-        tok, mesh, shard_lib.batch_sharding({"t": tok}, mesh)["t"])
+    # the rows on every data axis, in torch.chunk's pieces (batch_sharding's
+    # placements where the rows divide; else uneven, the last piece empty)
+    rows = tuple(Shard(0) if n in mesh_lib.data_axes(mesh) else Replicate()
+                 for n in mesh_lib.axis_names(mesh))
+    tokd = shard_lib.distribute(tok, mesh, rows)
     with FrozenSeen(paths) as prefill_seen:
         logits = prefill(placed(y, shard_y), zd, {"tokens": tokd})
+    decode = None
+    if "decode" in case:
+        decode = decode_case(cfg, mesh, part.merge(y, z), y, z,
+                             torch.as_tensor(case["decode"]), rows)
     return {"runs": runs, "logits": logits.full_tensor().float().numpy(),
+            "decode": decode,
             "logit_placements": repr(logits.placements),
             "y_placements": {p: repr(v.placements) for p, v in
                              basic.flatten_params(y_new)},
@@ -418,6 +428,36 @@ def tp_case(case, mesh):
                             "prefill": prefill_seen.seen},
             "layout": specs.build_job(case["arch"], "train_4k", mesh,
                                       cfg_override=cfg).layout}
+
+
+def warm_cache(cfg, params, tokens):
+    """The decode cache after the unmeshed ``decode_step`` has taken every
+    column of ``tokens`` (B, n) but the last: the state the meshed step
+    starts from."""
+    from repro_torch.models import decoder_lm as dlm
+    cache = dlm.init_cache(cfg, tokens.shape[0], DECODE_MAX_LEN,
+                           device="cpu")
+    for i in range(tokens.shape[1] - 1):
+        _, cache = dlm.decode_step(params, cfg, cache, tokens[:, i:i + 1])
+    return cache
+
+
+def decode_case(cfg, mesh, params, y, z, tokens, rows):
+    """``specs.make_mesh_decode_step`` on the warm cache's rows split over
+    the data axes (its sequence on "model", by ``cache_shardings``) for
+    the last column of ``tokens``: the whole batch's logits, gathered."""
+    cache = warm_cache(cfg, params, tokens)
+    pl = shard_lib.cache_shardings(cache, cfg, mesh, False)
+    cached = {"cache_len": cache["cache_len"],
+              "slots": basic.tree_map(
+                  lambda x, p: shard_lib.distribute(x.clone(), mesh, p),
+                  cache["slots"], pl["slots"])}
+    step = specs.make_mesh_decode_step(cfg, mesh, "cpu")
+    last = shard_lib.distribute(tokens[:, -1:], mesh, rows)
+    logits, _ = step(y, z, cached, last)
+    whole = shard_lib.from_local(logits, mesh, rows,
+                                 (tokens.shape[0],) + logits.shape[1:])
+    return whole.full_tensor().float().numpy()
 
 
 SPAWN_TIMEOUT = 420          # seconds a world may take, ranks together

@@ -42,6 +42,14 @@ ULPS = 4
 ARCH = "mistral-nemo-12b"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(window=0):
     jcfg = jreduced(jget(ARCH)).with_(num_kv_heads=2, sliding_window=window)
     return jcfg, tbase.ModelConfig(**dataclasses.asdict(jcfg))

@@ -69,6 +69,25 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert out.stdout.startswith("clean")
 
 
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+
+
+def _twin(path: Path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"twin_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_example_twins_import_neither_jax_nor_repro():
+    assert [p.stem for p in EXAMPLES] == sorted(
+        p.stem for p in (ROOT / "examples").glob("*.py"))
+    for path in EXAMPLES:
+        bad = set(_imported_roots(path)) & set(FORBIDDEN)
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without CUDA")
@@ -141,6 +160,14 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         ops.swa_attention(qkv, qkv, qkv)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=[p.stem for p in EXAMPLES])
+def test_example_twins_raise_without_cuda(path):
+    """Each twin runs on the card by default and raises without one."""
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _twin(path).main([])
 
 
 def test_round_refuses_parameters_on_another_device():

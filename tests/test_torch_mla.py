@@ -63,6 +63,14 @@ UPDATE_REL = 1e-3
 PATH = "layers/slot0/attn"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(**kw):
     jcfg = jreduced(jget(ARCH)).with_(**kw)
     return jcfg, tbase.ModelConfig(**dataclasses.asdict(jcfg))

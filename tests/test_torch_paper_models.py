@@ -44,6 +44,14 @@ CONV_TOL = 1e-5
 MODEL_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ulps(a, b) -> int:
     a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
     b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)

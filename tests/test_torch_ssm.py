@@ -73,6 +73,14 @@ INIT = {"mamba": (jssm.init_mamba, tssm.init_mamba),
         "slstm": (jssm.init_slstm, tssm.init_slstm)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _to_torch(tree):
     return bridge.from_numpy_tree(jax.tree_util.tree_map(np.asarray, tree),
                                   device="cpu")

@@ -61,6 +61,14 @@ REL = 1e-5
 Y_REL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _equal_datasets(a, b):
     assert a.vocab == b.vocab
     assert len(a.client_tokens) == len(b.client_tokens)

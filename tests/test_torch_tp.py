@@ -11,10 +11,17 @@ expert (the ``model`` mode) or by FFN column (``ffn``). The cases: a
 reduced StableLM-2 (dense), a reduced Mixtral in both expert modes, a
 reduced Qwen2.5 with one kv head, which the 2-wide "model" axis splits
 in half (each rank gathers the kv projection and takes the head its q
-heads use), and the StableLM again in bf16 compute. The prefill's rows
-are split over the data axes, each data rank's rows one forward (an
-MoE's capacity is counted over its rows, as a serving replica batches
-its own requests), so it is held to the forwards of those rows.
+heads use), the StableLM again in bf16 compute, and the Mixtral in both
+expert modes at a capacity factor of 0.5, where experts overflow and an
+expert's entries span data ranks. The prefill's rows are split over the
+data axes (in ``torch.chunk``'s pieces: the second overflow case's 3
+rows fall 2, 1 on the 2 x 2 world and 1, 1, 1, 0 on the 2 x 2 x 2 one, a
+data rank with no rows), and an MoE counts its capacity and slot ranks
+over the whole batch, as the reference's forward does; so the prefill is
+held to the forward of the whole batch. The first overflow case also
+runs the meshed decode step (``specs.make_mesh_decode_step``) on a warm
+cache of 4 rows, held to the unmeshed ``decode_step`` and to the
+reference's.
 
 Bounds (float32 compute). Against the port's unsharded round: the
 update ``y_new - y`` within 1e-5 of its norm (``tests/test_torch_mesh.py``'s
@@ -77,11 +84,17 @@ CASES = {
     "mixtral_ffn": ("mixtral-8x7b", {"expert_shard": "ffn"}),
     "qwen_split_kv": ("qwen2.5-3b", {"num_heads": 4, "num_kv_heads": 1}),
     "stablelm_bf16": ("stablelm-1.6b", {"compute_dtype": "bfloat16"}),
+    "mixtral_overflow": ("mixtral-8x7b", {"moe_capacity_factor": 0.5}),
+    "mixtral_ffn_overflow": ("mixtral-8x7b", {"expert_shard": "ffn",
+                                              "moe_capacity_factor": 0.5}),
 }
+OVERFLOW = [c for c in CASES if c.endswith("_overflow")]
+PREFILL_ROWS = {"mixtral_ffn_overflow": 3}       # else 4
+DECODE = {"mixtral_overflow": (4, 4)}            # (rows, tokens a row)
 # the prefill's rows are split over the data axes: 2 of them on 2 x 2, 4
-# on 2 x 2 x 2; each data rank's rows are one forward (an MoE's capacity
-# is its rows', as a serving replica batches its own requests)
+# on 2 x 2 x 2; the data axes' sizes in mesh order
 DATA_RANKS = {"debug": 2, "debug-pod": 4}
+DATA_AXES = {2: (2,), 4: (2, 2)}
 R = worker.TP_ROUND
 RC = dict(clients_per_round=0, local_steps=R["tau"], local_batch=0,
           client_opt="sgd", client_lr=0.02, server_opt="sgdm",
@@ -126,8 +139,12 @@ def inputs():
         out[case] = {"arch": CASES[case][0], "cfg": _tcfg(case),
                      "params": params,
                      "batch": {"tokens": tok, "labels": tok},
-                     "prefill": rng.integers(0, jcfg.vocab_size,
-                                             (4, R["seq"]), dtype=np.int32)}
+                     "prefill": rng.integers(
+                         0, jcfg.vocab_size, (PREFILL_ROWS.get(case, 4),
+                                              R["seq"]), dtype=np.int32)}
+        if case in DECODE:
+            out[case]["decode"] = rng.integers(0, jcfg.vocab_size,
+                                               DECODE[case], dtype=np.int32)
     return out
 
 
@@ -139,8 +156,25 @@ def world(request, inputs, tmp_path_factory):
     return DATA_RANKS[request.param], ranks
 
 
-def _row_groups(tokens, d):
-    return np.split(tokens, d)
+def _data_pieces(rows, d):
+    """[start, stop) of each data rank's rows, in data-rank order: each data
+    axis splits what the one before it left, as ``torch.chunk`` does."""
+    pieces = [(0, rows)]
+    for size in DATA_AXES[d]:
+        nxt = []
+        for a, b in pieces:
+            c = -(-(b - a) // size)
+            nxt += [(min(b, a + i * c), min(b, a + (i + 1) * c))
+                    for i in range(size)]
+        pieces = nxt
+    return pieces
+
+
+def _decode(params, cfg, tokens):
+    """The unmeshed ``decode_step`` of the last column of ``tokens`` on
+    the warm cache of the others (``worker.warm_cache``)."""
+    cache = worker.warm_cache(cfg, params, tokens)
+    return tdlm.decode_step(params, cfg, cache, tokens[:, -1:])[0]
 
 
 @pytest.fixture(scope="module")
@@ -158,13 +192,14 @@ def unsharded(inputs):
                            {k: torch.as_tensor(v)
                             for k, v in inp["batch"].items()},
                            torch.ones(R["clients"]), None)
-        logits = {d: np.concatenate([
-            tdlm.forward(params, cfg, torch.as_tensor(t))[0].float().numpy()
-            for t in _row_groups(inp["prefill"], d)])
-            for d in set(DATA_RANKS.values())}
+        logits = tdlm.forward(params, cfg, torch.as_tensor(
+            inp["prefill"]))[0].float().numpy()
         out[case] = {"y0": [t.numpy() for t in tbasic.tree_leaves(y)],
                      "y": [t.numpy() for t in tbasic.tree_leaves(y_new)],
                      "loss": float(m["loss"]), "logits": logits}
+        if "decode" in inp:
+            out[case]["decode"] = _decode(
+                params, cfg, torch.as_tensor(inp["decode"])).float().numpy()
     return out
 
 
@@ -186,13 +221,18 @@ def reference(inputs):
                                 for k, v in inp["batch"].items()},
                                jnp.ones((R["clients"],), jnp.float32),
                                jax.random.key(0))
-        logits = {d: np.concatenate([
-            np.asarray(jdlm.forward(jp, jcfg, jnp.asarray(t))[0])
-            for t in _row_groups(inp["prefill"], d)])
-            for d in set(DATA_RANKS.values())}
+        logits = np.asarray(jdlm.forward(jp, jcfg,
+                                         jnp.asarray(inp["prefill"]))[0])
         out[case] = {"y": [np.asarray(t) for t in
                            jax.tree_util.tree_leaves(jy_new)],
                      "loss": float(jm["loss"]), "logits": logits}
+        if "decode" in inp:
+            tok = jnp.asarray(inp["decode"])
+            cache = jdlm.init_cache(jcfg, tok.shape[0],
+                                    worker.DECODE_MAX_LEN)
+            for i in range(tok.shape[1]):
+                lg, cache = jdlm.decode_step(jp, jcfg, cache, tok[:, i:i + 1])
+            out[case]["decode"] = np.asarray(lg)
     return out
 
 
@@ -209,22 +249,21 @@ def _update_gap(y0, want, got) -> float:
     return (num / den) ** 0.5
 
 
-def _bf16_bounds(unsharded, case, d):
+def _bf16_bounds(unsharded, case):
     """A bf16 case's bounds: the unsharded bf16 round's own distance from
     its float32 twin, by update norm and by the largest |logit|."""
     lo, hi = unsharded[_twin(case)], unsharded[case]
     upd = _update_gap(lo["y0"], lo["y"], hi["y"])
-    lg = float(np.abs(hi["logits"][d] - lo["logits"][d]).max()
-               / np.abs(lo["logits"][d]).max())
+    lg = float(np.abs(hi["logits"] - lo["logits"]).max()
+               / np.abs(lo["logits"]).max())
     return upd, lg
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_tp_train_step_matches_the_unsharded_round(world, unsharded, case):
-    d, ranks = world
     want = unsharded[case]
-    y, loss, _ = ranks[0][case]["runs"][0]
-    rel = (_bf16_bounds(unsharded, case, d)[0] if "bf16" in case
+    y, loss, _ = world[1][0][case]["runs"][0]
+    rel = (_bf16_bounds(unsharded, case)[0] if "bf16" in case
            else UPDATE_REL)
     assert _update_gap(want["y0"], want["y"], _leaves(y)) <= rel
     assert loss == pytest.approx(want["loss"], rel=rel)
@@ -241,10 +280,12 @@ def test_tp_train_step_matches_the_reference(world, unsharded, reference,
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_tp_prefill_matches_the_unsharded_forward(world, unsharded, case):
-    d, ranks = world
+    """The meshed prefill of rows split over the data ranks against the
+    forward of the whole batch."""
+    ranks = world[1]
     got = ranks[0][case]["logits"]
-    want = unsharded[case]["logits"][d]
-    rel = (_bf16_bounds(unsharded, case, d)[1] if "bf16" in case
+    want = unsharded[case]["logits"]
+    rel = (_bf16_bounds(unsharded, case)[1] if "bf16" in case
            else LOGIT_REL)
     assert got.shape == want.shape
     assert float(np.abs(got - want).max()) <= rel * float(np.abs(want).max())
@@ -253,10 +294,61 @@ def test_tp_prefill_matches_the_unsharded_forward(world, unsharded, case):
 
 @pytest.mark.parametrize("case", [c for c in CASES if "bf16" not in c])
 def test_tp_prefill_matches_the_reference(world, reference, case):
-    d, ranks = world
-    np.testing.assert_allclose(ranks[0][case]["logits"],
-                               reference[case]["logits"][d], rtol=JAX_TOL,
+    np.testing.assert_allclose(world[1][0][case]["logits"],
+                               reference[case]["logits"], rtol=JAX_TOL,
                                atol=JAX_TOL)
+
+
+@pytest.mark.parametrize("case", list(DECODE))
+def test_mesh_decode_matches_the_unsharded_decode_step(world, unsharded,
+                                                       case):
+    """The meshed decode of B rows split over the data ranks against the
+    unmeshed ``decode_step`` of all B rows (the same warm cache), on every
+    rank."""
+    want = unsharded[case]["decode"]
+    for rank in world[1]:
+        got = rank[case]["decode"]
+        assert got.shape == want.shape
+        assert float(np.abs(got - want).max()) \
+            <= LOGIT_REL * float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", list(DECODE))
+def test_mesh_decode_matches_the_reference(world, reference, case):
+    np.testing.assert_allclose(world[1][0][case]["decode"],
+                               reference[case]["decode"], rtol=JAX_TOL,
+                               atol=JAX_TOL)
+
+
+@pytest.mark.parametrize("d", sorted(set(DATA_RANKS.values())))
+@pytest.mark.parametrize("case", OVERFLOW)
+def test_overflow_cases_tell_the_global_batch_from_its_pieces(inputs,
+                                                              unsharded, case,
+                                                              d):
+    """The overflow cases discriminate: forwarding each data rank's rows
+    alone (an MoE's capacity counted over those rows) moves the logits by
+    more than the prefill's bound, and so would the meshed decode; the
+    second case leaves the last data rank of the 2 x 2 x 2 world empty."""
+    inp = inputs[case]
+    params = bridge.from_numpy_tree(inp["params"], "cpu")
+    tok = torch.as_tensor(inp["prefill"])
+    pieces = _data_pieces(tok.shape[0], d)
+    split = np.concatenate([
+        tdlm.forward(params, inp["cfg"], tok[a:b])[0].float().numpy()
+        for a, b in pieces if b > a])
+    want = unsharded[case]["logits"]
+    assert float(np.abs(split - want).max()) \
+        > LOGIT_REL * float(np.abs(want).max())
+    if case == "mixtral_ffn_overflow" and d == 4:
+        assert pieces[-1][0] == pieces[-1][1]
+    if case in DECODE:
+        dec = torch.as_tensor(inp["decode"])
+        split = np.concatenate([
+            _decode(params, inp["cfg"], dec[a:b]).float().numpy()
+            for a, b in _data_pieces(dec.shape[0], d)])
+        want = unsharded[case]["decode"]
+        assert float(np.abs(split - want).max()) \
+            > LOGIT_REL * float(np.abs(want).max())
 
 
 @pytest.mark.parametrize("case", list(CASES))

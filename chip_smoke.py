@@ -2066,7 +2066,8 @@ def check_serving_kernels(dev, build_logs):
           f"wrapper {rec_swa[0]['ms']:.3f} ms, device "
           f"{fmt_ms(rec_swa[0]['device_ms'])} ms; float32-p wrapper "
           f"{f32p_ms:.3f} ms, device {fmt_ms(f32p_dev)} ms; "
-          f"scaled_dot_product_attention {rec_swa[0]['library_ms']:.3f} ms")
+          f"scaled_dot_product_attention {rec_swa[0]['library_ms']:.3f} ms "
+          f"(device {fmt_ms(rec_swa[0]['library_device_ms'])} ms)")
     wpairs = swa.visible_pairs(PREFILL_LEN, 8192)
     wb = bound(nbytes, 4 * 32 * 128 * wpairs, BF16_OPS_PER_S)
     wdev = {}
@@ -3803,12 +3804,14 @@ class routing_spy:
     moves its output far more than the rounding; replaying one side's
     routing holds the rest of the two computations against each other.
     Each thread replays from the first call (a thread a rank of a
-    threaded mesh, every rank routing the same tokens)."""
+    threaded mesh, every rank routing the same tokens, or, where a rank
+    routes only its rows of the batch, the tokens from ``offsets[thread
+    ident]`` on)."""
 
     def __init__(self, replay=None):
         self.replay = replay
         self.ids, self.flipped, self.routed = [], 0, 0
-        self.calls = {}
+        self.calls, self.offsets = {}, {}
 
     def __enter__(self):
         from repro_torch.nn import basic, moe as moe_lib
@@ -3819,7 +3822,9 @@ class routing_spy:
             if self.replay is not None:
                 call = self.calls.get(threading.get_ident(), 0)
                 self.calls[threading.get_ident()] = call + 1
-                want = self.replay[call].to(idx.device, idx.dtype)
+                t0 = self.offsets.get(threading.get_ident(), 0)
+                want = self.replay[call][t0:t0 + idx.shape[0]].to(
+                    idx.device, idx.dtype)
                 self.flipped += int((idx.sort(-1).values
                                      != want.sort(-1).values).any(-1).sum())
                 probs = torch.softmax(
@@ -4698,11 +4703,12 @@ def drive_vlm_encdec(dev) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 11: the mesh. The 1-rank NCCL "single" mesh runs the EMNIST main
 # paths through the meshed code, bit for bit the unmeshed runs with the
-# same launches; the train step in the gathered layout (Mixtral-8x7B with
-# 2-D experts) and the tensor-parallel train step (StableLM-2-1.6B) and
-# prefill (Mixtral-8x7B) on it, bit for bit; Mixtral-8x7B on a 4-rank
-# "model" axis of threads on the one card; one dry run in a fake (16, 16)
-# world on the host
+# same launches; the train step in the gathered layout (xLSTM-350M) and
+# the tensor-parallel train step (StableLM-2-1.6B) and prefill
+# (Mixtral-8x7B) on it, bit for bit; Mixtral-8x7B on a 4-rank "model" axis
+# of threads on the one card; DeepSeek-V2 on a (2, 2) ("data", "model")
+# mesh of threads, its experts in the 2-D layout; one dry run in a fake
+# (16, 16) world on the host
 
 STABLELM = "stablelm-1.6b"
 # train_4k's sequence; its global batch of 256 cut to 1 client x tau 2 x 1
@@ -4733,6 +4739,24 @@ TP_TIMEOUT = 600          # seconds the threads may take, all together
 # the round's routing under vmap and grad is not replayed, so no bound
 # there would be tighter than the bf16 round's own distance from float32.)
 TP_F32_UPDATE_REL = 1e-4
+# (c): xLSTM-350M at one period of its layer program (3 mLSTM blocks and an
+# sLSTM block) of 24 layers, every block kind through the gathered layout,
+# on 1,024 positions: the sLSTM steps a position at a time, and at 4,096
+# the unmeshed and meshed steps took 34.5 and 15.8 s (PERF.md)
+GATHERED_LAYERS, GATHERED_SEQ = 4, 1024
+# (g): DeepSeek-V2-236B at full width, DEEPSEEK_TRAIN_LAYERS (1) of its 60
+# layers (phase 8's training depth), on a (2, 2) ("data", "model") mesh of
+# threads on the one card: its 160 experts in the 2-D layout (80 a data
+# rank, each on 768 of its 1,536 FFN columns: a quarter of the bank a
+# rank), MLA's 128 heads 64 a "model" rank. The prefill's rows (one a
+# data rank) and positions, prefill_32k's 32,768 cut to 16,384: at 32,768
+# the four ranks' prefill ran out of the card's memory (each rank's MoE
+# holds the batch's (160, 3,072, 5,120) bf16 dispatch buffer, 5.0 GB, and
+# gathers the experts' outputs back at that size; PERF.md); the train
+# step's clients x tau x sequences x tokens, as (f)'s
+DS_TP_SHAPE = (2, 2)
+DS_TP_PREFILL = (2, PREFILL_LEN // 2)
+DS_TP_ROUND = TP_ROUND
 
 
 def start_dryrun():
@@ -4829,16 +4853,19 @@ def mesh_rounds(ys, zs, bits, dp, draws, dev):
     return run
 
 
-def update_rel(y0, ya, yb) -> float:
-    """||yb - ya|| / ||ya - y0|| over the leaves, in float64."""
+def update_rel(y0, ya, yb, dev=None) -> float:
+    """||yb - ya|| / ||ya - y0|| over the leaves, in float64 (on ``dev``,
+    each leaf moved there in turn, where the trees lie on the host)."""
     gap = upd = 0.0
     for a0, a, b in zip(leaves_of(y0), leaves_of(ya), leaves_of(yb)):
-        gap += float(((a.double() - b.double()) ** 2).sum())
-        upd += float(((a.double() - a0.double()) ** 2).sum())
+        a0, a, b = (t.to(dev or t.device).double() for t in (a0, a, b))
+        gap += float(((a - b) ** 2).sum())
+        upd += float(((a - a0) ** 2).sum())
     return gap ** 0.5 / max(upd ** 0.5, 1e-30)
 
 
-def drive_mesh_train_step(dev, label, arch, layers, over, tp):
+def drive_mesh_train_step(dev, label, arch, layers, over, tp,
+                          seq=TRAIN_4K_SEQ):
     """``specs.make_train_step`` for ``arch`` (with ``over``) at full width,
     ``layers`` of its layers, on the "single" mesh (y and the server state
     DTensors placed by the reference's rules), against the same round
@@ -4868,13 +4895,13 @@ def drive_mesh_train_step(dev, label, arch, layers, over, tp):
           f"{sum(v.numel() for v in leaves_of(y))} trainable (f32), "
           f"{sum(v.numel() for v in leaves_of(z))} frozen (bf16), made in "
           f"{time.perf_counter() - t0:.1f} s; one client x tau 2 x 1 "
-          f"sequence of {TRAIN_4K_SEQ} (train_4k's 256 cut to one card); "
+          f"sequence of {seq} (train_4k's 256 x 4,096 cut to one card); "
           f"step layout: {layout}")
     if (layout == specs.TP_LAYOUT) != tp:
         raise AssertionError(f"{label} {arch}: the step's layout is "
                              f"{layout}")
     tok = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, 2, 1, TRAIN_4K_SEQ)).astype(np.int32)
+        0, cfg.vocab_size, (1, 2, 1, seq)).astype(np.int32)
     batch = {"tokens": tok, "labels": tok}
     w = torch.ones(1, device=dev)
     rc = fedpt.RoundConfig(clients_per_round=0, local_steps=2, local_batch=0,
@@ -4917,10 +4944,10 @@ def drive_mesh_train_step(dev, label, arch, layers, over, tp):
 
 
 def drive_gathered_train_step(dev):
-    """(c) the gathered layout: Mixtral-8x7B with 2-D experts, phase 7's
-    training depth."""
-    return drive_mesh_train_step(dev, "(c)", MIXTRAL, MIXTRAL_TRAIN_LAYERS,
-                                 {"expert_shard": "2d"}, tp=False)
+    """(c) the gathered layout: xLSTM-350M (an SSM family, which has no
+    tensor-parallel form), GATHERED_LAYERS layers."""
+    return drive_mesh_train_step(dev, "(c)", XLSTM, GATHERED_LAYERS, {},
+                                 tp=False, seq=GATHERED_SEQ)
 
 
 def drive_tp_single_train_step(dev):
@@ -5226,16 +5253,291 @@ def swa_local_heads(dev):
     torch.cuda.empty_cache()
 
 
+class swa_shapes:
+    """Inside a ``with``, records the (q, v) shapes of every
+    ``kernels/ops.swa_attention`` call, on every thread."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.mod, self.real, self.seen = ops, ops.swa_attention, []
+
+        def spy(q, k, v, **kw):
+            self.seen.append((tuple(q.shape), tuple(v.shape)))
+            return self.real(q, k, v, **kw)
+        ops.swa_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.swa_attention = self.real
+        return False
+
+
+def drive_deepseek_tp_threads(dev):
+    """(g) DeepSeek-V2-236B at full width, DEEPSEEK_TRAIN_LAYERS layer, on
+    a DS_TP_SHAPE ("data", "model") mesh of threads on the one card
+    (``threaded_world``): each rank's y and frozen pieces as DTensors
+    placed by the reference's rules, the 160 routed experts in the 2-D
+    layout (expert dim on "data", FFN dim on "model"), each MoE layer's
+    buffer exchanged over "data". Its tensor-parallel prefill
+    (DS_TP_PREFILL, one row a data rank; ``swa_attention`` on each rank's
+    64 heads at (192, 128)) against the unmeshed prefill, routed as it
+    (``routing_spy``), within LOGIT_REL of the largest |logit|: each rank
+    holds its piece of the logits (its row, its vocab columns) against
+    the same piece of the unmeshed ones. One train step (DS_TP_ROUND) in
+    float32 compute against the unmeshed float32 round by update norm
+    (TP_F32_UPDATE_REL). The unmeshed runs go first, their y and the new
+    y are kept on the host, and the whole trees are freed once the ranks'
+    pieces are made (the data ranks of one "model" index share their y
+    pieces; the zero server state is a view), so the card holds one copy
+    of the parameters beside the four ranks' work. ``FrozenSeen``: the frozen
+    leaves the loss and forward receive on every rank are its pieces, the
+    routed experts a quarter of the bank. Returns the meshed runs' launch
+    counts."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import fedpt
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shard_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import decoder_lm as dlm
+    from repro_torch.nn import basic
+    from repro_torch.nn.basic import tree_map
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    D, M = DS_TP_SHAPE
+    cfg = get_config(DEEPSEEK).with_(num_layers=DEEPSEEK_TRAIN_LAYERS)
+    cfg32 = cfg.with_(compute_dtype="float32")
+    t0 = time.perf_counter()
+    y, z = specs.serving_split(dlm.init_model(cfg, 0, device=dev), cfg)
+    rng = np.random.default_rng(0)
+    clients, tau, b, seq = DS_TP_ROUND
+    tok = rng.integers(0, cfg.vocab_size, (clients, tau, b, seq),
+                       dtype=np.int32)
+    batch = {"tokens": tok, "labels": tok}
+    w = torch.ones(clients, device=dev)
+    rows, plen = DS_TP_PREFILL
+    ptok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (rows, plen))).to(dev)
+    # the unmeshed runs, their results kept on the host: the prefill, the
+    # round in float32 compute
+    with routing_spy() as rec:
+        want = specs.make_prefill_step(cfg, device=dev)(y, z,
+                                                        {"tokens": ptok})
+    lo, hi = torch.aminmax(want)
+    lmax = max(-float(lo), float(hi))
+    want = want.cpu()
+    torch.cuda.empty_cache()
+    mem = {"unmeshed prefill": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    rc = fedpt.RoundConfig(clients_per_round=0, local_steps=tau,
+                           local_batch=0, client_opt="sgd", client_lr=0.02,
+                           server_opt="sgdm", server_lr=0.5)
+    round_fn, sopt = fedpt.make_round_fn(
+        lambda p, mb: dlm.train_loss(p, cfg32, mb), rc, device=dev)
+    y_ref = tree_map(lambda t: t.cpu(), round_fn(y, sopt.init(y), z, batch,
+                                                 w, None)[0])
+    del round_fn
+    torch.cuda.empty_cache()
+    mem["unmeshed round"] = torch.cuda.max_memory_allocated()
+    t_unmeshed = time.perf_counter() - t0
+    # each rank's pieces, then the whole trees freed
+    struct, zstruct = (tree_map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device="meta"), tree) for tree in (y, z))
+    abstract = mesh_lib.AbstractMesh(DS_TP_SHAPE, ("data", "model"))
+    pl_y = shard_lib.param_shardings(struct, cfg, abstract)
+    pl_z = shard_lib.param_shardings(zstruct, cfg, abstract)
+    y0 = tree_map(lambda t: t.cpu(), y)
+
+    def pieces(tree, pl, coord):       # the rank at coord's, contiguous
+        return tree_map(lambda x, p: shard_lib.local_piece(
+            x, abstract, p, coord).contiguous(), tree, pl)
+    ypieces = [pieces(y, pl_y, (0, m)) for m in range(M)]
+    # the server state starts at zero: a zero element expanded to each
+    # piece's shape (a view), so the ranks hold no copy of it
+    sspieces = [tree_map(lambda t: t.new_zeros(()).expand(t.shape), yp)
+                for yp in ypieces]
+    zpieces = {(d, m): pieces(z, pl_z, (d, m))
+               for d in range(D) for m in range(M)}
+    del y, z
+    torch.cuda.empty_cache()
+    mem["pieces"] = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    def world_of():
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import DTensor
+        mesh = init_device_mesh(torch.device(dev).type, DS_TP_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        d, m = mesh.get_coordinate()
+
+        def placed(pieces, pl, st):
+            return tree_map(lambda x, p, s: DTensor.from_local(
+                x, mesh, p, run_check=False, shape=s.shape,
+                stride=s.stride()), pieces, pl, st)
+        return (mesh, placed(ypieces[m], pl_y, struct),
+                placed(sspieces[m], pl_y, struct),
+                placed(zpieces[d, m], pl_z, zstruct))
+
+    def prefill_rank(rank):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, yd, _, zd = world_of()
+        prefill = specs.make_tp_prefill_step(cfg, mesh, device=dev)
+        tokd = shard_lib.distribute(ptok, mesh, (Shard(0), Replicate()))
+        # this rank's rows' routing in the unmeshed prefill's
+        replay.offsets[threading.get_ident()] = shard_lib.local_range(
+            rows, mesh, tokd.placements, 0)[0] * plen
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(yd, zd, {"tokens": tokd})
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        local = logits.to_local()
+        r0, r1 = shard_lib.local_range(rows, mesh, logits.placements, 0)
+        v0, v1 = shard_lib.local_range(cfg.vocab_size, mesh,
+                                       logits.placements, 2)
+        gap = 0.0
+        for c in range(0, plen, 4096):     # the host's piece, a slice a time
+            ref_c = want[r0:r1, c:c + 4096, v0:v1].to(dev)
+            gap = max(gap, float((local[:, c:c + 4096].float()
+                                  - ref_c.float()).abs().max()))
+            del ref_c
+        return gap, bool(torch.isfinite(local).all()), \
+            repr(logits.placements), t_pre
+
+    def train_rank(rank):
+        mesh, yd, ssd, zd = world_of()
+        step, _ = specs.make_train_step(cfg32, mesh, struct, device=dev)
+        t0 = time.perf_counter()
+        y_new, _, met = step(yd, ssd, zd, batch, w)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        whole = {}                      # rank 0's copy, on the host
+        for path, v in basic.flatten_params(y_new):
+            t = v.full_tensor()         # a leaf at a time, every rank
+            if rank == 0:
+                whole[path] = t.cpu()
+            del t
+        return basic.unflatten_params(whole), float(met["loss"]), t_step
+
+    paths = [p for p, _ in basic.flatten_params(zstruct)]
+    print(f"[mesh] (g) card memory (GiB): {mem['unmeshed prefill'] / 2 ** 30:.2f}"
+          f" and {mem['unmeshed round'] / 2 ** 30:.2f} at the unmeshed "
+          f"prefill's and round's peaks, {mem['pieces'] / 2 ** 30:.2f} held in "
+          f"the ranks' pieces before the worlds start", flush=True)
+    t0 = time.perf_counter()
+    replay = routing_spy(rec.ids)
+    with replay, swa_shapes() as shapes, FrozenSeen(paths) as prefill_seen:
+        pre = threaded_world(D * M, prefill_rank, TP_TIMEOUT)
+    del want
+    torch.cuda.empty_cache()
+    mem["meshed prefill"] = torch.cuda.max_memory_allocated()
+    print(f"[mesh] (g) the meshed prefill's peak "
+          f"{mem['meshed prefill'] / 2 ** 30:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held after it",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with FrozenSeen(paths) as train_seen:
+        trained = threaded_world(D * M, train_rank, TP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    mem["meshed step"] = torch.cuda.max_memory_allocated()
+    y_tp, loss, t_step = trained[0]
+    rel = update_rel(y0, y_ref, y_tp, dev)
+    rel_l = max(g for g, *_ in pre) / lmax
+    finite = all(f for _, f, *_ in pre)
+    experts = ("/moe/wi_gate", "/moe/wi_up", "/moe/wo")
+    local = {p: (v.numel(), s.numel()) for (p, v), (_, s) in zip(
+        basic.flatten_params(zpieces[0, 0]), basic.flatten_params(zstruct))}
+    pieces = all(n * (D * M if p.endswith(experts) else 1) == whole
+                 and train_seen.seen.get(p) == {n}
+                 and prefill_seen.seen.get(p) == {n}
+                 for p, (n, whole) in local.items())
+    heads = set(shapes.seen)
+    want_heads = {((rows // D, cfg.num_heads // M, plen, MLA_DK),
+                   (rows // D, cfg.num_heads // M, plen, MLA_DV))}
+    print(f"[mesh] (g) {DEEPSEEK}, {cfg.num_layers} layer at full width on a "
+          f"{DS_TP_SHAPE} ('data', 'model') mesh of threads on the one card, "
+          f"the routed experts in the 2-D layout: the unmeshed round and "
+          f"prefill {t_unmeshed:.1f} s; the "
+          f"train step ({clients} clients x tau {tau} x {b} x {seq}) in "
+          f"float32 compute {t_step:.2f} s on rank 0, loss {loss:.4f}, "
+          f"against the unmeshed float32 round by update norm {rel:.3e} "
+          f"(bound {TP_F32_UPDATE_REL:g}); the "
+          f"prefill {rows} x {plen} {max(t for *_, t in pre):.2f} s, logits "
+          f"{pre[0][2]}, against the unmeshed prefill routed alike "
+          f"({replay.flipped} of {replay.routed} routings would differ): max "
+          f"|diff| / max |logit| {rel_l:.3e} (tolerance {LOGIT_REL:.3e}); "
+          f"swa_attention's (q, v) shapes "
+          f"{sorted(heads)}; the routed experts a quarter of the bank a rank "
+          f"and the loss and forward received each rank's pieces {pieces}; "
+          f"both worlds {wall:.1f} s; launches "
+          f"{({k: v for k, v in counts.items() if v})}; card memory (GiB, "
+          f"peaks, and the pieces held before the worlds) "
+          f"{ {k: round(v / 2 ** 30, 2) for k, v in mem.items()} }")
+    if not (rel <= TP_F32_UPDATE_REL and rel_l <= LOGIT_REL and finite
+            and math.isfinite(loss) and pieces and heads == want_heads
+            and counts["swa_attention"] == D * M * cfg.num_layers
+            and counts["sumsq"] > 0):
+        raise AssertionError("(g) the 2 x 2 tensor-parallel DeepSeek-V2 is "
+                             "off the unmeshed runs")
+    mla_local_heads(dev)
+    return counts
+
+
+def mla_local_heads(dev):
+    """``swa_attention`` (round-once) at a (2, 2) mesh rank's heads of
+    DeepSeek-V2's prefill: (1, 64, PREFILL_LEN, 192 / 128) causal, 64 kv
+    heads (wrapper and device ms, the bound), its plain version
+    (``chunked_attention_ref``, once) and ``scaled_dot_product_attention``
+    (default backend) on the same inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator().manual_seed(0)
+    h = MLA_HEADS // DS_TP_SHAPE[1]
+
+    def one(d):
+        return torch.randn((1, PREFILL_LEN, h, d), generator=gen).to(
+            dev, torch.bfloat16).transpose(1, 2)
+    q, k, v = one(MLA_DK), one(MLA_DK), one(MLA_DV)
+
+    def call():
+        return swa.swa_attention(q, k, v, round_p=True)
+    pairs = swa.visible_pairs(PREFILL_LEN, 0)
+    flops = h * pairs * 2 * (MLA_DK + MLA_DV)
+    nbytes = 2 * (q.numel() + k.numel() + 2 * v.numel())
+    bnd = bound(nbytes, flops, BF16_OPS_PER_S)
+    ms = time_ms(call, 5, 1)
+    dms = device_ms(call, ("swa_kernel",), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref.chunked_attention_ref(q, k, v, 0, chunk=swa.BK)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 5, 1)
+    lib_dms = device_ms(lambda: sdpa(q, k, v, is_causal=True), None, 5)
+    print(f"[mesh] (g) swa_attention (round-once) at a rank's heads (1, {h}, "
+          f"{PREFILL_LEN}, {MLA_DK} / {MLA_DV}) causal: wrapper {ms:.4f} ms, "
+          f"device {fmt_ms(dms)} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+          f"x{(dms or ms) / bnd[0]:.2f}; plain (chunked_attention_ref, chunk "
+          f"{swa.BK}) {plain_ms:.3f} ms; scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms (device {fmt_ms(lib_dms)} ms)")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
 def drive_mesh(ds, y0, frozen, ya, za, dev):
     """Phase 11: (a) the 1-rank NCCL group and the "single" mesh; (b) the
     quickstart at int8, FedAvg B (fused coefficient route, DP, screen) and
     the async DP FedBuff grid, each with and without the mesh, bit for bit
-    with equal launches (cuDNN deterministic); (c) Mixtral-8x7B's train
-    step in the gathered layout (2-D experts); (e) StableLM-2-1.6B's
-    train step and Mixtral-8x7B's prefill, tensor-parallel on the 1-rank
-    mesh; (f) Mixtral-8x7B on a 4-rank "model" axis of threads; (d) the
-    dry run, started first and read last. Returns the launch counts of
-    (b), (c), (e) and (f)."""
+    with equal launches (cuDNN deterministic); (c) xLSTM-350M's train step
+    in the gathered layout; (e) StableLM-2-1.6B's train step and
+    Mixtral-8x7B's prefill, tensor-parallel on the 1-rank mesh; (f)
+    Mixtral-8x7B on a 4-rank "model" axis of threads; (g) DeepSeek-V2 on a
+    (2, 2) mesh of threads, 2-D experts; (d) the dry run, started first
+    and read last. Returns the launch counts of (b), (c), (e), (f) and
+    (g)."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     proc = start_dryrun()
@@ -5276,7 +5578,8 @@ def drive_mesh(ds, y0, frozen, ya, za, dev):
         finally:
             torch.backends.cudnn.deterministic = deterministic
         for leg in (drive_gathered_train_step, drive_tp_single_train_step,
-                    drive_tp_single_prefill, drive_tp_threads):
+                    drive_tp_single_prefill, drive_tp_threads,
+                    drive_deepseek_tp_threads):
             t0 = time.perf_counter()
             for k, v in leg(dev).items():
                 launches[k] = launches.get(k, 0) + v

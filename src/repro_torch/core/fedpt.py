@@ -221,10 +221,14 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
 
     ``model_shards`` (``launch/sharding.ModelShards``): the tensor-parallel
     step. ``y``, the server state and ``frozen`` are this rank's pieces on
-    "model" and ``loss_fn`` computes on them; each client's delta is
-    gathered whole over "model" for the flat buffer (its layout is the
-    whole tree's), and the server steps on its pieces of the aggregated
-    update."""
+    "model" and ``loss_fn`` computes on them; each client's row of the
+    flat buffer (its layout is the whole tree's) is made from the delta's
+    pieces gathered over "model", this rank's columns only
+    (``model_shards.flat_cols``), and the server steps on its pieces of
+    the aggregated update. Every rank trains as many client rows as the plane's first
+    rank (a client's layers may exchange over the data axes, a collective
+    each rank must join): a shorter rank adds copies of the cohort's first
+    row and drops their deltas and losses."""
     dev = resolve_device(device)
     plane = constrain_flat_fn
     noised = rc.dp_clip_norm > 0 and rc.dp_noise_multiplier > 0
@@ -259,17 +263,27 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
         weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
         n = weights.shape[0]
         r0, r1 = (0, n) if plane is None else plane.rows(n)
+        pad = 0
         if plane is not None:
-            batch = {k: plane.local_rows(v) for k, v in batch.items()}
+            if model_shards is not None:
+                pad = -(-n // plane.D) - (r1 - r0)
+            batch = {k: torch.cat([plane.local_rows(v)]
+                                  + [v[:1]] * pad) if pad else
+                     plane.local_rows(v) for k, v in batch.items()}
         batch = _on(dev, batch)
 
         # --- local training on every sampled client, vmapped over the
-        # client axis; deltas are born flat, one (clients, size) buffer --
+        # client axis; deltas are born flat, one (clients, size) buffer
+        # (under model_shards, this rank's columns of it) ----------------
+        c0, c1 = (0, layout.size) if plane is None else plane.cols(
+            layout.size)
+        width = layout.size if model_shards is None else c1 - c0
+
         def flat_client(cb, mask=None):
             delta, metrics = client_update(y, frozen, cb, mask)
-            if model_shards is not None:
-                delta = model_shards.whole(delta)
-            return layout.flatten(delta), metrics["client_loss"]
+            row = (layout.flatten(delta) if model_shards is None else
+                   model_shards.flat_cols(delta, layout, c0, c1))
+            return row, metrics["client_loss"]
 
         bmask = None
         if tiered:
@@ -280,10 +294,13 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
             if rc.dp_clip_norm <= 0:
                 bmask = bmasks[tids]
         else:
-            deltas, losses = _vmap_rows(flat_client, r1 - r0, layout.size,
+            deltas, losses = _vmap_rows(flat_client, r1 - r0 + pad, width,
                                         dev, batch)
+            if pad:
+                deltas, losses = deltas[:r1 - r0], losses[:r1 - r0]
         if plane is not None:
-            deltas = plane.local_cols(deltas).contiguous()
+            if model_shards is None:
+                deltas = plane.local_cols(deltas).contiguous()
             losses = plane.gather_rows(losses, n)
 
         # --- server tail: screen / quantize / clip / mean / noise --------
@@ -302,20 +319,21 @@ def make_round_fn(loss_fn: Callable, rc: RoundConfig,
             # mean keeps the fixed denominator instead
             bmask=bmask, block_denom=bmask is not None,
             screen=sanitize, constrain_fn=plane, threshold=fused_threshold)
+        del deltas                 # the (clients, size) buffer, consumed
         if plane is not None:
             flat_delta = plane.gather_cols(flat_delta, layout.size)
 
         # --- ServerOpt on the pseudo-gradient ---------------------------
         delta = layout.unflatten(flat_delta, dtype=torch.float32)
+        delta_norm = (opt_lib.tree_global_norm(delta) if noised else
+                      torch.sqrt(flat_lib.sumsq(flat_delta, layout.align)))
         neg = tree_map(torch.neg, delta if model_shards is None
                        else model_shards.local(delta))
+        del delta, flat_delta      # the server steps on its pieces alone
         y_new, server_state = server_opt.update(y, neg, server_state)
         if constrain_fn is not None:
             y_new = constrain_fn(y_new, clients=False)
-        out_metrics = {"loss": losses.mean(),
-                       "delta_norm": opt_lib.tree_global_norm(delta)
-                       if noised else torch.sqrt(
-                           flat_lib.sumsq(flat_delta, layout.align))}
+        out_metrics = {"loss": losses.mean(), "delta_norm": delta_norm}
         if "update_norms" in ainfo:
             out_metrics["update_norm"] = ainfo["update_norms"].mean()
         if sanitize is not None:

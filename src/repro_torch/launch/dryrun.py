@@ -24,20 +24,21 @@ rank:
   that made them, dtype and shape;
 * ``cost.flops`` from ``torch.utils.flop_counter.FlopCounterMode``;
 * ``collectives``: count and result bytes by kind, from a dispatch mode
-  over the ``_c10d_functional`` ops (DTensor redistributes and the flat
-  plane's explicit collectives);
+  over the ``_c10d_functional`` ops (DTensor redistributes, the flat
+  plane's explicit collectives, the tensor-parallel sums and the 2-D
+  experts' exchange over "data", all-to-alls);
 * ``clients``, ``status`` and, for a skipped pair, ``reason``
   (``specs.skip_reason``);
 * ``layout``: the layout the traced step ran in (``specs.build_job``'s).
   ``specs.TP_LAYOUT`` for the tensor-parallel train steps and prefills
-  (dense attention and dense or MoE FFNs): every rank computes on its
-  pieces of the parameters, placed by the reference's rules, so the
-  per-rank argument bytes are the rule sum (``rule_argument_bytes``,
-  also in ``memory``). ``specs.GATHERED_LAYOUT`` for the rest (MLA, 2-D
-  experts, the SSM, VLM and encoder-decoder families, and every decode):
-  the step
-  runs data-parallel with the parameters gathered whole on every rank;
-  only the flat aggregation plane is sharded, so its per-rank bytes and
+  (GQA or MLA attention and dense or MoE FFNs, DeepSeek-V2's 2-D experts
+  included): every rank computes on its pieces of the parameters, placed
+  by the reference's rules, so the per-rank argument bytes are the rule
+  sum (``rule_argument_bytes``, also in ``memory``).
+  ``specs.GATHERED_LAYOUT`` for the rest (the SSM, VLM and
+  encoder-decoder families, and every decode): the step runs
+  data-parallel with the parameters gathered whole on every rank; only
+  the flat aggregation plane is sharded, so its per-rank bytes and
   collectives are not comparable to the reference's dry run.
 
 Left out, as torch cannot produce them: XLA's ``transcendentals`` and

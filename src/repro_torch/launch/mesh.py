@@ -27,6 +27,15 @@ A serving step whose batch rows are split over the data axes sets the
 ambient :class:`DataSplit` (:func:`data_split`): an MoE layer then counts
 its capacity and slot ranks over the global batch, as the reference's
 one GSPMD program does, through :func:`data_gather`.
+
+Expert parallelism on "data" (DeepSeek-V2's 2-D expert layout):
+:func:`expert_parallel` sets the ambient group of the rank's "data" axis
+over which the expert stacks' expert dim is split, and
+:func:`expert_exchange` / :func:`expert_return` move an MoE layer's
+dispatch buffer to the ranks that hold its experts and the outputs back
+(an all-to-all each way, autograd and ``vmap`` rules included);
+:func:`expert_sum` / :func:`expert_gather` are the exchange of a batch
+whose rows are split over the data ranks.
 """
 from __future__ import annotations
 
@@ -229,44 +238,62 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """The "model" axis of a mesh: its process group, size and this
-    rank's index on it."""
+    """A mesh axis ("model" for tensor parallelism, "data" for the
+    experts' exchange): its process group, size and this rank's index on
+    it."""
     group: object
     size: int
     rank: int
 
 
-def model_parallel(mesh) -> TensorParallel:
-    """The ``TensorParallel`` of ``mesh``'s "model" axis."""
-    size = axis_size(mesh, "model")
+def axis_group(mesh, name: str) -> TensorParallel:
+    """The ``TensorParallel`` of ``mesh``'s axis ``name``."""
+    size = axis_size(mesh, name)
     if size == 1:
         return TensorParallel(None, 1, 0)
-    rank = dict(zip(axis_names(mesh), mesh.get_coordinate()))["model"]
-    return TensorParallel(mesh.get_group("model"), size, rank)
+    rank = dict(zip(axis_names(mesh), mesh.get_coordinate()))[name]
+    return TensorParallel(mesh.get_group(name), size, rank)
+
+
+def model_parallel(mesh) -> TensorParallel:
+    """The ``TensorParallel`` of ``mesh``'s "model" axis."""
+    return axis_group(mesh, "model")
+
+
+@contextlib.contextmanager
+def _ambient(local, value):
+    """Push ``value`` on ``local``'s stack (one a thread) inside the
+    block."""
+    stack = local.__dict__.setdefault("stack", [])
+    stack.append(value)
+    try:
+        yield value
+    finally:
+        stack.pop()
+
+
+def _current(local):
+    """The top of ``local``'s stack, or None when it is empty or spans one
+    rank."""
+    stack = getattr(local, "stack", None)
+    value = stack[-1] if stack else None
+    return value if value is not None and value.size > 1 else None
 
 
 _TP = threading.local()
 
 
-@contextlib.contextmanager
 def tensor_parallel(tp: Optional[TensorParallel]):
     """Make ``tp`` the ambient tensor-parallel group inside the block (of
     this thread): the decoder LM's layers then compute on the pieces of
     the parameters they are given."""
-    stack = _TP.__dict__.setdefault("stack", [])
-    stack.append(tp)
-    try:
-        yield tp
-    finally:
-        stack.pop()
+    return _ambient(_TP, tp)
 
 
 def current_tp() -> Optional[TensorParallel]:
     """The ambient ``TensorParallel``, or None when there is none or its
     axis has one rank."""
-    stack = getattr(_TP, "stack", None)
-    tp = stack[-1] if stack else None
-    return tp if tp is not None and tp.size > 1 else None
+    return _current(_TP)
 
 
 class _Stack(torch.autograd.Function):
@@ -414,24 +441,16 @@ class DataSplit:
 _DS = threading.local()
 
 
-@contextlib.contextmanager
 def data_split(ds: Optional[DataSplit]):
     """Make ``ds`` the ambient data split inside the block (of this
     thread)."""
-    stack = _DS.__dict__.setdefault("stack", [])
-    stack.append(ds)
-    try:
-        yield ds
-    finally:
-        stack.pop()
+    return _ambient(_DS, ds)
 
 
 def current_data_split() -> Optional[DataSplit]:
     """The ambient ``DataSplit``, or None when there is none or it spans
     one rank."""
-    stack = getattr(_DS, "stack", None)
-    ds = stack[-1] if stack else None
-    return ds if ds is not None and ds.size > 1 else None
+    return _current(_DS)
 
 
 def data_gather(t: torch.Tensor) -> torch.Tensor:
@@ -441,3 +460,145 @@ def data_gather(t: torch.Tensor) -> torch.Tensor:
     if ds is None:
         return t[None]
     return all_gather(t.detach()[None], ds.group)
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism on "data"
+#
+# The 2-D expert layout (``launch/sharding``'s ``2d`` mode, DeepSeek-V2's)
+# splits the expert stacks' expert dim over the "data" axis and their FFN
+# dim over "model": a rank (data d, model m) holds E / D experts, each on
+# its ff / M columns. The reference keeps the dispatch buffer's expert dim
+# on "data" (its MoE's buffer constraint: the expert-parallel all-to-all
+# under GSPMD); here that exchange is explicit, over the rank's "data"
+# axis alone (on ``debug-pod`` the experts replicate over "pod", so a
+# token's experts live within its pod).
+#
+# A client's (E, cap, d) buffer is the rank's own: :func:`expert_exchange`
+# sends its rows of experts E_j to data rank j and receives every data
+# rank's rows for this rank's experts, (D, E / D, cap, d) in source order;
+# the rank runs its experts on them, and :func:`expert_return` sends each
+# source its rows back, (E, cap, d) again. Each is the other's backward,
+# and each carries the round engine's client dim through ``vmap``, so
+# every data rank must run the same number of clients (the tensor-
+# parallel step pads a short rank's rows: ``sharding.ModelShards``). A
+# batch whose rows are split over the data ranks (the prefill) keeps one
+# global slot layout, each rank's entries in slots of their own and zeros
+# elsewhere: :func:`expert_sum` adds the ranks' pieces of this rank's
+# experts (exact: at most one of them is not zero) and
+# :func:`expert_gather` returns the outputs to every rank. A data rank
+# with no rows or clients of its own still joins every exchange. With no
+# group, or a "data" axis of one rank, the experts are whole and nothing
+# is exchanged.
+
+
+_EP = threading.local()
+
+
+def expert_parallel(ep: Optional[TensorParallel]):
+    """Make ``ep`` (the "data" axis' ``axis_group``) the ambient
+    expert-parallel group inside the block (of this thread): an MoE layer
+    whose expert stacks hold E / ``ep.size`` experts then exchanges its
+    buffer over it."""
+    return _ambient(_EP, ep)
+
+
+def current_ep() -> Optional[TensorParallel]:
+    """The ambient expert-parallel group, or None when there is none or
+    its axis has one rank."""
+    return _current(_EP)
+
+
+def _by_rank(x: torch.Tensor, ep: TensorParallel) -> torch.Tensor:
+    """(..., E, cap, d) -> (D, ..., E / D, cap, d): the expert dim's D
+    pieces leading, contiguous."""
+    lead = x.shape[:-3]
+    x = x.reshape(lead + (ep.size, x.shape[-3] // ep.size) + x.shape[-2:])
+    return x.movedim(len(lead), 0).contiguous()
+
+
+def _swap(x: torch.Tensor, ep: TensorParallel) -> torch.Tensor:
+    """(D, ...) -> (D, ...): piece j goes to data rank j; the pieces
+    received, in source order."""
+    return all_to_all(x.reshape(-1), ep.group).view(x.shape)
+
+
+class _Exchange(torch.autograd.Function):
+    """(..., E, cap, d) -> (D, ..., E / D, cap, d); backward:
+    :class:`_Return`."""
+
+    @staticmethod
+    def forward(x, ep):
+        return _swap(_by_rank(x, ep), ep)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.ep = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Return.apply(g, ctx.ep), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, ep):
+        if in_dims[0] is None:
+            return _Exchange.apply(x, ep), None
+        return _Exchange.apply(x.movedim(in_dims[0], 0), ep), 1
+
+
+class _Return(torch.autograd.Function):
+    """(D, ..., E / D, cap, d), piece j for data rank j -> (..., E, cap,
+    d), each data rank's experts' rows in expert order; backward:
+    :class:`_Exchange`."""
+
+    @staticmethod
+    def forward(y, ep):
+        back = _swap(y.contiguous(), ep)             # (D, ..., E/D, cap, d)
+        back = back.movedim(0, -4)
+        return back.reshape(back.shape[:-4] + (-1,) + back.shape[-2:])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.ep = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Exchange.apply(g, ctx.ep), None
+
+    @staticmethod
+    def vmap(info, in_dims, y, ep):
+        if in_dims[0] is None:
+            return _Return.apply(y, ep), None
+        return _Return.apply(y.movedim(in_dims[0], 1), ep), 0
+
+
+def expert_exchange(buf: torch.Tensor) -> torch.Tensor:
+    """A dispatch buffer (..., E, cap, d) -> the rows of this rank's E / D
+    experts from every data rank, (D, ..., E / D, cap, d) in source
+    order (an all-to-all over the ambient expert-parallel group)."""
+    return _Exchange.apply(buf, current_ep())
+
+
+def expert_return(y: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`expert_exchange`: this rank's experts'
+    outputs for each source (D, ..., E / D, cap, d) -> every expert's
+    outputs for this rank's rows, (..., E, cap, d)."""
+    return _Return.apply(y, current_ep())
+
+
+def expert_sum(buf: torch.Tensor) -> torch.Tensor:
+    """(E, cap, d) on each data rank -> (E / D, cap, d): the sum of the
+    ranks' rows of this rank's experts, added in rank order (no
+    gradient). Exact where the ranks fill disjoint slots."""
+    ep = current_ep()
+    parts = _swap(_by_rank(buf, ep), ep)
+    acc = parts[0]
+    for i in range(1, ep.size):
+        acc = acc + parts[i]
+    return acc
+
+
+def expert_gather(y: torch.Tensor) -> torch.Tensor:
+    """(E / D, cap, d) of this rank's experts -> (E, cap, d), every data
+    rank's experts in rank order (an all-gather; no gradient)."""
+    return all_gather(y, current_ep().group)

@@ -25,9 +25,11 @@ the reference's spec tuple. A mesh here is a ``DeviceMesh`` or a
 only.
 
 :func:`tensor_parallel_ok` names the configs whose steps run tensor-
-parallel (``launch/specs``); :func:`local_pieces` takes a rank's pieces
-of a tree without making any leaf whole, and :class:`ModelShards` is the
-round engine's hook for the trainable tree's pieces.
+parallel (``launch/specs``), and :func:`check_trainable_placements`
+refuses a trainable leaf on a data axis; :func:`local_pieces` takes a
+rank's pieces of a tree without making any leaf whole, and
+:class:`ModelShards` is the round engine's hook for the trainable tree's
+pieces.
 
 The flat aggregation plane (:func:`flat_constrainer`) is where the mesh
 meets the kernels. The kernels take raw pointers, so each rank runs them
@@ -163,15 +165,35 @@ def expert_mode(cfg: ModelConfig, mesh) -> str:
 
 def tensor_parallel_ok(cfg: ModelConfig, mesh) -> bool:
     """True for the families whose steps run tensor-parallel on "model"
-    (``launch/specs``): slots of dense GQA attention and a dense or MoE
-    FFN, with the experts in the ``model`` or ``ffn`` mode, so that every
-    rule places its leaf on "model" alone. MLA, 2-D experts, the SSM
+    (``launch/specs``): slots of GQA attention or MLA and a dense or MoE
+    FFN, with the experts in the ``model``, ``ffn`` or ``2d`` mode (the
+    last, DeepSeek-V2's, puts the expert dim on "data" and exchanges each
+    MoE layer's buffer over it: ``launch/mesh.expert_exchange``). The SSM
     slots, the VLM prefix and the encoder-decoder keep the gathered
     layout."""
-    return (cfg.family in ("dense", "moe") and not cfg.use_mla
-            and not cfg.is_encoder_decoder
+    return (cfg.family in ("dense", "moe") and not cfg.is_encoder_decoder
             and (not cfg.num_experts
-                 or expert_mode(cfg, mesh) in ("model", "ffn")))
+                 or expert_mode(cfg, mesh) in ("model", "ffn", "2d")))
+
+
+def check_trainable_placements(placements, mesh) -> None:
+    """Raise a ValueError naming the first trainable leaf that the rules
+    place on a data axis (the expert stacks of the ``2d`` mode under
+    FedAvg, ``freeze_spec=()``): a client trains on its data rank alone,
+    so its copy of ``y`` cannot be split over the data axes. The
+    reference cannot place such a leaf either: its per-client
+    ``constrain`` prepends the data axes to the leaf's spec, which then
+    names "data" twice."""
+    names = mesh_lib.axis_names(mesh)
+    for path, pl in basic.flatten_params(placements):
+        on = [n for n, p in zip(names, pl)
+              if n in ("pod", "data") and isinstance(p, Shard)]
+        if on:
+            raise ValueError(
+                f"trainable leaf {path} is placed on the data axis "
+                f"{on[0]!r} by the sharding rules; a client's y cannot be "
+                f"split over the data axes (freeze the leaf, or take an "
+                f"expert mode that keeps it on 'model')")
 
 
 def param_shardings(params_struct, cfg: ModelConfig, mesh):
@@ -308,11 +330,13 @@ def local_range(n: int, mesh, placements: Placements, dim: int,
     return a, b
 
 
-def local_piece(full: torch.Tensor, mesh, placements: Placements):
-    """This rank's piece of a tensor every rank holds whole."""
+def local_piece(full: torch.Tensor, mesh, placements: Placements,
+                coord=None):
+    """This rank's piece of a tensor every rank holds whole (the rank at
+    ``coord``, given, of a mesh that may be an ``AbstractMesh``)."""
     out = full
     for d in range(full.ndim):
-        a, b = local_range(full.shape[d], mesh, placements, d)
+        a, b = local_range(full.shape[d], mesh, placements, d, coord)
         if (a, b) != (0, full.shape[d]):
             out = out.narrow(d, a, b - a)
     return out
@@ -360,11 +384,16 @@ class ModelShards:
     """The trainable tree's pieces on "model" in a tensor-parallel step
     (``launch/specs.make_train_step``): the round engine's
     ``model_shards`` hook. Each client trains this rank's pieces;
-    :meth:`whole` gathers a client's delta over "model" (an exact
-    concatenation, under ``torch.func.vmap``) for the flat plane, and
-    :meth:`local` takes the aggregated update's pieces for the server's
-    step on them. ``struct`` has the whole leaves' shapes (tensors on the
-    meta device), for the flat layout."""
+    :meth:`flat_cols` writes this rank's columns of the flat plane's row
+    of a client's delta (each leaf gathered over "model" in turn, an
+    exact concatenation, under ``torch.func.vmap``), and :meth:`local`
+    takes the aggregated update's pieces for the server's step on them. ``struct`` has the whole leaves' shapes (tensors on the
+    meta device), for the flat layout. No trainable leaf is split over a
+    data axis (:func:`check_trainable_placements`), so "model" is the one
+    axis to gather. A client's layers may exchange over the data axes (the
+    ``2d`` experts), so the round engine runs as many client rows on every
+    data rank as on the first, padding a shorter rank's (one with none
+    included) and dropping the padding's deltas."""
 
     def __init__(self, mesh, struct, placements):
         self.mesh = mesh
@@ -386,12 +415,30 @@ class ModelShards:
     def local(self, tree):
         return local_pieces(tree, self.placements, self.mesh)
 
-    def whole(self, tree):
-        def one(x, pl):
-            d = self._dim(pl)
-            return x if d is None else mesh_lib.tp_gather(x, d)
+    def flat_cols(self, tree, layout, c0: int, c1: int):
+        """Columns [c0, c1) of the flat row (``layout``, the whole tree's)
+        of ``tree``, this rank's pieces: each leaf is made whole in turn
+        (every rank gathers every split leaf: a collective each joins),
+        its padded span's overlap with the columns kept and the rest
+        dropped, so no whole row or tree is held."""
+        leaves = dict(basic.flatten_params(tree))
+        pls = dict(basic.flatten_params(self.placements))
+        parts = []
         with mesh_lib.tensor_parallel(self.tp):
-            return basic.tree_map(one, tree, self.placements)
+            for path, n, pad, off in zip(layout.paths, layout.sizes,
+                                         layout.padded, layout.offsets):
+                x, d = leaves[path], self._dim(pls[path])
+                if d is not None:
+                    x = mesh_lib.tp_gather(x, d)
+                a, b = max(off, c0), min(off + pad, c1)
+                if a < b:
+                    flat = torch.nn.functional.pad(x.reshape(-1).float(),
+                                                   (0, pad - n))
+                    parts.append(flat[a - off:b - off])
+                del x
+        if not parts:                  # a rank with no blocks of the row
+            return torch.zeros((0,), device=next(iter(leaves.values())).device)
+        return torch.cat(parts)
 
     def dtensors(self, tree):
         """This rank's pieces as DTensors of the whole shapes."""

@@ -7,10 +7,11 @@ tree in f32 (the master copy): the standard mixed-precision split of the
 reference's ``param_structs``. Structures are tensors on the meta device
 (no memory). The prefill and decode steps take the two halves and merge
 them; the train step is one FedPT round on a mesh (:func:`make_train_step`).
-On a mesh the train step and the prefill of dense attention with dense
-or MoE FFNs are tensor-parallel on "model" (:func:`make_train_step`,
-:func:`make_tp_prefill_step`): each rank computes on its pieces of the
-parameters and never gathers the frozen tree.
+On a mesh the train step and the prefill of GQA or MLA attention with
+dense or MoE FFNs are tensor-parallel on "model" (:func:`make_train_step`,
+:func:`make_tp_prefill_step`; DeepSeek-V2's 2-D experts with their expert
+dim on "data"): each rank computes on its pieces of the parameters and
+never gathers the frozen tree.
 
 Shapes (the reference's):
   train_4k     seq 4,096   global_batch 256   -> fedpt_round_step
@@ -206,15 +207,22 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
 
     ``y``, the server state and ``frozen`` may arrive as DTensors placed
     by :func:`sharding.param_shardings` (the reference's layout) or whole.
-    Where ``sharding.tensor_parallel_ok`` holds (dense attention and
+    Where ``sharding.tensor_parallel_ok`` holds (GQA or MLA attention and
     dense or MoE FFNs), the step is tensor-parallel on "model": each rank
     trains its data rank's clients on its pieces of ``y`` and of the
-    frozen tree, which is never made whole (``nn/attention.tp_attention``,
-    ``nn/basic.mlp`` / ``embed`` / ``unembed``, ``nn/moe``, the
-    vocab-parallel loss); each client's delta is gathered over "model"
-    into the flat plane's rows (``sharding.ModelShards``), and the server
-    steps on its pieces, returned as DTensors of that layout. The other
-    families keep the gathered layout: ``y`` gathered whole for the
+    frozen tree, which is never made whole (``nn/attention.tp_attention``
+    / ``tp_mla``, ``nn/basic.mlp`` / ``embed`` / ``unembed``, ``nn/moe``,
+    the vocab-parallel loss); each client's delta is gathered over
+    "model" a leaf at a time into this rank's columns of the flat plane's
+    row (``sharding.ModelShards.flat_cols``), and the server steps on its
+    pieces, returned as DTensors of that layout. With
+    the experts in the ``2d`` mode (DeepSeek-V2) a rank holds E / D
+    experts on their FFN columns, each MoE layer exchanges a client's
+    buffer over the rank's "data" axis (``launch/mesh.expert_exchange``);
+    a trainable leaf the rules would place on a data axis (the experts
+    under FedAvg) raises a ValueError naming it
+    (``sharding.check_trainable_placements``). The other families keep
+    the gathered layout: ``y`` gathered whole for the
     clients, whose copies ``torch.func.vmap`` never materializes, the
     server state and the frozen tree gathered on entry, and the new ``y``
     laid out again (``constrain_fn``). Either way the batch and weights
@@ -228,8 +236,11 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
                            client_opt="sgd", client_lr=0.02,
                            server_opt="sgdm", server_lr=0.5)
     shard_y = shard_lib.param_shardings(y_struct, cfg, mesh)
+    tp_ok = shard_lib.tensor_parallel_ok(cfg, mesh)
+    if tp_ok:
+        shard_lib.check_trainable_placements(shard_y, mesh)
     plane = shard_lib.flat_constrainer(mesh)
-    if shard_lib.tensor_parallel_ok(cfg, mesh):
+    if tp_ok:
         return _tp_train_step(cfg, mesh, y_struct, shard_y, rc, plane,
                               device)
 
@@ -257,11 +268,12 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
 
 def _tp_train_step(cfg, mesh, y_struct, shard_y, rc, plane, device):
     """:func:`make_train_step`'s tensor-parallel step."""
-    shards = shard_lib.ModelShards(mesh, y_struct, shard_y)
     tp = mesh_lib.model_parallel(mesh)
+    ep = _experts_on_data(cfg, mesh)
+    shards = shard_lib.ModelShards(mesh, y_struct, shard_y)
 
     def loss_fn(params, mb):
-        with mesh_lib.tensor_parallel(tp):
+        with mesh_lib.tensor_parallel(tp), mesh_lib.expert_parallel(ep):
             return dlm.train_loss(params, cfg, mb)
 
     round_step, server_opt = fedpt.make_round_fn(
@@ -277,6 +289,14 @@ def _tp_train_step(cfg, mesh, y_struct, shard_y, rc, plane, device):
         return shards.dtensors(y_new), shards.dtensors(ss_new), metrics
 
     return train_step, server_opt
+
+
+def _experts_on_data(cfg: ModelConfig, mesh) -> mesh_lib.TensorParallel:
+    """The "data" axis the expert stacks' expert dim is split over (the
+    ``2d`` mode), or a group of one rank (nothing is exchanged)."""
+    if cfg.num_experts and shard_lib.expert_mode(cfg, mesh) == "2d":
+        return mesh_lib.axis_group(mesh, "data")
+    return mesh_lib.TensorParallel(None, 1, 0)
 
 
 def _laid_out_as(tree, like):
@@ -340,14 +360,18 @@ def make_tp_prefill_step(cfg: ModelConfig, mesh, device=None):
     on the data axes where the batch's are. Each rank runs
     :func:`make_prefill_step`'s forward on its pieces of ``y`` and the
     frozen tree (DTensors or whole) and its data rank's rows: attention
-    on its heads through ``flash_attention`` (the ``swa_attention`` kernel
-    on the card), the FFN or experts on its pieces; no parameter is
-    gathered. An MoE's capacity and slot ranks are counted over the
-    global batch, as the reference's forward counts them
-    (``sharding.batch_split``). A caller that wants whole logits asks the
-    DTensor (``full_tensor()``)."""
+    (GQA, or MLA) on its heads through ``flash_attention`` (the
+    ``swa_attention`` kernel on the card), the FFN or experts on its
+    pieces; no parameter is gathered. An MoE's capacity and slot ranks are
+    counted over the global batch, as the reference's forward counts them
+    (``sharding.batch_split``); with the experts in the ``2d`` mode the
+    data ranks' buffers are summed on the ranks that hold their experts
+    and the outputs gathered back (``launch/mesh.expert_sum`` /
+    ``expert_gather``), every data rank joining, one with no rows too. A
+    caller that wants whole logits asks the DTensor (``full_tensor()``)."""
     step = make_prefill_step(cfg, device)
     tp = mesh_lib.model_parallel(mesh)
+    ep = _experts_on_data(cfg, mesh)
     names = mesh_lib.axis_names(mesh)
 
     def prefill(y, frozen, batch):
@@ -357,8 +381,8 @@ def make_tp_prefill_step(cfg: ModelConfig, mesh, device=None):
         zl = shard_lib.local_pieces(
             frozen, shard_lib.param_shardings(frozen, cfg, mesh), mesh)
         tokens = batch["tokens"]
-        with mesh_lib.tensor_parallel(tp), mesh_lib.data_split(
-                shard_lib.batch_split(mesh, tokens)):
+        with mesh_lib.tensor_parallel(tp), mesh_lib.expert_parallel(ep), \
+                mesh_lib.data_split(shard_lib.batch_split(mesh, tokens)):
             logits = step(yl, zl, _data_local(batch))
         rows = (tokens.placements if isinstance(tokens, DTensor)
                 else (Replicate(),) * len(names))
@@ -392,11 +416,13 @@ def build_job(arch: str, shape: str, mesh, cfg_override=None,
               device="cpu") -> LoweringJob:
     """The step of ``shape``'s kind for ``arch`` on ``mesh``, its argument
     structures and their placements. Where ``sharding.tensor_parallel_ok``
-    holds, the train step and the prefill are tensor-parallel
+    holds (the dense and MoE decoder LMs, MLA and DeepSeek-V2's 2-D
+    experts included), the train step and the prefill are tensor-parallel
     (:func:`make_train_step`, :func:`make_tp_prefill_step`; ``layout``
-    :data:`TP_LAYOUT`); otherwise, and for decode, the steps run
-    data-parallel: their parameters gathered whole, the batch (and the
-    cache, its "model" shards gathered) a data rank's rows."""
+    :data:`TP_LAYOUT`); otherwise (the SSM, VLM and encoder-decoder
+    families), and for decode, the steps run data-parallel: their
+    parameters gathered whole, the batch (and the cache, its "model"
+    shards gathered) a data rank's rows."""
     base_cfg = cfg_override if cfg_override is not None else get_config(arch)
     info = SHAPES[shape]
     cfg = serving_config(base_cfg, shape)

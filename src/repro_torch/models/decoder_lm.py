@@ -41,11 +41,11 @@ K / V (zeros from ``init_cache``, the encoder's from
 Under tensor parallelism (``launch/mesh.tensor_parallel``, the train step
 and prefill of ``launch/specs`` on a mesh) each rank holds its pieces of
 the parameters, placed by the reference's rules: attention slots run
-``nn/attention.tp_attention`` on the rank's heads, the FFNs and experts
-their pieces (``nn/basic.mlp``, ``nn/moe``), the embedding a masked
-lookup of the rank's vocab rows, the logits the rank's vocab columns,
-and ``lm_loss`` the vocab-parallel cross-entropy; the (B, S, V) logits
-are never gathered in training.
+``nn/attention.tp_attention`` (MLA's ``tp_mla``) on the rank's heads,
+the FFNs and experts their pieces (``nn/basic.mlp``, ``nn/moe``), the
+embedding a masked lookup of the rank's vocab rows, the logits the
+rank's vocab columns, and ``lm_loss`` the vocab-parallel cross-entropy;
+the (B, S, V) logits are never gathered in training.
 
 ``forward`` takes the attention function explicitly: the serving prefill
 runs ``nn/attention.flash_attention`` (the ``swa_attention`` kernel on
@@ -255,6 +255,10 @@ def _attend(x, h, sp, cfg: ModelConfig, positions, attention, causal=True,
     """The attention half of an attention slot: (x + attention output,
     the cache entry)."""
     cd = cfg.cdtype
+    if cfg.use_mla and attn_lib.mla_heads_split(sp["attn"], cfg):
+        o, cache = attn_lib.tp_mla(h, sp["attn"], cfg, positions, attention,
+                                   causal, prefix_len)
+        return x + o, cache
     if cfg.use_mla:
         q, k, v, cache = attn_lib.mla_qkv(h, sp["attn"], cfg, positions)
         o = attention(q, k, v, cfg.with_(sliding_window=0), causal=causal,

@@ -12,7 +12,8 @@ softmax: KV chunks of 512, f32 scores and running (max, sum, acc), ``p``
 cast to v's dtype before the PV product.
 ``decode_attention`` stays plain torch, as the JAX package computes it
 outside any Pallas kernel. ``tp_attention`` is a GQA slot's attention on
-one rank's heads under tensor parallelism (``launch/mesh.tensor_parallel``).
+one rank's heads under tensor parallelism (``launch/mesh.tensor_parallel``),
+``tp_mla`` an MLA slot's.
 
 MLA compresses K and V into a ``kv_lora_rank`` latent c_kv plus one
 shared rope key k_pe. Prefill expands them to 128 heads of 192-wide q / k
@@ -294,15 +295,19 @@ def init_mla(seed, path, cfg: ModelConfig, dtype, device=None):
 
 
 def _mla_q(x, p, cfg: ModelConfig):
-    """q (b, s, h, qn + qr) before RoPE: through the q_lora_rank bottleneck
-    (``wq_a``, ``q_norm``, ``wq_b``) when the config has one."""
+    """q (b, s, heads, qn + qr) before RoPE: through the q_lora_rank
+    bottleneck (``wq_a``, ``q_norm``, ``wq_b``) when the config has one;
+    ``heads`` from the width of the pieces given (``wq_b`` or ``wq``)."""
     b, s, _ = x.shape
-    h, cd = cfg.num_heads, cfg.cdtype
+    cd = cfg.cdtype
     width = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     if "wq_a" in p:
-        qc = basic.rmsnorm(basic.dense(x, p["wq_a"], cd), p["q_norm"]["scale"])
-        return basic.dense(qc, p["wq_b"], cd).reshape(b, s, h, width)
-    return basic.dense(x, p["wq"], cd).reshape(b, s, h, width)
+        x = basic.rmsnorm(basic.dense(x, p["wq_a"], cd), p["q_norm"]["scale"])
+        wq = p["wq_b"]
+    else:
+        wq = p["wq"]
+    h = wq["kernel"].shape[-1] // width
+    return basic.dense(x, wq, cd).reshape(b, s, h, width)
 
 
 def mla_compress(x, p, cfg: ModelConfig, positions):
@@ -319,11 +324,13 @@ def mla_qkv(x, p, cfg: ModelConfig, positions):
     """Full (non-absorbed) MLA for training and prefill: q and k (b, s, h,
     qn + qr), RoPE on their last qr dims (k's one shared rope head
     broadcast to every head), v (b, s, h, v_head_dim), and the (c_kv,
-    k_pe) pair the cache holds."""
+    k_pe) pair the cache holds. ``h`` is the head count of the pieces
+    given: ``cfg.num_heads`` for the whole projections."""
     b, s, _ = x.shape
-    h, qn, vd = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    qn, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
     cd = cfg.cdtype
     q = _mla_q(x, p, cfg)
+    h = q.shape[2]
     c_kv, k_pe = mla_compress(x, p, cfg, positions)
     k_nope = basic.dense(c_kv, p["wk_b"], cd).reshape(b, s, h, qn)
     v = basic.dense(c_kv, p["wv_b"], cd).reshape(b, s, h, vd)
@@ -331,6 +338,81 @@ def mla_qkv(x, p, cfg: ModelConfig, positions):
     q = torch.cat([q[..., :qn], apply_rope(q[..., qn:], cos, sin)], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, -1)], dim=-1)
     return q, k, v, (c_kv, k_pe)
+
+
+def mla_heads_split(p, cfg: ModelConfig) -> bool:
+    """True when ``p``'s MLA output projection holds only this rank's rows
+    under the ambient tensor-parallel group."""
+    return (mesh_lib.current_tp() is not None and p["wo"]["kernel"].shape[-2]
+            != cfg.num_heads * cfg.v_head_dim)
+
+
+def _mla_heads(plain, copied, wp, n_heads: int, hd: int, lo: int, hi: int,
+               cd):
+    """Heads [lo, hi) of an MLA up-projection, (b, s, hi - lo, hd): from
+    this rank's columns (``copied``: the replicated input through
+    ``tp_copy``; :func:`_heads_of` gathers them over "model" where they
+    are not exactly those heads), or, for a projection the rules
+    replicate, computed whole from the un-copied input (``plain``) and
+    entering through ``tp_copy``."""
+    tp = mesh_lib.current_tp()
+    b, s, _ = plain.shape
+    width = wp["kernel"].shape[-1]
+    if width == n_heads * hd:
+        t = mesh_lib.tp_copy(basic.dense(plain, wp, cd))
+        t = t[..., lo * hd:hi * hd]
+    else:
+        t = _heads_of(basic.dense(copied, wp, cd), tp.rank * width, lo, hi,
+                      hd)
+    return t.reshape(b, s, hi - lo, hd)
+
+
+def tp_mla(h, p, cfg: ModelConfig, positions, attention, causal=True,
+           prefix_len: int = 0):
+    """MLA on this rank's heads under the ambient tensor-parallel group,
+    with ``wq_b`` / ``wk_b`` / ``wv_b`` (or ``wq`` without the q-LoRA)
+    column-parallel and ``wo`` row-parallel, as ``launch/sharding``'s
+    rules place them: returns (the slot's attention output, summed over
+    the "model" ranks, the (c_kv, k_pe) cache entry).
+
+    ``wq_a``, ``q_norm``, ``wkv_a`` and ``kv_norm`` are replicated: the
+    q bottleneck, c_kv and the shared rope key k_pe are computed whole
+    from the un-copied input on every rank and enter rank-local work
+    through ``tp_copy`` once each, so their gradients are summed once over
+    the ranks. The rank runs the heads that ``wo``'s rows on it read; where
+    the axis ends a piece inside a head (3 heads on a 2-wide axis), it
+    gathers the projection's pieces over "model" and takes those heads,
+    as :func:`tp_attention` does."""
+    tp = mesh_lib.current_tp()
+    b, s, _ = h.shape
+    nh, qn, qr, vd = (cfg.num_heads, cfg.qk_nope_head_dim,
+                      cfg.qk_rope_head_dim, cfg.v_head_dim)
+    cd = cfg.cdtype
+    rows = p["wo"]["kernel"].shape[-2]
+    r0, r1 = tp.rank * rows, (tp.rank + 1) * rows
+    lo, hi = r0 // vd, -(-r1 // vd)          # the heads wo's rows read
+    if "wq_a" in p:
+        qin = basic.rmsnorm(basic.dense(h, p["wq_a"], cd),
+                            p["q_norm"]["scale"])
+        wq = p["wq_b"]
+    else:
+        qin, wq = h, p["wq"]
+    c_kv, k_pe = mla_compress(h, p, cfg, positions)
+    ckv_c = mesh_lib.tp_copy(c_kv)
+    q = _mla_heads(qin, mesh_lib.tp_copy(qin), wq, nh, qn + qr, lo, hi, cd)
+    k_nope = _mla_heads(c_kv, ckv_c, p["wk_b"], nh, qn, lo, hi, cd)
+    v = _mla_heads(c_kv, ckv_c, p["wv_b"], nh, vd, lo, hi, cd)
+    cos, sin = rope_freqs(qr, cfg.rope_theta, positions)
+    q = torch.cat([q[..., :qn], apply_rope(q[..., qn:], cos, sin)], dim=-1)
+    k_pe_c = mesh_lib.tp_copy(k_pe)
+    k = torch.cat([k_nope, k_pe_c[:, :, None, :].expand(b, s, hi - lo, qr)],
+                  dim=-1)
+    o = attention(q, k, v, cfg.with_(sliding_window=0), causal=causal,
+                  prefix_len=prefix_len)
+    del q, k, v
+    # the width named, not -1: a data rank with no rows has b = 0
+    o = o.reshape(b, s, (hi - lo) * vd)[..., r0 - lo * vd:r1 - lo * vd]
+    return basic.row_parallel(o, p["wo"], cd), (c_kv, k_pe)
 
 
 def mla_decode(x, p, cfg: ModelConfig, ckv_cache, kpe_cache, cache_len):

@@ -33,14 +33,20 @@ activations, their outputs), no-ops without an ambient mesh or on plain
 tensors.
 
 Under tensor parallelism (``launch/mesh.tensor_parallel``) the expert
-stacks are this rank's pieces: E / m experts (the ``model`` mode) or
-each expert's FFN columns (``ffn``). Routing and dispatch stay the same
-on every rank (a float32 router on the same tokens); the rank runs its
-pieces, combines its partial output and the partials are summed over
-"model" in rank order (at k = 2 in the ``model`` mode, the unmeshed bits
-given the same expert outputs: one rank's partial holds both of a
-token's rows or each holds one, and the float32 sum of two bf16 rows is
-exact before its one rounding).
+stacks are this rank's pieces: E / m experts (the ``model`` mode), each
+expert's FFN columns (``ffn``), or E / D experts on their FFN columns
+(``2d``: the expert dim on "data", under ``launch/mesh.expert_parallel``).
+Routing and dispatch stay the same on every "model" rank (a float32
+router on the same tokens); the rank runs its pieces, combines its
+partial output and the partials are summed over "model" in rank order
+(at k = 2 in the ``model`` mode, the unmeshed bits given the same expert
+outputs: one rank's partial holds both of a token's rows or each holds
+one, and the float32 sum of two bf16 rows is exact before its one
+rounding). In the ``2d`` mode the buffer goes to the data ranks that hold
+its experts and the outputs come back (``launch/mesh.expert_exchange`` /
+``expert_return``: a client's buffer is its own; under a data split,
+``expert_sum`` / ``expert_gather``: the ranks' buffers share one global
+slot layout), so the combine reads the same rows as in the ``ffn`` mode.
 """
 from __future__ import annotations
 
@@ -184,32 +190,55 @@ def _experts(buf, p, cd, ff_axis=None):
 
 
 def _expert_split(p, cfg: ModelConfig):
-    """How this rank's expert stacks are split under the ambient tensor-
-    parallel group: "model" (the expert dim on "model": E / m experts a
-    rank), "ffn" (each expert's FFN dim), or None (whole)."""
-    if mesh_lib.current_tp() is None:
-        return None
+    """How this rank's expert stacks are split: (the expert dim's axis,
+    "model", "data" (under the ambient expert-parallel group) or None;
+    whether each expert's FFN dim is split on "model"). ``(None, False)``
+    is whole."""
+    tp, ep = mesh_lib.current_tp(), mesh_lib.current_ep()
     el, ffl = p["wi_gate"].shape[-3], p["wi_gate"].shape[-1]
-    split = {(True, True): None, (False, True): "model",
-             (True, False): "ffn"}.get((el == cfg.num_experts,
-                                       ffl == cfg.expert_d_ff), "2d")
-    if split == "2d":
-        raise NotImplementedError("experts split on both the expert and "
-                                  "the FFN dim (2-D expert sharding)")
-    return split
+    e_axis = None
+    if el != cfg.num_experts:
+        e_axis = "data" if ep is not None else "model"
+    ff_split = ffl != cfg.expert_d_ff
+    if (e_axis == "model" or ff_split) and tp is None:
+        raise ValueError("the expert stacks hold pieces on 'model' outside "
+                         "a tensor-parallel step")
+    return e_axis, ff_split
+
+
+def _partial(split) -> bool:
+    """True when the combine of this rank's expert outputs is its partial
+    sum over "model" (the experts or their FFN columns split there)."""
+    return split[0] == "model" or split[1]
+
+
+def _hint_axes(cfg: ModelConfig, split):
+    """The mesh axes of the expert dim and of the experts' hidden FFN dim
+    for the sharding hints: where this rank's pieces put them, or, with
+    whole stacks, the reference's choice ("data" / "model" for huge
+    banks, the 2-D mode; else "model" / None)."""
+    if split != (None, False):
+        return split[0], "model" if split[1] else None
+    if cfg.num_experts >= 64:
+        return "data", "model"
+    return "model", None
 
 
 def _experts_tp(buf, p, cfg: ModelConfig, cd, split, ff_axis=None):
     """:func:`_experts` on this rank's pieces of the expert stacks
     (``split`` from :func:`_expert_split`) -> y (..., E, cap, d). In the
     ``model`` mode the rank runs its experts' slots and the others' rows
-    are zero; in the ``ffn`` mode it runs every expert on its FFN columns.
-    Either way the output combined from it is this rank's partial sum; the
-    dispatch buffer, the same on every rank, enters through ``tp_copy``."""
-    if split is None:
-        return _experts(buf, p, cd, ff_axis)
-    buf = mesh_lib.tp_copy(buf)
-    if split == "ffn":
+    are zero; in the ``ffn`` mode it runs every expert on its FFN columns;
+    with the expert dim on "data" it runs its E / D experts on every data
+    rank's rows for them (:func:`_experts_ep`). Where the output combined
+    from it is this rank's partial sum over "model", the dispatch buffer,
+    the same on every "model" rank, enters through ``tp_copy``."""
+    e_axis = split[0]
+    if _partial(split):
+        buf = mesh_lib.tp_copy(buf)
+    if e_axis == "data":
+        return _experts_ep(buf, p, cd, ff_axis)
+    if e_axis is None:
         return _experts(buf, p, cd, ff_axis)
     el = p["wi_gate"].shape[-3]
     e0 = mesh_lib.current_tp().rank * el
@@ -219,6 +248,22 @@ def _experts_tp(buf, p, cfg: ModelConfig, cd, split, ff_axis=None):
         return y.new_zeros(y.shape[:-3] + (n,) + y.shape[-2:])
     return torch.cat([zeros(e0), y, zeros(cfg.num_experts - e0 - el)],
                      dim=-3)
+
+
+def _experts_ep(buf, p, cd, ff_axis=None):
+    """The expert FFNs with the expert dim on "data": this rank's buffer
+    (..., E, cap, d) -> every expert's outputs for its rows, (..., E,
+    cap, d). A buffer of the rank's own tokens (a client's, in the train
+    step) goes out by ``expert_exchange``, the rank runs its experts on
+    every source's rows for them and ``expert_return`` sends them back;
+    under a data split the ranks' buffers share the global slots, so the
+    expert rank adds them (``expert_sum``), runs its experts once and
+    ``expert_gather`` hands every rank the outputs."""
+    if mesh_lib.current_data_split() is not None:
+        return mesh_lib.expert_gather(
+            _experts(mesh_lib.expert_sum(buf), p, cd, ff_axis))
+    y = _experts(mesh_lib.expert_exchange(buf), p, cd, ff_axis)
+    return mesh_lib.expert_return(y)
 
 
 def _partial_meta(meta):
@@ -252,22 +297,16 @@ def moe_ffn(x, p, cfg: ModelConfig, row_len=None):
     w, idx, aux = router_topk(x, p, cfg)
     cap, offset = ((capacity(T, cfg), None) if not split_rows
                    else _global_slots(idx, cfg, row_len))
-    # the expert dim's mesh axis mirrors launch/sharding.py: "data" for
-    # huge banks (2-D expert sharding), else "model" (the FFN dim then
-    # left to the weights' own layout)
-    if cfg.num_experts >= 64:
-        expert_axis, ff_axis = "data", "model"
-    else:
-        expert_axis, ff_axis = "model", None
     split = _expert_split(p, cfg)
+    expert_axis, ff_axis = _hint_axes(cfg, split)
     buf, meta = _sort_dispatch(x, w, idx, e, cap, cd, offset)
     buf = basic.maybe_constrain(buf, (expert_axis, None, None))
     y = _experts_tp(buf, p, cfg, cd, split, ff_axis)
     y = basic.maybe_constrain(y, (expert_axis, None, None))
-    if split:
+    if _partial(split):
         meta = _partial_meta(meta)
     out = _combine_local(y.reshape(e * cap, d), meta, T, e, cap, cd)
-    if split:
+    if _partial(split):
         out = mesh_lib.tp_reduce(out)
     if cfg.num_shared_experts > 0:
         out = out + _shared(x, p, cfg, cd)
@@ -297,13 +336,13 @@ def _moe_ffn_grouped(x, p, cfg: ModelConfig, g: int):
     bufs, metas, auxs = torch.func.vmap(local)(x.reshape(g, Tl, d))
     split = _expert_split(p, cfg)
     y = _experts_tp(bufs, p, cfg, cd, split)
-    if split:
+    if _partial(split):
         metas = _partial_meta(metas)
     out = torch.func.vmap(
         lambda yl, *m: _combine_local(yl.reshape(e * cap, d), m, Tl, e, cap,
                                       cd))(y, *metas)
     out = out.reshape(T, d)
-    if split:
+    if _partial(split):
         out = mesh_lib.tp_reduce(out)
     if cfg.num_shared_experts > 0:
         out = out + _shared(x, p, cfg, cd)

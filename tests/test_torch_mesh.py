@@ -3,8 +3,8 @@ reference's ``tests/test_multidevice.py`` with its tolerances and exact
 fields, on 4 ranks (``debug``, 2 x 2) and, for the async grid, on 8
 (``debug-pod``, 2 x 2 x 2); the meshed async grid against the
 reference's single-device run; and ``launch/specs.make_train_step`` on a
-reduced StableLM (tensor-parallel) and a reduced Mixtral with 2-D
-experts (the gathered layout) over 2 x 2 against the unsharded round;
+reduced StableLM (tensor-parallel) and a reduced xLSTM (an SSM family,
+the gathered layout) over 2 x 2 against the unsharded round;
 and the grid's snapshots on 2 x 2, written once a world and resumed on
 every rank.
 
@@ -51,9 +51,9 @@ import _torch_mesh_worker as worker
 REL = 1e-5                   # tests/test_torch_grid.py's tolerance
 
 RC, RC_DP, PLAN, ASSIGN = worker.RC, worker.RC_DP, worker.PLAN, worker.ASSIGN
-# a reduced config that keeps make_train_step's gathered layout: Mixtral
-# with its experts on "data" and "model" (the 2-D mode)
-GATHERED_ARCH, GATHERED_OVER = "mixtral-8x7b", {"expert_shard": "2d"}
+# a reduced config that keeps make_train_step's gathered layout: xLSTM
+# (its mLSTM and sLSTM blocks have no tensor-parallel form yet)
+GATHERED_ARCH, GATHERED_OVER = "xlstm-350m", {}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -346,6 +346,11 @@ def test_async_mesh_matches_the_reference(world4):
 # ranks' partial sums are added in another order than the one GEMV, so
 # the update is held by its norm within this bound
 TRAIN_STEP_UPDATE_REL = 1e-5
+# a trainable leaf the rules split on "model" in each train-step case, and
+# its placements on 2 x 2
+SHARDED_LEAF = {
+    "stablelm": ("layers/slot0/attn/wq/kernel", "(Replicate(), Shard(dim=2))"),
+    "gathered": ("embed/embedding", "(Replicate(), Shard(dim=0))")}
 
 
 def _train_step_matches_unsharded_round(world4, init, key):
@@ -374,7 +379,8 @@ def _train_step_matches_unsharded_round(world4, init, key):
     for a, b in zip(_leaves(ss_ref), _leaves(got["ss"])):
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-7)
     pl = got["placements"]
-    assert pl["layers/slot0/attn/wq/kernel"] == "(Replicate(), Shard(dim=2))"
+    path, want = SHARDED_LEAF[key]
+    assert pl[path] == want
     assert pl["final_norm/scale"] == "(Replicate(), Replicate())"
     return got
 
@@ -386,8 +392,8 @@ def test_train_step_on_mesh_matches_unsharded_round(world4, init):
 
 def test_gathered_train_step_on_mesh_matches_unsharded_round(world4, init):
     """``make_train_step``'s gathered layout (a config that
-    ``sharding.tensor_parallel_ok`` refuses: a reduced Mixtral with 2-D
-    experts) on 2 x 2: y, the server state and the frozen tree gathered
+    ``sharding.tensor_parallel_ok`` refuses: a reduced xLSTM) on 2 x 2:
+    y, the server state and the frozen tree gathered
     for each data rank's clients, the flat plane on each rank's blocks,
     and the new y laid out again by the rules."""
     got = _train_step_matches_unsharded_round(world4, init, "gathered")

@@ -9,7 +9,8 @@ and ``frozen``, in every ``expert_shard`` mode; the cache placements of
 the serving shapes likewise. The reference's rules need only a mesh's
 ``axis_names`` and ``devices.shape`` (a duck-typed mesh); its
 ``NamedSharding`` is read as the bare spec. Also: ``maybe_constrain``
-on a DTensor of a 1-rank mesh.
+on a DTensor of a 1-rank mesh, and which families' steps run tensor-
+parallel (``tensor_parallel_ok``).
 """
 import functools
 import types
@@ -168,3 +169,28 @@ def test_maybe_constrain_on_a_one_rank_mesh():
         assert tbasic.maybe_constrain(x, ("model", None)) is x  # plain
         assert tbasic.maybe_constrain(dx, (None, None)) is dx
     assert tmesh.get_abstract_mesh() is None
+
+
+# the presets of the tensor-parallel CPU tests and the production mesh
+TP_MESHES = {"debug": ((2, 2), ("data", "model")),
+             "debug-pod": ((2, 2, 2), ("pod", "data", "model")),
+             "production": ((16, 16), ("data", "model"))}
+
+
+@pytest.mark.parametrize("mesh_name", list(TP_MESHES))
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "xlstm-350m",
+                                  "jamba-v0.1-52b", "paligemma-3b",
+                                  "whisper-large-v3"])
+def test_tensor_parallel_ok_by_family(arch, mesh_name):
+    """DeepSeek-V2 (MLA, its 160 experts in the ``2d`` mode: the expert
+    dim on "data", the FFN dim on "model") takes the tensor-parallel
+    steps on every preset; the SSM (xLSTM), hybrid (Jamba), VLM
+    (PaliGemma) and encoder-decoder (Whisper) families keep the gathered
+    layout."""
+    tload_all()
+    cfg = tget_config(arch)
+    mesh = tmesh.AbstractMesh(*TP_MESHES[mesh_name])
+    want = arch == "deepseek-v2-236b"
+    assert tshard.tensor_parallel_ok(cfg, mesh) == want
+    if want:
+        assert tshard.expert_mode(cfg, mesh) == "2d"

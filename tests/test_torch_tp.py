@@ -87,9 +87,22 @@ CASES = {
     "mixtral_overflow": ("mixtral-8x7b", {"moe_capacity_factor": 0.5}),
     "mixtral_ffn_overflow": ("mixtral-8x7b", {"expert_shard": "ffn",
                                               "moe_capacity_factor": 0.5}),
+    "deepseek_2d": ("deepseek-v2-236b", {"expert_shard": "2d"}),
+    "deepseek_2d_overflow": ("deepseek-v2-236b", {
+        "expert_shard": "2d", "moe_capacity_factor": 0.5}),
+    "deepseek_split_head": ("deepseek-v2-236b", {"expert_shard": "2d",
+                                                 "num_heads": 3}),
 }
 OVERFLOW = [c for c in CASES if c.endswith("_overflow")]
-PREFILL_ROWS = {"mixtral_ffn_overflow": 3}       # else 4
+PREFILL_ROWS = {"mixtral_ffn_overflow": 3, "deepseek_2d_overflow": 3}
+# the round's clients (else TP_ROUND's 4): 3 do not divide the data ranks,
+# 2, 1 on 2 x 2 and 1, 1, 1, 0 on 2 x 2 x 2, so a short rank pads its rows
+# to join every expert exchange, and the last rank of 2 x 2 x 2 trains none
+CLIENTS = {"deepseek_2d_overflow": 3}
+# the 2-D expert cases: each routed expert stack holds 1 / (D * M) of the
+# bank a rank (the expert dim on the 2-wide "data" axis, the FFN dim on
+# the 2-wide "model" axis; "pod" replicates)
+TWO_D = [c for c in CASES if CASES[c][1].get("expert_shard") == "2d"]
 DECODE = {"mixtral_overflow": (4, 4)}            # (rows, tokens a row)
 # the prefill's rows are split over the data axes: 2 of them on 2 x 2, 4
 # on 2 x 2 x 2; the data axes' sizes in mesh order
@@ -133,9 +146,9 @@ def inputs():
         params = jax.tree_util.tree_map(np.asarray, jdlm.init_model(jcfg, 0))
         # a bf16 case takes its float32 twin's inputs
         rng = np.random.default_rng(list(CASES).index(_twin(case)))
-        tok = rng.integers(0, jcfg.vocab_size, (R["clients"], R["tau"],
-                                                 R["batch"], R["seq"]),
-                           dtype=np.int32)
+        tok = rng.integers(0, jcfg.vocab_size,
+                           (CLIENTS.get(case, R["clients"]), R["tau"],
+                            R["batch"], R["seq"]), dtype=np.int32)
         out[case] = {"arch": CASES[case][0], "cfg": _tcfg(case),
                      "params": params,
                      "batch": {"tokens": tok, "labels": tok},
@@ -191,7 +204,7 @@ def unsharded(inputs):
         y_new, _, m = step(y, sopt.init(y), z,
                            {k: torch.as_tensor(v)
                             for k, v in inp["batch"].items()},
-                           torch.ones(R["clients"]), None)
+                           torch.ones(inp["batch"]["tokens"].shape[0]), None)
         logits = tdlm.forward(params, cfg, torch.as_tensor(
             inp["prefill"]))[0].float().numpy()
         out[case] = {"y0": [t.numpy() for t in tbasic.tree_leaves(y)],
@@ -219,7 +232,8 @@ def reference(inputs):
         jy_new, _, jm = jround(jy, jsopt.init(jy), jz,
                                {k: jnp.asarray(v)
                                 for k, v in inp["batch"].items()},
-                               jnp.ones((R["clients"],), jnp.float32),
+                               jnp.ones((inp["batch"]["tokens"].shape[0],),
+                                        jnp.float32),
                                jax.random.key(0))
         logits = np.asarray(jdlm.forward(jp, jcfg,
                                          jnp.asarray(inp["prefill"]))[0])
@@ -339,7 +353,7 @@ def test_overflow_cases_tell_the_global_batch_from_its_pieces(inputs,
     want = unsharded[case]["logits"]
     assert float(np.abs(split - want).max()) \
         > LOGIT_REL * float(np.abs(want).max())
-    if case == "mixtral_ffn_overflow" and d == 4:
+    if PREFILL_ROWS.get(case) == 3 and d == 4:
         assert pieces[-1][0] == pieces[-1][1]
     if case in DECODE:
         dec = torch.as_tensor(inp["decode"])
@@ -375,19 +389,64 @@ def test_frozen_tree_stays_in_pieces(world, case):
     frozen leaf of them, so no step makes a frozen leaf whole before its
     layers run. The new y keeps the rules' placements; the job's layout
     is the tensor-parallel one."""
+    arch = CASES[case][0]
+    experts = ("/moe/wi_gate", "/moe/wi_up", "/moe/wo")
     for rank in world[1]:
         res = rank[case]
         split = {p for p, (n, whole, dt) in res["frozen_local"].items()
                  if dt and n != whole}
         for p, (n, whole, dt) in res["frozen_local"].items():
-            assert dt and n * (2 if p in split else 1) == whole, p
+            parts = (4 if case in TWO_D and p.endswith(experts) else
+                     2 if p in split else 1)
+            assert dt and n * parts == whole, p
             for seen in res["frozen_seen"].values():
                 assert seen[p] == {n}, (p, seen[p], n, whole)
-        arch = CASES[case][0]
-        kinds = (("/moe/wi_gate", "/moe/wi_up", "/moe/wo") if "mixtral"
-                 in arch else ("/ffn/wi_gate/kernel", "/ffn/wo/kernel"))
+        kinds = (experts if arch in ("mixtral-8x7b", "deepseek-v2-236b")
+                 else ("/ffn/wi_gate/kernel", "/ffn/wo/kernel"))
         assert all(any(p.endswith(k) for p in split) for k in kinds), split
         assert res["layout"] == specs.TP_LAYOUT
         pl = res["y_placements"]
-        assert pl["layers/slot0/attn/wq/kernel"].endswith("Shard(dim=2))")
+        wq = "wq_b" if "deepseek" in arch else "wq"
+        assert pl[f"layers/slot0/attn/{wq}/kernel"].endswith("Shard(dim=2))")
         assert "Shard" not in pl["final_norm/scale"]
+
+
+def test_fedavg_2d_experts_raise_naming_the_leaf():
+    """DeepSeek-V2 under FedAvg (``freeze_spec=()``) with 2-D experts: the
+    rules place the now trainable expert stacks on "data", over which a
+    client's copy of y cannot be split, so the tensor-parallel train step
+    refuses them with a ValueError naming the first such leaf. The
+    reference cannot place such a leaf either: tracing its train step on a
+    1 x 1 ("data", "model") mesh raises, because its per-client
+    ``constrain`` prepends the data axis to the leaf's spec, which then
+    names "data" twice (``PartitionSpec('data', None, 'data', None,
+    'model')``)."""
+    from jax.sharding import Mesh
+
+    from repro.launch import specs as jspecs
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import sharding as tshard
+    cfg = _tcfg("deepseek_2d").with_(freeze_spec=())
+    y, _ = specs.param_structs(cfg)
+    mesh = tmesh.AbstractMesh((2, 2), ("data", "model"))
+    assert tshard.tensor_parallel_ok(cfg, mesh)
+    with pytest.raises(ValueError, match=r"trainable leaf "
+                       r"layers/slot0/moe/wi_gate is placed on the data "
+                       r"axis 'data'"):
+        specs.make_train_step(cfg, mesh, y, device="cpu")
+    # under FedPT the same stacks are frozen, and the step builds
+    y_pt, _ = specs.param_structs(_tcfg("deepseek_2d"))
+    tshard.check_trainable_placements(
+        tshard.param_shardings(y_pt, _tcfg("deepseek_2d"), mesh), mesh)
+
+    jcfg = _jcfg("deepseek_2d").with_(freeze_spec=())
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                 ("data", "model"))
+    ys, zs = jspecs.param_structs(jcfg)
+    step, sopt = jspecs.make_train_step(jcfg, jmesh, ys)
+    tok = jax.ShapeDtypeStruct((1, 2, 1, 16), jnp.int32)
+    with pytest.raises(Exception, match="duplicate entries for `data`"):
+        jax.eval_shape(step, ys, jax.eval_shape(sopt.init, ys), zs,
+                       {"tokens": tok, "labels": tok},
+                       jax.ShapeDtypeStruct((1,), jnp.float32),
+                       jax.ShapeDtypeStruct((1,), jnp.int32))

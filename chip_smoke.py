@@ -66,12 +66,15 @@ package. Phases, in order, each failing the run on error:
      prefill's shape under both windows within bound (i)
      (``swa_attention.round_p_tolerance``) of its plain version
      ``ref.chunked_attention_ref(..., chunk=64)``, closer to it than the
-     float32-p mode, the same bits twice; both modes timed at the
-     prefill's shape causal (and window 8192) beside
-     ``scaled_dot_product_attention``, with their ptxas registers and
-     spills, SASS wgmma and TMA load counts, TFLOP/s, the launches the
-     profiler records, and the card's clock and power under sustained
-     load;
+     float32-p mode, the same bits twice (each plain version at the
+     prefill's shape run once); the round-once mode timed at the
+     prefill's shape causal beside ``scaled_dot_product_attention``, with
+     its ptxas registers and spills; ``--kernel-times`` also times the
+     float32-p mode and window 8192, with SASS wgmma and TMA load counts,
+     TFLOP/s, the launches the profiler records, and the card's clock and
+     power under sustained load (``attention_times``); with a logit
+     softcap or an offset q ``flash_attention`` runs the plain
+     ``chunked_attention`` on the card, held to the CPU path;
      ``seed_reconstruct`` at NeMo's frozen FFN leaf (5120, 14336) and a
      ragged (300, 200): hash words bit for bit, Gaussians within 8 ulps in
      float32 and one bf16 ulp in bf16, one launch a call; timed in both
@@ -131,8 +134,11 @@ package. Phases, in order, each failing the run on error:
    set to 0 just before and read just after, the server tail's routes
    (staged), the accuracy at the end, the peak device memory around one
    client update and one profiled round; each path's first round
-   against the CPU's (the update by norm, ``check_model_round``), the
-   trainable counts and flat layouts asserted:
+   against the CPU's (the update by norm, ``check_model_round``; ResNet's
+   at 3 of the cohort's 10 clients, RESNET_CHECK_CLIENTS), each path's
+   own first ``sumsq`` launch (the cohort's update at the flat width)
+   against the plain version and a float64 sum (``check_path_sumsq``),
+   the trainable counts and flat layouts asserted:
    - ResNet-18-GN on CIFAR-10-shaped data (50 clients x 100 images of
      32 x 32, 10 classes), 10 clients x 2 sgdm steps x batch 32, PT
      (stage 3 frozen, 26.09%) and FedAvg;
@@ -287,9 +293,9 @@ package. Phases, in order, each failing the run on error:
    quickstart at int8, FedAvg B (fused coefficient route, DP, screen) and
    the async DP FedBuff grid run with ``mesh="single"`` and without, bit
    for bit with equal kernel launches (cuDNN deterministic);
-   (c) ``launch/specs.make_train_step``'s gathered layout: Mixtral-8x7B
-   with 2-D experts at phase 7's 2 layers (1 client x tau 2 x 1
-   sequence of 4,096), bit for bit the unmeshed round with equal
+   (c) ``launch/specs.make_train_step``'s gathered layout: PaliGemma-3B
+   at 4 layers (1 client x tau 2 x 1 sequence of 256 patch embeddings
+   and 1,024 tokens), bit for bit the unmeshed round with equal
    launches; (e) the tensor-parallel step's wiring on that 1-rank mesh
    (on a 1-rank "model" axis the pieces are whole and no layer splits):
    ``make_train_step`` for StableLM-2-1.6B at full width (2 of 24
@@ -303,7 +309,13 @@ package. Phases, in order, each failing the run on error:
    unmeshed one routed alike, and one tensor-parallel train step in
    float32 compute held to the unmeshed round by update norm, the
    frozen leaves the model received on each rank its pieces, and
-   ``swa_attention`` timed at the local-head shape; (d) one
+   ``swa_attention`` timed at the local-head shape; (g) DeepSeek-V2 at
+   1 layer on a (2, 2) mesh of threads, its routed experts in the 2-D
+   layout; (h) Jamba-v0.1 at 2 layers (attention period 2: Mamba on each
+   rank's channels with the dense FFN, then attention with the MoE) and
+   (i) xLSTM-350M at one period (3 mLSTM blocks, their projections
+   split, and the sLSTM whole) on (1, 4) meshes of threads, each held
+   as (f) is; (d) one
    ``launch/dryrun`` subprocess (Mixtral-8x7B x train_4k in a fake (16,
    16) world on the host, tensor-parallel), its traced per-rank peak
    beside the card's memory and the largest tensors that hold it;
@@ -337,6 +349,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -398,12 +411,15 @@ def card_line() -> str:
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal NaN positions, and identical float32 bits everywhere else."""
+    """Equal NaN positions, and identical float32 bits everywhere else
+    (compared on the host, the NaNs zeroed in place of taking the rest
+    out: a masked copy of a 10**9-element output took seconds)."""
     a, b = a.float().cpu(), b.float().cpu()
     nan_a, nan_b = torch.isnan(a), torch.isnan(b)
     if a.shape != b.shape or not torch.equal(nan_a, nan_b):
         return False
-    return torch.equal(a[~nan_a].view(torch.int32), b[~nan_b].view(torch.int32))
+    return torch.equal(a.masked_fill(nan_a, 0.0).view(torch.int32),
+                       b.masked_fill(nan_b, 0.0).view(torch.int32))
 
 
 def digest(*ts: torch.Tensor) -> str:
@@ -417,9 +433,12 @@ def digest(*ts: torch.Tensor) -> str:
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| in float64 where both are finite (on the host)."""
     a, b = a.double().cpu(), b.double().cpu()
     both = torch.isfinite(a) & torch.isfinite(b)
-    return float((a[both] - b[both]).abs().max()) if both.any() else 0.0
+    if not both.any():
+        return 0.0
+    return float(torch.where(both, (a - b).abs(), 0.0).max())
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 5) -> float:
@@ -596,19 +615,22 @@ def kernel_records(specs, iters=(200, 50, 50), warmup: int = 5,
     (``iters`` calls each: wrapper and library, plain, profiled device),
     and compute its bound: one ``kernels`` record each (all keys but
     ``launches``; ``library_device_ms`` is the library call's device
-    time)."""
+    time). A plain version given as ``(output, ms)`` was run and timed
+    once already (a long one, at a kernel's full shape)."""
     records = []
     n_kern, n_plain, n_dev = iters
     for (name, source, replaces, kern, plain, lib, knames, nbytes,
          nops) in specs:
-        err = max(max_abs_diff(a, b) for a, b in zip(as_tuple(kern()),
-                                                      as_tuple(plain())))
+        once = isinstance(plain, tuple)
+        err = max(max_abs_diff(a, b) for a, b in zip(
+            as_tuple(kern()), as_tuple(plain[0] if once else plain())))
         bound_ms, bound_by = bound(nbytes, nops, ops_per_s)
         records.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err,
             "ms": time_ms(kern, n_kern, warmup),
-            "plain_ms": time_ms(plain, n_plain, warmup),
+            "plain_ms": plain[1] if once else time_ms(plain, n_plain,
+                                                       warmup),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": (time_ms(lib, n_kern, warmup) if lib is not None
                            else None),
@@ -1736,6 +1758,15 @@ MIXTRAL_WINDOW = 4096      # Mixtral-8x7B's own sliding window
 LOGIT_REL = 2.0 ** -4
 
 
+def card_normal(shape, gen, dev, dtype=torch.bfloat16):
+    """N(0, 1) of ``shape`` in ``dtype``, drawn on ``dev`` from a generator
+    seeded by the host generator ``gen`` (a draw of 10**9 elements on the
+    host took seconds)."""
+    seed = int(torch.randint(2 ** 62, (1,), generator=gen))
+    card = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=card, device=dev, dtype=dtype)
+
+
 def swa_inputs(shape, kv_heads, gen, dev, layout_bshd=False):
     """q (B, H, S, D), k and v (B, KVH, S, D), bf16 N(0, 1) from ``gen``;
     as transposed views of (B, S, H, D) tensors, the model's layout, when
@@ -1743,7 +1774,7 @@ def swa_inputs(shape, kv_heads, gen, dev, layout_bshd=False):
     B, H, S, D = shape
 
     def one(h):
-        x = torch.randn((B, S, h, D), generator=gen).to(dev, torch.bfloat16)
+        x = card_normal((B, S, h, D), gen, dev)
         return x.transpose(1, 2) if layout_bshd else x.transpose(1, 2).contiguous()
     return one(H), one(kv_heads), one(kv_heads)
 
@@ -1974,13 +2005,15 @@ def check_serving_kernels(dev, build_logs):
     SEED_ULPS in float32 (one bf16 ulp in bf16), one launch a call.
     Returns their records, timed at the prefill's shape (1, 32, 32768,
     128) causal (swa_attention in the round-once mode the serving path
-    launches, the float32-p mode beside it) and at (5120, 14336) in
-    float32 (bf16 printed beside it, with the seed kernel's SASS counts).
+    launches; its plain version run and timed once, as the check's
+    oracle) and at (5120, 14336) in float32 (bf16 printed beside it).
     Prints the attention kernels' registers and spills (``build_logs``:
-    this run's ``-Xptxas -v`` output), their achieved TFLOP/s, the windowed
-    library call and how many launches the profiler records."""
+    this run's ``-Xptxas -v`` output) and the round-once mode at
+    Mixtral's window. The float32-p mode's times, the window 8192's, the
+    achieved TFLOP/s, the clock under load, the windowed library call and
+    the SASS counts are :func:`attention_times`' (``--kernel-times``)."""
     from repro_torch import kernels
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels import seed_reconstruct as sr
     from repro_torch.kernels import swa_attention as swa
 
@@ -2026,23 +2059,30 @@ def check_serving_kernels(dev, build_logs):
             print(f"  ptxas {name}: {info}")
     else:
         print("  ptxas: not measured (swa_attention.cu built before this run)")
-    counts = sass_counts(_build.library_path("swa_attention.cu"), "swa_kernel")
-    for name, ops in (counts or {"SASS": "not measured (no cuobjdump)"}).items():
-        print(f"  SASS {name}: {ops}")
     # dynamic shared memory of the bf16 kernel at D = 128 (launch_tc): q
     # (128 x 128 bf16), three K and three V stages (64 x 128), 13 mbarriers,
     # 1024 bytes to align
     smem = (swa.BQ + 6 * swa.BK) * 128 * 2 + 13 * 8 + 1024
     print(f"  swa_kernel_tc<bf16, 128>: {smem} bytes of dynamic shared "
           f"memory, 384 threads, 1 block per SM")
-    # the prefill's own shape and layout, under both of its windows
+    # the prefill's own shape and layout, under both of its windows and
+    # Mixtral's; each plain round-once version run once, timed, and held
+    # against the kernel (the causal one is the record's plain version)
     q, k, v = swa_inputs((1, 32, PREFILL_LEN, 128), 8, gen, dev,
                          layout_bshd=True)
-    for window in (0, 8192):
-        check_swa(q, k, v, window)
-        check_swa_round_p(q, k, v, window)
-    # Mixtral's own window, which its prefill (phase 7) runs
-    check_swa_round_p(q, k, v, MIXTRAL_WINDOW)
+    plain = {}
+    for window in (0, 8192, MIXTRAL_WINDOW):
+        if window != MIXTRAL_WINDOW:
+            check_swa(q, k, v, window)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ref.chunked_attention_ref(q, k, v, window, chunk=swa.BK)
+        torch.cuda.synchronize()
+        plain[window] = (time.perf_counter() - t0) * 1e3
+        check_swa_round_p(q, k, v, window, want)
+        if window == 0:
+            want0 = want
+        del want
     pairs = swa.visible_pairs(PREFILL_LEN, 0)
     nbytes = sum(t.numel() for t in (q, k, v, q)) * 2
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2050,66 +2090,103 @@ def check_serving_kernels(dev, build_logs):
     # the record: the round-once mode, which the serving path launches
     def round_p(window=0):
         return swa.swa_attention(q, k, v, window=window, round_p=True)
-
-    def f32p(window=0):
-        return swa.swa_attention(q, k, v, window=window)
     rec_swa = kernel_records([
         ("swa_attention", src + "swa_attention.cu",
-         "src/repro/kernels/swa_attention.py:83", round_p,
-         lambda: ref.chunked_attention_ref(q, k, v, 0, chunk=swa.BK),
+         "src/repro/kernels/swa_attention.py:83", round_p, (want0, plain[0]),
          lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
          ("swa_kernel",), nbytes, 4 * 32 * 128 * pairs)],
         iters=(10, 1, 10), warmup=1, ops_per_s=BF16_OPS_PER_S)
-    f32p_ms = time_ms(f32p, 10, 2)
-    f32p_dev = device_ms(f32p, ("swa_kernel",), 10)
+    del want0
     print(f"  swa_attention at (1, 32, {PREFILL_LEN}, 128) causal: round-once "
           f"wrapper {rec_swa[0]['ms']:.3f} ms, device "
-          f"{fmt_ms(rec_swa[0]['device_ms'])} ms; float32-p wrapper "
-          f"{f32p_ms:.3f} ms, device {fmt_ms(f32p_dev)} ms; "
+          f"{fmt_ms(rec_swa[0]['device_ms'])} ms, plain {plain[0]:.3f} ms; "
           f"scaled_dot_product_attention {rec_swa[0]['library_ms']:.3f} ms "
           f"(device {fmt_ms(rec_swa[0]['library_device_ms'])} ms)")
-    wpairs = swa.visible_pairs(PREFILL_LEN, 8192)
-    wb = bound(nbytes, 4 * 32 * 128 * wpairs, BF16_OPS_PER_S)
-    wdev = {}
-    for label, fn in (("round-once", round_p), ("float32-p", f32p)):
-        wms = time_ms(lambda: fn(8192), 10, 2)
-        wdev[label] = device_ms(lambda: fn(8192), ("swa_kernel",), 10)
-        print(f"  swa_attention ({label}) at (1, 32, {PREFILL_LEN}, 128), "
-              f"window 8192: wrapper {wms:.3f} ms, device "
-              f"{fmt_ms(wdev[label])} ms, bound {wb[0]:.3f} ms ({wb[1]}; "
-              f"{wpairs} of {pairs} pairs)")
     mpairs = swa.visible_pairs(PREFILL_LEN, MIXTRAL_WINDOW)
     mb = bound(nbytes, 4 * 32 * 128 * mpairs, BF16_OPS_PER_S)
     mms = time_ms(lambda: round_p(MIXTRAL_WINDOW), 10, 2)
     mdev = device_ms(lambda: round_p(MIXTRAL_WINDOW), ("swa_kernel",), 10)
-    mplain = time_ms(lambda: ref.chunked_attention_ref(
-        q, k, v, MIXTRAL_WINDOW, chunk=swa.BK), 1, 0)
     print(f"  swa_attention (round-once) at (1, 32, {PREFILL_LEN}, 128), "
           f"window {MIXTRAL_WINDOW} (Mixtral's): wrapper {mms:.3f} ms, device "
           f"{fmt_ms(mdev)} ms, bound {mb[0]:.3f} ms ({mb[1]}; {mpairs} of "
-          f"{pairs} pairs), plain {mplain:.3f} ms")
+          f"{pairs} pairs), plain {plain[MIXTRAL_WINDOW]:.3f} ms; window "
+          f"8192's plain {plain[8192]:.3f} ms")
+    del q, k, v
+    rows, cols = SEED_SHAPE
+
+    def seed_spec(dtype):
+        return ("seed_reconstruct", src + "seed_reconstruct.cu",
+                "src/repro/kernels/seed_reconstruct.py:77",
+                lambda: sr.seed_reconstruct(42, 7, SEED_SHAPE, 0.02,
+                                            dtype=dtype, device=dev),
+                lambda: ref.seed_reconstruct_plain(42, 7, SEED_SHAPE, 0.02,
+                                                   dtype=dtype, device=dev),
+                None, AB_KERNELS["seed_reconstruct"],
+                dtype.itemsize * rows * cols, 32 * rows * cols)
+    rec_seed = kernel_records([seed_spec(torch.float32)], iters=(50, 5, 20))
+    bf16, = kernel_records([seed_spec(torch.bfloat16)], iters=(50, 5, 20))
+    print(f"  seed_reconstruct at {SEED_SHAPE} bf16: wrapper "
+          f"{bf16['ms']:.5f} ms, device {fmt_ms(bf16['device_ms'])} ms, "
+          f"plain {bf16['plain_ms']:.5f} ms, bound {bf16['bound_ms']:.6f} ms "
+          f"({bf16['bound_by']}), max abs err {bf16['max_abs_err']:.3e}")
+    return rec_swa + rec_seed
+
+
+def attention_times(dev):
+    """``--kernel-times``: the attention kernel's times beside the default
+    run's records, through the package on ``sys.path``: at the prefill's
+    (1, 32, 32768, 128) the float32-p mode causal and both modes at window
+    8,192 (wrapper and device ms, the bound), the achieved TFLOP/s of
+    each (by the visible pairs and by the tiles issued), the launches the
+    profiler records, each mode and ``scaled_dot_product_attention`` under
+    sustained load with the clock and power, SDPA with the window as a
+    (1, 1, S, S) boolean mask, and the kernel's SASS counts; at MLA's (1,
+    128, 32768, 192 / 128) the float32-p mode and SDPA's backends."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swa_attention as swa
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    q, k, v = swa_inputs((1, 32, PREFILL_LEN, 128), 8, gen, dev,
+                         layout_bshd=True)
+    pairs = swa.visible_pairs(PREFILL_LEN, 0)
+    nbytes = sum(t.numel() for t in (q, k, v, q)) * 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def round_p(window=0):
+        return swa.swa_attention(q, k, v, window=window, round_p=True)
+
+    def f32p(window=0):
+        return swa.swa_attention(q, k, v, window=window)
+    dev_ms = {}
+    for label, fn in (("round-once", round_p), ("float32-p", f32p)):
+        for window in (0, 8192):
+            wb = bound(nbytes, 4 * 32 * 128 * swa.visible_pairs(
+                PREFILL_LEN, window), BF16_OPS_PER_S)
+            wms = time_ms(lambda: fn(window), 10, 2)
+            dev_ms[label, window] = device_ms(lambda: fn(window),
+                                              ("swa_kernel",), 10)
+            print(f"  swa_attention ({label}) at (1, 32, {PREFILL_LEN}, 128),"
+                  f" window {window}: wrapper {wms:.3f} ms, device "
+                  f"{fmt_ms(dev_ms[label, window])} ms, bound {wb[0]:.3f} ms "
+                  f"({wb[1]})")
     # achieved rates: by the bound's count (4 D per visible pair) and by
     # what the kernel issues per pair of every 64-row x BK-key tile, each of
     # a block's two warpgroups computing all of the block's tiles: 4 D
     # (q.k, p.v) round-once, 6 D (q.k, p_hi.v, p_lo.v) float32-p
-    for mode, flops, causal_ms in (("round-once", 4, rec_swa[0]["device_ms"]),
-                                   ("float32-p", 6, f32p_dev)):
-        for label, window, dev_ms in (("causal", 0, causal_ms),
-                                      ("window 8192", 8192, wdev[mode])):
-            if dev_ms is None:
-                print(f"  swa_attention TFLOP/s ({mode}, {label}): not "
-                      f"measured")
-                continue
-            tiles = 2 * sum(last - first + 1 for first, last, _ in
-                            swa.tile_plan(PREFILL_LEN, window, True))
-            vis = 4 * 128 * 32 * swa.visible_pairs(PREFILL_LEN, window)
-            issued = flops * 128 * 32 * tiles * 64 * swa.BK
-            print(f"  swa_attention TFLOP/s ({mode}, {label}, device "
-                  f"{dev_ms:.3f} ms): {vis / dev_ms / 1e9:.1f} by 4 D per "
-                  f"visible pair ({vis / 1e12:.3f} TFLOP), "
-                  f"{issued / dev_ms / 1e9:.1f} issued ({issued / 1e12:.3f} "
-                  f"TFLOP, {flops} D per pair of {tiles} warpgroup tiles a "
-                  f"head); bf16 peak 989")
+    for (mode, window), ms in dev_ms.items():
+        if ms is None:
+            print(f"  swa_attention TFLOP/s ({mode}, window {window}): not "
+                  f"measured")
+            continue
+        flops = 4 if mode == "round-once" else 6
+        tiles = 2 * sum(last - first + 1 for first, last, _ in
+                        swa.tile_plan(PREFILL_LEN, window, True))
+        vis = 4 * 128 * 32 * swa.visible_pairs(PREFILL_LEN, window)
+        issued = flops * 128 * 32 * tiles * 64 * swa.BK
+        print(f"  swa_attention TFLOP/s ({mode}, window {window}, device "
+              f"{ms:.3f} ms): {vis / ms / 1e9:.1f} by 4 D per visible pair "
+              f"({vis / 1e12:.3f} TFLOP), {issued / ms / 1e9:.1f} issued "
+              f"({issued / 1e12:.3f} TFLOP, {flops} D per pair of {tiles} "
+              f"warpgroup tiles a head); bf16 peak 989")
     for label, fn in (("round-once causal", round_p),
                       ("round-once window 8192", lambda: round_p(8192))):
         n = recorded_launches(fn, "swa_kernel", 10)
@@ -2139,27 +2216,34 @@ def check_serving_kernels(dev, build_logs):
     except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
         print(f"  scaled_dot_product_attention, window 8192: not measured "
               f"({type(e).__name__}: {str(e).splitlines()[0][:200]})")
+    counts = sass_counts(_build.library_path("swa_attention.cu"), "swa_kernel")
+    for name, ops in (counts or {"SASS": "not measured (no cuobjdump)"}).items():
+        print(f"  SASS {name}: {ops}")
     del q, k, v
-    rows, cols = SEED_SHAPE
 
-    def seed_spec(dtype):
-        return ("seed_reconstruct", src + "seed_reconstruct.cu",
-                "src/repro/kernels/seed_reconstruct.py:77",
-                lambda: sr.seed_reconstruct(42, 7, SEED_SHAPE, 0.02,
-                                            dtype=dtype, device=dev),
-                lambda: ref.seed_reconstruct_plain(42, 7, SEED_SHAPE, 0.02,
-                                                   dtype=dtype, device=dev),
-                None, AB_KERNELS["seed_reconstruct"],
-                dtype.itemsize * rows * cols, 32 * rows * cols)
-    rec_seed = kernel_records([seed_spec(torch.float32)], iters=(50, 5, 20))
-    bf16, = kernel_records([seed_spec(torch.bfloat16)], iters=(50, 5, 20))
-    print(f"  seed_reconstruct at {SEED_SHAPE} bf16: wrapper "
-          f"{bf16['ms']:.5f} ms, device {fmt_ms(bf16['device_ms'])} ms, "
-          f"plain {bf16['plain_ms']:.5f} ms, bound {bf16['bound_ms']:.6f} ms "
-          f"({bf16['bound_by']}), max abs err {bf16['max_abs_err']:.3e}")
-    print(f"  seed_reconstruct issue-rate estimate: "
-          f"{json.dumps(seed_issue(sr, _build, dev))}")
-    return rec_swa + rec_seed
+    def one(d):
+        return card_normal((1, PREFILL_LEN, MLA_HEADS, d), gen,
+                           dev).transpose(1, 2)
+    q, k, v = one(MLA_DK), one(MLA_DK), one(MLA_DV)
+    ms = time_ms(lambda: swa.swa_attention(q, k, v), 5, 1)
+    dms = device_ms(lambda: swa.swa_attention(q, k, v), ("swa_kernel",), 5)
+    print(f"  swa_attention (float32-p) at (1, {MLA_HEADS}, {PREFILL_LEN}, "
+          f"{MLA_DK} / {MLA_DV}) causal: wrapper {ms:.3f} ms, device "
+          f"{fmt_ms(dms)} ms")
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for label, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                           ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                           ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        try:
+            with sdpa_kernel(backend):
+                ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 3, 1)
+            print(f"  scaled_dot_product_attention ({label}) with Ev "
+                  f"{MLA_DV} unlike E {MLA_DK}: {ms:.3f} ms")
+        except RuntimeError as e:
+            print(f"  scaled_dot_product_attention ({label}): refused "
+                  f"({str(e).splitlines()[0][:120]})")
+    del q, k, v
+    torch.cuda.empty_cache()
 
 
 def prefill_breakdown(fn):
@@ -2359,6 +2443,57 @@ MODEL_SHAPES = {
 # a card round against the CPU's on these models: the update's difference
 # by norm, relative to the update (see check_model_round)
 UPDATE_NORM_REL = 2e-2
+# the clients of the ResNet rounds' cohort of 10 that the card-vs-CPU round
+# takes: each client repeats the same computation on other images, and the
+# CPU's ResNet-18 round took 47-49 s of phase 4's 165.5 at all 10
+# (PERF.md); the ten run on the card in drive_model_path, whose own sumsq
+# launch (the delta_norm of the cohort's update, at the flat width) is
+# held against the plain version there (sumsq_seen, check_path_sumsq)
+RESNET_CHECK_CLIENTS = 3
+
+
+class sumsq_seen:
+    """Inside a ``with``: the first launch of ``kernels/dp_clip.sumsq`` on
+    the card (``first``: a copy of its input vector and its result), so
+    that a main path's own sumsq is held against its plain version on the
+    same input afterwards (:func:`check_path_sumsq`)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import dp_clip
+        self.mod, self.real, self.first = dp_clip, dp_clip.sumsq, None
+
+        def spy(x, *a, **kw):
+            out = self.real(x, *a, **kw)
+            if self.first is None and x.device.type == "cuda":
+                self.first = (x.clone(), out.clone())
+            return out
+        dp_clip.sumsq = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sumsq = self.real
+        return False
+
+
+def check_path_sumsq(label, seen):
+    """The sumsq kernel's first launch on a main path (``sumsq_seen``)
+    against its plain version (``ref.flat_sumsq_ref``) on the same input
+    on the card, within rtol 1e-5 (phase 2's bound against float64), and
+    within ``dp_clip.sumsq_rtol`` of a float64 sum."""
+    from repro_torch.kernels import dp_clip, ref
+    if seen.first is None:
+        raise AssertionError(f"{label}: sumsq never launched on the card")
+    x, got = seen.first
+    got, plain, want = (float(got), float(ref.flat_sumsq_ref(x)),
+                        float64_sumsq(x))
+    rtol = dp_clip.sumsq_rtol(x.numel())
+    print(f"  {label}: the path's first sumsq at n = {x.numel()}: {got!r}, "
+          f"plain {plain!r} (rel {abs(got - plain) / plain:.3e}, tol 1e-5), "
+          f"float64 {want!r} (rel {abs(got - want) / want:.3e}, bound "
+          f"sumsq_rtol {rtol:.3e})")
+    if not (abs(got - plain) <= 1e-5 * plain and abs(got - want) <= rtol * want):
+        raise AssertionError(f"{label}: the path's sumsq is off its plain "
+                             f"version")
 
 
 class tail_route_spy:
@@ -2448,7 +2583,7 @@ def update_gap(y0, y_card, y_cpu):
 
 def check_model_round(label, pt, y0, frozen, batch, w, dev, rc=None,
                       server_opt=None, loss_rel=1e-4,
-                      update_rel=UPDATE_NORM_REL):
+                      update_rel=UPDATE_NORM_REL, clients=None):
     """One round on the card against the same round on the CPU through
     the plain versions, from the same start, batch and round key.
 
@@ -2463,11 +2598,16 @@ def check_model_round(label, pt, y0, frozen, batch, w, dev, rc=None,
     ||dy_card - dy_cpu|| <= UPDATE_NORM_REL ||dy_cpu||, with the loss within rel 1e-4 and delta_norm within rel 1e-2
     (``tests/test_torch_tokens.py`` measures 0.7e-2 by norm after two SO
     rounds against JAX); ``loss_rel`` and ``update_rel`` tighten the first
-    and the last for a model without those kinks and steps."""
+    and the last for a model without those kinks and steps. ``clients``:
+    the round takes the cohort's first ``clients`` clients alone."""
     from repro_torch.bridge import from_numpy_tree, to_numpy_tree
     from repro_torch.core import fedpt
     from repro_torch.nn import threefry
     rc = rc or pt.rc
+    if clients is not None:
+        batch = {k: v[:clients] for k, v in batch.items()}
+        w = w[:clients]
+        label = f"{label} ({clients} of the cohort's clients)"
     out = []
     for d, y, z in ((dev, y0, frozen),
                     ("cpu", from_numpy_tree(to_numpy_tree(y0), "cpu"),
@@ -4312,20 +4452,21 @@ def check_mla_kernel(dev):
     192 / 128) bf16 causal in the model's (B, S, H, D) layout, the
     round-once mode held by :func:`check_swa_round_p` and the float32-p
     mode by :func:`check_swa`, the same at a ragged S = 4,000, the float32
-    kernel at (1, 4, 1000, 48 / 32) (the reduced config's); then both modes
-    timed at the prefill's (1, 128, 32768, 192 / 128) causal against the
-    bound (2 (DK + DV) flops a visible pair at the bf16 peak), the plain
-    version timed once and both modes held there as at 4,096, and
-    ``scaled_dot_product_attention`` on the same inputs (each of its
-    backends tried). Returns the round-once mode's numbers."""
+    kernel at (1, 4, 1000, 48 / 32) (the reduced config's); then the
+    round-once mode timed at the prefill's (1, 128, 32768, 192 / 128)
+    causal against the bound (2 (DK + DV) flops a visible pair at the
+    bf16 peak), the plain version timed once and both modes held there as
+    at 4,096, and ``scaled_dot_product_attention`` (its default backend)
+    on the same inputs; the float32-p mode's time and SDPA's other
+    backends are :func:`attention_times`' (``--kernel-times``). Returns
+    the round-once mode's numbers."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import swa_attention as swa
     gen = torch.Generator(device="cpu").manual_seed(24)
 
     def inputs(B, H, S, dk, dv, dtype):
         def one(d):
-            return torch.randn((B, S, H, d), generator=gen).to(
-                dev, dtype).transpose(1, 2)
+            return card_normal((B, S, H, d), gen, dev, dtype).transpose(1, 2)
         return one(dk), one(dk), one(dv)
 
     for S in MLA_CHECK_S:
@@ -4342,16 +4483,17 @@ def check_mla_kernel(dev):
     nbytes = 2 * (q.numel() + k.numel() + 2 * v.numel())
     bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S)
     out = {"bound_ms": bound_ms, "bound_by": bound_by}
-    for label, rp in (("round-once", True), ("float32-p", False)):
-        fn = (lambda rp=rp: swa.swa_attention(q, k, v, round_p=rp))
-        ms = time_ms(fn, 5, 1)
-        dms = device_ms(fn, ("swa_kernel",), 5)
-        out[label] = (ms, dms)
-        print(f"  swa_attention ({label}) at (1, {MLA_HEADS}, {PREFILL_LEN}, "
-              f"{MLA_DK} / {MLA_DV}) causal: wrapper {ms:.3f} ms, device "
-              f"{fmt_ms(dms)} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-              f"{flops / 1e12:.3f} TFLOP), x{(dms or ms) / bound_ms:.2f} of "
-              f"the bound, {flops / (dms or ms) / 1e9:.1f} TFLOP/s")
+
+    def fn():
+        return swa.swa_attention(q, k, v, round_p=True)
+    ms = time_ms(fn, 5, 1)
+    dms = device_ms(fn, ("swa_kernel",), 5)
+    out["round-once"] = (ms, dms)
+    print(f"  swa_attention (round-once) at (1, {MLA_HEADS}, {PREFILL_LEN}, "
+          f"{MLA_DK} / {MLA_DV}) causal: wrapper {ms:.3f} ms, device "
+          f"{fmt_ms(dms)} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+          f"{flops / 1e12:.3f} TFLOP), x{(dms or ms) / bound_ms:.2f} of "
+          f"the bound, {flops / (dms or ms) / 1e9:.1f} TFLOP/s")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = ref.chunked_attention_ref(q, k, v, 0, chunk=swa.BK)
@@ -4363,26 +4505,46 @@ def check_mla_kernel(dev):
     del want
     check_swa(q, k, v, 0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    for label, backend in (("default", None),
-                           ("flash", SDPBackend.FLASH_ATTENTION),
-                           ("cudnn", SDPBackend.CUDNN_ATTENTION),
-                           ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
-        try:
-            if backend is None:
-                ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 3, 1)
-            else:
-                with sdpa_kernel(backend):
-                    ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), 3, 1)
-            out.setdefault("library_ms", ms)
-            print(f"  scaled_dot_product_attention ({label}) with Ev {MLA_DV} "
-                  f"unlike E {MLA_DK}: {ms:.3f} ms")
-        except RuntimeError as e:
-            print(f"  scaled_dot_product_attention ({label}): refused "
-                  f"({str(e).splitlines()[0][:120]})")
+    out["library_ms"] = time_ms(lambda: sdpa(q, k, v, is_causal=True), 3, 1)
+    print(f"  scaled_dot_product_attention (default backend) with Ev "
+          f"{MLA_DV} unlike E {MLA_DK}: {out['library_ms']:.3f} ms")
     del q, k, v
     torch.cuda.empty_cache()
     return out
+
+
+def check_attention_fallback(dev):
+    """Phase 2: ``nn/attention.flash_attention`` with a logit softcap or an
+    offset q, which the kernel does not compute, on the card: the plain
+    ``chunked_attention`` on the card, no kernel launched, within rtol /
+    atol 1e-5 of the CPU path on the same float32 inputs (a reduced
+    NeMo's GQA at window 100; the two devices' GEMMs sum in other
+    orders)."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.nn import attention
+    base = reduced_config(get_config(NEMO)).with_(num_kv_heads=2,
+                                                  sliding_window=100)
+    gen = torch.Generator().manual_seed(4)
+    for softcap, q_offset in ((30.0, 0), (0.0, 64), (30.0, 64)):
+        cfg = base.with_(attn_logit_softcap=softcap)
+        q = torch.randn((2, 200 - q_offset, 4, 64), generator=gen)
+        k, v = (torch.randn((2, 200, 2, 64), generator=gen) for _ in "kv")
+        kernels.reset_launches()
+        got = attention.flash_attention(q.to(dev), k.to(dev), v.to(dev), cfg,
+                                        q_offset=q_offset)
+        launched = kernels.LAUNCHES["swa_attention"]
+        want = attention.flash_attention(q, k, v, cfg, q_offset=q_offset)
+        err = float((got.cpu() - want).abs().max())
+        ok = bool(torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5))
+        print(f"  flash_attention, softcap {softcap:g}, q_offset {q_offset}, "
+              f"on the card: {launched} kernel launches, max |card - CPU| "
+              f"{err:.3e} (rtol / atol 1e-5)")
+        if launched or got.device.type != "cuda" or not ok:
+            raise AssertionError(f"flash_attention with softcap {softcap} "
+                                 f"and q_offset {q_offset} on the card is "
+                                 f"off the CPU path")
 
 
 def check_vlm_encdec_kernels(dev) -> dict:
@@ -4703,12 +4865,12 @@ def drive_vlm_encdec(dev) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 11: the mesh. The 1-rank NCCL "single" mesh runs the EMNIST main
 # paths through the meshed code, bit for bit the unmeshed runs with the
-# same launches; the train step in the gathered layout (xLSTM-350M) and
+# same launches; the train step in the gathered layout (PaliGemma-3B) and
 # the tensor-parallel train step (StableLM-2-1.6B) and prefill
-# (Mixtral-8x7B) on it, bit for bit; Mixtral-8x7B on a 4-rank "model" axis
-# of threads on the one card; DeepSeek-V2 on a (2, 2) ("data", "model")
-# mesh of threads, its experts in the 2-D layout; one dry run in a fake
-# (16, 16) world on the host
+# (Mixtral-8x7B) on it, bit for bit; Mixtral-8x7B, Jamba-v0.1 and
+# xLSTM-350M on a 4-rank "model" axis of threads on the one card;
+# DeepSeek-V2 on a (2, 2) ("data", "model") mesh of threads, its experts
+# in the 2-D layout; one dry run in a fake (16, 16) world on the host
 
 STABLELM = "stablelm-1.6b"
 # train_4k's sequence; its global batch of 256 cut to 1 client x tau 2 x 1
@@ -4739,11 +4901,15 @@ TP_TIMEOUT = 600          # seconds the threads may take, all together
 # the round's routing under vmap and grad is not replayed, so no bound
 # there would be tighter than the bf16 round's own distance from float32.)
 TP_F32_UPDATE_REL = 1e-4
-# (c): xLSTM-350M at one period of its layer program (3 mLSTM blocks and an
-# sLSTM block) of 24 layers, every block kind through the gathered layout,
-# on 1,024 positions: the sLSTM steps a position at a time, and at 4,096
-# the unmeshed and meshed steps took 34.5 and 15.8 s (PERF.md)
-GATHERED_LAYERS, GATHERED_SEQ = 4, 1024
+# a bf16 tensor-parallel prefill held in float32 (TPLeg.prefill_f32) is
+# also held in bf16 within this many times the gap that a second bf16
+# rounding of the unmeshed prefill makes (ulp_moved_mlstm)
+WITNESS_X = 4.0
+# (c): PaliGemma-3B, a family the tensor-parallel steps do not take (its
+# VLM prefix), at 4 of its 18 layers on 1,024 text positions after its
+# 256 patch embeddings: (c) took ~20 s on xLSTM-350M's 4 layers before
+# xLSTM took the tensor-parallel steps (PERF.md)
+GATHERED_ARCH, GATHERED_LAYERS, GATHERED_SEQ = "paligemma-3b", 4, 1024
 # (g): DeepSeek-V2-236B at full width, DEEPSEEK_TRAIN_LAYERS (1) of its 60
 # layers (phase 8's training depth), on a (2, 2) ("data", "model") mesh of
 # threads on the one card: its 160 experts in the 2-D layout (80 a data
@@ -4757,6 +4923,22 @@ GATHERED_LAYERS, GATHERED_SEQ = 4, 1024
 DS_TP_SHAPE = (2, 2)
 DS_TP_PREFILL = (2, PREFILL_LEN // 2)
 DS_TP_ROUND = TP_ROUND
+# (h): Jamba-v0.1 at full width on a (1, 4) mesh of threads, 2 of its 32
+# layers, as Mixtral's (f) takes 2. Its layer program has a period of 8
+# (attention at the 5th layer, the MoE at every 2nd), which no depth
+# under 8 keeps, and 8 layers' float32 round (the 4 MoE layers' experts
+# cast to float32 and saved for the backward, 11.3 GB a layer, beside
+# 24.1 GB of frozen bf16) does not fit the card beside the meshed worlds:
+# so the attention period is cut to 2, and the 2 layers are Mamba with the
+# dense FFN, then attention (no RoPE) with the MoE, every block kind of
+# the model once; prefill_32k's length at batch 1; the train step as
+# (f)'s
+JAMBA_TP_LAYERS, JAMBA_TP_OVER = 2, {"attn_period": 2}
+JAMBA_TP_PREFILL = (1, PREFILL_LEN)
+# (i): xLSTM-350M at full width on a (1, 4) mesh of threads, one period
+# of its 24 layers (3 mLSTM blocks, 1 sLSTM); the prefill phase 9's 16 x
+# 2,048 (the sLSTM steps a position at a time on every rank)
+XLSTM_TP_LAYERS = 4
 
 
 def start_dryrun():
@@ -4903,6 +5085,8 @@ def drive_mesh_train_step(dev, label, arch, layers, over, tp,
     tok = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, 2, 1, seq)).astype(np.int32)
     batch = {"tokens": tok, "labels": tok}
+    for k, v in stub_inputs(cfg, 2, dev).items():   # (1, tau 2, 1, ...)
+        batch[k] = v.reshape((1, 2, 1) + tuple(v.shape[1:]))
     w = torch.ones(1, device=dev)
     rc = fedpt.RoundConfig(clients_per_round=0, local_steps=2, local_batch=0,
                            client_opt="sgd", client_lr=0.02,
@@ -4944,10 +5128,10 @@ def drive_mesh_train_step(dev, label, arch, layers, over, tp,
 
 
 def drive_gathered_train_step(dev):
-    """(c) the gathered layout: xLSTM-350M (an SSM family, which has no
-    tensor-parallel form), GATHERED_LAYERS layers."""
-    return drive_mesh_train_step(dev, "(c)", XLSTM, GATHERED_LAYERS, {},
-                                 tp=False, seq=GATHERED_SEQ)
+    """(c) the gathered layout: PaliGemma-3B (the VLM prefix has no
+    tensor-parallel form yet), GATHERED_LAYERS layers."""
+    return drive_mesh_train_step(dev, "(c)", GATHERED_ARCH, GATHERED_LAYERS,
+                                 {}, tp=False, seq=GATHERED_SEQ)
 
 
 def drive_tp_single_train_step(dev):
@@ -5213,43 +5397,49 @@ def drive_tp_threads(dev):
     return counts
 
 
-def swa_local_heads(dev):
+def swa_local_heads(dev, label="(f)", heads=32, kv_heads=8,
+                    window=MIXTRAL_WINDOW):
     """``swa_attention`` (round-once) at a (1, TP_RANKS) rank's local
-    heads of Mixtral's prefill: (1, 8 q / 2 kv, PREFILL_LEN, 128) at
-    window 4,096 (wrapper and device ms, the bound), its plain version
-    (``chunked_attention_ref``) and ``scaled_dot_product_attention`` with
-    a (1, 1, S, S) boolean window mask, k and v repeated to q's heads."""
+    heads of a prefill (Mixtral's by default: (1, 8 q / 2 kv, PREFILL_LEN,
+    128) at window 4,096): wrapper and device ms, the bound, its plain
+    version (``chunked_attention_ref``, once) and
+    ``scaled_dot_product_attention`` (with a (1, 1, S, S) boolean window
+    mask where there is a window, else causal), k and v repeated to q's
+    heads."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import swa_attention as swa
     gen = torch.Generator().manual_seed(0)
-    hq, hk = 32 // TP_RANKS, 8 // TP_RANKS
+    hq, hk = heads // TP_RANKS, kv_heads // TP_RANKS
     q, k, v = swa_inputs((1, hq, PREFILL_LEN, 128), hk, gen, dev)
 
     def call():
-        return ops.swa_attention(q, k, v, window=MIXTRAL_WINDOW,
-                                 causal=True, round_p=True)
-    pairs = swa.visible_pairs(PREFILL_LEN, MIXTRAL_WINDOW)
+        return ops.swa_attention(q, k, v, window=window, causal=True,
+                                 round_p=True)
+    pairs = swa.visible_pairs(PREFILL_LEN, window)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     bnd = bound(nbytes, 4 * hq * 128 * pairs, BF16_OPS_PER_S)
     ms = time_ms(call, 10, 2)
     dms = device_ms(call, ("swa_kernel",), 10)
     plain_ms = time_ms(lambda: ref.chunked_attention_ref(
-        q, k, v, MIXTRAL_WINDOW, chunk=swa.BK), 3, 1)
-    pos = torch.arange(PREFILL_LEN, device=dev)
-    wmask = ((pos[:, None] >= pos[None, :])
-             & (pos[:, None] - pos[None, :] < MIXTRAL_WINDOW))[None, None]
+        q, k, v, window, chunk=swa.BK), 1, 0)
     kr, vr = (t.repeat_interleave(hq // hk, dim=1) for t in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(q, kr, vr, attn_mask=wmask), 10, 2)
-    lib_dms = device_ms(lambda: sdpa(q, kr, vr, attn_mask=wmask), None, 10)
-    print(f"[mesh] (f) swa_attention (round-once) at a rank's local heads "
+    kw = {"is_causal": True}
+    if window:
+        pos = torch.arange(PREFILL_LEN, device=dev)
+        kw = {"attn_mask": ((pos[:, None] >= pos[None, :])
+                            & (pos[:, None] - pos[None, :] < window))[
+                                None, None]}
+    lib_ms = time_ms(lambda: sdpa(q, kr, vr, **kw), 10, 2)
+    lib_dms = device_ms(lambda: sdpa(q, kr, vr, **kw), None, 10)
+    print(f"[mesh] {label} swa_attention (round-once) at a rank's local heads "
           f"(1, {hq} q / {hk} kv, {PREFILL_LEN}, 128), window "
-          f"{MIXTRAL_WINDOW}: wrapper {ms:.4f} ms, device {fmt_ms(dms)} ms, "
+          f"{window}: wrapper {ms:.4f} ms, device {fmt_ms(dms)} ms, "
           f"bound {bnd[0]:.4f} ms ({bnd[1]}); plain (chunked_attention_ref, "
           f"chunk {swa.BK}) {plain_ms:.3f} ms; scaled_dot_product_attention "
-          f"with a (1, 1, S, S) bool window mask, k / v repeated "
-          f"{lib_ms:.4f} ms (device {fmt_ms(lib_dms)} ms)")
-    del q, k, v, kr, vr, wmask
+          f"({'a (1, 1, S, S) bool window mask' if window else 'causal'}, "
+          f"k / v repeated) {lib_ms:.4f} ms (device {fmt_ms(lib_dms)} ms)")
+    del q, k, v, kr, vr, kw
     torch.cuda.empty_cache()
 
 
@@ -5272,29 +5462,93 @@ class swa_shapes:
         return False
 
 
-def drive_deepseek_tp_threads(dev):
-    """(g) DeepSeek-V2-236B at full width, DEEPSEEK_TRAIN_LAYERS layer, on
-    a DS_TP_SHAPE ("data", "model") mesh of threads on the one card
-    (``threaded_world``): each rank's y and frozen pieces as DTensors
-    placed by the reference's rules, the 160 routed experts in the 2-D
-    layout (expert dim on "data", FFN dim on "model"), each MoE layer's
-    buffer exchanged over "data". Its tensor-parallel prefill
-    (DS_TP_PREFILL, one row a data rank; ``swa_attention`` on each rank's
-    64 heads at (192, 128)) against the unmeshed prefill, routed as it
+class TPLeg(NamedTuple):
+    """A tensor-parallel leg of phase 11 on a ("data", "model") mesh of
+    threads on the one card (:func:`drive_tp_world`): the config at full
+    width and ``layers`` of its layers, the mesh's ``shape``, the
+    ``prefill`` (rows, positions; the rows split over "data"), the float32
+    train step's ``round`` (clients, tau, rows, positions); ``split``: the
+    leaves (path suffixes, frozen or trainable) the rules split, each
+    with the pieces a rank holds 1 / n of, every other frozen leaf whole;
+    ``swa``: the ``swa_attention`` (q, v) shapes the prefill launches (a
+    launch a rank an attention layer); ``over``: the config's overrides
+    besides its depth; ``prefill_f32``: both prefills in float32 compute
+    (bf16 by default, the serving path's), held within LOGIT_REL, and
+    then also both in bf16, held within WITNESS_X times the gap a second
+    bf16 rounding of the unmeshed prefill makes (``ulp_moved_mlstm``)."""
+    label: str
+    arch: str
+    layers: int
+    shape: tuple
+    prefill: tuple
+    round: tuple
+    split: dict
+    swa: frozenset = frozenset()
+    what: str = ""
+    over: dict = {}
+    prefill_f32: bool = False
+
+
+class ulp_moved_mlstm:
+    """Inside a ``with``: every mLSTM block's output (``nn/ssm.
+    mlstm_forward``; bf16 at full width) moved one ulp away from zero at a random
+    half of its elements (seeded): a second rounding of the same function,
+    as the tensor-parallel ``down_proj`` (partial products summed in
+    float32, then rounded once) is. The unmeshed prefill under it against
+    the plain unmeshed prefill is the witness of how far two bf16
+    roundings of the block's output move the logits."""
+
+    def __enter__(self):
+        from repro_torch.nn import ssm
+        self.mod, self.real, gen = ssm, ssm.mlstm_forward, {}
+
+        def moved(*a, **kw):
+            out, state = self.real(*a, **kw)
+            bits = {2: torch.int16, 4: torch.int32}[out.element_size()]
+            if out.device not in gen:
+                gen[out.device] = torch.Generator(out.device).manual_seed(0)
+            up = torch.randint(0, 2, out.shape, generator=gen[out.device],
+                               device=out.device, dtype=bits)
+            return (out.view(bits) + up).view(out.dtype), state
+        ssm.mlstm_forward = moved
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mlstm_forward = self.real
+        return False
+
+
+def logit_gap(got, want, dev, rows=(0, None), cols=(0, None)):
+    """max |got - want[rows, :, cols]| over the (B, S, V) logits, ``want``
+    on the host, a slice of 4,096 positions at a time on the card."""
+    gap = 0.0
+    for c in range(0, got.shape[1], 4096):
+        ref_c = want[rows[0]:rows[1], c:c + 4096, cols[0]:cols[1]].to(dev)
+        gap = max(gap, float((got[:, c:c + 4096].float()
+                              - ref_c.float()).abs().max()))
+        del ref_c
+    return gap
+
+
+def drive_tp_world(dev, leg: TPLeg):
+    """``leg`` on its mesh of threads (``threaded_world``): each rank's y
+    and frozen pieces as DTensors placed by the reference's rules. Its
+    tensor-parallel prefill against the unmeshed prefill, routed as it
     (``routing_spy``), within LOGIT_REL of the largest |logit|: each rank
-    holds its piece of the logits (its row, its vocab columns) against
-    the same piece of the unmeshed ones. One train step (DS_TP_ROUND) in
-    float32 compute against the unmeshed float32 round by update norm
+    holds its piece of the logits (its rows, its vocab columns) against
+    the same piece of the unmeshed ones (with ``leg.prefill_f32`` also
+    the bf16 pair, at the witness's bound). One train step in float32
+    compute against the unmeshed float32 round by update norm
     (TP_F32_UPDATE_REL). The unmeshed runs go first, their y and the new
     y are kept on the host, and the whole trees are freed once the ranks'
     pieces are made (the data ranks of one "model" index share their y
     pieces; the zero server state is a view), so the card holds one copy
-    of the parameters beside the four ranks' work. ``FrozenSeen``: the frozen
-    leaves the loss and forward receive on every rank are its pieces, the
-    routed experts a quarter of the bank. Returns the meshed runs' launch
-    counts."""
+    of the parameters beside the ranks' work. ``FrozenSeen``: the frozen
+    leaves the loss and forward receive on every rank, and the split
+    trainable ones the forward receives, are its pieces (``leg.split``).
+    Returns the meshed runs' launch counts."""
     from repro_torch import kernels
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import ATTN, get_config
     from repro_torch.core import fedpt
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import sharding as shard_lib
@@ -5304,28 +5558,40 @@ def drive_deepseek_tp_threads(dev):
     from repro_torch.nn.basic import tree_map
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    D, M = DS_TP_SHAPE
-    cfg = get_config(DEEPSEEK).with_(num_layers=DEEPSEEK_TRAIN_LAYERS)
+    D, M = leg.shape
+    cfg = get_config(leg.arch).with_(num_layers=leg.layers, **leg.over)
     cfg32 = cfg.with_(compute_dtype="float32")
+    cfg_pre = cfg32 if leg.prefill_f32 else cfg
     t0 = time.perf_counter()
     y, z = specs.serving_split(dlm.init_model(cfg, 0, device=dev), cfg)
     rng = np.random.default_rng(0)
-    clients, tau, b, seq = DS_TP_ROUND
+    clients, tau, b, seq = leg.round
     tok = rng.integers(0, cfg.vocab_size, (clients, tau, b, seq),
                        dtype=np.int32)
     batch = {"tokens": tok, "labels": tok}
     w = torch.ones(clients, device=dev)
-    rows, plen = DS_TP_PREFILL
+    rows, plen = leg.prefill
     ptok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (rows, plen))).to(dev)
-    # the unmeshed runs, their results kept on the host: the prefill, the
-    # round in float32 compute
-    with routing_spy() as rec:
-        want = specs.make_prefill_step(cfg, device=dev)(y, z,
-                                                        {"tokens": ptok})
-    lo, hi = torch.aminmax(want)
-    lmax = max(-float(lo), float(hi))
-    want = want.cpu()
+    # the unmeshed runs, their results kept on the host: the prefill (and
+    # the bf16 pair's, with its witness), the round in float32 compute
+    def unmeshed_prefill(c):
+        with routing_spy() as rec:
+            out = specs.make_prefill_step(c, device=dev)(
+                y, z, {"tokens": ptok})
+        lo, hi = torch.aminmax(out)
+        return out.cpu(), max(-float(lo), float(hi)), rec
+    # (config, unmeshed logits, their largest |logit|, routing, bound)
+    holds = [(cfg_pre, *unmeshed_prefill(cfg_pre), LOGIT_REL)]
+    witness = None
+    if leg.prefill_f32:
+        want16, lmax16, rec16 = unmeshed_prefill(cfg)
+        with ulp_moved_mlstm():
+            moved = specs.make_prefill_step(cfg, device=dev)(
+                y, z, {"tokens": ptok})
+        witness = logit_gap(moved, want16, dev) / lmax16
+        del moved
+        holds.append((cfg, want16, lmax16, rec16, WITNESS_X * witness))
     torch.cuda.empty_cache()
     mem = {"unmeshed prefill": torch.cuda.max_memory_allocated()}
     torch.cuda.reset_peak_memory_stats()
@@ -5343,7 +5609,7 @@ def drive_deepseek_tp_threads(dev):
     # each rank's pieces, then the whole trees freed
     struct, zstruct = (tree_map(lambda t: torch.empty(
         t.shape, dtype=t.dtype, device="meta"), tree) for tree in (y, z))
-    abstract = mesh_lib.AbstractMesh(DS_TP_SHAPE, ("data", "model"))
+    abstract = mesh_lib.AbstractMesh(leg.shape, ("data", "model"))
     pl_y = shard_lib.param_shardings(struct, cfg, abstract)
     pl_z = shard_lib.param_shardings(zstruct, cfg, abstract)
     y0 = tree_map(lambda t: t.cpu(), y)
@@ -5367,7 +5633,7 @@ def drive_deepseek_tp_threads(dev):
     def world_of():
         from torch.distributed.device_mesh import init_device_mesh
         from torch.distributed.tensor import DTensor
-        mesh = init_device_mesh(torch.device(dev).type, DS_TP_SHAPE,
+        mesh = init_device_mesh(torch.device(dev).type, leg.shape,
                                 mesh_dim_names=("data", "model"))
         d, m = mesh.get_coordinate()
 
@@ -5382,7 +5648,7 @@ def drive_deepseek_tp_threads(dev):
     def prefill_rank(rank):
         from torch.distributed.tensor import Replicate, Shard
         mesh, yd, _, zd = world_of()
-        prefill = specs.make_tp_prefill_step(cfg, mesh, device=dev)
+        prefill = specs.make_tp_prefill_step(hold[0], mesh, device=dev)
         tokd = shard_lib.distribute(ptok, mesh, (Shard(0), Replicate()))
         # this rank's rows' routing in the unmeshed prefill's
         replay.offsets[threading.get_ident()] = shard_lib.local_range(
@@ -5396,12 +5662,7 @@ def drive_deepseek_tp_threads(dev):
         r0, r1 = shard_lib.local_range(rows, mesh, logits.placements, 0)
         v0, v1 = shard_lib.local_range(cfg.vocab_size, mesh,
                                        logits.placements, 2)
-        gap = 0.0
-        for c in range(0, plen, 4096):     # the host's piece, a slice a time
-            ref_c = want[r0:r1, c:c + 4096, v0:v1].to(dev)
-            gap = max(gap, float((local[:, c:c + 4096].float()
-                                  - ref_c.float()).abs().max()))
-            del ref_c
+        gap = logit_gap(local, hold[1], dev, (r0, r1), (v0, v1))
         return gap, bool(torch.isfinite(local).all()), \
             repr(logits.placements), t_pre
 
@@ -5420,69 +5681,166 @@ def drive_deepseek_tp_threads(dev):
             del t
         return basic.unflatten_params(whole), float(met["loss"]), t_step
 
-    paths = [p for p, _ in basic.flatten_params(zstruct)]
-    print(f"[mesh] (g) card memory (GiB): {mem['unmeshed prefill'] / 2 ** 30:.2f}"
-          f" and {mem['unmeshed round'] / 2 ** 30:.2f} at the unmeshed "
-          f"prefill's and round's peaks, {mem['pieces'] / 2 ** 30:.2f} held in "
-          f"the ranks' pieces before the worlds start", flush=True)
+    zpaths = [p for p, _ in basic.flatten_params(zstruct)]
+    ysplit = [p for p, _ in basic.flatten_params(struct)
+              if p.endswith(tuple(leg.split))]
+    print(f"[mesh] {leg.label} card memory (GiB): "
+          f"{mem['unmeshed prefill'] / 2 ** 30:.2f} and "
+          f"{mem['unmeshed round'] / 2 ** 30:.2f} at the unmeshed "
+          f"prefill's and round's peaks, {mem['pieces'] / 2 ** 30:.2f} held "
+          f"in the ranks' pieces before the worlds start", flush=True)
     t0 = time.perf_counter()
-    replay = routing_spy(rec.ids)
-    with replay, swa_shapes() as shapes, FrozenSeen(paths) as prefill_seen:
-        pre = threaded_world(D * M, prefill_rank, TP_TIMEOUT)
-    del want
+    pres = []                     # (gap / max |logit|, bound, rank results)
+    with swa_shapes() as shapes, \
+            FrozenSeen(zpaths + ysplit) as prefill_seen:
+        for hold in holds:
+            replay = routing_spy(hold[3].ids)
+            with replay:
+                pre = threaded_world(D * M, prefill_rank, TP_TIMEOUT)
+            pres.append((max(g for g, *_ in pre) / hold[2], hold[4], pre,
+                         replay))
+    del holds, hold
     torch.cuda.empty_cache()
     mem["meshed prefill"] = torch.cuda.max_memory_allocated()
-    print(f"[mesh] (g) the meshed prefill's peak "
+    print(f"[mesh] {leg.label} the meshed prefill's peak "
           f"{mem['meshed prefill'] / 2 ** 30:.2f} GiB, "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held after it",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
-    with FrozenSeen(paths) as train_seen:
+    with FrozenSeen(zpaths) as train_seen:
         trained = threaded_world(D * M, train_rank, TP_TIMEOUT)
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     mem["meshed step"] = torch.cuda.max_memory_allocated()
     y_tp, loss, t_step = trained[0]
     rel = update_rel(y0, y_ref, y_tp, dev)
-    rel_l = max(g for g, *_ in pre) / lmax
-    finite = all(f for _, f, *_ in pre)
-    experts = ("/moe/wi_gate", "/moe/wi_up", "/moe/wo")
+    rel_l, _, pre, replay = pres[0]
+    finite = all(f for _, _, pre_i, _ in pres for _, f, *_ in pre_i)
+    bf16_pair = ("" if witness is None else
+                 f"; in bf16 compute: max |diff| / max |logit| "
+                 f"{pres[1][0]:.3e}, the witness (the unmeshed bf16 prefill "
+                 f"with each mLSTM output moved one ulp at half its "
+                 f"elements) {witness:.3e}, tolerance WITNESS_X x witness "
+                 f"{pres[1][1]:.3e}")
+
+    def parts(path):
+        return next((n for k, n in leg.split.items() if path.endswith(k)), 1)
     local = {p: (v.numel(), s.numel()) for (p, v), (_, s) in zip(
         basic.flatten_params(zpieces[0, 0]), basic.flatten_params(zstruct))}
-    pieces = all(n * (D * M if p.endswith(experts) else 1) == whole
-                 and train_seen.seen.get(p) == {n}
-                 and prefill_seen.seen.get(p) == {n}
-                 for p, (n, whole) in local.items())
-    heads = set(shapes.seen)
-    want_heads = {((rows // D, cfg.num_heads // M, plen, MLA_DK),
-                   (rows // D, cfg.num_heads // M, plen, MLA_DV))}
-    print(f"[mesh] (g) {DEEPSEEK}, {cfg.num_layers} layer at full width on a "
-          f"{DS_TP_SHAPE} ('data', 'model') mesh of threads on the one card, "
-          f"the routed experts in the 2-D layout: the unmeshed round and "
-          f"prefill {t_unmeshed:.1f} s; the "
-          f"train step ({clients} clients x tau {tau} x {b} x {seq}) in "
-          f"float32 compute {t_step:.2f} s on rank 0, loss {loss:.4f}, "
-          f"against the unmeshed float32 round by update norm {rel:.3e} "
-          f"(bound {TP_F32_UPDATE_REL:g}); the "
-          f"prefill {rows} x {plen} {max(t for *_, t in pre):.2f} s, logits "
-          f"{pre[0][2]}, against the unmeshed prefill routed alike "
-          f"({replay.flipped} of {replay.routed} routings would differ): max "
-          f"|diff| / max |logit| {rel_l:.3e} (tolerance {LOGIT_REL:.3e}); "
-          f"swa_attention's (q, v) shapes "
-          f"{sorted(heads)}; the routed experts a quarter of the bank a rank "
-          f"and the loss and forward received each rank's pieces {pieces}; "
-          f"both worlds {wall:.1f} s; launches "
+    local.update({p: (v.numel(), s.numel()) for (p, v), (_, s) in zip(
+        basic.flatten_params(ypieces[0]), basic.flatten_params(struct))
+        if p in ysplit})
+    split = sorted({k for k in leg.split
+                    if any(p.endswith(k) for p in local)})
+    pieces = (split == sorted(leg.split) and all(
+        n * parts(p) == whole and prefill_seen.seen.get(p) == {n}
+        and (p in ysplit or train_seen.seen.get(p) == {n})
+        for p, (n, whole) in local.items()))
+    heads = frozenset(shapes.seen)
+    print(f"[mesh] {leg.label} {leg.arch}, {cfg.num_layers} layers at full "
+          f"width{leg.what} on a {leg.shape} ('data', 'model') mesh of "
+          f"threads on the one card: the unmeshed round and prefill "
+          f"{t_unmeshed:.1f} s; the train step ({clients} clients x tau "
+          f"{tau} x {b} x {seq}) in float32 compute {t_step:.2f} s on rank "
+          f"0, loss {loss:.4f}, against the unmeshed float32 round by update "
+          f"norm {rel:.3e} (bound {TP_F32_UPDATE_REL:g}); the prefill {rows} "
+          f"x {plen} in {cfg_pre.compute_dtype} compute "
+          f"{max(t for *_, t in pre):.2f} s, logits {pre[0][2]}, "
+          f"against the unmeshed prefill routed alike ({replay.flipped} of "
+          f"{replay.routed} routings would differ): max |diff| / max |logit| "
+          f"{rel_l:.3e} (tolerance {LOGIT_REL:.3e}){bf16_pair}; "
+          f"swa_attention's (q, v) shapes {sorted(heads)}; the split leaves "
+          f"{ {k: f'1/{n}' for k, n in leg.split.items()} } and every other "
+          f"frozen leaf whole a rank, and the loss and forward received each "
+          f"rank's pieces {pieces}; both worlds {wall:.1f} s; launches "
           f"{({k: v for k, v in counts.items() if v})}; card memory (GiB, "
           f"peaks, and the pieces held before the worlds) "
           f"{ {k: round(v / 2 ** 30, 2) for k, v in mem.items()} }")
-    if not (rel <= TP_F32_UPDATE_REL and rel_l <= LOGIT_REL and finite
-            and math.isfinite(loss) and pieces and heads == want_heads
-            and counts["swa_attention"] == D * M * cfg.num_layers
+    attn_layers = sum(k == ATTN for k in cfg.block_kinds())
+    if not (rel <= TP_F32_UPDATE_REL and finite
+            and all(r <= b for r, b, *_ in pres)
+            and math.isfinite(loss) and pieces and heads == leg.swa
+            and counts["swa_attention"] == D * M * attn_layers * len(pres)
             and counts["sumsq"] > 0):
-        raise AssertionError("(g) the 2 x 2 tensor-parallel DeepSeek-V2 is "
-                             "off the unmeshed runs")
+        raise AssertionError(f"{leg.label} the {leg.shape} tensor-parallel "
+                             f"{leg.arch} is off the unmeshed runs")
+    return counts
+
+
+def ds_tp_leg() -> TPLeg:
+    """(g): DeepSeek-V2 on DS_TP_SHAPE, the routed experts a quarter of
+    the bank a rank, ``swa_attention`` on a rank's MLA heads."""
+    from repro_torch.configs.base import get_config
+    rows, plen = DS_TP_PREFILL
+    D, M = DS_TP_SHAPE
+    heads = get_config(DEEPSEEK).num_heads // M
+    return TPLeg("(g)", DEEPSEEK, DEEPSEEK_TRAIN_LAYERS, DS_TP_SHAPE,
+                 DS_TP_PREFILL, DS_TP_ROUND,
+                 {k: D * M for k in ("/moe/wi_gate", "/moe/wi_up", "/moe/wo")},
+                 frozenset({((rows // D, heads, plen, MLA_DK),
+                             (rows // D, heads, plen, MLA_DV))}),
+                 ", the routed experts in the 2-D layout")
+
+
+def drive_deepseek_tp_threads(dev):
+    """(g) DeepSeek-V2-236B at full width, DEEPSEEK_TRAIN_LAYERS layer, on
+    a DS_TP_SHAPE ("data", "model") mesh of threads (:func:`drive_tp_world`):
+    its 160 routed experts in the 2-D layout (expert dim on "data", FFN
+    dim on "model"), each MoE layer's buffer exchanged over "data"; the
+    prefill's rows one a data rank; ``swa_attention`` on each rank's 64
+    heads at (192, 128), then timed there (:func:`mla_local_heads`)."""
+    counts = drive_tp_world(dev, ds_tp_leg())
     mla_local_heads(dev)
     return counts
+
+
+def drive_jamba_tp_threads(dev):
+    """(h) Jamba-v0.1 at full width, JAMBA_TP_LAYERS layers (Mamba with the
+    dense FFN, then attention with the MoE), on a (1, TP_RANKS) mesh of
+    threads (:func:`drive_tp_world`): Mamba on each rank's 2,048 of its
+    8,192 channels (``in_proj``'s column block moved to them by an
+    all-to-all), the 16 experts 4 a rank, the dense FFN and the vocab
+    split, ``swa_attention`` on each rank's 8 q / 2 kv heads (causal, no
+    window), then timed there (:func:`swa_local_heads`)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(JAMBA)
+    mamba = {f"/mamba/{k}": TP_RANKS for k in (
+        "in_proj/kernel", "out_proj/kernel", "x_proj/kernel",
+        "dt_proj/kernel", "conv_w", "conv_b", "A_log", "D")}
+    ffn = {k: TP_RANKS for k in ("/moe/wi_gate", "/moe/wi_up", "/moe/wo",
+                                 "/ffn/wi_gate/kernel", "/ffn/wi_up/kernel",
+                                 "/ffn/wo/kernel")}
+    rows, plen = JAMBA_TP_PREFILL
+    hd = cfg.resolved_head_dim
+    heads = ((rows, cfg.num_heads // TP_RANKS, plen, hd),
+             (rows, cfg.num_kv_heads // TP_RANKS, plen, hd))
+    counts = drive_tp_world(dev, TPLeg(
+        "(h)", JAMBA, JAMBA_TP_LAYERS, (1, TP_RANKS), JAMBA_TP_PREFILL,
+        TP_ROUND, {**mamba, **ffn}, frozenset({heads}),
+        ", Mamba on each rank's channels", JAMBA_TP_OVER))
+    swa_local_heads(dev, "(h)", cfg.num_heads, cfg.num_kv_heads,
+                    cfg.sliding_window)
+    return counts
+
+
+def drive_xlstm_tp_threads(dev):
+    """(i) xLSTM-350M at full width, one period of its layer program (3
+    mLSTM blocks, 1 sLSTM), on a (1, TP_RANKS) mesh of threads
+    (:func:`drive_tp_world`): the mLSTM's ``up_proj`` column- and
+    ``down_proj`` row-parallel around its cell, run whole on every rank,
+    the sLSTM whole, the tied embedding split by vocab; no attention.
+    Its prefill is held in float32 compute within LOGIT_REL: in bf16 the
+    meshed prefill measured 7.714e-02 of the largest |logit| off the
+    unmeshed one (over 2^-4; PERF.md), the sLSTM growing the two sides'
+    one-ulp bf16 flips over 2,048 positions, as phase 9 found between
+    decode and forward. The bf16 pair is held as well, within WITNESS_X
+    times the gap the unmeshed bf16 prefill makes against itself with
+    each mLSTM output moved one ulp (``ulp_moved_mlstm``)."""
+    return drive_tp_world(dev, TPLeg(
+        "(i)", XLSTM, XLSTM_TP_LAYERS, (1, TP_RANKS), XLSTM_PREFILL,
+        TP_ROUND, {"/mlstm/up_proj/kernel": TP_RANKS,
+                   "/mlstm/down_proj/kernel": TP_RANKS},
+        what=", the mLSTM's projections split", prefill_f32=True))
 
 
 def mla_local_heads(dev):
@@ -5531,13 +5889,14 @@ def drive_mesh(ds, y0, frozen, ya, za, dev):
     """Phase 11: (a) the 1-rank NCCL group and the "single" mesh; (b) the
     quickstart at int8, FedAvg B (fused coefficient route, DP, screen) and
     the async DP FedBuff grid, each with and without the mesh, bit for bit
-    with equal launches (cuDNN deterministic); (c) xLSTM-350M's train step
-    in the gathered layout; (e) StableLM-2-1.6B's train step and
+    with equal launches (cuDNN deterministic); (c) PaliGemma-3B's train
+    step in the gathered layout; (e) StableLM-2-1.6B's train step and
     Mixtral-8x7B's prefill, tensor-parallel on the 1-rank mesh; (f)
     Mixtral-8x7B on a 4-rank "model" axis of threads; (g) DeepSeek-V2 on a
-    (2, 2) mesh of threads, 2-D experts; (d) the dry run, started first
-    and read last. Returns the launch counts of (b), (c), (e), (f) and
-    (g)."""
+    (2, 2) mesh of threads, 2-D experts; (h) Jamba-v0.1 and (i)
+    xLSTM-350M on a 4-rank "model" axis of threads; (d) the dry run,
+    started first and read last. Returns the launch counts of (b), (c)
+    and (e) to (i)."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     proc = start_dryrun()
@@ -5579,7 +5938,8 @@ def drive_mesh(ds, y0, frozen, ya, za, dev):
             torch.backends.cudnn.deterministic = deterministic
         for leg in (drive_gathered_train_step, drive_tp_single_train_step,
                     drive_tp_single_prefill, drive_tp_threads,
-                    drive_deepseek_tp_threads):
+                    drive_deepseek_tp_threads, drive_jamba_tp_threads,
+                    drive_xlstm_tp_threads):
             t0 = time.perf_counter()
             for k, v in leg(dev).items():
                 launches[k] = launches.get(k, 0) + v
@@ -5797,6 +6157,7 @@ def other_tree(src: str, what: str) -> int:
           f"{card_line()}")
     if what == "--kernel-times":
         ab_times(dev, os.path.abspath(src))
+        attention_times(dev)
     else:
         drive_dp_ftrl(dev)
     return 0
@@ -6165,8 +6526,10 @@ def main(argv) -> int:
           tier_layouts(y0)[1][1:], dev)
     timed("check_mla_kernel", check_mla_kernel, dev)
     timed("check_vlm_encdec_kernels", check_vlm_encdec_kernels, dev)
-    # the redesigned kernels' A/B timings (ab_times) left the default run
-    # for phase 11's time: `chip_smoke.py --kernel-times src` prints them
+    timed("check_attention_fallback", check_attention_fallback, dev)
+    # the redesigned kernels' A/B timings (ab_times) and the attention
+    # kernel's repeated timings (attention_times) left the default run for
+    # phase 11's time: `chip_smoke.py --kernel-times src` prints them
     free_flush()
     t0 = phase_seconds(2, "kernels against their plain versions", t0)
 
@@ -6215,9 +6578,12 @@ def main(argv) -> int:
                                  "PT layout's map")
         draws = task_draws(pt, ROUNDS + 1)
         timed(f"check_model_round {path}", check_model_round, path, pt, ys,
-              zs, *draws[0], dev)
-        counts = timed(f"drive_model_path {path}", drive_model_path, path,
-                       pt, ys, zs, draws, ("sumsq",), dev)
+              zs, *draws[0], dev, clients=RESNET_CHECK_CLIENTS
+              if path.startswith("ResNet") else None)
+        with sumsq_seen() as seen:
+            counts = timed(f"drive_model_path {path}", drive_model_path,
+                           path, pt, ys, zs, draws, ("sumsq",), dev)
+        check_path_sumsq(path, seen)
         if path == "SO PT":
             counts = {k: counts[k] + v for k, v in
                       timed("drive_so_async", drive_so_async, pt,

@@ -31,12 +31,13 @@ rank:
   (``specs.skip_reason``);
 * ``layout``: the layout the traced step ran in (``specs.build_job``'s).
   ``specs.TP_LAYOUT`` for the tensor-parallel train steps and prefills
-  (GQA or MLA attention and dense or MoE FFNs, DeepSeek-V2's 2-D experts
-  included): every rank computes on its pieces of the parameters, placed
-  by the reference's rules, so the per-rank argument bytes are the rule
-  sum (``rule_argument_bytes``, also in ``memory``).
-  ``specs.GATHERED_LAYOUT`` for the rest (the SSM, VLM and
-  encoder-decoder families, and every decode): the step runs
+  (the dense, MoE, SSM and hybrid decoder LMs: GQA or MLA attention,
+  Mamba, the mLSTM and the sLSTM, dense or MoE FFNs, DeepSeek-V2's 2-D
+  experts included): every rank computes on its pieces of the parameters,
+  placed by the reference's rules, so the per-rank argument bytes are the
+  rule sum (``rule_argument_bytes``, also in ``memory``).
+  ``specs.GATHERED_LAYOUT`` for the rest (the VLM and encoder-decoder
+  families, and every decode): the step runs
   data-parallel with the parameters gathered whole on every rank; only
   the flat aggregation plane is sharded, so its per-rank bytes and
   collectives are not comparable to the reference's dry run.
@@ -50,6 +51,15 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b \\
       --shape train_4k [--multi-pod] [--out results.json]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--timeout S]
+  PYTHONPATH=<tree>/src python src/repro_torch/launch/dryrun.py \\
+      --arch jamba-v0.1-52b --shape train_4k --layers 8
+
+``--layers N`` traces the first N of each config's layers (one period of
+the SSM families' layer programs, whose full depth steps 28 Mamba or 6
+sLSTM loops a position at a time); a pair the config skips stays
+skipped. Run as a file with another tree's ``src`` on ``PYTHONPATH`` (a
+parent unpacked by ``git archive``), this ``main`` traces that tree's
+package.
 
 ``--timeout S`` stops a pair's trace after S seconds (status ``error``,
 ``TimeoutError``): the SSM families' 32,768-position prefills trace a
@@ -287,6 +297,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--timeout", type=float, default=0.0,
                     help="seconds a pair may trace (0: no limit)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="trace the first N of the config's layers (0: all)")
     args = ap.parse_args(argv)
 
     load_all()
@@ -306,8 +318,14 @@ def main(argv=None):
         t0 = time.time()
         signal.setitimer(signal.ITIMER_REAL, args.timeout,
                          1.0 if args.timeout else 0.0)
+        cut = None
+        if args.layers and not specs_lib.skip_reason(arch, shape):
+            cut = get_config(arch).with_(num_layers=args.layers)
         try:
-            return run_one(arch, shape, mesh=mesh)
+            res = run_one(arch, shape, mesh=mesh, cfg_override=cut)
+            if cut is not None:
+                res["layers"] = args.layers
+            return res
         except TimeoutError as e:
             return {"arch": arch, "shape": shape, "status": "error",
                     "error": f"TimeoutError: {e}",

@@ -21,7 +21,10 @@ Tensor parallelism on "model" (Megatron's): :func:`tensor_parallel` sets
 the ambient group the decoder LM's layers read, and :func:`tp_copy`,
 :func:`tp_reduce`, :func:`tp_gather` and :func:`tp_max` are its
 collectives with a gradient and a ``torch.func.vmap`` rule, every sum in
-rank order.
+rank order; :func:`tp_channels` moves a column-parallel output of two
+parts side by side (Mamba's ``in_proj``: [xs | z]) from the rank's
+column block to its channels of each part (an all-to-all, whose
+backward is the inverse).
 
 A serving step whose batch rows are split over the data axes sets the
 ambient :class:`DataSplit` (:func:`data_split`): an MoE layer then counts
@@ -410,6 +413,130 @@ def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     parts = _Stack.apply(x, tp)                       # (size, ...)
     parts = parts.movedim(0, dim)                     # (..., size, n, ...)
     return parts.reshape(x.shape[:dim] + (-1,) + x.shape[dim + 1:])
+
+
+# ---------------------------------------------------------------------------
+# A column-parallel output of two parts, moved to the rank's channels
+#
+# A projection whose output is two tensors side by side (Mamba's
+# ``in_proj``: [xs | z], each d_inner wide) is split on "model" in
+# contiguous column blocks, so rank r holds columns [r W / M, (r + 1) W /
+# M) of the whole width W: at M = 2 rank 0 holds all of xs and rank 1 all
+# of z. Channel-parallel work wants channels [r c / M, (r + 1) c / M) of
+# both parts (c = W / 2). :func:`tp_channels` moves each rank's block to
+# those slices with one all-to-all over "model" (each rank sends a
+# destination the columns of its block that the destination needs, and
+# nothing to the others); its backward is the inverse all-to-all.
+
+
+def _channel_plan(width: int, size: int):
+    """For each (source, destination) rank pair, the global column ranges
+    the source's block holds of the destination's channels, part by
+    part: ``plan[s][j]`` a list of (start, stop)."""
+    block, c = width // size, width // 2
+    plan = []
+    for s in range(size):
+        a, b = s * block, (s + 1) * block
+        row = []
+        for j in range(size):
+            row.append([(max(a, lo), min(b, hi)) for lo, hi in
+                        ((p * c + j * c // size, p * c + (j + 1) * c // size)
+                         for p in range(2)) if max(a, lo) < min(b, hi)])
+        plan.append(row)
+    return plan
+
+
+def _move_columns(x, tp, inverse: bool):
+    """(..., W / M) on each rank, its column block (``inverse`` False) or
+    its channels of both parts side by side (True) -> the other layout,
+    by one all-to-all of the columns (dim -1 moved to the front)."""
+    width = x.shape[-1] * tp.size
+    c, c_loc = width // 2, width // 2 // tp.size
+    plan = _channel_plan(width, tp.size)
+    me = tp.rank
+    if not inverse:
+        a = me * x.shape[-1]            # my block's first global column
+        send = [[(lo - a, hi - a) for lo, hi in plan[me][j]]
+                for j in range(tp.size)]
+        recv = [plan[s][me] for s in range(tp.size)]
+    else:
+        def local(lo, hi):              # a global column in my channels
+            at = lo // c * c_loc + lo % c - me * c_loc
+            return at, at + hi - lo
+        send = [[local(lo, hi) for lo, hi in plan[j][me]]
+                for j in range(tp.size)]
+        recv = [plan[me][s] for s in range(tp.size)]
+    cols = x.movedim(-1, 0)
+    pieces = [cols[lo:hi] for row in send for lo, hi in row]
+    buf = torch.cat(pieces) if pieces else cols[:0]
+    from torch.distributed import _functional_collectives as funcol
+    got = _waited(funcol.all_to_all_single(
+        buf.contiguous(), [sum(hi - lo for lo, hi in row) for row in recv],
+        [sum(hi - lo for lo, hi in row) for row in send], tp.group))
+    # the received pieces, source-major, each source's part by part, put
+    # in global column order: my channels of xs then of z, or my block
+    spans, at = [], 0
+    for row in recv:
+        for lo, hi in row:
+            spans.append((lo, got[at:at + hi - lo]))
+            at += hi - lo
+    spans.sort(key=lambda sp: sp[0])
+    return torch.cat([t for _, t in spans]).movedim(0, -1)
+
+
+class _Channels(torch.autograd.Function):
+    """A column block -> the rank's channels of both parts; backward:
+    :class:`_Columns`."""
+
+    @staticmethod
+    def forward(x, tp):
+        return _move_columns(x, tp, inverse=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.tp = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Columns.apply(g, ctx.tp), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, tp):
+        if in_dims[0] is None:
+            return _Channels.apply(x, tp), None
+        return _Channels.apply(x.movedim(in_dims[0], 0), tp), 0
+
+
+class _Columns(torch.autograd.Function):
+    """The rank's channels of both parts -> its column block; backward:
+    :class:`_Channels`."""
+
+    @staticmethod
+    def forward(x, tp):
+        return _move_columns(x, tp, inverse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.tp = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Channels.apply(g, ctx.tp), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, tp):
+        if in_dims[0] is None:
+            return _Columns.apply(x, tp), None
+        return _Columns.apply(x.movedim(in_dims[0], 0), tp), 0
+
+
+def tp_channels(x: torch.Tensor) -> torch.Tensor:
+    """This rank's column block (..., W / M) of a column-parallel output
+    of two parts side by side -> (..., W / M): this rank's channels of
+    the first part, then of the second (an all-to-all over "model";
+    backward: the inverse all-to-all)."""
+    tp = current_tp()
+    return x if tp is None else _Channels.apply(x, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -165,13 +165,15 @@ def expert_mode(cfg: ModelConfig, mesh) -> str:
 
 def tensor_parallel_ok(cfg: ModelConfig, mesh) -> bool:
     """True for the families whose steps run tensor-parallel on "model"
-    (``launch/specs``): slots of GQA attention or MLA and a dense or MoE
-    FFN, with the experts in the ``model``, ``ffn`` or ``2d`` mode (the
-    last, DeepSeek-V2's, puts the expert dim on "data" and exchanges each
-    MoE layer's buffer over it: ``launch/mesh.expert_exchange``). The SSM
-    slots, the VLM prefix and the encoder-decoder keep the gathered
-    layout."""
-    return (cfg.family in ("dense", "moe") and not cfg.is_encoder_decoder
+    (``launch/specs``): the dense, MoE, SSM (xLSTM) and hybrid (Jamba)
+    decoder LMs, whose slots are GQA attention or MLA, Mamba, the mLSTM
+    or the sLSTM (which no rule splits), with a dense or MoE FFN, the
+    experts in the ``model``, ``ffn`` or ``2d`` mode (the last,
+    DeepSeek-V2's, puts the expert dim on "data" and exchanges each MoE
+    layer's buffer over it: ``launch/mesh.expert_exchange``). The VLM
+    prefix and the encoder-decoder keep the gathered layout."""
+    return (cfg.family in ("dense", "moe", "ssm", "hybrid")
+            and not cfg.is_encoder_decoder
             and (not cfg.num_experts
                  or expert_mode(cfg, mesh) in ("model", "ffn", "2d")))
 

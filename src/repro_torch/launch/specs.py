@@ -7,11 +7,12 @@ tree in f32 (the master copy): the standard mixed-precision split of the
 reference's ``param_structs``. Structures are tensors on the meta device
 (no memory). The prefill and decode steps take the two halves and merge
 them; the train step is one FedPT round on a mesh (:func:`make_train_step`).
-On a mesh the train step and the prefill of GQA or MLA attention with
-dense or MoE FFNs are tensor-parallel on "model" (:func:`make_train_step`,
-:func:`make_tp_prefill_step`; DeepSeek-V2's 2-D experts with their expert
-dim on "data"): each rank computes on its pieces of the parameters and
-never gathers the frozen tree.
+On a mesh the train step and the prefill of the dense, MoE, SSM and
+hybrid decoder LMs (GQA or MLA attention, Mamba, the mLSTM and the
+sLSTM, dense or MoE FFNs) are tensor-parallel on "model"
+(:func:`make_train_step`, :func:`make_tp_prefill_step`; DeepSeek-V2's 2-D
+experts with their expert dim on "data"): each rank computes on its
+pieces of the parameters and never gathers the frozen tree.
 
 Shapes (the reference's):
   train_4k     seq 4,096   global_batch 256   -> fedpt_round_step
@@ -207,12 +208,13 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
 
     ``y``, the server state and ``frozen`` may arrive as DTensors placed
     by :func:`sharding.param_shardings` (the reference's layout) or whole.
-    Where ``sharding.tensor_parallel_ok`` holds (GQA or MLA attention and
-    dense or MoE FFNs), the step is tensor-parallel on "model": each rank
+    Where ``sharding.tensor_parallel_ok`` holds (the dense, MoE, SSM and
+    hybrid decoder LMs), the step is tensor-parallel on "model": each rank
     trains its data rank's clients on its pieces of ``y`` and of the
     frozen tree, which is never made whole (``nn/attention.tp_attention``
-    / ``tp_mla``, ``nn/basic.mlp`` / ``embed`` / ``unembed``, ``nn/moe``,
-    the vocab-parallel loss); each client's delta is gathered over
+    / ``tp_mla``, ``nn/ssm``'s Mamba and mLSTM, ``nn/basic.mlp`` /
+    ``embed`` / ``unembed``, ``nn/moe``, the vocab-parallel loss); each
+    client's delta is gathered over
     "model" a leaf at a time into this rank's columns of the flat plane's
     row (``sharding.ModelShards.flat_cols``), and the server steps on its
     pieces, returned as DTensors of that layout. With
@@ -221,8 +223,8 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
     buffer over the rank's "data" axis (``launch/mesh.expert_exchange``);
     a trainable leaf the rules would place on a data axis (the experts
     under FedAvg) raises a ValueError naming it
-    (``sharding.check_trainable_placements``). The other families keep
-    the gathered layout: ``y`` gathered whole for the
+    (``sharding.check_trainable_placements``). The VLM and the
+    encoder-decoder keep the gathered layout: ``y`` gathered whole for the
     clients, whose copies ``torch.func.vmap`` never materializes, the
     server state and the frozen tree gathered on entry, and the new ``y``
     laid out again (``constrain_fn``). Either way the batch and weights
@@ -361,8 +363,9 @@ def make_tp_prefill_step(cfg: ModelConfig, mesh, device=None):
     :func:`make_prefill_step`'s forward on its pieces of ``y`` and the
     frozen tree (DTensors or whole) and its data rank's rows: attention
     (GQA, or MLA) on its heads through ``flash_attention`` (the
-    ``swa_attention`` kernel on the card), the FFN or experts on its
-    pieces; no parameter is gathered. An MoE's capacity and slot ranks are
+    ``swa_attention`` kernel on the card), Mamba on its channels, the
+    mLSTM's projections on their pieces around its whole cell, the sLSTM
+    whole, the FFN or experts on its pieces; no parameter is gathered. An MoE's capacity and slot ranks are
     counted over the global batch, as the reference's forward counts them
     (``sharding.batch_split``); with the experts in the ``2d`` mode the
     data ranks' buffers are summed on the ranks that hold their experts
@@ -416,11 +419,12 @@ def build_job(arch: str, shape: str, mesh, cfg_override=None,
               device="cpu") -> LoweringJob:
     """The step of ``shape``'s kind for ``arch`` on ``mesh``, its argument
     structures and their placements. Where ``sharding.tensor_parallel_ok``
-    holds (the dense and MoE decoder LMs, MLA and DeepSeek-V2's 2-D
-    experts included), the train step and the prefill are tensor-parallel
-    (:func:`make_train_step`, :func:`make_tp_prefill_step`; ``layout``
-    :data:`TP_LAYOUT`); otherwise (the SSM, VLM and encoder-decoder
-    families), and for decode, the steps run data-parallel: their
+    holds (the dense, MoE, SSM and hybrid decoder LMs, MLA and
+    DeepSeek-V2's 2-D experts included), the train step and the prefill
+    are tensor-parallel (:func:`make_train_step`,
+    :func:`make_tp_prefill_step`; ``layout`` :data:`TP_LAYOUT`); otherwise
+    (the VLM and encoder-decoder families), and for decode, the steps run
+    data-parallel: their
     parameters gathered whole, the batch (and the cache, its "model"
     shards gathered) a data rank's rows."""
     base_cfg = cfg_override if cfg_override is not None else get_config(arch)

@@ -42,10 +42,13 @@ Under tensor parallelism (``launch/mesh.tensor_parallel``, the train step
 and prefill of ``launch/specs`` on a mesh) each rank holds its pieces of
 the parameters, placed by the reference's rules: attention slots run
 ``nn/attention.tp_attention`` (MLA's ``tp_mla``) on the rank's heads,
-the FFNs and experts their pieces (``nn/basic.mlp``, ``nn/moe``), the
-embedding a masked lookup of the rank's vocab rows, the logits the
-rank's vocab columns, and ``lm_loss`` the vocab-parallel cross-entropy;
-the (B, S, V) logits are never gathered in training.
+Mamba slots on the rank's channels and mLSTM slots with their
+projections split and their cell whole (``nn/ssm``; the sLSTM whole on
+every rank), the FFNs and experts their pieces
+(``nn/basic.mlp``, ``nn/moe``), the embedding a masked lookup of the
+rank's vocab rows, the logits the rank's vocab columns, and ``lm_loss``
+the vocab-parallel cross-entropy; the (B, S, V) logits are never
+gathered in training.
 
 ``forward`` takes the attention function explicitly: the serving prefill
 runs ``nn/attention.flash_attention`` (the ``swa_attention`` kernel on
@@ -232,7 +235,7 @@ def _apply_slot(x, sp, cfg: ModelConfig, slot: Slot, positions, aux,
     if slot.kind == MLSTM:
         o, cache = ssm_lib.mlstm_forward(h, sp["mlstm"], cfg)
         return x + o, aux, cache
-    if slot.kind == SLSTM:
+    if slot.kind == SLSTM:      # no rule splits the sLSTM: whole on every rank
         o, cache = ssm_lib.slstm_forward(h, sp["slstm"], cfg)
         return x + o, aux, cache
     if slot.kind == MAMBA:

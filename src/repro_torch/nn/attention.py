@@ -211,19 +211,15 @@ def flash_attention(q, k, v, cfg: ModelConfig, q_offset=0, chunk: int = 512,
     version; the chunk moves only where each ``p`` is rounded). Every call
     of the decoder LM reaches it: causal ones (with the window, and with a
     prefix), non-causal ones (encoder self-attention, and cross-attention
-    with sq != skv), head dims up to 256. Softcapping (no config sets it)
-    and an offset q are outside what it computes and raise. CPU tensors:
-    :func:`chunked_attention`.
+    with sq != skv), head dims up to 256. CPU tensors, and calls with a
+    logit softcap (``cfg.attn_logit_softcap > 0``, which no config sets)
+    or an offset q (``q_offset != 0``), which the kernel does not compute:
+    :func:`chunked_attention`, on any device.
     """
-    if q.device.type == "cpu":
+    if (q.device.type == "cpu" or cfg.attn_logit_softcap > 0
+            or q_offset != 0):
         return chunked_attention(q, k, v, cfg, q_offset=q_offset, chunk=chunk,
                                  causal=causal, prefix_len=prefix_len)
-    unported = {"attn_logit_softcap > 0": cfg.attn_logit_softcap > 0,
-                "q_offset != 0": q_offset != 0}
-    for what, present in unported.items():
-        if present:
-            raise NotImplementedError(f"flash_attention on the card: {what} "
-                                      f"is outside the swa_attention kernel")
     b, s, h, _ = q.shape
     out = torch.empty((b, s, h, v.shape[3]), dtype=q.dtype, device=q.device)
     # the window applies only to causal attention, and the prefix only

@@ -18,6 +18,15 @@ Mamba's discretised inputs dA and dBx are made a time chunk at a time
 (``MAMBA_CHUNK`` positions) inside the loop, where the reference makes
 them whole at (B, S, d_inner, n): 17.2 GB each for Jamba's 1 x 32,768
 prefill. They are elementwise, so the bits are the same.
+
+Under tensor parallelism on "model" (``launch/mesh.tensor_parallel``, the
+train step and prefill of ``launch/specs`` on a mesh) the blocks take the
+reference's placements (``launch/sharding``'s rules): Mamba runs on the
+rank's channels, the mLSTM's ``up_proj`` is column-parallel and its
+``down_proj`` row-parallel around a replicated cell; the sLSTM, which no
+rule splits, runs whole on every rank. One body serves both: without a
+group each collective returns its input and a rank's channels are all of
+them.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import basic
 
 # time positions of Mamba's dA / dBx made at once: (B, 256, d_inner, n)
@@ -130,20 +140,6 @@ def init_mamba(seed, path, cfg: ModelConfig, dtype, device=None):
     }
 
 
-def _mamba_scan_inputs(xs_pre, p, cfg: ModelConfig):
-    """From the pre-conv half of ``in_proj``: (xs, dt, B, C, A)."""
-    _, dt_rank = mamba_dims(cfg)
-    n = cfg.mamba_d_state
-    cd = cfg.cdtype
-    xs = F.silu(causal_conv1d(xs_pre, p["conv_w"].to(cd),
-                              p["conv_b"].to(cd)))
-    dt, Bm, Cm = basic.dense(xs, p["x_proj"], cd).split([dt_rank, n, n],
-                                                        dim=-1)
-    dt = F.softplus(basic.dense(dt, p["dt_proj"], cd))        # (B, S, d_inner)
-    A = -torch.exp(p["A_log"].float())                        # (d_inner, n)
-    return xs, dt, Bm, Cm, A
-
-
 def _mamba_scan(dt, xs, Bm, Cm, A, h):
     """The selective scan in float32, in time order: h = dA_t * h + dBx_t
     (one ``addcmul`` a position), y_t = h . C_t, with dA = exp(dt A) and
@@ -165,21 +161,55 @@ def _mamba_scan(dt, xs, Bm, Cm, A, h):
     return torch.cat(ys, dim=1), h
 
 
+def _rank_cols(t, width: int, whole: int, what: str):
+    """This rank's ``width`` of the ``whole`` last-dim columns of a
+    replicated ``t``, entering rank-local work through ``tp_copy`` (so
+    that its gradient sums over the ranks); all of them without a
+    tensor-parallel group."""
+    tp = mesh_lib.current_tp()
+    size, rank = (1, 0) if tp is None else (tp.size, tp.rank)
+    if width * size != whole:
+        raise NotImplementedError(f"{what} {whole} split unevenly on {size} "
+                                  f"'model' ranks")
+    return mesh_lib.tp_copy(t)[..., rank * width:(rank + 1) * width]
+
+
 def mamba_forward(x, p, cfg: ModelConfig, h0=None):
     """x: (B, S, d) -> (B, S, d); returns (out, (h_final, conv_tail)),
     conv_tail the last K - 1 positions of the pre-conv ``xs`` for decode
-    to continue from."""
-    Bsz = x.shape[0]
-    d_inner, _ = mamba_dims(cfg)
+    to continue from.
+
+    Under a tensor-parallel group, with the leaves placed by
+    ``launch/sharding``'s rules, the block runs on the rank's d_inner / M
+    channels: ``in_proj`` column-parallel, its column block moved to the
+    rank's channels of xs and z (``launch/mesh.tp_channels``); ``conv_w``,
+    ``conv_b``, ``A_log``, ``D`` and ``dt_proj``'s kernel the rank's
+    channels; ``x_proj`` row-parallel (dt, B and C summed over the ranks,
+    then entering rank-local work through ``tp_copy``); ``dt_proj``'s
+    bias, which no rule splits, read at the rank's channels; the float32
+    scan on the rank's channels; ``out_proj`` row-parallel. The state
+    returned is then the rank's channels."""
+    d_inner, dt_rank = mamba_dims(cfg)
+    n = cfg.mamba_d_state
     cd = cfg.cdtype
-    xs_pre, z = basic.dense(x, p["in_proj"], cd).chunk(2, dim=-1)
-    xs, dt, Bm, Cm, A = _mamba_scan_inputs(xs_pre, p, cfg)
-    h = torch.zeros((Bsz, d_inner, cfg.mamba_d_state), dtype=torch.float32,
+    dl = p["D"].shape[-1]                       # this rank's channels
+    cols = basic.dense(mesh_lib.tp_copy(x), p["in_proj"], cd)
+    xs_pre, z = mesh_lib.tp_channels(cols).chunk(2, dim=-1)
+    xs = F.silu(causal_conv1d(xs_pre, p["conv_w"].to(cd),
+                              p["conv_b"].to(cd)))
+    dbc = mesh_lib.tp_reduce(basic.dense(xs, p["x_proj"], cd))
+    dt, Bm, Cm = mesh_lib.tp_copy(dbc).split([dt_rank, n, n], dim=-1)
+    dtp = p["dt_proj"]
+    bias = _rank_cols(dtp["bias"], dl, d_inner, "Mamba's d_inner")
+    dt = F.softplus(basic.dense(dt, {"kernel": dtp["kernel"], "bias": bias},
+                                cd))                       # (B, S, dl)
+    A = -torch.exp(p["A_log"].float())                     # (dl, n)
+    h = torch.zeros((x.shape[0], dl, n), dtype=torch.float32,
                     device=x.device) if h0 is None else h0
     y, h_fin = _mamba_scan(dt, xs, Bm, Cm, A, h)
     y = y.to(cd) + xs * p["D"].to(cd)
     y = y * F.silu(z)
-    out = basic.dense(y, p["out_proj"], cd)
+    out = basic.row_parallel(y, p["out_proj"], cd)
     return out, (h_fin, xs_pre[:, -(cfg.mamba_d_conv - 1):, :])
 
 
@@ -251,10 +281,15 @@ def _sqrt_dh(dh: int, cd, device):
 
 
 def _mlstm_qkvif(x, p, cfg: ModelConfig):
+    """q, k, v, the log gates and z from the block's input ``x``; under a
+    tensor-parallel group ``up_proj`` is column-parallel and its output
+    joined over "model"."""
     d_in, nh, dh = xlstm_dims(cfg)
     cd = cfg.cdtype
     B, S, _ = x.shape
-    xm, z = basic.dense(x, p["up_proj"], cd).chunk(2, dim=-1)
+    xm, z = mesh_lib.tp_gather(basic.dense(mesh_lib.tp_copy(x),
+                                           p["up_proj"], cd), -1).chunk(
+        2, dim=-1)
     xc = F.silu(causal_conv1d(xm, p["conv_w"].to(cd), p["conv_b"].to(cd)))
 
     def heads(t):
@@ -303,7 +338,13 @@ def mlstm_forward(x, p, cfg: ModelConfig, state=None, chunk: int = 128):
     """x: (B, S, d) -> (B, S, d). Chunkwise-parallel mLSTM with no
     max-stabiliser (as the reference); the sequence is padded to whole
     chunks with log_i = -30 and log_f = 0. Returns (out, (C, n)) at the
-    sequence's end (no conv state, as the reference returns)."""
+    sequence's end (no conv state, as the reference returns).
+
+    Under a tensor-parallel group, with the leaves placed by
+    ``launch/sharding``'s rules: ``up_proj`` column-parallel, its output
+    joined over "model"; the cell (``conv``, ``wq`` / ``wk`` / ``wv``,
+    ``w_if``, ``ogate_norm``), which the rules replicate, whole on every
+    rank; ``down_proj`` row-parallel on the rank's rows of h * silu(z)."""
     B, S, _ = x.shape
     d_in, nh, dh = xlstm_dims(cfg)
     cd = cfg.cdtype
@@ -328,8 +369,9 @@ def mlstm_forward(x, p, cfg: ModelConfig, state=None, chunk: int = 128):
     h = torch.cat(hs, dim=2)[:, :, :S]                      # (B, nh, S, dh)
     h = h.transpose(1, 2).reshape(B, S, d_in)
     h = basic.rmsnorm(h, p["ogate_norm"]["scale"])
-    h = h * F.silu(z)
-    return basic.dense(h, p["down_proj"], cd), (C, n)
+    h = _rank_cols(h * F.silu(z), p["down_proj"]["kernel"].shape[-2], d_in,
+                   "the mLSTM's d_in")
+    return basic.row_parallel(h, p["down_proj"], cd), (C, n)
 
 
 def mlstm_step(x_t, p, cfg: ModelConfig, state):

@@ -410,8 +410,10 @@ def tp_case(case, mesh):
     rows = tuple(Shard(0) if n in mesh_lib.data_axes(mesh) else Replicate()
                  for n in mesh_lib.axis_names(mesh))
     tokd = shard_lib.distribute(tok, mesh, rows)
-    with FrozenSeen(paths) as prefill_seen:
-        logits = prefill(placed(y, shard_y), zd, {"tokens": tokd})
+    yd = placed(y, shard_y)
+    with FrozenSeen(paths + [p for p, _ in basic.flatten_params(y)]) \
+            as prefill_seen:
+        logits = prefill(yd, zd, {"tokens": tokd})
     decode = None
     if "decode" in case:
         decode = decode_case(cfg, mesh, part.merge(y, z), y, z,
@@ -424,6 +426,8 @@ def tp_case(case, mesh):
             "frozen_local": {p: (v.to_local().numel(), v.numel(),
                                  isinstance(v, DTensor))
                              for p, v in basic.flatten_params(zd)},
+            "y_local": {p: (v.to_local().numel(), v.numel())
+                        for p, v in basic.flatten_params(yd)},
             "frozen_seen": {"train": train_seen.seen,
                             "prefill": prefill_seen.seen},
             "layout": specs.build_job(case["arch"], "train_4k", mesh,

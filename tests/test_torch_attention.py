@@ -191,19 +191,21 @@ def test_visible_pairs_counts_the_mask():
 
 def test_card_path_refuses_what_the_kernel_does_not_compute():
     """A tensor off the CPU takes the kernel's path; features the kernel
-    does not compute (softcapping, an offset q) raise before any launch
-    (meta tensors stand in for the card here). A v head dim unlike q's
-    (MLA), a bidirectional prefix (the VLM) and a non-causal call with
-    other rows in q than in k (cross-attention) are the kernel's: they
-    reach the wrapper."""
+    does not compute (softcapping, an offset q) take the plain
+    ``chunked_attention`` on the tensors' device instead, before any
+    launch (meta tensors stand in for the card here: the wrapper, which
+    refuses them, is never reached). A v head dim unlike q's (MLA), a
+    bidirectional prefix (the VLM) and a non-causal call with other rows
+    in q than in k (cross-attention) are the kernel's: they reach the
+    wrapper."""
     _, tcfg = _cfgs()
     q = torch.empty((1, 64, 4, 64), device="meta")
     k = torch.empty((1, 64, 2, 64), device="meta")
     cases = [(tcfg.with_(attn_logit_softcap=30.0), q, k, k, {}),
              (tcfg, q, k, k, {"q_offset": 4})]
     for cfg, qq, kk, vv, kw in cases:
-        with pytest.raises(NotImplementedError):
-            tattn.flash_attention(qq, kk, vv, cfg, **kw)
+        out = tattn.flash_attention(qq, kk, vv, cfg, **kw)
+        assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_attention(q, k, k, tcfg, prefix_len=8)
     kx = torch.empty((1, 100, 2, 64), device="meta")

@@ -3,8 +3,9 @@ the CPU: the reference's two pairs of ``tests/test_dryrun.py``
 (``stablelm-1.6b x decode_32k``, ``mixtral-8x7b x train_4k``), a dense
 prefill (``stablelm-1.6b x prefill_32k``) at full width and depth and
 ``deepseek-v2-236b`` x ``train_4k`` and x ``prefill_32k`` at full width,
-1 of its 60 layers (the depth cut keeps the subprocess well inside its
-limit), on a fake (2, 4)
+1 of its 60 layers, and ``jamba-v0.1-52b`` x ``train_4k`` at full width,
+2 layers at an attention period of 2 (the cuts keep the subprocess well
+inside its limit), on a fake (2, 4)
 mesh, in a subprocess (a fake world is process-wide) under its own time
 limit; a skipped pair; and the command line on the production (16, 16)
 mesh.
@@ -14,8 +15,9 @@ The train step and the prefill are tensor-parallel on "model" (layout
 sum (each leaf's bytes over the sizes of the axes its placements
 shard), and no parameter is gathered. DeepSeek-V2's experts sit on
 "data" and "model" (the ``2d`` mode), so its step exchanges each MoE
-layer's buffer over "data": its collectives include all-to-alls. The
-decode keeps the gathered
+layer's buffer over "data": its collectives include all-to-alls; so do
+Jamba's (the sums, and each Mamba layer's ``in_proj`` output moved from a
+rank's column block to its channels). The decode keeps the gathered
 layout (``specs.GATHERED_LAYOUT``): its parameters' "model" shards are
 all-gathered.
 """
@@ -31,11 +33,16 @@ from repro_torch.launch import dryrun, specs
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAIRS = [("stablelm-1.6b", "decode_32k"), ("mixtral-8x7b", "train_4k"),
          ("stablelm-1.6b", "prefill_32k"), ("deepseek-v2-236b", "train_4k"),
-         ("deepseek-v2-236b", "prefill_32k")]
+         ("deepseek-v2-236b", "prefill_32k"), ("jamba-v0.1-52b", "train_4k")]
 TP_KINDS = ("train_4k", "prefill_32k")
-# pairs traced at a cut depth: layers
-DEPTH = {("deepseek-v2-236b", "train_4k"): 1,
-         ("deepseek-v2-236b", "prefill_32k"): 1}
+# pairs traced at a cut config: overrides. Jamba's layer program has a
+# period of 8 (7 Mamba layers, whose scans trace a position at a time:
+# one period's train step traced for over 7 minutes here), so its
+# attention period is cut to 2: Mamba with the dense FFN, then attention
+# with the MoE, each of its block kinds once
+CUT = {("deepseek-v2-236b", "train_4k"): {"num_layers": 1},
+       ("deepseek-v2-236b", "prefill_32k"): {"num_layers": 1},
+       ("jamba-v0.1-52b", "train_4k"): {"num_layers": 2, "attn_period": 2}}
 
 SCRIPT = r"""
 import json, sys
@@ -43,13 +50,13 @@ from repro_torch.configs import get_config, load_all
 from repro_torch.launch import dryrun, specs
 load_all()
 mesh = dryrun.fake_mesh((2, 4), ("data", "model"))
-depth = %r
+cut = %r
 out = [dryrun.run_one(a, s, mesh=mesh, verbose=False,
-                      cfg_override=get_config(a).with_(num_layers=depth[a, s])
-                      if (a, s) in depth else None)
+                      cfg_override=get_config(a).with_(**cut[a, s])
+                      if (a, s) in cut else None)
        for a, s in %r + [("qwen2.5-3b", "long_500k")]]
 print(json.dumps(out))
-""" % (DEPTH, PAIRS)
+""" % (CUT, PAIRS)
 
 
 def _env():
@@ -96,8 +103,9 @@ def test_dryrun_pair_on_fake_mesh(results, i):
     assert r["layout"] == (specs.TP_LAYOUT if tp
                            else specs.GATHERED_LAYOUT)
     assert mem["argument_bytes"] == mem["rule_argument_bytes"]
-    if PAIRS[i][0] == "deepseek-v2-236b":
-        # the experts' exchange over "data" (and the tp_reduce sums)
+    if PAIRS[i][0] in ("deepseek-v2-236b", "jamba-v0.1-52b"):
+        # the experts' exchange over "data", Mamba's channel move (and the
+        # tp_reduce sums)
         assert r["collectives"]["all-to-all"]["count"] > 0
 
 

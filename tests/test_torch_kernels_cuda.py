@@ -1218,6 +1218,32 @@ def test_flash_attention_non_causal_ignores_window(dev):
     assert bool((err <= bound).all()), float(err.max())
 
 
+@pytest.mark.parametrize("softcap,q_offset", [(30.0, 0), (0.0, 64),
+                                              (30.0, 64)])
+def test_flash_attention_softcap_and_offset_on_card_match_cpu(dev, softcap,
+                                                              q_offset):
+    """A logit softcap or an offset q is outside what the kernel computes:
+    ``flash_attention`` on CUDA tensors then runs ``chunked_attention``
+    on the card, launching no kernel, and returns what the CPU path
+    returns on the same float32 inputs, within float32 rounding (the
+    card's and the host's GEMMs sum in other orders)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.nn import attention
+    cfg = reduced_config(get_config("mistral-nemo-12b")).with_(
+        num_kv_heads=2, sliding_window=100, attn_logit_softcap=softcap)
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn((2, 200 - q_offset, 4, 64), generator=g)
+    k, v = (torch.randn((2, 200, 2, 64), generator=g) for _ in range(2))
+    kernels.reset_launches()
+    got = attention.flash_attention(q.to(dev), k.to(dev), v.to(dev), cfg,
+                                    q_offset=q_offset)
+    assert kernels.LAUNCHES["swa_attention"] == 0
+    want = attention.flash_attention(q, k, v, cfg, q_offset=q_offset)
+    assert got.device.type == "cuda" and got.shape == want.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_decoder_on_card_matches_cpu(dev):
     """Reduced NeMo with GQA in float32: forward logits on the card (the
     kernel) against the CPU (the chunked plain version), rtol / atol 1e-4

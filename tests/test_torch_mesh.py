@@ -51,9 +51,10 @@ import _torch_mesh_worker as worker
 REL = 1e-5                   # tests/test_torch_grid.py's tolerance
 
 RC, RC_DP, PLAN, ASSIGN = worker.RC, worker.RC_DP, worker.PLAN, worker.ASSIGN
-# a reduced config that keeps make_train_step's gathered layout: xLSTM
-# (its mLSTM and sLSTM blocks have no tensor-parallel form yet)
-GATHERED_ARCH, GATHERED_OVER = "xlstm-350m", {}
+# a reduced config that keeps make_train_step's gathered layout: PaliGemma
+# (its VLM prefix has no tensor-parallel form yet), its round's batch with
+# the stubbed vision tower's patch embeddings
+GATHERED_ARCH, GATHERED_OVER = "paligemma-3b", {}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -103,9 +104,14 @@ def round_inputs(arch="stablelm-1.6b", **over):
     cfg = ttrain.reduced_config(get_config(arch), max_layers=2, d_model=128,
                                 vocab=300).with_(**over)
     params = tdlm.init_model(cfg, 0, device="cpu")
-    tok = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 2, 1, 16)).astype(np.int32)
-    return cfg, params, {"tokens": tok, "labels": tok}
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab_size, (2, 2, 1, 16)).astype(np.int32)
+    batch = {"tokens": tok, "labels": tok}
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = rng.standard_normal(
+            (2, 2, 1, cfg.num_prefix_tokens, tdlm.VISION_TOWER_DIM)).astype(
+                np.float32)
+    return cfg, params, batch
 
 
 def _drain_cut():
@@ -392,7 +398,8 @@ def test_train_step_on_mesh_matches_unsharded_round(world4, init):
 
 def test_gathered_train_step_on_mesh_matches_unsharded_round(world4, init):
     """``make_train_step``'s gathered layout (a config that
-    ``sharding.tensor_parallel_ok`` refuses: a reduced xLSTM) on 2 x 2:
+    ``sharding.tensor_parallel_ok`` refuses: a reduced PaliGemma, its
+    patch embeddings in the batch) on 2 x 2:
     y, the server state and the frozen tree gathered
     for each data rank's clients, the flat plane on each rank's blocks,
     and the new y laid out again by the rules."""

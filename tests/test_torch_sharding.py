@@ -183,14 +183,16 @@ TP_MESHES = {"debug": ((2, 2), ("data", "model")),
                                   "whisper-large-v3"])
 def test_tensor_parallel_ok_by_family(arch, mesh_name):
     """DeepSeek-V2 (MLA, its 160 experts in the ``2d`` mode: the expert
-    dim on "data", the FFN dim on "model") takes the tensor-parallel
-    steps on every preset; the SSM (xLSTM), hybrid (Jamba), VLM
-    (PaliGemma) and encoder-decoder (Whisper) families keep the gathered
-    layout."""
+    dim on "data", the FFN dim on "model"), the SSM family (xLSTM: the
+    mLSTM's projections split, the sLSTM whole) and the hybrid (Jamba:
+    Mamba on each rank's channels, its 16 experts in the ``model`` mode)
+    take the tensor-parallel steps on every preset; the VLM (PaliGemma)
+    and encoder-decoder (Whisper) families keep the gathered layout."""
     tload_all()
     cfg = tget_config(arch)
     mesh = tmesh.AbstractMesh(*TP_MESHES[mesh_name])
-    want = arch == "deepseek-v2-236b"
+    want = arch in ("deepseek-v2-236b", "xlstm-350m", "jamba-v0.1-52b")
     assert tshard.tensor_parallel_ok(cfg, mesh) == want
-    if want:
-        assert tshard.expert_mode(cfg, mesh) == "2d"
+    if cfg.num_experts:
+        assert tshard.expert_mode(cfg, mesh) == {
+            "deepseek-v2-236b": "2d", "jamba-v0.1-52b": "model"}[arch]

@@ -315,9 +315,9 @@ package. Phases, in order, each failing the run on error:
    rank's channels with the dense FFN, then attention with the MoE) and
    (i) xLSTM-350M at one period (3 mLSTM blocks, their projections
    split, and the sLSTM whole) on (1, 4) meshes of threads, each held
-   as (f) is; (d) one
-   ``launch/dryrun`` subprocess (Mixtral-8x7B x train_4k in a fake (16,
-   16) world on the host, tensor-parallel), its traced per-rank peak
+   as (f) is, the card's peak over each leg's meshed prefill printed;
+   (d) one ``launch/dryrun`` subprocess (Mixtral-8x7B x train_4k in a
+   fake (16, 16) world on the host, tensor-parallel), its traced per-rank peak
    beside the card's memory and the largest tensors that hold it;
 12. the examples: each ``examples_torch/`` twin's ``main`` in this
    process on the card, at every invocation that ``ci.yml``'s
@@ -4696,14 +4696,14 @@ def drive_xlstm_serving(dev):
 
 def drive_jamba_serving(dev):
     """Phase 9's Jamba serving: ``drive_zoo_serving`` on one period (8 of
-    32 layers), a 1 x 32,768 prefill (1 warm-up, 2 timed) profiled at 1 x
+    32 layers), a 1 x 32,768 prefill (1 warm-up, 1 timed) profiled at 1 x
     4,096, kernel vs plain at 1 x 512 and step-by-step prefill against
     ``forward`` over 512 positions at capacity factor JAMBA_CONSIST_CF;
     then one reduced round card vs CPU (``check_model_round``'s default
     bounds: a router near-tie may flip between the devices)."""
     counts = drive_zoo_serving(JAMBA, JAMBA_LAYERS, JAMBA_SERVE_SPLIT, dev,
                                JAMBA_CONSIST_CF, prefill=JAMBA_PREFILL,
-                               timed=2, profile=JAMBA_PROFILE,
+                               timed=1, profile=JAMBA_PROFILE,
                                stepped=JAMBA_STEPPED)
     torch.cuda.empty_cache()
     check_reduced_round(JAMBA, dev)
@@ -4914,14 +4914,14 @@ GATHERED_ARCH, GATHERED_LAYERS, GATHERED_SEQ = "paligemma-3b", 4, 1024
 # layers (phase 8's training depth), on a (2, 2) ("data", "model") mesh of
 # threads on the one card: its 160 experts in the 2-D layout (80 a data
 # rank, each on 768 of its 1,536 FFN columns: a quarter of the bank a
-# rank), MLA's 128 heads 64 a "model" rank. The prefill's rows (one a
-# data rank) and positions, prefill_32k's 32,768 cut to 16,384: at 32,768
-# the four ranks' prefill ran out of the card's memory (each rank's MoE
-# holds the batch's (160, 3,072, 5,120) bf16 dispatch buffer, 5.0 GB, and
-# gathers the experts' outputs back at that size; PERF.md); the train
+# rank), MLA's 128 heads 64 a "model" rank. The prefill: prefill_32k's
+# 32,768 positions, 2 rows, one a data rank (each rank fills only its 80
+# experts' (80, 6,144, 5,120) bf16 slots, 5.0 GB, from both data ranks'
+# tokens; while each built the batch's whole buffer, 2 x 32,768 ran out of
+# the card's memory and the rows were cut to 16,384 positions); the train
 # step's clients x tau x sequences x tokens, as (f)'s
 DS_TP_SHAPE = (2, 2)
-DS_TP_PREFILL = (2, PREFILL_LEN // 2)
+DS_TP_PREFILL = (2, PREFILL_LEN)
 DS_TP_ROUND = TP_ROUND
 # (h): Jamba-v0.1 at full width on a (1, 4) mesh of threads, 2 of its 32
 # layers, as Mixtral's (f) takes 2. Its layer program has a period of 8
@@ -5271,6 +5271,11 @@ class FrozenSeen:
         return spy
 
 
+# the card's peak allocated bytes over each threaded leg's meshed prefill
+# world, by leg ((f), (g), (h), (i)), as the legs ran
+PREFILL_PEAKS = {}
+
+
 def drive_tp_threads(dev):
     """(f) Mixtral-8x7B at full width, TP_LAYERS layers, on a (1,
     TP_RANKS) mesh of threads on the one card (``threaded_world``): each
@@ -5358,10 +5363,13 @@ def drive_tp_threads(dev):
     with FrozenSeen(paths) as train_seen:
         (y_tp, loss, t_step), local = threaded_world(
             TP_RANKS, train_rank, TP_TIMEOUT)[0]
+    peak_step = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     replay = routing_spy(rec.ids)
     with replay, FrozenSeen(paths) as prefill_seen:
         logits, placements, t_pre = threaded_world(TP_RANKS, prefill_rank,
                                                    TP_TIMEOUT)[0]
+    PREFILL_PEAKS["(f)"] = torch.cuda.max_memory_allocated()
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     rel = update_rel(y, y_ref, y_tp)
@@ -5385,9 +5393,10 @@ def drive_tp_threads(dev):
           f"{rel_l:.3e} (tolerance {LOGIT_REL:.3e}); {len(split)} of "
           f"{len(local)} frozen leaves split a rank (the experts "
           f"{experts}), and the loss and forward received each rank's "
-          f"pieces {pieces}; both worlds {wall:.1f} s; peak "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
-          f"{({k: v for k, v in counts.items() if v})}")
+          f"pieces {pieces}; both worlds {wall:.1f} s; card memory peak "
+          f"{peak_step / 2 ** 30:.2f} GiB over the step's world, "
+          f"{PREFILL_PEAKS['(f)'] / 2 ** 30:.2f} GiB over the meshed "
+          f"prefill's; launches {({k: v for k, v in counts.items() if v})}")
     if not (rel <= TP_F32_UPDATE_REL and rel_l <= LOGIT_REL
             and math.isfinite(loss) and pieces and experts
             and counts["swa_attention"] > 0 and counts["sumsq"] > 0):
@@ -5702,6 +5711,7 @@ def drive_tp_world(dev, leg: TPLeg):
     del holds, hold
     torch.cuda.empty_cache()
     mem["meshed prefill"] = torch.cuda.max_memory_allocated()
+    PREFILL_PEAKS[leg.label] = mem["meshed prefill"]
     print(f"[mesh] {leg.label} the meshed prefill's peak "
           f"{mem['meshed prefill'] / 2 ** 30:.2f} GiB, "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held after it",
@@ -5946,6 +5956,9 @@ def drive_mesh(ds, y0, frozen, ya, za, dev):
             torch.cuda.empty_cache()
             print(f"[mesh] {leg.__name__} took "
                   f"{time.perf_counter() - t0:.1f} s")
+        peaks = {k: round(v / 2 ** 30, 2) for k, v in PREFILL_PEAKS.items()}
+        print(f"[mesh] the card's peak over each meshed prefill (GiB): "
+              f"{peaks}")
         finish_dryrun(proc, dev)
     finally:
         if proc.poll() is None:

@@ -37,8 +37,10 @@ over which the expert stacks' expert dim is split, and
 :func:`expert_exchange` / :func:`expert_return` move an MoE layer's
 dispatch buffer to the ranks that hold its experts and the outputs back
 (an all-to-all each way, autograd and ``vmap`` rules included);
-:func:`expert_sum` / :func:`expert_gather` are the exchange of a batch
-whose rows are split over the data ranks.
+:func:`expert_share` / :func:`expert_reduce` are the exchange of a batch
+whose rows are split over the data ranks: each expert rank fills only
+its experts' slots and each data rank gets back only its own tokens'
+outputs.
 """
 from __future__ import annotations
 
@@ -608,15 +610,21 @@ def data_gather(t: torch.Tensor) -> torch.Tensor:
 # source its rows back, (E, cap, d) again. Each is the other's backward,
 # and each carries the round engine's client dim through ``vmap``, so
 # every data rank must run the same number of clients (the tensor-
-# parallel step pads a short rank's rows: ``sharding.ModelShards``). A
-# batch whose rows are split over the data ranks (the prefill) keeps one
-# global slot layout, each rank's entries in slots of their own and zeros
-# elsewhere: :func:`expert_sum` adds the ranks' pieces of this rank's
-# experts (exact: at most one of them is not zero) and
-# :func:`expert_gather` returns the outputs to every rank. A data rank
-# with no rows or clients of its own still joins every exchange. With no
-# group, or a "data" axis of one rank, the experts are whole and nothing
-# is exchanged.
+# parallel step pads a short rank's rows: ``sharding.ModelShards``).
+#
+# A batch whose rows are split over the data ranks (the prefill, no
+# gradient) has one global slot layout, each expert's slots filled from
+# every data rank's tokens. No rank builds the whole (E, cap, d) buffer:
+# :func:`expert_share` hands every data rank each one's tokens (padded to
+# the largest piece) and its entries' slots and weights, the rank fills
+# its E / D experts' (E / D, cap, d) slots from them and runs its experts
+# once, and combines each source's entries of its experts;
+# :func:`expert_reduce` returns each source its tokens' partial outputs
+# and adds them there in rank order, in float32 (an all-gather and an
+# all-to-all, plain functions: the no-grad prefill needs neither an
+# autograd nor a ``vmap`` rule). A data rank with no rows or clients of
+# its own still joins every exchange. With no group, or a "data" axis of
+# one rank, the experts are whole and nothing is exchanged.
 
 
 _EP = threading.local()
@@ -713,19 +721,20 @@ def expert_return(y: torch.Tensor) -> torch.Tensor:
     return _Return.apply(y, current_ep())
 
 
-def expert_sum(buf: torch.Tensor) -> torch.Tensor:
-    """(E, cap, d) on each data rank -> (E / D, cap, d): the sum of the
-    ranks' rows of this rank's experts, added in rank order (no
-    gradient). Exact where the ranks fill disjoint slots."""
+def expert_share(t: torch.Tensor) -> torch.Tensor:
+    """(...) on each data rank -> (D, ...), every data rank's in rank
+    order (an all-gather over the ambient expert-parallel group; no
+    gradient)."""
+    return all_gather(t.detach()[None], current_ep().group)
+
+
+def expert_reduce(parts: torch.Tensor) -> torch.Tensor:
+    """(D, ...) on each data rank, piece j for data rank j -> (...) in
+    float32: the D ranks' pieces for this rank, added in rank order (an
+    all-to-all in ``parts``' dtype; no gradient)."""
     ep = current_ep()
-    parts = _swap(_by_rank(buf, ep), ep)
-    acc = parts[0]
+    got = _swap(parts.detach().contiguous(), ep)
+    acc = got[0].float()
     for i in range(1, ep.size):
-        acc = acc + parts[i]
+        acc = acc + got[i]
     return acc
-
-
-def expert_gather(y: torch.Tensor) -> torch.Tensor:
-    """(E / D, cap, d) of this rank's experts -> (E, cap, d), every data
-    rank's experts in rank order (an all-gather; no gradient)."""
-    return all_gather(y, current_ep().group)

@@ -367,11 +367,15 @@ def make_tp_prefill_step(cfg: ModelConfig, mesh, device=None):
     mLSTM's projections on their pieces around its whole cell, the sLSTM
     whole, the FFN or experts on its pieces; no parameter is gathered. An MoE's capacity and slot ranks are
     counted over the global batch, as the reference's forward counts them
-    (``sharding.batch_split``); with the experts in the ``2d`` mode the
-    data ranks' buffers are summed on the ranks that hold their experts
-    and the outputs gathered back (``launch/mesh.expert_sum`` /
-    ``expert_gather``), every data rank joining, one with no rows too. A
-    caller that wants whole logits asks the DTensor (``full_tensor()``)."""
+    (``sharding.batch_split``). A rank holds only its experts' slots of
+    the MoE buffer: in the ``model`` mode its own experts' narrow of the
+    buffer, and with the experts in the ``2d`` mode the data ranks share
+    their tokens and entries (``launch/mesh.expert_share``), each rank
+    fills and runs its E / D experts' slots of the global layout, and
+    each data rank gets back its own tokens' partial outputs, added in
+    rank order (``expert_reduce``), every data rank joining, one with no
+    rows too. A caller that wants whole logits asks the DTensor
+    (``full_tensor()``)."""
     step = make_prefill_step(cfg, device)
     tp = mesh_lib.model_parallel(mesh)
     ep = _experts_on_data(cfg, mesh)

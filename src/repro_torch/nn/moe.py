@@ -36,17 +36,25 @@ Under tensor parallelism (``launch/mesh.tensor_parallel``) the expert
 stacks are this rank's pieces: E / m experts (the ``model`` mode), each
 expert's FFN columns (``ffn``), or E / D experts on their FFN columns
 (``2d``: the expert dim on "data", under ``launch/mesh.expert_parallel``).
-Routing and dispatch stay the same on every "model" rank (a float32
-router on the same tokens); the rank runs its pieces, combines its
-partial output and the partials are summed over "model" in rank order
-(at k = 2 in the ``model`` mode, the unmeshed bits given the same expert
-outputs: one rank's partial holds both of a token's rows or each holds
-one, and the float32 sum of two bf16 rows is exact before its one
-rounding). In the ``2d`` mode the buffer goes to the data ranks that hold
-its experts and the outputs come back (``launch/mesh.expert_exchange`` /
-``expert_return``: a client's buffer is its own; under a data split,
-``expert_sum`` / ``expert_gather``: the ranks' buffers share one global
-slot layout), so the combine reads the same rows as in the ``ffn`` mode.
+Routing and the slot ranks stay the same on every "model" rank (a
+float32 router on the same tokens). A rank dispatches only the slots of
+the experts it holds, as the reference's placements keep the buffer: in
+the ``model`` mode its E / m experts' (E / m, cap, d) narrow of the
+buffer, bit for bit, and its combine reads only those rows, an entry of
+another rank's expert counting as zero (no (E, cap, d) buffer and no
+zero rows for the others); in the ``ffn`` mode every expert's. The
+rank's partial outputs are summed over "model" in rank order (at k = 2
+in the ``model`` mode, the unmeshed bits given the same expert outputs:
+one rank's partial holds both of a token's rows or each holds one, and
+the float32 sum of two bf16 rows is exact before its one rounding). In
+the ``2d`` mode a client's buffer (the train step) goes to the data
+ranks that hold its experts and the outputs come back
+(``launch/mesh.expert_exchange`` / ``expert_return``); a batch split
+over the data ranks (the prefill) shares its tokens and entries over
+"data" instead (``expert_share``): each expert rank fills only its E / D
+experts' slots of the global layout, runs them once and sends each data
+rank its tokens' partial combine, added there in rank order in float32
+(``expert_reduce``) before the sum over "model" and one rounding.
 """
 from __future__ import annotations
 
@@ -120,19 +128,17 @@ def _global_slots(idx, cfg: ModelConfig, row_len):
     return capacity(ds.rows * row_len, cfg), every[:ds.rank].sum(0)
 
 
-def _sort_dispatch(x, w, idx, e: int, cap: int, cd, offset=None):
-    """Dispatch of (T, d) tokens into an (E, cap, d) buffer.
+def _slots(idx, e: int, cap: int, offset=None):
+    """Each entry's slot in the (E * cap) global slot layout, and whether
+    it is kept.
 
     Entry f = t * k + j (token t's j-th expert) takes slot ``expert * cap
     + rank``, its rank being the count of earlier entries routed to the
     same expert (the reference's stable-sort position), plus
     ``offset[expert]`` (the earlier data ranks' entries, from
-    :func:`_global_slots`); ranks from cap on are dropped. Returns (buf,
-    meta), meta = (slot, keep, weight) per entry in token order for
-    :func:`_combine_local`."""
-    T, d = x.shape
-    k = idx.shape[1]
-    n = T * k
+    :func:`_global_slots`); ranks from cap on are dropped, and a dropped
+    entry takes a slot of its own past the E * cap (``E * cap + f``)."""
+    n = idx.shape[0] * idx.shape[1]
     flat_e = idx.reshape(-1).long()                       # (T*k,)
     hot = _one_hot(flat_e, e, torch.long).T               # (E, T*k)
     # the expert-major running count (one scan of a flat vector): at
@@ -144,29 +150,70 @@ def _sort_dispatch(x, w, idx, e: int, cap: int, cd, offset=None):
     if offset is not None:
         rank = rank + offset.gather(0, flat_e)
     keep = rank < cap
-    entry = torch.arange(n, device=x.device)
-    # a dropped entry takes a drop row of its own past the E*cap slots, so
-    # that no two entries share a row of the scattered index
-    slot = torch.where(keep, flat_e * cap + rank, e * cap + entry)
-    src = torch.full((e * cap + n,), T, dtype=torch.long, device=x.device)
-    src = src.scatter(0, slot, entry // k)                # token of each slot
+    entry = torch.arange(n, device=idx.device)
+    return torch.where(keep, flat_e * cap + rank, e * cap + entry), keep
+
+
+def _fill(xp, slot, row, lo: int, n: int, empty: int):
+    """The (n, d) rows of slots [lo, lo + n): each the row ``row[f]`` of
+    ``xp`` of the entry f that holds the slot, row ``empty`` (a zero row)
+    where none does. A copy: the rows' bits."""
+    m = slot.shape[-1]
+    local = slot - lo
+    inside = (local >= 0) & (local < n)
+    # an entry outside takes an index row of its own past the n, so that
+    # no two entries share a row of the scattered index
+    spare = n + torch.arange(m, device=slot.device)
+    src = torch.full((n + m,), empty, dtype=torch.long, device=slot.device)
+    src = src.scatter(0, torch.where(inside, local, spare), row)
+    return xp.index_select(0, src[:n])
+
+
+def _sort_dispatch(x, w, idx, e: int, cap: int, cd, offset=None,
+                   experts=None):
+    """Dispatch of (T, d) tokens into the (el, cap, d) slots of experts
+    [e0, e0 + el) (``experts`` = (e0, el); all E by default): the whole
+    (E, cap, d) buffer's narrow to them, bit for bit (:func:`_slots`).
+    Returns (buf, meta), meta = (slot, keep, weight) per entry in token
+    order for :func:`_combine_local`."""
+    T, d = x.shape
+    k = idx.shape[1]
+    e0, el = experts or (0, e)
+    slot, keep = _slots(idx, e, cap, offset)
+    row = torch.arange(slot.shape[-1], device=x.device) // k  # its token
     xp = torch.cat([x.to(cd), torch.zeros((1, d), dtype=cd, device=x.device)])
-    buf = xp.index_select(0, src[:e * cap]).reshape(e, cap, d)
+    buf = _fill(xp, slot, row, e0 * cap, el * cap, T).reshape(el, cap, d)
     return buf, (slot, keep, w.reshape(-1))
 
 
-def _combine_local(y_flat, meta, T: int, e: int, cap: int, cd):
+def _combine_local(y_flat, meta, T: int, e: int, cap: int, cd,
+                   experts=None):
     """Inverse of :func:`_sort_dispatch`: each token's k weighted expert
-    rows, gathered and summed in a fixed order into (T, d)."""
+    rows, gathered and summed in a fixed order into (T, d). With
+    ``experts`` = (e0, el), ``y_flat`` holds those experts' (el * cap, d)
+    rows alone and an entry of another expert counts as zero: the partial
+    combine of this rank's experts. The whole bank's combine gathers all
+    (T * k, d) rows at once; a range's, a token's j-th rows (T, d) at a
+    time (the same adds in the same order), so that it holds no more than
+    its own slots' share of them."""
     slot, keep, sw = meta
-    d = y_flat.shape[-1]
-    rows = y_flat.index_select(0, torch.clamp_max(slot, e * cap - 1))
-    gathered = torch.where(keep[:, None], rows, 0.0) * sw[:, None].to(cd)
+    e0, el = experts or (0, e)
+    n, d = el * cap, y_flat.shape[-1]
     # k named, not -1: a data rank with no rows has T = 0
-    gathered = gathered.reshape(T, slot.shape[-1] // max(T, 1), d)
+    k = slot.shape[-1] // max(T, 1)
+    step = max(k, 1) if el == e else 1
+    local = (slot - e0 * cap).reshape(T, k)
+    inside = (keep.reshape(T, k) & (local >= 0) & (local < n))[..., None]
+    local = local.clamp(0, n - 1)
+    sw = sw.reshape(T, k, 1).to(cd)
     out = torch.zeros((T, d), dtype=cd, device=y_flat.device)
-    for j in range(gathered.shape[1]):
-        out = out + gathered[:, j]
+    for j0 in range(0, k, step):
+        js = slice(j0, j0 + step)
+        rows = y_flat.index_select(0, local[:, js].reshape(-1))
+        rows = torch.where(inside[:, js], rows.reshape(T, -1, d), 0.0)
+        rows = rows * sw[:, js]
+        for j in range(rows.shape[1]):
+            out = out + rows[:, j]
     return out
 
 
@@ -178,15 +225,17 @@ def _experts(buf, p, cd, ff_axis=None):
     (E, cap, d) x (E, d, ff) product copies the weights once a client.
     ``ff_axis`` hints each expert's hidden activations' FFN dim onto that
     mesh axis (an expert's slice of the reference's hint)."""
-    out = []
-    for e in range(buf.shape[-3]):
-        x = buf.select(-3, e)
-        g = x @ p["wi_gate"][e].to(cd)
-        u = x @ p["wi_up"][e].to(cd)
-        h = basic.maybe_constrain(torch.nn.functional.silu(g) * u,
-                                  (None, ff_axis))
-        out.append(h @ p["wo"][e].to(cd))
-    return torch.stack(out, dim=-3)
+    return torch.stack([_expert(buf.select(-3, e), p, e, cd, ff_axis)
+                        for e in range(buf.shape[-3])], dim=-3)
+
+
+def _expert(x, p, e: int, cd, ff_axis=None):
+    """Expert e of this rank's stacks on its (..., cap, d) slots."""
+    g = x @ p["wi_gate"][e].to(cd)
+    u = x @ p["wi_up"][e].to(cd)
+    h = basic.maybe_constrain(torch.nn.functional.silu(g) * u,
+                              (None, ff_axis))
+    return h @ p["wo"][e].to(cd)
 
 
 def _expert_split(p, cfg: ModelConfig):
@@ -224,46 +273,87 @@ def _hint_axes(cfg: ModelConfig, split):
     return "model", None
 
 
-def _experts_tp(buf, p, cfg: ModelConfig, cd, split, ff_axis=None):
-    """:func:`_experts` on this rank's pieces of the expert stacks
-    (``split`` from :func:`_expert_split`) -> y (..., E, cap, d). In the
-    ``model`` mode the rank runs its experts' slots and the others' rows
-    are zero; in the ``ffn`` mode it runs every expert on its FFN columns;
-    with the expert dim on "data" it runs its E / D experts on every data
-    rank's rows for them (:func:`_experts_ep`). Where the output combined
-    from it is this rank's partial sum over "model", the dispatch buffer,
-    the same on every "model" rank, enters through ``tp_copy``."""
-    e_axis = split[0]
-    if _partial(split):
-        buf = mesh_lib.tp_copy(buf)
-    if e_axis == "data":
-        return _experts_ep(buf, p, cd, ff_axis)
-    if e_axis is None:
-        return _experts(buf, p, cd, ff_axis)
+def _own_experts(p, cfg: ModelConfig, split):
+    """The experts (e0, el) whose slots this rank dispatches and combines:
+    in the ``model`` mode its own E / m, else all E."""
+    if split[0] != "model":
+        return 0, cfg.num_experts
     el = p["wi_gate"].shape[-3]
-    e0 = mesh_lib.current_tp().rank * el
-    y = _experts(buf.narrow(-3, e0, el), p, cd, ff_axis)
-
-    def zeros(n):
-        return y.new_zeros(y.shape[:-3] + (n,) + y.shape[-2:])
-    return torch.cat([zeros(e0), y, zeros(cfg.num_experts - e0 - el)],
-                     dim=-3)
+    return mesh_lib.current_tp().rank * el, el
 
 
-def _experts_ep(buf, p, cd, ff_axis=None):
-    """The expert FFNs with the expert dim on "data": this rank's buffer
-    (..., E, cap, d) -> every expert's outputs for its rows, (..., E,
-    cap, d). A buffer of the rank's own tokens (a client's, in the train
-    step) goes out by ``expert_exchange``, the rank runs its experts on
-    every source's rows for them and ``expert_return`` sends them back;
-    under a data split the ranks' buffers share the global slots, so the
-    expert rank adds them (``expert_sum``), runs its experts once and
-    ``expert_gather`` hands every rank the outputs."""
-    if mesh_lib.current_data_split() is not None:
-        return mesh_lib.expert_gather(
-            _experts(mesh_lib.expert_sum(buf), p, cd, ff_axis))
+def _experts_tp(buf, p, cd, split, ff_axis=None):
+    """:func:`_experts` on this rank's pieces of the expert stacks
+    (``split`` from :func:`_expert_split`) and its dispatch buffer: its
+    own experts' slots in the ``model`` mode, every expert's on its FFN
+    columns in the ``ffn`` mode. With the expert dim on "data", the buffer
+    (..., E, cap, d) of the rank's own tokens (a client's, in the train
+    step) goes to the data ranks that hold its experts
+    (``expert_exchange``), the rank runs its E / D experts on every
+    source's rows for them, and ``expert_return`` sends each source its
+    rows back, (..., E, cap, d)."""
+    if split[0] != "data":
+        return _experts(buf, p, cd, ff_axis)
     y = _experts(mesh_lib.expert_exchange(buf), p, cd, ff_axis)
     return mesh_lib.expert_return(y)
+
+
+@torch.no_grad()
+def _experts_shared_rows(x, slot, sw, p, cfg: ModelConfig, cap: int,
+                         row_len, ff_axis=None):
+    """The ``2d`` mode on a batch whose rows are split over the data ranks
+    (the prefill; no gradient): this rank's tokens x (T, d), their
+    entries' global slots (:func:`_slots`; a dropped entry's past the E *
+    cap) and weights (T * k,) -> (T, d) float32, the data ranks' partial
+    combines for them added in data-rank order (this "model" rank's
+    partial when the FFN dim is split).
+
+    Every data rank pads its tokens and entries to the most a data rank
+    holds (``torch.chunk``'s first piece: from the global rows and
+    ``row_len`` alone), a zero row after its tokens, and hands them to
+    every other (``launch/mesh.expert_share``); the rank fills its E / D
+    experts' slots of the global slot layout from all of them (a copy of
+    the rows the whole buffer holds there), runs its experts once and
+    combines each source's entries of its experts; each source gets its
+    tokens' partials back and adds them in rank order
+    (``expert_reduce``). A data rank with no rows joins with padding."""
+    ep, ds = mesh_lib.current_ep(), mesh_lib.current_data_split()
+    cd = cfg.cdtype
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    el = p["wi_gate"].shape[-3]
+    e0 = ep.rank * el
+    T, d = x.shape
+    tm = -(-ds.rows // ds.size) * row_len
+    if T > tm:
+        raise ValueError(f"{T} tokens on a data rank; the split's pieces "
+                         f"hold at most {tm}")
+    pad = (tm - T) * k
+    # a padded entry's slot is past the E * cap, as a dropped one's is
+    xs = torch.cat([x.to(cd), x.new_zeros((tm + 1 - T, d), dtype=cd)])
+    xs = mesh_lib.expert_share(xs)                        # (D, tm + 1, d)
+    S = mesh_lib.expert_share(torch.cat([slot, slot.new_full((pad,),
+                                                             e * cap)]))
+    W = mesh_lib.expert_share(torch.cat([sw, sw.new_zeros((pad,))]))
+    D, n = S.shape
+    # entry f of source s is token f // k of that source's rows; row tm,
+    # source 0's zero row, fills an empty slot
+    row = (torch.arange(D, device=x.device)[:, None] * (tm + 1)
+           + torch.arange(n, device=x.device)[None, :] // k).reshape(-1)
+    buf = _fill(xs.reshape(-1, d), S.reshape(-1), row, e0 * cap, el * cap,
+                tm).reshape(el, cap, d)
+    del xs
+    # no gradient: each expert's outputs overwrite its slots (the bits of
+    # :func:`_experts`, one buffer's bytes)
+    for j in range(el):
+        buf[j] = _expert(buf[j], p, j, cd, ff_axis)
+    y = buf.reshape(el * cap, d)
+    del buf
+    parts = y.new_empty((D, tm, d))
+    for s in range(D):
+        parts[s] = _combine_local(y, (S[s], S[s] < e * cap, W[s]), tm, e,
+                                  cap, cd, (e0, el))
+    del y
+    return mesh_lib.expert_reduce(parts)[:T]
 
 
 def _partial_meta(meta):
@@ -299,15 +389,25 @@ def moe_ffn(x, p, cfg: ModelConfig, row_len=None):
                    else _global_slots(idx, cfg, row_len))
     split = _expert_split(p, cfg)
     expert_axis, ff_axis = _hint_axes(cfg, split)
-    buf, meta = _sort_dispatch(x, w, idx, e, cap, cd, offset)
-    buf = basic.maybe_constrain(buf, (expert_axis, None, None))
-    y = _experts_tp(buf, p, cfg, cd, split, ff_axis)
-    y = basic.maybe_constrain(y, (expert_axis, None, None))
-    if _partial(split):
-        meta = _partial_meta(meta)
-    out = _combine_local(y.reshape(e * cap, d), meta, T, e, cap, cd)
+    if split[0] == "data" and split_rows:
+        slot = _slots(idx, e, cap, offset)[0]
+        out = _experts_shared_rows(x, slot, w.reshape(-1), p, cfg, cap,
+                                   row_len, ff_axis)
+    else:
+        experts = _own_experts(p, cfg, split)
+        # the tokens, the same on every "model" rank, feed each rank's own
+        # slots or FFN columns
+        xd = mesh_lib.tp_copy(x) if _partial(split) else x
+        buf, meta = _sort_dispatch(xd, w, idx, e, cap, cd, offset, experts)
+        buf = basic.maybe_constrain(buf, (expert_axis, None, None))
+        y = _experts_tp(buf, p, cd, split, ff_axis)
+        y = basic.maybe_constrain(y, (expert_axis, None, None))
+        if _partial(split):
+            meta = _partial_meta(meta)
+        out = _combine_local(y.reshape(-1, d), meta, T, e, cap, cd, experts)
     if _partial(split):
         out = mesh_lib.tp_reduce(out)
+    out = out.to(cd)
     if cfg.num_shared_experts > 0:
         out = out + _shared(x, p, cfg, cd)
     return out, aux
@@ -327,20 +427,23 @@ def _moe_ffn_grouped(x, p, cfg: ModelConfig, g: int):
     cd = cfg.cdtype
     Tl = T // g
     cap = capacity(Tl, cfg)
+    split = _expert_split(p, cfg)
+    experts = _own_experts(p, cfg, split)
+    xd = mesh_lib.tp_copy(x) if _partial(split) else x
 
-    def local(xl):
+    def local(xl, xdl):
         w, idx, aux = router_topk(xl, p, cfg)
-        buf, meta = _sort_dispatch(xl, w, idx, e, cap, cd)
+        buf, meta = _sort_dispatch(xdl, w, idx, e, cap, cd, None, experts)
         return buf, meta, aux
 
-    bufs, metas, auxs = torch.func.vmap(local)(x.reshape(g, Tl, d))
-    split = _expert_split(p, cfg)
-    y = _experts_tp(bufs, p, cfg, cd, split)
+    bufs, metas, auxs = torch.func.vmap(local)(x.reshape(g, Tl, d),
+                                               xd.reshape(g, Tl, d))
+    y = _experts_tp(bufs, p, cd, split)
     if _partial(split):
         metas = _partial_meta(metas)
     out = torch.func.vmap(
-        lambda yl, *m: _combine_local(yl.reshape(e * cap, d), m, Tl, e, cap,
-                                      cd))(y, *metas)
+        lambda yl, *m: _combine_local(yl.reshape(-1, d), m, Tl, e, cap, cd,
+                                      experts))(y, *metas)
     out = out.reshape(T, d)
     if _partial(split):
         out = mesh_lib.tp_reduce(out)

@@ -17,7 +17,11 @@ shard), and no parameter is gathered. DeepSeek-V2's experts sit on
 "data" and "model" (the ``2d`` mode), so its step exchanges each MoE
 layer's buffer over "data": its collectives include all-to-alls; so do
 Jamba's (the sums, and each Mamba layer's ``in_proj`` output moved from a
-rank's column block to its channels). The decode keeps the gathered
+rank's column block to its channels). DeepSeek-V2's prefill, whose rows
+are split over "data", holds only each rank's experts' slots of the MoE
+buffer: no near-peak tensor has the global slot layout's rows, and its
+peak is below the parent tree's, which built the whole buffer on every
+data rank. The decode keeps the gathered
 layout (``specs.GATHERED_LAYOUT``): its parameters' "model" shards are
 all-gathered.
 """
@@ -107,6 +111,32 @@ def test_dryrun_pair_on_fake_mesh(results, i):
         # the experts' exchange over "data", Mamba's channel move (and the
         # tp_reduce sums)
         assert r["collectives"]["all-to-all"]["count"] > 0
+
+
+# the parent tree's traced peak of deepseek-v2-236b x prefill_32k at 1
+# layer on the fake (2, 4) mesh, when every data rank built the whole
+# (160, 49,152, 5,120) bf16 dispatch buffer (80.5 GB), summed it over
+# "data" and gathered the experts' outputs back at that size (traced on
+# the CPU, the same host and script)
+PARENT_DS_PREFILL_PEAK = 306_210_084_104
+
+
+def test_deepseek_prefill_holds_only_its_experts_slots(results):
+    """The 2-D experts' prefill on a data split: no near-peak tensor has
+    the global slot layout's 160 x cap rows (a rank fills only its 80
+    experts' slots), and the traced peak is below the parent's."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import moe
+    i = PAIRS.index(("deepseek-v2-236b", "prefill_32k"))
+    r = results[i]
+    cfg = get_config("deepseek-v2-236b")
+    kind = specs.SHAPES["prefill_32k"]
+    cap = moe.capacity(kind["global_batch"] * kind["seq"], cfg)
+    rows = cfg.num_experts * cap
+    labels = [g[0] for g in r["memory"]["near_peak_top"]]
+    assert not [lab for lab in labels
+                if f"[{rows}," in lab or f"[{cfg.num_experts}, {cap}," in lab]
+    assert r["memory"]["peak_bytes"] < PARENT_DS_PREFILL_PEAK
 
 
 def test_dryrun_skips_by_skip_reason(results):

@@ -17,7 +17,16 @@ carried across by the bridge. Tolerances, float32 throughout:
   probabilities are more than 1e-6 apart at each of the k boundaries,
   and the count of tokens inside the margin is printed;
 - the dispatch buffer and, given equal expert outputs, the combine at
-  k = 2 bit for bit.
+  k = 2 bit for bit;
+- a rank's dispatch of its own experts' slots (the tensor-parallel
+  ranks' pieces) is the reference's buffer narrowed to them bit for bit,
+  and the ranks' partial combines, added in float32 in rank order and
+  rounded once to bf16, are the whole combine bit for bit at k = 2 (the
+  float32 sum of two bf16 rows is exact) and at k = 6 within
+  K6_ROUNDINGS bf16 roundings (2^-8 each) of the sum of the token's
+  |weighted rows| (the whole combine rounds its 5 running sums, the
+  partials theirs and the sum once), as the port's whole combine is of
+  the reference's scatter-add (each rounds its own 5 running sums).
 """
 import dataclasses
 import warnings
@@ -42,6 +51,11 @@ CFG = JConfig(name="m", family="moe", num_layers=1, d_model=32,
               moe_capacity_factor=8.0,  # high capacity: no drops
               compute_dtype="float32")
 MARGIN = 1e-6
+# the k = 6 combines' bound, in bf16 roundings of the sum of a token's
+# |weighted rows|: 5 running sums in a whole combine (the port's or the
+# reference's scatter-add, each in its own order), at most 5 in the
+# partials, their float32 sum rounded once
+K6_ROUNDINGS = 11
 
 
 def _twin(jcfg):
@@ -243,3 +257,86 @@ def test_vmapped_grad_matches_jax(groups):
             node = node[key.key]
         np.testing.assert_allclose(node.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-6, err_msg=str(path))
+
+
+def _routing(seed, T: int, e: int, k: int):
+    """k distinct experts a token and their normalized weights."""
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(rng.random((T, e)), axis=-1)[:, :k].astype(np.int32)
+    w = rng.random((T, k)).astype(np.float32) + 0.1
+    return w / w.sum(-1, keepdims=True), idx
+
+
+# (experts, k, experts a rank): a 4-expert bank split 2 and 4 ways, a
+# 6-expert one split 2 and 3 ways, each at k = 2, and a 12-expert bank
+# at k = 6 split into ranges of 6 and 4
+SPLITS = [(4, 2, 2), (4, 2, 1), (6, 2, 3), (6, 2, 2), (12, 6, 6),
+          (12, 6, 4)]
+
+
+@pytest.mark.parametrize("pieces", [1, 2], ids=["whole", "data_split"])
+@pytest.mark.parametrize("e,k,el", SPLITS,
+                         ids=[f"e{e}_k{k}_el{el}" for e, k, el in SPLITS])
+def test_expert_range_dispatch_and_partial_combines(e, k, el, pieces):
+    """At capacity 0.5 (drops), the global batch's T tokens whole or split
+    into ``pieces`` data ranks' rows (each ranking its entries after the
+    earlier pieces', ``offset``): each expert range's dispatch, added over
+    the pieces (disjoint slots, the others exact zeros), is the
+    reference's whole buffer narrowed to the range, bit for bit; the
+    ranges' partial combines of a piece's entries, added in float32 in
+    range order and rounded to bf16, are the piece's rows of the whole
+    bf16 combine, the port's and the reference's (bit for bit at k = 2;
+    at k = 6 within K6_ROUNDINGS, and the port's whole combine within
+    them of the reference's)."""
+    T, d = 48, 16
+    cfg = _twin(CFG.with_(num_experts=e, num_experts_per_tok=k,
+                          moe_capacity_factor=0.5))
+    cap = tmoe.capacity(T, cfg)
+    x = _x(11, T, d)
+    w, idx = _routing(12, T, e, k)
+    jbuf, jmeta = jmoe._sort_dispatch(jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(idx), e, cap, jnp.float32)
+    jbuf = np.asarray(jbuf)
+    assert not bool(np.asarray(jmeta[2]).all())     # capacity 0.5 drops
+    bounds = np.linspace(0, T, pieces + 1).astype(int)
+    tw, tidx = torch.from_numpy(w), torch.from_numpy(idx)
+    whole = torch.from_numpy(_x(13, e * cap, d)).to(torch.bfloat16)
+    jout = np.asarray(jmoe._combine_local(
+        jnp.asarray(whole.float().numpy()).astype(jnp.bfloat16), jmeta, T,
+        e, cap, jnp.bfloat16).astype(jnp.float32))
+    ranges = [(e0, el) for e0 in range(0, e, el)]
+    bufs = {r: torch.zeros((el, cap, d)) for r in ranges}
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        earlier = tmoe._one_hot(tidx[:lo].reshape(-1).long(), e,
+                                torch.long).sum(0)
+        args = (torch.from_numpy(x[lo:hi]), tw[lo:hi], tidx[lo:hi], e, cap,
+                torch.float32, earlier)
+        meta = tmoe._sort_dispatch(*args)[1]
+        bmeta = (meta[0], meta[1], meta[2].to(torch.bfloat16))
+        got = torch.zeros((hi - lo, d))
+        for e0, n in ranges:
+            buf, rmeta = tmoe._sort_dispatch(*args, (e0, n))
+            assert all(torch.equal(a, b) for a, b in zip(rmeta, meta))
+            bufs[e0, n] += buf
+            got += tmoe._combine_local(
+                whole[e0 * cap:(e0 + n) * cap], bmeta, hi - lo, e, cap,
+                torch.bfloat16, (e0, n)).float()
+        got = got.to(torch.bfloat16).float().numpy()
+        want = tmoe._combine_local(whole, bmeta, hi - lo, e, cap,
+                                   torch.bfloat16).float().numpy()
+        if k == 2:
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+            np.testing.assert_array_equal(_bits(got), _bits(jout[lo:hi]))
+        else:
+            rows = whole.float()[meta[0].clamp_max(e * cap - 1)]
+            terms = (rows * meta[2][:, None]).to(torch.bfloat16).float()
+            scale = (terms * meta[1][:, None]).abs().reshape(
+                hi - lo, k, d).sum(1).numpy()
+            bound = K6_ROUNDINGS * 2.0 ** -8 * scale
+            for have, ref in ((got, want), (got, jout[lo:hi]),
+                              (want, jout[lo:hi])):
+                assert (np.abs(have - ref) <= bound).all()
+            assert not np.array_equal(got, np.zeros_like(got))
+    for (e0, n), buf in bufs.items():
+        np.testing.assert_array_equal(_bits(buf.numpy()),
+                                      _bits(jbuf[e0:e0 + n]))

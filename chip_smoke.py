@@ -11,6 +11,7 @@
     python3 chip_smoke.py --vlm-encdec  # phase 10 alone (PaliGemma, Whisper)
     python3 chip_smoke.py --mesh      # phase 11 alone (the mesh)
     python3 chip_smoke.py --examples  # phase 12 alone (examples_torch/)
+    python3 chip_smoke.py --profiler-probe  # launches a profiler records
 
 Needs one CUDA card and ``nvcc``; imports nothing of JAX nor of the JAX
 package. Phases, in order, each failing the run on error:
@@ -293,10 +294,10 @@ package. Phases, in order, each failing the run on error:
    quickstart at int8, FedAvg B (fused coefficient route, DP, screen) and
    the async DP FedBuff grid run with ``mesh="single"`` and without, bit
    for bit with equal kernel launches (cuDNN deterministic);
-   (c) ``launch/specs.make_train_step``'s gathered layout: PaliGemma-3B
-   at 4 layers (1 client x tau 2 x 1 sequence of 256 patch embeddings
-   and 1,024 tokens), bit for bit the unmeshed round with equal
-   launches; (e) the tensor-parallel step's wiring on that 1-rank mesh
+   (c) ``launch/specs.make_train_step``'s gathered layout: Mixtral-8x7B
+   with its experts in the ``2d_swapped`` mode at 2 layers (1 client x
+   tau 2 x 1 sequence of 4,096 tokens), bit for bit the unmeshed round
+   with equal launches; (e) the tensor-parallel step's wiring on that 1-rank mesh
    (on a 1-rank "model" axis the pieces are whole and no layer splits):
    ``make_train_step`` for StableLM-2-1.6B at full width (2 of 24
    layers, as (c)) and ``specs.make_tp_prefill_step`` for Mixtral-8x7B
@@ -314,8 +315,13 @@ package. Phases, in order, each failing the run on error:
    layout; (h) Jamba-v0.1 at 2 layers (attention period 2: Mamba on each
    rank's channels with the dense FFN, then attention with the MoE) and
    (i) xLSTM-350M at one period (3 mLSTM blocks, their projections
-   split, and the sLSTM whole) on (1, 4) meshes of threads, each held
-   as (f) is, the card's peak over each leg's meshed prefill printed;
+   split, and the sLSTM whole), (j) PaliGemma-3B at 2 of 18 layers
+   (16 rows of 256 patch embeddings and 256 tokens; ``mm_proj`` whole
+   and the same on every rank) and (k) Whisper large-v3 at 2 + 2 layers
+   (16 rows of 1,500 frames and 448 tokens; the encoder's and the
+   cross-attention's ``swa_attention`` at a rank's 5 heads, the vocab
+   whole) on (1, 4) meshes of threads, each held as (f) is, the card's
+   peak over each leg's meshed prefill printed;
    (d) one ``launch/dryrun`` subprocess (Mixtral-8x7B x train_4k in a
    fake (16, 16) world on the host, tensor-parallel), its traced per-rank peak
    beside the card's memory and the largest tensors that hold it;
@@ -504,20 +510,40 @@ def span_ms(fn, iters: int = 20, flush=None, read: bool = False) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+# Late in a long process a profiler session records fewer launches than
+# it ran, a count that grows with the process's age whatever the
+# session's length (``--profiler-probe``; PERF.md), so the short sessions
+# of the later phases recorded none (ROADMAP Queue 3). Each session's
+# calls sit between PAD_LAUNCHES spin kernels (``torch.cuda._sleep``, ~50
+# us each) on either side, which the results leave out.
+PAD_LAUNCHES, PAD_CYCLES, PAD_KERNEL = 256, 100_000, "spin_kernel"
+
+
+def _profiler_pad():
+    for _ in range(PAD_LAUNCHES):
+        torch.cuda._sleep(PAD_CYCLES)
+    torch.cuda.synchronize()
+
+
 def profiled_calls(fn, iters: int):
     """The profiler's key averages over ``iters`` calls of ``fn``, after one
-    traced warm-up call that the profiler discards."""
+    traced warm-up call that the profiler discards, the calls between two
+    pads of spin kernels (left out of the averages)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=iters,
                                    repeat=1)) as prof:
-        for _ in range(1 + iters):
+        for i in range(1 + iters):
+            if i == 1:
+                _profiler_pad()
             fn()
             torch.cuda.synchronize()
+            if i == iters:
+                _profiler_pad()
             prof.step()
-    return prof.key_averages()
+    return [ev for ev in prof.key_averages() if PAD_KERNEL not in ev.key]
 
 
 def device_ms(fn, kernel_names=None, iters: int = 50):
@@ -4547,12 +4573,16 @@ def check_attention_fallback(dev):
                                  f"off the CPU path")
 
 
-def check_vlm_encdec_kernels(dev) -> dict:
-    """Phase 2 at VLM_ENCDEC_SHAPES, in the model's (B, S, H, D) layout:
+def check_vlm_encdec_kernels(dev, shapes=None, iters: int = 50,
+                              plain: tuple = (3, 1)) -> dict:
+    """Phase 2 at ``shapes`` (VLM_ENCDEC_SHAPES; phase 11 (j) and (k) at a
+    mesh rank's heads, ``iters`` and the plain version's ``plain`` (iters,
+    warm-ups) cut there), in the model's (B, S, H, D) layout:
     each held in the round-once mode by :func:`check_swa_round_p` and in
     the float32-p mode by :func:`check_swa`, then timed in the round-once
-    mode the prefills launch (wrapper by CUDA events, device by the
-    profiler) against its bound (2 (DK + DV) flops a visible pair at the
+    mode the prefills launch (wrapper by CUDA events over back-to-back
+    calls, device by the profiler, and a call's span by CUDA events
+    around it alone, each printed on its own) against its bound (2 (DK + DV) flops a visible pair at the
     bf16 peak, or q, k, v and the output's bytes once), the plain version
     once, and ``scaled_dot_product_attention`` on the same inputs (k, v
     repeated to q's heads; the prefix as a boolean ``attn_mask``).
@@ -4563,7 +4593,7 @@ def check_vlm_encdec_kernels(dev) -> dict:
     gen = torch.Generator(device="cpu").manual_seed(26)
     out = {}
     for label, (B, H, KVH, SQ, SKV, DK, DV), causal, prefix in \
-            VLM_ENCDEC_SHAPES:
+            shapes or VLM_ENCDEC_SHAPES:
         def one(rows, heads, d):
             return torch.randn((B, rows, heads, d), generator=gen).to(
                 dev, torch.bfloat16).transpose(1, 2)
@@ -4578,25 +4608,35 @@ def check_vlm_encdec_kernels(dev) -> dict:
         def kernel():
             return swa.swa_attention(q, k, v, causal=causal, round_p=True,
                                      prefix_len=prefix)
-        ms = time_ms(kernel, 50, 5)
-        dms = device_ms(kernel, ("swa_kernel",), 50)
+        ms = time_ms(kernel, iters, 5)
+        dms = device_ms(kernel, ("swa_kernel",), iters)
+        # late in a whole run the profiler may record no launch of a
+        # kernel of this repo (ROADMAP Queue 3): the span is measured
+        # beside it
+        span = span_ms(kernel, iters)
         plain_ms = time_ms(lambda: ref.chunked_attention_ref(
-            q, k, v, 0, causal, chunk=swa.BK, prefix_len=prefix), 3, 1)
+            q, k, v, 0, causal, chunk=swa.BK, prefix_len=prefix), *plain)
         kr, vr = ((t.repeat_interleave(H // KVH, dim=1) if H > KVH else t)
                   for t in (k, v))
         mask = None
         if causal:
             pos = torch.arange(SQ, device=dev)
             mask = (pos[:, None] >= pos[None, :]) | (pos[None, :] < prefix)
-        lib_ms = time_ms(lambda: sdpa(q, kr, vr, attn_mask=mask), 50, 5)
-        lib_dms = device_ms(lambda: sdpa(q, kr, vr, attn_mask=mask), None, 50)
-        out[label] = dict(ms=ms, device_ms=dms, bound_ms=bound_ms,
-                          plain_ms=plain_ms, library_ms=lib_ms)
+        lib_ms = time_ms(lambda: sdpa(q, kr, vr, attn_mask=mask), iters, 5)
+        lib_dms = device_ms(lambda: sdpa(q, kr, vr, attn_mask=mask), None,
+                            iters)
+        out[label] = dict(ms=ms, device_ms=dms, span_ms=span,
+                          bound_ms=bound_ms, plain_ms=plain_ms,
+                          library_ms=lib_ms)
+        by_dev = ("not measured" if dms is None
+                  else f"x{dms / bound_ms:.2f}")
         print(f"  swa_attention (round-once) {label} "
               f"{swa_where(q, k, v, 0, causal, prefix)}: wrapper {ms:.5f} "
-              f"ms, device {fmt_ms(dms)} ms, bound {bound_ms:.5f} ms "
+              f"ms, device {fmt_ms(dms)} ms (profiler), span {span:.5f} ms "
+              f"(CUDA events), bound {bound_ms:.5f} ms "
               f"({bound_by}; {pairs} pairs a head, {flops / 1e9:.3f} "
-              f"GFLOP), x{(dms or ms) / bound_ms:.2f} of the bound; plain "
+              f"GFLOP); device / bound {by_dev}, span / bound "
+              f"x{span / bound_ms:.2f}; plain "
               f"{plain_ms:.3f} ms; scaled_dot_product_attention "
               f"{'with a bool attn_mask ' if causal else ''}{lib_ms:.5f} ms "
               f"(device {fmt_ms(lib_dms)} ms)")
@@ -4686,10 +4726,10 @@ def drive_xlstm_training(dev):
 
 def drive_xlstm_serving(dev):
     """Phase 9's xLSTM serving: ``drive_zoo_serving`` on all 24 layers, a
-    16 x 2,048 prefill (1 warm-up, 2 timed), step-by-step prefill against
+    16 x 2,048 prefill (1 warm-up, 1 timed), step-by-step prefill against
     ``forward`` over XLSTM_STEPPED in float32 (the bf16 gap printed)."""
     return drive_zoo_serving(XLSTM, XLSTM_LAYERS, XLSTM_SERVE_SPLIT, dev,
-                             1.25, prefill=XLSTM_PREFILL, timed=2,
+                             1.25, prefill=XLSTM_PREFILL, timed=1,
                              profile=XLSTM_PROFILE, stepped=XLSTM_STEPPED,
                              stepped_f32=True)
 
@@ -4810,12 +4850,12 @@ def drive_paligemma_training(dev):
 def drive_paligemma_serving(dev):
     """Phase 10's PaliGemma serving: ``drive_zoo_serving`` at all 18
     layers, a 64 x (256 + 256) prefill through ``swa_attention`` with the
-    bidirectional prefix at head dim 256 (1 warm-up, 2 timed), profiled
+    bidirectional prefix at head dim 256 (1 warm-up, 1 timed), profiled
     at 8 rows, greedy text decode, kernel vs plain on 1 x (256 + 64) and
     the step-by-step prefill against ``forward`` on 1 x 64."""
     return drive_zoo_serving(
         PALIGEMMA, PALIGEMMA_LAYERS, PALIGEMMA_SERVE_SPLIT, dev, 1.25,
-        prefill=PALIGEMMA_PREFILL, timed=2, profile=PALIGEMMA_PROFILE,
+        prefill=PALIGEMMA_PREFILL, timed=1, profile=PALIGEMMA_PROFILE,
         stepped=PALIGEMMA_CONSIST, consist=PALIGEMMA_CONSIST)
 
 
@@ -4833,13 +4873,13 @@ def drive_whisper_training(dev):
 def drive_whisper_serving(dev):
     """Phase 10's Whisper serving: ``drive_zoo_serving`` at 32 + 32
     layers, a 16 x (1,500 frames, 448 tokens) prefill (``swa_attention``
-    96 times: 32 encoder, 32 decoder, 32 cross calls; 1 warm-up, 2 timed),
+    96 times: 32 encoder, 32 decoder, 32 cross calls; 1 warm-up, 1 timed),
     profiled at 4 rows; decode against ``build_cross_cache`` (batch 4, a
     4-token prompt, 32 greedy steps); kernel vs plain and the stepped
     decode against ``forward`` on 1 x (1,500 frames, 64 tokens)."""
     return drive_zoo_serving(
         WHISPER, WHISPER_SERVE_LAYERS, WHISPER_SERVE_SPLIT, dev, 1.25,
-        prefill=WHISPER_PREFILL, timed=2, profile=WHISPER_PROFILE,
+        prefill=WHISPER_PREFILL, timed=1, profile=WHISPER_PROFILE,
         stepped=WHISPER_CONSIST, decode_prompt=WHISPER_PROMPT,
         consist=WHISPER_CONSIST)
 
@@ -4865,12 +4905,12 @@ def drive_vlm_encdec(dev) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 11: the mesh. The 1-rank NCCL "single" mesh runs the EMNIST main
 # paths through the meshed code, bit for bit the unmeshed runs with the
-# same launches; the train step in the gathered layout (PaliGemma-3B) and
-# the tensor-parallel train step (StableLM-2-1.6B) and prefill
-# (Mixtral-8x7B) on it, bit for bit; Mixtral-8x7B, Jamba-v0.1 and
-# xLSTM-350M on a 4-rank "model" axis of threads on the one card;
-# DeepSeek-V2 on a (2, 2) ("data", "model") mesh of threads, its experts
-# in the 2-D layout; one dry run in a fake (16, 16) world on the host
+# same launches; the tensor-parallel train step (StableLM-2-1.6B) and
+# prefill (Mixtral-8x7B) on it, bit for bit; Mixtral-8x7B, Jamba-v0.1,
+# xLSTM-350M, PaliGemma-3B and Whisper large-v3 on a 4-rank "model" axis
+# of threads on the one card; DeepSeek-V2 on a (2, 2) ("data", "model")
+# mesh of threads, its experts in the 2-D layout; one dry run in a fake
+# (16, 16) world on the host
 
 STABLELM = "stablelm-1.6b"
 # train_4k's sequence; its global batch of 256 cut to 1 client x tau 2 x 1
@@ -4905,11 +4945,11 @@ TP_F32_UPDATE_REL = 1e-4
 # also held in bf16 within this many times the gap that a second bf16
 # rounding of the unmeshed prefill makes (ulp_moved_mlstm)
 WITNESS_X = 4.0
-# (c): PaliGemma-3B, a family the tensor-parallel steps do not take (its
-# VLM prefix), at 4 of its 18 layers on 1,024 text positions after its
-# 256 patch embeddings: (c) took ~20 s on xLSTM-350M's 4 layers before
-# xLSTM took the tensor-parallel steps (PERF.md)
-GATHERED_ARCH, GATHERED_LAYERS, GATHERED_SEQ = "paligemma-3b", 4, 1024
+# (c): the gathered train layout, which no zoo config at its own settings
+# reaches: Mixtral-8x7B with its experts in the ``2d_swapped`` mode (item
+# 16.7 of ROADMAP.md), at phase 7's training depth, 2 of its 32 layers
+GATHERED_LAYERS, GATHERED_OVER = MIXTRAL_TRAIN_LAYERS, {
+    "expert_shard": "2d_swapped"}
 # (g): DeepSeek-V2-236B at full width, DEEPSEEK_TRAIN_LAYERS (1) of its 60
 # layers (phase 8's training depth), on a (2, 2) ("data", "model") mesh of
 # threads on the one card: its 160 experts in the 2-D layout (80 a data
@@ -4939,6 +4979,32 @@ JAMBA_TP_PREFILL = (1, PREFILL_LEN)
 # of its 24 layers (3 mLSTM blocks, 1 sLSTM); the prefill phase 9's 16 x
 # 2,048 (the sLSTM steps a position at a time on every rank)
 XLSTM_TP_LAYERS = 4
+# (j): PaliGemma-3B at full width on a (1, 4) mesh of threads, 2 of its 18
+# layers: 8 q heads 2 a rank, its one kv head of 256 split in 64-column
+# quarters and gathered, mm_proj whole on every rank; the prefill 16 x
+# (256 patch embeddings + 256 tokens) (phase 10's 64 rows make 16.9 GB of
+# logits whole; 16 rows' 4.2 GB are kept on the host beside a rank's
+# 1.05 GB vocab piece); the step as (f)'s, 256 patch embeddings a sentence
+PALIGEMMA_TP_LAYERS = 2
+PALIGEMMA_TP_PREFILL = (16, 256)
+# (k): Whisper large-v3 at full width on (1, 4) threads, 2 + 2 of its 32 +
+# 32 layers: its 20 heads 5 a rank in the encoder, the decoder's
+# self-attention and the cross-attention, its vocab of 51,866 whole on
+# every rank (it does not divide 4); the prefill phase 10's 16 x (1,500
+# frames + 448 tokens); the step as (f)'s, 1,500 frames a sentence
+WHISPER_TP_LAYERS = 2
+WHISPER_TP_PREFILL = WHISPER_PREFILL
+# swa_attention at (j)'s and (k)'s rank's heads, held to the plain version
+# and timed as phase 2's VLM_ENCDEC_SHAPES are (fewer repeats)
+TP_VLM_SHAPES = (
+    ("(j) PaliGemma prefix, a rank's heads",
+     (PALIGEMMA_TP_PREFILL[0], 2, 1, 512, 512, 256, 256), True, 256),)
+TP_WHISPER_SHAPES = (
+    ("(k) Whisper encoder, a rank's heads",
+     (WHISPER_TP_PREFILL[0], 5, 5, 1500, 1500, 64, 64), False, 0),
+    ("(k) Whisper cross, a rank's heads",
+     (WHISPER_TP_PREFILL[0], 5, 5, 448, 1500, 64, 64), False, 0))
+TP_SHAPE_ITERS = 10
 
 
 def start_dryrun():
@@ -5046,8 +5112,7 @@ def update_rel(y0, ya, yb, dev=None) -> float:
     return gap ** 0.5 / max(upd ** 0.5, 1e-30)
 
 
-def drive_mesh_train_step(dev, label, arch, layers, over, tp,
-                          seq=TRAIN_4K_SEQ):
+def drive_mesh_train_step(dev, label, arch, layers, over, tp):
     """``specs.make_train_step`` for ``arch`` (with ``over``) at full width,
     ``layers`` of its layers, on the "single" mesh (y and the server state
     DTensors placed by the reference's rules), against the same round
@@ -5065,6 +5130,7 @@ def drive_mesh_train_step(dev, label, arch, layers, over, tp,
     from repro_torch.models import decoder_lm as dlm
     from repro_torch.nn.basic import tree_map
     torch.cuda.empty_cache()
+    seq = TRAIN_4K_SEQ
     cfg = get_config(arch).with_(num_layers=layers, **over)
     mesh = mesh_lib.resolve_mesh("single", dev)
     layout = (specs.TP_LAYOUT if shard_lib.tensor_parallel_ok(cfg, mesh)
@@ -5128,10 +5194,11 @@ def drive_mesh_train_step(dev, label, arch, layers, over, tp,
 
 
 def drive_gathered_train_step(dev):
-    """(c) the gathered layout: PaliGemma-3B (the VLM prefix has no
-    tensor-parallel form yet), GATHERED_LAYERS layers."""
-    return drive_mesh_train_step(dev, "(c)", GATHERED_ARCH, GATHERED_LAYERS,
-                                 {}, tp=False, seq=GATHERED_SEQ)
+    """(c) the gathered layout: Mixtral-8x7B with its experts in the
+    ``2d_swapped`` mode (which the tensor-parallel step does not take),
+    GATHERED_LAYERS layers."""
+    return drive_mesh_train_step(dev, "(c)", MIXTRAL, GATHERED_LAYERS,
+                                 GATHERED_OVER, tp=False)
 
 
 def drive_tp_single_train_step(dev):
@@ -5183,6 +5250,17 @@ def drive_tp_single_prefill(dev):
         raise AssertionError("(e) the tensor-parallel prefill differs from "
                              "the unmeshed one")
     return {k: counts[0][k] + counts[1][k] for k in counts[0]}
+
+
+def frozen_seen():
+    """``FrozenSeen`` of the test helper ``tests/_torch_seen.py`` (the
+    element counts of the leaves that the decoder LM's loss and forward
+    receive), with ``tests/`` put on ``sys.path``."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from _torch_seen import FrozenSeen
+    return FrozenSeen
 
 
 def threaded_world(n: int, fn, timeout: float):
@@ -5237,40 +5315,6 @@ def threaded_world(n: int, fn, timeout: float):
     return out
 
 
-class FrozenSeen:
-    """Inside a ``with``, records the element counts of the frozen leaves
-    (``paths``) that ``models/decoder_lm``'s ``train_loss`` and
-    ``forward`` receive, on every thread: what the step's layers compute
-    on, as against what the caller placed."""
-
-    NAMES = ("train_loss", "forward")
-
-    def __init__(self, paths):
-        self.paths = set(paths)
-        self.seen = {}
-
-    def __enter__(self):
-        from repro_torch.models import decoder_lm as dlm
-        self.mod = dlm
-        self.real = {n: getattr(dlm, n) for n in self.NAMES}
-        for n, fn in self.real.items():
-            setattr(dlm, n, self._spy(fn))
-        return self
-
-    def __exit__(self, *exc):
-        for n, fn in self.real.items():
-            setattr(self.mod, n, fn)
-
-    def _spy(self, fn):
-        def spy(params, *args, **kw):
-            from repro_torch.nn import basic
-            for p, v in basic.flatten_params(params):
-                if p in self.paths:
-                    self.seen.setdefault(p, set()).add(v.numel())
-            return fn(params, *args, **kw)
-        return spy
-
-
 # the card's peak allocated bytes over each threaded leg's meshed prefill
 # world, by leg ((f), (g), (h), (i)), as the legs ran
 PREFILL_PEAKS = {}
@@ -5293,6 +5337,7 @@ def drive_tp_threads(dev):
     from repro_torch import kernels
     from repro_torch.configs.base import get_config
     from repro_torch.core import fedpt
+    FrozenSeen = frozen_seen()
     from repro_torch.launch import sharding as shard_lib
     from repro_torch.launch import specs
     from repro_torch.models import decoder_lm as dlm
@@ -5484,7 +5529,11 @@ class TPLeg(NamedTuple):
     besides its depth; ``prefill_f32``: both prefills in float32 compute
     (bf16 by default, the serving path's), held within LOGIT_REL, and
     then also both in bf16, held within WITNESS_X times the gap a second
-    bf16 rounding of the unmeshed prefill makes (``ulp_moved_mlstm``)."""
+    bf16 rounding of the unmeshed prefill makes (``ulp_moved_mlstm``);
+    ``whole``: trainable leaves (path suffixes) that no rule splits, each
+    whole on every rank and the same on every rank after the step. The
+    VLM's prefill and round take ``stub_inputs``' patch embeddings, the
+    encoder-decoder's its frames, their rows placed as the tokens'."""
     label: str
     arch: str
     layers: int
@@ -5496,6 +5545,7 @@ class TPLeg(NamedTuple):
     what: str = ""
     over: dict = {}
     prefill_f32: bool = False
+    whole: tuple = ()
 
 
 class ulp_moved_mlstm:
@@ -5560,6 +5610,7 @@ def drive_tp_world(dev, leg: TPLeg):
     from repro_torch.configs.base import ATTN, get_config
     from repro_torch.core import fedpt
     from repro_torch.launch import mesh as mesh_lib
+    FrozenSeen = frozen_seen()
     from repro_torch.launch import sharding as shard_lib
     from repro_torch.launch import specs
     from repro_torch.models import decoder_lm as dlm
@@ -5579,15 +5630,20 @@ def drive_tp_world(dev, leg: TPLeg):
                        dtype=np.int32)
     batch = {"tokens": tok, "labels": tok}
     w = torch.ones(clients, device=dev)
+    # the VLM's patch embeddings, the encoder-decoder's frames: a
+    # sentence's each in the round, a row's each in the prefill
+    for k, v in stub_inputs(cfg, clients * tau * b, dev).items():
+        batch[k] = v.reshape((clients, tau, b) + tuple(v.shape[1:]))
     rows, plen = leg.prefill
     ptok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (rows, plen))).to(dev)
+    pstub = stub_inputs(cfg, rows, dev, seed=1)
     # the unmeshed runs, their results kept on the host: the prefill (and
     # the bf16 pair's, with its witness), the round in float32 compute
     def unmeshed_prefill(c):
         with routing_spy() as rec:
             out = specs.make_prefill_step(c, device=dev)(
-                y, z, {"tokens": ptok})
+                y, z, {"tokens": ptok, **pstub})
         lo, hi = torch.aminmax(out)
         return out.cpu(), max(-float(lo), float(hi)), rec
     # (config, unmeshed logits, their largest |logit|, routing, bound)
@@ -5597,7 +5653,7 @@ def drive_tp_world(dev, leg: TPLeg):
         want16, lmax16, rec16 = unmeshed_prefill(cfg)
         with ulp_moved_mlstm():
             moved = specs.make_prefill_step(cfg, device=dev)(
-                y, z, {"tokens": ptok})
+                y, z, {"tokens": ptok, **pstub})
         witness = logit_gap(moved, want16, dev) / lmax16
         del moved
         holds.append((cfg, want16, lmax16, rec16, WITNESS_X * witness))
@@ -5658,13 +5714,14 @@ def drive_tp_world(dev, leg: TPLeg):
         from torch.distributed.tensor import Replicate, Shard
         mesh, yd, _, zd = world_of()
         prefill = specs.make_tp_prefill_step(hold[0], mesh, device=dev)
-        tokd = shard_lib.distribute(ptok, mesh, (Shard(0), Replicate()))
+        tokd, *stubd = (shard_lib.distribute(t, mesh, (Shard(0), Replicate()))
+                        for t in (ptok, *pstub.values()))
         # this rank's rows' routing in the unmeshed prefill's
         replay.offsets[threading.get_ident()] = shard_lib.local_range(
             rows, mesh, tokd.placements, 0)[0] * plen
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = prefill(yd, zd, {"tokens": tokd})
+        logits = prefill(yd, zd, {"tokens": tokd, **dict(zip(pstub, stubd))})
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
         local = logits.to_local()
@@ -5683,12 +5740,16 @@ def drive_tp_world(dev, leg: TPLeg):
         torch.cuda.synchronize()
         t_step = time.perf_counter() - t0
         whole = {}                      # rank 0's copy, on the host
+        mine = {}                       # this rank's leg.whole pieces
         for path, v in basic.flatten_params(y_new):
+            if leg.whole and path.endswith(leg.whole):
+                mine[path] = v.to_local().cpu()
             t = v.full_tensor()         # a leaf at a time, every rank
             if rank == 0:
                 whole[path] = t.cpu()
             del t
-        return basic.unflatten_params(whole), float(met["loss"]), t_step
+        return (basic.unflatten_params(whole), float(met["loss"]), t_step,
+                mine)
 
     zpaths = [p for p, _ in basic.flatten_params(zstruct)]
     ysplit = [p for p, _ in basic.flatten_params(struct)
@@ -5722,7 +5783,14 @@ def drive_tp_world(dev, leg: TPLeg):
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     mem["meshed step"] = torch.cuda.max_memory_allocated()
-    y_tp, loss, t_step = trained[0]
+    y_tp, loss, t_step, mine = trained[0]
+    # the leaves no rule splits: whole on every rank, the same bits
+    same = bool(mine) == bool(leg.whole) and all(
+        sorted(r[3]) == sorted(mine) and all(
+            torch.equal(r[3][p], t) and t.shape == dict(
+                basic.flatten_params(struct))[p].shape
+            for p, t in mine.items())
+        for r in trained)
     rel = update_rel(y0, y_ref, y_tp, dev)
     rel_l, _, pre, replay = pres[0]
     finite = all(f for _, _, pre_i, _ in pres for _, f, *_ in pre_i)
@@ -5762,15 +5830,23 @@ def drive_tp_world(dev, leg: TPLeg):
           f"swa_attention's (q, v) shapes {sorted(heads)}; the split leaves "
           f"{ {k: f'1/{n}' for k, n in leg.split.items()} } and every other "
           f"frozen leaf whole a rank, and the loss and forward received each "
-          f"rank's pieces {pieces}; both worlds {wall:.1f} s; launches "
+          f"rank's pieces {pieces}"
+          + (f"; {sorted(mine)} whole and the same on every rank after "
+             f"the step {same}" if leg.whole else "")
+          + f"; both worlds {wall:.1f} s; launches "
           f"{({k: v for k, v in counts.items() if v})}; card memory (GiB, "
           f"peaks, and the pieces held before the worlds) "
           f"{ {k: round(v / 2 ** 30, 2) for k, v in mem.items()} }")
-    attn_layers = sum(k == ATTN for k in cfg.block_kinds())
+    # a call a rank an attention layer a prefill; an encoder-decoder's
+    # decoder layers add their cross-attention, its encoder a call a layer
+    calls = sum(k == ATTN for k in cfg.block_kinds())
+    if cfg.is_encoder_decoder:
+        calls = 2 * calls + cfg.encoder_layers
     if not (rel <= TP_F32_UPDATE_REL and finite
             and all(r <= b for r, b, *_ in pres)
-            and math.isfinite(loss) and pieces and heads == leg.swa
-            and counts["swa_attention"] == D * M * attn_layers * len(pres)
+            and math.isfinite(loss) and pieces and same
+            and heads == leg.swa
+            and counts["swa_attention"] == D * M * calls * len(pres)
             and counts["sumsq"] > 0):
         raise AssertionError(f"{leg.label} the {leg.shape} tensor-parallel "
                              f"{leg.arch} is off the unmeshed runs")
@@ -5853,6 +5929,68 @@ def drive_xlstm_tp_threads(dev):
         what=", the mLSTM's projections split", prefill_f32=True))
 
 
+def drive_paligemma_tp_threads(dev):
+    """(j) PaliGemma-3B at full width, PALIGEMMA_TP_LAYERS of its layers,
+    on a (1, TP_RANKS) mesh of threads (:func:`drive_tp_world`): the
+    prefill of PALIGEMMA_TP_PREFILL rows of 256 patch embeddings and 256
+    tokens, ``swa_attention`` on each rank's 2 q heads against its one kv
+    head of 256 (split in 64-column quarters and gathered) with the
+    256-key bidirectional prefix, the (256, 128) instance's two v slices;
+    ``mm_proj`` whole on every rank and the same after the step; the
+    frozen GeGLU FFN and the tied embedding split by vocab. Then the
+    kernel at that rank's shape, held to the plain version and timed
+    (TP_VLM_SHAPES)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(PALIGEMMA)
+    rows, plen = PALIGEMMA_TP_PREFILL
+    seq = cfg.num_prefix_tokens + plen
+    hd = cfg.resolved_head_dim
+    heads = ((rows, cfg.num_heads // TP_RANKS, seq, hd), (rows, 1, seq, hd))
+    split = {k: TP_RANKS for k in (
+        "/ffn/wi_gate/kernel", "/ffn/wi_up/kernel", "/ffn/wo/kernel",
+        "/attn/wq/kernel", "/attn/wk/kernel", "/attn/wv/kernel",
+        "embed/embedding")}
+    counts = drive_tp_world(dev, TPLeg(
+        "(j)", PALIGEMMA, PALIGEMMA_TP_LAYERS, (1, TP_RANKS),
+        PALIGEMMA_TP_PREFILL, TP_ROUND, split, frozenset({heads}),
+        ", 256 patch embeddings a sequence",
+        whole=("mm_proj/kernel", "mm_proj/bias")))
+    check_vlm_encdec_kernels(dev, TP_VLM_SHAPES, TP_SHAPE_ITERS, (1, 0))
+    return counts
+
+
+def drive_whisper_tp_threads(dev):
+    """(k) Whisper large-v3 at full width, WHISPER_TP_LAYERS + as many
+    encoder layers, on a (1, TP_RANKS) mesh of threads
+    (:func:`drive_tp_world`): the prefill of WHISPER_TP_PREFILL rows of
+    1,500 frames and 448 tokens; ``swa_attention`` on each rank's 5 of 20
+    heads in the encoder (non-causal, 1,500 x 1,500), the decoder's
+    self-attention and the cross-attention (448 queries against the
+    1,500 frames, k and v from the encoder's output, which every rank
+    holds whole); the frozen encoder FFN split, the vocab of 51,866 whole
+    on every rank (it does not divide 4) and the same after the step.
+    Then the kernel at the encoder's and the cross-attention's rank
+    shapes, held to the plain version and timed (TP_WHISPER_SHAPES)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(WHISPER)
+    rows, plen = WHISPER_TP_PREFILL
+    e, h, hd = cfg.encoder_seq_len, cfg.num_heads // TP_RANKS, \
+        cfg.resolved_head_dim
+    enc, dec = (rows, h, e, hd), (rows, h, plen, hd)
+    split = {k: TP_RANKS for k in (
+        "/ffn/wi/kernel", "/ffn/wo/kernel", "/attn/wq/kernel",
+        "/attn/wo/kernel", "/cross_attn/wq/kernel", "/cross_attn/wk/kernel",
+        "/cross_attn/wv/kernel", "/cross_attn/wo/kernel")}
+    counts = drive_tp_world(dev, TPLeg(
+        "(k)", WHISPER, WHISPER_TP_LAYERS, (1, TP_RANKS), WHISPER_TP_PREFILL,
+        TP_ROUND, split, frozenset({(enc, enc), (dec, dec), (dec, enc)}),
+        f", {WHISPER_TP_LAYERS} encoder layers, 1,500 frames a sequence",
+        {"encoder_layers": WHISPER_TP_LAYERS},
+        whole=("embed/embedding", "unembed/kernel")))
+    check_vlm_encdec_kernels(dev, TP_WHISPER_SHAPES, TP_SHAPE_ITERS, (1, 0))
+    return counts
+
+
 def mla_local_heads(dev):
     """``swa_attention`` (round-once) at a (2, 2) mesh rank's heads of
     DeepSeek-V2's prefill: (1, 64, PREFILL_LEN, 192 / 128) causal, 64 kv
@@ -5899,14 +6037,15 @@ def drive_mesh(ds, y0, frozen, ya, za, dev):
     """Phase 11: (a) the 1-rank NCCL group and the "single" mesh; (b) the
     quickstart at int8, FedAvg B (fused coefficient route, DP, screen) and
     the async DP FedBuff grid, each with and without the mesh, bit for bit
-    with equal launches (cuDNN deterministic); (c) PaliGemma-3B's train
-    step in the gathered layout; (e) StableLM-2-1.6B's train step and
-    Mixtral-8x7B's prefill, tensor-parallel on the 1-rank mesh; (f)
-    Mixtral-8x7B on a 4-rank "model" axis of threads; (g) DeepSeek-V2 on a
-    (2, 2) mesh of threads, 2-D experts; (h) Jamba-v0.1 and (i)
-    xLSTM-350M on a 4-rank "model" axis of threads; (d) the dry run,
-    started first and read last. Returns the launch counts of (b), (c)
-    and (e) to (i)."""
+    with equal launches (cuDNN deterministic); (e) StableLM-2-1.6B's
+    train step and Mixtral-8x7B's prefill, tensor-parallel on the 1-rank
+    mesh; (c) Mixtral-8x7B's train step in the gathered layout (its
+    experts in the ``2d_swapped`` mode) on the 1-rank mesh; (f)
+    Mixtral-8x7B on a 4-rank "model" axis of threads; (g) DeepSeek-V2 on
+    a (2, 2) mesh of threads, 2-D experts; (h) Jamba-v0.1, (i)
+    xLSTM-350M, (j) PaliGemma-3B and (k) Whisper large-v3 on a 4-rank
+    "model" axis of threads; (d) the dry run, started first and read
+    last. Returns the launch counts of (b), (c) and (e) to (k)."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     proc = start_dryrun()
@@ -5947,9 +6086,10 @@ def drive_mesh(ds, y0, frozen, ya, za, dev):
         finally:
             torch.backends.cudnn.deterministic = deterministic
         for leg in (drive_gathered_train_step, drive_tp_single_train_step,
-                    drive_tp_single_prefill, drive_tp_threads,
-                    drive_deepseek_tp_threads, drive_jamba_tp_threads,
-                    drive_xlstm_tp_threads):
+                    drive_tp_single_prefill,
+                    drive_tp_threads, drive_deepseek_tp_threads,
+                    drive_jamba_tp_threads, drive_xlstm_tp_threads,
+                    drive_paligemma_tp_threads, drive_whisper_tp_threads):
             t0 = time.perf_counter()
             for k, v in leg(dev).items():
                 launches[k] = launches.get(k, 0) + v
@@ -6109,6 +6249,45 @@ def drive_examples(dev) -> dict:
     print(f"[examples] {len(walls)} runs in "
           f"{sum(w for _, w in walls):.1f} s of wall time")
     return total
+
+
+def profiler_probe() -> int:
+    """``--profiler-probe``: the launches that profiler sessions record as
+    the process ages (ROADMAP Queue 3). ``swa_attention`` at (k)'s encoder
+    shape, sessions of 10 and 50 calls without and with the pads, at the
+    start and after each of 4 spells of 30 s of matrix products."""
+    global PAD_LAUNCHES
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import swa_attention as swa
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(f"[probe] card {card_line()}")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    q, k, v = (torch.randn((16, 1500, 5, 64), generator=gen).to(
+        dev, torch.bfloat16).transpose(1, 2) for _ in range(3))
+
+    def fn():
+        return swa.swa_attention(q, k, v, causal=False, round_p=True)
+    a = torch.randn(8192, 8192, device=dev)
+    pad, t0 = PAD_LAUNCHES, time.perf_counter()
+    try:
+        for spell in range(5):
+            got = {}
+            for padded in (False, True):
+                PAD_LAUNCHES = pad if padded else 0
+                for iters in (10, 50):
+                    got[f"{iters}{' padded' if padded else ''}"] = \
+                        recorded_launches(fn, "swa_kernel", iters)
+            print(f"[probe] {time.perf_counter() - t0:.1f} s in: "
+                  f"swa_kernel launches recorded of a session's calls "
+                  f"{got}")
+            t1 = time.perf_counter()
+            while spell < 4 and time.perf_counter() - t1 < 30:
+                a = (a @ a).clamp_(-1, 1)
+                torch.cuda.synchronize()
+    finally:
+        PAD_LAUNCHES = pad
+    return 0
 
 
 def mesh_only() -> int:
@@ -6464,10 +6643,13 @@ def main(argv) -> int:
         return mesh_only()
     if argv == ["--examples"]:
         return examples_only()
+    if argv == ["--profiler-probe"]:
+        return profiler_probe()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               f"[--kernel-times SRC | --dp-ftrl SRC | --sweep | --mixtral | "
-              f"--deepseek | --ssm | --vlm-encdec | --mesh | --examples]",
+              f"--deepseek | --ssm | --vlm-encdec | --mesh | --examples | "
+              f"--profiler-probe]",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))

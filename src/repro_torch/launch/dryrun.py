@@ -31,13 +31,13 @@ rank:
   (``specs.skip_reason``);
 * ``layout``: the layout the traced step ran in (``specs.build_job``'s).
   ``specs.TP_LAYOUT`` for the tensor-parallel train steps and prefills
-  (the dense, MoE, SSM and hybrid decoder LMs: GQA or MLA attention,
-  Mamba, the mLSTM and the sLSTM, dense or MoE FFNs, DeepSeek-V2's 2-D
-  experts included): every rank computes on its pieces of the parameters,
-  placed by the reference's rules, so the per-rank argument bytes are the
-  rule sum (``rule_argument_bytes``, also in ``memory``).
-  ``specs.GATHERED_LAYOUT`` for the rest (the VLM and encoder-decoder
-  families, and every decode): the step runs
+  (every family: GQA or MLA attention, the VLM's prefix, the encoder and
+  cross-attention, Mamba, the mLSTM and the sLSTM, dense or MoE FFNs,
+  DeepSeek-V2's 2-D experts included): every rank computes on its pieces
+  of the parameters, placed by the reference's rules, so the per-rank
+  argument bytes are the rule sum (``rule_argument_bytes``, also in
+  ``memory``). ``specs.GATHERED_LAYOUT`` for the rest (an MoE in the
+  ``2d_swapped`` mode, and every decode): the step runs
   data-parallel with the parameters gathered whole on every rank; only
   the flat aggregation plane is sharded, so its per-rank bytes and
   collectives are not comparable to the reference's dry run.
@@ -56,8 +56,9 @@ Usage:
 
 ``--layers N`` traces the first N of each config's layers (one period of
 the SSM families' layer programs, whose full depth steps 28 Mamba or 6
-sLSTM loops a position at a time); a pair the config skips stays
-skipped. Run as a file with another tree's ``src`` on ``PYTHONPATH`` (a
+sLSTM loops a position at a time), and of an encoder-decoder's encoder
+layers as many (N + N); a pair the config skips stays skipped. Run as a
+file with another tree's ``src`` on ``PYTHONPATH`` (a
 parent unpacked by ``git archive``), this ``main`` traces that tree's
 package.
 
@@ -320,7 +321,9 @@ def main(argv=None):
                          1.0 if args.timeout else 0.0)
         cut = None
         if args.layers and not specs_lib.skip_reason(arch, shape):
-            cut = get_config(arch).with_(num_layers=args.layers)
+            base = get_config(arch)
+            cut = base.with_(num_layers=args.layers, encoder_layers=min(
+                base.encoder_layers, args.layers))
         try:
             res = run_one(arch, shape, mesh=mesh, cfg_override=cut)
             if cut is not None:

@@ -414,7 +414,9 @@ def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     dim = dim % x.ndim
     parts = _Stack.apply(x, tp)                       # (size, ...)
     parts = parts.movedim(0, dim)                     # (..., size, n, ...)
-    return parts.reshape(x.shape[:dim] + (-1,) + x.shape[dim + 1:])
+    # the width named, not -1: a data rank with no rows has no elements
+    return parts.reshape(x.shape[:dim] + (tp.size * x.shape[dim],)
+                         + x.shape[dim + 1:])
 
 
 # ---------------------------------------------------------------------------

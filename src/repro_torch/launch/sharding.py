@@ -14,7 +14,9 @@ clients / batch on ("pod", "data")), as in the reference:
 * frozen leaves follow the same rules.
 
 Every rule is divisibility-guarded: a dim that does not divide the axis
-falls back to replication on that axis.
+falls back to replication on that axis (Whisper's vocab of 51,866 on a
+4- or 16-wide "model" axis: its embedding and unembedding replicate). A
+leaf that no rule matches replicates (the VLM's ``mm_proj``).
 
 The reference writes a ``PartitionSpec`` (one entry a tensor dim); torch
 places a tensor with one ``Placement`` a *mesh* dim (``Shard(d)`` or
@@ -25,7 +27,8 @@ the reference's spec tuple. A mesh here is a ``DeviceMesh`` or a
 only.
 
 :func:`tensor_parallel_ok` names the configs whose steps run tensor-
-parallel (``launch/specs``), and :func:`check_trainable_placements`
+parallel (``launch/specs``: every family, the experts in any mode but
+``2d_swapped``), and :func:`check_trainable_placements`
 refuses a trainable leaf on a data axis; :func:`local_pieces` takes a
 rank's pieces of a tree without making any leaf whole, and
 :class:`ModelShards` is the round engine's hook for the trainable tree's
@@ -164,18 +167,21 @@ def expert_mode(cfg: ModelConfig, mesh) -> str:
 
 
 def tensor_parallel_ok(cfg: ModelConfig, mesh) -> bool:
-    """True for the families whose steps run tensor-parallel on "model"
-    (``launch/specs``): the dense, MoE, SSM (xLSTM) and hybrid (Jamba)
-    decoder LMs, whose slots are GQA attention or MLA, Mamba, the mLSTM
-    or the sLSTM (which no rule splits), with a dense or MoE FFN, the
-    experts in the ``model``, ``ffn`` or ``2d`` mode (the last,
-    DeepSeek-V2's, puts the expert dim on "data" and exchanges each MoE
-    layer's buffer over it: ``launch/mesh.expert_exchange``). The VLM
-    prefix and the encoder-decoder keep the gathered layout."""
-    return (cfg.family in ("dense", "moe", "ssm", "hybrid")
-            and not cfg.is_encoder_decoder
-            and (not cfg.num_experts
-                 or expert_mode(cfg, mesh) in ("model", "ffn", "2d")))
+    """True for the configs whose train step and prefill run tensor-
+    parallel on "model" (``launch/specs``): every family of the zoo, the
+    dense, MoE, SSM (xLSTM), hybrid (Jamba), VLM (PaliGemma) and
+    encoder-decoder (Whisper) decoder LMs, whose slots are GQA attention
+    or MLA, Mamba, the mLSTM or the sLSTM (which no rule splits), with a
+    dense or MoE FFN; the VLM's ``mm_proj``, which no rule matches,
+    replicates, and the encoder-decoder's encoder and cross-attention
+    split as self-attention does (``/cross_attn/w[qkv]`` column-,
+    ``/cross_attn/wo`` row-parallel). The experts must be in the
+    ``model``, ``ffn`` or ``2d`` mode (the last, DeepSeek-V2's, puts the
+    expert dim on "data" and exchanges each MoE layer's buffer over it:
+    ``launch/mesh.expert_exchange``); an MoE in the ``2d_swapped`` mode
+    keeps the gathered layout."""
+    return (not cfg.num_experts
+            or expert_mode(cfg, mesh) in ("model", "ffn", "2d"))
 
 
 def check_trainable_placements(placements, mesh) -> None:

@@ -7,12 +7,14 @@ tree in f32 (the master copy): the standard mixed-precision split of the
 reference's ``param_structs``. Structures are tensors on the meta device
 (no memory). The prefill and decode steps take the two halves and merge
 them; the train step is one FedPT round on a mesh (:func:`make_train_step`).
-On a mesh the train step and the prefill of the dense, MoE, SSM and
-hybrid decoder LMs (GQA or MLA attention, Mamba, the mLSTM and the
+On a mesh the train step and the prefill of every family (the dense,
+MoE, SSM, hybrid, VLM and encoder-decoder decoder LMs: GQA or MLA
+attention, the encoder and cross-attention, Mamba, the mLSTM and the
 sLSTM, dense or MoE FFNs) are tensor-parallel on "model"
 (:func:`make_train_step`, :func:`make_tp_prefill_step`; DeepSeek-V2's 2-D
 experts with their expert dim on "data"): each rank computes on its
-pieces of the parameters and never gathers the frozen tree.
+pieces of the parameters and never gathers the frozen tree. Only an MoE
+in the ``2d_swapped`` mode, and every decode, keep the gathered layout.
 
 Shapes (the reference's):
   train_4k     seq 4,096   global_batch 256   -> fedpt_round_step
@@ -208,12 +210,15 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
 
     ``y``, the server state and ``frozen`` may arrive as DTensors placed
     by :func:`sharding.param_shardings` (the reference's layout) or whole.
-    Where ``sharding.tensor_parallel_ok`` holds (the dense, MoE, SSM and
-    hybrid decoder LMs), the step is tensor-parallel on "model": each rank
-    trains its data rank's clients on its pieces of ``y`` and of the
-    frozen tree, which is never made whole (``nn/attention.tp_attention``
-    / ``tp_mla``, ``nn/ssm``'s Mamba and mLSTM, ``nn/basic.mlp`` /
-    ``embed`` / ``unembed``, ``nn/moe``, the vocab-parallel loss); each
+    Where ``sharding.tensor_parallel_ok`` holds (every family, the
+    experts in any mode but ``2d_swapped``), the step is tensor-parallel
+    on "model": each rank trains its data rank's clients on its pieces of
+    ``y`` and of the frozen tree, which is never made whole
+    (``nn/attention.tp_attention`` for self-attention, the encoder's and
+    the cross-attention, ``tp_mla``, ``nn/ssm``'s Mamba and mLSTM,
+    ``nn/basic.mlp`` / ``embed`` / ``unembed``, ``nn/moe``, the
+    vocab-parallel loss, or the plain one where the vocab replicates; the
+    VLM's ``mm_proj`` whole on every rank); each
     client's delta is gathered over
     "model" a leaf at a time into this rank's columns of the flat plane's
     row (``sharding.ModelShards.flat_cols``), and the server steps on its
@@ -223,11 +228,13 @@ def make_train_step(cfg: ModelConfig, mesh, y_struct, device=None):
     buffer over the rank's "data" axis (``launch/mesh.expert_exchange``);
     a trainable leaf the rules would place on a data axis (the experts
     under FedAvg) raises a ValueError naming it
-    (``sharding.check_trainable_placements``). The VLM and the
-    encoder-decoder keep the gathered layout: ``y`` gathered whole for the
-    clients, whose copies ``torch.func.vmap`` never materializes, the
-    server state and the frozen tree gathered on entry, and the new ``y``
-    laid out again (``constrain_fn``). Either way the batch and weights
+    (``sharding.check_trainable_placements``). An MoE in the
+    ``2d_swapped`` mode keeps the gathered layout: ``y`` gathered whole
+    for the clients, whose copies ``torch.func.vmap`` never materializes,
+    the server state and the frozen tree gathered on entry, and the new
+    ``y`` laid out again (``constrain_fn``). Either way the batch (the
+    VLM's patch embeddings and the encoder-decoder's frames included) and
+    weights
     are gathered on entry, each data rank trains its clients, and the
     flat plane (``sharding.flat_constrainer``) aggregates each rank's
     block of the delta buffer. Each client's tokens form their own MoE
@@ -358,12 +365,17 @@ class LoweringJob:
 def make_tp_prefill_step(cfg: ModelConfig, mesh, device=None):
     """The tensor-parallel prefill on ``mesh`` (``sharding.tensor_parallel_ok``
     configs): prefill(y, frozen, batch) -> logits as a DTensor of (B, S,
-    V), its vocab split on "model" where the unembedding's is, its rows
+    V), its vocab split on "model" where the unembedding's is (else
+    whole on every rank: Whisper's 51,866 on a 4- or 16-wide axis), its rows
     on the data axes where the batch's are. Each rank runs
     :func:`make_prefill_step`'s forward on its pieces of ``y`` and the
-    frozen tree (DTensors or whole) and its data rank's rows: attention
-    (GQA, or MLA) on its heads through ``flash_attention`` (the
-    ``swa_attention`` kernel on the card), Mamba on its channels, the
+    frozen tree (DTensors or whole) and its data rank's rows (of the
+    tokens, and of the VLM's ``prefix_embeds`` or the encoder-decoder's
+    ``encoder_embeds``, placed as the tokens are): attention (GQA, with
+    the VLM's bidirectional prefix, the encoder's and the
+    cross-attention's non-causal calls, or MLA) on its heads through
+    ``flash_attention`` (the ``swa_attention`` kernel on the card), the
+    VLM's ``mm_proj`` whole, Mamba on its channels, the
     mLSTM's projections on their pieces around its whole cell, the sLSTM
     whole, the FFN or experts on its pieces; no parameter is gathered. An MoE's capacity and slot ranks are
     counted over the global batch, as the reference's forward counts them
@@ -423,11 +435,11 @@ def build_job(arch: str, shape: str, mesh, cfg_override=None,
               device="cpu") -> LoweringJob:
     """The step of ``shape``'s kind for ``arch`` on ``mesh``, its argument
     structures and their placements. Where ``sharding.tensor_parallel_ok``
-    holds (the dense, MoE, SSM and hybrid decoder LMs, MLA and
-    DeepSeek-V2's 2-D experts included), the train step and the prefill
+    holds (every family, MLA, DeepSeek-V2's 2-D experts, the VLM's prefix
+    and the encoder-decoder included), the train step and the prefill
     are tensor-parallel (:func:`make_train_step`,
     :func:`make_tp_prefill_step`; ``layout`` :data:`TP_LAYOUT`); otherwise
-    (the VLM and encoder-decoder families), and for decode, the steps run
+    (an MoE in the ``2d_swapped`` mode), and for decode, the steps run
     data-parallel: their
     parameters gathered whole, the batch (and the cache, its "model"
     shards gathered) a data rank's rows."""

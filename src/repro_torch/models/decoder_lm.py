@@ -41,7 +41,10 @@ K / V (zeros from ``init_cache``, the encoder's from
 Under tensor parallelism (``launch/mesh.tensor_parallel``, the train step
 and prefill of ``launch/specs`` on a mesh) each rank holds its pieces of
 the parameters, placed by the reference's rules: attention slots run
-``nn/attention.tp_attention`` (MLA's ``tp_mla``) on the rank's heads,
+``nn/attention.tp_attention`` (MLA's ``tp_mla``) on the rank's heads, the
+encoder's non-causal ones and the decoder's cross-attention too (k and v
+from the encoder's output, which every rank holds whole), the VLM's
+``mm_proj`` (which no rule splits) whole on every rank,
 Mamba slots on the rank's channels and mLSTM slots with their
 projections split and their cell whole (``nn/ssm``; the sLSTM whole on
 every rank), the FFNs and experts their pieces
@@ -304,10 +307,19 @@ def _cross_q(x, sp, cfg: ModelConfig):
 
 def _cross_attend(x, encoder_out, sp, cfg: ModelConfig, attention):
     """The cross-attention output of a decoder slot: its queries against
-    the encoder's keys, non-causal, no window."""
+    the encoder's keys, non-causal, no window. Under tensor parallelism
+    with its heads split, ``tp_attention`` on this rank's heads: q from
+    ``ln_cross(x)``, k and v from the encoder's output (replicated on
+    "model", entering through ``tp_copy`` once a layer), no RoPE, ``wo``
+    row-parallel."""
+    c = cfg.with_(sliding_window=0)
+    if attn_lib.heads_split(sp["cross_attn"], cfg):
+        hc = basic.apply_norm(x, sp["ln_cross"], cfg.norm_type)
+        return attn_lib.tp_attention(hc, sp["cross_attn"], c, None,
+                                     attention, causal=False,
+                                     kv=encoder_out)[0]
     kc, vc = _cross_kv(encoder_out, sp["cross_attn"], cfg)
-    oc = attention(_cross_q(x, sp, cfg), kc, vc, cfg.with_(sliding_window=0),
-                   causal=False)
+    oc = attention(_cross_q(x, sp, cfg), kc, vc, c, causal=False)
     return basic.dense(oc.flatten(2),
                        sp["cross_attn"]["wo"], cfg.cdtype)
 

@@ -11,9 +11,9 @@ reference does. On a CPU tensor it is the reference's chunked online
 softmax: KV chunks of 512, f32 scores and running (max, sum, acc), ``p``
 cast to v's dtype before the PV product.
 ``decode_attention`` stays plain torch, as the JAX package computes it
-outside any Pallas kernel. ``tp_attention`` is a GQA slot's attention on
-one rank's heads under tensor parallelism (``launch/mesh.tensor_parallel``),
-``tp_mla`` an MLA slot's.
+outside any Pallas kernel. ``tp_attention`` is a GQA slot's attention
+(self- or cross-attention) on one rank's heads under tensor parallelism
+(``launch/mesh.tensor_parallel``), ``tp_mla`` an MLA slot's.
 
 MLA compresses K and V into a ``kv_lora_rank`` latent c_kv plus one
 shared rope key k_pe. Prefill expands them to 128 heads of 192-wide q / k
@@ -116,22 +116,33 @@ def _heads_of(local, c0: int, lo: int, hi: int, hd: int):
 
 
 def tp_attention(h, p, cfg: ModelConfig, positions, attention, causal=True,
-                 prefix_len: int = 0):
+                 prefix_len: int = 0, kv=None):
     """GQA attention on this rank's heads, under the ambient tensor-
     parallel group, with ``wq`` / ``wk`` / ``wv`` (and their biases)
     column-parallel and ``wo`` row-parallel, as ``launch/sharding``'s rules
     place them: returns (the slot's attention output, summed over the
     "model" ranks, (k, v) of the heads this rank ran).
 
+    ``kv``: where k and v come from, when not from ``h`` (the
+    encoder-decoder's cross-attention: the encoder's output (b, e, d),
+    replicated on "model", against the decoder's normed queries);
+    ``positions`` None: no RoPE (cross-attention has none).
+
     The rules split only on whole columns, so a piece may end inside a
-    head (Mixtral's 8 kv heads on a 16-wide axis: half a head a rank).
-    Then the projection's pieces are gathered over "model" and the rank
-    takes the heads it needs: the q heads that ``wo``'s rows on this rank
-    read, and the kv heads those q heads use. A kv projection the rules
-    replicate is computed whole from the un-copied input and enters
-    through ``tp_copy``, so its gradient is summed once over the ranks."""
+    head (Mixtral's 8 kv heads on a 16-wide axis: half a head a rank;
+    Whisper's 20 heads: 1.25 a rank). Then the projection's pieces are
+    gathered over "model" and the rank takes the heads it needs: the q
+    heads that ``wo``'s rows on this rank read, and the kv heads those q
+    heads use. Each replicated input enters the rank-local work through
+    ``tp_copy`` once a call, so its gradient is summed over the ranks
+    once: ``h``, and ``kv`` where given (one ``tp_copy`` a decoder layer
+    for the encoder's output, which every layer reads); a kv projection
+    the rules replicate is computed whole from the un-copied input and
+    enters through ``tp_copy`` itself."""
     tp = mesh_lib.current_tp()
     b, s, _ = h.shape
+    src = h if kv is None else kv
+    skv = src.shape[1]
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     cd = cfg.cdtype
     rep = nh // nkv
@@ -141,19 +152,20 @@ def tp_attention(h, p, cfg: ModelConfig, positions, attention, causal=True,
     lo, hi = q0 // hd, -(-q1 // hd)          # the q heads wo's rows read
     klo, khi = lo // rep, (hi - 1) // rep + 1
     hc = mesh_lib.tp_copy(h)
+    sc = hc if kv is None else mesh_lib.tp_copy(kv)
     q = _heads_of(basic.dense(hc, p["wq"], cd), q0, lo, hi,
                   hd).reshape(b, s, hi - lo, hd)
-    kv = []
+    kvs = []
     for name in ("wk", "wv"):
         width = p[name]["kernel"].shape[-1]
         if width == kw:     # replicated by the rules' guard
-            t = mesh_lib.tp_copy(basic.dense(h, p[name], cd))
+            t = mesh_lib.tp_copy(basic.dense(src, p[name], cd))
             t = t[..., klo * hd:khi * hd]
         else:
-            t = _heads_of(basic.dense(hc, p[name], cd), tp.rank * width,
+            t = _heads_of(basic.dense(sc, p[name], cd), tp.rank * width,
                           klo, khi, hd)
-        kv.append(t.reshape(b, s, khi - klo, hd))
-    k, v = kv
+        kvs.append(t.reshape(b, skv, khi - klo, hd))
+    k, v = kvs
     nq, nk = hi - lo, khi - klo
     need = [g // rep - klo for g in range(lo, hi)]
     if nq % nk or need != [i // (nq // nk) for i in range(nq)]:
@@ -161,7 +173,7 @@ def tp_attention(h, p, cfg: ModelConfig, positions, attention, causal=True,
         # one kv head a q head
         idx = torch.tensor(need, device=k.device)
         k, v = k.index_select(2, idx), v.index_select(2, idx)
-    if cfg.use_rope:
+    if cfg.use_rope and positions is not None:
         cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)

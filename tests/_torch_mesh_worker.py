@@ -38,6 +38,8 @@ from repro_torch.nn import basic, threefry  # noqa: E402
 from repro_torch.optim import optimizers as opt_lib  # noqa: E402
 from repro_torch.sim import grid as simgrid  # noqa: E402
 
+from _torch_seen import FrozenSeen  # noqa: E402
+
 RC = fedpt.RoundConfig(4, 2, 8, "sgd", 0.1, "sgd", 1.0)
 RC_DP = fedpt.RoundConfig(4, 2, 8, "sgd", 0.1, "sgd", 1.0,
                           dp_clip_norm=0.5, dp_noise_multiplier=0.4)
@@ -342,39 +344,6 @@ TP_ROUND = dict(clients=4, tau=2, batch=1, seq=16)
 DECODE_MAX_LEN = 8           # the decode cases' cache length
 
 
-class FrozenSeen:
-    """Inside a ``with``, records the element counts of the frozen leaves
-    (``paths``) that the decoder LM's ``train_loss`` and ``forward``
-    receive: what the step's layers compute on, as against what the
-    caller placed."""
-
-    NAMES = ("train_loss", "forward")
-
-    def __init__(self, paths):
-        self.paths = set(paths)
-        self.seen = {}
-
-    def __enter__(self):
-        from repro_torch.models import decoder_lm as dlm
-        self.mod = dlm
-        self.real = {n: getattr(dlm, n) for n in self.NAMES}
-        for n, fn in self.real.items():
-            setattr(dlm, n, self._spy(fn))
-        return self
-
-    def __exit__(self, *exc):
-        for n, fn in self.real.items():
-            setattr(self.mod, n, fn)
-
-    def _spy(self, fn):
-        def spy(params, *args, **kw):
-            for p, v in basic.flatten_params(params):
-                if p in self.paths:
-                    self.seen.setdefault(p, set()).add(v.numel())
-            return fn(params, *args, **kw)
-        return spy
-
-
 def tp_case(case, mesh):
     """``specs.make_train_step`` (twice, from the same inputs) and
     ``specs.make_tp_prefill_step`` for one reduced config: y, the server
@@ -410,10 +379,14 @@ def tp_case(case, mesh):
     rows = tuple(Shard(0) if n in mesh_lib.data_axes(mesh) else Replicate()
                  for n in mesh_lib.axis_names(mesh))
     tokd = shard_lib.distribute(tok, mesh, rows)
+    # the VLM's patch embeddings and the encoder-decoder's frames: their
+    # rows placed as the tokens' are
+    stub = {k: shard_lib.distribute(torch.as_tensor(v), mesh, rows)
+            for k, v in case["prefill_stub"].items()}
     yd = placed(y, shard_y)
     with FrozenSeen(paths + [p for p, _ in basic.flatten_params(y)]) \
             as prefill_seen:
-        logits = prefill(yd, zd, {"tokens": tokd})
+        logits = prefill(yd, zd, {"tokens": tokd, **stub})
     decode = None
     if "decode" in case:
         decode = decode_case(cfg, mesh, part.merge(y, z), y, z,

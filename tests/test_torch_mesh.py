@@ -3,8 +3,9 @@ reference's ``tests/test_multidevice.py`` with its tolerances and exact
 fields, on 4 ranks (``debug``, 2 x 2) and, for the async grid, on 8
 (``debug-pod``, 2 x 2 x 2); the meshed async grid against the
 reference's single-device run; and ``launch/specs.make_train_step`` on a
-reduced StableLM (tensor-parallel) and a reduced xLSTM (an SSM family,
-the gathered layout) over 2 x 2 against the unsharded round;
+reduced StableLM (tensor-parallel) and a reduced Mixtral with its
+experts in the ``2d_swapped`` mode (the gathered layout) over 2 x 2
+against the unsharded round;
 and the grid's snapshots on 2 x 2, written once a world and resumed on
 every rank.
 
@@ -51,10 +52,10 @@ import _torch_mesh_worker as worker
 REL = 1e-5                   # tests/test_torch_grid.py's tolerance
 
 RC, RC_DP, PLAN, ASSIGN = worker.RC, worker.RC_DP, worker.PLAN, worker.ASSIGN
-# a reduced config that keeps make_train_step's gathered layout: PaliGemma
-# (its VLM prefix has no tensor-parallel form yet), its round's batch with
-# the stubbed vision tower's patch embeddings
-GATHERED_ARCH, GATHERED_OVER = "paligemma-3b", {}
+# a reduced config that keeps make_train_step's gathered layout: Mixtral
+# with its experts in the 2d_swapped mode (the expert dim on "model", the
+# FFN dim on "data"), the one layout the tensor-parallel step refuses
+GATHERED_ARCH, GATHERED_OVER = "mixtral-8x7b", {"expert_shard": "2d_swapped"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -398,8 +399,8 @@ def test_train_step_on_mesh_matches_unsharded_round(world4, init):
 
 def test_gathered_train_step_on_mesh_matches_unsharded_round(world4, init):
     """``make_train_step``'s gathered layout (a config that
-    ``sharding.tensor_parallel_ok`` refuses: a reduced PaliGemma, its
-    patch embeddings in the batch) on 2 x 2:
+    ``sharding.tensor_parallel_ok`` refuses: a reduced Mixtral, its
+    experts in the ``2d_swapped`` mode) on 2 x 2:
     y, the server state and the frozen tree gathered
     for each data rank's clients, the flat plane on each rank's blocks,
     and the new y laid out again by the rules."""

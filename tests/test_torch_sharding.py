@@ -184,15 +184,38 @@ TP_MESHES = {"debug": ((2, 2), ("data", "model")),
 def test_tensor_parallel_ok_by_family(arch, mesh_name):
     """DeepSeek-V2 (MLA, its 160 experts in the ``2d`` mode: the expert
     dim on "data", the FFN dim on "model"), the SSM family (xLSTM: the
-    mLSTM's projections split, the sLSTM whole) and the hybrid (Jamba:
-    Mamba on each rank's channels, its 16 experts in the ``model`` mode)
-    take the tensor-parallel steps on every preset; the VLM (PaliGemma)
-    and encoder-decoder (Whisper) families keep the gathered layout."""
+    mLSTM's projections split, the sLSTM whole), the hybrid (Jamba:
+    Mamba on each rank's channels, its 16 experts in the ``model`` mode),
+    the VLM (PaliGemma: its ``mm_proj`` whole, its single kv head split)
+    and the encoder-decoder (Whisper: the encoder and the cross-attention
+    on each rank's heads, its vocab of 51,866 whole on a 4- or 16-wide
+    axis) take the tensor-parallel steps on every preset."""
     tload_all()
     cfg = tget_config(arch)
     mesh = tmesh.AbstractMesh(*TP_MESHES[mesh_name])
-    want = arch in ("deepseek-v2-236b", "xlstm-350m", "jamba-v0.1-52b")
-    assert tshard.tensor_parallel_ok(cfg, mesh) == want
+    assert tshard.tensor_parallel_ok(cfg, mesh)
     if cfg.num_experts:
         assert tshard.expert_mode(cfg, mesh) == {
             "deepseek-v2-236b": "2d", "jamba-v0.1-52b": "model"}[arch]
+
+
+@pytest.mark.parametrize("mesh_name", list(TP_MESHES))
+def test_tensor_parallel_ok_refuses_only_2d_swapped_experts(mesh_name):
+    """The one layout the tensor-parallel steps do not take: experts in
+    the ``2d_swapped`` mode (the expert dim on "model", the FFN dim on
+    "data"), which keep the gathered layout; every other expert mode of
+    the same config, and every config of the zoo, is tensor-parallel."""
+    from repro_torch.configs import ARCH_IDS
+    tload_all()
+    mesh = tmesh.AbstractMesh(*TP_MESHES[mesh_name])
+    for arch in ARCH_IDS:
+        assert tshard.tensor_parallel_ok(tget_config(arch), mesh), arch
+    for arch in ("mixtral-8x7b", "deepseek-v2-236b", "jamba-v0.1-52b"):
+        cfg = tget_config(arch)
+        for mode in ("model", "ffn", "2d", "auto"):
+            assert tshard.tensor_parallel_ok(cfg.with_(expert_shard=mode),
+                                             mesh)
+        assert not tshard.tensor_parallel_ok(
+            cfg.with_(expert_shard="2d_swapped"), mesh)
+    assert tshard.tensor_parallel_ok(
+        tget_config("paligemma-3b").with_(expert_shard="2d_swapped"), mesh)

@@ -18,11 +18,25 @@ layer program, the reference's ``reduced_config``: xLSTM (3 mLSTM blocks,
 ``up_proj`` column- and ``down_proj`` row-parallel around a replicated
 cell, and an sLSTM block whole on every rank) and Jamba (7 Mamba blocks
 on each rank's channels, ``in_proj``'s column block moved to them by an
-all-to-all, an attention block without RoPE, dense and MoE FFNs).
+all-to-all, an attention block without RoPE, dense and MoE FFNs); the
+VLM, a reduced PaliGemma with 4 q heads and 1 kv head (the kv head split
+in half on the 2-wide axis) and 8 patch embeddings through ``mm_proj``,
+which no rule splits and every rank computes whole, as a bidirectional
+prefix; and the encoder-decoder, a reduced Whisper whose encoder and
+cross-attention run on each rank's heads (k and v from the encoder's
+output, replicated on "model"), with an odd vocab of 515, which the
+rules leave whole (a whole embedding lookup, whole logits and the plain
+cross-entropy under tensor parallelism), and at d_model 192 with 3
+heads, 1.5 heads a rank, as Whisper large-v3's 20 are 1.25 a rank on a
+16-wide axis. The encoder's trainable leaves are held leaf by leaf:
+their gradient comes through the encoder's output, which enters each
+decoder layer's cross-attention through ``tp_copy`` once.
 The prefill's rows are split over the
 data axes (in ``torch.chunk``'s pieces: the second overflow case's 3
 rows fall 2, 1 on the 2 x 2 world and 1, 1, 1, 0 on the 2 x 2 x 2 one, a
-data rank with no rows), and an MoE counts its capacity and slot ranks
+data rank with no rows; so do PaliGemma's and the split-head Whisper's,
+their patch embeddings and frames placed as the tokens), and an MoE
+counts its capacity and slot ranks
 over the whole batch, as the reference's forward does; so the prefill is
 held to the forward of the whole batch. The first overflow case also
 runs the meshed decode step (``specs.make_mesh_decode_step``) on a warm
@@ -101,6 +115,12 @@ LOGIT_REL = 1e-5             # TP prefill against the port's forward
 # against the port's unsharded round at SSM_UPDATE_REL
 SSM = ("xlstm", "jamba")
 SSM_UPDATE_REL = 5e-5
+# the encoder-decoder cases' encoder subtree by its plain update norm
+# against the port's unsharded round: measured 9.5e-6 and 1.10e-5 on both
+# worlds (once 1.16e-5), its float32 steps a few ulps of y, so one-ulp
+# rounds add up over the subtree's norm; the leaf-by-leaf measure holds
+# it at UPDATE_REL as well
+ENC_UPDATE_REL = 2e-5
 JAX_TOL = 1e-4               # the zoo's rtol / atol against JAX
 
 # case -> (arch, overrides of its reduced config)
@@ -120,9 +140,20 @@ CASES = {
                                                  "num_heads": 3}),
     "xlstm": ("xlstm-350m", {}),
     "jamba": ("jamba-v0.1-52b", {}),
+    "paligemma": ("paligemma-3b", {"num_heads": 4, "num_kv_heads": 1}),
+    "whisper_odd_vocab": ("whisper-large-v3", {"vocab_size": 515}),
+    "whisper_split_head": ("whisper-large-v3", {"d_model": 192,
+                                                "num_heads": 3,
+                                                "num_kv_heads": 3}),
 }
 OVERFLOW = [c for c in CASES if c.endswith("_overflow")]
-PREFILL_ROWS = {"mixtral_ffn_overflow": 3, "deepseek_2d_overflow": 3}
+PREFILL_ROWS = {"mixtral_ffn_overflow": 3, "deepseek_2d_overflow": 3,
+                "paligemma": 3, "whisper_split_head": 3}
+# the encoder-decoder cases, and those whose vocab does not divide the
+# 2-wide "model" axis (its embedding and unembedding replicate, and so do
+# the prefill's logits)
+ENC_DEC = [c for c in CASES if CASES[c][0] == "whisper-large-v3"]
+WHOLE_VOCAB = ["whisper_odd_vocab"]
 # the round's clients (else TP_ROUND's 4): 3 do not divide the data ranks,
 # 2, 1 on 2 x 2 and 1, 1, 1, 0 on 2 x 2 x 2, so a short rank pads its rows
 # to join every expert exchange, and the last rank of 2 x 2 x 2 trains none
@@ -174,15 +205,31 @@ def inputs():
         params = jax.tree_util.tree_map(np.asarray, jdlm.init_model(jcfg, 0))
         # a bf16 case takes its float32 twin's inputs
         rng = np.random.default_rng(list(CASES).index(_twin(case)))
+        clients = CLIENTS.get(case, R["clients"])
         tok = rng.integers(0, jcfg.vocab_size,
-                           (CLIENTS.get(case, R["clients"]), R["tau"],
-                            R["batch"], R["seq"]), dtype=np.int32)
+                           (clients, R["tau"], R["batch"], R["seq"]),
+                           dtype=np.int32)
+        rows = PREFILL_ROWS.get(case, 4)
         out[case] = {"arch": CASES[case][0], "cfg": _tcfg(case),
                      "params": params,
                      "batch": {"tokens": tok, "labels": tok},
-                     "prefill": rng.integers(
-                         0, jcfg.vocab_size, (PREFILL_ROWS.get(case, 4),
-                                              R["seq"]), dtype=np.int32)}
+                     "prefill": rng.integers(0, jcfg.vocab_size,
+                                             (rows, R["seq"]),
+                                             dtype=np.int32),
+                     "prefill_stub": {}}
+        # the VLM's patch embeddings, the encoder-decoder's frames: each
+        # sentence's in the round, each row's in the prefill
+        stub = (("prefix_embeds", (jcfg.num_prefix_tokens,
+                                   tdlm.VISION_TOWER_DIM))
+                if jcfg.family == "vlm" else
+                ("encoder_embeds", (jcfg.encoder_seq_len, jcfg.d_model))
+                if jcfg.is_encoder_decoder else None)
+        if stub is not None:
+            name, shape = stub
+            out[case]["batch"][name] = rng.standard_normal(
+                (clients, R["tau"], R["batch"]) + shape).astype(np.float32)
+            out[case]["prefill_stub"][name] = rng.standard_normal(
+                (rows,) + shape).astype(np.float32)
         if case in DECODE:
             out[case]["decode"] = rng.integers(0, jcfg.vocab_size,
                                                DECODE[case], dtype=np.int32)
@@ -233,9 +280,12 @@ def unsharded(inputs):
                            {k: torch.as_tensor(v)
                             for k, v in inp["batch"].items()},
                            torch.ones(inp["batch"]["tokens"].shape[0]), None)
-        logits = tdlm.forward(params, cfg, torch.as_tensor(
-            inp["prefill"]))[0].float().numpy()
-        out[case] = {"y0": [t.numpy() for t in tbasic.tree_leaves(y)],
+        logits = tdlm.forward(params, cfg, torch.as_tensor(inp["prefill"]),
+                              **{k: torch.as_tensor(v) for k, v in
+                                 inp["prefill_stub"].items()})[0]
+        logits = logits.float().numpy()
+        out[case] = {"paths": [p for p, _ in tbasic.flatten_params(y)],
+                     "y0": [t.numpy() for t in tbasic.tree_leaves(y)],
                      "y": [t.numpy() for t in tbasic.tree_leaves(y_new)],
                      "loss": float(m["loss"]), "logits": logits}
         if "decode" in inp:
@@ -263,8 +313,9 @@ def reference(inputs):
                                jnp.ones((inp["batch"]["tokens"].shape[0],),
                                         jnp.float32),
                                jax.random.key(0))
-        logits = np.asarray(jdlm.forward(jp, jcfg,
-                                         jnp.asarray(inp["prefill"]))[0])
+        logits = np.asarray(jdlm.forward(
+            jp, jcfg, jnp.asarray(inp["prefill"]),
+            **{k: jnp.asarray(v) for k, v in inp["prefill_stub"].items()})[0])
         out[case] = {"y": [np.asarray(t) for t in
                            jax.tree_util.tree_leaves(jy_new)],
                      "loss": float(jm["loss"]), "logits": logits}
@@ -339,6 +390,32 @@ def test_tp_train_step_matches_the_reference(world, unsharded, reference,
     assert loss == pytest.approx(reference[case]["loss"], rel=JAX_TOL)
 
 
+@pytest.mark.parametrize("case", ENC_DEC)
+def test_tp_encoder_leaves_match_the_unsharded_round(world, unsharded, case):
+    """The encoder's trainable leaves (its attention and norms, and
+    ``enc_norm``) against the unsharded round: their gradient comes
+    through the encoder's output, which every decoder layer's
+    cross-attention reads on each rank's heads. Were that output's
+    gradient summed over "model" at no use (or twice at one), the
+    encoder's update would be half (or twice) the unsharded one. Held by
+    the subtree's plain update norm at ENC_UPDATE_REL, and leaf by leaf
+    as the SSM cases are (``_leaf_excess``: the attention kernels' steps
+    are a few float32 ulps of y, so two rounds of the same update may
+    land an element on neighbouring floats) at UPDATE_REL; measured at
+    most 1.10e-5 and 6.7e-7 on the CPU, both worlds. The encoder
+    output's gradient scaled by 1 + 5e-6 in every decoder layer reads
+    2.6e-5 and 5.0e-6 on 2 x 2 (the plain norm fails it); by 1 + 2e-5,
+    4.7e-5 and 2.0e-5 (both fail it)."""
+    want = unsharded[case]
+    got = dict(tbasic.flatten_params(world[1][0][case]["runs"][0][0]))
+    enc = [i for i, p in enumerate(want["paths"]) if p.startswith("enc_")]
+    assert len(enc) >= 8
+    y0, yw = [want["y0"][i] for i in enc], [want["y"][i] for i in enc]
+    yg = [np.asarray(got[want["paths"][i]]) for i in enc]
+    assert _update_gap(y0, yw, yg) <= ENC_UPDATE_REL
+    assert _leaf_excess(y0, yw, yg) <= UPDATE_REL
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_tp_prefill_matches_the_unsharded_forward(world, unsharded, case):
     """The meshed prefill of rows split over the data ranks against the
@@ -350,7 +427,8 @@ def test_tp_prefill_matches_the_unsharded_forward(world, unsharded, case):
            else LOGIT_REL)
     assert got.shape == want.shape
     assert float(np.abs(got - want).max()) <= rel * float(np.abs(want).max())
-    assert ranks[0][case]["logit_placements"].endswith("Shard(dim=2))")
+    assert ranks[0][case]["logit_placements"].endswith(
+        "Replicate())" if case in WHOLE_VOCAB else "Shard(dim=2))")
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if "bf16" not in c])
@@ -433,7 +511,19 @@ SPLIT_FROZEN = {
     "mixtral-8x7b": EXPERTS, "deepseek-v2-236b": EXPERTS,
     "xlstm-350m": ("/mlstm/up_proj/kernel", "/mlstm/down_proj/kernel"),
     "jamba-v0.1-52b": EXPERTS + DENSE_FFN + ("/mamba/in_proj/kernel",
-                                             "/mamba/out_proj/kernel")}
+                                             "/mamba/out_proj/kernel"),
+    # the encoder's FFNs (ungated), the frozen leaves of the reference's
+    # freeze spec
+    "whisper-large-v3": ("/ffn/wi/kernel", "/ffn/wo/kernel")}
+# the encoder-decoder's attention leaves the rules split: the encoder's,
+# and the decoder's cross-attention (q from the decoder, k / v from the
+# encoder; wo row-parallel)
+WHISPER_PLACED = {"enc_layers/slot0/attn/wq/kernel": "Shard(dim=2))",
+                  "enc_layers/slot0/attn/wo/kernel": "Shard(dim=1))",
+                  "layers/slot0/cross_attn/wq/kernel": "Shard(dim=2))",
+                  "layers/slot0/cross_attn/wv/kernel": "Shard(dim=2))",
+                  "layers/slot0/cross_attn/wo/kernel": "Shard(dim=1))",
+                  "layers/slot0/ln_cross/scale": "Replicate())"}
 # trainable leaves and their placements on the mesh, by arch (the stacked
 # leaves' group dim first)
 Y_PLACED = {
@@ -449,7 +539,20 @@ Y_PLACED = {
         "layers/slot0/mamba/conv_w": "Shard(dim=2))",
         "layers/slot0/mamba/conv_b": "Shard(dim=1))",
         "layers/slot0/mamba/A_log": "Shard(dim=1))",
-        "layers/slot0/mamba/D": "Shard(dim=1))"}}
+        "layers/slot0/mamba/D": "Shard(dim=1))"},
+    # by case: the VLM's mm_proj, which no rule matches, and its single kv
+    # head's 64 columns split 32 a rank; Whisper's vocab split, or whole
+    # where it does not divide the axis
+    "paligemma": {"mm_proj/kernel": "Replicate())",
+                  "mm_proj/bias": "Replicate())",
+                  "embed/embedding": "Shard(dim=0))",
+                  "layers/slot0/attn/wk/kernel": "Shard(dim=2))"},
+    "whisper_odd_vocab": {**WHISPER_PLACED,
+                          "embed/embedding": "Replicate())",
+                          "unembed/kernel": "Replicate())"},
+    "whisper_split_head": {**WHISPER_PLACED,
+                           "embed/embedding": "Shard(dim=0))",
+                           "unembed/kernel": "Shard(dim=1))"}}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -463,10 +566,13 @@ def test_frozen_tree_stays_in_pieces(world, case):
     those pieces, every frozen leaf of them, so no step makes a frozen
     leaf whole before its layers run. So do the trainable leaves the
     rules split (Mamba's ``x_proj``, ``dt_proj``, conv, ``A_log`` and
-    ``D``: the rank's channels), in the prefill. The new y keeps the
-    rules' placements (the sLSTM and the mLSTM's cell replicated); the
-    job's layout is the tensor-parallel one."""
+    ``D``: the rank's channels; the encoder's and the cross-attention's
+    projections), in the prefill. The new y keeps the rules' placements
+    (the sLSTM and the mLSTM's cell replicated, the VLM's ``mm_proj``
+    whole, an odd vocab whole); the job's layout is the tensor-parallel
+    one."""
     arch = CASES[case][0]
+    placed = Y_PLACED.get(case, Y_PLACED.get(arch, {}))
     for rank in world[1]:
         res = rank[case]
         split = {p for p, (n, whole, dt) in res["frozen_local"].items()
@@ -481,12 +587,11 @@ def test_frozen_tree_stays_in_pieces(world, case):
         assert all(any(p.endswith(k) for p in split) for k in kinds), split
         for p, (n, whole) in res["y_local"].items():
             assert res["frozen_seen"]["prefill"][p] == {n}, p
-            if p in Y_PLACED.get(arch, {}):
-                assert (n * 2 == whole) == ("Shard" in Y_PLACED[arch][p]), p
+            if p in placed:
+                assert (n * 2 == whole) == ("Shard" in placed[p]), p
         assert res["layout"] == specs.TP_LAYOUT
         pl = res["y_placements"]
-        want = Y_PLACED.get(arch, {"layers/slot0/attn/wq/kernel":
-                                   "Shard(dim=2))"})
+        want = placed or {"layers/slot0/attn/wq/kernel": "Shard(dim=2))"}
         for p, w in want.items():
             assert pl[p].endswith(w), (p, pl[p])
         assert "Shard" not in pl["final_norm/scale"]
